@@ -1,0 +1,67 @@
+"""Dispatch between the policy-scan kernels and their plain versions.
+
+Counterpart: the policy half of ``repro.kernels.ops``. Where the reference
+selects with a global Pallas switch, the port selects by the device the
+tensors are on: CUDA tensors run the hand-written kernels
+(``kernels/policy_scan.py``), CPU tensors the plain PyTorch versions
+(``kernels/ref.py``). The selector is exactly one of ``onehot`` [N, P] (a
+mixed grid, the masked blend) or ``policy_index`` (an int: a uniform
+block). On CUDA a uniform index becomes its one-hot row broadcast over the
+block, as the reference does for its kernel; on the CPU it runs the one
+lane step without the blend, like the reference's ``lax.switch`` form.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.twin import num_policies
+from repro_torch.kernels import policy_scan as policy_kernel
+from repro_torch.kernels import ref
+
+
+def _onehot_rows(policy_index, n: int, device) -> torch.Tensor:
+    row = torch.zeros(num_policies(), dtype=torch.float32, device=device)
+    row[int(policy_index)] = 1.0
+    return row.expand(n, -1).contiguous()
+
+
+def _check_selector(onehot, policy_index):
+    if (onehot is None) == (policy_index is None):
+        raise ValueError("pass exactly one of onehot= (mixed grid) or "
+                         "policy_index= (uniform lane block)")
+
+
+def policy_scan(loads, params, onehot=None, dt_hours: float = 1.0, *,
+                policy_index=None, loads_t=None, load_index=None):
+    """(carry_end [N, CARRY_DIM], five [N, T] series) — see
+    ``kernels.policy_scan.policy_grid_scan`` for the operands."""
+    _check_selector(onehot, policy_index)
+    if onehot is None:
+        if not params.is_cuda:
+            return ref.policy_grid_scan(
+                policy_kernel.gather_loads(loads, loads_t, load_index),
+                params, dt_hours=dt_hours, policy_index=policy_index)
+        onehot = _onehot_rows(policy_index, params.shape[0], params.device)
+    return policy_kernel.policy_grid_scan(loads, params, onehot, dt_hours,
+                                          loads_t=loads_t,
+                                          load_index=load_index)
+
+
+def policy_scan_agg(loads, params, onehot=None, dt_hours: float = 1.0, *,
+                    policy_index=None, slo_limit: float = float("inf"),
+                    slo_mode: int = 0, loads_t=None, load_index=None):
+    """(carry_end [N, CARRY_DIM], agg [N, AGG_DIM]) — the Table II
+    statistics folded into the scan, no [N, T] series on either path;
+    see ``kernels.policy_scan.policy_grid_agg``."""
+    _check_selector(onehot, policy_index)
+    if onehot is None:
+        if not params.is_cuda:
+            return ref.policy_grid_agg(
+                policy_kernel.gather_loads(loads, loads_t, load_index),
+                params, dt_hours=dt_hours, policy_index=policy_index,
+                slo_limit=slo_limit, slo_mode=slo_mode)
+        onehot = _onehot_rows(policy_index, params.shape[0], params.device)
+    return policy_kernel.policy_grid_agg(loads, params, onehot, dt_hours,
+                                         slo_limit=slo_limit,
+                                         slo_mode=slo_mode, loads_t=loads_t,
+                                         load_index=load_index)
