@@ -148,6 +148,7 @@ def test_build_flags_keep_ieee_rounding():
     assert (build.CSRC / "policy_scan.cu").is_file()
 
 
+@pytest.mark.cuda
 def test_kernels_match_plain_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
