@@ -51,13 +51,19 @@ RPS, USD_HR, LAT = 1.9512, 0.0082, 0.15
 SEED = 0
 
 
+def check(ok, what):
+    """A check that holds under ``python -O`` too (which strips asserts)."""
+    if not ok:
+        raise AssertionError(what)
+
+
 def _u32(t):
     return t.detach().contiguous().view(torch.int32)
 
 
 def assert_bitwise(name, a, b):
     a, b = torch.as_tensor(a), torch.as_tensor(b)
-    assert a.shape == b.shape, (name, a.shape, b.shape)
+    check(a.shape == b.shape, (name, a.shape, b.shape))
     same = _u32(a) == _u32(b)
     if not bool(same.all()):
         bad = (~same).nonzero()[:3].tolist()
@@ -230,7 +236,7 @@ SLO_MET = {"nominal blocking-write", "nominal no-blocking-write",
 def same_results(a, b, what):
     """Field-for-field equality of two result lists (floats and arrays
     bitwise; the twin compared by value)."""
-    assert len(a) == len(b), what
+    check(len(a) == len(b), what)
     for x, y in zip(a, b):
         for f in x.__dataclass_fields__:
             u, v = getattr(x, f), getattr(y, f)
@@ -240,7 +246,7 @@ def same_results(a, b, what):
                     v.view(np.uint64 if v.dtype == np.float64 else np.uint32))
             else:
                 ok = u == v or (u != u and v != v)
-            assert ok, f"{what}: {x.name}.{f} {u!r} != {v!r}"
+            check(ok, f"{what}: {x.name}.{f} {u!r} != {v!r}")
 
 
 def main_path_table2(whatif, tr, twin_mod, slo_mod):
@@ -259,9 +265,9 @@ def main_path_table2(whatif, tr, twin_mod, slo_mod):
         same_results(gpu, cpu, f"Table II series={series} card vs CPU")
         rows = {r["run"]: r for r in whatif.table2_rows(gpu)}
         for (run, col), want in TABLE2_ANCHORS.items():
-            assert rows[run][col] == want, (run, col, rows[run][col], want)
+            check(rows[run][col] == want, (run, col, rows[run][col], want))
         met = {run for run, r in rows.items() if r["slo_met"]}
-        assert met == SLO_MET, met
+        check(met == SLO_MET, met)
         print(f"phase 3: Table II run_grid series={series}: {wall:.1f} ms "
               f"wall, equal to the CPU run, anchors and SLO pattern hold")
         for r in whatif.table2_rows(gpu):
@@ -283,7 +289,7 @@ def at_width(whatif, tr, twin_mod, slo_mod):
     t0 = time.perf_counter()
     aggs = whatif.run_grid(sweep_twins, growths16, slo=slo)
     wall_a = 1e3 * (time.perf_counter() - t0)
-    assert len(series) == len(aggs) == 4096
+    check(len(series) == len(aggs) == 4096, len(series))
     for s, a in zip(series, aggs):
         for x, y in ((a.total_cost_usd, s.total_cost_usd),
                      (a.backlog_s, s.backlog_s),
@@ -296,9 +302,10 @@ def at_width(whatif, tr, twin_mod, slo_mod):
                      (a.queue_end, s.queue[-1]),
                      (a.pct_latency_met, s.pct_latency_met),
                      (a.pct_hours_met, s.pct_hours_met)):
-            assert x == y, (s.name, x, y)
-        assert a.slo_met == s.slo_met, s.name
-        assert np.isfinite(a.total_cost_usd) and np.isfinite(s.latency_s).all()
+            check(x == y, (s.name, x, y))
+        check(a.slo_met == s.slo_met, s.name)
+        check(np.isfinite(a.total_cost_usd)
+              and np.isfinite(s.latency_s).all(), s.name)
     n_met = sum(a.slo_met for a in aggs)
     print(f"phase 4a: What-if #5, 4,096 scenarios x 8736 h: series "
           f"{wall_s:.1f} ms wall, aggregate {wall_a:.1f} ms wall; sums, "
@@ -316,9 +323,9 @@ def at_width(whatif, tr, twin_mod, slo_mod):
     for g in growths256:
         g.hourly_loads()
     loads_ms = 1e3 * (time.perf_counter() - t0)
-    assert len(big) == 65536
-    assert all(np.isfinite(b.total_cost_usd) and b.arrived_records > 0
-               for b in big)
+    check(len(big) == 65536, len(big))
+    check(all(np.isfinite(b.total_cost_usd) and b.arrived_records > 0
+              for b in big), "non-finite or empty rows in the 65,536 sweep")
     cheapest = min((b for b in big if b.slo_met),
                    key=lambda b: b.grand_total_usd)
     print(f"phase 4b: 65,536 distinct full-year scenarios (aggregate): "
@@ -364,8 +371,8 @@ def main():
     sweep_twins, growths16, growths256 = at_width(whatif, tr, twin_mod,
                                                   slo_mod)
     launches = dict(pk.launches)
-    assert launches["policy_agg"] > 0 and launches["policy_scan"] > 0, \
-        launches
+    check(launches["policy_agg"] > 0 and launches["policy_scan"] > 0,
+          launches)
 
     # each kernel against its plain version at the main path's widths
     agg_ops = grid_operands(sweep_twins, growths256, dev)
