@@ -3,15 +3,17 @@
 The what-if engine has no trained weights: its state is the grid the JAX
 package builds in numpy — padded twin parameters [N, PARAM_DIM], policy
 indices [N] (positions in the reference's ``policy_names()``), a load
-matrix [K, T] and a load index [N]. ``twins_from_arrays`` rebuilds the
-port's ``Twin`` records from them and ``grid_tensors`` moves them onto a
-device in the layout the kernels take. Both first check that the
-reference's policy order is the port's, so an index means the same policy
-on both sides.
+matrix [K, T] and a load index [N] — and, for a chaos suite, the sampled
+fault futures. ``twins_from_arrays`` rebuilds the port's ``Twin`` records
+from them and ``grid_tensors`` moves them onto a device in the layout the
+kernels take. Both first check that the reference's policy order is the
+port's, so an index means the same policy on both sides.
+``sampled_faults_from_arrays`` rebuilds the port's ``SampledFaults`` from
+the reference's fault arrays.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -19,6 +21,7 @@ import torch
 from repro_torch.core.twin import (PARAM_DIM, Twin, policy_names,
                                    policy_onehot, policy_spec)
 from repro_torch.device import resolve_device
+from repro_torch.faults import ReplayTerm, SampledFaults, validate_sampled
 
 
 def check_policy_order(reference_names: Sequence[str]):
@@ -68,3 +71,35 @@ def grid_tensors(load_matrix: np.ndarray, load_index: np.ndarray,
         "params": as_t(np.asarray(params, np.float32)),
         "onehot": as_t(policy_onehot(policy_idx)),
     }
+
+
+def sampled_faults_from_arrays(cap: np.ndarray, mask: np.ndarray,
+                               load_mult: np.ndarray,
+                               replay: Sequence[Sequence[Tuple[np.ndarray,
+                                                               np.ndarray]]],
+                               events: Sequence[Sequence[Dict]],
+                               t_bins: int, bin_hours: float,
+                               seed: int) -> SampledFaults:
+    """The port's ``SampledFaults`` from the reference's: ``cap`` and
+    ``mask`` [F, T] (float32), ``load_mult`` [F, T] (float64), per future
+    the (removed, profile) [T] arrays of its replay terms and its event
+    records. Validated as ``simulate_grid`` would (a bad bin raises
+    ``ValueError`` naming the spec)."""
+    cap = np.array(cap, np.float32)
+    f = cap.shape[0]
+    if len(replay) != f or len(events) != f:
+        raise ValueError(f"{f} futures in cap but {len(replay)} replay "
+                         f"and {len(events)} event lists")
+    sampled = SampledFaults(
+        cap=cap, mask=np.array(mask, np.float32),
+        load_mult=np.array(load_mult, np.float64),
+        replay=tuple(tuple(ReplayTerm(removed=np.array(r, np.float64),
+                                      profile=np.array(q, np.float64))
+                           for r, q in terms) for terms in replay),
+        events=tuple(tuple(dict(e) for e in evs) for evs in events),
+        n_futures=f, t_bins=int(t_bins), bin_hours=float(bin_hours),
+        seed=int(seed))
+    if sampled.mask.shape != cap.shape:
+        raise ValueError(f"mask {sampled.mask.shape} and cap {cap.shape} "
+                         f"must match")
+    return validate_sampled(sampled)

@@ -22,8 +22,12 @@ simulated once (``_dedup_rows``). Aggregate grids beyond
 ``AGG_AUTO_BLOCK`` scenarios (or with ``scenario_block=``) run in
 policy-uniform blocks (``_agg_block_plan``), with identical results.
 
-Not yet in the port: ``faults=`` (the fault kernel comes with
-``repro.faults``), ``devices`` > 1, and the telemetry spans of
+``faults=`` (a ``repro_torch.faults.FaultSchedule`` or ``SampledFaults``)
+plays every scenario against F fault futures: the grid expands to N*F
+rows named ``"{name}/f{f}"``, scenario-major, and the fault kernels read
+the [F, T] capacity and in-fault rows through a per-row fault index.
+
+Not yet in the port: ``devices`` > 1 and the telemetry spans of
 ``repro.obs``.
 """
 from __future__ import annotations
@@ -45,6 +49,8 @@ from repro_torch.core.twin import (A_COST, A_DROP, A_FLTH, A_FOKH, A_LATW,
                                    Twin, aggregate_hist_centers,
                                    num_policies, policy_onehot)
 from repro_torch.device import resolve_device
+from repro_torch.faults import (FaultSchedule, SampledFaults, expand_grid,
+                                sample_futures, validate_sampled)
 from repro_torch.kernels import ops
 
 
@@ -129,11 +135,13 @@ class GridSummary:
 #: device memory one aggregate launch may take; larger grids run in blocks
 AGG_BLOCK_BUDGET_BYTES = 1 << 30
 #: bytes one scenario holds on the device during an aggregate launch:
-#: params, one-hot row, row and branch indices, carry, the kernel's
-#: scalar slots and [3, 152] histogram scratch, the packed AGG_KDIM row,
-#: the f64 recombination of the histogram triple, and the AGG_DIM row
+#: params, one-hot row, load-row, fault-row and branch indices, carry, the
+#: kernel's scalar slots and [3, 152] histogram scratch, the packed
+#: AGG_KDIM row, the f64 recombination of the histogram triple, and the
+#: AGG_DIM row (8,232 B). The fault backlog lives in a register and folds
+#: into the carry; the [F, T] fault rows are shared by the whole grid.
 AGG_BYTES_PER_SCENARIO = (
-    4 * (PARAM_DIM + num_policies() + 2 + CARRY_DIM + AGG_SCALARS
+    4 * (PARAM_DIM + num_policies() + 3 + CARRY_DIM + AGG_SCALARS
          + 3 * AGG_HIST_BINS + AGG_KDIM + AGG_DIM)
     + 8 * 3 * AGG_HIST_BINS)
 #: aggregate grids beyond this many scenarios run in policy-uniform blocks
@@ -169,36 +177,61 @@ def _agg_block_plan(policy_idx: np.ndarray, block: int):
 
 
 def _dedup_rows(load_index: np.ndarray, params: np.ndarray,
-                policy_idx: np.ndarray):
+                policy_idx: np.ndarray, fault=None):
     """Exact duplicate-scenario detection for the aggregate dispatch: two
-    rows are duplicates when their (load row, param vector, policy index)
-    are BITWISE identical, so one simulation serves both. Returns
-    (keep [U], inv [N]) — first occurrences and the expansion map back to
-    grid order — or None when every row is already distinct."""
+    rows are duplicates when their (load row, param vector, policy index,
+    fault row) are BITWISE identical, so one simulation serves both.
+    Fault rows are canonicalized first (bitwise-equal [F, T] cap+fmask
+    rows map to one id), which collapses benign futures. Returns (keep
+    [U], inv [N], fidx_canon [N] or None) — first occurrences, the
+    expansion map back to grid order and the canonical fault rows — or
+    None when every row is already distinct."""
     lidx = np.ascontiguousarray(load_index, np.int32)
     n = lidx.shape[0]
     pp = np.ascontiguousarray(params, np.float32)
     key = [lidx[:, None].view(np.uint32),
            np.ascontiguousarray(policy_idx, np.int32)[:, None]
            .view(np.uint32), pp.view(np.uint32)]
+    fidx_canon = None
+    if fault is not None:
+        frows = np.concatenate(
+            [np.ascontiguousarray(fault[0], np.float32).view(np.uint32),
+             np.ascontiguousarray(fault[1], np.float32).view(np.uint32)],
+            axis=1)
+        _, ffirst, finv = np.unique(frows, axis=0, return_index=True,
+                                    return_inverse=True)
+        fidx_canon = ffirst[finv.reshape(-1)][np.asarray(fault[2])] \
+            .astype(np.int32)
+        key.append(fidx_canon[:, None].view(np.uint32))
     keep, inv = np.unique(np.concatenate(key, axis=1), axis=0,
                           return_index=True, return_inverse=True)[1:]
     if keep.shape[0] == n:
         return None
-    return keep, inv.reshape(-1)
+    return keep, inv.reshape(-1), fidx_canon
+
+
+def _to(dev, a, dtype):
+    return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(dev)
 
 
 def _agg_launch(matrix_t: torch.Tensor, load_index: np.ndarray,
                 params: np.ndarray, policy_idx: np.ndarray, dt_hours: float,
-                slo_limit: float, slo_mode: int):
-    """One aggregate launch on ``matrix_t``'s device; host f64 results."""
+                slo_limit: float, slo_mode: int, fault_t=None,
+                fault_index=None):
+    """One aggregate launch on ``matrix_t``'s device; host f64 results.
+    ``fault_t`` = (caps_t, fmask_t), each [T, F] on that device, with the
+    launch's [B] ``fault_index``."""
     dev = matrix_t.device
+    caps_t = fmask_t = findex = None
+    if fault_t is not None:
+        caps_t, fmask_t = fault_t
+        findex = _to(dev, fault_index, np.int32)
     carry, agg = ops.policy_scan_agg(
-        None, torch.from_numpy(np.ascontiguousarray(params)).to(dev),
+        None, _to(dev, params, np.float32),
         torch.from_numpy(policy_onehot(policy_idx)).to(dev), dt_hours,
         slo_limit=slo_limit, slo_mode=slo_mode, loads_t=matrix_t,
-        load_index=torch.from_numpy(
-            np.ascontiguousarray(load_index, np.int32)).to(dev))
+        load_index=_to(dev, load_index, np.int32), caps_t=caps_t,
+        fmask_t=fmask_t, fault_index=findex)
     return (carry.cpu().numpy().astype(np.float64),
             agg.cpu().numpy().astype(np.float64))
 
@@ -206,28 +239,37 @@ def _agg_launch(matrix_t: torch.Tensor, load_index: np.ndarray,
 def _grid_agg_dispatch(load_matrix: np.ndarray, load_index: np.ndarray,
                        params: np.ndarray, policy_idx: np.ndarray,
                        dt_hours: float, slo_limit: float, slo_mode: int,
-                       scenario_block: Optional[int], device: torch.device):
+                       scenario_block: Optional[int], device: torch.device,
+                       fault=None):
     """Aggregate scan over (matrix, index)-encoded scenarios: one launch,
     or policy-uniform blocks of ``scenario_block`` (default: beyond
-    ``AGG_AUTO_BLOCK`` scenarios). Duplicate rows run once. Returns host
-    (carry_end [N, CARRY_DIM], agg [N, AGG_DIM]) in f64, bit-identical on
-    every path."""
+    ``AGG_AUTO_BLOCK`` scenarios). Duplicate rows run once. ``fault`` =
+    (cap [F, T], fmask [F, T], fault_index [N]) threads a fault grid
+    through every path: fault rows are read through the index as load
+    rows are. Returns host (carry_end [N, CARRY_DIM], agg [N, AGG_DIM])
+    in f64, bit-identical on every path."""
     n = len(load_index)
-    dd = _dedup_rows(load_index, params, policy_idx)
+    dd = _dedup_rows(load_index, params, policy_idx, fault)
     if dd is not None:
-        keep, inv = dd
+        keep, inv, fidx_canon = dd
+        fault_k = None if fault is None else (fault[0], fault[1],
+                                              fidx_canon[keep])
         carry_u, agg_u = _grid_agg_dispatch(
             load_matrix, np.asarray(load_index)[keep],
             np.asarray(params)[keep], np.asarray(policy_idx)[keep],
-            dt_hours, slo_limit, slo_mode, scenario_block, device)
+            dt_hours, slo_limit, slo_mode, scenario_block, device, fault_k)
         return carry_u[inv], agg_u[inv]
-    matrix_t = torch.from_numpy(
-        np.ascontiguousarray(np.asarray(load_matrix, np.float32).T)).to(device)
+    matrix_t = _to(device, np.asarray(load_matrix).T, np.float32)
+    fault_t = fidx = None
+    if fault is not None:
+        fault_t = (_to(device, np.asarray(fault[0]).T, np.float32),
+                   _to(device, np.asarray(fault[1]).T, np.float32))
+        fidx = np.asarray(fault[2])
     if scenario_block is None and n > AGG_AUTO_BLOCK:
         scenario_block = AGG_AUTO_BLOCK
     if scenario_block is None or scenario_block >= n:
         return _agg_launch(matrix_t, load_index, params, policy_idx,
-                           dt_hours, slo_limit, slo_mode)
+                           dt_hours, slo_limit, slo_mode, fault_t, fidx)
     positions, _ = _agg_block_plan(policy_idx, int(scenario_block))
     carry_end = np.zeros((n, CARRY_DIM), np.float64)
     out_agg = np.zeros((n, AGG_DIM), np.float64)
@@ -235,8 +277,32 @@ def _grid_agg_dispatch(load_matrix: np.ndarray, load_index: np.ndarray,
         pos = pos[pos >= 0]     # pad slots run nothing
         carry_end[pos], out_agg[pos] = _agg_launch(
             matrix_t, np.asarray(load_index)[pos], np.asarray(params)[pos],
-            np.asarray(policy_idx)[pos], dt_hours, slo_limit, slo_mode)
+            np.asarray(policy_idx)[pos], dt_hours, slo_limit, slo_mode,
+            fault_t, None if fidx is None else fidx[pos])
     return carry_end, out_agg
+
+
+def _expand_faults(faults, load_matrix, load_index, t_bins: int,
+                   bin_hours: float):
+    """Sample (or take) the fault futures, validate them, and expand the
+    (matrix, index) grid by them: returns (FaultGrid, (cap, fmask,
+    fault_index))."""
+    if isinstance(faults, FaultSchedule):
+        sampled = sample_futures(faults, t_bins, float(bin_hours))
+    elif isinstance(faults, SampledFaults):
+        if faults.t_bins != t_bins:
+            raise ValueError(
+                f"SampledFaults covers {faults.t_bins} bins but the "
+                f"grid has {t_bins}; resample with sample_futures("
+                f"schedule, {t_bins}, bin_hours={bin_hours})")
+        sampled = faults
+    else:
+        raise TypeError(
+            f"faults= must be a repro_torch.faults.FaultSchedule or "
+            f"SampledFaults, got {type(faults).__name__}")
+    validate_sampled(sampled)
+    fg = expand_grid(sampled, load_matrix, load_index)
+    return fg, (fg.cap, fg.fmask, fg.fault_index)
 
 
 def simulate_grid(twins: Sequence[Twin], loads: Optional[np.ndarray] = None,
@@ -256,14 +322,13 @@ def simulate_grid(twins: Sequence[Twin], loads: Optional[np.ndarray] = None,
     The contract of ``repro.core.simulate.simulate_grid``: ``loads`` [N, T]
     or ``load_matrix`` [K, T] + ``load_index`` [N]; omitting ``bin_hours``
     pins the hourly full year; ``return_series`` picks the mode;
-    ``scenario_block`` streams the aggregate mode in blocks. ``device``
-    is ``"cuda"`` (the kernels; raises without a card) or ``"cpu"`` (the
-    plain versions). ``faults=`` and ``devices`` > 1 are not ported yet
-    and raise ``NotImplementedError``."""
-    if faults is not None:
-        raise NotImplementedError(
-            "faults= is not in the port yet: the fault-schedule kernel "
-            "comes with the repro.faults slice")
+    ``scenario_block`` streams the aggregate mode in blocks; ``faults=``
+    crosses the grid with F fault futures (rows ``i * F + f`` named
+    ``"{name}/f{f}"``; a negative or non-finite sampled multiplier raises
+    ``ValueError`` naming the spec and bin). ``device`` is ``"cuda"`` (the
+    kernels; raises without a card) or ``"cpu"`` (the plain versions).
+    ``devices`` > 1 is not ported yet and raises
+    ``NotImplementedError``."""
     if (loads is None) == (load_matrix is None):
         raise ValueError("pass exactly one of loads= (stacked [N, T] grid) "
                          "or load_matrix= [K, T] + load_index= [N]")
@@ -329,6 +394,18 @@ def simulate_grid(twins: Sequence[Twin], loads: Optional[np.ndarray] = None,
     idx = np.asarray([tw.policy_index for tw in twins], np.int32)
     names = list(names) if names is not None else [tw.name for tw in twins]
 
+    fault = None
+    if faults is not None:
+        fg, fault = _expand_faults(faults, load_matrix, load_index, t_bins,
+                                   bin_hours)
+        nf = fg.n_futures
+        load_matrix, load_index = fg.load_matrix, fg.load_index
+        params = np.repeat(params, nf, axis=0)
+        idx = np.repeat(idx, nf)
+        twins = [tw for tw in twins for _ in range(nf)]
+        names = [f"{nm}/f{f}" for nm in names for f in range(nf)]
+        n = n * nf
+
     if not return_series:
         slo_mode = (AGG_SLO_DROP_RATE
                     if slo is not None and slo.metric == "drop_rate"
@@ -336,16 +413,21 @@ def simulate_grid(twins: Sequence[Twin], loads: Optional[np.ndarray] = None,
         slo_limit = float(slo.limit_s) if slo is not None else float("inf")
         carry_end, agg = _grid_agg_dispatch(
             load_matrix, load_index, params, idx, float(bin_hours),
-            slo_limit, slo_mode, scenario_block, dev)
+            slo_limit, slo_mode, scenario_block, dev, fault)
         return _summarise_aggregates(
             names, twins, carry_end[:, 0], agg, slo, cost_model, record_mb,
             float(bin_hours), t_bins, load_matrix, load_index)
 
+    caps_t = fidx = None
+    if fault is not None:
+        caps_t = _to(dev, np.asarray(fault[0]).T, np.float32)
+        fidx = _to(dev, fault[2], np.int32)
     carry_end, series = ops.policy_scan(
-        None, torch.from_numpy(params).to(dev),
+        None, _to(dev, params, np.float32),
         torch.from_numpy(policy_onehot(idx)).to(dev), float(bin_hours),
-        loads_t=torch.from_numpy(np.ascontiguousarray(load_matrix.T)).to(dev),
-        load_index=torch.from_numpy(load_index).to(dev))
+        loads_t=_to(dev, load_matrix.T, np.float32),
+        load_index=_to(dev, load_index, np.int32), caps_t=caps_t,
+        fault_index=fidx)
     q_end = carry_end[:, 0].cpu().numpy().astype(np.float64)
     processed, queue, latency, cost, dropped = \
         torch.stack(series).cpu().numpy()   # [5, N, T] f32, row-major

@@ -26,9 +26,15 @@ apply instead of evaluating all five.
 Policies registered with ``register_policy`` run on the CPU path; the CUDA
 kernels know only the five built-ins (``PolicySpec.kernel_branch``) and
 refuse any other.
+
+``fault_lane_policy_step`` (and the uniform ``fault_switch_step``) wrap a
+step in the fault layer of a chaos suite: capacity multipliers, a fault
+backlog beside the policy carry, and the A_FLTH/A_FOKH counters that
+``update_agg_scalars`` keeps when given an in-fault mask.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, replace
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -51,12 +57,17 @@ class PolicySpec:
     #: branch id of this policy in the CUDA kernels; None for a policy
     #: the kernels do not implement (any user registration)
     kernel_branch: Optional[int] = None
+    #: ``fn(carry, arrive, params, dt, fuse)``: the step as the fault
+    #: layer runs it, where the reference's compiled fault scans round it
+    #: differently (shed, see SHED_FUSE_*); None: ``lane_step``
+    fault_lane_step: Optional[Callable] = None
 
 
 _REGISTRY: Dict[str, PolicySpec] = {}
 
 
-def _register(name, param_names, defaults, doc, kernel_branch):
+def _register(name, param_names, defaults, doc, kernel_branch,
+              fault_lane_step=None):
     if len(param_names) > PARAM_DIM:
         raise ValueError(f"{name}: {len(param_names)} params > {PARAM_DIM}")
     if tuple(param_names[:3]) != ("max_rps", "usd_per_hour",
@@ -72,7 +83,7 @@ def _register(name, param_names, defaults, doc, kernel_branch):
             lane_step=fn, param_names=tuple(param_names),
             defaults=dict(defaults or {}),
             doc=doc or (fn.__doc__ or "").strip(),
-            kernel_branch=kernel_branch)
+            kernel_branch=kernel_branch, fault_lane_step=fault_lane_step)
         return fn
     return deco
 
@@ -111,6 +122,14 @@ def lane_branches() -> Tuple[Callable, ...]:
     return tuple(s.lane_step for s in _specs())
 
 
+def fault_lane_branches(fuse: int) -> Tuple[Callable, ...]:
+    """Lane steps ordered by index, as the fault layer runs them in the
+    scan that ``fuse`` (a SHED_FUSE_* level) names."""
+    return tuple(s.lane_step if s.fault_lane_step is None
+                 else functools.partial(s.fault_lane_step, fuse=fuse)
+                 for s in _specs())
+
+
 def kernel_branches() -> Tuple[Optional[int], ...]:
     """CUDA branch id of each registered policy, ordered by index."""
     return tuple(s.kernel_branch for s in _specs())
@@ -147,6 +166,52 @@ def lane_policy_step(carry, arrive, params, onehot, dt, branches=None,
         new_carry = new_carry + m[:, None] * c_j
         outs = [acc + m * o for acc, o in zip(outs, o_j)]
     return new_carry, tuple(outs)
+
+
+def _fault_layer(policy_step, state, arrive, capmul, params):
+    """The fault perturbation layer of ``repro.core.twin`` around
+    ``policy_step(carry, a_eff, p_eff)``: arrivals are gated on
+    ``capmul > 0`` into a fault backlog ``fq`` (which floods back when
+    capacity returns), the policy sees ``max_rps * capmul``, and the
+    backlog's wait is priced at the NOMINAL ``max_rps``."""
+    carry, fq = state
+    gate = (capmul > 0).to(torch.float32)
+    avail = fq + arrive
+    a_eff = gate * avail
+    new_fq = avail - a_eff
+    p_eff = torch.cat([(params[:, 0] * capmul)[:, None], params[:, 1:]],
+                      dim=1)
+    carry, outs = policy_step(carry, a_eff, p_eff)
+    wait = new_fq / torch.clamp_min(params[:, 0], 1e-9)
+    outs = (outs[0], outs[1] + new_fq, outs[2] + wait, outs[3], outs[4])
+    return (carry, new_fq), outs
+
+
+def fault_lane_policy_step(state, arrive, capmul, params, onehot, dt,
+                           branches=None, columns=None):
+    """``lane_policy_step`` wrapped in the fault layer. ``state`` =
+    (policy carry [L, CARRY_DIM], fault backlog [L]); ``capmul`` [L] is
+    this bin's capacity multiplier. The branches default to
+    ``fault_lane_branches(SHED_FUSE_DROP)``, the series scan's rounding;
+    the aggregate scan passes ``fault_lane_branches(SHED_FUSE_LATENCY)``.
+    Returns ((carry, backlog), outs)."""
+    branches = branches or fault_lane_branches(SHED_FUSE_DROP)
+    return _fault_layer(
+        lambda c, a, p: lane_policy_step(c, a, p, onehot, dt, branches,
+                                         columns),
+        state, arrive, capmul, params)
+
+
+def fault_switch_step(state, arrive, capmul, params, policy_index, dt,
+                      fuse=None):
+    """The uniform-block form of ``fault_lane_policy_step`` (the
+    reference's ``kernels.ref._fault_switch_step``): one policy's fault
+    lane step, selected without the blend, rounded at ``fuse`` (default
+    SHED_FUSE_ALL, the reference's uniform scans)."""
+    fuse = SHED_FUSE_ALL if fuse is None else fuse
+    lstep = fault_lane_branches(fuse)[int(policy_index)]
+    return _fault_layer(lambda c, a, p: lstep(c, a, p, dt), state, arrive,
+                        capmul, params)
 
 
 # ---------------------------------------------------------------------------
@@ -260,10 +325,14 @@ def init_agg_scalars(n: int, device=None):
     return ((z6, z6, z6), z, z, z, z)
 
 
-def update_agg_scalars(state, arrive, outs, slo_limit, slo_mode):
+def update_agg_scalars(state, arrive, outs, slo_limit, slo_mode,
+                       fmask=None):
     """Fold one bin's step outputs into the scalar statistics.
     ``slo_limit`` is compared in float32 (pass a 0-d f32 tensor, or a
-    float that is rounded to one here); ``slo_mode`` is AGG_SLO_*."""
+    float that is rounded to one here); ``slo_mode`` is AGG_SLO_*.
+    ``arrive`` is the OFFERED load, also under the fault layer. ``fmask``
+    (0/1, [L]) marks bins inside a fault window and drives A_FLTH and
+    A_FOKH; None leaves both at zero."""
     sums, okh, maxp, flth, fokh = state
     processed, _queue, latency, cost, dropped = outs
     if slo_mode == AGG_SLO_DROP_RATE:
@@ -277,6 +346,9 @@ def update_agg_scalars(state, arrive, outs, slo_limit, slo_mode):
     # A_LOAD, A_OKW (elementwise, so one stacked step rounds like six)
     x = torch.stack((processed, cost, dropped, latency * arrive, arrive,
                      arrive * ok))
+    if fmask is not None:
+        flth = flth + fmask
+        fokh = fokh + fmask * ok
     return (_neumaier2(*sums, x), okh + ok, torch.maximum(maxp, processed),
             flth, fokh)
 
@@ -295,14 +367,17 @@ def init_aggregate(n: int, device=None):
     return (init_agg_scalars(n, device), (z, z, z))
 
 
-def lane_update_aggregate(state, arrive, outs, slo_limit, slo_mode):
+def lane_update_aggregate(state, arrive, outs, slo_limit, slo_mode,
+                          fmask=None):
     """Fold one bin into the full aggregate state: scalars through
-    ``update_agg_scalars``, the histogram as a masked compare-add over
+    ``update_agg_scalars`` (``fmask`` as there), the histogram, weighted
+    by the offered load, as a masked compare-add over
     the bucket axis through the same ``_neumaier2`` step. (The CUDA
     kernel adds into the hit bucket only; adding +0.0 leaves a
     non-negative triple's bits unchanged, so the two agree bitwise.)"""
     scal, (hs, hc, hcc) = state
-    scal = update_agg_scalars(scal, arrive, outs, slo_limit, slo_mode)
+    scal = update_agg_scalars(scal, arrive, outs, slo_limit, slo_mode,
+                              fmask)
     bucket = _hist_bucket(outs[2])
     buckets = torch.arange(AGG_HIST_BINS, device=arrive.device)
     x = torch.where(bucket[:, None] == buckets[None, :], arrive[:, None],
@@ -468,6 +543,33 @@ def QuickscalingTwin(name: str, max_rps: float, usd_per_hour: float,
 #   kernels use ``__fmaf_rn`` at the same place and contract nothing
 #   else.
 #
+# Under the fault layer (``fault_lane_policy_step``) the policy sees
+# ``max_rps * capmul``, which changes every bin, so shed's ``qmax`` is no
+# longer loop-invariant and is not hoisted: its product fuses into
+# ``backlog - qmax`` as ``fma(-qcap_h, cap_hour, backlog)`` wherever the
+# product has that one use inside a fused expression. Which uses those
+# are depends on the scan (XLA recomputes shed's chain in each consumer,
+# and the mixed-policy scans share the product with batch_window's
+# ``cap_hour * window``, which reads the same parameter slot):
+#
+# * mixed series scan (the reference's jnp oracle and its XLA series
+#   path): only the REPORTED ``dropped`` is fused;
+# * mixed aggregate scan (the oracle, the Pallas fault kernel and the XLA
+#   aggregate path, all bitwise equal): also the new queue that prices
+#   latency, while the carried queue keeps ``backlog - round(qmax)``;
+# * uniform-policy block (``ref._fault_switch_step``): every use.
+#
+# ``_shed(..., fuse=SHED_FUSE_*)`` writes those three forms out, and the
+# CUDA kernels take the same level; no other step changes. The
+# reference's XLA switch scans through
+# the fault layer (``simulate._grid_scan_fault_xla`` and the aggregate
+# ``_grid_scan_agg_fault_xla`` / ``_agg_scan_uniform_fault``) rebuild the
+# parameter vector every bin, so batch_window's ``usd_hr * idle_frac *
+# dt`` turns loop-variant there and its last product fuses into the cost
+# sum (at dt = 1 the static ``* dt`` folds away first): their
+# batch_window cost differs from their own Pallas kernel by an ulp in
+# some bins. The port follows the kernel.
+#
 # Divisions are guarded with clamp_min(.., 1e-9) so every branch stays
 # finite on any lane's parameters; the kernel branch ids (0..4) are the
 # ``switch`` cases of kernels/csrc/policy_scan.cu.
@@ -561,15 +663,16 @@ def _autoscale_lane(carry, arrive, p, dt):
             (processed, new_q, latency, cost, torch.zeros_like(arrive)))
 
 
-@_register("shed",
-           ("max_rps", "usd_per_hour", "base_latency_s", "queue_cap_hours"),
-           {"queue_cap_hours": 4.0}, "", kernel_branch=3)
-def _shed_lane(carry, arrive, p, dt):
-    """Bounded queue with load shedding: overflow beyond the cap is dropped.
+#: Which uses of shed's ``backlog - qmax`` the reference's fault scans
+#: fuse into one fma (see the note above), by the scan that runs the step:
+SHED_FUSE_DROP = 0     # mixed-policy series scan: the reported dropped only
+SHED_FUSE_LATENCY = 1  # mixed aggregate scan: also the queue latency prices
+SHED_FUSE_ALL = 2      # uniform-policy block: also the carried queue
 
-    The queue holds at most ``queue_cap_hours`` hours of capacity worth of
-    records; anything beyond is shed and reported in the dropped series.
-    """
+
+def _shed(carry, arrive, p, dt, fuse=None):
+    """Shed's arithmetic; ``fuse`` None is the benign step, a SHED_FUSE_*
+    level the fault layer's."""
     max_rps, usd_hr, base_lat, qcap_h = p[:, 0], p[:, 1], p[:, 2], p[:, 3]
     cap_hour = max_rps * 3600.0
     cap_bin = max_rps * (3600.0 * dt)
@@ -579,11 +682,30 @@ def _shed_lane(carry, arrive, p, dt):
     processed = torch.minimum(avail, cap_bin)
     backlog = avail - processed
     dropped = torch.clamp_min(backlog - qmax, 0.0)
-    new_q = backlog - dropped
-    avg_q = 0.5 * (queue + new_q)
+    new_q = lat_q = backlog - dropped
+    if fuse is not None:
+        dropped = torch.clamp_min(_fma(-qcap_h, cap_hour, backlog), 0.0)
+        if fuse >= SHED_FUSE_LATENCY:
+            lat_q = backlog - dropped
+        if fuse >= SHED_FUSE_ALL:
+            new_q = lat_q
+    avg_q = 0.5 * (queue + lat_q)
     latency = base_lat + avg_q / torch.clamp_min(max_rps, 1e-9)
     return (torch.stack([new_q, carry[:, 1]], dim=1),
             (processed, new_q, latency, usd_hr * dt, dropped))
+
+
+@_register("shed",
+           ("max_rps", "usd_per_hour", "base_latency_s", "queue_cap_hours"),
+           {"queue_cap_hours": 4.0}, "", kernel_branch=3,
+           fault_lane_step=_shed)
+def _shed_lane(carry, arrive, p, dt):
+    """Bounded queue with load shedding: overflow beyond the cap is dropped.
+
+    The queue holds at most ``queue_cap_hours`` hours of capacity worth of
+    records; anything beyond is shed and reported in the dropped series.
+    """
+    return _shed(carry, arrive, p, dt)
 
 
 @_register("batch_window",

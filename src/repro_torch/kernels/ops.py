@@ -7,14 +7,16 @@ tensors are on: CUDA tensors run the hand-written kernels
 (``kernels/ref.py``). The selector is exactly one of ``onehot`` [N, P] (a
 mixed grid, the masked blend) or ``policy_index`` (an int: a uniform
 block). On CUDA a uniform index becomes its one-hot row broadcast over the
-block, as the reference does for its kernel; on the CPU it runs the one
+block, as the reference does for its kernel (with shed's fault rounding
+set to the uniform scans', ``SHED_FUSE_ALL``); on the CPU it runs the one
 lane step without the blend, like the reference's ``lax.switch`` form.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.twin import num_policies
+from repro_torch.core.twin import (SHED_FUSE_ALL, SHED_FUSE_DROP,
+                                   SHED_FUSE_LATENCY, num_policies)
 from repro_torch.kernels import policy_scan as policy_kernel
 from repro_torch.kernels import ref
 
@@ -32,36 +34,49 @@ def _check_selector(onehot, policy_index):
 
 
 def policy_scan(loads, params, onehot=None, dt_hours: float = 1.0, *,
-                policy_index=None, loads_t=None, load_index=None):
+                policy_index=None, loads_t=None, load_index=None,
+                caps_t=None, fault_index=None):
     """(carry_end [N, CARRY_DIM], five [N, T] series) — see
-    ``kernels.policy_scan.policy_grid_scan`` for the operands."""
+    ``kernels.policy_scan.policy_grid_scan`` for the operands; ``caps_t``
+    [T, F] + ``fault_index`` [N] run the fault layer."""
     _check_selector(onehot, policy_index)
+    shed_fuse = SHED_FUSE_DROP
     if onehot is None:
         if not params.is_cuda:
             return ref.policy_grid_scan(
                 policy_kernel.gather_loads(loads, loads_t, load_index),
-                params, dt_hours=dt_hours, policy_index=policy_index)
+                params, dt_hours=dt_hours, policy_index=policy_index,
+                caps=policy_kernel.gather_rows(caps_t, fault_index))
         onehot = _onehot_rows(policy_index, params.shape[0], params.device)
-    return policy_kernel.policy_grid_scan(loads, params, onehot, dt_hours,
-                                          loads_t=loads_t,
-                                          load_index=load_index)
+        shed_fuse = SHED_FUSE_ALL
+    return policy_kernel.policy_grid_scan(
+        loads, params, onehot, dt_hours, loads_t=loads_t,
+        load_index=load_index, caps_t=caps_t, fault_index=fault_index,
+        shed_fuse=shed_fuse)
 
 
 def policy_scan_agg(loads, params, onehot=None, dt_hours: float = 1.0, *,
                     policy_index=None, slo_limit: float = float("inf"),
-                    slo_mode: int = 0, loads_t=None, load_index=None):
+                    slo_mode: int = 0, loads_t=None, load_index=None,
+                    caps_t=None, fmask_t=None, fault_index=None):
     """(carry_end [N, CARRY_DIM], agg [N, AGG_DIM]) — the Table II
     statistics folded into the scan, no [N, T] series on either path;
-    see ``kernels.policy_scan.policy_grid_agg``."""
+    see ``kernels.policy_scan.policy_grid_agg``; ``caps_t``/``fmask_t``
+    [T, F] + ``fault_index`` [N] run the fault layer."""
     _check_selector(onehot, policy_index)
+    shed_fuse = SHED_FUSE_LATENCY
     if onehot is None:
         if not params.is_cuda:
             return ref.policy_grid_agg(
                 policy_kernel.gather_loads(loads, loads_t, load_index),
                 params, dt_hours=dt_hours, policy_index=policy_index,
-                slo_limit=slo_limit, slo_mode=slo_mode)
+                slo_limit=slo_limit, slo_mode=slo_mode,
+                caps=policy_kernel.gather_rows(caps_t, fault_index),
+                fmask=policy_kernel.gather_rows(fmask_t, fault_index))
         onehot = _onehot_rows(policy_index, params.shape[0], params.device)
-    return policy_kernel.policy_grid_agg(loads, params, onehot, dt_hours,
-                                         slo_limit=slo_limit,
-                                         slo_mode=slo_mode, loads_t=loads_t,
-                                         load_index=load_index)
+        shed_fuse = SHED_FUSE_ALL
+    return policy_kernel.policy_grid_agg(
+        loads, params, onehot, dt_hours, slo_limit=slo_limit,
+        slo_mode=slo_mode, loads_t=loads_t, load_index=load_index,
+        caps_t=caps_t, fmask_t=fmask_t, fault_index=fault_index,
+        shed_fuse=shed_fuse)

@@ -1,8 +1,8 @@
-"""Wrappers of the two policy-scan kernels (``csrc/policy_scan.cu``).
+"""Wrappers of the policy-scan kernels (``csrc/policy_scan.cu``).
 
 Counterpart: ``repro.kernels.policy_scan`` (the Pallas kernels
-``_policy_scan_kernel`` and ``_policy_agg_kernel``). Same operands, same
-outputs:
+``_policy_scan_kernel``, ``_policy_agg_kernel`` and
+``_policy_agg_fault_kernel``). Same operands, same outputs:
 
 * ``policy_grid_scan`` — carry_end [N, CARRY_DIM] and five [N, T] series
   (processed, queue, latency, cost, dropped);
@@ -13,12 +13,19 @@ Loads come either as ``loads`` [N, T] or as ``loads_t`` [T, K], the
 scenario-minor matrix of K distinct load rows, with ``load_index`` [N]
 naming each scenario's row (identity when omitted); the kernels read
 through the index, so a (twin x traffic) grid never stages an [N, T] panel.
+A fault schedule comes the same way: ``caps_t`` (and, for the aggregate
+scan, ``fmask_t``) [T, F] hold F fault rows scenario-minor, and
+``fault_index`` [N] names each scenario's row; they select the fault
+kernels, which run the fault layer of ``core.twin`` (the backlog folds
+into ``carry_end[:, 0]``).
 
 A tensor on the CPU goes to the plain PyTorch version in ``ref.py``. A
 tensor on a CUDA device goes to the kernel, or the call raises: there is
 no fallback. The kernels run only the five built-in policies; a one-hot
 row that selects any other policy, or is not a one-hot row, raises. Each
 kernel launch adds one to ``launches[<kernel>]``, and nothing else does.
+``shed_fuse`` (a ``core.twin.SHED_FUSE_*`` level) picks the rounding of
+shed under the fault layer; the defaults are the mixed-policy scans'.
 """
 from __future__ import annotations
 
@@ -27,13 +34,15 @@ import ctypes
 import torch
 
 from repro_torch.core.twin import (AGG_HIST_BINS, AGG_SCALARS, CARRY_DIM,
-                                   PARAM_DIM, finalize_aggregate,
+                                   PARAM_DIM, SHED_FUSE_DROP,
+                                   SHED_FUSE_LATENCY, finalize_aggregate,
                                    kernel_branches, num_policies,
                                    policy_names)
 from repro_torch.kernels import build, ref
 
 #: kernel launches since the last ``reset_launches()``
-launches = {"policy_scan": 0, "policy_agg": 0}
+launches = {"policy_scan": 0, "policy_agg": 0, "policy_scan_fault": 0,
+            "policy_agg_fault": 0}
 
 
 def reset_launches():
@@ -53,6 +62,14 @@ def gather_loads(loads, loads_t, load_index) -> torch.Tensor:
     return cols.t()
 
 
+def gather_rows(matrix_t, index):
+    """[N, T] rows of a [T, F] scenario-minor matrix through ``index``
+    (identity when None): the plain versions' fault operands."""
+    if matrix_t is None:
+        return None
+    return (matrix_t if index is None else matrix_t[:, index.long()]).t()
+
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
@@ -68,6 +85,14 @@ def _lib():
         lib.policy_scan_launch.argtypes = [_P, _I, _I, _P, _P, _P, _I, _F,
                                            _P, _P, _P]
         lib.policy_scan_launch.restype = _I
+        lib.policy_agg_fault_launch.argtypes = [_P, _I, _I, _P, _P, _P, _I,
+                                                _P, _P, _P, _I, _F, _F, _I,
+                                                _I, _P, _P, _P, _P]
+        lib.policy_agg_fault_launch.restype = _I
+        lib.policy_scan_fault_launch.argtypes = [_P, _I, _I, _P, _P, _I, _P,
+                                                 _P, _P, _I, _F, _I, _P, _P,
+                                                 _P]
+        lib.policy_scan_fault_launch.restype = _I
         lib.policy_error_string.argtypes = [_I]
         lib.policy_error_string.restype = ctypes.c_char_p
     return lib
@@ -131,19 +156,43 @@ def _cuda_operands(loads, loads_t, load_index, params, onehot):
         raise ValueError(f"onehot must be [{n}, {num_policies()}], got "
                          f"{tuple(onehot.shape)}")
     _require(onehot, dev, "onehot")
-    if load_index is None:
-        if k_rows != n:
-            raise ValueError(f"{k_rows} load rows for {n} scenarios need "
-                             f"a load_index")
-        index = torch.arange(n, dtype=torch.int32, device=dev)
-    else:
-        if load_index.shape != (n,) or load_index.device != dev:
-            raise ValueError(f"load_index must be [{n}] on {dev}")
-        index = load_index.to(torch.int32).contiguous()
-        if n and not bool((index.min() >= 0) & (index.max() < k_rows)):
-            raise ValueError(f"load_index out of range for {k_rows} rows")
+    index = _row_index(load_index, n, k_rows, dev, "load")
     return (matrix_t, index, _kernel_branch_index(onehot), n, t_bins,
             k_rows)
+
+
+def _row_index(index, n: int, rows: int, dev, what: str):
+    """[n] int32 row index on ``dev`` (identity when None), range-checked
+    against ``rows``."""
+    if index is None:
+        if rows != n:
+            raise ValueError(f"{rows} {what} rows for {n} scenarios need "
+                             f"an index")
+        return torch.arange(n, dtype=torch.int32, device=dev)
+    if index.shape != (n,) or index.device != dev:
+        raise ValueError(f"{what} index must be [{n}] on {dev}")
+    index = index.to(torch.int32).contiguous()
+    if n and not bool((index.min() >= 0) & (index.max() < rows)):
+        raise ValueError(f"{what} index out of range for {rows} rows")
+    return index
+
+
+def _fault_operands(caps_t, fmask_t, fault_index, n: int, t_bins: int,
+                    dev):
+    """Validate the CUDA fault operands; returns (f_rows, fault index [N]
+    int32)."""
+    for x, what in ((caps_t, "caps_t"), (fmask_t, "fmask_t")):
+        if x is None:
+            continue
+        if x.dim() != 2 or x.shape[0] != t_bins:
+            raise ValueError(f"{what} must be [{t_bins}, F], got "
+                             f"{tuple(x.shape)}")
+        _require(x, dev, what)
+    if fmask_t is not None and fmask_t.shape != caps_t.shape:
+        raise ValueError(f"fmask_t {tuple(fmask_t.shape)} and caps_t "
+                         f"{tuple(caps_t.shape)} must match")
+    f_rows = caps_t.shape[1]
+    return f_rows, _row_index(fault_index, n, f_rows, dev, "fault")
 
 
 def _require(x: torch.Tensor, dev: torch.device, what: str):
@@ -156,60 +205,99 @@ def _require(x: torch.Tensor, dev: torch.device, what: str):
 
 
 def policy_grid_scan(loads, params, onehot, dt_hours: float = 1.0, *,
-                     loads_t=None, load_index=None):
+                     loads_t=None, load_index=None, caps_t=None,
+                     fault_index=None, shed_fuse: int = SHED_FUSE_DROP):
     """Scenario-grid scan with per-bin series; semantics of
-    ``ref.policy_grid_scan``. Returns (carry_end [N, CARRY_DIM],
-    (processed, queue, latency, cost, dropped)), each series [N, T] (a
-    transposed view of the kernel's scenario-minor [T, N] output)."""
+    ``ref.policy_grid_scan`` (with ``caps=`` when ``caps_t`` is given).
+    Returns (carry_end [N, CARRY_DIM], (processed, queue, latency, cost,
+    dropped)), each series [N, T] (a transposed view of the kernel's
+    scenario-minor [T, N] output)."""
+    fault = caps_t is not None
     if not params.is_cuda:
         return ref.policy_grid_scan(gather_loads(loads, loads_t, load_index),
-                                    params, onehot, dt_hours)
+                                    params, onehot, dt_hours,
+                                    caps=gather_rows(caps_t, fault_index),
+                                    shed_fuse=shed_fuse)
     matrix_t, index, branch, n, t_bins, k_rows = _cuda_operands(
         loads, loads_t, load_index, params, onehot)
     dev = params.device
+    if fault:
+        f_rows, findex = _fault_operands(caps_t, None, fault_index, n,
+                                         t_bins, dev)
     carry_end = torch.empty((n, CARRY_DIM), dtype=torch.float32, device=dev)
     series = torch.empty((5, t_bins, n), dtype=torch.float32, device=dev)
     lib = _lib()
     with torch.cuda.device(dev):
-        rc = lib.policy_scan_launch(
-            matrix_t.data_ptr(), k_rows, t_bins, index.data_ptr(),
-            params.data_ptr(), branch.data_ptr(), n, float(dt_hours),
-            carry_end.data_ptr(), series.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-    _check(lib, rc, "policy_scan")
-    launches["policy_scan"] += 1
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if fault:
+            rc = lib.policy_scan_fault_launch(
+                matrix_t.data_ptr(), k_rows, t_bins, index.data_ptr(),
+                caps_t.data_ptr(), f_rows, findex.data_ptr(),
+                params.data_ptr(), branch.data_ptr(), n, float(dt_hours),
+                int(shed_fuse), carry_end.data_ptr(), series.data_ptr(),
+                stream)
+        else:
+            rc = lib.policy_scan_launch(
+                matrix_t.data_ptr(), k_rows, t_bins, index.data_ptr(),
+                params.data_ptr(), branch.data_ptr(), n, float(dt_hours),
+                carry_end.data_ptr(), series.data_ptr(), stream)
+    name = "policy_scan_fault" if fault else "policy_scan"
+    _check(lib, rc, name)
+    launches[name] += 1
     return carry_end, tuple(series[k].t() for k in range(5))
 
 
 def policy_grid_agg(loads, params, onehot, dt_hours: float = 1.0, *,
                     slo_limit: float = float("inf"), slo_mode: int = 0,
-                    loads_t=None, load_index=None):
+                    loads_t=None, load_index=None, caps_t=None,
+                    fmask_t=None, fault_index=None,
+                    shed_fuse: int = SHED_FUSE_LATENCY):
     """Streaming-aggregate scenario-grid scan; semantics of
-    ``ref.policy_grid_agg``. ``slo_limit`` is compared in float32 against
+    ``ref.policy_grid_agg`` (with ``caps=``/``fmask=`` when ``caps_t`` and
+    ``fmask_t`` are given). ``slo_limit`` is compared in float32 against
     the stream ``slo_mode`` selects (``core.twin.AGG_SLO_*``). Returns
     (carry_end [N, CARRY_DIM], agg [N, AGG_DIM]): the kernel's raw rows
     with each histogram bucket's compensated triple recombined in f64."""
+    if (caps_t is None) != (fmask_t is None):
+        raise ValueError("pass caps_t= and fmask_t= together (or neither)")
+    fault = caps_t is not None
     if not params.is_cuda:
         return ref.policy_grid_agg(gather_loads(loads, loads_t, load_index),
                                    params, onehot, dt_hours,
-                                   slo_limit=slo_limit, slo_mode=slo_mode)
+                                   slo_limit=slo_limit, slo_mode=slo_mode,
+                                   caps=gather_rows(caps_t, fault_index),
+                                   fmask=gather_rows(fmask_t, fault_index),
+                                   shed_fuse=shed_fuse)
     matrix_t, index, branch, n, t_bins, k_rows = _cuda_operands(
         loads, loads_t, load_index, params, onehot)
     dev = params.device
+    if fault:
+        f_rows, findex = _fault_operands(caps_t, fmask_t, fault_index, n,
+                                         t_bins, dev)
     carry_end = torch.empty((n, CARRY_DIM), dtype=torch.float32, device=dev)
     scal = torch.empty((AGG_SCALARS, n), dtype=torch.float32, device=dev)
     hist = torch.zeros((3, AGG_HIST_BINS, n), dtype=torch.float32,
                        device=dev)
     lib = _lib()
     with torch.cuda.device(dev):
-        rc = lib.policy_agg_launch(
-            matrix_t.data_ptr(), k_rows, t_bins, index.data_ptr(),
-            params.data_ptr(), branch.data_ptr(), n, float(dt_hours),
-            float(slo_limit), int(slo_mode), carry_end.data_ptr(),
-            scal.data_ptr(), hist.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-    _check(lib, rc, "policy_agg")
-    launches["policy_agg"] += 1
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if fault:
+            rc = lib.policy_agg_fault_launch(
+                matrix_t.data_ptr(), k_rows, t_bins, index.data_ptr(),
+                caps_t.data_ptr(), fmask_t.data_ptr(), f_rows,
+                findex.data_ptr(), params.data_ptr(), branch.data_ptr(), n,
+                float(dt_hours), float(slo_limit), int(slo_mode),
+                int(shed_fuse), carry_end.data_ptr(), scal.data_ptr(),
+                hist.data_ptr(), stream)
+        else:
+            rc = lib.policy_agg_launch(
+                matrix_t.data_ptr(), k_rows, t_bins, index.data_ptr(),
+                params.data_ptr(), branch.data_ptr(), n, float(dt_hours),
+                float(slo_limit), int(slo_mode), carry_end.data_ptr(),
+                scal.data_ptr(), hist.data_ptr(), stream)
+    name = "policy_agg_fault" if fault else "policy_agg"
+    _check(lib, rc, name)
+    launches[name] += 1
     packed = torch.cat([scal.t(), hist.permute(2, 0, 1).reshape(n, -1)],
                        dim=1)
     return carry_end, finalize_aggregate(packed)

@@ -5,9 +5,11 @@ plain PyTorch versions (``kernels/ref.py``); these must equal, bit for
 bit, both the reference's Pallas kernels in interpret mode and its jnp
 oracles, for a mixed-policy block (T = 336, N = 13, foreign parameters in
 every slot) at dt 1 h and 1 min, with both branch selectors. A CPU tensor
-must never reach the CUDA build or bump a launch counter. The last test
-holds the CUDA kernels against the plain versions and runs only where a
-card is visible (``python3 chip_smoke.py`` covers it at full width).
+must never reach the CUDA build or bump a launch counter. The last two
+tests hold the CUDA kernels, benign and fault, against the plain versions and
+run only where a card is visible (``python3 chip_smoke.py`` covers them at
+full width). The fault scans' plain versions are held against the
+reference in ``test_torch_faults.py``.
 """
 import numpy as np
 import pytest
@@ -120,10 +122,18 @@ def test_cpu_tensors_take_the_plain_path(monkeypatch):
     monkeypatch.setattr(build, "build", no_build)
     loads, params, _, onehot = _grid(4)
     pk.reset_launches()
+    caps_t = torch.ones((24, 2))
+    findex = torch.zeros(N, dtype=torch.int32)
     pk.policy_grid_scan(_t(loads[:, :24]), _t(params), _t(onehot))
     pk.policy_grid_agg(_t(loads[:, :24]), _t(params), _t(onehot))
     ops.policy_scan_agg(_t(loads[:, :24]), _t(params), policy_index=2)
-    assert pk.launches == {"policy_scan": 0, "policy_agg": 0}
+    pk.policy_grid_scan(_t(loads[:, :24]), _t(params), _t(onehot),
+                        caps_t=caps_t, fault_index=findex)
+    pk.policy_grid_agg(_t(loads[:, :24]), _t(params), _t(onehot),
+                       caps_t=caps_t, fmask_t=caps_t * 0.0,
+                       fault_index=findex)
+    assert pk.launches == {"policy_scan": 0, "policy_agg": 0,
+                           "policy_scan_fault": 0, "policy_agg_fault": 0}
 
 
 def test_kernel_branch_index_from_onehot(monkeypatch):
@@ -148,6 +158,21 @@ def test_build_flags_keep_ieee_rounding():
     assert (build.CSRC / "policy_scan.cu").is_file()
 
 
+def _fault_rows(seed, t_bins):
+    """[T, F] capacity rows (outage runs, brownouts, all ones), in-fault
+    masks, and a fault index for the N scenarios."""
+    rng = np.random.default_rng(seed)
+    cap = np.ones((4, t_bins), np.float32)
+    for f in range(1, 4):
+        for start in rng.integers(0, t_bins - 12, 6):
+            cap[f, start:start + rng.integers(2, 12)] = 0.0
+        brown = rng.uniform(0.0, 1.0, t_bins) < 0.15
+        cap[f, brown] *= rng.uniform(0.3, 0.7, int(brown.sum()))
+    fmask = (cap != 1.0).astype(np.float32)
+    return (_t(cap.T), _t(fmask.T),
+            _t(rng.integers(0, 4, N).astype(np.int32)))
+
+
 @pytest.mark.cuda
 def test_kernels_match_plain_on_card():
     if not torch.cuda.is_available():
@@ -167,3 +192,33 @@ def test_kernels_match_plain_on_card():
                                        slo_mode=slo_mode)
             for a, b in zip(got, want):
                 assert_bitwise(a.cpu().numpy(), b.cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_fault_kernels_match_plain_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    loads, params, _, onehot = _grid(6)
+    cuda = [x.to(dev) for x in (_t(loads), _t(params), _t(onehot))]
+    caps_t, fmask_t, findex = (x.to(dev) for x in _fault_rows(6, T))
+    fault = dict(caps_t=caps_t, fault_index=findex)
+    pk.reset_launches()
+    for dt in DTS:
+        got = pk.policy_grid_scan(*cuda, dt, **fault)
+        want = pk.policy_grid_scan(*(x.cpu() for x in cuda), dt,
+                                   **{k: v.cpu() for k, v in fault.items()})
+        for a, b in zip((got[0],) + got[1], (want[0],) + want[1]):
+            assert_bitwise(a.cpu().numpy(), b.numpy())
+        for slo_mode, slo_limit in SLOS:
+            kw = dict(fault, fmask_t=fmask_t, slo_limit=slo_limit,
+                      slo_mode=slo_mode)
+            got = pk.policy_grid_agg(*cuda, dt, **kw)
+            want = pk.policy_grid_agg(
+                *(x.cpu() for x in cuda), dt,
+                **{k: v.cpu() if torch.is_tensor(v) else v
+                   for k, v in kw.items()})
+            for a, b in zip(got, want):
+                assert_bitwise(a.cpu().numpy(), b.numpy())
+    assert pk.launches["policy_scan_fault"] == 2
+    assert pk.launches["policy_agg_fault"] == 4

@@ -1,8 +1,9 @@
 """The port's ground rules.
 
 * ``repro_torch`` imports ``torch`` and numpy, never ``jax`` and nothing
-  of the JAX package ``repro`` (checked in a fresh interpreter, and in the
-  source text of the package and of ``chip_smoke.py``);
+  of the JAX package ``repro``, not even ``repro.faults`` or ``repro.obs``
+  (checked in a fresh interpreter, and in the source text of the package,
+  its ``faults`` copy included, and of ``chip_smoke.py``);
 * its entry points default to the card and raise without one;
 * ``chip_smoke.py`` fails, printing no result, where there is no card.
 """
@@ -18,6 +19,7 @@ import pytest
 import torch
 
 import repro_torch
+from repro_torch import faults
 from repro_torch.core import simulate, slo, traffic, twin, whatif
 
 from torch_port_ref import one_torch_thread  # noqa: F401
@@ -49,7 +51,8 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
     out = subprocess.run([sys.executable, "-c", code], env=_env(),
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert "repro_torch.kernels.policy_scan" in _modules()
+    assert {"repro_torch.kernels.policy_scan", "repro_torch.faults.grid",
+            "repro_torch.faults.sampler"} <= set(_modules())
 
 
 def test_port_sources_do_not_import_jax_or_the_reference():
@@ -76,9 +79,13 @@ def test_entry_points_default_to_the_card_and_raise_without_one():
     tw = [twin.SimpleTwin("a", 1.0, 0.01, 0.1)]
     tr = [traffic.TrafficModel.honda_default("n")]
     loads = tr[0].hourly_loads()
+    schedule = faults.FaultSchedule(specs=(faults.outage(),), n_futures=2)
     calls = [
         lambda: whatif.run_grid(tw, tr, slo=slo.SLO()),
         lambda: whatif.run_grid(tw, tr, return_series=True),
+        lambda: whatif.run_grid(tw, tr, faults=schedule),
+        lambda: simulate.simulate_grid(tw, loads[None], faults=schedule,
+                                       return_series=False),
         lambda: whatif.run_scenarios([whatif.Scenario("s", tw[0], tr[0])]),
         lambda: simulate.simulate_grid(tw, loads[None]),
         lambda: simulate.simulate_year(tw[0], loads),

@@ -6,7 +6,7 @@ package: the paper's Table II grid and a grid with one twin of every
 policy. Also the blocked aggregate dispatch, ``_dedup_rows`` and
 ``_agg_block_plan``, the Table IV retention comparison and
 ``monthly_table``, and ``convert.py`` carrying the reference's grid state
-across.
+across. Chaos suites (``faults=``) are in ``test_torch_faults.py``.
 """
 import dataclasses
 import functools
@@ -142,10 +142,11 @@ def test_dedup_rows_and_block_plan_match_reference(jref):
     params = rng.uniform(0, 4, (6, ptwin.PARAM_DIM)).astype(np.float32)[
         rng.integers(0, 6, n)]
     pol = rng.integers(0, 5, n).astype(np.int32)
-    keep, inv = psim._dedup_rows(index, params, pol)
-    j_keep, j_inv, _ = jref.simulate._dedup_rows(index, params, pol)
+    keep, inv, fidx = psim._dedup_rows(index, params, pol)
+    j_keep, j_inv, j_fidx = jref.simulate._dedup_rows(index, params, pol)
     np.testing.assert_array_equal(keep, j_keep)
     np.testing.assert_array_equal(inv, j_inv)
+    assert fidx is None and j_fidx is None
     assert psim._dedup_rows(np.arange(4), params[:4], pol[:4]) is None
     for block in (1, 7, 16, 64):
         got = psim._agg_block_plan(pol, block)
@@ -208,8 +209,6 @@ def test_unported_options_raise():
     twins, matrix, index = _mixed_grid(ptwin, n=4)
     kw = dict(load_matrix=matrix, load_index=index, bin_hours=1.0,
               return_series=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="fault"):
-        psim.simulate_grid(twins, faults=object(), **kw)
     with pytest.raises(NotImplementedError, match="devices"):
         psim.simulate_grid(twins, devices=2, **kw)
     assert dataclasses.replace(pcost.CostModel()).chip_usd_per_hour is None

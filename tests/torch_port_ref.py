@@ -25,12 +25,13 @@ def reference():
     if aliased:
         jax.experimental.enable_x64 = jax.enable_x64
     try:
+        from repro import faults
         from repro.core import cost, simulate, slo, traffic, twin, whatif
         from repro.kernels import ops, policy_scan, ref
         yield SimpleNamespace(cost=cost, simulate=simulate, slo=slo,
                               traffic=traffic, twin=twin, whatif=whatif,
                               ops=ops, policy_scan=policy_scan, ref=ref,
-                              jax=jax)
+                              faults=faults, jax=jax)
     finally:
         for name in set(sys.modules) - before:
             if name == "repro" or name.startswith("repro."):
