@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of PlantD's what-if year grid on one GPU.
+"""Drive the PyTorch/CUDA port of PlantD on one GPU: the what-if year
+grid and the serving pipeline-under-test.
 
     python3 chip_smoke.py
 
-Builds the policy-scan kernels (benign and fault) from
-``src/repro_torch/kernels/csrc`` with nvcc, then:
+Builds the kernels from ``src/repro_torch/kernels/csrc`` with nvcc (one
+process per source, all started together: the policy scans, benign and
+fault; flash attention; the Mamba selective scan), then:
 
 1. prints the card (``nvidia-smi`` name and power limit) and the build;
 2. holds each kernel against its plain PyTorch version on the card,
@@ -25,13 +27,28 @@ Builds the policy-scan kernels (benign and fault) from
    whole grid (4a, 4b); a 65,536-row chaos sweep (256 twins x 16
    forecasts x 16 fault futures) held the same way (4c); and a
    4,096-row chaos sweep in series mode against its aggregate twin (4d);
-5. prints one JSON line of per-kernel numbers (launches on the main path,
-   error against the plain version, kernel / plain / bound times), then
-   ``{"ok": true, ...}`` as its last line.
+5. the serving slice (Jamba-1.5-Large without experts): the flash
+   attention kernel against its plain version on random blocks (causal or
+   not, GQA g 1 and 8, head dims 64 and 128, bf16 and float32, lengths
+   that are not multiples of the tile; 5a); the selective-scan kernel
+   likewise (s 1, 37 and 256, a carried-in state, a run split in two
+   against one whole run; 5b); the smoke-width model served on the card
+   against the port's CPU run (the same greedy tokens, logits within
+   tolerance; 5c); then the main path at full width: ``ServeEngine``
+   with 4 slots serves 8 requests of 1,024-2,048 prompt tokens and 32 new
+   tokens each through 8 layers at d_model 8,192 (5d), a
+   ``torch.profiler`` pass over one more prefill and 8 decode steps says
+   where their time goes (device busy share, top kernels), and each model
+   kernel is held against its plain version at the shapes that path gave
+   it;
+6. prints one JSON line of per-kernel numbers (launches on the main path,
+   error against the plain version, kernel / plain / bound / library
+   times), then the card and ``{"ok": true, ...}`` as its last line.
 
 Any failed check raises, and the script exits non-zero. It needs a CUDA
 card and the repository's ``src``; it never falls back to the CPU.
 """
+import dataclasses
 import json
 import os
 import subprocess
@@ -60,6 +77,18 @@ FAULT_OPS = 10
 #: aggregate scan the re-derived queue latency prices (a subtract)
 FAULT_SHED_OPS = {False: 3, True: 4}                # keyed by aggregate
 FAULT_AGG_OPS = 3                                   # A_FLTH, A_FOKH
+#: H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet), the bound of
+#: attention's matrix products
+BF16_OPS_PER_S = 989e12
+#: the model kernels against their plain versions (atol = rtol over
+#: |want|): float32 sums run in another order with contracted
+#: multiply-adds; a bf16 output may take the neighbouring bf16 value
+#: (one step, 2^-7 relative)
+MODEL_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
+#: the smoke-width slice, card against CPU, float32 logits (cuBLAS and
+#: the CPU sum the matrix products in other orders, through 16 layers)
+SLICE_TOL = 1e-4
+JAMBA = "jamba-1.5-large-398b"
 
 RPS, USD_HR, LAT = 1.9512, 0.0082, 0.15
 SEED = 0
@@ -614,6 +643,365 @@ def kernel_vs_plain(name, shape, ops, agg):
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
+def close_or_raise(name, got, want, tol):
+    """Raise unless |got - want| <= tol (1 + |want|) everywhere and got is
+    finite; returns the largest absolute error."""
+    g, w = got.double(), want.double()
+    check(g.shape == w.shape, (name, g.shape, w.shape))
+    err = (g - w).abs()
+    bad = ~(err <= tol * (1 + w.abs()))
+    if bool(bad.any()) or not bool(torch.isfinite(g).all()):
+        raise AssertionError(f"{name}: {int(bad.sum())} of {g.numel()} "
+                             f"elements outside {tol:g}, max abs error "
+                             f"{float(err.max()):.3g}")
+    return float(err.max())
+
+
+def check_flash_random_blocks(dev):
+    """Phase 5a: the flash kernel against ref.flash_attention."""
+    from repro_torch.kernels import flash_attention as fk, ref
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    cases = [(2, 200, 200, 8, 8, 64),      # g 1, sq not a multiple of 64
+             (2, 200, 200, 8, 1, 128),     # g 8
+             (1, 130, 257, 16, 2, 128),    # sq != sk
+             (1, 300, 64, 8, 8, 64)]       # more queries than keys
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for b, sq, sk, h, kh, d in cases:
+        for causal in (True, False):
+            for dtype in (torch.float32, torch.bfloat16):
+                q = torch.randn(b, sq, h, d, generator=g, device=dev)
+                k = torch.randn(b, sk, kh, d, generator=g, device=dev)
+                v = torch.randn(b, sk, kh, d, generator=g, device=dev)
+                q, k, v = (x.to(dtype) for x in (q, k, v))
+                got = fk.flash_attention(q, k, v, causal=causal)
+                want = ref.flash_attention(q, k, v, causal=causal)
+                check(got.dtype == dtype, got.dtype)
+                err = close_or_raise(
+                    f"flash {(b, sq, sk, h, kh, d)} causal={causal} "
+                    f"{dtype}", got, want, MODEL_TOL[dtype])
+                worst[dtype] = max(worst[dtype], err)
+    torch.cuda.synchronize()
+    print(f"phase 5a: flash kernel vs plain on {len(cases) * 4} random "
+          f"blocks (causal or not, g 1/8, d 64/128, sq 130-300): max abs "
+          f"error float32 {worst[torch.float32]:.3g} (tol "
+          f"{MODEL_TOL[torch.float32]:g}), bf16 "
+          f"{worst[torch.bfloat16]:.3g} (tol {MODEL_TOL[torch.bfloat16]:g})")
+
+
+def ssm_inputs(b, s, di, n, dtype, dev, g, state=True):
+    x = torch.randn(b, s, di, generator=g, device=dev) * 0.5
+    dt = torch.nn.functional.softplus(
+        torch.randn(b, s, di, generator=g, device=dev) - 1)
+    B = torch.randn(b, s, n, generator=g, device=dev) * 0.5
+    C = torch.randn(b, s, n, generator=g, device=dev) * 0.5
+    A = -torch.exp(torch.randn(di, n, generator=g, device=dev) * 0.5)
+    D = torch.randn(di, generator=g, device=dev)
+    st = (torch.randn(b, di, n, generator=g, device=dev) * 0.1
+          if state else None)
+    x, dt, B, C = (t.to(dtype) for t in (x, dt, B, C))
+    return x, dt, A, B, C, D, st
+
+
+def check_ssm_random_blocks(dev):
+    """Phase 5b: the selective-scan kernel against ref.ssm_scan."""
+    from repro_torch.kernels import ref, ssm_scan as sk
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    worst = 0.0
+    for s in (1, 37, 256):
+        for n in (16, 4):
+            for dtype in (torch.float32, torch.bfloat16):
+                for state in (False, True):
+                    ops = ssm_inputs(2, s, 1000, n, dtype, dev, g, state)
+                    got, want = sk.ssm(*ops), ref.ssm_scan(*ops)
+                    for what, a, w in zip(("y", "state"), got, want):
+                        worst = max(worst, close_or_raise(
+                            f"ssm s={s} n={n} {dtype} state={state} {what}",
+                            a, w, MODEL_TOL[dtype]))
+    # a run split in two, the state carried across, against one whole run
+    x, dt, A, B, C, D, st = ssm_inputs(2, 256, 1000, 16, torch.float32, dev,
+                                       g)
+    y_all, s_all = sk.ssm(x, dt, A, B, C, D, st)
+    y1, s1 = sk.ssm(x[:, :100], dt[:, :100], A, B[:, :100], C[:, :100], D,
+                    st)
+    y2, s2 = sk.ssm(x[:, 100:], dt[:, 100:], A, B[:, 100:], C[:, 100:], D,
+                    s1)
+    tol = MODEL_TOL[torch.float32]
+    close_or_raise("ssm split y", torch.cat([y1, y2], 1), y_all, tol)
+    close_or_raise("ssm split state", s2, s_all, tol)
+    torch.cuda.synchronize()
+    print(f"phase 5b: selective-scan kernel vs plain on 24 random blocks "
+          f"(s 1/37/256, n 16/4, di 1000, float32 and bf16, zero or "
+          f"carried-in state): max abs error {worst:.3g}; a run split at "
+          f"step 100 equals the whole run within {tol:g}")
+
+
+class LogitRecorder:
+    """Wraps a serve step: keeps the logits it returns (``keep``) or only
+    checks that they are finite."""
+
+    def __init__(self, step, keep=True):
+        self.step, self.keep, self.logits = step, keep, []
+
+    def __call__(self, *args):
+        logits, cache = self.step(*args)
+        check(bool(torch.isfinite(logits).all()), "non-finite logits")
+        if self.keep:
+            self.logits.append(logits.float().cpu())
+        return logits, cache
+
+
+def check_smoke_slice(dev):
+    """Phase 5c: the smoke-width slice on the card against the port's CPU
+    run, from one seeded parameter set."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import Request, ServeEngine
+    cfg = dataclasses.replace(get_smoke_config(JAMBA), moe=None,
+                              num_layers=16, dtype="float32")
+    params = M.init_params(cfg, seed=SEED, device="cpu")
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
+               for n in (9, 20, 31, 40)]
+    runs = {}
+    for where in ("cpu", dev):
+        eng = ServeEngine(cfg, params, slots=4, max_len=64, device=where)
+        eng._prefill = LogitRecorder(eng._prefill)
+        eng._decode = LogitRecorder(eng._decode)
+        reqs = [Request(rid=i, prompt=p, max_new=6)
+                for i, p in enumerate(prompts)]
+        eng.process_group(reqs)
+        runs[str(where)] = ([r.output for r in reqs],
+                            eng._prefill.logits + eng._decode.logits)
+    (tok_c, lg_c), (tok_g, lg_g) = runs["cpu"], runs[str(dev)]
+    check(tok_c == tok_g, f"greedy tokens differ: CPU {tok_c}, card {tok_g}")
+    err = max(close_or_raise(f"smoke slice logits step {i}", a, b,
+                             SLICE_TOL)
+              for i, (a, b) in enumerate(zip(lg_g, lg_c)))
+    print(f"phase 5c: Jamba smoke without experts (16 layers, 2 groups, "
+          f"float32) served on the card: greedy tokens equal to the CPU "
+          f"run's, logits max abs error {err:.3g} (tol {SLICE_TOL:g})")
+
+
+def serve_at_width(dev):
+    """Phase 5d, the serving main path: Jamba-1.5-Large cut to 8 layers
+    (one group: 1 attention + 7 Mamba layers) without experts, every
+    width published; 8 requests, two groups of 4. Returns the model
+    kernels' launch counts of this run."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import policy_scan as pk
+    from repro_torch.kernels import ssm_scan as sk
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import Request, ServeEngine
+    cfg = dataclasses.replace(get_config(JAMBA), num_layers=8, moe=None)
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    eng = ServeEngine(cfg, params, slots=4, max_len=4096, device=dev)
+    load_peak = torch.cuda.max_memory_allocated()
+    del params
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    print(f"phase 5d: {cfg.name} cut to {cfg.num_layers} layers without "
+          f"experts: {M.param_count(cfg):,} parameters drawn in "
+          f"{init_s:.1f} s (float32, peak {load_peak / 2**30:.1f} GiB at "
+          f"load), held as {held / 2**30:.1f} GiB (matrices in "
+          f"{cfg.dtype})")
+    rng = np.random.default_rng(SEED)
+    lens = rng.integers(1024, 2049, 8)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lens]
+    # warm-up: one short group (cuBLAS handles and workspaces, the
+    # kernels' first launches), then a clean collector
+    eng.process_group([Request(rid=-1 - i, prompt=prompts[i], max_new=2)
+                       for i in range(4)])
+    eng.collector.clear()
+    eng._prefill = LogitRecorder(eng._prefill, keep=False)
+    eng._decode = LogitRecorder(eng._decode, keep=False)
+    reqs = [Request(rid=i, prompt=p, max_new=32) for i, p in
+            enumerate(prompts)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # the serving main path: every count from 0, read right after
+    for mod in (pk, fk, sk):
+        mod.reset_launches()
+    t0 = time.perf_counter()
+    done = eng.serve(reqs)
+    wall = time.perf_counter() - t0
+    launches = {**fk.launches, **sk.launches}
+    check(sum(pk.launches.values()) == 0, pk.launches)
+    peak = torch.cuda.max_memory_allocated()
+
+    check(len(done) == 8 and all(len(r.output) == 32 for r in done),
+          [len(r.output) for r in done])
+    check(all(0 <= t < cfg.vocab_size for r in done for t in r.output),
+          "token out of range")
+    # 2 groups: one prefill each through the attention layer, and
+    # 7 Mamba layers x (1 prefill + 31 decode steps)
+    check(launches == {"flash_attention": 2, "ssm_scan": 2 * 7 * 32},
+          launches)
+    ttft = np.array([r.ttft_s for r in done]) * 1e3
+    summ = eng.collector.summary()
+    pre = 1e3 * np.array([s.duration for s in eng.collector.spans("prefill")])
+    dec = 1e3 * np.array([s.duration for s in eng.collector.spans("decode")])
+    new_tokens = sum(len(r.output) for r in done)
+    print(f"phase 5d: served 8 requests (prompts {int(lens.min())}-"
+          f"{int(lens.max())} tokens, padded to {eng._prefill_len}; 32 new "
+          f"tokens each) in {wall * 1e3:.1f} ms wall: TTFT p50 "
+          f"{np.percentile(ttft, 50):.1f} ms, p95 "
+          f"{np.percentile(ttft, 95):.1f} ms; per-token decode "
+          f"{dec.mean():.2f} ms (a step of 4 rows); {new_tokens / wall:.1f} "
+          f"tokens/s; span means prefill {pre.mean():.1f} ms, decode "
+          f"{dec.mean():.2f} ms ({summ['decode']['records']} decode "
+          f"records); peak memory {peak / 2**30:.2f} GiB "
+          f"(max_memory_allocated)")
+    print(json.dumps({"serve": {
+        "model": cfg.name, "layers": cfg.num_layers, "params": M.param_count(
+            cfg), "requests": 8, "slots": 4, "max_len": 4096,
+        "max_new": 32, "wall_ms": wall * 1e3,
+        "ttft_ms_p50": float(np.percentile(ttft, 50)),
+        "ttft_ms_p95": float(np.percentile(ttft, 95)),
+        "decode_step_ms": float(dec.mean()),
+        "prefill_span_ms": float(pre.mean()),
+        "tokens_per_s": new_tokens / wall, "peak_gib": peak / 2**30,
+        "held_gib": held / 2**30, "launches": launches}}))
+    profile_serving(eng, prompts[:4], dev)
+    del eng, done
+    torch.cuda.empty_cache()
+    return launches
+
+
+def profile_serving(eng, prompts, dev):
+    """Where a group's time goes: one prefill and ``steps`` greedy decode
+    steps of the engine's own step functions, as ``process_group`` runs
+    them, under ``torch.profiler``: wall and summed device (kernel) time,
+    the device's busy share, and the kernels that take most of it. Runs
+    after the main path's counts were read."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import model as M
+    toks = np.zeros((eng.slots, eng._prefill_len), np.int32)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = p[-eng._prefill_len:]
+    cache = M.init_cache(eng.cfg, eng.slots, eng.max_len, device=dev)
+    steps = 8
+    out = {}
+    for what in ("prefill", "decode"):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            if what == "prefill":
+                logits, cache = eng._prefill(
+                    eng.params, {"tokens": torch.from_numpy(toks).to(dev)},
+                    cache)
+                torch.cuda.synchronize()
+                n = 1
+            else:
+                for _ in range(steps):
+                    cur = logits[:, -1].argmax(-1).to(torch.int32).cpu()
+                    logits, cache = eng._decode(
+                        eng.params, cache, {"token": cur[:, None].to(dev)})
+                    torch.cuda.synchronize()
+                n = steps
+            wall_us = 1e6 * (time.perf_counter() - t0)
+        # device-side events only: a CPU op's self device time repeats
+        # its kernels'
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0]
+        dev_us = sum(e.self_device_time_total for e in kernels)
+        if not dev_us:
+            print(f"profile {what}: the profiler saw no device time "
+                  f"(busy share not measured)")
+            continue
+        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+        out[what] = {
+            "wall_ms": wall_us / n / 1e3, "device_ms": dev_us / n / 1e3,
+            "busy": dev_us / wall_us,
+            "top": [[e.key[:70], round(e.self_device_time_total / dev_us, 4),
+                     e.count // n] for e in top]}
+        print(f"profile {what} (per {'group' if n == 1 else 'step'}): "
+              f"wall {wall_us / n / 1e3:.2f} ms, device {dev_us / n / 1e3:.2f}"
+              f" ms, busy {dev_us / wall_us:.1%}")
+    print(json.dumps({"profile": out}))
+
+
+def flash_vs_plain(dev):
+    """The flash kernel at the serving path's prefill shape (q [4, 2,048,
+    64, 128], k/v [4, 2,048, 8, 128], bf16, causal), against its plain
+    version, with SDPA's time for the table."""
+    from repro_torch.kernels import flash_attention as fk, ref
+    b, s, h, kh, d = 4, 2048, 64, 8, 128
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    q = torch.randn(b, s, h, d, generator=g, device=dev).bfloat16()
+    k = torch.randn(b, s, kh, d, generator=g, device=dev).bfloat16()
+    v = torch.randn(b, s, kh, d, generator=g, device=dev).bfloat16()
+    fk.flash_attention(q, k, v)                                 # warm-up
+    ms, got = cuda_ms(lambda: fk.flash_attention(q, k, v), reps=3)
+    plain_ms, want = cuda_ms(lambda: ref.flash_attention(q, k, v))
+    err = close_or_raise("flash at width", got, want,
+                         MODEL_TOL[torch.bfloat16])
+    del want
+
+    def library():
+        return torch.nn.functional.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=True)
+    library()
+    library_ms, _ = cuda_ms(library, reps=3)
+    flops = 4 * b * h * s * s * d / 2                  # causal: half
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    t_ops, t_bytes = flops / BF16_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    bound_ms = 1e3 * max(t_ops, t_bytes)
+    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    print(f"flash_attention at q {list(q.shape)} bf16 causal: kernel "
+          f"{ms:.3f} ms, plain {plain_ms:.1f} ms, SDPA {library_ms:.3f} ms, "
+          f"bound {bound_ms:.4f} ms ({bound_by}); max abs error {err:.3g}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
+def ssm_bound(b, s, di, n, state_in):
+    """(bound_ms, bound_by): bf16 x, dt, y and B, C; float32 A, D, the
+    state out (and in); 7 float32 operations per state element and 3 per
+    channel-step, counted from csrc/ssm_scan.cu (exp as one)."""
+    nbytes = 2 * (3 * b * s * di + 2 * b * s * n) + 4 * (
+        di * n + di + (2 if state_in else 1) * b * di * n)
+    ops = (7 * n + 3) * b * s * di
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                      else "operations")
+
+
+def ssm_vs_plain(dev):
+    """The selective-scan kernel at the serving path's shapes: prefill
+    [4, 2,048, 16,384] x n 16 from a zero state, and a decode step
+    [4, 1, 16,384] from a carried state; bf16, as the path runs it."""
+    from repro_torch.kernels import ref, ssm_scan as sk
+    b, di, n = 4, 16384, 16
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    out = {}
+    for what, s, state in (("prefill", 2048, False), ("decode", 1, True)):
+        ops = ssm_inputs(b, s, di, n, torch.bfloat16, dev, g, state)
+        sk.ssm(*ops)                                            # warm-up
+        ms, got = cuda_ms(lambda: sk.ssm(*ops), reps=3)
+        plain_ms, want = cuda_ms(lambda: ref.ssm_scan(*ops))
+        err = max(close_or_raise(f"ssm {what} at width {w}", a, b,
+                                 MODEL_TOL[torch.bfloat16])
+                  for w, a, b in zip(("y", "state"), got, want))
+        bound_ms, bound_by = ssm_bound(b, s, di, n, state)
+        print(f"ssm_scan {what} at [{b}, {s}, {di}] x {n} bf16: kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.1f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}); max abs error {err:.3g}")
+        out[what] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": None}
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -624,7 +1012,9 @@ def main():
     from repro_torch import faults
     from repro_torch.core import whatif
     from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fk
     from repro_torch.kernels import policy_scan as pk
+    from repro_torch.kernels import ssm_scan as sk
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -634,19 +1024,32 @@ def main():
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
     build_s = build.build()
-    log = build.library_path("policy_scan").with_suffix(".log")
-    print(f"phase 1: nvcc build {build_s:.2f} s ({' '.join(build.NVCC_FLAGS)})")
-    for line in log.read_text().splitlines():
-        if "registers" in line or "entry function" in line:
-            print("  ptxas:", line.strip())
+    print(f"phase 1: nvcc build of {len(build.SOURCES)} sources in "
+          f"parallel, {build_s:.2f} s")
+    for name in build.SOURCES:
+        print(f"  {name}: {' '.join(build.FLAGS[name])}")
+        log = build.library_path(name).with_suffix(".log")
+        if not log.exists():        # built by an earlier run
+            continue
+        for line in log.read_text().splitlines():
+            if "registers" in line or "entry function" in line:
+                print("  ptxas:", line.strip())
     dev = torch.device("cuda", 0)
+    # float32 matrix products in full float32 on the card (5c compares
+    # them with the CPU's)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     check_random_blocks(dev)
     check_table2_kernels(dev, tr, twin_mod)
     check_fault_random_blocks(dev)
+    check_flash_random_blocks(dev)
+    check_ssm_random_blocks(dev)
+    check_smoke_slice(dev)
 
-    # the main path: every count from 0, read right after
-    pk.reset_launches()
+    # the what-if main path: every count from 0, read right after
+    for mod in (pk, fk, sk):
+        mod.reset_launches()
     main_path_table2(whatif, tr, twin_mod, slo_mod)
     main_path_whatif7(whatif, tr, twin_mod, slo_mod, faults)
     sweep_twins, growths16, growths256 = at_width(whatif, tr, twin_mod,
@@ -655,6 +1058,11 @@ def main():
                               growths16)
     launches = dict(pk.launches)
     check(all(v > 0 for v in launches.values()), launches)
+    check(sum(fk.launches.values()) + sum(sk.launches.values()) == 0,
+          "a model kernel ran on the what-if path")
+
+    # the serving main path (counts reset and read inside)
+    launches.update(serve_at_width(dev))
 
     # each kernel against its plain version at the main path's widths
     rows = [
@@ -675,12 +1083,18 @@ def main():
                                         chaos_schedule(faults, 4), dev),
                          False)),
     ]
-    source = "src/repro_torch/kernels/csrc/policy_scan.cu"
+    rows = [(name, "policy_scan", replaces, dict(stats, library_ms=None))
+            for name, replaces, stats in rows]
+    ssm_stats = ssm_vs_plain(dev)
+    rows += [("flash_attention", "flash_attention",
+              "src/repro/kernels/flash_attention.py:23", flash_vs_plain(dev)),
+             ("ssm_scan", "ssm_scan", "src/repro/kernels/ssm_scan.py:27",
+              ssm_stats["prefill"])]
     print(json.dumps({"kernels": [
-        dict({"name": name, "route": "cuda", "source": source,
-              "replaces": replaces, "launches": launches[name]}, **stats,
-             library_ms=None)
-        for name, replaces, stats in rows]}))
+        dict({"name": name, "route": "cuda",
+              "source": f"src/repro_torch/kernels/csrc/{src}.cu",
+              "replaces": replaces, "launches": launches[name]}, **stats)
+        for name, src, replaces, stats in rows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

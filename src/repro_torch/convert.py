@@ -10,6 +10,11 @@ kernels take. Both first check that the reference's policy order is the
 port's, so an index means the same policy on both sides.
 ``sampled_faults_from_arrays`` rebuilds the port's ``SampledFaults`` from
 the reference's fault arrays.
+
+The serving model's state is its parameter dict: ``model_params_from_arrays``
+takes the JAX package's (as numpy arrays, with its flat ``stack.blk{i}.…``
+names and the leading ``groups`` axis, which the port shares) and returns
+the port's, checked leaf for leaf against the port's schema.
 """
 from __future__ import annotations
 
@@ -18,10 +23,12 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.config import ModelConfig
 from repro_torch.core.twin import (PARAM_DIM, Twin, policy_names,
                                    policy_onehot, policy_spec)
 from repro_torch.device import resolve_device
 from repro_torch.faults import ReplayTerm, SampledFaults, validate_sampled
+from repro_torch.models.model import full_schema
 
 
 def check_policy_order(reference_names: Sequence[str]):
@@ -103,3 +110,25 @@ def sampled_faults_from_arrays(cap: np.ndarray, mask: np.ndarray,
         raise ValueError(f"mask {sampled.mask.shape} and cap {cap.shape} "
                          f"must match")
     return validate_sampled(sampled)
+
+
+def model_params_from_arrays(arrays: Dict[str, np.ndarray], cfg: ModelConfig,
+                             device="cuda") -> Dict[str, torch.Tensor]:
+    """The port's parameters from the reference's: every leaf of the
+    port's schema for ``cfg``, with its shape, and no other, as a tensor
+    of ``cfg.param_dtype`` on ``device`` (values unchanged)."""
+    dev = resolve_device(device)
+    schema = full_schema(cfg)
+    if set(arrays) != set(schema):
+        raise ValueError(f"parameter names differ: missing "
+                         f"{sorted(set(schema) - set(arrays))}, unexpected "
+                         f"{sorted(set(arrays) - set(schema))}")
+    dtype = getattr(torch, cfg.param_dtype)
+    out = {}
+    for name, d in schema.items():
+        a = np.asarray(arrays[name])
+        if a.shape != d.shape:
+            raise ValueError(f"{name}: shape {a.shape}, schema {d.shape}")
+        out[name] = torch.from_numpy(np.array(a, np.float32)).to(
+            device=dev, dtype=dtype)
+    return out

@@ -7,10 +7,14 @@ rebuilds and an unchanged one loads at once; ``_build/`` is listed in
 ``.gitignore`` and nothing built is committed. ``build()`` starts one
 ``nvcc`` per source, all together, and waits for them.
 
-Flags: ``sm_90a`` (Hopper); ``--fmad=false`` with IEEE division and square
-root and no flush-to-zero, because the kernels must round every operation
-as the plain versions do (see ``csrc/policy_scan.cu``); ``-Xptxas -v``
-writes each kernel's registers and spills to ``<name>-<hash>.log``.
+Flags, per source (``FLAGS``): ``sm_90a`` (Hopper) and ``-O3`` for all;
+``-Xptxas -v`` writes each kernel's registers and spills to
+``<name>-<hash>.log``. ``policy_scan`` adds ``--fmad=false`` with IEEE
+division and square root and no flush-to-zero, because its kernels must
+round every operation as the plain versions do (see
+``csrc/policy_scan.cu``). The model kernels (``flash_attention``,
+``ssm_scan``) are held to a stated tolerance, not to bits, and may
+contract multiply-adds.
 """
 from __future__ import annotations
 
@@ -25,11 +29,17 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
+#: policy_scan's flags (bit parity with the plain versions)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-prec-div=true", "-prec-sqrt=true",
               "-ftz=false", "-Xptxas", "-v", "-shared", "-Xcompiler",
               "-fPIC")
-SOURCES = ("policy_scan",)
+#: the model kernels' flags (a tolerance, contraction allowed)
+MODEL_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+               "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
+FLAGS = {"policy_scan": NVCC_FLAGS, "flash_attention": MODEL_FLAGS,
+         "ssm_scan": MODEL_FLAGS}
+SOURCES = tuple(FLAGS)
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 
@@ -53,7 +63,7 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+                            + " ".join(FLAGS[name]).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 
@@ -72,7 +82,7 @@ def build(names: Iterable[str] = SOURCES) -> float:
         tmp = out.with_suffix(f".tmp{os.getpid()}")
         log = open(out.with_suffix(".log"), "w")
         procs.append((name, out, tmp, log, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            [nvcc, *FLAGS[name], "-o", str(tmp), str(CSRC / f"{name}.cu")],
             stdout=log, stderr=subprocess.STDOUT)))
     failed = []
     for name, out, tmp, log, proc in procs:

@@ -4,9 +4,12 @@
   of the JAX package ``repro``, not even ``repro.faults`` or ``repro.obs``
   (checked in a fresh interpreter, and in the source text of the package,
   its ``faults`` copy included, and of ``chip_smoke.py``);
-* its entry points default to the card and raise without one;
+* its entry points (the what-if grid's, and the serving slice's
+  ``ServeEngine``, ``models.model.init_params`` and ``init_cache``)
+  default to the card and raise without one;
 * ``chip_smoke.py`` fails, printing no result, where there is no card.
 """
+import dataclasses
 import os
 import pkgutil
 import re
@@ -20,7 +23,10 @@ import torch
 
 import repro_torch
 from repro_torch import faults
+from repro_torch.configs import get_smoke_config
 from repro_torch.core import simulate, slo, traffic, twin, whatif
+from repro_torch.models import model as M
+from repro_torch.serve.engine import ServeEngine
 
 from torch_port_ref import one_torch_thread  # noqa: F401
 
@@ -52,13 +58,17 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert {"repro_torch.kernels.policy_scan", "repro_torch.faults.grid",
-            "repro_torch.faults.sampler"} <= set(_modules())
+            "repro_torch.faults.sampler", "repro_torch.kernels.flash_attention",
+            "repro_torch.kernels.ssm_scan", "repro_torch.models.model",
+            "repro_torch.models.transformer", "repro_torch.serve.engine",
+            "repro_torch.core.spans", "repro_torch.core.pipeline",
+            "repro_torch.configs.jamba15_large_398b"} <= set(_modules())
 
 
 def test_port_sources_do_not_import_jax_or_the_reference():
     files = sorted((SRC / "repro_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py"]
-    assert len(files) > 10
+    assert len(files) > 30
     for f in files:
         hit = FORBIDDEN.search(f.read_text())
         assert hit is None, f"{f}: {hit.group(0).strip()}"
@@ -80,6 +90,9 @@ def test_entry_points_default_to_the_card_and_raise_without_one():
     tr = [traffic.TrafficModel.honda_default("n")]
     loads = tr[0].hourly_loads()
     schedule = faults.FaultSchedule(specs=(faults.outage(),), n_futures=2)
+    cfg = dataclasses.replace(get_smoke_config("jamba-1.5-large-398b"),
+                              moe=None)
+    cpu_params = M.init_params(cfg, device="cpu")
     calls = [
         lambda: whatif.run_grid(tw, tr, slo=slo.SLO()),
         lambda: whatif.run_grid(tw, tr, return_series=True),
@@ -90,6 +103,9 @@ def test_entry_points_default_to_the_card_and_raise_without_one():
         lambda: simulate.simulate_grid(tw, loads[None]),
         lambda: simulate.simulate_year(tw[0], loads),
         lambda: whatif.retention_whatif(tw[0], tr[0], record_mb=0.01),
+        lambda: M.init_params(cfg),
+        lambda: M.init_cache(cfg, 2, 16),
+        lambda: ServeEngine(cfg, cpu_params),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):

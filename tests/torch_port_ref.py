@@ -25,19 +25,40 @@ def reference():
     if aliased:
         jax.experimental.enable_x64 = jax.enable_x64
     try:
-        from repro import faults
+        from repro import configs, faults
         from repro.core import cost, simulate, slo, traffic, twin, whatif
-        from repro.kernels import ops, policy_scan, ref
+        from repro.distributed import sharding
+        from repro.kernels import flash_attention, ops, policy_scan, ref
+        from repro.kernels import ssm_scan
+        from repro.models import attention, layers, model, ssm
         yield SimpleNamespace(cost=cost, simulate=simulate, slo=slo,
                               traffic=traffic, twin=twin, whatif=whatif,
                               ops=ops, policy_scan=policy_scan, ref=ref,
-                              faults=faults, jax=jax)
+                              faults=faults, jax=jax, configs=configs,
+                              sharding=sharding,
+                              flash_attention=flash_attention,
+                              ssm_scan=ssm_scan, attention=attention,
+                              layers=layers, model=model, ssm=ssm)
     finally:
         for name in set(sys.modules) - before:
             if name == "repro" or name.startswith("repro."):
                 del sys.modules[name]
         if aliased:
             del jax.experimental.enable_x64
+
+
+@pytest.fixture(scope="module")
+def model_ref():
+    """The reference for the model-side tests, with no activation mesh
+    installed (its model code then shards nothing; another test may have
+    left one), restored afterwards."""
+    with reference() as r:
+        act = dict(r.sharding._ACT)
+        r.sharding.set_activation_mesh(None, None)
+        try:
+            yield r
+        finally:
+            r.sharding.set_activation_mesh(act["mesh"], act["rules"])
 
 
 @pytest.fixture(autouse=True, scope="module")
