@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of PlantD on one GPU: the what-if year
-grid and the serving pipeline-under-test.
+grid and the serving pipeline-under-test (Jamba-1.5 and rwkv6-7b).
 
     python3 chip_smoke.py
 
 Builds the kernels from ``src/repro_torch/kernels/csrc`` with nvcc (one
 process per source, all started together: the policy scans, benign and
-fault; flash attention; the Mamba selective scan), then:
+fault; flash attention; the Mamba selective scan; the RWKV-6 WKV
+recurrence), then:
 
 1. prints the card (``nvidia-smi`` name and power limit) and the build;
 2. holds each kernel against its plain PyTorch version on the card,
@@ -27,23 +28,30 @@ fault; flash attention; the Mamba selective scan), then:
    whole grid (4a, 4b); a 65,536-row chaos sweep (256 twins x 16
    forecasts x 16 fault futures) held the same way (4c); and a
    4,096-row chaos sweep in series mode against its aggregate twin (4d);
-5. the serving slice (Jamba-1.5-Large without experts): the flash
+5. the serving slices. Jamba-1.5-Large without experts: the flash
    attention kernel against its plain version on random blocks (causal or
    not, GQA g 1 and 8, head dims 64 and 128, bf16 and float32, lengths
    that are not multiples of the tile; 5a); the selective-scan kernel
    likewise (s 1, 37 and 256, a carried-in state, a run split in two
    against one whole run; 5b); the smoke-width model served on the card
    against the port's CPU run (the same greedy tokens, logits within
-   tolerance; 5c); then the main path at full width: ``ServeEngine``
-   with 4 slots serves 8 requests of 1,024-2,048 prompt tokens and 32 new
-   tokens each through 8 layers at d_model 8,192 (5d), a
-   ``torch.profiler`` pass over one more prefill and 8 decode steps says
-   where their time goes (device busy share, top kernels), and each model
-   kernel is held against its plain version at the shapes that path gave
-   it;
-6. prints one JSON line of per-kernel numbers (launches on the main path,
-   error against the plain version, kernel / plain / bound / library
-   times), then the card and ``{"ok": true, ...}`` as its last line.
+   tolerance; 5c). rwkv6-7b: the WKV kernel against its plain version on
+   random blocks (s 1, 37 and 256, head dims 16 and 64, bf16 and float32,
+   a carried-in state, a run split in two against one whole run, and a
+   block of strong decays, mean log w -6, where the TPU kernel errs;
+   5e); its smoke-width model on the card against the CPU run (5f). Then
+   the serving main paths at full width: ``ServeEngine`` with 4 slots
+   serves 8 requests of 1,024-2,048 prompt tokens and 32 new tokens each,
+   through Jamba-1.5-Large cut to 8 layers at d_model 8,192 (5d), and
+   through rwkv6-7b at all 32 layers and every width, its memory freed
+   first (5g); after each, a ``torch.profiler`` pass over one more
+   prefill and 8 decode steps says where their time goes (device busy
+   share, top kernels). Each model kernel is then held against its plain
+   version at the shapes those paths gave it;
+6. prints one JSON line of per-kernel numbers (seven kernels: launches
+   on the main path, error against the plain version, kernel / plain /
+   bound / library times), then the card and ``{"ok": true, ...}`` as
+   its last line.
 
 Any failed check raises, and the script exits non-zero. It needs a CUDA
 card and the repository's ``src``; it never falls back to the CPU.
@@ -89,6 +97,7 @@ MODEL_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
 #: the CPU sum the matrix products in other orders, through 16 layers)
 SLICE_TOL = 1e-4
 JAMBA = "jamba-1.5-large-398b"
+RWKV = "rwkv6-7b"
 
 RPS, USD_HR, LAT = 1.9512, 0.0082, 0.15
 SEED = 0
@@ -735,6 +744,73 @@ def check_ssm_random_blocks(dev):
           f"step 100 equals the whole run within {tol:g}")
 
 
+def wkv_inputs(b, s, h, n, dtype, dev, g, state=True, log_w=None):
+    """r, k, v, w, u, state for the WKV recurrence. ``log_w`` None draws
+    w = exp(-exp(N(-0.5, 0.5))), the JAX package's test decays; a number
+    draws per-step log w around that mean (spread 0.5)."""
+    r, k, v = (torch.randn(b, s, h, n, generator=g, device=dev) * 0.5
+               for _ in range(3))
+    z = torch.randn(b, s, h, n, generator=g, device=dev)
+    w = (torch.exp(-torch.exp(z * 0.5 - 0.5)) if log_w is None
+         else torch.exp(log_w + 0.5 * z))
+    u = torch.randn(h, n, generator=g, device=dev) * 0.3
+    st = (torch.randn(b, h, n, n, generator=g, device=dev) * 0.1
+          if state else None)
+    r, k, v, w = (t.to(dtype) for t in (r, k, v, w))
+    return r, k, v, w, u, st
+
+
+def wkv_close(name, got, want, dtype):
+    """The WKV kernel's (out, state) against the plain version's: out
+    within its type's tolerance, the float32 state within float32's."""
+    return max(close_or_raise(f"{name} {what}", a, w, MODEL_TOL[t])
+               for what, a, w, t in zip(("out", "state"), got, want,
+                                        (dtype, torch.float32)))
+
+
+def check_wkv_random_blocks(dev):
+    """Phase 5e: the WKV kernel against ref.rwkv6_scan."""
+    from repro_torch.kernels import ref, rwkv6_kernel as rk
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    worst, blocks = 0.0, 0
+    for s in (1, 37, 256):
+        for n in (16, 64):
+            for dtype in (torch.float32, torch.bfloat16):
+                for state in (False, True):
+                    ops = wkv_inputs(2, s, 3, n, dtype, dev, g, state)
+                    kept = None if ops[5] is None else ops[5].clone()
+                    got = rk.rwkv6(*ops)
+                    check(got[0].dtype == dtype, got[0].dtype)
+                    worst = max(worst, wkv_close(
+                        f"wkv s={s} n={n} {dtype} state={state}", got,
+                        ref.rwkv6_scan(*ops), dtype))
+                    check(kept is None or torch.equal(kept, ops[5]),
+                          "the kernel modified the state passed in")
+                    blocks += 1
+    # a run split in two, the state carried across, against one whole run
+    r, k, v, w, u, st = wkv_inputs(2, 256, 3, 64, torch.float32, dev, g)
+    o_all, s_all = rk.rwkv6(r, k, v, w, u, st)
+    o1, s1 = rk.rwkv6(r[:, :100], k[:, :100], v[:, :100], w[:, :100], u, st)
+    o2, s2 = rk.rwkv6(r[:, 100:], k[:, 100:], v[:, 100:], w[:, 100:], u, s1)
+    tol = MODEL_TOL[torch.float32]
+    close_or_raise("wkv split out", torch.cat([o1, o2], 1), o_all, tol)
+    close_or_raise("wkv split state", s2, s_all, tol)
+    # strong decays, where the TPU kernel's exponent clamp drops pair
+    # terms (ROADMAP C10): the kernel follows the recurrence
+    strong = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        ops = wkv_inputs(2, 256, 3, 64, dtype, dev, g, log_w=-6.0)
+        strong = max(strong, wkv_close(f"wkv strong decay {dtype}",
+                                       rk.rwkv6(*ops), ref.rwkv6_scan(*ops),
+                                       dtype))
+    torch.cuda.synchronize()
+    print(f"phase 5e: WKV kernel vs plain on {blocks} random blocks (s "
+          f"1/37/256, n 16/64, float32 and bf16, zero or carried-in "
+          f"state): max abs error {worst:.3g}; a run split at step 100 "
+          f"equals the whole run within {tol:g}; strong decays (mean log "
+          f"w -6): max abs error {strong:.3g}")
+
+
 class LogitRecorder:
     """Wraps a serve step: keeps the logits it returns (``keep``) or only
     checks that they are finite."""
@@ -750,14 +826,11 @@ class LogitRecorder:
         return logits, cache
 
 
-def check_smoke_slice(dev):
-    """Phase 5c: the smoke-width slice on the card against the port's CPU
-    run, from one seeded parameter set."""
-    from repro_torch.configs import get_smoke_config
+def check_smoke_slice(dev, phase, cfg, label):
+    """Phases 5c and 5f: a smoke-width slice on the card against the
+    port's CPU run, from one seeded parameter set."""
     from repro_torch.models import model as M
     from repro_torch.serve.engine import Request, ServeEngine
-    cfg = dataclasses.replace(get_smoke_config(JAMBA), moe=None,
-                              num_layers=16, dtype="float32")
     params = M.init_params(cfg, seed=SEED, device="cpu")
     rng = np.random.default_rng(SEED)
     prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
@@ -777,23 +850,30 @@ def check_smoke_slice(dev):
     err = max(close_or_raise(f"smoke slice logits step {i}", a, b,
                              SLICE_TOL)
               for i, (a, b) in enumerate(zip(lg_g, lg_c)))
-    print(f"phase 5c: Jamba smoke without experts (16 layers, 2 groups, "
-          f"float32) served on the card: greedy tokens equal to the CPU "
-          f"run's, logits max abs error {err:.3g} (tol {SLICE_TOL:g})")
+    print(f"phase {phase}: {label} served on the card: greedy tokens equal "
+          f"to the CPU run's, logits max abs error {err:.3g} (tol "
+          f"{SLICE_TOL:g})")
 
 
-def serve_at_width(dev):
-    """Phase 5d, the serving main path: Jamba-1.5-Large cut to 8 layers
-    (one group: 1 attention + 7 Mamba layers) without experts, every
-    width published; 8 requests, two groups of 4. Returns the model
-    kernels' launch counts of this run."""
-    from repro_torch.configs import get_config
+def model_kernels():
+    """The wrappers of the serving path's kernels, whose counts the
+    serving phases reset and read."""
     from repro_torch.kernels import flash_attention as fk
-    from repro_torch.kernels import policy_scan as pk
+    from repro_torch.kernels import rwkv6_kernel as rk
     from repro_torch.kernels import ssm_scan as sk
+    return fk, sk, rk
+
+
+def serve_at_width(dev, phase, cfg, label, expect):
+    """Phases 5d and 5g, the serving main path at every published width
+    of ``cfg`` (``label`` says how its depth was cut): 8 requests, two
+    groups of 4. Holds the model kernels' launch counts of this run to
+    ``expect`` and returns them."""
+    from repro_torch.kernels import policy_scan as pk
     from repro_torch.models import model as M
     from repro_torch.serve.engine import Request, ServeEngine
-    cfg = dataclasses.replace(get_config(JAMBA), num_layers=8, moe=None)
+    torch.cuda.empty_cache()            # what an earlier phase held
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = M.init_params(cfg, seed=SEED, device=dev)
     torch.cuda.synchronize()
@@ -803,8 +883,8 @@ def serve_at_width(dev):
     del params
     torch.cuda.empty_cache()
     held = torch.cuda.memory_allocated()
-    print(f"phase 5d: {cfg.name} cut to {cfg.num_layers} layers without "
-          f"experts: {M.param_count(cfg):,} parameters drawn in "
+    print(f"phase {phase}: {cfg.name} {label}: "
+          f"{M.param_count(cfg):,} parameters drawn in "
           f"{init_s:.1f} s (float32, peak {load_peak / 2**30:.1f} GiB at "
           f"load), held as {held / 2**30:.1f} GiB (matrices in "
           f"{cfg.dtype})")
@@ -824,12 +904,13 @@ def serve_at_width(dev):
     torch.cuda.reset_peak_memory_stats()
 
     # the serving main path: every count from 0, read right after
-    for mod in (pk, fk, sk):
+    mods = model_kernels()
+    for mod in (pk,) + mods:
         mod.reset_launches()
     t0 = time.perf_counter()
     done = eng.serve(reqs)
     wall = time.perf_counter() - t0
-    launches = {**fk.launches, **sk.launches}
+    launches = {k: v for mod in mods for k, v in mod.launches.items()}
     check(sum(pk.launches.values()) == 0, pk.launches)
     peak = torch.cuda.max_memory_allocated()
 
@@ -837,16 +918,13 @@ def serve_at_width(dev):
           [len(r.output) for r in done])
     check(all(0 <= t < cfg.vocab_size for r in done for t in r.output),
           "token out of range")
-    # 2 groups: one prefill each through the attention layer, and
-    # 7 Mamba layers x (1 prefill + 31 decode steps)
-    check(launches == {"flash_attention": 2, "ssm_scan": 2 * 7 * 32},
-          launches)
+    check(launches == expect, (launches, expect))
     ttft = np.array([r.ttft_s for r in done]) * 1e3
     summ = eng.collector.summary()
     pre = 1e3 * np.array([s.duration for s in eng.collector.spans("prefill")])
     dec = 1e3 * np.array([s.duration for s in eng.collector.spans("decode")])
     new_tokens = sum(len(r.output) for r in done)
-    print(f"phase 5d: served 8 requests (prompts {int(lens.min())}-"
+    print(f"phase {phase}: served 8 requests (prompts {int(lens.min())}-"
           f"{int(lens.max())} tokens, padded to {eng._prefill_len}; 32 new "
           f"tokens each) in {wall * 1e3:.1f} ms wall: TTFT p50 "
           f"{np.percentile(ttft, 50):.1f} ms, p95 "
@@ -857,8 +935,9 @@ def serve_at_width(dev):
           f"records); peak memory {peak / 2**30:.2f} GiB "
           f"(max_memory_allocated)")
     print(json.dumps({"serve": {
-        "model": cfg.name, "layers": cfg.num_layers, "params": M.param_count(
-            cfg), "requests": 8, "slots": 4, "max_len": 4096,
+        "phase": phase, "model": cfg.name, "layers": cfg.num_layers,
+        "params": M.param_count(cfg), "requests": 8, "slots": eng.slots,
+        "max_len": eng.max_len,
         "max_new": 32, "wall_ms": wall * 1e3,
         "ttft_ms_p50": float(np.percentile(ttft, 50)),
         "ttft_ms_p95": float(np.percentile(ttft, 95)),
@@ -866,18 +945,20 @@ def serve_at_width(dev):
         "prefill_span_ms": float(pre.mean()),
         "tokens_per_s": new_tokens / wall, "peak_gib": peak / 2**30,
         "held_gib": held / 2**30, "launches": launches}}))
-    profile_serving(eng, prompts[:4], dev)
+    profile_serving(eng, prompts[:4], dev, phase)
     del eng, done
     torch.cuda.empty_cache()
     return launches
 
 
-def profile_serving(eng, prompts, dev):
+def profile_serving(eng, prompts, dev, phase):
     """Where a group's time goes: one prefill and ``steps`` greedy decode
     steps of the engine's own step functions, as ``process_group`` runs
     them, under ``torch.profiler``: wall and summed device (kernel) time,
-    the device's busy share, and the kernels that take most of it. Runs
-    after the main path's counts were read."""
+    the device's busy share, the kernels that take most of it, and the
+    PyTorch operations the host dispatched (top-level ``aten::`` calls,
+    the greedy pick included). Runs after the main path's counts were
+    read."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import model as M
@@ -912,20 +993,27 @@ def profile_serving(eng, prompts, dev):
                    if e.device_type == DeviceType.CUDA
                    and e.self_device_time_total > 0]
         dev_us = sum(e.self_device_time_total for e in kernels)
+        host_ops = sum(1 for e in prof.events()
+                       if e.name.startswith("aten::")
+                       and not (e.cpu_parent is not None
+                                and e.cpu_parent.name.startswith("aten::")))
         if not dev_us:
-            print(f"profile {what}: the profiler saw no device time "
-                  f"(busy share not measured)")
+            print(f"profile {phase} {what}: the profiler saw no device "
+                  f"time (busy share not measured), {host_ops / n:.0f} "
+                  f"PyTorch operations dispatched")
             continue
         top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
         out[what] = {
             "wall_ms": wall_us / n / 1e3, "device_ms": dev_us / n / 1e3,
-            "busy": dev_us / wall_us,
+            "busy": dev_us / wall_us, "host_ops": host_ops / n,
             "top": [[e.key[:70], round(e.self_device_time_total / dev_us, 4),
                      e.count // n] for e in top]}
-        print(f"profile {what} (per {'group' if n == 1 else 'step'}): "
+        print(f"profile {phase} {what} (per "
+              f"{'group' if n == 1 else 'step'}): "
               f"wall {wall_us / n / 1e3:.2f} ms, device {dev_us / n / 1e3:.2f}"
-              f" ms, busy {dev_us / wall_us:.1%}")
-    print(json.dumps({"profile": out}))
+              f" ms, busy {dev_us / wall_us:.1%}, {host_ops / n:.0f} "
+              f"PyTorch operations dispatched")
+    print(json.dumps({"profile": dict(out, phase=phase)}))
 
 
 def flash_vs_plain(dev):
@@ -1002,6 +1090,43 @@ def ssm_vs_plain(dev):
     return out
 
 
+def wkv_bound(b, s, h, n, state_in):
+    """(bound_ms, bound_by): bf16 r, k, v, w and out; float32 u, the
+    state out (and in); 5 n^2 float32 operations per (batch, head, step)
+    on the state and 5 n on the bonus, counted from csrc/rwkv6.cu (the
+    partial sums' reduction left out)."""
+    nbytes = 2 * 5 * b * s * h * n + 4 * (
+        h * n + (2 if state_in else 1) * b * h * n * n)
+    ops = (5 * n * n + 5 * n) * b * h * s
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                      else "operations")
+
+
+def wkv_vs_plain(dev):
+    """The WKV kernel at the rwkv6-7b serving path's shapes: prefill
+    [4, 2,048, 64, 64] from a zero state, and a decode step [4, 1, 64,
+    64] from a carried state; bf16, as the path runs it."""
+    from repro_torch.kernels import ref, rwkv6_kernel as rk
+    b, h, n = 4, 64, 64
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    out = {}
+    for what, s, state in (("prefill", 2048, False), ("decode", 1, True)):
+        ops = wkv_inputs(b, s, h, n, torch.bfloat16, dev, g, state)
+        rk.rwkv6(*ops)                                          # warm-up
+        ms, got = cuda_ms(lambda: rk.rwkv6(*ops), reps=3)
+        plain_ms, want = cuda_ms(lambda: ref.rwkv6_scan(*ops))
+        err = wkv_close(f"wkv {what} at width", got, want, torch.bfloat16)
+        bound_ms, bound_by = wkv_bound(b, s, h, n, state)
+        print(f"rwkv6_scan {what} at [{b}, {s}, {h}, {n}] bf16: kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.1f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}); max abs error {err:.3g}")
+        out[what] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": None}
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -1011,10 +1136,9 @@ def main():
     from repro_torch.core import twin as twin_mod
     from repro_torch import faults
     from repro_torch.core import whatif
+    from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.kernels import build
-    from repro_torch.kernels import flash_attention as fk
     from repro_torch.kernels import policy_scan as pk
-    from repro_torch.kernels import ssm_scan as sk
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1045,10 +1169,17 @@ def main():
     check_fault_random_blocks(dev)
     check_flash_random_blocks(dev)
     check_ssm_random_blocks(dev)
-    check_smoke_slice(dev)
+    check_smoke_slice(dev, "5c", dataclasses.replace(
+        get_smoke_config(JAMBA), moe=None, num_layers=16, dtype="float32"),
+        "Jamba smoke without experts (16 layers, 2 groups, float32)")
+    check_wkv_random_blocks(dev)
+    check_smoke_slice(dev, "5f", dataclasses.replace(
+        get_smoke_config(RWKV), num_layers=4, dtype="float32"),
+        "rwkv6 smoke (4 layers, float32)")
 
     # the what-if main path: every count from 0, read right after
-    for mod in (pk, fk, sk):
+    mods = model_kernels()
+    for mod in (pk,) + mods:
         mod.reset_launches()
     main_path_table2(whatif, tr, twin_mod, slo_mod)
     main_path_whatif7(whatif, tr, twin_mod, slo_mod, faults)
@@ -1058,11 +1189,24 @@ def main():
                               growths16)
     launches = dict(pk.launches)
     check(all(v > 0 for v in launches.values()), launches)
-    check(sum(fk.launches.values()) + sum(sk.launches.values()) == 0,
+    check(sum(sum(mod.launches.values()) for mod in mods) == 0,
           "a model kernel ran on the what-if path")
 
-    # the serving main path (counts reset and read inside)
-    launches.update(serve_at_width(dev))
+    # the serving main paths (counts reset and read inside): Jamba's
+    # attention layer once per group's prefill and 7 Mamba layers x (1
+    # prefill + 31 decode steps) x 2 groups; rwkv6's 32 layers x (1 + 31)
+    # x 2 groups
+    for phase, cfg, label, expect in (
+            ("5d", dataclasses.replace(get_config(JAMBA), num_layers=8,
+                                       moe=None),
+             "cut to 8 layers without experts",
+             {"flash_attention": 2, "ssm_scan": 2 * 7 * 32,
+              "rwkv6_scan": 0}),
+            ("5g", get_config(RWKV), "at all 32 layers",
+             {"flash_attention": 0, "ssm_scan": 0,
+              "rwkv6_scan": 32 * 2 * 32})):
+        got = serve_at_width(dev, phase, cfg, label, expect)
+        launches.update({k: v for k, v in got.items() if v})
 
     # each kernel against its plain version at the main path's widths
     rows = [
@@ -1086,10 +1230,13 @@ def main():
     rows = [(name, "policy_scan", replaces, dict(stats, library_ms=None))
             for name, replaces, stats in rows]
     ssm_stats = ssm_vs_plain(dev)
+    wkv_stats = wkv_vs_plain(dev)
     rows += [("flash_attention", "flash_attention",
               "src/repro/kernels/flash_attention.py:23", flash_vs_plain(dev)),
              ("ssm_scan", "ssm_scan", "src/repro/kernels/ssm_scan.py:27",
-              ssm_stats["prefill"])]
+              ssm_stats["prefill"]),
+             ("rwkv6_scan", "rwkv6", "src/repro/kernels/rwkv6_kernel.py:33",
+              wkv_stats["prefill"])]
     print(json.dumps({"kernels": [
         dict({"name": name, "route": "cuda",
               "source": f"src/repro_torch/kernels/csrc/{src}.cu",

@@ -1,4 +1,6 @@
-"""The port's kernels: the two hand-written CUDA policy-scan kernels
-(``csrc/policy_scan.cu``, built by ``build.py``, wrapped by
-``policy_scan.py``), their plain PyTorch versions (``ref.py``) and the
+"""The port's kernels: the hand-written CUDA sources in ``csrc/`` (the
+policy scans, flash attention, the Mamba selective scan and the RWKV-6
+WKV recurrence; built by ``build.py``), their wrappers
+(``policy_scan.py``, ``flash_attention.py``, ``ssm_scan.py``,
+``rwkv6_kernel.py``), their plain PyTorch versions (``ref.py``) and the
 device dispatch between them (``ops.py``)."""

@@ -13,8 +13,8 @@ Flags, per source (``FLAGS``): ``sm_90a`` (Hopper) and ``-O3`` for all;
 division and square root and no flush-to-zero, because its kernels must
 round every operation as the plain versions do (see
 ``csrc/policy_scan.cu``). The model kernels (``flash_attention``,
-``ssm_scan``) are held to a stated tolerance, not to bits, and may
-contract multiply-adds.
+``ssm_scan``, ``rwkv6``) are held to a stated tolerance, not to bits, and
+may contract multiply-adds.
 """
 from __future__ import annotations
 
@@ -38,7 +38,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 MODEL_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 FLAGS = {"policy_scan": NVCC_FLAGS, "flash_attention": MODEL_FLAGS,
-         "ssm_scan": MODEL_FLAGS}
+         "ssm_scan": MODEL_FLAGS, "rwkv6": MODEL_FLAGS}
 SOURCES = tuple(FLAGS)
 
 _LOADED: Dict[str, ctypes.CDLL] = {}

@@ -1,15 +1,18 @@
 """Dispatch between the port's kernels and their plain versions.
 
-Counterpart: ``repro.kernels.ops`` (its policy scans, ``sdpa`` and
-``ssm_scan``). Where the reference selects with a global Pallas switch,
-the port selects by the device the tensors are on: CUDA tensors run the
-hand-written kernels (``kernels/policy_scan.py``,
-``kernels/flash_attention.py``, ``kernels/ssm_scan.py``), CPU tensors the
-plain PyTorch versions (``kernels/ref.py``). The model half routes as the
-reference does with Pallas on: ``sdpa`` takes the flash kernel's
-semantics only for prefill-shaped calls (no ``kv_len``, no ``logit_cap``,
-more than one query) and ``ref.sdpa`` otherwise, on either device;
-``ssm_scan`` always takes the scan kernel's.
+Counterpart: ``repro.kernels.ops`` (its policy scans, ``sdpa``,
+``ssm_scan`` and ``rwkv6_scan``). Where the reference selects with a
+global Pallas switch, the port selects by the device the tensors are on:
+CUDA tensors run the hand-written kernels (``kernels/policy_scan.py``,
+``kernels/flash_attention.py``, ``kernels/ssm_scan.py``,
+``kernels/rwkv6_kernel.py``), CPU tensors the plain PyTorch versions
+(``kernels/ref.py``). The model half routes as the reference does with
+Pallas on: ``sdpa`` takes the flash kernel's semantics only for
+prefill-shaped calls (no ``kv_len``, no ``logit_cap``, more than one
+query) and ``ref.sdpa`` otherwise, on either device; ``ssm_scan`` and
+``rwkv6_scan`` always take their scan kernels', prefill and decode alike.
+``rwkv6_scan``'s semantics are the exact recurrence of the reference's
+oracle, which its Pallas kernel departs from at strong decays.
 
 In the policy half the selector is exactly one of ``onehot`` [N, P] (a
 mixed grid, the masked blend) or ``policy_index`` (an int: a uniform
@@ -27,6 +30,7 @@ from repro_torch.core.twin import (SHED_FUSE_ALL, SHED_FUSE_DROP,
 from repro_torch.kernels import flash_attention as flash_kernel
 from repro_torch.kernels import policy_scan as policy_kernel
 from repro_torch.kernels import ref
+from repro_torch.kernels import rwkv6_kernel
 from repro_torch.kernels import ssm_scan as ssm_kernel
 
 
@@ -107,3 +111,9 @@ def ssm_scan(x, dt, A, B, C, D, state=None):
     """The Mamba-1 selective scan: (y [b, s, di], final state [b, di, n]),
     the kernel on CUDA tensors, prefill and decode alike."""
     return ssm_kernel.ssm(x, dt, A, B, C, D, state)
+
+
+def rwkv6_scan(r, k, v, w, u, state=None):
+    """The RWKV-6 WKV recurrence: (out [b, s, h, n], final state
+    [b, h, n, n]), the kernel on CUDA tensors, prefill and decode alike."""
+    return rwkv6_kernel.rwkv6(r, k, v, w, u, state)

@@ -19,9 +19,11 @@ at the end. No surrogate branches yet.
 Model half — ``sdpa`` (the reference's ``ref.sdpa``: bf16 probabilities
 before the PV product, ``kv_len`` and ``logit_cap``), ``flash_attention``
 (what the Pallas ``_flash_kernel`` computes: float32 throughout, only the
-output cast) and ``ssm_scan`` (the Mamba-1 recurrence of ``ref.ssm_scan``
-and ``_ssm_kernel``). ``chip_smoke.py`` holds ``csrc/flash_attention.cu``
-and ``csrc/ssm_scan.cu`` against the last two within stated tolerances.
+output cast), ``ssm_scan`` (the Mamba-1 recurrence of ``ref.ssm_scan``
+and ``_ssm_kernel``) and ``rwkv6_scan`` (the RWKV-6 WKV recurrence of
+``ref.rwkv6_scan``, the oracle of ``_wkv_kernel``). ``chip_smoke.py``
+holds ``csrc/flash_attention.cu``, ``csrc/ssm_scan.cu`` and
+``csrc/rwkv6.cu`` against the last three within stated tolerances.
 """
 from __future__ import annotations
 
@@ -250,3 +252,27 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         h = dA * h + dBx
         ys[:, t] = torch.einsum("bdn,bn->bd", h, Ct) + D[None] * xt
     return ys.to(x.dtype), h
+
+
+def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               w: torch.Tensor, u: torch.Tensor, state: torch.Tensor = None):
+    """The RWKV-6 WKV recurrence with data-dependent decay, step by step.
+
+    r, k, v, w [b, s, h, n] (``w`` the decay, already exp(-exp(.)) in
+    (0, 1)); u [h, n] the bonus; ``state`` [b, h, n, n] (key x value,
+    zeros when None). Per step, in float32,
+      o_t = r_t . (S + u k_t v_t^T),   S' = diag(w_t) S + k_t v_t^T.
+    Returns (out [b, s, h, n] in ``r.dtype``, final state [b, h, n, n]
+    float32). The exact recurrence of the reference's oracle, with no
+    chunking and so no clamp on the decay products."""
+    b, s, h, n = r.shape
+    S = (torch.zeros((b, h, n, n), dtype=torch.float32, device=r.device)
+         if state is None else state.float())
+    u = u.float()[None, :, :, None]                              # [1,h,n,1]
+    out = torch.empty((b, s, h, n), dtype=torch.float32, device=r.device)
+    for t in range(s):
+        rt, kt, vt, wt = (x[:, t].float() for x in (r, k, v, w))  # [b,h,n]
+        kv = kt[..., :, None] * vt[..., None, :]                 # [b,h,n,n]
+        out[:, t] = torch.einsum("bhi,bhij->bhj", rt, S + u * kv)
+        S = wt[..., :, None] * S + kv
+    return out.to(r.dtype), S

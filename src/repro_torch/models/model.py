@@ -6,9 +6,10 @@ Counterpart: ``repro.models.model``. Batch convention:
 
 The port runs the text-only, dense-MLP, RoPE-free subset that its slices
 have ported (``transformer.check_supported``): attention and Mamba blocks,
-as in Jamba-1.5 without experts. ``init_params`` and ``init_cache`` take
-``device=`` (default ``"cuda"``) and raise without a card. Caches are
-updated in place; ``prefill`` and ``decode_step`` return the same dict.
+as in Jamba-1.5 without experts, and RWKV-6 blocks, as in rwkv6-7b.
+``init_params`` and ``init_cache`` take ``device=`` (default ``"cuda"``)
+and raise without a card. Caches are updated in place; ``prefill`` and
+``decode_step`` return the same dict.
 """
 from __future__ import annotations
 
@@ -24,10 +25,11 @@ from repro_torch.models.layers import (ParamDef, Params, Schema, apply_norm,
                                        embed_tokens, init_from_schema,
                                        norm_schema, unembed)
 
-#: leaves the reference reads in float32 (norm scales and biases, and the
-#: SSM's dt_bias, A_log and D); every other leaf it casts to the compute
-#: dtype at use
-FLOAT32_LEAVES = ("scale", "bias", "dt_bias", "A_log", "D")
+#: leaves the reference reads in float32 (norm scales and biases, the
+#: SSM's dt_bias, A_log and D, and RWKV-6's decay_base, decay_w2 and
+#: bonus); every other leaf it casts to the compute dtype at use
+FLOAT32_LEAVES = ("scale", "bias", "dt_bias", "A_log", "D", "decay_base",
+                  "decay_w2", "bonus")
 
 
 def full_schema(cfg: ModelConfig) -> Schema:

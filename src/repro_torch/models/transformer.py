@@ -8,9 +8,12 @@ reference does for its ``lax.scan``. Here a Python loop walks that axis:
 group g's parameters and cache are views ``leaf[g]``, and the new serve
 state is written back into the stacked cache tensors in place.
 
-Block kinds ported: ``attn`` (norm, GQA attention, norm, dense MLP) and
-``mamba`` (norm, selective SSM, norm, dense MLP). ``rwkv`` and ``xattn``
-blocks, MLA and MoE raise ``NotImplementedError``.
+Block kinds ported: ``attn`` (norm, GQA attention, norm, dense MLP),
+``mamba`` (norm, selective SSM, norm, dense MLP) and ``rwkv`` (norm,
+RWKV-6 time-mix, norm, RWKV channel-mix; its serve state ``x_att``,
+``x_ffn`` and ``wkv`` sits under the block's prefix, not under
+``.mixer``, as in the reference). ``xattn`` blocks, MLA and MoE raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -20,12 +23,13 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import rwkv6 as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (Params, Schema, apply_mlp,
                                        apply_norm, mlp_schema, norm_schema,
                                        prefix_schema, stack_schema)
 
-BLOCK_KINDS = ("attn", "mamba")
+BLOCK_KINDS = ("attn", "mamba", "rwkv")
 
 
 def n_groups(cfg: ModelConfig) -> int:
@@ -69,10 +73,15 @@ def _block_schema(cfg: ModelConfig, kind: str, idx: int) -> Schema:
     s.update(norm_schema(cfg, f"{pre}.norm1"))
     if kind == "attn":
         s.update(attn_mod.gqa_schema(cfg, f"{pre}.attn"))
-    else:
+    elif kind == "mamba":
         s.update(ssm_mod.mamba_schema(cfg, f"{pre}.mixer"))
+    else:
+        s.update(rwkv_mod.rwkv_schema(cfg, f"{pre}.mixer"))
     s.update(norm_schema(cfg, f"{pre}.norm2"))
-    s.update(mlp_schema(cfg, f"{pre}.mlp"))
+    if kind == "rwkv":
+        s.update(rwkv_mod.channel_mix_schema(cfg, f"{pre}.cmix"))
+    else:
+        s.update(mlp_schema(cfg, f"{pre}.mlp"))
     return s
 
 
@@ -98,8 +107,10 @@ def group_cache_schema(cfg: ModelConfig, batch: int, max_len: int) -> Schema:
         if kind == "attn":
             s.update(attn_mod.gqa_cache_schema(cfg, f"{pre}.attn", batch,
                                                max_len))
-        else:
+        elif kind == "mamba":
             s.update(ssm_mod.mamba_state_schema(cfg, f"{pre}.mixer", batch))
+        else:
+            s.update(rwkv_mod.rwkv_state_schema(cfg, pre, batch))
     return s
 
 
@@ -143,13 +154,22 @@ def _apply_block(gp: Params, cfg: ModelConfig, idx: int, kind: str,
         sub = _subcache(cache, name, extra)
         y, sub = attn_mod.apply_gqa(gp, name, h, positions, cfg, sub)
         _store(cache_out, name, sub, ("k", "v"))
-    else:
+    elif kind == "mamba":
         name = f"{pre}.mixer"
         sub = _subcache(cache, name, {"decode": decode})
         y, sub = ssm_mod.apply_mamba(gp, name, h, cfg, sub)
         _store(cache_out, name, sub, ("conv", "ssm"))
+    else:
+        sub = _subcache(cache, pre, {"decode": decode})
+        y, sub = rwkv_mod.apply_time_mix(gp, f"{pre}.mixer", h, cfg, sub)
+        _store(cache_out, pre, sub, ("x_att", "wkv"))
     x = x + y
     h = apply_norm(gp, f"{pre}.norm2", x, cfg)
+    if kind == "rwkv":
+        sub = _subcache(cache, pre, {"decode": decode})
+        y, sub = rwkv_mod.apply_channel_mix(gp, f"{pre}.cmix", h, cfg, sub)
+        _store(cache_out, pre, sub, ("x_ffn",))
+        return x + y
     return x + apply_mlp(gp, f"{pre}.mlp", h, cfg)
 
 

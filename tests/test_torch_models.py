@@ -45,6 +45,7 @@ from repro_torch.models import model as M
 
 from torch_port_ref import one_torch_thread  # noqa: F401
 from torch_port_ref import model_ref as jref  # noqa: F401
+from torch_port_ref import both, f32
 
 BF16_STEP = 2.0 ** -7
 FLASH_TOL = {torch.float32: 1e-6, torch.bfloat16: BF16_STEP}
@@ -56,20 +57,6 @@ BLOCK_TOL = {torch.float32: 1e-6, torch.bfloat16: BF16_STEP}
 #: the neighbouring value), as in chip_smoke.py
 CARD_TOL = {torch.float32: 1e-5, torch.bfloat16: BF16_STEP}
 DTYPES = [torch.float32, torch.bfloat16]
-
-
-def both(jref, a, dtype):
-    """One float array as (jax array, torch tensor) of ``dtype`` holding
-    the same values."""
-    jnp = jref.jax.numpy
-    j = jnp.asarray(np.asarray(a, np.float32)).astype(
-        {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}[dtype])
-    return j, torch.from_numpy(np.array(j.astype(jnp.float32))).to(dtype)
-
-
-def f32(x):
-    return np.asarray(x.float() if isinstance(x, torch.Tensor) else
-                      np.asarray(x, np.float32), np.float32)
 
 
 def close(got, want, atol, rtol, what=""):
@@ -236,9 +223,9 @@ def test_build_gives_each_source_its_flags():
     """The model kernels may contract; policy_scan keeps its IEEE flags
     (and so its library hash)."""
     assert set(build.SOURCES) == {"policy_scan", "flash_attention",
-                                  "ssm_scan"}
+                                  "ssm_scan", "rwkv6"}
     assert build.FLAGS["policy_scan"] is build.NVCC_FLAGS
-    for name in ("flash_attention", "ssm_scan"):
+    for name in ("flash_attention", "ssm_scan", "rwkv6"):
         flags = " ".join(build.FLAGS[name])
         assert "arch=compute_90a,code=sm_90a" in flags
         assert "--fmad=false" not in flags and "fast_math" not in flags
@@ -416,15 +403,15 @@ def test_model_params_from_arrays_checks_names_and_shapes():
         model_params_from_arrays(bad, cfg, device="cpu")
 
 
-@pytest.mark.parametrize("what", ["moe", "rope", "rwkv", "mla"])
+@pytest.mark.parametrize("what", ["moe", "rope", "whisper", "mla"])
 def test_unported_model_features_raise(what):
     cfg = _cfg(torch.float32)
     if what == "moe":
         cfg = get_smoke_config("jamba-1.5-large-398b")
     elif what == "rope":
         cfg = get_smoke_config("llama3.2-1b")
-    elif what == "rwkv":
-        cfg = get_smoke_config("rwkv6-7b")
+    elif what == "whisper":         # encoder-decoder, xattn blocks
+        cfg = get_smoke_config("whisper-small")
     else:
         cfg = dataclasses.replace(get_smoke_config("minicpm3-4b"), moe=None)
     with pytest.raises(NotImplementedError, match="not ported"):

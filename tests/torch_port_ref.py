@@ -29,16 +29,17 @@ def reference():
         from repro.core import cost, simulate, slo, traffic, twin, whatif
         from repro.distributed import sharding
         from repro.kernels import flash_attention, ops, policy_scan, ref
-        from repro.kernels import ssm_scan
-        from repro.models import attention, layers, model, ssm
+        from repro.kernels import rwkv6_kernel, ssm_scan
+        from repro.models import attention, layers, model, rwkv6, ssm
         yield SimpleNamespace(cost=cost, simulate=simulate, slo=slo,
                               traffic=traffic, twin=twin, whatif=whatif,
                               ops=ops, policy_scan=policy_scan, ref=ref,
                               faults=faults, jax=jax, configs=configs,
                               sharding=sharding,
                               flash_attention=flash_attention,
-                              ssm_scan=ssm_scan, attention=attention,
-                              layers=layers, model=model, ssm=ssm)
+                              ssm_scan=ssm_scan, rwkv6_kernel=rwkv6_kernel,
+                              attention=attention, layers=layers,
+                              model=model, ssm=ssm, rwkv6=rwkv6)
     finally:
         for name in set(sys.modules) - before:
             if name == "repro" or name.startswith("repro."):
@@ -70,6 +71,22 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+def both(jref, a, dtype):
+    """One float array as (jax array, torch tensor) of ``dtype`` (float32
+    or bfloat16) holding the same values: a bf16 input is rounded once
+    and handed to both sides."""
+    jnp = jref.jax.numpy
+    j = jnp.asarray(np.asarray(a, np.float32)).astype(
+        {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}[dtype])
+    return j, torch.from_numpy(np.array(j.astype(jnp.float32))).to(dtype)
+
+
+def f32(x) -> np.ndarray:
+    """A torch tensor or array-like as a float32 numpy array."""
+    return np.asarray(x.float() if isinstance(x, torch.Tensor) else
+                      np.asarray(x, np.float32), np.float32)
 
 
 def bits(x) -> np.ndarray:
