@@ -6,10 +6,12 @@ grid and the serving pipeline-under-test (Jamba-1.5 and rwkv6-7b).
 
 Builds the kernels from ``src/repro_torch/kernels/csrc`` with nvcc (one
 process per source, all started together: the policy scans, benign and
-fault; flash attention; the Mamba selective scan; the RWKV-6 WKV
-recurrence), then:
+fault; flash attention, bf16 and float32; the Mamba selective scan; the
+RWKV-6 WKV recurrence, chunked and per step), then:
 
-1. prints the card (``nvidia-smi`` name and power limit) and the build;
+1. prints the card (``nvidia-smi`` name and power limit) and the build,
+   and checks the machine code (``cuobjdump -sass``): HGMMA and TMA loads
+   in the flash library, HMMA and cp.async in the WKV library (1b);
 2. holds each kernel against its plain PyTorch version on the card,
    bitwise: mixed-policy random blocks (foreign parameters in every slot,
    dt 1 and 1/60, N not a multiple of 32, both SLO modes) and the Table II
@@ -29,29 +31,32 @@ recurrence), then:
    forecasts x 16 fault futures) held the same way (4c); and a
    4,096-row chaos sweep in series mode against its aggregate twin (4d);
 5. the serving slices. Jamba-1.5-Large without experts: the flash
-   attention kernel against its plain version on random blocks (causal or
-   not, GQA g 1 and 8, head dims 64 and 128, bf16 and float32, lengths
-   that are not multiples of the tile; 5a); the selective-scan kernel
-   likewise (s 1, 37 and 256, a carried-in state, a run split in two
-   against one whole run; 5b); the smoke-width model served on the card
-   against the port's CPU run (the same greedy tokens, logits within
-   tolerance; 5c). rwkv6-7b: the WKV kernel against its plain version on
-   random blocks (s 1, 37 and 256, head dims 16 and 64, bf16 and float32,
-   a carried-in state, a run split in two against one whole run, and a
-   block of strong decays, mean log w -6, where the TPU kernel errs;
-   5e); its smoke-width model on the card against the CPU run (5f). Then
-   the serving main paths at full width: ``ServeEngine`` with 4 slots
-   serves 8 requests of 1,024-2,048 prompt tokens and 32 new tokens each,
-   through Jamba-1.5-Large cut to 8 layers at d_model 8,192 (5d), and
-   through rwkv6-7b at all 32 layers and every width, its memory freed
-   first (5g); after each, a ``torch.profiler`` pass over one more
-   prefill and 8 decode steps says where their time goes (device busy
-   share, top kernels). Each model kernel is then held against its plain
-   version at the shapes those paths gave it;
-6. prints one JSON line of per-kernel numbers (seven kernels: launches
+   kernels against their plain version on random blocks (float32 on the
+   CUDA cores, bf16 on the tensor cores; causal or not, GQA g 1, 4 and
+   8, head dims 64 and 128, sq and sk around the 128-row tile and unequal,
+   and the prefill shape; 5a); the selective-scan kernel likewise (s 1,
+   37 and 256, a carried-in state, a run split in two against one whole
+   run; 5b); the smoke-width model served on the card against the port's
+   CPU run (the same greedy tokens, logits within tolerance; 5c).
+   rwkv6-7b: the WKV kernels against their plain version on random
+   blocks (the per-step kernel at s 1 and 37, the chunked one at s 100,
+   256 and 300, head dims 16 and 64, bf16 and float32, a carried-in
+   state, runs split at a chunk boundary and inside a chunk against one
+   whole run, and a block of strong decays, mean log w -6, where the
+   TPU kernel errs; 5e); its smoke-width model on the card against the
+   CPU run (5f). Then the serving main paths at full width:
+   ``ServeEngine`` with 4 slots serves 8 requests of 1,024-2,048 prompt
+   tokens and 32 new tokens each, through Jamba-1.5-Large cut to 8
+   layers at d_model 8,192 (5d), and through rwkv6-7b at all 32 layers
+   and every width, its memory freed first (5g); after each, a
+   ``torch.profiler`` pass over one more prefill and 8 decode steps says
+   where their time goes (device busy share, top kernels). Each model
+   kernel is then held against its plain version at the shapes those
+   paths gave it;
+6. prints one JSON line of per-kernel numbers (eight kernels: launches
    on the main path, error against the plain version, kernel / plain /
-   bound / library times), then the card and ``{"ok": true, ...}`` as
-   its last line.
+   bound / library times; no kernel may read faster than its bound),
+   then the card and ``{"ok": true, ...}`` as its last line.
 
 Any failed check raises, and the script exits non-zero. It needs a CUDA
 card and the repository's ``src``; it never falls back to the CPU.
@@ -88,6 +93,9 @@ FAULT_AGG_OPS = 3                                   # A_FLTH, A_FOKH
 #: H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet), the bound of
 #: attention's matrix products
 BF16_OPS_PER_S = 989e12
+#: H100 SXM dense TF32 tensor-core peak (NVIDIA data sheet), the bound of
+#: the chunked WKV kernel's products (its 3xTF32 split counted once)
+TF32_OPS_PER_S = 495e12
 #: the model kernels against their plain versions (atol = rtol over
 #: |want|): float32 sums run in another order with contracted
 #: multiply-adds; a bf16 output may take the neighbouring bf16 value
@@ -667,17 +675,28 @@ def close_or_raise(name, got, want, tol):
 
 
 def check_flash_random_blocks(dev):
-    """Phase 5a: the flash kernel against ref.flash_attention."""
+    """Phase 5a: the flash kernels against ref.flash_attention: both types
+    on random blocks, then bf16 (the wgmma kernel) around its 128-row
+    tiles and at the serving path's prefill shape."""
     from repro_torch.kernels import flash_attention as fk, ref
     g = torch.Generator(device=dev).manual_seed(SEED)
     cases = [(2, 200, 200, 8, 8, 64),      # g 1, sq not a multiple of 64
              (2, 200, 200, 8, 1, 128),     # g 8
              (1, 130, 257, 16, 2, 128),    # sq != sk
              (1, 300, 64, 8, 8, 64)]       # more queries than keys
+    bf16_cases = [(1, sq, sk, 8, 2, d) for d in (128, 64)
+                  for sq, sk in ((127, 129), (129, 127), (300, 129),
+                                 (129, 300), (300, 300))]
+    bf16_cases.append((4, 2048, 2048, 64, 8, 128))   # the prefill shape
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    for b, sq, sk, h, kh, d in cases:
-        for causal in (True, False):
-            for dtype in (torch.float32, torch.bfloat16):
+    fk.reset_launches()
+    n_cases = 0
+    for (b, sq, sk, h, kh, d), dtypes, causals in (
+            [(c, (torch.float32, torch.bfloat16), (True, False))
+             for c in cases]
+            + [(c, (torch.bfloat16,), (True, False)) for c in bf16_cases]):
+        for causal in causals:
+            for dtype in dtypes:
                 q = torch.randn(b, sq, h, d, generator=g, device=dev)
                 k = torch.randn(b, sk, kh, d, generator=g, device=dev)
                 v = torch.randn(b, sk, kh, d, generator=g, device=dev)
@@ -689,12 +708,18 @@ def check_flash_random_blocks(dev):
                     f"flash {(b, sq, sk, h, kh, d)} causal={causal} "
                     f"{dtype}", got, want, MODEL_TOL[dtype])
                 worst[dtype] = max(worst[dtype], err)
+                n_cases += 1
     torch.cuda.synchronize()
-    print(f"phase 5a: flash kernel vs plain on {len(cases) * 4} random "
-          f"blocks (causal or not, g 1/8, d 64/128, sq 130-300): max abs "
+    n_f32 = len(cases) * 2
+    check(fk.launches == {"flash_attention": n_cases - n_f32,
+                          "flash_attention_f32": n_f32}, fk.launches)
+    print(f"phase 5a: flash kernels vs plain on {n_cases} random blocks "
+          f"(causal or not, g 1/4/8, d 64/128, sq and sk 64-300 around "
+          f"the 128-row tile, and the prefill shape in bf16): max abs "
           f"error float32 {worst[torch.float32]:.3g} (tol "
           f"{MODEL_TOL[torch.float32]:g}), bf16 "
-          f"{worst[torch.bfloat16]:.3g} (tol {MODEL_TOL[torch.bfloat16]:g})")
+          f"{worst[torch.bfloat16]:.3g} (tol {MODEL_TOL[torch.bfloat16]:g});"
+          f" launches {fk.launches}")
 
 
 def ssm_inputs(b, s, di, n, dtype, dev, g, state=True):
@@ -769,11 +794,15 @@ def wkv_close(name, got, want, dtype):
 
 
 def check_wkv_random_blocks(dev):
-    """Phase 5e: the WKV kernel against ref.rwkv6_scan."""
+    """Phase 5e: the WKV kernels against ref.rwkv6_scan: the per-step
+    kernel (s < 64) and the chunked one (s >= 64; s 100 and 300 end in a
+    ragged chunk), runs split at a chunk boundary and inside a chunk, and
+    strong decays through the chunked kernel."""
     from repro_torch.kernels import ref, rwkv6_kernel as rk
     g = torch.Generator(device=dev).manual_seed(SEED + 4)
     worst, blocks = 0.0, 0
-    for s in (1, 37, 256):
+    rk.reset_launches()
+    for s in (1, 37, 100, 256, 300):
         for n in (16, 64):
             for dtype in (torch.float32, torch.bfloat16):
                 for state in (False, True):
@@ -787,28 +816,38 @@ def check_wkv_random_blocks(dev):
                     check(kept is None or torch.equal(kept, ops[5]),
                           "the kernel modified the state passed in")
                     blocks += 1
-    # a run split in two, the state carried across, against one whole run
+    check(rk.launches == {"rwkv6_chunked": 24, "rwkv6_scan": 16},
+          rk.launches)
+    # a run split in two, the state carried across, against one whole
+    # run: at step 128 (a chunk boundary) and at step 100 (inside one)
     r, k, v, w, u, st = wkv_inputs(2, 256, 3, 64, torch.float32, dev, g)
     o_all, s_all = rk.rwkv6(r, k, v, w, u, st)
-    o1, s1 = rk.rwkv6(r[:, :100], k[:, :100], v[:, :100], w[:, :100], u, st)
-    o2, s2 = rk.rwkv6(r[:, 100:], k[:, 100:], v[:, 100:], w[:, 100:], u, s1)
     tol = MODEL_TOL[torch.float32]
-    close_or_raise("wkv split out", torch.cat([o1, o2], 1), o_all, tol)
-    close_or_raise("wkv split state", s2, s_all, tol)
+    for cut in (128, 100):
+        o1, s1 = rk.rwkv6(r[:, :cut], k[:, :cut], v[:, :cut], w[:, :cut],
+                          u, st)
+        o2, s2 = rk.rwkv6(r[:, cut:], k[:, cut:], v[:, cut:], w[:, cut:],
+                          u, s1)
+        close_or_raise(f"wkv split at {cut} out", torch.cat([o1, o2], 1),
+                       o_all, tol)
+        close_or_raise(f"wkv split at {cut} state", s2, s_all, tol)
     # strong decays, where the TPU kernel's exponent clamp drops pair
-    # terms (ROADMAP C10): the kernel follows the recurrence
+    # terms (ROADMAP C10): the chunked kernel follows the recurrence
     strong = 0.0
+    rk.reset_launches()
     for dtype in (torch.float32, torch.bfloat16):
         ops = wkv_inputs(2, 256, 3, 64, dtype, dev, g, log_w=-6.0)
         strong = max(strong, wkv_close(f"wkv strong decay {dtype}",
                                        rk.rwkv6(*ops), ref.rwkv6_scan(*ops),
                                        dtype))
+    check(rk.launches == {"rwkv6_chunked": 2, "rwkv6_scan": 0}, rk.launches)
     torch.cuda.synchronize()
-    print(f"phase 5e: WKV kernel vs plain on {blocks} random blocks (s "
-          f"1/37/256, n 16/64, float32 and bf16, zero or carried-in "
-          f"state): max abs error {worst:.3g}; a run split at step 100 "
-          f"equals the whole run within {tol:g}; strong decays (mean log "
-          f"w -6): max abs error {strong:.3g}")
+    print(f"phase 5e: WKV kernels vs plain on {blocks} random blocks (s "
+          f"1/37 per step, 100/256/300 chunked; n 16/64, float32 and "
+          f"bf16, zero or carried-in state): max abs error {worst:.3g}; "
+          f"runs split at steps 128 and 100 equal the whole run within "
+          f"{tol:g}; strong decays (mean log w -6, chunked): max abs error "
+          f"{strong:.3g}")
 
 
 class LogitRecorder:
@@ -1027,7 +1066,7 @@ def flash_vs_plain(dev):
     k = torch.randn(b, s, kh, d, generator=g, device=dev).bfloat16()
     v = torch.randn(b, s, kh, d, generator=g, device=dev).bfloat16()
     fk.flash_attention(q, k, v)                                 # warm-up
-    ms, got = cuda_ms(lambda: fk.flash_attention(q, k, v), reps=3)
+    ms, got = cuda_ms(lambda: fk.flash_attention(q, k, v), reps=10)
     plain_ms, want = cuda_ms(lambda: ref.flash_attention(q, k, v))
     err = close_or_raise("flash at width", got, want,
                          MODEL_TOL[torch.bfloat16])
@@ -1038,15 +1077,17 @@ def flash_vs_plain(dev):
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             is_causal=True, enable_gqa=True)
     library()
-    library_ms, _ = cuda_ms(library, reps=3)
+    library_ms, _ = cuda_ms(library, reps=10)
     flops = 4 * b * h * s * s * d / 2                  # causal: half
     nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
     t_ops, t_bytes = flops / BF16_OPS_PER_S, nbytes / HBM_BYTES_PER_S
     bound_ms = 1e3 * max(t_ops, t_bytes)
     bound_by = "operations" if t_ops >= t_bytes else "bytes"
     print(f"flash_attention at q {list(q.shape)} bf16 causal: kernel "
-          f"{ms:.3f} ms, plain {plain_ms:.1f} ms, SDPA {library_ms:.3f} ms, "
-          f"bound {bound_ms:.4f} ms ({bound_by}); max abs error {err:.3g}")
+          f"{ms:.3f} ms, plain {plain_ms:.1f} ms, SDPA {library_ms:.3f} ms "
+          f"(kernel / SDPA {ms / library_ms:.2f}), bound {bound_ms:.4f} ms "
+          f"({bound_by}; the kernel at {bound_ms / ms:.1%} of it, "
+          f"{flops / ms / 1e9:.0f} TFLOP/s); max abs error {err:.3g}")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms}
@@ -1091,22 +1132,26 @@ def ssm_vs_plain(dev):
 
 
 def wkv_bound(b, s, h, n, state_in):
-    """(bound_ms, bound_by): bf16 r, k, v, w and out; float32 u, the
-    state out (and in); 5 n^2 float32 operations per (batch, head, step)
-    on the state and 5 n on the bonus, counted from csrc/rwkv6.cu (the
-    partial sums' reduction left out)."""
+    """(bound_ms, bound_by): the least time for the function. Bytes: bf16
+    r, k, v, w and out, float32 u, the state out (and in). Operations:
+    the chunked form's multiply-adds (csrc/rwkv6.cu, chunks of 32 steps,
+    sub-blocks of 8) over the TF32 tensor-core peak, the 3xTF32 split
+    counted once: per step 2 n^2 (inter, state), 24 n (pairs x v), 12 n
+    (the off-diagonal pair blocks) and 4.5 n (the diagonal pairs and the
+    bonus)."""
     nbytes = 2 * 5 * b * s * h * n + 4 * (
         h * n + (2 if state_in else 1) * b * h * n * n)
-    ops = (5 * n * n + 5 * n) * b * h * s
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    macs = (2 * n * n + (24 + 12 + 4.5) * n) * b * h * s
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2 * macs / TF32_OPS_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                       else "operations")
 
 
 def wkv_vs_plain(dev):
-    """The WKV kernel at the rwkv6-7b serving path's shapes: prefill
-    [4, 2,048, 64, 64] from a zero state, and a decode step [4, 1, 64,
-    64] from a carried state; bf16, as the path runs it."""
+    """The WKV kernels at the rwkv6-7b serving path's shapes: prefill
+    [4, 2,048, 64, 64] from a zero state (the chunked kernel), and a
+    decode step [4, 1, 64, 64] from a carried state (the per-step
+    kernel); bf16, as the path runs them."""
     from repro_torch.kernels import ref, rwkv6_kernel as rk
     b, h, n = 4, 64, 64
     g = torch.Generator(device=dev).manual_seed(SEED + 5)
@@ -1114,17 +1159,38 @@ def wkv_vs_plain(dev):
     for what, s, state in (("prefill", 2048, False), ("decode", 1, True)):
         ops = wkv_inputs(b, s, h, n, torch.bfloat16, dev, g, state)
         rk.rwkv6(*ops)                                          # warm-up
-        ms, got = cuda_ms(lambda: rk.rwkv6(*ops), reps=3)
+        ms, got = cuda_ms(lambda: rk.rwkv6(*ops), reps=10)
         plain_ms, want = cuda_ms(lambda: ref.rwkv6_scan(*ops))
         err = wkv_close(f"wkv {what} at width", got, want, torch.bfloat16)
         bound_ms, bound_by = wkv_bound(b, s, h, n, state)
-        print(f"rwkv6_scan {what} at [{b}, {s}, {h}, {n}] bf16: kernel "
+        name = ("rwkv6_chunked" if s >= rk.CHUNKED_MIN_STEPS
+                else "rwkv6_scan")
+        print(f"{name} {what} at [{b}, {s}, {h}, {n}] bf16: kernel "
               f"{ms:.4f} ms, plain {plain_ms:.1f} ms, bound "
-              f"{bound_ms:.4f} ms ({bound_by}); max abs error {err:.3g}")
+              f"{bound_ms:.4f} ms (set by {bound_by}; the kernel at "
+              f"{bound_ms / ms:.1%} of it); max abs error {err:.3g}")
         out[what] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by,
                      "library_ms": None}
     return out
+
+
+def sass_check(build):
+    """Phase 1b: the built libraries' machine code holds the instructions
+    the redesigned kernels are built on: wgmma (HGMMA) and TMA loads
+    (UTMALDG) in flash_attention, mma.sync (HMMA) and cp.async (LDGSTS)
+    in rwkv6."""
+    tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    for name, want in (("flash_attention", ("HGMMA", "UTMALDG")),
+                       ("rwkv6", ("HMMA", "LDGSTS"))):
+        sass = subprocess.run([tool, "-sass", str(build.library_path(name))],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        counts = {op: sum(op in line for line in sass.splitlines())
+                  for op in want}
+        check(all(counts.values()), (name, counts))
+        print(f"phase 1b: cuobjdump -sass {name}: "
+              + ", ".join(f"{n} {op} instructions" for op, n in counts.items()))
 
 
 def main():
@@ -1158,6 +1224,7 @@ def main():
         for line in log.read_text().splitlines():
             if "registers" in line or "entry function" in line:
                 print("  ptxas:", line.strip())
+    sass_check(build)
     dev = torch.device("cuda", 0)
     # float32 matrix products in full float32 on the card (5c compares
     # them with the CPU's)
@@ -1193,18 +1260,19 @@ def main():
           "a model kernel ran on the what-if path")
 
     # the serving main paths (counts reset and read inside): Jamba's
-    # attention layer once per group's prefill and 7 Mamba layers x (1
-    # prefill + 31 decode steps) x 2 groups; rwkv6's 32 layers x (1 + 31)
-    # x 2 groups
+    # attention layer once per group's prefill (bf16: the wgmma kernel)
+    # and 7 Mamba layers x (1 prefill + 31 decode steps) x 2 groups;
+    # rwkv6's 32 layers x 2 groups' prefill through the chunked WKV
+    # kernel and x 31 decode steps x 2 groups through the per-step one
     for phase, cfg, label, expect in (
             ("5d", dataclasses.replace(get_config(JAMBA), num_layers=8,
                                        moe=None),
              "cut to 8 layers without experts",
-             {"flash_attention": 2, "ssm_scan": 2 * 7 * 32,
-              "rwkv6_scan": 0}),
+             {"flash_attention": 2, "flash_attention_f32": 0,
+              "ssm_scan": 2 * 7 * 32, "rwkv6_chunked": 0, "rwkv6_scan": 0}),
             ("5g", get_config(RWKV), "at all 32 layers",
-             {"flash_attention": 0, "ssm_scan": 0,
-              "rwkv6_scan": 32 * 2 * 32})):
+             {"flash_attention": 0, "flash_attention_f32": 0, "ssm_scan": 0,
+              "rwkv6_chunked": 32 * 2, "rwkv6_scan": 32 * 2 * 31})):
         got = serve_at_width(dev, phase, cfg, label, expect)
         launches.update({k: v for k, v in got.items() if v})
 
@@ -1235,8 +1303,13 @@ def main():
               "src/repro/kernels/flash_attention.py:23", flash_vs_plain(dev)),
              ("ssm_scan", "ssm_scan", "src/repro/kernels/ssm_scan.py:27",
               ssm_stats["prefill"]),
+             ("rwkv6_chunked", "rwkv6",
+              "src/repro/kernels/rwkv6_kernel.py:33", wkv_stats["prefill"]),
              ("rwkv6_scan", "rwkv6", "src/repro/kernels/rwkv6_kernel.py:33",
-              wkv_stats["prefill"])]
+              wkv_stats["decode"])]
+    # no kernel runs faster than the least time the card could take
+    for name, _, _, stats in rows:
+        check(stats["ms"] >= stats["bound_ms"], (name, stats))
     print(json.dumps({"kernels": [
         dict({"name": name, "route": "cuda",
               "source": f"src/repro_torch/kernels/csrc/{src}.cu",

@@ -14,7 +14,9 @@ division and square root and no flush-to-zero, because its kernels must
 round every operation as the plain versions do (see
 ``csrc/policy_scan.cu``). The model kernels (``flash_attention``,
 ``ssm_scan``, ``rwkv6``) are held to a stated tolerance, not to bits, and
-may contract multiply-adds.
+may contract multiply-adds. ``flash_attention`` also links ``-ldl``: it
+finds libcuda's ``cuTensorMapEncodeTiled`` (TMA descriptors) with
+``dlsym`` rather than linking libcuda.
 """
 from __future__ import annotations
 
@@ -37,7 +39,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: the model kernels' flags (a tolerance, contraction allowed)
 MODEL_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
-FLAGS = {"policy_scan": NVCC_FLAGS, "flash_attention": MODEL_FLAGS,
+FLAGS = {"policy_scan": NVCC_FLAGS,
+         "flash_attention": MODEL_FLAGS + ("-ldl",),
          "ssm_scan": MODEL_FLAGS, "rwkv6": MODEL_FLAGS}
 SOURCES = tuple(FLAGS)
 

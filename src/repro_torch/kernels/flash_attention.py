@@ -8,10 +8,14 @@ float32 (see ``ref.flash_attention``). Unlike the Pallas kernel it takes
 any sq and sk, not only multiples of its tile.
 
 A tensor on the CPU goes to the plain version, ``ref.flash_attention``.
-A tensor on a CUDA device goes to the kernel, or the call raises: there
-is no fallback. The kernel is built for head dims 16, 32, 64 and 128
-with d == dv. Each launch adds one to ``launches["flash_attention"]``, and
-nothing else does.
+A tensor on a CUDA device goes to a kernel, or the call raises: there is
+no fallback. The type picks the kernel: bfloat16 runs
+``flash_wgmma_kernel`` (TMA loads, ``wgmma`` products on the tensor
+cores, P rounded to bf16 before the PV product), float32 runs
+``flash_fwd_kernel`` (float32 on the CUDA cores). Both are built for head
+dims 16, 32, 64 and 128 with d == dv. Each launch adds one to its
+kernel's count, ``launches["flash_attention"]`` (bf16) or
+``launches["flash_attention_f32"]``, and nothing else does.
 """
 from __future__ import annotations
 
@@ -22,7 +26,7 @@ import torch
 from repro_torch.kernels import build, ref
 
 #: kernel launches since the last ``reset_launches()``
-launches = {"flash_attention": 0}
+launches = {"flash_attention": 0, "flash_attention_f32": 0}
 
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -82,7 +86,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     b, sq, h, d = q.shape
     sk, kh = k.shape[1], k.shape[2]
     scale = scale if scale is not None else d ** -0.5
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    # the bf16 kernel's tensor maps need 16-byte aligned bases
+    q, k, v = (x.contiguous() for x in (q, k, v))
+    q, k, v = (x.clone() if x.data_ptr() % 16 else x for x in (q, k, v))
     out = torch.empty_like(q)
     lib = _lib()
     with torch.cuda.device(q.device):
@@ -95,5 +101,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         msg = lib.flash_attention_error_string(rc).decode()
         raise RuntimeError(f"flash_attention kernel launch failed: error "
                            f"{rc} ({msg})")
-    launches["flash_attention"] += 1
+    launches["flash_attention" if q.dtype == torch.bfloat16
+             else "flash_attention_f32"] += 1
     return out

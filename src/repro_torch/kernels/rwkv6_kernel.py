@@ -11,9 +11,14 @@ computes the exact recurrence of ``ref.rwkv6_scan`` at any decay (the
 Pallas kernel's exponent clamp departs from it at strong decays).
 
 A tensor on the CPU goes to the plain version, ``ref.rwkv6_scan``. A
-tensor on a CUDA device goes to the kernel, or the call raises: there is
-no fallback. The kernel is built for head dims 16, 32 and 64. Each launch
-adds one to ``launches["rwkv6_scan"]``, and nothing else does.
+tensor on a CUDA device goes to a kernel, or the call raises: there is no
+fallback. The number of steps picks the kernel: s >= ``CHUNKED_MIN_STEPS``
+(prefill) runs ``wkv_chunked`` (32-step chunks as 3xTF32 matrix products
+on the tensor cores, every decay factor <= 1), shorter runs and decode
+(s = 1) run ``wkv_kernel`` (the per-step recurrence). Both take float32
+and bfloat16 and are built for head dims 16, 32 and 64. Each launch adds
+one to its kernel's count, ``launches["rwkv6_chunked"]`` or
+``launches["rwkv6_scan"]``, and nothing else does.
 """
 from __future__ import annotations
 
@@ -24,7 +29,10 @@ import torch
 from repro_torch.kernels import build, ref
 
 #: kernel launches since the last ``reset_launches()``
-launches = {"rwkv6_scan": 0}
+launches = {"rwkv6_chunked": 0, "rwkv6_scan": 0}
+
+#: the fewest steps that run the chunked kernel (two chunks)
+CHUNKED_MIN_STEPS = 64
 
 HEAD_DIMS = (16, 32, 64)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -43,7 +51,7 @@ def _lib():
     lib = build.load("rwkv6")
     if not getattr(lib, "bound", False):
         lib.bound = True
-        lib.rwkv6_launch.argtypes = [_P] * 8 + [_I] * 5 + [_P]
+        lib.rwkv6_launch.argtypes = [_P] * 8 + [_I] * 6 + [_P]
         lib.rwkv6_launch.restype = _I
         lib.rwkv6_error_string.argtypes = [_I]
         lib.rwkv6_error_string.restype = ctypes.c_char_p
@@ -84,6 +92,10 @@ def rwkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_operands(r, k, v, w, u, state)
     b, s, h, n = r.shape
     r, k, v, w, u = (t.contiguous() for t in (r, k, v, w, u))
+    chunked = s >= CHUNKED_MIN_STEPS
+    if chunked:               # its cp.async loads need 16-byte alignment
+        r, k, v, w = (t.clone() if t.data_ptr() % 16 else t
+                      for t in (r, k, v, w))
     if state is not None:
         state = state.contiguous()
     out = torch.empty_like(r)
@@ -95,10 +107,10 @@ def rwkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
             u.data_ptr(), None if state is None else state.data_ptr(),
             out.data_ptr(), s_out.data_ptr(), _DTYPES[r.dtype], b, s, h, n,
-            stream)
+            int(chunked), stream)
     if rc:
         msg = lib.rwkv6_error_string(rc).decode()
         raise RuntimeError(f"rwkv6 kernel launch failed: error {rc} "
                            f"({msg})")
-    launches["rwkv6_scan"] += 1
+    launches["rwkv6_chunked" if chunked else "rwkv6_scan"] += 1
     return out, s_out

@@ -7,6 +7,11 @@
   across split runs and decode steps; and the strong-decay case, where
   the Pallas kernel departs from the oracle (ROADMAP C10) and the port
   follows the oracle.
+* A test-local float32 model of the chunked card kernel's form (decay
+  factors all <= 1, factored around a point inside the chunk) against
+  the oracle at mean log w -1, -5 and -6, and the same form with its
+  matrix products from TF32 parts (3xTF32, the low 13 mantissa bits
+  masked) keeping the state at float32's tolerance.
 * The time-mix and channel-mix blocks and LayerNorm against
   ``repro.models.rwkv6`` / ``repro.models.layers`` under
   ``ops.pallas_mode(True, interpret=True)``, in prefill and in decode.
@@ -27,6 +32,9 @@ both sides as the same values. Tolerances are max |got - want| /
   output, 7.0e-8 on the state: the same float32 recurrence, summed in
   another order), bfloat16 2^-7, one bf16 step of the output (measured
   3.0e-5);
+* the chunked form against the oracle: float32 1e-5 on output and state
+  (measured at most 3.2e-6 and 3.8e-7; with 3xTF32 products 1.7e-6 and
+  1.0e-6, where one TF32 product leaves the state 5.9e-4 off);
 * plain WKV against the Pallas kernel: float32 2e-5 (measured 4.3e-6:
   the kernel factors each chunk into matrix products over cumulative
   decays), bfloat16 2^-7 (measured 2.5e-3); the JAX package's own test
@@ -191,6 +199,106 @@ def test_plain_wkv_follows_the_oracle_at_strong_decay(jref, log_w):
         assert rel_err(st_p, want_st) > 100 * PALLAS_TOL[torch.float32]
 
 
+def tf32_split(x):
+    """x as a TF32 high part and a TF32 remainder (the low 13 mantissa
+    bits cleared), as the card kernel splits its operands."""
+    def tf32(a):
+        return (a.view(torch.int32) & ~0x1FFF).view(torch.float32)
+    hi = tf32(x)
+    return hi, tf32(x - hi)
+
+
+def mm_3xtf32(a, b):
+    """a @ b from TF32 parts: hi hi + hi lo + lo hi (lo lo dropped)."""
+    (ah, al), (bh, bl) = tf32_split(a), tf32_split(b)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def chunked_wkv(r, k, v, w, u, state=None, chunk=32, sub=16, mm=None):
+    """The chunked card kernel's factorization, written out in float32.
+
+    Per chunk, with c the chunk-local inclusive cumulative sum of log2 w
+    (c_{-1} = 0): inter (r_t 2^c_{t-1}) S0; the intra pairs s < t with
+    weight 2^(c_{t-1} - c_s), a key before the query sub-block at q0
+    factored around q0 - 1 (both factors <= 1), the diagonal sub-blocks
+    elementwise, the bonus on their diagonal; the state
+    diag(2^c_last) S0 + (k 2^(c_last - c))^T v. ``mm`` multiplies the
+    matrix products (torch.matmul, or ``mm_3xtf32``)."""
+    mm = mm or torch.matmul
+    b, s, h, n = r.shape
+    rf, kf, vf = (x.float().permute(0, 2, 1, 3) for x in (r, k, v))
+    lw = torch.log2(w.float().clamp_min(torch.finfo(torch.float32).tiny))
+    lw = lw.permute(0, 2, 1, 3)                              # [b, h, s, n]
+    S = (torch.zeros(b, h, n, n) if state is None else state.float())
+    u4 = u.float()[None, :, None, :]
+    out = torch.empty(b, h, s, n)
+    for t0 in range(0, s, chunk):
+        T = min(chunk, s - t0)
+        rc, kc, vc = (x[:, :, t0:t0 + T] for x in (rf, kf, vf))
+        c = torch.cumsum(lw[:, :, t0:t0 + T], dim=2)
+        cp = torch.cat([torch.zeros_like(c[:, :, :1]), c[:, :, :-1]], 2)
+        cl = c[:, :, -1:]
+        o = mm(rc * torch.exp2(cp), S)
+        A = torch.zeros(b, h, T, T)
+        for q0 in range(0, T, sub):
+            q1 = min(q0 + sub, T)
+            if q0:
+                ref_c = c[:, :, q0 - 1:q0]
+                rq = rc[:, :, q0:q1] * torch.exp2(cp[:, :, q0:q1] - ref_c)
+                kq = kc[:, :, :q0] * torch.exp2(ref_c - c[:, :, :q0])
+                A[:, :, q0:q1, :q0] = mm(rq, kq.transpose(-1, -2))
+            diff = cp[:, :, q0:q1, None, :] - c[:, :, None, q0:q1, :]
+            below = torch.ones(q1 - q0, q1 - q0).tril(-1).bool()
+            wgt = torch.where(below[..., None], torch.exp2(diff), 0.0)
+            A[:, :, q0:q1, q0:q1] = torch.einsum(
+                "bhti,bhsi,bhtsi->bhts", rc[:, :, q0:q1], kc[:, :, q0:q1],
+                wgt)
+            idx = torch.arange(q0, q1)
+            A[:, :, idx, idx] = (rc[:, :, q0:q1] * u4 * kc[:, :, q0:q1]).sum(-1)
+        out[:, :, t0:t0 + T] = o + mm(A, vc)
+        S = (torch.exp2(cl).transpose(-1, -2) * S
+             + mm((kc * torch.exp2(cl - c)).transpose(-1, -2), vc))
+    return out.permute(0, 2, 1, 3).to(r.dtype), S
+
+
+@pytest.mark.parametrize("chunk,sub", [(16, 16), (64, 16), (32, 8)])
+@pytest.mark.parametrize("log_w", [-1.0, -5.0, -6.0])
+def test_chunked_factorization_follows_the_oracle(jref, chunk, sub, log_w):
+    """The card kernel's chunked form (every decay factor <= 1, factored
+    around a point inside the chunk) stays within float32's 1e-5 of the
+    oracle's recurrence at every decay: a carried-in state, a ragged last
+    chunk (s = 100), mean log w -1, -5 and -6, chunks of 16 and 64 steps
+    in sub-blocks of 16 and the kernel's own 32 in sub-blocks of 8. The
+    Pallas kernel's form is off by far more at -5 and -6 (ROADMAP C10;
+    the test above)."""
+    j, t = wkv_inputs(jref, 1, 100, 2, 16, torch.float32, seed=4,
+                      log_w=log_w)
+    out, st = chunked_wkv(*t, chunk=chunk, sub=sub)
+    want, want_st = jref.ref.rwkv6_scan(*j)
+    tol = ORACLE_TOL[torch.float32]
+    close(out, want, tol, "out vs oracle")
+    close(st, want_st, tol, "state vs oracle")
+
+
+@pytest.mark.parametrize("log_w", [None, -6.0])
+def test_chunked_3xtf32_keeps_the_state_at_float32(jref, log_w):
+    """The same form with every matrix product from TF32 parts (3xTF32,
+    as on the card's tensor cores; the kernel's 32-step chunks and 8-step
+    sub-blocks at its head dim 64) keeps the final state and the output
+    within float32's 1e-5 of the oracle; one TF32 product (hi hi only)
+    does not."""
+    j, t = wkv_inputs(jref, 1, 96, 2, 64, torch.float32, seed=5,
+                      log_w=log_w)
+    want, want_st = jref.ref.rwkv6_scan(*j)
+    out, st = chunked_wkv(*t, chunk=32, sub=8, mm=mm_3xtf32)
+    tol = ORACLE_TOL[torch.float32]
+    close(st, want_st, tol, "state vs oracle")
+    close(out, want, tol, "out vs oracle")
+    _, st1 = chunked_wkv(*t, chunk=32, sub=8,
+                         mm=lambda a, b: tf32_split(a)[0] @ tf32_split(b)[0])
+    assert rel_err(st1, want_st) > tol
+
+
 # ---------------------------------------------------------------------------
 # the wrapper and the dispatch
 # ---------------------------------------------------------------------------
@@ -212,7 +320,7 @@ def test_cpu_tensors_take_the_plain_path(monkeypatch):
         got = ops.rwkv6_scan(r[:, sl], k[:, sl], v[:, sl], w[:, sl], u, st)
         want = ref.rwkv6_scan(r[:, sl], k[:, sl], v[:, sl], w[:, sl], u, st)
         assert all(torch.equal(a, b) for a, b in zip(got, want))
-    assert rk.launches == {"rwkv6_scan": 0}
+    assert rk.launches == {"rwkv6_chunked": 0, "rwkv6_scan": 0}
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take():
@@ -439,7 +547,8 @@ def test_wkv_kernel_matches_plain_on_card():
         pytest.skip("needs a CUDA card (chip_smoke.py runs this at width)")
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
-    for (b, s, h, n) in [(2, 37, 3, 16), (1, 1, 4, 64), (3, 70, 2, 32)]:
+    for (b, s, h, n) in [(2, 37, 3, 16), (1, 1, 4, 64), (3, 70, 2, 32),
+                         (2, 300, 3, 64)]:
         for dtype in DTYPES:
             r, k, v = (torch.randn(b, s, h, n, generator=g, device=dev) * .5
                        for _ in range(3))
