@@ -11,7 +11,8 @@ RWKV-6 WKV recurrence, chunked and per step), then:
 
 1. prints the card (``nvidia-smi`` name and power limit) and the build,
    and checks the machine code (``cuobjdump -sass``): HGMMA and TMA loads
-   in the flash library, HMMA and cp.async in the WKV library (1b);
+   in the flash library, HMMA and cp.async in the WKV library, the MUFU's
+   exp2 and cp.async in the selective-scan library (1b);
 2. holds each kernel against its plain PyTorch version on the card,
    bitwise: mixed-policy random blocks (foreign parameters in every slot,
    dt 1 and 1/60, N not a multiple of 32, both SLO modes) and the Table II
@@ -35,8 +36,10 @@ RWKV-6 WKV recurrence, chunked and per step), then:
    CUDA cores, bf16 on the tensor cores; causal or not, GQA g 1, 4 and
    8, head dims 64 and 128, sq and sk around the 128-row tile and unequal,
    and the prefill shape; 5a); the selective-scan kernel likewise (s 1,
-   37 and 256, a carried-in state, a run split in two against one whole
-   run; 5b); the smoke-width model served on the card against the port's
+   37, 63, 64, 65, 256 and 2,048 around its 32-step chunks, n 16, 4 and
+   13, di 1000 and 999, a carried-in state left unchanged, runs split at
+   steps 1, 37, 64, 65 and 100 against one whole run; 5b); the
+   smoke-width model served on the card against the port's
    CPU run (the same greedy tokens, logits within tolerance; 5c).
    rwkv6-7b: the WKV kernels against their plain version on random
    blocks (the per-step kernel at s 1 and 37, the chunked one at s 100,
@@ -55,8 +58,11 @@ RWKV-6 WKV recurrence, chunked and per step), then:
    paths gave it;
 6. prints one JSON line of per-kernel numbers (eight kernels: launches
    on the main path, error against the plain version, kernel / plain /
-   bound / library times; no kernel may read faster than its bound),
-   then the card and ``{"ok": true, ...}`` as its last line.
+   bound / library times; no kernel may read faster than its bound; the
+   decode launches of ``ssm_scan`` and ``rwkv6_scan`` also with their
+   device time, 100 launches captured in a CUDA graph and replayed, where
+   the wrapper time is mostly host work), then the card and
+   ``{"ok": true, ...}`` as its last line.
 
 Any failed check raises, and the script exits non-zero. It needs a CUDA
 card and the repository's ``src``; it never falls back to the CPU.
@@ -146,6 +152,25 @@ def cuda_ms(fn, reps=1):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps, out
+
+
+def graph_ms(fn, launches=100):
+    """Device time of one ``fn()`` with no host work between launches:
+    ``launches`` calls captured in one CUDA graph, the graph replayed
+    (CUDA events over 3 replays after a warm-up), per call."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                            # allocations before the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    ms, _ = cuda_ms(graph.replay, reps=3)
+    del graph
+    return ms / launches
 
 
 def paper_twins(make):
@@ -737,36 +762,56 @@ def ssm_inputs(b, s, di, n, dtype, dev, g, state=True):
 
 
 def check_ssm_random_blocks(dev):
-    """Phase 5b: the selective-scan kernel against ref.ssm_scan."""
+    """Phase 5b: the selective-scan kernel against ref.ssm_scan, at and
+    around its 64-step B/C chunk and its lane split (n 16, 4 and 13, the
+    last not a multiple of the lanes), and runs split anywhere."""
     from repro_torch.kernels import ref, ssm_scan as sk
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
-    worst = 0.0
-    for s in (1, 37, 256):
-        for n in (16, 4):
-            for dtype in (torch.float32, torch.bfloat16):
-                for state in (False, True):
-                    ops = ssm_inputs(2, s, 1000, n, dtype, dev, g, state)
-                    got, want = sk.ssm(*ops), ref.ssm_scan(*ops)
-                    for what, a, w in zip(("y", "state"), got, want):
-                        worst = max(worst, close_or_raise(
-                            f"ssm s={s} n={n} {dtype} state={state} {what}",
-                            a, w, MODEL_TOL[dtype]))
-    # a run split in two, the state carried across, against one whole run
-    x, dt, A, B, C, D, st = ssm_inputs(2, 256, 1000, 16, torch.float32, dev,
-                                       g)
-    y_all, s_all = sk.ssm(x, dt, A, B, C, D, st)
-    y1, s1 = sk.ssm(x[:, :100], dt[:, :100], A, B[:, :100], C[:, :100], D,
-                    st)
-    y2, s2 = sk.ssm(x[:, 100:], dt[:, 100:], A, B[:, 100:], C[:, 100:], D,
-                    s1)
+    worst, blocks = 0.0, 0
+    cases = [(s, n, dtype, state, 1000) for s in (1, 37, 63, 64, 65, 256)
+             for n in (16, 4, 13)
+             for dtype in (torch.float32, torch.bfloat16)
+             for state in (False, True)]
+    # the prefill's length; and di 999, whose rows are not 16-byte pieces
+    # (x and dt staged element by element)
+    cases += [(s, 16, dtype, True, di) for s, di in ((2048, 1000), (65, 999))
+              for dtype in (torch.float32, torch.bfloat16)]
+    for s, n, dtype, state, di in cases:
+        ops = ssm_inputs(2, s, di, n, dtype, dev, g, state)
+        kept = None if ops[-1] is None else ops[-1].clone()
+        got, want = sk.ssm(*ops), ref.ssm_scan(*ops)
+        for what, a, w in zip(("y", "state"), got, want):
+            worst = max(worst, close_or_raise(
+                f"ssm s={s} n={n} di={di} {dtype} state={state} {what}", a, w,
+                MODEL_TOL[dtype]))
+        if kept is not None:
+            check(torch.equal(kept, ops[-1]), "the state passed in changed")
+        blocks += 1
+    # a run split in two, the state carried across, against one whole run:
+    # inside the first chunk, on a chunk boundary, one step past it, and
+    # inside a later chunk
     tol = MODEL_TOL[torch.float32]
-    close_or_raise("ssm split y", torch.cat([y1, y2], 1), y_all, tol)
-    close_or_raise("ssm split state", s2, s_all, tol)
+    splits = (1, 37, 64, 65, 100)
+    for n in (16, 13):
+        x, dt, A, B, C, D, st = ssm_inputs(2, 256, 1000, n, torch.float32,
+                                           dev, g)
+        y_all, s_all = sk.ssm(x, dt, A, B, C, D, st)
+        for cut in splits:
+            y1, s1 = sk.ssm(x[:, :cut], dt[:, :cut], A, B[:, :cut],
+                            C[:, :cut], D, st)
+            y2, s2 = sk.ssm(x[:, cut:], dt[:, cut:], A, B[:, cut:],
+                            C[:, cut:], D, s1)
+            close_or_raise(f"ssm n={n} split at {cut} y",
+                           torch.cat([y1, y2], 1), y_all, tol)
+            close_or_raise(f"ssm n={n} split at {cut} state", s2, s_all, tol)
     torch.cuda.synchronize()
-    print(f"phase 5b: selective-scan kernel vs plain on 24 random blocks "
-          f"(s 1/37/256, n 16/4, di 1000, float32 and bf16, zero or "
-          f"carried-in state): max abs error {worst:.3g}; a run split at "
-          f"step 100 equals the whole run within {tol:g}")
+    print(f"phase 5b: selective-scan kernel vs plain on {blocks} random "
+          f"blocks (s 1/37/63/64/65/256 and 2048, n 16/4/13, di 1000 and "
+          f"999, float32 and bf16, zero or carried-in state, the state "
+          f"passed in unchanged): max abs error {worst:.3g}; runs split at "
+          f"steps "
+          f"{'/'.join(map(str, splits))} (n 16 and 13) equal the whole run "
+          f"within {tol:g}")
 
 
 def wkv_inputs(b, s, h, n, dtype, dev, g, state=True, log_w=None):
@@ -1122,12 +1167,19 @@ def ssm_vs_plain(dev):
                                  MODEL_TOL[torch.bfloat16])
                   for w, a, b in zip(("y", "state"), got, want))
         bound_ms, bound_by = ssm_bound(b, s, di, n, state)
+        # a decode launch's wrapper time is mostly host work; replayed
+        # from a CUDA graph, its device time
+        device_ms = graph_ms(lambda: sk.ssm(*ops)) if s == 1 else None
+        graphed = ("" if device_ms is None else
+                   f" (device, graph-replayed: {device_ms:.4f} ms)")
         print(f"ssm_scan {what} at [{b}, {s}, {di}] x {n} bf16: kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.1f} ms, bound "
+              f"{ms:.4f} ms{graphed}, plain {plain_ms:.1f} ms, bound "
               f"{bound_ms:.4f} ms ({bound_by}); max abs error {err:.3g}")
         out[what] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by,
                      "library_ms": None}
+        if device_ms is not None:
+            out[what]["device_ms"] = device_ms
     return out
 
 
@@ -1165,13 +1217,18 @@ def wkv_vs_plain(dev):
         bound_ms, bound_by = wkv_bound(b, s, h, n, state)
         name = ("rwkv6_chunked" if s >= rk.CHUNKED_MIN_STEPS
                 else "rwkv6_scan")
+        device_ms = graph_ms(lambda: rk.rwkv6(*ops)) if s == 1 else None
+        graphed = ("" if device_ms is None else
+                   f" (device, graph-replayed: {device_ms:.4f} ms)")
         print(f"{name} {what} at [{b}, {s}, {h}, {n}] bf16: kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.1f} ms, bound "
+              f"{ms:.4f} ms{graphed}, plain {plain_ms:.1f} ms, bound "
               f"{bound_ms:.4f} ms (set by {bound_by}; the kernel at "
               f"{bound_ms / ms:.1%} of it); max abs error {err:.3g}")
         out[what] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by,
                      "library_ms": None}
+        if device_ms is not None:
+            out[what]["device_ms"] = device_ms
     return out
 
 
@@ -1179,10 +1236,12 @@ def sass_check(build):
     """Phase 1b: the built libraries' machine code holds the instructions
     the redesigned kernels are built on: wgmma (HGMMA) and TMA loads
     (UTMALDG) in flash_attention, mma.sync (HMMA) and cp.async (LDGSTS)
-    in rwkv6."""
+    in rwkv6, the special-function unit's exp2 (MUFU.EX2) and cp.async in
+    ssm_scan."""
     tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
     for name, want in (("flash_attention", ("HGMMA", "UTMALDG")),
-                       ("rwkv6", ("HMMA", "LDGSTS"))):
+                       ("rwkv6", ("HMMA", "LDGSTS")),
+                       ("ssm_scan", ("MUFU.EX2", "LDGSTS"))):
         sass = subprocess.run([tool, "-sass", str(build.library_path(name))],
                               capture_output=True, text=True,
                               check=True).stdout
@@ -1299,10 +1358,14 @@ def main():
             for name, replaces, stats in rows]
     ssm_stats = ssm_vs_plain(dev)
     wkv_stats = wkv_vs_plain(dev)
+    # the ssm_scan row is the prefill's; its decode launch rides along
+    ssm_row = dict(ssm_stats["prefill"],
+                   decode_ms=ssm_stats["decode"]["ms"],
+                   decode_device_ms=ssm_stats["decode"]["device_ms"])
     rows += [("flash_attention", "flash_attention",
               "src/repro/kernels/flash_attention.py:23", flash_vs_plain(dev)),
              ("ssm_scan", "ssm_scan", "src/repro/kernels/ssm_scan.py:27",
-              ssm_stats["prefill"]),
+              ssm_row),
              ("rwkv6_chunked", "rwkv6",
               "src/repro/kernels/rwkv6_kernel.py:33", wkv_stats["prefill"]),
              ("rwkv6_scan", "rwkv6", "src/repro/kernels/rwkv6_kernel.py:33",

@@ -2,7 +2,8 @@
 and load them with ``ctypes`` (plain C entry points, no PyTorch headers).
 
 Each ``csrc/<name>.cu`` compiles to ``_build/<name>-<hash>.so`` beside this
-file, keyed by a hash of the source and the flags, so an edited source
+file, keyed by a hash of the source, the shared headers (``csrc/*.cuh``,
+found through ``-I csrc``) and the flags, so an edited source
 rebuilds and an unchanged one loads at once; ``_build/`` is listed in
 ``.gitignore`` and nothing built is committed. ``build()`` starts one
 ``nvcc`` per source, all together, and waits for them.
@@ -65,9 +66,20 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(FLAGS[name]).encode()).hexdigest()
+    """The built library of ``csrc/<name>.cu``, keyed by the source, the
+    shared headers (``csrc/*.cuh``) and the flags."""
+    text = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(text + " ".join(FLAGS[name]).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
+
+
+def nvcc_command(name: str, source: Path, out: Path) -> list:
+    """The nvcc command that builds ``source`` (``csrc/<name>.cu`` or an
+    edited copy of it elsewhere) with ``name``'s flags into ``out``; the
+    shared headers are found in ``csrc``."""
+    return [nvcc_path(), *FLAGS[name], "-I", str(CSRC), "-o", str(out),
+            str(source)]
 
 
 def build(names: Iterable[str] = SOURCES) -> float:
@@ -77,7 +89,6 @@ def build(names: Iterable[str] = SOURCES) -> float:
     todo = [n for n in names if not library_path(n).exists()]
     if not todo:
         return 0.0
-    nvcc = nvcc_path()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = []
     for name in todo:
@@ -85,7 +96,7 @@ def build(names: Iterable[str] = SOURCES) -> float:
         tmp = out.with_suffix(f".tmp{os.getpid()}")
         log = open(out.with_suffix(".log"), "w")
         procs.append((name, out, tmp, log, subprocess.Popen(
-            [nvcc, *FLAGS[name], "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            nvcc_command(name, CSRC / f"{name}.cu", tmp),
             stdout=log, stderr=subprocess.STDOUT)))
     failed = []
     for name, out, tmp, log, proc in procs:

@@ -64,6 +64,8 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include "smem_opt_in.cuh"
+
 namespace {
 
 constexpr int kBlockQ = 64;
@@ -673,9 +675,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
                  int b, int sq, int sk, int h, int kh, float scale,
                  int causal, cudaStream_t stream) {
   const size_t bytes = wgmma_smem_bytes<D>();
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
+  const cudaError_t attr = smem_opt_in(flash_wgmma_kernel<D>, (int)bytes);
   if (attr != cudaSuccess) return (int)attr;
   for (const void* p : {q, k, v})
     if (reinterpret_cast<uintptr_t>(p) % 16) return kErrAlign;
@@ -698,9 +698,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int b,
                int sq, int sk, int h, int kh, float scale, int causal,
                cudaStream_t stream) {
   const size_t bytes = smem_bytes<D>();
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_kernel<D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  const cudaError_t attr = smem_opt_in(flash_fwd_kernel<D>, (int)bytes);
   if (attr != cudaSuccess) return (int)attr;
   const dim3 grid(b * h, (sq + kBlockQ - 1) / kBlockQ);
   flash_fwd_kernel<D><<<grid, kThreads, bytes, stream>>>(

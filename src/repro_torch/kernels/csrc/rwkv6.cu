@@ -88,6 +88,8 @@
 
 #include <type_traits>
 
+#include "smem_opt_in.cuh"
+
 namespace {
 
 constexpr int kSplit = 4;                // threads per value column
@@ -586,9 +588,7 @@ int launch(const void* r, const void* k, const void* v, const void* w,
   const float* ss = static_cast<const float*>(s0);
   if (chunked) {
     const size_t bytes = Plan<T, N>::bytes;
-    static const cudaError_t attr = cudaFuncSetAttribute(
-        wkv_chunked<T, N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)bytes);
+    const cudaError_t attr = smem_opt_in(wkv_chunked<T, N>, (int)bytes);
     if (attr != cudaSuccess) return (int)attr;
     wkv_chunked<T, N><<<b * h, kCThreads, bytes, stream>>>(
         rr, kk, vv, ww, uu, ss, static_cast<T*>(out),

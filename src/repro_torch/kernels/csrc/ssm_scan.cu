@@ -7,39 +7,72 @@
 //   h = exp(dt * A) * h + (dt * x) * B,   y = sum_n h * C + D * x,
 // y [b, s, di] in x's type and the final state [b, di, n] float32.
 //
-// Design. The TPU kernel walks a (batch, channel block, time chunk) grid
-// with time in order and keeps the [d_blk, n] state in VMEM scratch across
-// chunks. Here ONE THREAD OWNS ONE (batch, channel) and runs the whole
-// time loop itself, its n <= 16 state values in registers from the first
-// step to the last; a block is 128 neighbouring channels of one batch row,
-// so each step's x, dt and y are one coalesced access per warp. B_t and
-// C_t are the same for every channel of a batch row: the block stages 64
-// steps of them at a time in shared memory, read once from device memory,
-// and every thread reads them back as broadcasts. A decode step (s = 1)
-// is the same kernel with one step: read the state, update, write it.
-// The state out is a separate buffer, so a state passed in is not
-// modified, and a run split in two with the state carried across equals
-// one whole run.
-//
 // What bounds it on the H100. At the serving path's prefill (b 4, s 2,048,
 // di 16,384, n 16, bf16) the kernel must move 0.81 GB (x, dt and y,
-// 0.27 GB each): 0.24 ms at 3.35 TB/s, bound by bytes. Its float32 work
-// is 7 operations per state element (dt * A, exp, the product and fma of
-// the update, the fma into y; exp counted as one) plus 3 per channel-step,
-// ~15.5 GFLOP, 0.23 ms at 67 TFLOP/s. Each thread's steps form one serial
-// chain, so with 512 blocks (~16 warps an SM) the chain's latency, not the
-// memory, is what this first kernel will show.
+// 0.27 GB each): 0.24 ms at 3.35 TB/s, bound by bytes. But it also takes
+// 2.15 G exponentials, one per state element, and the card's special
+// function units (MUFU) give 16 a clock on each SM: 0.51 ms at the
+// 1.98 GHz the card runs under load. That is the floor of a design that
+// sends every exp to the MUFU. The rest of a state element's work is four
+// float32 instructions (dt * A, the product and fma of the update, the
+// fma into y) and a share of the shared-memory reads of B and C, about as
+// much issue again (~119 instructions a channel-step, ~0.48 ms), so the
+// two pipes' floors are about equal.
+//
+// Design. The TPU kernel walks a (batch, channel block, time chunk) grid
+// with time in order and keeps the [d_blk, n] state in VMEM scratch across
+// chunks. Here one thread owns one (batch, channel) and runs the whole
+// time loop, its n <= 16 states in registers from the first step to the
+// last (kLanes = 1; a build may split a channel's states over 2 to 8
+// lanes, whose partial sums of y then meet by xor shuffles: measured
+// slower, tools/kernel_leave_out.py). A block is 128 neighbouring
+// channels of one batch row. Time runs in chunks of 32 bf16 (16 float32)
+// steps, double-buffered in shared memory: the chunk's x and dt tiles come
+// by cp.async in 16-byte pieces, its B and C (the same for every channel
+// of a batch row) are loaded into registers and stored as float32, both
+// for chunk c + 1 while chunk c runs, with one barrier a chunk; lanes
+// read B and C back as broadcasts. Each exp is exp2(dt * A2), A2 =
+// A * log2(e) scaled once per channel in the prologue, so it is one
+// MUFU.EX2 (ex2.approx.ftz, 2 ulp) with no range fix-up, where expf took
+// about six more instructions. The first kPoly states of a lane may take
+// theirs on the FMA pipe instead (Cody-Waite split and a degree-5
+// polynomial, 1.8 ulp); kPoly is 0, since the issue slots that costs are
+// as scarce as the MUFU (measured slower, tools/kernel_leave_out.py). y's
+// sum runs in four interleaved partial sums, so that its chain of fused
+// multiply-adds is four deep, not sixteen. A decode step (s = 1) is the
+// same kernel with one step. The state out is a separate buffer, so a
+// state passed in is not modified, and a run split anywhere with the
+// state carried across equals one whole run: nothing depends on where a
+// chunk starts.
+//
+// kLanes and kPoly are set at build time (SSM_LANES, SSM_POLY), so that
+// tools/kernel_leave_out.py can build and time those designs from this
+// source.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
+
+#ifndef SSM_LANES
+#define SSM_LANES 1
+#endif
+#ifndef SSM_POLY
+#define SSM_POLY 0
+#endif
 
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kChunk = 64;               // steps of B, C staged at a time
+constexpr int kLanes = SSM_LANES;        // lanes a channel's states span
+constexpr int kPoly = SSM_POLY;          // exps a lane takes on the FMA pipe
+constexpr int kCh = kThreads / kLanes;   // channels a block
+constexpr int kSums = 4;                 // partial sums of a lane's y
 constexpr int kMaxState = 16;
 constexpr int kErrStateDim = 1000;
+constexpr float kLog2e = 1.4426950408889634f;
+static_assert(kLanes == 1 || kLanes == 2 || kLanes == 4 || kLanes == 8,
+              "a channel's lanes are a power of two inside a warp");
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -54,57 +87,194 @@ from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
+// 2^x on the MUFU: one instruction, denormal results flushed to zero.
+__device__ __forceinline__ float ex2_mufu(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// 2^x on the FMA pipe, for x < 128: x = j + f with j = rint(x) (the
+// 1.5 * 2^23 shift puts j in the low bits of r) and f in [-0.5, 0.5];
+// 2^f by a degree-5 polynomial, near-minimax for the relative error
+// (2.1e-7, 1.8 ulp, evaluated in float32 with fused multiply-adds), then
+// j added to its exponent field. x is clamped at -125 so that the exponent
+// stays normal; 2^-125 in place of a smaller factor changes h by less than
+// 3e-38.
+__device__ __forceinline__ float ex2_poly(float x) {
+  x = fmaxf(x, -125.0f);
+  const float r = __fadd_rn(x, 12582912.0f);
+  const float f = __fsub_rn(x, __fsub_rn(r, 12582912.0f));
+  float p = 0.0013276167446747422f;
+  p = __fmaf_rn(p, f, 0.009675540030002594f);
+  p = __fmaf_rn(p, f, 0.05550714209675789f);
+  p = __fmaf_rn(p, f, 0.24022120237350464f);
+  p = __fmaf_rn(p, f, 0.6931469440460205f);
+  p = __fmaf_rn(p, f, 1.0000001192092896f);
+  return __uint_as_float(__float_as_uint(p) + (__float_as_uint(r) << 23));
+}
+
+// cp.async of 16 bytes from device to shared memory, bypassing L1
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+template <typename T, int N>
+struct Plan {
+  static constexpr int kPer = (N + kLanes - 1) / kLanes;  // states a lane
+  static constexpr int kPad = kPer * kLanes;              // padded n
+  static constexpr int kChunk = 64 / sizeof(T);           // steps a chunk
+  static constexpr int kVec = 16 / sizeof(T);             // x per 16 bytes
+  // B, C elements of a chunk each thread stages
+  static constexpr int kStage = (kChunk * N + kThreads - 1) / kThreads;
+};
+
 template <typename T, int N>
 __global__ void __launch_bounds__(kThreads)
 ssm_scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
                 const float* __restrict__ A, const T* __restrict__ B,
                 const T* __restrict__ C, const float* __restrict__ D,
                 const float* __restrict__ s0, T* __restrict__ y,
-                float* __restrict__ s_out, int s, int di) {
-  __shared__ float bs[kChunk][N];
-  __shared__ float cs[kChunk][N];
+                float* __restrict__ s_out, int s, int di, int vec16) {
+  using P = Plan<T, N>;
+  constexpr int kPer = P::kPer, kPad = P::kPad, kChunk = P::kChunk;
+  constexpr int kVec = P::kVec, kStage = P::kStage;
+  __shared__ __align__(16) T xs[2][kChunk][kCh];
+  __shared__ __align__(16) T ds[2][kChunk][kCh];
+  __shared__ __align__(16) float bs[2][kChunk][kPad];
+  __shared__ __align__(16) float cs[2][kChunk][kPad];
   const int batch = blockIdx.y;
-  const int ch = blockIdx.x * kThreads + threadIdx.x;
+  const int lane = threadIdx.x % kLanes;
+  const int col = threadIdx.x / kLanes;        // this lane's channel column
+  const int ch0 = blockIdx.x * kCh;
+  const int ch = ch0 + col;
   const bool live = ch < di;
+  // a lane past di computes on the last channel (so that every lane of a
+  // warp reaches the shuffles) and stores nothing
+  const int chl = live ? ch : di - 1;
 
-  float a[N], h[N];
-  float d_skip = 0.f;
+  float a2[kPer], h[kPer];
 #pragma unroll
-  for (int n = 0; n < N; ++n) {
-    a[n] = live ? A[(size_t)ch * N + n] : 0.f;
-    h[n] = (live && s0) ? s0[((size_t)batch * di + ch) * N + n] : 0.f;
+  for (int j = 0; j < kPer; ++j) {
+    const int n = lane * kPer + j;
+    a2[j] = n < N ? A[(size_t)chl * N + n] * kLog2e : 0.f;
+    h[j] = (n < N && s0) ? s0[((size_t)batch * di + chl) * N + n] : 0.f;
   }
-  if (live) d_skip = D[ch];
+  const float d_skip = D[chl];
 
-  for (int t0 = 0; t0 < s; t0 += kChunk) {
-    const int steps = min(kChunk, s - t0);
-    __syncthreads();                    // the last chunk's reads are done
-    for (int idx = threadIdx.x; idx < steps * N; idx += kThreads) {
-      const size_t g = ((size_t)batch * s + t0) * N + idx;
-      bs[idx / N][idx % N] = to_f32(B[g]);
-      cs[idx / N][idx % N] = to_f32(C[g]);
+  // padded state columns read B = C = 0 in both buffers, so their h
+  // stays 0 and adds nothing to y
+  if constexpr (kPad > N) {
+    constexpr int kGap = kPad - N;
+    for (int idx = threadIdx.x; idx < 2 * kChunk * kGap; idx += kThreads) {
+      const int buf = idx / (kChunk * kGap), r = idx % (kChunk * kGap);
+      bs[buf][r / kGap][N + r % kGap] = 0.f;
+      cs[buf][r / kGap][N + r % kGap] = 0.f;
     }
-    __syncthreads();
-    if (!live) continue;
+  }
+  // x and dt of a chunk: [steps][kCh] tiles, by cp.async in 16-byte
+  // pieces (a piece lies wholly inside or wholly past di when vec16),
+  // else element by element
+  auto load_xdt = [&](int t0, int buf) {
+    const int steps = min(kChunk, s - t0);
+    const size_t row0 = (size_t)batch * s + t0;
+    if (vec16) {
+      constexpr int kRow = kCh / kVec;
+      for (int idx = threadIdx.x; idx < steps * kRow; idx += kThreads) {
+        const int r = idx / kRow, c = (idx % kRow) * kVec;
+        if (ch0 + c < di) {
+          const size_t g = (row0 + r) * di + ch0 + c;
+          cp_async16(&xs[buf][r][c], x + g);
+          cp_async16(&ds[buf][r][c], dt + g);
+        }
+      }
+      cp_async_commit();
+    } else {
+      for (int idx = threadIdx.x; idx < steps * kCh; idx += kThreads) {
+        const int r = idx / kCh, c = idx % kCh;
+        if (ch0 + c < di) {
+          const size_t g = (row0 + r) * di + ch0 + c;
+          xs[buf][r][c] = x[g];
+          ds[buf][r][c] = dt[g];
+        }
+      }
+    }
+  };
+  // B and C of a chunk: loaded into registers (`fetch`) while the chunk
+  // before runs, stored as float32 after it (`stage`)
+  float rb[kStage], rc[kStage];
+  auto fetch = [&](int t0) {
+    const int avail = min(kChunk, s - t0) * N;
+    const size_t base = ((size_t)batch * s + t0) * N;
+#pragma unroll
+    for (int k = 0; k < kStage; ++k) {
+      const int idx = threadIdx.x + k * kThreads;
+      rb[k] = idx < avail ? to_f32(B[base + idx]) : 0.f;
+      rc[k] = idx < avail ? to_f32(C[base + idx]) : 0.f;
+    }
+  };
+  auto stage = [&](int buf) {
+#pragma unroll
+    for (int k = 0; k < kStage; ++k) {
+      const int idx = threadIdx.x + k * kThreads;
+      if (idx < kChunk * N) {
+        bs[buf][idx / N][idx % N] = rb[k];
+        cs[buf][idx / N][idx % N] = rc[k];
+      }
+    }
+  };
+  load_xdt(0, 0);
+  fetch(0);
+  stage(0);
+
+  for (int t0 = 0, buf = 0; t0 < s; t0 += kChunk, buf ^= 1) {
+    cp_async_wait_all();
+    __syncthreads();                    // this chunk's tiles are in `buf`
+    const int steps = min(kChunk, s - t0);
+    const bool more = t0 + kChunk < s;
+    if (more) {                         // in flight while this chunk runs
+      load_xdt(t0 + kChunk, buf ^ 1);
+      fetch(t0 + kChunk);
+    }
 #pragma unroll 4
     for (int tt = 0; tt < steps; ++tt) {
-      const size_t at = ((size_t)batch * s + t0 + tt) * di + ch;
-      const float xv = to_f32(x[at]);
-      const float dv = to_f32(dt[at]);
+      const float xv = to_f32(xs[buf][tt][col]);
+      const float dv = to_f32(ds[buf][tt][col]);
       const float dx = dv * xv;
-      float acc = 0.f;
+      const float* bt = &bs[buf][tt][lane * kPer];
+      const float* ct = &cs[buf][tt][lane * kPer];
+      float part[kSums] = {};           // y's sum in kSums short chains
 #pragma unroll
-      for (int n = 0; n < N; ++n) {
-        h[n] = expf(dv * a[n]) * h[n] + dx * bs[tt][n];
-        acc = fmaf(h[n], cs[tt][n], acc);
+      for (int j = 0; j < kPer; ++j) {
+        const float e = j < kPoly ? ex2_poly(dv * a2[j])
+                                  : ex2_mufu(dv * a2[j]);
+        h[j] = fmaf(e, h[j], dx * bt[j]);
+        part[j % kSums] = fmaf(h[j], ct[j], part[j % kSums]);
       }
-      y[at] = from_f32<T>(acc + d_skip * xv);
+      float acc = (part[0] + part[1]) + (part[2] + part[3]);
+#pragma unroll
+      for (int o = 1; o < kLanes; o <<= 1)
+        acc += __shfl_xor_sync(0xffffffffu, acc, o);
+      if (live && lane == 0)
+        y[((size_t)batch * s + t0 + tt) * di + ch] =
+            from_f32<T>(acc + d_skip * xv);
     }
+    if (more) stage(buf ^ 1);
   }
   if (live) {
 #pragma unroll
-    for (int n = 0; n < N; ++n)
-      s_out[((size_t)batch * di + ch) * N + n] = h[n];
+    for (int j = 0; j < kPer; ++j) {
+      const int n = lane * kPer + j;
+      if (n < N) s_out[((size_t)batch * di + ch) * N + n] = h[j];
+    }
   }
 }
 
@@ -112,13 +282,16 @@ template <typename T, int N>
 int launch(const void* x, const void* dt, const void* A, const void* B,
            const void* C, const void* D, const void* s0, void* y,
            void* s_out, int b, int s, int di, cudaStream_t stream) {
-  const dim3 grid((di + kThreads - 1) / kThreads, b);
+  const dim3 grid((di + kCh - 1) / kCh, b);
+  const int vec16 = di % Plan<T, N>::kVec == 0 &&
+                    (reinterpret_cast<uintptr_t>(x) |
+                     reinterpret_cast<uintptr_t>(dt)) % 16 == 0;
   ssm_scan_kernel<T, N><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(dt),
       static_cast<const float*>(A), static_cast<const T*>(B),
       static_cast<const T*>(C), static_cast<const float*>(D),
       static_cast<const float*>(s0), static_cast<T*>(y),
-      static_cast<float*>(s_out), s, di);
+      static_cast<float*>(s_out), s, di, vec16);
   return (int)cudaGetLastError();
 }
 

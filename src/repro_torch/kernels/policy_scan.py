@@ -274,9 +274,18 @@ def policy_grid_agg(loads, params, onehot, dt_hours: float = 1.0, *,
     if fault:
         f_rows, findex = _fault_operands(caps_t, fmask_t, fault_index, n,
                                          t_bins, dev)
+    # the kernel runs the scenarios in policy order, so that nearly every
+    # warp's 32 run one policy (and take that policy's own scan, with no
+    # switch per bin); the rows go back to the caller's order at the end
+    order = torch.argsort(branch, stable=True)
+    params, index, branch = (x[order].contiguous()
+                             for x in (params, index, branch))
+    if fault:
+        findex = findex[order].contiguous()
     carry_end = torch.empty((n, CARRY_DIM), dtype=torch.float32, device=dev)
     scal = torch.empty((AGG_SCALARS, n), dtype=torch.float32, device=dev)
-    hist = torch.zeros((3, AGG_HIST_BINS, n), dtype=torch.float32,
+    # [152, N, 4]: each bucket's compensated triple, padded to 16 bytes
+    hist = torch.zeros((AGG_HIST_BINS, n, 4), dtype=torch.float32,
                        device=dev)
     lib = _lib()
     with torch.cuda.device(dev):
@@ -298,6 +307,8 @@ def policy_grid_agg(loads, params, onehot, dt_hours: float = 1.0, *,
     name = "policy_agg_fault" if fault else "policy_agg"
     _check(lib, rc, name)
     launches[name] += 1
-    packed = torch.cat([scal.t(), hist.permute(2, 0, 1).reshape(n, -1)],
-                       dim=1)
-    return carry_end, finalize_aggregate(packed)
+    packed = torch.cat([scal.t(),
+                        hist[..., :3].permute(1, 2, 0).reshape(n, -1)], dim=1)
+    back = torch.empty_like(order)
+    back[order] = torch.arange(n, device=dev)
+    return carry_end[back], finalize_aggregate(packed)[back]

@@ -36,12 +36,12 @@ from repro_torch.core import slo as pslo
 from repro_torch.core import traffic as ptraffic
 from repro_torch.core import twin as pt
 from repro_torch.core import whatif as pwhatif
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.kernels import policy_scan as pk
 
 from torch_port_ref import one_torch_thread  # noqa: F401
 from torch_port_ref import (assert_bitwise, assert_same_results, bits,
-                            reference)
+                            bucket_run_histogram, reference)
 
 DTS = [1.0, 1.0 / 60.0]
 SLOS = [(0, 4 * 3600.0), (1, 0.01)]
@@ -344,6 +344,34 @@ def test_plain_fault_agg_matches_reference(jref, dt, slo_mode, slo_limit):
         assert_bitwise(a_p.numpy(), np.asarray(a_w), "agg rows")
     flth = a_p[:, pt.A_FLTH].numpy()
     np.testing.assert_array_equal(flth, fmask[findex].sum(axis=1))
+
+
+@pytest.mark.parametrize("slo_mode,slo_limit", SLOS)
+@pytest.mark.parametrize("dt", DTS)
+def test_fault_bucket_run_histogram_matches_reference(jref, dt, slo_mode,
+                                                      slo_limit):
+    """The CUDA fault aggregate kernel's bucket-run cache (a numpy model,
+    ``torch_port_ref.bucket_run_histogram``) on the grid above: bitwise
+    the plain version's and the reference's histogram, weighted by the
+    offered load."""
+    loads, params, onehot, cap, fmask, findex = _scan_grid(1)
+    _, (_, _, latency, _, _) = ref.policy_grid_scan(
+        _t(loads), _t(params), _t(onehot), dt, caps=_t(cap[findex]),
+        shed_fuse=pt.SHED_FUSE_LATENCY)
+    hist, changes, revisits = bucket_run_histogram(latency.numpy(), loads)
+    assert changes > 2 * N and (revisits > 0 or dt != 1.0)
+    jnp = jref.jax.numpy
+    _, a_j = jref.ref.policy_grid_agg(
+        jnp.asarray(loads), jnp.asarray(params), jnp.asarray(onehot), dt,
+        slo_limit=slo_limit, slo_mode=slo_mode,
+        caps=jnp.asarray(cap[findex]), fmask=jnp.asarray(fmask[findex]))
+    _, a_p = pk.policy_grid_agg(
+        _t(loads), _t(params), _t(onehot), dt, caps_t=_t(cap.T),
+        fmask_t=_t(fmask.T), fault_index=_t(findex), slo_limit=slo_limit,
+        slo_mode=slo_mode)
+    assert_bitwise(hist, a_p[:, pt.AGG_SCALARS:].numpy(), "plain histogram")
+    assert_bitwise(hist, np.asarray(a_j)[:, pt.AGG_SCALARS:],
+                   "reference histogram")
 
 
 @pytest.mark.parametrize("dt", DTS)

@@ -20,7 +20,7 @@ from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels import policy_scan as pk
 
 from torch_port_ref import one_torch_thread  # noqa: F401
-from torch_port_ref import assert_bitwise, reference
+from torch_port_ref import assert_bitwise, bucket_run_histogram, reference
 
 N, T = 13, 336
 DTS = [1.0, 1.0 / 60.0]
@@ -77,6 +77,57 @@ def test_plain_agg_matches_reference(jref, dt, slo_mode, slo_limit):
     for c_w, a_w in ((c_pl, a_pl), (c_or, a_or)):
         assert_bitwise(c_p.numpy(), np.asarray(c_w), "carry_end")
         assert_bitwise(a_p.numpy(), np.asarray(a_w), "agg rows")
+
+
+@pytest.mark.parametrize("slo_mode,slo_limit", SLOS)
+@pytest.mark.parametrize("dt", DTS)
+def test_bucket_run_histogram_matches_reference(jref, dt, slo_mode,
+                                                slo_limit):
+    """The CUDA aggregate kernel keeps the last bucket's triple in
+    registers and touches the histogram in memory only when the bucket
+    changes; a numpy model of that is bitwise the plain version's and the
+    reference's histogram, on the grid above."""
+    loads, params, _, onehot = _grid(1)
+    _, (_, _, latency, _, _) = ref.policy_grid_scan(
+        _t(loads), _t(params), _t(onehot), dt)
+    hist, changes, revisits = bucket_run_histogram(latency.numpy(), loads)
+    # the bins leave their bucket, and at dt 1 h come back to one
+    assert changes > 2 * N and (revisits > 0 or dt != 1.0)
+    jnp = jref.jax.numpy
+    _, a_j = jref.ref.policy_grid_agg(jnp.asarray(loads), jnp.asarray(params),
+                                      jnp.asarray(onehot), dt,
+                                      slo_limit=slo_limit, slo_mode=slo_mode)
+    _, a_p = ref.policy_grid_agg(_t(loads), _t(params), _t(onehot), dt,
+                                 slo_limit=slo_limit, slo_mode=slo_mode)
+    assert_bitwise(hist, a_p[:, pt.AGG_SCALARS:].numpy(), "plain histogram")
+    assert_bitwise(hist, np.asarray(a_j)[:, pt.AGG_SCALARS:],
+                   "reference histogram")
+
+
+def test_float64_reciprocal_quotient_is_the_float32_quotient():
+    """The CUDA aggregate kernels divide by a scenario's fixed divisors as
+    RN32(RN64(a * RN64(1 / d))) (``csrc/policy_scan.cu``, ``quot``): bit
+    for bit the IEEE float32 quotient, on random operands over 60 binades
+    of each, on the policy steps' magnitudes, and on quotients built to
+    lie next to a float32 midpoint."""
+    rng = np.random.default_rng(7)
+    k = 1 << 20
+    a = (rng.uniform(1, 2, k) * 2.0 ** rng.integers(-30, 30, k))
+    d = (rng.uniform(1, 2, k) * 2.0 ** rng.integers(-30, 30, k))
+    steps_a = rng.uniform(0, 1e7, k)                     # queues, loads
+    steps_d = np.maximum(rng.uniform(0, 3e4, k), 1e-9)   # rates, delays
+    # a / d next to m, the midpoint between two float32 neighbours
+    near_d = rng.uniform(1, 2, k).astype(np.float32)
+    m = rng.uniform(1, 2, k).astype(np.float32).astype(np.float64)
+    m += np.spacing(m.astype(np.float32)).astype(np.float64) / 2
+    near_a = (m * near_d).astype(np.float32)
+    for x, y in ((a, d), (steps_a, steps_d), (near_a, near_d)):
+        x, y = np.float32(x), np.float32(y)
+        assert np.all(y > 0)
+        want = x / y
+        got = (x.astype(np.float64) * (1.0 / y.astype(np.float64))
+               ).astype(np.float32)
+        assert_bitwise(got, want, "quotient")
 
 
 @pytest.mark.parametrize("policy", range(5))

@@ -7,7 +7,10 @@
 * its entry points (the what-if grid's, and the serving slice's
   ``ServeEngine``, ``models.model.init_params`` and ``init_cache``)
   default to the card and raise without one;
-* ``chip_smoke.py`` fails, printing no result, where there is no card.
+* ``chip_smoke.py`` fails, printing no result, where there is no card;
+* no CUDA source keeps a kernel's shared-memory opt-in once per process
+  (the attribute belongs to one device's context, ROADMAP C11): every
+  opt-in goes through ``csrc/smem_opt_in.cuh``, which sets it per device.
 """
 import dataclasses
 import os
@@ -32,6 +35,9 @@ from torch_port_ref import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 SRC = ROOT / "src"
+CSRC = SRC / "repro_torch" / "kernels" / "csrc"
+#: a cudaFuncSetAttribute result kept in a static: set once per process
+OPT_IN_CACHED = re.compile(r"\bstatic\b[^;{}]*\bcudaFuncSetAttribute\b")
 FORBIDDEN = re.compile(r"^\s*(import\s+(jax|repro)\b|from\s+(jax|repro)(\.|\s))",
                        re.MULTILINE)
 
@@ -130,3 +136,23 @@ def test_plain_cpu_run_needs_asking_for():
     rows = simulate.simulate_grid([twin.SimpleTwin("a", 1.0, 0.01, 0.1)],
                                   loads, bin_hours=1.0, device="cpu")
     assert rows[0].processed.sum() == 24 * 3600.0
+
+
+def test_shared_memory_opt_in_is_set_per_device():
+    sources = sorted(CSRC.glob("*.cu"))
+    assert len(sources) >= 4
+    for f in sources + sorted(CSRC.glob("*.cuh")):
+        hit = OPT_IN_CACHED.search(f.read_text())
+        assert hit is None, (f"{f.name} caches an opt-in per process: "
+                             f"{hit.group(0)!r}")
+    # the kernels call the per-device helper, never the attribute itself
+    for f in sources:
+        assert "cudaFuncSetAttribute" not in f.read_text(), f.name
+    helper = (CSRC / "smem_opt_in.cuh").read_text()
+    assert "cudaGetDevice" in helper and "cudaFuncSetAttribute" in helper
+    # the pattern catches the per-process form, on one line or two
+    assert OPT_IN_CACHED.search(
+        "static const cudaError_t attr = cudaFuncSetAttribute(\n"
+        "    kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);")
+    assert OPT_IN_CACHED.search("const cudaError_t attr = smem_opt_in("
+                                "kernel, bytes);") is None

@@ -121,3 +121,50 @@ def assert_same_results(port, jax_rows):
             else:
                 assert type(u) is type(v) and (u == v or (u != u and v != v)), \
                     (r.name, f, u, v)
+
+
+def bucket_run_histogram(latency, weights):
+    """Numpy model of the CUDA aggregate kernels' histogram update: each
+    scenario holds the (sum, comp, comp2) triple of the bucket it hit last
+    in registers and adds a bin's weight there while the bucket stays the
+    same; when it changes, the held triple is written back to a zeroed
+    [N, 3, 152] array and the new bucket's is read from it, and the held
+    one is written once more at the end. All in float32, the compensated
+    step as ``core.twin._neumaier2``. ``latency`` and ``weights`` are
+    [N, T]; returns the finalized [N, 152] float32 histogram (recombined
+    in f64 as ``finalize_aggregate`` does), the number of bucket changes,
+    and how many of them read back a bucket written earlier."""
+    from repro_torch.core.twin import AGG_HIST_BINS, np_hist_bucket
+    n, t_bins = latency.shape
+    buckets = np_hist_bucket(latency)
+    weights = np.asarray(weights, np.float32)
+    mem = np.zeros((3, n, AGG_HIST_BINS), np.float32)
+    rows = np.arange(n)
+    held = np.full(n, -1)
+    seen = np.zeros((n, AGG_HIST_BINS), bool)
+    s, c, cc = (np.zeros(n, np.float32) for _ in range(3))
+    changes = revisits = 0
+    for t in range(t_bins):
+        b = buckets[:, t]
+        change = b != held
+        out = change & (held >= 0)
+        for k, v in enumerate((s, c, cc)):
+            mem[k, rows[out], held[out]] = v[out]
+        changes += int(change.sum())
+        revisits += int((change & seen[rows, b]).sum())
+        s, c, cc = (np.where(change, mem[k, rows, b], v)
+                    for k, v in enumerate((s, c, cc)))
+        seen[rows, b] = True
+        held = b
+        x = weights[:, t]
+        s1 = s + x
+        bb = s1 - s
+        e = (s - (s1 - bb)) + (x - bb)
+        c1 = c + e
+        bb2 = c1 - c
+        ee = (c - (c1 - bb2)) + (e - bb2)
+        s, c, cc = s1, c1, cc + ee
+    for k, v in enumerate((s, c, cc)):
+        mem[k, rows, held] = v
+    hist = (mem[0].astype(np.float64) + mem[1] + mem[2]).astype(np.float32)
+    return hist, changes, revisits

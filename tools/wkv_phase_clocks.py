@@ -108,8 +108,8 @@ def main(variants):
         text, phases = instrumented(variant)
         cu, so = out_dir / f"{variant}.cu", out_dir / f"{variant}.so"
         cu.write_text(text)
-        subprocess.run([build.nvcc_path(), *build.FLAGS["rwkv6"], "-o",
-                        str(so), str(cu)], check=True, capture_output=True)
+        subprocess.run(build.nvcc_command("rwkv6", cu, so), check=True,
+                       capture_output=True)
         lib = ctypes.CDLL(str(so))
         lib.rwkv6_launch.argtypes = ([ctypes.c_void_p] * 8
                                      + [ctypes.c_int] * 6 + [ctypes.c_void_p])
