@@ -763,8 +763,9 @@ def ssm_inputs(b, s, di, n, dtype, dev, g, state=True):
 
 def check_ssm_random_blocks(dev):
     """Phase 5b: the selective-scan kernel against ref.ssm_scan, at and
-    around its 64-step B/C chunk and its lane split (n 16, 4 and 13, the
-    last not a multiple of the lanes), and runs split anywhere."""
+    around its 32- and 16-step chunks (bf16 and float32), n 16, 4 and 13
+    (the last leaving its four partial sums of y uneven), and runs split
+    anywhere."""
     from repro_torch.kernels import ref, ssm_scan as sk
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
     worst, blocks = 0.0, 0

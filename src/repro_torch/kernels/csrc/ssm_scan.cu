@@ -23,56 +23,37 @@
 // with time in order and keeps the [d_blk, n] state in VMEM scratch across
 // chunks. Here one thread owns one (batch, channel) and runs the whole
 // time loop, its n <= 16 states in registers from the first step to the
-// last (kLanes = 1; a build may split a channel's states over 2 to 8
-// lanes, whose partial sums of y then meet by xor shuffles: measured
-// slower, tools/kernel_leave_out.py). A block is 128 neighbouring
-// channels of one batch row. Time runs in chunks of 32 bf16 (16 float32)
-// steps, double-buffered in shared memory: the chunk's x and dt tiles come
-// by cp.async in 16-byte pieces, its B and C (the same for every channel
-// of a batch row) are loaded into registers and stored as float32, both
-// for chunk c + 1 while chunk c runs, with one barrier a chunk; lanes
-// read B and C back as broadcasts. Each exp is exp2(dt * A2), A2 =
-// A * log2(e) scaled once per channel in the prologue, so it is one
-// MUFU.EX2 (ex2.approx.ftz, 2 ulp) with no range fix-up, where expf took
-// about six more instructions. The first kPoly states of a lane may take
-// theirs on the FMA pipe instead (Cody-Waite split and a degree-5
-// polynomial, 1.8 ulp); kPoly is 0, since the issue slots that costs are
-// as scarce as the MUFU (measured slower, tools/kernel_leave_out.py). y's
-// sum runs in four interleaved partial sums, so that its chain of fused
-// multiply-adds is four deep, not sixteen. A decode step (s = 1) is the
-// same kernel with one step. The state out is a separate buffer, so a
-// state passed in is not modified, and a run split anywhere with the
-// state carried across equals one whole run: nothing depends on where a
-// chunk starts.
-//
-// kLanes and kPoly are set at build time (SSM_LANES, SSM_POLY), so that
-// tools/kernel_leave_out.py can build and time those designs from this
-// source.
+// last. A block is 128 neighbouring channels of one batch row. Time runs
+// in chunks of 32 bf16 (16 float32) steps, double-buffered in shared
+// memory: the chunk's x and dt tiles come by cp.async in 16-byte pieces,
+// its B and C (the same for every channel of a batch row) are loaded into
+// registers and stored as float32, both for chunk c + 1 while chunk c
+// runs, with one barrier a chunk; threads read B and C back as
+// broadcasts. Each exp is exp2(dt * A2), A2 = A * log2(e) scaled once per
+// channel in the prologue, so it is one MUFU.EX2 (ex2.approx.ftz, 2 ulp)
+// with no range fix-up, where expf took about six more instructions. The
+// MUFU and the issue of the rest are two floors of about the same height,
+// so neither moving exps onto the FMA pipe by a polynomial nor splitting
+// a channel over more lanes (more warps, shuffles for y) pays: both
+// measured slower. y's sum runs in four interleaved partial sums, so that
+// its chain of fused multiply-adds is four deep, not sixteen. A decode
+// step (s = 1) is the same kernel with one step. The state out is a
+// separate buffer, so a state passed in is not modified, and a run split
+// anywhere with the state carried across equals one whole run: nothing
+// depends on where a chunk starts.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
 
-#ifndef SSM_LANES
-#define SSM_LANES 1
-#endif
-#ifndef SSM_POLY
-#define SSM_POLY 0
-#endif
-
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kLanes = SSM_LANES;        // lanes a channel's states span
-constexpr int kPoly = SSM_POLY;          // exps a lane takes on the FMA pipe
-constexpr int kCh = kThreads / kLanes;   // channels a block
-constexpr int kSums = 4;                 // partial sums of a lane's y
+constexpr int kThreads = 128;          // channels a block, one a thread
+constexpr int kSums = 4;               // partial sums of a channel's y
 constexpr int kMaxState = 16;
 constexpr int kErrStateDim = 1000;
 constexpr float kLog2e = 1.4426950408889634f;
-static_assert(kLanes == 1 || kLanes == 2 || kLanes == 4 || kLanes == 8,
-              "a channel's lanes are a power of two inside a warp");
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -94,26 +75,6 @@ __device__ __forceinline__ float ex2_mufu(float x) {
   return y;
 }
 
-// 2^x on the FMA pipe, for x < 128: x = j + f with j = rint(x) (the
-// 1.5 * 2^23 shift puts j in the low bits of r) and f in [-0.5, 0.5];
-// 2^f by a degree-5 polynomial, near-minimax for the relative error
-// (2.1e-7, 1.8 ulp, evaluated in float32 with fused multiply-adds), then
-// j added to its exponent field. x is clamped at -125 so that the exponent
-// stays normal; 2^-125 in place of a smaller factor changes h by less than
-// 3e-38.
-__device__ __forceinline__ float ex2_poly(float x) {
-  x = fmaxf(x, -125.0f);
-  const float r = __fadd_rn(x, 12582912.0f);
-  const float f = __fsub_rn(x, __fsub_rn(r, 12582912.0f));
-  float p = 0.0013276167446747422f;
-  p = __fmaf_rn(p, f, 0.009675540030002594f);
-  p = __fmaf_rn(p, f, 0.05550714209675789f);
-  p = __fmaf_rn(p, f, 0.24022120237350464f);
-  p = __fmaf_rn(p, f, 0.6931469440460205f);
-  p = __fmaf_rn(p, f, 1.0000001192092896f);
-  return __uint_as_float(__float_as_uint(p) + (__float_as_uint(r) << 23));
-}
-
 // cp.async of 16 bytes from device to shared memory, bypassing L1
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -129,8 +90,6 @@ __device__ __forceinline__ void cp_async_wait_all() {
 
 template <typename T, int N>
 struct Plan {
-  static constexpr int kPer = (N + kLanes - 1) / kLanes;  // states a lane
-  static constexpr int kPad = kPer * kLanes;              // padded n
   static constexpr int kChunk = 64 / sizeof(T);           // steps a chunk
   static constexpr int kVec = 16 / sizeof(T);             // x per 16 bytes
   // B, C elements of a chunk each thread stages
@@ -145,49 +104,36 @@ ssm_scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
                 const float* __restrict__ s0, T* __restrict__ y,
                 float* __restrict__ s_out, int s, int di, int vec16) {
   using P = Plan<T, N>;
-  constexpr int kPer = P::kPer, kPad = P::kPad, kChunk = P::kChunk;
-  constexpr int kVec = P::kVec, kStage = P::kStage;
-  __shared__ __align__(16) T xs[2][kChunk][kCh];
-  __shared__ __align__(16) T ds[2][kChunk][kCh];
-  __shared__ __align__(16) float bs[2][kChunk][kPad];
-  __shared__ __align__(16) float cs[2][kChunk][kPad];
+  constexpr int kChunk = P::kChunk, kVec = P::kVec, kStage = P::kStage;
+  __shared__ __align__(16) T xs[2][kChunk][kThreads];
+  __shared__ __align__(16) T ds[2][kChunk][kThreads];
+  __shared__ __align__(16) float bs[2][kChunk][N];
+  __shared__ __align__(16) float cs[2][kChunk][N];
   const int batch = blockIdx.y;
-  const int lane = threadIdx.x % kLanes;
-  const int col = threadIdx.x / kLanes;        // this lane's channel column
-  const int ch0 = blockIdx.x * kCh;
+  const int col = threadIdx.x;                 // this thread's channel column
+  const int ch0 = blockIdx.x * kThreads;
   const int ch = ch0 + col;
   const bool live = ch < di;
-  // a lane past di computes on the last channel (so that every lane of a
-  // warp reaches the shuffles) and stores nothing
+  // a thread past di computes on the last channel (it still stages its
+  // share of the tiles) and stores nothing
   const int chl = live ? ch : di - 1;
 
-  float a2[kPer], h[kPer];
+  float a2[N], h[N];
 #pragma unroll
-  for (int j = 0; j < kPer; ++j) {
-    const int n = lane * kPer + j;
-    a2[j] = n < N ? A[(size_t)chl * N + n] * kLog2e : 0.f;
-    h[j] = (n < N && s0) ? s0[((size_t)batch * di + chl) * N + n] : 0.f;
+  for (int j = 0; j < N; ++j) {
+    a2[j] = A[(size_t)chl * N + j] * kLog2e;
+    h[j] = s0 ? s0[((size_t)batch * di + chl) * N + j] : 0.f;
   }
   const float d_skip = D[chl];
 
-  // padded state columns read B = C = 0 in both buffers, so their h
-  // stays 0 and adds nothing to y
-  if constexpr (kPad > N) {
-    constexpr int kGap = kPad - N;
-    for (int idx = threadIdx.x; idx < 2 * kChunk * kGap; idx += kThreads) {
-      const int buf = idx / (kChunk * kGap), r = idx % (kChunk * kGap);
-      bs[buf][r / kGap][N + r % kGap] = 0.f;
-      cs[buf][r / kGap][N + r % kGap] = 0.f;
-    }
-  }
-  // x and dt of a chunk: [steps][kCh] tiles, by cp.async in 16-byte
+  // x and dt of a chunk: [steps][kThreads] tiles, by cp.async in 16-byte
   // pieces (a piece lies wholly inside or wholly past di when vec16),
   // else element by element
   auto load_xdt = [&](int t0, int buf) {
     const int steps = min(kChunk, s - t0);
     const size_t row0 = (size_t)batch * s + t0;
     if (vec16) {
-      constexpr int kRow = kCh / kVec;
+      constexpr int kRow = kThreads / kVec;
       for (int idx = threadIdx.x; idx < steps * kRow; idx += kThreads) {
         const int r = idx / kRow, c = (idx % kRow) * kVec;
         if (ch0 + c < di) {
@@ -198,8 +144,8 @@ ssm_scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
       }
       cp_async_commit();
     } else {
-      for (int idx = threadIdx.x; idx < steps * kCh; idx += kThreads) {
-        const int r = idx / kCh, c = idx % kCh;
+      for (int idx = threadIdx.x; idx < steps * kThreads; idx += kThreads) {
+        const int r = idx / kThreads, c = idx % kThreads;
         if (ch0 + c < di) {
           const size_t g = (row0 + r) * di + ch0 + c;
           xs[buf][r][c] = x[g];
@@ -249,21 +195,16 @@ ssm_scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
       const float xv = to_f32(xs[buf][tt][col]);
       const float dv = to_f32(ds[buf][tt][col]);
       const float dx = dv * xv;
-      const float* bt = &bs[buf][tt][lane * kPer];
-      const float* ct = &cs[buf][tt][lane * kPer];
+      const float* bt = bs[buf][tt];
+      const float* ct = cs[buf][tt];
       float part[kSums] = {};           // y's sum in kSums short chains
 #pragma unroll
-      for (int j = 0; j < kPer; ++j) {
-        const float e = j < kPoly ? ex2_poly(dv * a2[j])
-                                  : ex2_mufu(dv * a2[j]);
-        h[j] = fmaf(e, h[j], dx * bt[j]);
+      for (int j = 0; j < N; ++j) {
+        h[j] = fmaf(ex2_mufu(dv * a2[j]), h[j], dx * bt[j]);
         part[j % kSums] = fmaf(h[j], ct[j], part[j % kSums]);
       }
-      float acc = (part[0] + part[1]) + (part[2] + part[3]);
-#pragma unroll
-      for (int o = 1; o < kLanes; o <<= 1)
-        acc += __shfl_xor_sync(0xffffffffu, acc, o);
-      if (live && lane == 0)
+      const float acc = (part[0] + part[1]) + (part[2] + part[3]);
+      if (live)
         y[((size_t)batch * s + t0 + tt) * di + ch] =
             from_f32<T>(acc + d_skip * xv);
     }
@@ -271,10 +212,7 @@ ssm_scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
   }
   if (live) {
 #pragma unroll
-    for (int j = 0; j < kPer; ++j) {
-      const int n = lane * kPer + j;
-      if (n < N) s_out[((size_t)batch * di + ch) * N + n] = h[j];
-    }
+    for (int j = 0; j < N; ++j) s_out[((size_t)batch * di + ch) * N + j] = h[j];
   }
 }
 
@@ -282,7 +220,7 @@ template <typename T, int N>
 int launch(const void* x, const void* dt, const void* A, const void* B,
            const void* C, const void* D, const void* s0, void* y,
            void* s_out, int b, int s, int di, cudaStream_t stream) {
-  const dim3 grid((di + kCh - 1) / kCh, b);
+  const dim3 grid((di + kThreads - 1) / kThreads, b);
   const int vec16 = di % Plan<T, N>::kVec == 0 &&
                     (reinterpret_cast<uintptr_t>(x) |
                      reinterpret_cast<uintptr_t>(dt)) % 16 == 0;

@@ -5,11 +5,12 @@ plain PyTorch versions (``kernels/ref.py``); these must equal, bit for
 bit, both the reference's Pallas kernels in interpret mode and its jnp
 oracles, for a mixed-policy block (T = 336, N = 13, foreign parameters in
 every slot) at dt 1 h and 1 min, with both branch selectors. A CPU tensor
-must never reach the CUDA build or bump a launch counter. The last two
-tests hold the CUDA kernels, benign and fault, against the plain versions and
-run only where a card is visible (``python3 chip_smoke.py`` covers them at
-full width). The fault scans' plain versions are held against the
-reference in ``test_torch_faults.py``.
+must never reach the CUDA build or bump a launch counter. The last three
+tests run only where a card is visible: two hold the CUDA kernels, benign
+and fault, against the plain versions (``python3 chip_smoke.py`` covers
+them at full width), and one runs the aggregate kernel at 7.2 M scenarios,
+where its histogram offsets pass 2^32 elements. The fault scans' plain
+versions are held against the reference in ``test_torch_faults.py``.
 """
 import numpy as np
 import pytest
@@ -273,3 +274,60 @@ def test_fault_kernels_match_plain_on_card():
                 assert_bitwise(a.cpu().numpy(), b.numpy())
     assert pk.launches["policy_scan_fault"] == 2
     assert pk.launches["policy_agg_fault"] == 4
+
+
+#: scenarios past which bucket 150's offset in the [152][N][4] histogram,
+#: 4 * 150 * N floats, no longer fits in 32 bits
+WIDE_N = 7_200_000
+
+
+@pytest.mark.cuda
+def test_agg_histogram_offsets_past_32_bits_on_card():
+    """At 7.2 M scenarios ([152, N, 4] float32 is 17.5 GB) the offsets of
+    buckets 150 and 151 pass 2^32 floats: each scenario's histogram, scalars
+    and end carry must still equal those of the same scenario in a grid of
+    128. The 128 are overloaded (max_rps 1e-6..1e-2), so their latencies
+    reach every range of buckets up to the last; three warps of one policy
+    and one of all five."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    m, t_bins = 128, 48
+    rng = np.random.default_rng(11)
+    loads_t = _t(rng.uniform(1e5, 1e7, (t_bins, m)).astype(np.float32))
+    params = rng.uniform(0.05, 8.0, (m, pt.PARAM_DIM)).astype(np.float32)
+    params[:, 0] = rng.uniform(1e-6, 1e-2, m)
+    branch = np.concatenate([np.repeat([0, 2, 4], 32), np.arange(32) % 5])
+    lib = pk._lib()
+
+    def run(n):
+        reps = n // m
+        lidx = torch.arange(m, dtype=torch.int32).repeat(reps)
+        args = [x.to(dev) for x in (
+            loads_t, lidx, _t(params).repeat(reps, 1),
+            _t(branch.astype(np.int32)).repeat(reps))]
+        carry = torch.empty((n, pt.CARRY_DIM), device=dev)
+        scal = torch.empty((pt.AGG_SCALARS, n), device=dev)
+        hist = torch.zeros((pt.AGG_HIST_BINS, n, 4), device=dev)
+        with torch.cuda.device(dev):
+            rc = lib.policy_agg_launch(
+                args[0].data_ptr(), m, t_bins, args[1].data_ptr(),
+                args[2].data_ptr(), args[3].data_ptr(), n, 1.0, 4 * 3600.0,
+                0, carry.data_ptr(), scal.data_ptr(), hist.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
+        pk._check(lib, rc, "policy_agg")
+        torch.cuda.synchronize(dev)
+        return carry, scal, hist
+
+    carry_m, scal_m, hist_m = run(m)
+    assert bool((hist_m[150:, :, 0] > 0).any()), "no bin reached bucket 150"
+    assert 4 * 150 * WIDE_N >= 2 ** 32 and WIDE_N % m == 0
+    reps = WIDE_N // m
+    carry, scal, hist = run(WIDE_N)
+    assert torch.equal(carry.view(reps, m, -1),
+                       carry_m.expand(reps, m, -1))
+    assert torch.equal(scal.view(-1, reps, m),
+                       scal_m[:, None].expand(-1, reps, m))
+    for b in range(pt.AGG_HIST_BINS):
+        assert torch.equal(hist[b].view(reps, m, 4),
+                           hist_m[b].expand(reps, m, 4)), f"bucket {b}"

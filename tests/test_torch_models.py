@@ -36,7 +36,6 @@ run only where a card is visible (``python3 chip_smoke.py`` covers them at
 the serving path's widths).
 """
 import dataclasses
-import re
 
 import numpy as np
 import pytest
@@ -247,23 +246,8 @@ def test_plain_ssm_zero_state_and_carry(jref):
     close(s2, js2, tol, tol, "carried state")
 
 
-#: the card scan sums a lane's share of y in 4 interleaved chains
+#: the card scan sums a channel's y in 4 interleaved chains
 SCAN_SUMS = 4
-
-
-def _scan_design():
-    """The card kernel's lanes a channel, exps a lane on the FMA pipe and
-    the coefficients of its 2^f polynomial (highest degree first), read
-    from ``csrc/ssm_scan.cu``."""
-    text = (build.CSRC / "ssm_scan.cu").read_text()
-    lanes = int(re.search(r"#define SSM_LANES (\d+)", text).group(1))
-    poly = int(re.search(r"#define SSM_POLY (\d+)", text).group(1))
-    body = text[text.index("float ex2_poly(float x) {"):]
-    body = body[:body.index("\n}\n")]
-    coeffs = [float(re.search(r"float p = ([0-9.e-]+)f;", body).group(1))]
-    coeffs += [float(c) for c in
-               re.findall(r"__fmaf_rn\(p, f, ([0-9.e-]+)f\)", body)]
-    return lanes, poly, coeffs
 
 
 def _fma(a, b, c):
@@ -271,69 +255,29 @@ def _fma(a, b, c):
     return (a.double() * b.double() + torch.as_tensor(c).double()).float()
 
 
-def _ex2_poly(x, coeffs):
-    """The kernel's FMA-pipe 2^x: x = j + f, j = rint(x) by the 1.5 * 2^23
-    shift, 2^f by the polynomial, 2^j put into the exponent."""
-    shift = torch.tensor(12582912.0)
-    x = torch.clamp_min(x, -125.0)
-    j = (x + shift) - shift
-    f = x - j
-    p = torch.full_like(f, coeffs[0])
-    for c in coeffs[1:]:
-        p = _fma(p, f, c)
-    return p * ((j.int() + 127) << 23).view(torch.float32)
-
-
-def _card_scan(x, dt, A, B, C, D, state, lanes, poly, coeffs):
+def _card_scan(x, dt, A, B, C, D, state):
     """A float32 model of the card's selective scan: A pre-scaled by
     log2(e) once, each exp as exp2 (the MUFU's, modelled by the precise
-    one) or, for the first ``poly`` states of a lane, the polynomial; a
-    channel's states padded to ``lanes`` x ceil(n / lanes), each lane
-    summing its own into y with fused multiply-adds in four interleaved
-    partial sums (state j into sum j % 4), the lanes' sums met by xor
-    shuffles. Per step the arithmetic is the same wherever a chunk
-    starts."""
+    one), each channel summing its states into y with fused multiply-adds
+    in four interleaved partial sums (state j into sum j % 4). Per step
+    the arithmetic is the same wherever a chunk starts."""
     b, s, di = x.shape
     n = A.shape[-1]
-    per = -(-n // lanes)
-    pad = per * lanes
-    a2 = torch.zeros(di, pad)
-    a2[:, :n] = A.float() * torch.tensor(1.4426950408889634)
-    h = torch.zeros(b, di, pad)
-    if state is not None:
-        h[..., :n] = state
-    Bp, Cp = torch.zeros(b, s, pad), torch.zeros(b, s, pad)
-    Bp[..., :n], Cp[..., :n] = B.float(), C.float()
-    on_fma = torch.arange(pad) % per < poly
+    a2 = A.float() * torch.tensor(1.4426950408889634)
+    h = torch.zeros(b, di, n) if state is None else state.clone()
     y = torch.empty(b, s, di)
     for t in range(s):
         xv, dv = x[:, t].float(), dt[:, t].float()
-        arg = dv[..., None] * a2
-        e = torch.where(on_fma, _ex2_poly(arg, coeffs), torch.exp2(arg))
-        h = _fma(e, h, (dv * xv)[..., None] * Bp[:, t, None, :])
-        parts = h.view(b, di, lanes, per)
-        cpart = Cp[:, t].view(b, 1, lanes, per)
-        acc = torch.zeros(b, di, lanes, SCAN_SUMS)
-        for j in range(per):
-            acc[..., j % SCAN_SUMS] = _fma(parts[..., j], cpart[..., j],
+        e = torch.exp2(dv[..., None] * a2)
+        h = _fma(e, h, (dv * xv)[..., None] * B[:, t, None, :].float())
+        ct = C[:, t, None, :].float()
+        acc = torch.zeros(b, di, SCAN_SUMS)
+        for j in range(n):
+            acc[..., j % SCAN_SUMS] = _fma(h[..., j], ct[..., j],
                                            acc[..., j % SCAN_SUMS])
         acc = (acc[..., 0] + acc[..., 1]) + (acc[..., 2] + acc[..., 3])
-        o = 1
-        while o < lanes:
-            acc = acc + acc[..., torch.arange(lanes) ^ o]
-            o <<= 1
-        y[:, t] = _fma(D, xv, acc[..., 0])
-    return y.to(x.dtype), h[..., :n]
-
-
-def test_card_scan_exp2_polynomial():
-    """The FMA-pipe 2^x holds to 2 ulp (2.4e-7 relative) from 2^-125 to 1,
-    as the MUFU's ex2.approx does."""
-    *_, coeffs = _scan_design()
-    x = torch.linspace(-125.0, 0.0, 200001)
-    x = torch.cat([x, torch.linspace(-1.0, 0.0, 100001)])
-    rel = (_ex2_poly(x, coeffs).double() / torch.exp2(x.double()) - 1).abs()
-    assert float(rel.max()) < 2.4e-7
+        y[:, t] = _fma(D, xv, acc)
+    return y.to(x.dtype), h
 
 
 @pytest.mark.parametrize("s", [1, 63, 64, 65, 256])
@@ -342,13 +286,12 @@ def test_card_scan_model_matches_pallas_kernel(jref, s, n):
     """The card kernel's arithmetic (a float32 model) holds to the Pallas
     kernel and to the plain version within the card's float32 tolerance,
     from a zero and from a carried state."""
-    lanes, poly, coeffs = _scan_design()
     j, t = _ssm_inputs(jref, 2, s, 64, n, torch.float32, seed=s + n)
     chunk = 64 if s % 64 == 0 else s
     tol = CARD_TOL[torch.float32]
     for state in (False, True):
         st_j, st_t = (j[-1], t[-1]) if state else (None, None)
-        got = _card_scan(*t[:-1], st_t, lanes, poly, coeffs)
+        got = _card_scan(*t[:-1], st_t)
         y_j, s_j = jref.ssm_scan.ssm(*j[:-1], st_j, chunk=chunk,
                                      interpret=True)
         y_p, s_p = ref.ssm_scan(*t[:-1], st_t)
@@ -357,25 +300,24 @@ def test_card_scan_model_matches_pallas_kernel(jref, s, n):
             close(got[1], w[1], tol, tol, f"{what} state state={state}")
 
 
-@pytest.mark.parametrize("lanes", [1, 2, 4])
-def test_card_scan_model_split_runs(jref, lanes):
-    """A run split inside the 64-step chunk (37), on its boundary (64) or
-    inside a later one (100), the state carried across, equals the whole
-    run; at one, two and four lanes a channel, n not a multiple of the
-    lanes."""
-    _, poly, coeffs = _scan_design()
-    j, t = _ssm_inputs(jref, 1, 160, 64, 13, torch.float32, seed=9)
+@pytest.mark.parametrize("n", [13, 16, 5])
+def test_card_scan_model_split_runs(jref, n):
+    """A run split inside a chunk of the card kernel (37), on a chunk
+    boundary (64) or inside a later chunk (100), the state carried across,
+    equals the whole run; n 13 and 5 leave the four partial sums of y
+    uneven."""
+    j, t = _ssm_inputs(jref, 1, 160, 64, n, torch.float32, seed=9)
     x, dt, A, B, C, D, st = t
-    y_all, s_all = _card_scan(x, dt, A, B, C, D, st, lanes, poly, coeffs)
+    y_all, s_all = _card_scan(x, dt, A, B, C, D, st)
     tol = CARD_TOL[torch.float32]
     y_j, s_j = jref.ssm_scan.ssm(*j, chunk=32, interpret=True)
     close(y_all, y_j, tol, tol, "whole run y")
     close(s_all, s_j, tol, tol, "whole run state")
     for cut in (37, 64, 100):
         y1, s1 = _card_scan(x[:, :cut], dt[:, :cut], A, B[:, :cut],
-                            C[:, :cut], D, st, lanes, poly, coeffs)
+                            C[:, :cut], D, st)
         y2, s2 = _card_scan(x[:, cut:], dt[:, cut:], A, B[:, cut:],
-                            C[:, cut:], D, s1, lanes, poly, coeffs)
+                            C[:, cut:], D, s1)
         assert torch.equal(torch.cat([y1, y2], 1), y_all), cut
         assert torch.equal(s2, s_all), cut
 

@@ -38,6 +38,10 @@ SRC = ROOT / "src"
 CSRC = SRC / "repro_torch" / "kernels" / "csrc"
 #: a cudaFuncSetAttribute result kept in a static: set once per process
 OPT_IN_CACHED = re.compile(r"\bstatic\b[^;{}]*\bcudaFuncSetAttribute\b")
+# a product cast to 32 bits, as in `4 * ((unsigned)bucket * (unsigned)n)`:
+# an offset into a buffer of more than 2^32 elements wraps without a fault
+OFFSET_32 = re.compile(r"\((?:unsigned|uint32_t|int)\)\s*\w+\s*\*\s*"
+                       r"\((?:unsigned|uint32_t|int)\)")
 FORBIDDEN = re.compile(r"^\s*(import\s+(jax|repro)\b|from\s+(jax|repro)(\.|\s))",
                        re.MULTILINE)
 
@@ -156,3 +160,15 @@ def test_shared_memory_opt_in_is_set_per_device():
         "    kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);")
     assert OPT_IN_CACHED.search("const cudaError_t attr = smem_opt_in("
                                 "kernel, bytes);") is None
+
+
+def test_kernel_offsets_are_not_multiplied_in_32_bits():
+    """No kernel source multiplies two values cast to 32 bits, the form
+    in which a histogram offset once wrapped past 2^32 elements; offsets
+    are products in size_t."""
+    for f in sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")):
+        hit = OFFSET_32.search(f.read_text())
+        assert hit is None, f"{f.name}: a 32-bit product {hit.group(0)!r}"
+    assert OFFSET_32.search("hp = hcol + 4 * ((unsigned)bucket * "
+                            "(unsigned)n);")
+    assert OFFSET_32.search("hp = hcol + 4 * ((size_t)bucket * n);") is None

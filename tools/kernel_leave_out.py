@@ -1,10 +1,9 @@
 #!/usr/bin/env python3
 """What sets the time of the selective-scan and aggregate policy-scan
 kernels, on the card: copies of a kernel source with one part of the work
-left out (or another split chosen), each built and timed at the main
-path's shape.
+left out, each built and timed at the main path's shape.
 
-    python3 tools/kernel_leave_out.py [--csrc DIR] KERNEL:VARIANT ...
+    python3 tools/kernel_leave_out.py KERNEL:VARIANT ...
 
 The profilers that count by instruction (ncu, nsys) are not available on
 the machines this port is measured on, so a part's cost is read off the
@@ -14,37 +13,29 @@ state), ``agg`` (``policy_agg`` on the 65,536-scenario What-if #5 grid,
 8,736 bins) or ``fault`` (``policy_agg_fault`` on the 65,536-row chaos
 grid, F = 16); ``agg-fifo`` ... ``agg-batch_window`` time ``policy_agg``
 on 65,536 scenarios of one policy (its What-if #5 twins repeated to 256,
-x the 256 forecasts). ``--csrc`` takes the sources of another checkout,
-so the same script measures an earlier design; the design is told from
-the source text. A spec given twice is built once and timed twice (to
-see the spread within a call). Variants that leave work out give wrong
-results and are not checked:
+x the 256 forecasts). A spec given twice is built once and timed twice
+(to see the spread within a call). Variants that leave work out give
+wrong results and are not checked:
 
 * ``base``: the source as it is;
 * ``ssm:no-exp``: each exp replaced by the constant 0.5; ``ssm:no-y``: no
-  sum into y (y = D x); ``ssm:no-bc``: B and C not staged (the shared
-  buffers are read as they are); ``ssm:no-xdt``: x and dt not loaded (two
-  constants a step in the one-thread-a-channel design; in the staged one,
-  the tiles after the first not copied); ``ssm:bc-once`` (staged design
-  only): every step reads the first step's B and C, which the compiler
-  then keeps in registers (no shared-memory reads of B and C a step);
-* ``ssm:lanesL-polyP`` (current design only): the source built with L
-  lanes a channel and P exps a lane on the FMA pipe (``SSM_LANES``,
-  ``SSM_POLY``);
+  sum into y (y = D x); ``ssm:no-bc``: B and C not staged after the
+  first chunk (the shared buffers are read as they are); ``ssm:no-xdt``:
+  the x and dt tiles after the first not copied; ``ssm:bc-once``: every
+  step reads its chunk's first B and C, which the compiler then keeps in
+  registers (no shared-memory reads of B and C a step);
 * ``agg:fastdiv``: the division of the IEEE build replaced by the
-  approximate one (``-prec-div=false``); ``agg:unrollU`` (current design
-  only): U bins of the scan's loop unrolled (``AGG_UNROLL``);
-  ``agg:no-loads`` (current design only): the loads of the bins after the
-  first replaced by arithmetic;
+  approximate one (``-prec-div=false``); ``agg:no-loads``: the loads of
+  the bins after the first replaced by arithmetic;
 * ``agg:no-hist`` / ``fault:no-hist``: no histogram at all;
   ``agg:one-triple`` / ``fault:one-triple``: every bin adds into one
   register triple (no device-memory traffic, the bucket still computed);
-  ``agg:no-scalars`` / ``fault:no-scalars`` (current design only): the
-  six compensated sums of the scalar statistics replaced by one plain
-  sum of the step's outputs;
-  ``agg:generic`` / ``fault:generic`` (current design only): every warp
-  switches on the policy per bin (``AGG_SPECIALIZE=0``), as a warp of
-  mixed policies does.
+  ``agg:no-scalars`` / ``fault:no-scalars``: the six compensated sums of
+  the scalar statistics replaced by one plain sum of the step's outputs;
+* ``agg:unsorted`` / ``fault:unsorted``: the source as it is, but the
+  wrapper's sort of the scenarios by policy replaced by the identity, so
+  the kernel runs them in the grid's own order (warps of mixed policies
+  switch on the policy per bin); the results stay right.
 
 Prints one JSON line per variant: CUDA-event ms of the wrapper (checks and
 allocation included, as ``chip_smoke.py`` times it; mean of several
@@ -52,11 +43,13 @@ launches after a warm-up), ptxas's registers, and the card. The copies
 build into ``kernels/_build/leave_out``.
 """
 import argparse
+import contextlib
 import ctypes
 import json
 import subprocess
 import sys
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -71,63 +64,24 @@ from repro_torch.kernels import build  # noqa: E402
 POLICIES = ("fifo", "quickscale", "autoscale", "shed", "batch_window")
 SOURCE = {"ssm": "ssm_scan", "agg": "policy_scan", "fault": "policy_scan",
           **{f"agg-{p}": "policy_scan" for p in POLICIES}}
-XDT = ("const float xv = to_f32(x[at]);\n"
-       "      const float dv = to_f32(dt[at]);")
-XDT_CONST = ("const float xv = 0.5f + 1e-3f * tt;\n"
-             "      const float dv = 0.25f + 1e-3f * tt;")
-#: design -> variant -> [(text in the source, its replacement)]
+#: kernel -> variant -> [(text in the source, its replacement)]
 CUTS = {
-    # one thread owns one channel, precise expf, B/C staged per chunk
-    "ssm-thread": {
-        "no-exp": [("h[n] = expf(dv * a[n]) * h[n] + dx * bs[tt][n];",
-                    "h[n] = 0.5f * h[n] + dx * bs[tt][n];")],
-        "no-y": [("acc = fmaf(h[n], cs[tt][n], acc);", "")],
-        "no-bc": [("for (int idx = threadIdx.x; idx < steps * N; "
-                   "idx += kThreads) {",
-                   "for (int idx = threadIdx.x; idx < 0; idx += kThreads) {")],
-        "no-xdt": [(XDT, XDT_CONST)],
-    },
-    # exp2 on the MUFU (and the FMA pipe), x and dt staged by cp.async
-    "ssm-staged": {
-        "no-exp": [("const float e = j < kPoly ? ex2_poly(dv * a2[j])\n"
-                    + " " * 34 + ": ex2_mufu(dv * a2[j]);",
-                    "const float e = 0.5f;")],
+    # one thread a channel, exp2 on the MUFU, x and dt staged by cp.async
+    "ssm": {
+        "no-exp": [("h[j] = fmaf(ex2_mufu(dv * a2[j]), h[j], dx * bt[j]);",
+                    "h[j] = fmaf(0.5f, h[j], dx * bt[j]);")],
         "no-y": [("part[j % kSums] = fmaf(h[j], ct[j], part[j % kSums]);",
                   "")],
         "no-bc": [("      fetch(t0 + kChunk);", ""),
                   ("    if (more) stage(buf ^ 1);", "")],
         "no-xdt": [("      load_xdt(t0 + kChunk, buf ^ 1);", "")],
-        "bc-once": [("&bs[buf][tt][lane * kPer]", "&bs[buf][0][lane * kPer]"),
-                    ("&cs[buf][tt][lane * kPer]", "&cs[buf][0][lane * kPer]")],
-    },
-    # a read-modify-write of the [3][152][N] histogram in every bin
-    "agg-rmw": {
-        "no-hist": [("""    float* h = hist + (size_t)hist_bucket(o.latency) * n + i;
-    float hs = h[0], hc = h[plane], hcc = h[2 * plane];
-    neumaier2(hs, hc, hcc, arrive);
-    h[0] = hs;
-    h[plane] = hc;
-    h[2 * plane] = hcc;
-""", "")],
-        "one-triple": [
-            ("""    float* h = hist + (size_t)hist_bucket(o.latency) * n + i;
-    float hs = h[0], hc = h[plane], hcc = h[2 * plane];
-    neumaier2(hs, hc, hcc, arrive);
-    h[0] = hs;
-    h[plane] = hc;
-    h[2 * plane] = hcc;
-""", """    hb += hist_bucket(o.latency);
-    neumaier2(hs, hc, hcc, arrive);
-"""),
-            ("  float okh = 0.0f, maxp = 0.0f, flth = 0.0f, fokh = 0.0f;\n",
-             "  float okh = 0.0f, maxp = 0.0f, flth = 0.0f, fokh = 0.0f;\n"
-             "  float hs = 0.0f, hc = 0.0f, hcc = 0.0f;\n  int hb = 0;\n"),
-            ("  scal[(size_t)21 * n + i] = fokh;   // A_FOKH\n",
-             "  scal[(size_t)21 * n + i] = fokh;   // A_FOKH\n"
-             "  hist[i] = hs + hc + hcc + (float)hb;\n")],
+        "bc-once": [("const float* bt = bs[buf][tt];",
+                     "const float* bt = bs[buf][0];"),
+                    ("const float* ct = cs[buf][tt];",
+                     "const float* ct = cs[buf][0];")],
     },
     # the bucket-run cache: the last bucket's triple held in registers
-    "agg-cache": {
+    "agg": {
         "no-hist": [("      hold_bucket(cur.latency);\n", ""),
                     ("      neumaier2(hs, hc, hcc, a_cur);\n", ""),
                     ("    hold_bucket(o.latency);\n", ""),
@@ -159,32 +113,18 @@ CUTS = {
   if constexpr (kFault) c0 = c0 + fq;""")],
     },
 }
-
-
-def design(kernel, text):
-    if kernel == "ssm":
-        return "ssm-staged" if "ex2_mufu" in text else "ssm-thread"
-    return "agg-cache" if "int held = -1;" in text else "agg-rmw"
+#: variants built from the source as it is
+AS_IS = ("base", "fastdiv", "unsorted")
 
 
 def variant_source(kernel, variant, text):
     """(source text, extra nvcc flags) of ``kernel:variant``."""
-    if variant == "base":
-        return text, []
-    d = design(kernel, text)
-    if variant.startswith("lanes") and d == "ssm-staged":
-        lanes, poly = variant[len("lanes"):].split("-poly")
-        return text, [f"-DSSM_LANES={int(lanes)}", f"-DSSM_POLY={int(poly)}"]
-    if variant == "generic" and d == "agg-cache":
-        return text, ["-DAGG_SPECIALIZE=0"]
-    if variant.startswith("unroll") and d == "agg-cache":
-        return text, [f"-DAGG_UNROLL={int(variant[len('unroll'):])}"]
-    if variant == "fastdiv" and d.startswith("agg"):
-        return text, ["-prec-div=false"]
-    cuts = CUTS[d].get(variant)
+    family = "ssm" if kernel == "ssm" else "agg"
+    if variant in AS_IS and (variant == "base" or family == "agg"):
+        return text, ["-prec-div=false"] if variant == "fastdiv" else []
+    cuts = CUTS[family].get(variant)
     if cuts is None:
-        raise SystemExit(f"{kernel}:{variant}: no such variant of the "
-                         f"{d} design")
+        raise SystemExit(f"{kernel}:{variant}: no such variant")
     for old, new in cuts:
         if old not in text:
             raise SystemExit(f"{kernel}:{variant}: the source no longer has "
@@ -193,7 +133,7 @@ def variant_source(kernel, variant, text):
     return text, []
 
 
-def build_all(specs, csrc):
+def build_all(specs):
     """Build every variant, one nvcc each, all at once; returns
     {spec: (library path, ptxas register lines)}."""
     out_dir = build.BUILD_DIR / "leave_out"
@@ -202,15 +142,15 @@ def build_all(specs, csrc):
     for spec in dict.fromkeys(specs):
         kernel, variant = spec.split(":")
         name = SOURCE[kernel]
-        text, defines = variant_source(
-            kernel, variant, (csrc / f"{name}.cu").read_text())
+        text, flags = variant_source(
+            kernel, variant, (build.CSRC / f"{name}.cu").read_text())
         stem = spec.replace(":", "-")
         cu, so = out_dir / f"{stem}.cu", out_dir / f"{stem}.so"
         cu.write_text(text)
         cmd = build.nvcc_command(name, cu, so)
-        if "-prec-div=false" in defines:
+        if "-prec-div=false" in flags:
             cmd.remove("-prec-div=true")
-        cmd[1:1] = defines
+        cmd[1:1] = flags
         procs[spec] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                             stderr=subprocess.STDOUT,
                                             text=True))
@@ -264,11 +204,13 @@ def runner(kernel, ops):
                                        1.0, **kw)), 3
 
 
+def caller_order(branch, stable=True):
+    """The identity permutation, in place of the wrapper's sort."""
+    return torch.arange(branch.numel(), device=branch.device)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--csrc", type=Path, default=build.CSRC,
-                    help="the kernel sources to copy (default: this "
-                         "checkout's)")
     ap.add_argument("specs", nargs="+", metavar="KERNEL:VARIANT")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -278,7 +220,7 @@ def main():
         if spec.split(":")[0] not in SOURCE or spec.count(":") != 1:
             raise SystemExit(f"{spec}: want KERNEL:VARIANT, KERNEL one of "
                              f"{sorted(SOURCE)}")
-    built = build_all(args.specs, args.csrc.resolve())
+    built = build_all(args.specs)
     dev = torch.device("cuda", 0)
     ops = operands(dev)
     for spec in args.specs:
@@ -287,11 +229,13 @@ def main():
         name = SOURCE[kernel]
         build._LOADED[name] = ctypes.CDLL(str(so))   # the wrapper binds it
         fn, reps = runner(kernel, ops[kernel])
-        fn()                                          # warm-up
-        ms, _ = chip_smoke.cuda_ms(fn, reps=reps)
-        text = (args.csrc / f"{name}.cu").read_text()
-        print(json.dumps({"kernel": kernel, "variant": variant,
-                          "design": design(kernel, text), "ms": ms,
+        # `unsorted`: the wrapper's argsort by policy returns the identity
+        order = (mock.patch.object(torch, "argsort", caller_order)
+                 if variant == "unsorted" else contextlib.nullcontext())
+        with order:
+            fn()                                      # warm-up
+            ms, _ = chip_smoke.cuda_ms(fn, reps=reps)
+        print(json.dumps({"kernel": kernel, "variant": variant, "ms": ms,
                           "ptxas": ptxas,
                           "card": torch.cuda.get_device_name(0)}),
               flush=True)
