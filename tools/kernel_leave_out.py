@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""What sets the time of the selective-scan and aggregate policy-scan
-kernels, on the card: copies of a kernel source with one part of the work
-left out, each built and timed at the main path's shape.
+"""What sets the time of the selective-scan and policy-scan kernels, on
+the card: copies of a kernel source with one part of the work left out,
+each built and timed at the main path's shape.
 
     python3 tools/kernel_leave_out.py KERNEL:VARIANT ...
 
@@ -10,12 +10,18 @@ the machines this port is measured on, so a part's cost is read off the
 time a copy without it takes. KERNEL is ``ssm`` (``ssm_scan`` at the
 Jamba-1.5-Large prefill shape, [4, 2,048, 16,384] x n 16 bf16 from a zero
 state), ``agg`` (``policy_agg`` on the 65,536-scenario What-if #5 grid,
-8,736 bins) or ``fault`` (``policy_agg_fault`` on the 65,536-row chaos
-grid, F = 16); ``agg-fifo`` ... ``agg-batch_window`` time ``policy_agg``
-on 65,536 scenarios of one policy (its What-if #5 twins repeated to 256,
-x the 256 forecasts). A spec given twice is built once and timed twice
-(to see the spread within a call). Variants that leave work out give
-wrong results and are not checked:
+8,736 bins), ``fault`` (``policy_agg_fault`` on the 65,536-row chaos
+grid, F = 16), ``scan`` (``policy_scan`` on the 4,096-scenario What-if #5
+grid) or ``scanf`` (``policy_scan_fault`` on the 4,096-row chaos grid:
+256 twins x 4 forecasts x 4 futures, F = 4), the shapes of
+``chip_smoke.py``'s kernel table; ``agg-fifo`` ... ``agg-batch_window``
+time ``policy_agg`` on 65,536 scenarios of one policy (its What-if #5
+twins repeated to 256, x the 256 forecasts), and ``scan-<policy>`` /
+``scanf-<policy>`` the series kernels on 4,096 rows of one policy (the
+twins repeated to 256, x 16 forecasts, or x 4 forecasts x 4 futures). A
+spec given twice is timed twice (to see the spread within a call); specs
+whose copies have the same text share one build. Variants that leave
+work out give wrong results and are not checked:
 
 * ``base``: the source as it is;
 * ``ssm:no-exp``: each exp replaced by the constant 0.5; ``ssm:no-y``: no
@@ -24,15 +30,22 @@ wrong results and are not checked:
   the x and dt tiles after the first not copied; ``ssm:bc-once``: every
   step reads its chunk's first B and C, which the compiler then keeps in
   registers (no shared-memory reads of B and C a step);
-* ``agg:fastdiv``: the division of the IEEE build replaced by the
-  approximate one (``-prec-div=false``); ``agg:no-loads``: the loads of
-  the bins after the first replaced by arithmetic;
+* ``fastdiv`` (any policy kernel): the division of the IEEE build
+  replaced by the approximate one (``-prec-div=false``);
+* ``agg:no-loads``: the loads of the bins after the first replaced by
+  arithmetic;
 * ``agg:no-hist`` / ``fault:no-hist``: no histogram at all;
   ``agg:one-triple`` / ``fault:one-triple``: every bin adds into one
   register triple (no device-memory traffic, the bucket still computed);
   ``agg:no-scalars`` / ``fault:no-scalars``: the six compensated sums of
   the scalar statistics replaced by one plain sum of the step's outputs;
-* ``agg:unsorted`` / ``fault:unsorted``: the source as it is, but the
+* ``scan:no-loads`` / ``scanf:no-loads``: the arrivals and capacity
+  multipliers of the bins after the first made by arithmetic from the
+  first bin's; ``scan:no-stores``: the five outputs of every bin folded
+  into one register sum, written once at the end (the work kept, no
+  series traffic); ``scan:block32`` / ``scan:block64``: the series
+  kernels launched in blocks of 32 or 64 threads;
+* ``unsorted`` (any policy kernel): the source as it is, but the
   wrapper's sort of the scenarios by policy replaced by the identity, so
   the kernel runs them in the grid's own order (warps of mixed policies
   switch on the policy per bin); the results stay right.
@@ -45,6 +58,7 @@ build into ``kernels/_build/leave_out``.
 import argparse
 import contextlib
 import ctypes
+import hashlib
 import json
 import subprocess
 import sys
@@ -62,8 +76,14 @@ import chip_smoke  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 
 POLICIES = ("fifo", "quickscale", "autoscale", "shed", "batch_window")
-SOURCE = {"ssm": "ssm_scan", "agg": "policy_scan", "fault": "policy_scan",
-          **{f"agg-{p}": "policy_scan" for p in POLICIES}}
+BASES = ("ssm", "agg", "fault", "scan", "scanf")
+SOURCE = {"ssm": "ssm_scan", **{k: "policy_scan" for k in BASES[1:]},
+          **{f"{k}-{p}": "policy_scan" for k in ("agg", "scan", "scanf")
+             for p in POLICIES}}
+#: the cuts each kernel takes: its own, or those of a kernel that shares
+#: its code
+FAMILY = {"ssm": "ssm", "agg": "agg", "fault": "agg", "scan": "scan",
+          "scanf": "scan"}
 #: kernel -> variant -> [(text in the source, its replacement)]
 CUTS = {
     # one thread a channel, exp2 on the MUFU, x and dt staged by cp.async
@@ -112,6 +132,38 @@ CUTS = {
   }
   if constexpr (kFault) c0 = c0 + fq;""")],
     },
+    # one thread a scenario, each bin's inputs read in that bin
+    "scan": {
+        "no-loads": [
+            ("  const size_t plane = (size_t)t_bins * n;\n",
+             "  const size_t plane = (size_t)t_bins * n;\n"
+             "  const float a0 = col[0];\n"),
+            ("capmul = cap_col[(size_t)t * f_rows];",
+             "capmul = t ? 1.0f - 0.5f * (float)((t & 63) == 0) "
+             ": cap_col[0];"),
+            ("bin_step<kFault, false>(branch, c0, c1, fq, "
+             "col[(size_t)t * k_rows],",
+             "bin_step<kFault, false>(branch, c0, c1, fq, "
+             "t ? a0 * (1.0f + 0.001f * (float)(t & 15)) : a0,")],
+        "no-stores": [
+            ("  const size_t plane = (size_t)t_bins * n;\n",
+             "  float acc = 0.0f;\n"),
+            ("""    float* out = series + (size_t)t * n + i;
+    out[0] = o.processed;
+    out[plane] = o.queue;
+    out[2 * plane] = o.latency;
+    out[3 * plane] = o.cost;
+    out[4 * plane] = o.dropped;
+  }
+""", """    acc += o.processed + o.queue + o.latency + o.cost + o.dropped;
+  }
+  series[i] = acc;
+""")],
+        "block32": [("constexpr int kThreads = 128;",
+                     "constexpr int kThreads = 32;")],
+        "block64": [("constexpr int kThreads = 128;",
+                     "constexpr int kThreads = 64;")],
+    },
 }
 #: variants built from the source as it is
 AS_IS = ("base", "fastdiv", "unsorted")
@@ -119,8 +171,8 @@ AS_IS = ("base", "fastdiv", "unsorted")
 
 def variant_source(kernel, variant, text):
     """(source text, extra nvcc flags) of ``kernel:variant``."""
-    family = "ssm" if kernel == "ssm" else "agg"
-    if variant in AS_IS and (variant == "base" or family == "agg"):
+    family = FAMILY[kernel.split("-")[0]]
+    if variant in AS_IS and (variant == "base" or family != "ssm"):
         return text, ["-prec-div=false"] if variant == "fastdiv" else []
     cuts = CUTS[family].get(variant)
     if cuts is None:
@@ -134,74 +186,82 @@ def variant_source(kernel, variant, text):
 
 
 def build_all(specs):
-    """Build every variant, one nvcc each, all at once; returns
+    """Build every distinct copy, one nvcc each, all at once; returns
     {spec: (library path, ptxas register lines)}."""
     out_dir = build.BUILD_DIR / "leave_out"
     out_dir.mkdir(parents=True, exist_ok=True)
-    procs = {}
+    procs, of_spec = {}, {}
     for spec in dict.fromkeys(specs):
         kernel, variant = spec.split(":")
         name = SOURCE[kernel]
         text, flags = variant_source(
             kernel, variant, (build.CSRC / f"{name}.cu").read_text())
-        stem = spec.replace(":", "-")
-        cu, so = out_dir / f"{stem}.cu", out_dir / f"{stem}.so"
+        key = hashlib.sha256((name + text + " ".join(flags)).encode()
+                             ).hexdigest()[:16]
+        of_spec[spec] = key
+        if key in procs:
+            continue
+        cu, so = out_dir / f"{name}-{key}.cu", out_dir / f"{name}-{key}.so"
         cu.write_text(text)
         cmd = build.nvcc_command(name, cu, so)
         if "-prec-div=false" in flags:
             cmd.remove("-prec-div=true")
         cmd[1:1] = flags
-        procs[spec] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                            stderr=subprocess.STDOUT,
-                                            text=True))
-    built = {}
-    for spec, (so, proc) in procs.items():
+        procs[key] = (spec, so, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    done = {}
+    for key, (spec, so, proc) in procs.items():
         log = proc.communicate()[0]
         if proc.returncode:
             raise SystemExit(f"{spec}: nvcc failed\n{log}")
-        built[spec] = (so, [line.split("ptxas info    : ")[-1] for line in
-                            log.splitlines() if "registers" in line])
-    return built
+        done[key] = (so, [line.split("ptxas info    : ")[-1] for line in
+                          log.splitlines() if "registers" in line])
+    return {spec: done[key] for spec, key in of_spec.items()}
 
 
-def operands(dev):
-    """The three main-path shapes' operands (made once, on the card)."""
+def operands(kernel, dev):
+    """The operands of one kernel's main-path shape, on the card."""
     from repro_torch import faults
     from repro_torch.core import traffic as tr
     from repro_torch.core import twin as twin_mod
-    g = torch.Generator(device=dev).manual_seed(chip_smoke.SEED + 3)
     twins = chip_smoke.whatif5_twins(twin_mod)
 
     def growths(k):
         return [tr.TrafficModel.honda_default(f"g{x:.4f}", R=3.5, G=float(x))
                 for x in np.linspace(1.0, 1.75, k)]
-    ops = {
-        "ssm": chip_smoke.ssm_inputs(4, 2048, 16384, 16, torch.bfloat16, dev,
-                                     g, state=False),
-        "agg": chip_smoke.grid_operands(twins, growths(256), dev),
-        "fault": chip_smoke.chaos_operands(
-            twins, growths(16), chip_smoke.chaos_schedule(faults, 16), dev),
-    }
-    # one policy's twins, repeated to 256, x the 256 forecasts
-    for p in POLICIES:
-        own = [tw for tw in twins if tw.policy == p]
-        ops[f"agg-{p}"] = chip_smoke.grid_operands(
-            (own * (256 // len(own)))[:256], growths(256), dev)
-    return ops
+    if kernel == "ssm":
+        g = torch.Generator(device=dev).manual_seed(chip_smoke.SEED + 3)
+        return chip_smoke.ssm_inputs(4, 2048, 16384, 16, torch.bfloat16, dev,
+                                     g, state=False)
+    base, _, policy = kernel.partition("-")
+    if policy:      # one policy's twins, repeated to 256
+        own = [tw for tw in twins if tw.policy == policy]
+        twins = (own * (256 // len(own)))[:256]
+    if base == "agg":
+        return chip_smoke.grid_operands(twins, growths(256), dev)
+    if base == "scan":
+        return chip_smoke.grid_operands(twins, growths(16), dev)
+    n_futures = 16 if base == "fault" else 4
+    return chip_smoke.chaos_operands(
+        twins, growths(16 if base == "fault" else 4),
+        chip_smoke.chaos_schedule(faults, n_futures), dev)
 
 
 def runner(kernel, ops):
     from repro_torch.kernels import policy_scan as pk, ssm_scan as sk
     if kernel == "ssm":
         return lambda: sk.ssm(*ops), 5
-    kernel = kernel.split("-")[0]
-    kw = dict(loads_t=ops["loads_t"], load_index=ops["load_index"],
-              slo_limit=4 * 3600.0, slo_mode=0)
-    if kernel == "fault":
-        kw.update(caps_t=ops["caps_t"], fmask_t=ops["fmask_t"],
-                  fault_index=ops["fault_index"])
-    return (lambda: pk.policy_grid_agg(None, ops["params"], ops["onehot"],
-                                       1.0, **kw)), 3
+    base = kernel.split("-")[0]
+    kw = dict(loads_t=ops["loads_t"], load_index=ops["load_index"])
+    if "caps_t" in ops:
+        kw.update(caps_t=ops["caps_t"], fault_index=ops["fault_index"])
+    args = (None, ops["params"], ops["onehot"], 1.0)
+    if base in ("scan", "scanf"):
+        return (lambda: pk.policy_grid_scan(*args, **kw)), 3
+    kw.update(slo_limit=4 * 3600.0, slo_mode=0)
+    if "caps_t" in ops:
+        kw["fmask_t"] = ops["fmask_t"]
+    return (lambda: pk.policy_grid_agg(*args, **kw)), 3
 
 
 def caller_order(branch, stable=True):
@@ -222,9 +282,11 @@ def main():
                              f"{sorted(SOURCE)}")
     built = build_all(args.specs)
     dev = torch.device("cuda", 0)
-    ops = operands(dev)
+    ops = {}
     for spec in args.specs:
         kernel, variant = spec.split(":")
+        if kernel not in ops:
+            ops[kernel] = operands(kernel, dev)
         so, ptxas = built[spec]
         name = SOURCE[kernel]
         build._LOADED[name] = ctypes.CDLL(str(so))   # the wrapper binds it
