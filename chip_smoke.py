@@ -12,7 +12,8 @@ RWKV-6 WKV recurrence, chunked and per step), then:
 1. prints the card (``nvidia-smi`` name and power limit) and the build,
    and checks the machine code (``cuobjdump -sass``): HGMMA and TMA loads
    in the flash library, HMMA and cp.async in the WKV library, the MUFU's
-   exp2 and cp.async in the selective-scan library (1b);
+   exp2 and cp.async in the selective-scan library, cp.async and no
+   float32 division check in the series policy scans (1b);
 2. holds each kernel against its plain PyTorch version on the card,
    bitwise: mixed-policy random blocks (foreign parameters in every slot,
    dt 1 and 1/60, N not a multiple of 32, both SLO modes) and the Table II
@@ -1233,19 +1234,46 @@ def wkv_vs_plain(dev):
     return out
 
 
+def sass_functions(sass):
+    """{kernel name: its lines} of ``cuobjdump -sass`` output."""
+    out, name = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            name = line.split("Function : ", 1)[1].strip()
+            out[name] = []
+        elif name is not None:
+            out[name].append(line)
+    return out
+
+
 def sass_check(build):
     """Phase 1b: the built libraries' machine code holds the instructions
     the redesigned kernels are built on: wgmma (HGMMA) and TMA loads
     (UTMALDG) in flash_attention, mma.sync (HMMA) and cp.async (LDGSTS)
     in rwkv6, the special-function unit's exp2 (MUFU.EX2) and cp.async in
-    ssm_scan."""
+    ssm_scan, and cp.async in both series kernels of policy_scan, which
+    have no float32 division check (FCHK, the branch to the IEEE
+    division's slow path): they divide through float64 reciprocals."""
     tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
     for name, want in (("flash_attention", ("HGMMA", "UTMALDG")),
                        ("rwkv6", ("HMMA", "LDGSTS")),
-                       ("ssm_scan", ("MUFU.EX2", "LDGSTS"))):
+                       ("ssm_scan", ("MUFU.EX2", "LDGSTS")),
+                       ("policy_scan", ("LDGSTS", "FCHK"))):
         sass = subprocess.run([tool, "-sass", str(build.library_path(name))],
                               capture_output=True, text=True,
                               check=True).stdout
+        if name == "policy_scan":
+            series = [lines for fn, lines in sass_functions(sass).items()
+                      if "policy_scan_kernel" in fn]
+            check(len(series) == 2, ("series kernels", len(series)))
+            counts = {op: [sum(op in line for line in lines)
+                           for lines in series] for op in want}
+            check(all(counts["LDGSTS"]) and not any(counts["FCHK"]),
+                  (name, counts))
+            print("phase 1b: cuobjdump -sass policy_scan: series kernels "
+                  f"(benign, fault): LDGSTS {counts['LDGSTS']}, FCHK "
+                  f"{counts['FCHK']}")
+            continue
         counts = {op: sum(op in line for line in sass.splitlines())
                   for op in want}
         check(all(counts.values()), (name, counts))

@@ -82,16 +82,16 @@ def _lib():
         lib.policy_agg_launch.argtypes = [_P, _I, _I, _P, _P, _P, _I, _F,
                                           _F, _I, _P, _P, _P, _P]
         lib.policy_agg_launch.restype = _I
-        lib.policy_scan_launch.argtypes = [_P, _I, _I, _P, _P, _P, _I, _F,
-                                           _P, _P, _P]
+        lib.policy_scan_launch.argtypes = [_P, _I, _I, _P, _P, _P, _P, _I,
+                                           _F, _P, _P, _P]
         lib.policy_scan_launch.restype = _I
         lib.policy_agg_fault_launch.argtypes = [_P, _I, _I, _P, _P, _P, _I,
                                                 _P, _P, _P, _I, _F, _F, _I,
                                                 _I, _P, _P, _P, _P]
         lib.policy_agg_fault_launch.restype = _I
         lib.policy_scan_fault_launch.argtypes = [_P, _I, _I, _P, _P, _I, _P,
-                                                 _P, _P, _I, _F, _I, _P, _P,
-                                                 _P]
+                                                 _P, _P, _P, _I, _F, _I, _P,
+                                                 _P, _P]
         lib.policy_scan_fault_launch.restype = _I
         lib.policy_error_string.argtypes = [_I]
         lib.policy_error_string.restype = ctypes.c_char_p
@@ -105,32 +105,80 @@ def _check(lib, rc: int, what: str):
                            f"({msg})")
 
 
-def _kernel_branch_index(onehot: torch.Tensor) -> torch.Tensor:
+#: [P + 1] int32 per device and policy registry: entry 0 is -1 (an
+#: all-zero row), entry p + 1 policy p's kernel branch, or -2 for none
+_BRANCH_TABLES = {}
+
+
+def _branch_table(dev) -> torch.Tensor:
+    branches = tuple(kernel_branches())
+    table = _BRANCH_TABLES.get((dev, branches))
+    if table is None:
+        table = torch.tensor([-1] + [-2 if b is None else b
+                                     for b in branches],
+                             dtype=torch.int32, device=dev)
+        _BRANCH_TABLES[(dev, branches)] = table
+    return table
+
+
+def _raise_failed(checks):
+    """Raise the error of the first failing check: (flag, error) pairs,
+    each flag a 0-dim bool tensor, all read back in one copy."""
+    if not checks:
+        return
+    flags = torch.stack([flag for flag, _ in checks]).tolist()
+    for failed, (_, error) in zip(flags, checks):
+        if failed:
+            raise error()
+
+
+def _defer_or_raise(checks, flag, error):
+    """Add a check to ``checks``, or, with none, run it now."""
+    if checks is None:
+        _raise_failed([(flag, error)])
+    else:
+        checks.append((flag, error))
+
+
+def _kernel_branch_index(onehot: torch.Tensor, checks=None) -> torch.Tensor:
     """[N] int32 kernel branch per scenario from the [N, P] one-hot mask
-    (-1 for an all-zero row, which the blend turns into zeros). Raises for
-    a row that is not one-hot or selects a policy without a kernel
-    branch."""
-    table = torch.tensor([-2 if b is None else b for b in kernel_branches()],
-                         dtype=torch.int32, device=onehot.device)
+    (-1 for an all-zero row, which the blend turns into zeros). A row that
+    is not one-hot, or selects a policy without a kernel branch, raises:
+    here, or where ``checks`` are read when a list is passed."""
     rows = onehot.sum(dim=1)
     col = onehot.argmax(dim=1)
-    branch = torch.where(rows > 0, table[col], -1)
+    branch = _branch_table(onehot.device)[torch.where(rows > 0, col + 1, 0)]
     bad = ~(((onehot == 0) | (onehot == 1)).all(dim=1) & (rows <= 1))
-    if bool((bad | (branch == -2)).any()):
-        if bool(bad.any()):
-            raise ValueError("onehot rows must be one-hot (a single 1.0) "
-                             "or all zeros for the CUDA kernels")
+
+    def no_branch():
         names = sorted({policy_names()[c] for c in
                         col[branch == -2].unique().tolist()})
-        raise NotImplementedError(
+        return NotImplementedError(
             f"policies {names} have no CUDA kernel branch; the kernels run "
             f"the built-ins only (run them with device='cpu')")
-    return branch.to(torch.int32).contiguous()
+    _defer_or_raise(checks, bad.any(), lambda: ValueError(
+        "onehot rows must be one-hot (a single 1.0) or all zeros for the "
+        "CUDA kernels"))
+    _defer_or_raise(checks, (branch == -2).any(), no_branch)
+    return branch
 
 
-def _cuda_operands(loads, loads_t, load_index, params, onehot):
-    """Validate the CUDA operands; returns (matrix_t [T, K], index [N]
-    int32, branch [N] int32, n, t_bins, k_rows)."""
+def policy_order(branch: torch.Tensor):
+    """The order the kernels run the scenarios in: sorted by policy,
+    stable within a policy, so that nearly every warp's 32 run one policy
+    and take that policy's own scan, with no switch per bin. Returns
+    (``order`` [N] int64, ``dest`` [N] int32): the kernel's scenario j is
+    the caller's ``order[j]`` (its operands are ``x[order]``), and a series
+    kernel writes scenario j's outputs to the caller's column ``dest[j]``,
+    so they come back in the caller's order with no gather."""
+    order = torch.argsort(branch, stable=True)
+    return order, order.to(torch.int32)
+
+
+def _cuda_operands(loads, loads_t, load_index, params, onehot, checks):
+    """Validate the CUDA operands (the checks that read the card are added
+    to ``checks``); returns (matrix_t [T, K], index [N] int32, branch [N]
+    int32, n, t_bins, k_rows)."""
     dev = params.device
     if (loads is None) == (loads_t is None):
         raise ValueError("pass exactly one of loads= ([N, T]) or "
@@ -156,14 +204,14 @@ def _cuda_operands(loads, loads_t, load_index, params, onehot):
         raise ValueError(f"onehot must be [{n}, {num_policies()}], got "
                          f"{tuple(onehot.shape)}")
     _require(onehot, dev, "onehot")
-    index = _row_index(load_index, n, k_rows, dev, "load")
-    return (matrix_t, index, _kernel_branch_index(onehot), n, t_bins,
-            k_rows)
+    index = _row_index(load_index, n, k_rows, dev, "load", checks)
+    return (matrix_t, index, _kernel_branch_index(onehot, checks), n,
+            t_bins, k_rows)
 
 
-def _row_index(index, n: int, rows: int, dev, what: str):
+def _row_index(index, n: int, rows: int, dev, what: str, checks=None):
     """[n] int32 row index on ``dev`` (identity when None), range-checked
-    against ``rows``."""
+    against ``rows`` (here, or where ``checks`` are read)."""
     if index is None:
         if rows != n:
             raise ValueError(f"{rows} {what} rows for {n} scenarios need "
@@ -172,13 +220,15 @@ def _row_index(index, n: int, rows: int, dev, what: str):
     if index.shape != (n,) or index.device != dev:
         raise ValueError(f"{what} index must be [{n}] on {dev}")
     index = index.to(torch.int32).contiguous()
-    if n and not bool((index.min() >= 0) & (index.max() < rows)):
-        raise ValueError(f"{what} index out of range for {rows} rows")
+    if n:
+        lo, hi = torch.aminmax(index)
+        _defer_or_raise(checks, (lo < 0) | (hi >= rows), lambda: ValueError(
+            f"{what} index out of range for {rows} rows"))
     return index
 
 
 def _fault_operands(caps_t, fmask_t, fault_index, n: int, t_bins: int,
-                    dev):
+                    dev, checks=None):
     """Validate the CUDA fault operands; returns (f_rows, fault index [N]
     int32)."""
     for x, what in ((caps_t, "caps_t"), (fmask_t, "fmask_t")):
@@ -192,7 +242,7 @@ def _fault_operands(caps_t, fmask_t, fault_index, n: int, t_bins: int,
         raise ValueError(f"fmask_t {tuple(fmask_t.shape)} and caps_t "
                          f"{tuple(caps_t.shape)} must match")
     f_rows = caps_t.shape[1]
-    return f_rows, _row_index(fault_index, n, f_rows, dev, "fault")
+    return f_rows, _row_index(fault_index, n, f_rows, dev, "fault", checks)
 
 
 def _require(x: torch.Tensor, dev: torch.device, what: str):
@@ -211,21 +261,31 @@ def policy_grid_scan(loads, params, onehot, dt_hours: float = 1.0, *,
     ``ref.policy_grid_scan`` (with ``caps=`` when ``caps_t`` is given).
     Returns (carry_end [N, CARRY_DIM], (processed, queue, latency, cost,
     dropped)), each series [N, T] (a transposed view of the kernel's
-    scenario-minor [T, N] output)."""
+    scenario-minor [T, N] output). The kernel runs the scenarios in policy
+    order (``policy_order``) and writes each one's series and end carry
+    to its caller's column and row."""
     fault = caps_t is not None
     if not params.is_cuda:
         return ref.policy_grid_scan(gather_loads(loads, loads_t, load_index),
                                     params, onehot, dt_hours,
                                     caps=gather_rows(caps_t, fault_index),
                                     shed_fuse=shed_fuse)
+    checks = []
     matrix_t, index, branch, n, t_bins, k_rows = _cuda_operands(
-        loads, loads_t, load_index, params, onehot)
+        loads, loads_t, load_index, params, onehot, checks)
     dev = params.device
     if fault:
         f_rows, findex = _fault_operands(caps_t, None, fault_index, n,
-                                         t_bins, dev)
+                                         t_bins, dev, checks)
+    order, dest = policy_order(branch)
+    params, index, branch = (x[order] for x in (params, index, branch))
+    if fault:
+        findex = findex[order]
     carry_end = torch.empty((n, CARRY_DIM), dtype=torch.float32, device=dev)
     series = torch.empty((5, t_bins, n), dtype=torch.float32, device=dev)
+    # read back once, with all of the above queued: the card runs it
+    # while the host waits, right after the work queued before this call
+    _raise_failed(checks)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -233,14 +293,15 @@ def policy_grid_scan(loads, params, onehot, dt_hours: float = 1.0, *,
             rc = lib.policy_scan_fault_launch(
                 matrix_t.data_ptr(), k_rows, t_bins, index.data_ptr(),
                 caps_t.data_ptr(), f_rows, findex.data_ptr(),
-                params.data_ptr(), branch.data_ptr(), n, float(dt_hours),
-                int(shed_fuse), carry_end.data_ptr(), series.data_ptr(),
-                stream)
+                params.data_ptr(), branch.data_ptr(), dest.data_ptr(), n,
+                float(dt_hours), int(shed_fuse), carry_end.data_ptr(),
+                series.data_ptr(), stream)
         else:
             rc = lib.policy_scan_launch(
                 matrix_t.data_ptr(), k_rows, t_bins, index.data_ptr(),
-                params.data_ptr(), branch.data_ptr(), n, float(dt_hours),
-                carry_end.data_ptr(), series.data_ptr(), stream)
+                params.data_ptr(), branch.data_ptr(), dest.data_ptr(), n,
+                float(dt_hours), carry_end.data_ptr(), series.data_ptr(),
+                stream)
     name = "policy_scan_fault" if fault else "policy_scan"
     _check(lib, rc, name)
     launches[name] += 1
@@ -268,25 +329,25 @@ def policy_grid_agg(loads, params, onehot, dt_hours: float = 1.0, *,
                                    caps=gather_rows(caps_t, fault_index),
                                    fmask=gather_rows(fmask_t, fault_index),
                                    shed_fuse=shed_fuse)
+    checks = []
     matrix_t, index, branch, n, t_bins, k_rows = _cuda_operands(
-        loads, loads_t, load_index, params, onehot)
+        loads, loads_t, load_index, params, onehot, checks)
     dev = params.device
     if fault:
         f_rows, findex = _fault_operands(caps_t, fmask_t, fault_index, n,
-                                         t_bins, dev)
-    # the kernel runs the scenarios in policy order, so that nearly every
-    # warp's 32 run one policy (and take that policy's own scan, with no
-    # switch per bin); the rows go back to the caller's order at the end
-    order = torch.argsort(branch, stable=True)
-    params, index, branch = (x[order].contiguous()
-                             for x in (params, index, branch))
+                                         t_bins, dev, checks)
+    # the kernel runs the scenarios in policy order; its few rows go back
+    # to the caller's order at the end
+    order, _ = policy_order(branch)
+    params, index, branch = (x[order] for x in (params, index, branch))
     if fault:
-        findex = findex[order].contiguous()
+        findex = findex[order]
     carry_end = torch.empty((n, CARRY_DIM), dtype=torch.float32, device=dev)
     scal = torch.empty((AGG_SCALARS, n), dtype=torch.float32, device=dev)
     # [152, N, 4]: each bucket's compensated triple, padded to 16 bytes
     hist = torch.zeros((AGG_HIST_BINS, n, 4), dtype=torch.float32,
                        device=dev)
+    _raise_failed(checks)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

@@ -5,12 +5,14 @@ plain PyTorch versions (``kernels/ref.py``); these must equal, bit for
 bit, both the reference's Pallas kernels in interpret mode and its jnp
 oracles, for a mixed-policy block (T = 336, N = 13, foreign parameters in
 every slot) at dt 1 h and 1 min, with both branch selectors. A CPU tensor
-must never reach the CUDA build or bump a launch counter. The last three
-tests run only where a card is visible: two hold the CUDA kernels, benign
-and fault, against the plain versions (``python3 chip_smoke.py`` covers
-them at full width), and one runs the aggregate kernel at 7.2 M scenarios,
-where its histogram offsets pass 2^32 elements. The fault scans' plain
-versions are held against the reference in ``test_torch_faults.py``.
+must never reach the CUDA build or bump a launch counter. The tests
+marked ``cuda`` run only where a card is visible: they hold the CUDA
+kernels, benign and fault, against the plain versions (``python3
+chip_smoke.py`` covers them at full width), the series kernels on grids
+that break their block, staging chunk and policy sort, and run the
+aggregate kernel at 7.2 M scenarios, where its histogram offsets pass
+2^32 elements. The fault scans' plain versions are held against the
+reference in ``test_torch_faults.py``.
 """
 import numpy as np
 import pytest
@@ -201,6 +203,50 @@ def test_kernel_branch_index_from_onehot(monkeypatch):
         pk._kernel_branch_index(onehot)
 
 
+@pytest.mark.parametrize("n", [1, 33, 4097])
+def test_policy_order_round_trips_through_the_destination_index(n):
+    """The series wrappers run the scenarios sorted by policy and the
+    kernel writes sorted scenario j to the caller's column ``dest[j]``:
+    on CPU tensors, the order sorts a mixed policy vector (all-zero rows,
+    -1, included), keeps the caller's order within a policy, and a write
+    through ``dest`` of anything computed from the sorted operands puts
+    every value back in its caller's column, with no gather."""
+    rng = np.random.default_rng(n)
+    branch = torch.from_numpy(rng.integers(-1, 5, n).astype(np.int32))
+    order, dest = pk.policy_order(branch)
+    assert order.dtype == torch.int64 and dest.dtype == torch.int32
+    ran = branch[order]
+    assert bool((ran[1:] >= ran[:-1]).all())
+    for b in range(-1, 5):          # stable: caller's order within a policy
+        mine = order[ran == b]
+        assert bool((mine[1:] > mine[:-1]).all())
+    t_bins = 3
+    x = torch.from_numpy(rng.uniform(0, 1, (n, t_bins)).astype(np.float32))
+    # a [T, N] series written the kernel's way, column dest[j] for row j
+    series = torch.empty((t_bins, n))
+    series[:, dest.long()] = (x[order] * 2.0 + branch[order, None]).t()
+    assert torch.equal(series.t(), x * 2.0 + branch[:, None])
+
+
+def test_card_checks_are_read_back_once_in_order():
+    """The CUDA path queues the checks that read the card (one-hot rows,
+    kernel branches, row indices) and reads them back in one copy, after
+    its sort and gathers are queued and before the launch; the first
+    failing check raises, as it would have where it was made."""
+    onehot = torch.from_numpy(pt.policy_onehot([0, 1, 2]))
+    checks = []
+    pk._kernel_branch_index(onehot * 0.5, checks)        # queued, no raise
+    pk._row_index(torch.tensor([0, 5, 1], dtype=torch.int32), 3, 4,
+                  torch.device("cpu"), "load", checks)
+    assert len(checks) == 3
+    with pytest.raises(ValueError, match="one-hot"):
+        pk._raise_failed(checks)
+    with pytest.raises(ValueError, match="out of range"):
+        pk._raise_failed(checks[1:])
+    pk._raise_failed(checks[1:2])           # every row has a branch
+    pk._raise_failed([])
+
+
 def test_build_flags_keep_ieee_rounding():
     flags = " ".join(build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
@@ -331,3 +377,83 @@ def test_agg_histogram_offsets_past_32_bits_on_card():
     for b in range(pt.AGG_HIST_BINS):
         assert torch.equal(hist[b].view(reps, m, 4),
                            hist_m[b].expand(reps, m, 4)), f"bucket {b}"
+
+
+def _series_case(n, t_bins, layout, k_rows=7, f_rows=16, seed=0):
+    """Operands of one series-kernel case: loads (a tenth of them zero,
+    so that some dividends are zero) through a load index, random
+    parameters, and policies laid out as ``layout`` says: "stride" (all
+    five interleaved at stride 1, every warp mixed), "random" (sorting
+    leaves mixed warps at the policy boundaries; some all-zero rows), or
+    a policy name (one policy). The F fault rows: half change their
+    capacity multiplier every bin (zeros among the values), half hold
+    outage runs and brownouts."""
+    rng = np.random.default_rng(seed)
+    loads_t = rng.uniform(0.0, 2e4, (t_bins, k_rows)).astype(np.float32)
+    loads_t[rng.uniform(0, 1, loads_t.shape) < 0.1] = 0.0
+    params = rng.uniform(0.05, 8.0, (n, pt.PARAM_DIM)).astype(np.float32)
+    names = pt.policy_names()
+    if layout == "stride":
+        pol = np.arange(n) % 5
+    elif layout == "random":
+        pol = rng.integers(0, 5, n)
+    else:
+        pol = np.full(n, names.index(layout))
+    onehot = pt.policy_onehot(pol)
+    if layout == "random":
+        onehot[rng.choice(n, min(n, 7), replace=False)] = 0.0
+    cap = np.ones((f_rows, t_bins), np.float32)
+    for f in range(f_rows):
+        if f % 2:
+            # a new value every bin: the reciprocals are made again each bin
+            levels = np.float32([0.0, 0.25, 0.3, 0.5, 0.75, 0.9, 1.0])
+            at = np.cumsum(rng.integers(1, len(levels), t_bins))
+            cap[f] = levels[at % len(levels)]
+        else:
+            for start in rng.integers(0, max(1, t_bins - 4), 4):
+                cap[f, start:start + rng.integers(1, 12)] = 0.0
+            brown = rng.uniform(0.0, 1.0, t_bins) < 0.15
+            cap[f, brown] *= rng.uniform(0.3, 0.7, int(brown.sum()))
+    return dict(loads_t=_t(loads_t), params=_t(params), onehot=_t(onehot),
+                load_index=_t(rng.integers(0, k_rows, n).astype(np.int32)),
+                caps_t=_t(cap.T),
+                fault_index=_t(rng.integers(0, f_rows, n).astype(np.int32)))
+
+
+#: (N, T, layout): N not a multiple of the 32-thread block, T not a
+#: multiple of the 32-bin staging chunk, every warp mixed, and grids of
+#: one policy
+SERIES_CASES = ([(1, 1, "stride"), (33, 31, "stride"), (33, 33, "random"),
+                 (4097, 33, "random"), (4097, 31, "stride"),
+                 (33, 8737, "stride")]
+                + [(65, 97, name) for name in
+                   ("fifo", "quickscale", "autoscale", "shed",
+                    "batch_window")])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,t_bins,layout", SERIES_CASES)
+def test_series_kernels_match_plain_on_card(n, t_bins, layout):
+    """Both series kernels, benign and through F = 16 fault rows, bit for
+    bit their plain versions (run on the CPU) at dt 0.25 h and 1 h, in
+    the caller's order."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    case = _series_case(n, t_bins, layout, seed=n + t_bins)
+    cuda = {k: v.to(dev) for k, v in case.items()}
+    pk.reset_launches()
+    for fault in (False, True):
+        keys = ("loads_t", "load_index") + (("caps_t", "fault_index")
+                                            if fault else ())
+        for dt in (0.25, 1.0):
+            got = pk.policy_grid_scan(None, cuda["params"], cuda["onehot"],
+                                      dt, **{k: cuda[k] for k in keys})
+            want = pk.policy_grid_scan(None, case["params"], case["onehot"],
+                                       dt, **{k: case[k] for k in keys})
+            for k, (a, b) in enumerate(zip((got[0],) + got[1],
+                                           (want[0],) + want[1])):
+                assert_bitwise(a.cpu().numpy(), b.numpy(),
+                               f"fault={fault} dt={dt} output {k}")
+    assert pk.launches["policy_scan"] == 2
+    assert pk.launches["policy_scan_fault"] == 2

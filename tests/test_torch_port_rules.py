@@ -10,7 +10,9 @@
 * ``chip_smoke.py`` fails, printing no result, where there is no card;
 * no CUDA source keeps a kernel's shared-memory opt-in once per process
   (the attribute belongs to one device's context, ROADMAP C11): every
-  opt-in goes through ``csrc/smem_opt_in.cuh``, which sets it per device.
+  opt-in goes through ``csrc/smem_opt_in.cuh``, which sets it per device;
+* the policy scans, the series loop's included, divide through float64
+  reciprocals, never the IEEE float32 division.
 """
 import dataclasses
 import os
@@ -42,6 +44,8 @@ OPT_IN_CACHED = re.compile(r"\bstatic\b[^;{}]*\bcudaFuncSetAttribute\b")
 # an offset into a buffer of more than 2^32 elements wraps without a fault
 OFFSET_32 = re.compile(r"\((?:unsigned|uint32_t|int)\)\s*\w+\s*\*\s*"
                        r"\((?:unsigned|uint32_t|int)\)")
+# a call of the policy step, its division chosen by the second argument
+BIN_STEP_CALL = re.compile(r"\bbin_step<\s*[^,<>]+,\s*(\w+)\s*>\s*\(")
 FORBIDDEN = re.compile(r"^\s*(import\s+(jax|repro)\b|from\s+(jax|repro)(\.|\s))",
                        re.MULTILINE)
 
@@ -172,3 +176,22 @@ def test_kernel_offsets_are_not_multiplied_in_32_bits():
     assert OFFSET_32.search("hp = hcol + 4 * ((unsigned)bucket * "
                             "(unsigned)n);")
     assert OFFSET_32.search("hp = hcol + 4 * ((size_t)bucket * n);") is None
+
+
+def test_policy_scans_divide_through_reciprocals():
+    """Every call of the policy step in ``csrc/policy_scan.cu`` divides
+    through the float64 reciprocals (``bin_step<.., true>``), and the
+    series loop runs the scenario scan's step, which is such a call: the
+    IEEE float32 division, whose slow path a zero dividend takes (the
+    fault backlog's wait, most bins), does not come back."""
+    text = (CSRC / "policy_scan.cu").read_text()
+    calls = BIN_STEP_CALL.findall(text)
+    assert calls and set(calls) == {"true"}, calls
+    step = text[text.index("struct ScenarioScan"):
+                text.index("struct Branch")]
+    assert BIN_STEP_CALL.findall(step) == ["true"]
+    series = text[text.index("void series_scan("):
+                  text.index("policy_scan_kernel(")]
+    assert "sc.step(" in series and "bin_step<" not in series
+    assert BIN_STEP_CALL.findall(
+        "bin_step<kFault, false>(branch, c0, c1") == ["false"]

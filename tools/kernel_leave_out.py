@@ -39,20 +39,26 @@ work out give wrong results and are not checked:
   register triple (no device-memory traffic, the bucket still computed);
   ``agg:no-scalars`` / ``fault:no-scalars``: the six compensated sums of
   the scalar statistics replaced by one plain sum of the step's outputs;
-* ``scan:no-loads`` / ``scanf:no-loads``: the arrivals and capacity
-  multipliers of the bins after the first made by arithmetic from the
-  first bin's; ``scan:no-stores``: the five outputs of every bin folded
-  into one register sum, written once at the end (the work kept, no
-  series traffic); ``scan:block32`` / ``scan:block64``: the series
-  kernels launched in blocks of 32 or 64 threads;
+* ``scan:no-loads`` / ``scanf:no-loads``: no chunk of inputs staged
+  after the first, every chunk reading the first one's (the arrivals
+  scaled by arithmetic), so no device-memory reads and no waits on them;
+  ``scan:no-stores``: the five outputs of every bin folded into one
+  register sum, written once at the end (the work kept, no series
+  traffic); ``scan:chain``: the five stores dropped, so that the
+  compiler drops all but the carry chain (its latency, the design's
+  floor); ``scan:unroll1``: one bin a loop iteration;
+  ``scan:block64`` / ``scan:block128``: the series kernels in blocks of
+  64 or 128 threads (one warp a block as it is; 16-bin chunks at 128);
 * ``unsorted`` (any policy kernel): the source as it is, but the
   wrapper's sort of the scenarios by policy replaced by the identity, so
   the kernel runs them in the grid's own order (warps of mixed policies
   switch on the policy per bin); the results stay right.
 
 Prints one JSON line per variant: CUDA-event ms of the wrapper (checks and
-allocation included, as ``chip_smoke.py`` times it; mean of several
-launches after a warm-up), ptxas's registers, and the card. The copies
+allocation included, as ``chip_smoke.py`` times it; mean of 3 launches,
+10 for the series kernels, after a second of warm-up launches), for the
+policy kernels also ``kernel_ms``, CUDA events around each launch alone
+(mean of as many), ptxas's registers, and the card. The copies
 build into ``kernels/_build/leave_out``.
 """
 import argparse
@@ -62,6 +68,7 @@ import hashlib
 import json
 import subprocess
 import sys
+import time
 from pathlib import Path
 from unittest import mock
 
@@ -127,42 +134,50 @@ CUTS = {
     hp[1] = hc;
     hp[2] = hcc;
   }
-  if constexpr (kFault) c0 = c0 + fq;""",
+  sc.store_carry(carry_end, i);""",
                         """    hcol[0] = hs + hc + hcc + (float)held;
   }
-  if constexpr (kFault) c0 = c0 + fq;""")],
+  sc.store_carry(carry_end, i);""")],
     },
-    # one thread a scenario, each bin's inputs read in that bin
+    # one warp a block, inputs staged a chunk ahead, four bins unrolled
     "scan": {
         "no-loads": [
-            ("  const size_t plane = (size_t)t_bins * n;\n",
-             "  const size_t plane = (size_t)t_bins * n;\n"
-             "  const float a0 = col[0];\n"),
-            ("capmul = cap_col[(size_t)t * f_rows];",
-             "capmul = t ? 1.0f - 0.5f * (float)((t & 63) == 0) "
-             ": cap_col[0];"),
-            ("bin_step<kFault, false>(branch, c0, c1, fq, "
-             "col[(size_t)t * k_rows],",
-             "bin_step<kFault, false>(branch, c0, c1, fq, "
-             "t ? a0 * (1.0f + 0.001f * (float)(t & 15)) : a0,")],
+            ("    if (t0 + kChunk < t_bins) stage(t0 + kChunk, buf ^ 1);\n",
+             ""),
+            ("capmul = st.v[1][buf][j][lane];",
+             "capmul = st.v[1][0][j][lane];"),
+            ("change |= st.v[1][buf][j][lane] != sc.rc_cap;",
+             "change |= st.v[1][0][j][lane] != sc.rc_cap;"),
+            ("(st.v[0][buf][j][lane],",
+             "(st.v[0][0][j][lane] * (1.0f + 0.001f * (float)(t0 & 15)),")],
         "no-stores": [
             ("  const size_t plane = (size_t)t_bins * n;\n",
              "  float acc = 0.0f;\n"),
-            ("""    float* out = series + (size_t)t * n + i;
-    out[0] = o.processed;
-    out[plane] = o.queue;
-    out[2 * plane] = o.latency;
-    out[3 * plane] = o.cost;
-    out[4 * plane] = o.dropped;
-  }
-""", """    acc += o.processed + o.queue + o.latency + o.cost + o.dropped;
-  }
-  series[i] = acc;
-""")],
-        "block32": [("constexpr int kThreads = 128;",
-                     "constexpr int kThreads = 32;")],
-        "block64": [("constexpr int kThreads = 128;",
-                     "constexpr int kThreads = 64;")],
+            ("""        out[0] = o.processed;
+        out[plane] = o.queue;
+        out[2 * plane] = o.latency;
+        out[3 * plane] = o.cost;
+        out[4 * plane] = o.dropped;
+        out += n;
+""", "        acc += o.processed + o.queue + o.latency + o.cost"
+    " + o.dropped;\n"),
+            ("  sc.store_carry(carry_end, dest);",
+             "  series[dest] = acc;\n  sc.store_carry(carry_end, dest);")],
+        "chain": [("""        out[0] = o.processed;
+        out[plane] = o.queue;
+        out[2 * plane] = o.latency;
+        out[3 * plane] = o.cost;
+        out[4 * plane] = o.dropped;
+""", "")],
+        "unroll1": [("#pragma unroll kScanUnroll", "#pragma unroll 1")],
+        "block64": [("constexpr int kScanThreads = 32;",
+                     "constexpr int kScanThreads = 64;")],
+        # 16-bin chunks: 32 of 128 threads' would pass 48 KB of static
+        # shared memory under faults
+        "block128": [("constexpr int kScanThreads = 32;\n"
+                      "constexpr int kChunk = 32;",
+                      "constexpr int kScanThreads = 128;\n"
+                      "constexpr int kChunk = 16;")],
     },
 }
 #: variants built from the source as it is
@@ -257,11 +272,40 @@ def runner(kernel, ops):
         kw.update(caps_t=ops["caps_t"], fault_index=ops["fault_index"])
     args = (None, ops["params"], ops["onehot"], 1.0)
     if base in ("scan", "scanf"):
-        return (lambda: pk.policy_grid_scan(*args, **kw)), 3
+        return (lambda: pk.policy_grid_scan(*args, **kw)), 10
     kw.update(slo_limit=4 * 3600.0, slo_mode=0)
     if "caps_t" in ops:
         kw["fmask_t"] = ops["fmask_t"]
     return (lambda: pk.policy_grid_agg(*args, **kw)), 3
+
+
+class TimedLaunches:
+    """A policy-scan library whose ``*_launch`` entry points record CUDA
+    events around each launch: the kernels' own device time, without the
+    wrapper's checks, sort and allocations."""
+
+    def __init__(self, lib):
+        self.lib, self.events = lib, []
+
+    def __getattr__(self, name):
+        fn = getattr(self.lib, name)
+        if not name.endswith("_launch"):
+            return fn
+
+        def timed(*args):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            rc = fn(*args)
+            end.record()
+            self.events.append((start, end))
+            return rc
+        return timed
+
+    def ms(self):
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.events) / len(
+            self.events)
 
 
 def caller_order(branch, stable=True):
@@ -295,10 +339,22 @@ def main():
         order = (mock.patch.object(torch, "argsort", caller_order)
                  if variant == "unsorted" else contextlib.nullcontext())
         with order:
-            fn()                                      # warm-up
+            # warm-up: a second of launches, so that the card's clocks
+            # have risen before the first spec is timed
+            t0 = time.perf_counter()
+            while time.perf_counter() - t0 < 1.0:
+                fn()
             ms, _ = chip_smoke.cuda_ms(fn, reps=reps)
+            kernel_ms = None
+            if name == "policy_scan":
+                from repro_torch.kernels import policy_scan as pk
+                timed = TimedLaunches(pk._lib())
+                with mock.patch.object(pk, "_lib", lambda: timed):
+                    for _ in range(reps):
+                        fn()
+                kernel_ms = timed.ms()
         print(json.dumps({"kernel": kernel, "variant": variant, "ms": ms,
-                          "ptxas": ptxas,
+                          "kernel_ms": kernel_ms, "ptxas": ptxas,
                           "card": torch.cuda.get_device_name(0)}),
               flush=True)
     build._LOADED.clear()
