@@ -106,7 +106,9 @@ def _check(lib, rc: int, what: str):
 
 
 #: [P + 1] int32 per device and policy registry: entry 0 is -1 (an
-#: all-zero row), entry p + 1 policy p's kernel branch, or -2 for none
+#: all-zero row), entry p + 1 policy p's kernel branch, or -2 for none.
+#: Made once: a table copied from the host at each call would wait for
+#: the work already queued on the card, as a read-back does.
 _BRANCH_TABLES = {}
 
 

@@ -187,11 +187,12 @@ def test_policy_scans_divide_through_reciprocals():
     text = (CSRC / "policy_scan.cu").read_text()
     calls = BIN_STEP_CALL.findall(text)
     assert calls and set(calls) == {"true"}, calls
-    step = text[text.index("struct ScenarioScan"):
-                text.index("struct Branch")]
+    start = text.index("struct ScenarioScan")
+    step = text[start:text.index("\n};\n", start)]
     assert BIN_STEP_CALL.findall(step) == ["true"]
     series = text[text.index("void series_scan("):
                   text.index("policy_scan_kernel(")]
-    assert "sc.step(" in series and "bin_step<" not in series
+    assert re.search(r"\bsc\.(?:template\s+)?step\b", series)
+    assert "bin_step<" not in series
     assert BIN_STEP_CALL.findall(
         "bin_step<kFault, false>(branch, c0, c1") == ["false"]

@@ -58,14 +58,17 @@ Prints one JSON line per variant: CUDA-event ms of the wrapper (checks and
 allocation included, as ``chip_smoke.py`` times it; mean of 3 launches,
 10 for the series kernels, after a second of warm-up launches), for the
 policy kernels also ``kernel_ms``, CUDA events around each launch alone
-(mean of as many), ptxas's registers, and the card. The copies
-build into ``kernels/_build/leave_out``.
+(mean of as many), ptxas's registers, and the card; after the first
+``base`` of the policy kernels, one line of the SASS loop bodies of the
+series kernels (instructions and some of their kinds; an unrolled body
+holds 4 bins). The copies build into ``kernels/_build/leave_out``.
 """
 import argparse
 import contextlib
 import ctypes
 import hashlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -180,6 +183,8 @@ CUTS = {
                       "constexpr int kChunk = 16;")],
     },
 }
+#: one instruction of ``cuobjdump -sass``: its address and its text
+SASS_LINE = re.compile(r"\s+/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
 #: variants built from the source as it is
 AS_IS = ("base", "fastdiv", "unsorted")
 
@@ -313,6 +318,33 @@ def caller_order(branch, stable=True):
     return torch.arange(branch.numel(), device=branch.device)
 
 
+def sass_loops(so):
+    """{kernel: [(instructions, {op: count})]} of the loops of the series
+    kernels in library ``so``: each backward branch over more than 40
+    instructions, its body counted from ``cuobjdump -sass``."""
+    tool = Path(build.nvcc_path()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(so)], capture_output=True,
+                          text=True, check=True).stdout
+    out = {}
+    for name, lines in chip_smoke.sass_functions(sass).items():
+        if "policy_scan_kernel" not in name:
+            continue
+        ins = [m.groups() for m in map(SASS_LINE.match, lines) if m]
+        at = {int(a, 16): k for k, (a, _) in enumerate(ins)}
+        loops = []
+        for k, (a, text) in enumerate(ins):
+            hit = re.search(r"\bBRA (0x[0-9a-f]+)", text)
+            start = at.get(int(hit.group(1), 16)) if hit else None
+            if start is not None and k - start > 40:
+                body = [t.split()[1 if t.startswith("@") else 0]
+                        .split(".")[0] for _, t in ins[start:k + 1]]
+                loops.append((len(body), {op: body.count(op) for op in
+                                          ("STG", "LDS", "F2F", "DMUL",
+                                           "DFMA", "MUFU", "BRA")}))
+        out["fault" if "ILb1E" in name else "benign"] = loops
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("specs", nargs="+", metavar="KERNEL:VARIANT")
@@ -326,7 +358,7 @@ def main():
                              f"{sorted(SOURCE)}")
     built = build_all(args.specs)
     dev = torch.device("cuda", 0)
-    ops = {}
+    ops, looped = {}, set()
     for spec in args.specs:
         kernel, variant = spec.split(":")
         if kernel not in ops:
@@ -357,6 +389,10 @@ def main():
                           "kernel_ms": kernel_ms, "ptxas": ptxas,
                           "card": torch.cuda.get_device_name(0)}),
               flush=True)
+        if name == "policy_scan" and variant == "base" and so not in looped:
+            looped.add(so)
+            print(json.dumps({"spec": spec, "loops": sass_loops(so)}),
+                  flush=True)
     build._LOADED.clear()
     return 0
 
