@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of PlantD on one GPU: the what-if year
-grid and the serving pipeline-under-test (Jamba-1.5 and rwkv6-7b).
+grid, the serving pipeline-under-test (Jamba-1.5 and rwkv6-7b), and the
+wind tunnel that measures a pipeline, fits its twin and forecasts its year.
 
     python3 chip_smoke.py
 
@@ -54,16 +55,27 @@ RWKV-6 WKV recurrence, chunked and per step), then:
    layers at d_model 8,192 (5d), and through rwkv6-7b at all 32 layers
    and every width, its memory freed first (5g); after each, a
    ``torch.profiler`` pass over one more prefill and 8 decode steps says
-   where their time goes (device busy share, top kernels). Each model
-   kernel is then held against its plain version at the shapes those
-   paths gave it;
-6. prints one JSON line of per-kernel numbers (eight kernels: launches
-   on the main path, error against the plain version, kernel / plain /
-   bound / library times; no kernel may read faster than its bound; the
-   decode launches of ``ssm_scan`` and ``rwkv6_scan`` also with their
-   device time, 100 launches captured in a CUDA graph and replayed, where
-   the wrapper time is mostly host work), then the card and
-   ``{"ok": true, ...}`` as its last line.
+   where their time goes (device busy share, top kernels);
+6. the wind tunnel (``repro_torch.core.experiment``): the paper's loop of
+   examples/quickstart.py, an experiment over the blocking-write
+   telemetry pipeline on the host, its fitted twin and a year's forecast
+   through run_grid on the card, both modes bitwise the CPU's (6a); the
+   slice's main path, an experiment over 5g's full-size rwkv6-7b engine
+   (``ServeEngine.as_pipeline``, priced at an assumed card-hour price)
+   under a 20 s ramp to 16 rec/s, with no stage error and drained, its
+   fitted twin and a year of request traffic forecast on the card, both
+   modes bitwise the CPU's, its kernels' counts read from 0 (6b); and 4b's
+   sweep again inside ``obs.capture()``, bitwise 4b's rows, with the
+   ``grid.*`` spans' share of its wall (6c). Each model kernel is then
+   held against its plain version at the shapes the serving paths gave
+   it;
+7. prints one JSON line of per-kernel numbers (eight kernels: launches
+   on the main paths of phases 3-5 and of 6b, error against the plain
+   version, kernel / plain / bound / library times; no kernel may read
+   faster than its bound; the decode launches of ``ssm_scan`` and
+   ``rwkv6_scan`` also with their device time, 100 launches captured in
+   a CUDA graph and replayed, where the wrapper time is mostly host
+   work), then the card and ``{"ok": true, ...}`` as its last line.
 
 Any failed check raises, and the script exits non-zero. It needs a CUDA
 card and the repository's ``src``; it never falls back to the CPU.
@@ -116,6 +128,9 @@ RWKV = "rwkv6-7b"
 
 RPS, USD_HR, LAT = 1.9512, 0.0082, 0.15
 SEED = 0
+#: the price of one H100 card-hour that phase 6b's cost and forecast
+#: assume: an assumption for the arithmetic, not a measured or quoted price
+ASSUMED_H100_USD_PER_HOUR = 4.0
 
 
 def check(ok, what):
@@ -573,7 +588,7 @@ def at_width(whatif, tr, twin_mod, slo_mod):
           f"{wall_b:.1f} ms wall, of which {loads_ms:.1f} ms building the "
           f"load matrix on the host; {sum(b.slo_met for b in big)} meet the "
           f"SLO, cheapest {cheapest.name} ${cheapest.total_cost_usd:.2f}")
-    return sweep_twins, growths16, growths256
+    return sweep_twins, growths16, growths256, big
 
 
 def chaos_at_width(whatif, tr, slo_mod, faults, sweep_twins, growths16):
@@ -954,7 +969,8 @@ def serve_at_width(dev, phase, cfg, label, expect):
     """Phases 5d and 5g, the serving main path at every published width
     of ``cfg`` (``label`` says how its depth was cut): 8 requests, two
     groups of 4. Holds the model kernels' launch counts of this run to
-    ``expect`` and returns them."""
+    ``expect`` and returns them with the engine (one card, priced as one
+    chip by phase 6b)."""
     from repro_torch.kernels import policy_scan as pk
     from repro_torch.models import model as M
     from repro_torch.serve.engine import Request, ServeEngine
@@ -964,7 +980,8 @@ def serve_at_width(dev, phase, cfg, label, expect):
     params = M.init_params(cfg, seed=SEED, device=dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    eng = ServeEngine(cfg, params, slots=4, max_len=4096, device=dev)
+    eng = ServeEngine(cfg, params, slots=4, max_len=4096, chips=1,
+                      device=dev)
     load_peak = torch.cuda.max_memory_allocated()
     del params
     torch.cuda.empty_cache()
@@ -1032,9 +1049,8 @@ def serve_at_width(dev, phase, cfg, label, expect):
         "tokens_per_s": new_tokens / wall, "peak_gib": peak / 2**30,
         "held_gib": held / 2**30, "launches": launches}}))
     profile_serving(eng, prompts[:4], dev, phase)
-    del eng, done
-    torch.cuda.empty_cache()
-    return launches
+    eng._prefill, eng._decode = eng._prefill.step, eng._decode.step
+    return launches, eng
 
 
 def profile_serving(eng, prompts, dev, phase):
@@ -1100,6 +1116,188 @@ def profile_serving(eng, prompts, dev, phase):
               f" ms, busy {dev_us / wall_us:.1%}, {host_ops / n:.0f} "
               f"PyTorch operations dispatched")
     print(json.dumps({"profile": dict(out, phase=phase)}))
+
+
+def forecast_on_card(whatif, twin, traffic, slo, what):
+    """A year of ``traffic`` against ``twin`` through run_grid on the card
+    in both modes, each bitwise equal to its CPU run; the aggregate row."""
+    rows = {}
+    for series in (False, True):
+        t0 = time.perf_counter()
+        card = whatif.run_grid([twin], [traffic], slo=slo,
+                               return_series=series)
+        wall = 1e3 * (time.perf_counter() - t0)
+        cpu = whatif.run_grid([twin], [traffic], slo=slo,
+                              return_series=series, device="cpu")
+        same_results(card, cpu, f"{what} series={series} card vs CPU")
+        rows[series] = (card[0], wall)
+    agg, series_row = rows[False][0], rows[True][0]
+    check(agg.slo_met == series_row.slo_met
+          and agg.total_cost_usd == series_row.total_cost_usd,
+          (what, agg.total_cost_usd, series_row.total_cost_usd))
+    return agg, rows[False][1], rows[True][1]
+
+
+def wind_tunnel_telemetry(dev, whatif, tr, slo_mod):
+    """Phase 6a: the paper's loop (examples/quickstart.py) on the port —
+    an experiment over the blocking-write telemetry pipeline on the host,
+    its fitted twin, and a year's forecast on the card."""
+    import tempfile
+    from repro_torch.core.experiment import Experiment
+    from repro_torch.core.loadpattern import LoadPattern
+    from repro_torch.core.report import render_table
+    from repro_torch.core.twin import fit_simple_twin
+    from repro_torch.pipelines.telemetry import (make_telemetry_dataset,
+                                                 make_telemetry_pipeline)
+    from repro_torch.kernels import policy_scan as pk
+    with tempfile.TemporaryDirectory() as blob_dir:
+        pipe = make_telemetry_pipeline("blocking-write", blob_dir=blob_dir)
+        dataset = make_telemetry_dataset(num_records=40, seed=SEED)
+        load = LoadPattern.ramp("0->120rps", duration_s=3.0, peak_rate=120.0)
+        res = Experiment("quickstart", pipe, load, dataset).run()
+    check(res.drained and not pipe.errors,
+          f"6a: drained={res.drained}, errors {pipe.errors[:3]}")
+    check(res.records_done == res.records_sent > 0, (res.records_done,
+                                                     res.records_sent))
+    twin = fit_simple_twin(res)
+    print(f"phase 6a: telemetry blocking-write under a 3 s 0->120 rec/s "
+          f"ramp: sent {res.records_sent}, done {res.records_done} in "
+          f"{res.duration_s:.2f} s, sustained {res.sustained_rps:.2f} rec/s")
+    print(render_table([dict(stage=k, **{kk: round(vv, 6) for kk, vv in
+                                         v.items()})
+                        for k, v in res.stage_summary.items()],
+                       "  per-stage measurements"))
+    print(f"  twin: capacity {twin.max_rps:.3f} rec/s, "
+          f"${twin.usd_per_hour:.4f}/h, base latency "
+          f"{twin.base_latency_s * 1e3:.3f} ms")
+    traffic = tr.TrafficModel.honda_default("nominal", R=30.0, G=1.0)
+    slo = slo_mod.SLO(limit_s=4 * 3600, met_fraction=0.95)
+    pk.reset_launches()
+    row, wall_a, wall_s = forecast_on_card(whatif, twin, traffic, slo, "6a")
+    check(pk.launches["policy_agg"] > 0 and pk.launches["policy_scan"] > 0,
+          pk.launches)
+    print(f"  forecast on the card (aggregate {wall_a:.1f} ms, series "
+          f"{wall_s:.1f} ms wall), bitwise the CPU run's: "
+          + json.dumps(whatif.table2_rows([row])[0]))
+
+
+def wind_tunnel_serving(dev, eng, whatif, tr, slo_mod):
+    """Phase 6b, this slice's main path: the wind tunnel measures the
+    full-size rwkv6-7b engine of 5g as a pipeline under test
+    (``ServeEngine.as_pipeline``), fits a twin and forecasts its year on
+    the card. Every count is set to 0 just before and read just after."""
+    from repro_torch.core.cost import CostModel
+    from repro_torch.core.datagen import DataGenerator
+    from repro_torch.core.experiment import Experiment
+    from repro_torch.core.loadpattern import LoadPattern
+    from repro_torch.core.schema import token_stream_schema
+    from repro_torch.core.twin import fit_twin
+    from repro_torch.kernels import policy_scan as pk
+    dataset = DataGenerator(seed=SEED).generate(
+        token_stream_schema(eng.cfg.vocab_size, 8), 256)
+    eng.collector.clear()
+    pipe = eng.as_pipeline()
+    # a group (4 x 2,048 prefill tokens and 3 decode steps) takes ~0.5 s,
+    # so full groups serve ~8 rec/s: the ramp tops out at twice that. A
+    # tick of 0.5 s hands the stage batches of up to 4 records, one group
+    # each, as the ramp nears its top
+    load = LoadPattern.ramp("0->16rps", duration_s=20.0, peak_rate=16.0)
+    exp = Experiment("serve-rwkv6-7b", pipe, load, dataset,
+                     cost_model=CostModel(
+                         chip_usd_per_hour=ASSUMED_H100_USD_PER_HOUR),
+                     batch_records=4, tick_s=0.5, drain_timeout_s=120.0)
+    mods = model_kernels()
+    for mod in (pk,) + mods:
+        mod.reset_launches()
+    res = exp.run()
+    check(res.drained and not pipe.errors,
+          f"6b: drained={res.drained}, errors {pipe.errors[:3]}")
+    check(res.records_done == res.records_sent > 0,
+          (res.records_done, res.records_sent))
+    twin = fit_twin(res, "fifo")
+    rps = twin.max_rps
+    traffic = tr.TrafficModel.honda_default("requests", R=0.4 * rps, G=1.3)
+    slo = slo_mod.SLO(limit_s=30.0, met_fraction=0.99)
+    row, wall_a, wall_s = forecast_on_card(whatif, twin, traffic, slo, "6b")
+    launches = {k: v for mod in (pk,) + mods for k, v in
+                mod.launches.items()}
+    groups = eng.collector.spans("serve_group")
+    check(len(eng.collector.spans("prefill")) == len(groups)
+          and len(eng.collector.spans("decode")) == 3 * len(groups),
+          "6b: a group's prefill or decode spans are missing")
+    check(launches["rwkv6_chunked"] == 32 * len(groups)
+          and launches["rwkv6_scan"] == 32 * 3 * len(groups), launches)
+    check(launches["policy_agg"] > 0 and launches["policy_scan"] > 0,
+          launches)
+    check(np.isfinite(row.total_cost_usd) and row.total_cost_usd > 0,
+          row.total_cost_usd)
+    mean_ms = {name: 1e3 * float(np.mean([s.duration for s in
+                                          eng.collector.spans(name)]))
+               for name in ("serve_group", "prefill", "decode")}
+    sizes = [s.records for s in groups]
+    print(f"phase 6b: {eng.cfg.name} ({eng.cfg.num_layers} layers, d_model "
+          f"{eng.cfg.d_model}) as the wind tunnel's pipeline under a 20 s "
+          f"0->16 rec/s ramp: sent {res.records_sent}, done "
+          f"{res.records_done} in {res.duration_s:.2f} s, {len(groups)} "
+          f"groups (mean "
+          f"{np.mean(sizes):.2f} records), sustained "
+          f"{res.sustained_rps:.3f} rec/s; span means serve_group "
+          f"{mean_ms['serve_group']:.1f} ms, prefill {mean_ms['prefill']:.1f}"
+          f" ms, decode {mean_ms['decode']:.2f} ms")
+    print(f"  assumed price ${ASSUMED_H100_USD_PER_HOUR:.2f} per H100-hour "
+          f"(an assumption, not a measured price): pipeline "
+          f"${res.cost['usd_per_hour']:.4f}/h, experiment "
+          f"${res.cost['total_usd']:.4f}")
+    print(f"  twin: {twin.policy}, capacity {twin.max_rps:.3f} rec/s, "
+          f"${twin.usd_per_hour:.4f}/h, base latency "
+          f"{twin.base_latency_s * 1e3:.2f} ms")
+    print(f"  forecast: R = 0.4 x capacity = {0.4 * rps:.3f} rec/s, G 1.3, "
+          f"SLO 30 s / 99%, on the card (aggregate {wall_a:.1f} ms, series "
+          f"{wall_s:.1f} ms wall), bitwise the CPU run's: annual cost "
+          f"${row.total_cost_usd:,.2f}, latency met "
+          f"{row.pct_latency_met:.3f}%, SLO met {row.slo_met}")
+    print(json.dumps({"windtunnel": {
+        "phase": "6b", "model": eng.cfg.name, "layers": eng.cfg.num_layers,
+        "records_sent": res.records_sent, "records_done": res.records_done,
+        "duration_s": res.duration_s, "sustained_rps": res.sustained_rps,
+        "groups": len(groups), "span_mean_ms": mean_ms,
+        "assumed_usd_per_chip_hour": ASSUMED_H100_USD_PER_HOUR,
+        "twin": {"policy": twin.policy, "params": list(twin.params)},
+        "forecast": {"R": 0.4 * rps, "G": 1.3,
+                     "annual_cost_usd": row.total_cost_usd,
+                     "grand_total_usd": row.grand_total_usd,
+                     "pct_latency_met": row.pct_latency_met,
+                     "slo_met": row.slo_met},
+        "launches": launches}}))
+    return launches
+
+
+def whatif_trace(whatif, slo_mod, sweep_twins, growths256, rows_4b):
+    """Phase 6c: 4b's 65,536-row aggregate sweep again, inside
+    ``obs.capture()``: its rows bitwise 4b's (obs off), and where the
+    sweep's wall goes, span by span."""
+    from repro_torch import obs
+    slo = slo_mod.SLO(limit_s=4 * 3600, met_fraction=0.95)
+    with obs.capture() as rec:
+        t0 = time.perf_counter()
+        rows = whatif.run_grid(sweep_twins, growths256, slo=slo)
+        wall = time.perf_counter() - t0
+    same_results(rows, rows_4b, "6c: the 65,536 sweep with obs on vs 4b")
+    print("phase 6c: the 65,536-row sweep of 4b inside obs.capture(): "
+          f"{wall * 1e3:.1f} ms wall, rows bitwise 4b's")
+    print(obs.render(rec))
+    stats = obs.summarize(rec)
+    spans = {name: {"count": s["count"], "total_ms": s["total_s"] * 1e3,
+                    "share": s["total_s"] / wall}
+             for name, s in stats.items() if name.startswith("grid.")}
+    check({"grid.simulate", "grid.block"} <= set(spans), spans)
+    counters = {name: rec.counter_total(name) for name in (
+        "grid.scenarios", "grid.dedup.total", "grid.dedup.kept",
+        "grid.blocks")}
+    print(json.dumps({"trace": {
+        "phase": "6c", "rows": len(rows), "wall_ms": wall * 1e3,
+        "spans": spans, "counters": counters,
+        "gauges": {k[0]: v for k, v in rec.gauges.items()}}}))
 
 
 def flash_vs_plain(dev):
@@ -1338,8 +1536,8 @@ def main():
         mod.reset_launches()
     main_path_table2(whatif, tr, twin_mod, slo_mod)
     main_path_whatif7(whatif, tr, twin_mod, slo_mod, faults)
-    sweep_twins, growths16, growths256 = at_width(whatif, tr, twin_mod,
-                                                  slo_mod)
+    sweep_twins, growths16, growths256, rows_4b = at_width(
+        whatif, tr, twin_mod, slo_mod)
     growths4 = chaos_at_width(whatif, tr, slo_mod, faults, sweep_twins,
                               growths16)
     launches = dict(pk.launches)
@@ -1361,8 +1559,21 @@ def main():
             ("5g", get_config(RWKV), "at all 32 layers",
              {"flash_attention": 0, "flash_attention_f32": 0, "ssm_scan": 0,
               "rwkv6_chunked": 32 * 2, "rwkv6_scan": 32 * 2 * 31})):
-        got = serve_at_width(dev, phase, cfg, label, expect)
+        got, eng = serve_at_width(dev, phase, cfg, label, expect)
         launches.update({k: v for k, v in got.items() if v})
+        if phase != "5g":           # 5g's engine stays for phase 6b
+            del eng
+            torch.cuda.empty_cache()
+
+    # the wind tunnel over the port: the paper's loop (6a), the full-size
+    # rwkv6-7b engine as the pipeline under test (6b, this slice's main
+    # path) and the what-if trace (6c)
+    wind_tunnel_telemetry(dev, whatif, tr, slo_mod)
+    launches_6b = wind_tunnel_serving(dev, eng, whatif, tr, slo_mod)
+    del eng
+    torch.cuda.empty_cache()
+    whatif_trace(whatif, slo_mod, sweep_twins, growths256, rows_4b)
+    del rows_4b
 
     # each kernel against its plain version at the main path's widths
     rows = [
@@ -1405,7 +1616,8 @@ def main():
     print(json.dumps({"kernels": [
         dict({"name": name, "route": "cuda",
               "source": f"src/repro_torch/kernels/csrc/{src}.cu",
-              "replaces": replaces, "launches": launches[name]}, **stats)
+              "replaces": replaces, "launches": launches[name],
+              "launches_6b": launches_6b[name]}, **stats)
         for name, src, replaces, stats in rows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -27,8 +27,21 @@ plays every scenario against F fault futures: the grid expands to N*F
 rows named ``"{name}/f{f}"``, scenario-major, and the fault kernels read
 the [F, T] capacity and in-fault rows through a per-row fault index.
 
-Not yet in the port: ``devices`` > 1 and the telemetry spans of
-``repro.obs``.
+With run-telemetry on (``repro_torch.obs``: ``REPRO_OBS=1`` or inside
+``obs.capture()``) every grid emits a ``grid.simulate`` root span (attrs
+``n``, ``t_bins``, ``mode``, ``faulted``, and ``devices`` in the aggregate
+mode) and the ``grid.scenarios`` counter; the aggregate dispatch counts
+``grid.dedup.total`` / ``grid.dedup.kept`` when bitwise dedup collapses
+rows, sets the ``grid.block_size`` gauge and counts
+``grid.blocks{backend,devices}`` when it runs in blocks, and wraps each
+kernel launch in a ``grid.block`` span (block index, size, policy, or -1
+for a mixed launch, backend ``cuda`` or ``plain``, and ``compiled`` = 1
+when the launch built or loaded a kernel library). A launch returns host
+arrays, so the spans time it whole and add no synchronisation; the
+simulated numbers are bitwise the same with telemetry on or off.
+
+Not yet in the port: ``devices`` > 1 (and with it the reference's
+``grid.round`` spans).
 """
 from __future__ import annotations
 
@@ -38,6 +51,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.cost import CostModel
 from repro_torch.core.slo import SLO
 from repro_torch.core.traffic import DAYS_PER_YEAR, HOURS_PER_YEAR, MONTH_DAYS
@@ -214,26 +228,37 @@ def _to(dev, a, dtype):
     return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(dev)
 
 
+def _backend(dev: torch.device) -> str:
+    return "cuda" if dev.type == "cuda" else "plain"
+
+
 def _agg_launch(matrix_t: torch.Tensor, load_index: np.ndarray,
                 params: np.ndarray, policy_idx: np.ndarray, dt_hours: float,
                 slo_limit: float, slo_mode: int, fault_t=None,
-                fault_index=None):
+                fault_index=None, block: int = 0, policy: int = -1):
     """One aggregate launch on ``matrix_t``'s device; host f64 results.
     ``fault_t`` = (caps_t, fmask_t), each [T, F] on that device, with the
-    launch's [B] ``fault_index``."""
+    launch's [B] ``fault_index``. Recorded as the ``grid.block`` span
+    ``block`` of the grid (``policy`` -1: a mixed launch)."""
     dev = matrix_t.device
-    caps_t = fmask_t = findex = None
-    if fault_t is not None:
-        caps_t, fmask_t = fault_t
-        findex = _to(dev, fault_index, np.int32)
-    carry, agg = ops.policy_scan_agg(
-        None, _to(dev, params, np.float32),
-        torch.from_numpy(policy_onehot(policy_idx)).to(dev), dt_hours,
-        slo_limit=slo_limit, slo_mode=slo_mode, loads_t=matrix_t,
-        load_index=_to(dev, load_index, np.int32), caps_t=caps_t,
-        fmask_t=fmask_t, fault_index=findex)
-    return (carry.cpu().numpy().astype(np.float64),
-            agg.cpu().numpy().astype(np.float64))
+    cache0 = obs.jit_cache_size() if obs.enabled() else 0
+    with obs.span("grid.block", block=block, size=len(load_index),
+                  policy=policy, backend=_backend(dev)) as sp:
+        caps_t = fmask_t = findex = None
+        if fault_t is not None:
+            caps_t, fmask_t = fault_t
+            findex = _to(dev, fault_index, np.int32)
+        carry, agg = ops.policy_scan_agg(
+            None, _to(dev, params, np.float32),
+            torch.from_numpy(policy_onehot(policy_idx)).to(dev), dt_hours,
+            slo_limit=slo_limit, slo_mode=slo_mode, loads_t=matrix_t,
+            load_index=_to(dev, load_index, np.int32), caps_t=caps_t,
+            fmask_t=fmask_t, fault_index=findex)
+        out = (carry.cpu().numpy().astype(np.float64),
+               agg.cpu().numpy().astype(np.float64))
+        if obs.enabled():
+            sp.attrs["compiled"] = float(obs.jit_cache_grew(None, cache0))
+    return out
 
 
 def _grid_agg_dispatch(load_matrix: np.ndarray, load_index: np.ndarray,
@@ -252,6 +277,9 @@ def _grid_agg_dispatch(load_matrix: np.ndarray, load_index: np.ndarray,
     dd = _dedup_rows(load_index, params, policy_idx, fault)
     if dd is not None:
         keep, inv, fidx_canon = dd
+        # counted only here: the recursive call sees a distinct grid
+        obs.count("grid.dedup.total", n)
+        obs.count("grid.dedup.kept", len(keep))
         fault_k = None if fault is None else (fault[0], fault[1],
                                               fidx_canon[keep])
         carry_u, agg_u = _grid_agg_dispatch(
@@ -270,15 +298,20 @@ def _grid_agg_dispatch(load_matrix: np.ndarray, load_index: np.ndarray,
     if scenario_block is None or scenario_block >= n:
         return _agg_launch(matrix_t, load_index, params, policy_idx,
                            dt_hours, slo_limit, slo_mode, fault_t, fidx)
-    positions, _ = _agg_block_plan(policy_idx, int(scenario_block))
+    block = int(scenario_block)
+    positions, block_policy = _agg_block_plan(policy_idx, block)
+    obs.gauge("grid.block_size", block)
+    obs.count("grid.blocks", positions.shape[0], backend=_backend(device),
+              devices=1)
     carry_end = np.zeros((n, CARRY_DIM), np.float64)
     out_agg = np.zeros((n, AGG_DIM), np.float64)
-    for pos in positions:
+    for b, pos in enumerate(positions):
         pos = pos[pos >= 0]     # pad slots run nothing
         carry_end[pos], out_agg[pos] = _agg_launch(
             matrix_t, np.asarray(load_index)[pos], np.asarray(params)[pos],
             np.asarray(policy_idx)[pos], dt_hours, slo_limit, slo_mode,
-            fault_t, None if fidx is None else fidx[pos])
+            fault_t, None if fidx is None else fidx[pos], block=b,
+            policy=int(block_policy[b]))
     return carry_end, out_agg
 
 
@@ -411,26 +444,33 @@ def simulate_grid(twins: Sequence[Twin], loads: Optional[np.ndarray] = None,
                     if slo is not None and slo.metric == "drop_rate"
                     else AGG_SLO_LATENCY)
         slo_limit = float(slo.limit_s) if slo is not None else float("inf")
-        carry_end, agg = _grid_agg_dispatch(
-            load_matrix, load_index, params, idx, float(bin_hours),
-            slo_limit, slo_mode, scenario_block, dev, fault)
+        obs.count("grid.scenarios", n)
+        with obs.span("grid.simulate", n=n, t_bins=t_bins, mode="agg",
+                      devices=int(devices or 1),
+                      faulted=fault is not None):
+            carry_end, agg = _grid_agg_dispatch(
+                load_matrix, load_index, params, idx, float(bin_hours),
+                slo_limit, slo_mode, scenario_block, dev, fault)
         return _summarise_aggregates(
             names, twins, carry_end[:, 0], agg, slo, cost_model, record_mb,
             float(bin_hours), t_bins, load_matrix, load_index)
 
-    caps_t = fidx = None
-    if fault is not None:
-        caps_t = _to(dev, np.asarray(fault[0]).T, np.float32)
-        fidx = _to(dev, fault[2], np.int32)
-    carry_end, series = ops.policy_scan(
-        None, _to(dev, params, np.float32),
-        torch.from_numpy(policy_onehot(idx)).to(dev), float(bin_hours),
-        loads_t=_to(dev, load_matrix.T, np.float32),
-        load_index=_to(dev, load_index, np.int32), caps_t=caps_t,
-        fault_index=fidx)
-    q_end = carry_end[:, 0].cpu().numpy().astype(np.float64)
-    processed, queue, latency, cost, dropped = \
-        torch.stack(series).cpu().numpy()   # [5, N, T] f32, row-major
+    obs.count("grid.scenarios", n)
+    with obs.span("grid.simulate", n=n, t_bins=t_bins, mode="series",
+                  faulted=fault is not None):
+        caps_t = fidx = None
+        if fault is not None:
+            caps_t = _to(dev, np.asarray(fault[0]).T, np.float32)
+            fidx = _to(dev, fault[2], np.int32)
+        carry_end, series = ops.policy_scan(
+            None, _to(dev, params, np.float32),
+            torch.from_numpy(policy_onehot(idx)).to(dev), float(bin_hours),
+            loads_t=_to(dev, load_matrix.T, np.float32),
+            load_index=_to(dev, load_index, np.int32), caps_t=caps_t,
+            fault_index=fidx)
+        q_end = carry_end[:, 0].cpu().numpy().astype(np.float64)
+        processed, queue, latency, cost, dropped = \
+            torch.stack(series).cpu().numpy()   # [5, N, T] f32, row-major
     f64 = lambda a: np.asarray(a, np.float64)  # noqa: E731
     return [
         _summarise(names[i], twins[i], f64(load_matrix[load_index[i]]),

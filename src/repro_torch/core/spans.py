@@ -1,7 +1,6 @@
 """Span instrumentation (OpenTelemetry analogue) + collector.
 
-Copy of ``repro.core.spans`` for the port, without the ``repro.obs``
-mirror (run telemetry is not ported yet). Pipeline stages are wrapped in
+Copy of ``repro.core.spans`` for the port. Pipeline stages are wrapped in
 ``with span("stage", collector, records=n):`` blocks. The collector
 converts finished spans into time-series metrics (throughput, latency per
 stage) — the paper's OTel-collector -> Prometheus path, in-process.
@@ -13,6 +12,8 @@ import threading
 import time
 from dataclasses import dataclass, field
 from typing import Dict, Iterator, List, Optional
+
+from repro_torch import obs
 
 
 @dataclass
@@ -99,14 +100,19 @@ class SpanCollector:
 @contextlib.contextmanager
 def span(name: str, collector: Optional[SpanCollector],
          records: int = 1, **attrs) -> Iterator[None]:
-    """Wrap one stage invocation; the span lands in ``collector`` (none
-    is kept when it is None)."""
+    """Wrap one stage invocation. Spans land in the pipeline's own
+    ``collector`` as always; when run-telemetry is on they ALSO mirror
+    into ``repro_torch.obs`` as ``stage.{name}`` spans with a ``records``
+    attr, so ``obs.to_otel_spans(prefix="stage.")`` exports an
+    instrumented experiment."""
     if collector is None:
-        yield
+        with obs.span(f"stage.{name}", records=records, **attrs):
+            yield
         return
     t0 = collector.clock()
     try:
-        yield
+        with obs.span(f"stage.{name}", records=records, **attrs):
+            yield
     finally:
         collector.add(Span(name, t0, collector.clock() - t0, records,
                            {k: float(v) for k, v in attrs.items()}))

@@ -1,6 +1,7 @@
 """Digital twins (paper Sec. V-G) on the port: the ``Twin`` record, the
-policy registry, the five built-in lane steps and the streaming-aggregate
-hooks.
+policy registry, the five built-in lane steps, the streaming-aggregate
+hooks, and the fits of a twin from a wind-tunnel experiment
+(``fit_twin`` and its siblings, ``roofline_twin``).
 
 Counterpart: ``repro.core.twin``. A twin is a policy name plus a flat
 parameter vector, and every policy is a branchless *lane step* over a
@@ -40,6 +41,8 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.core.experiment import ExperimentResult
 
 CARRY_DIM = 2     # [queued/accumulated records, policy state]
 PARAM_DIM = 6     # flat parameter vector, zero-padded per policy
@@ -521,6 +524,42 @@ def QuickscalingTwin(name: str, max_rps: float, usd_per_hour: float,
     return Twin(name=name, policy=policy, kind=kind,
                 params=(float(max_rps), float(usd_per_hour),
                         float(base_latency_s)))
+
+
+def fit_twin(result: ExperimentResult, policy: str = "fifo",
+             name: Optional[str] = None, **extra_params: float) -> Twin:
+    """The paper's fit, generalised to any registered policy: apparent
+    sustained throughput over the whole experiment, measured hourly cost,
+    no-queue latency from stage medians; policy extras via kwargs."""
+    return make_twin(name or result.pipeline_name, policy,
+                     max_rps=result.sustained_rps,
+                     usd_per_hour=result.cost["usd_per_hour"],
+                     base_latency_s=result.base_latency_s,
+                     **extra_params)
+
+
+def fit_simple_twin(result: ExperimentResult,
+                    name: Optional[str] = None) -> Twin:
+    return fit_twin(result, "fifo", name)
+
+
+def fit_quickscaling_twin(result: ExperimentResult,
+                          name: Optional[str] = None) -> Twin:
+    return fit_twin(result, "quickscale", name)
+
+
+def roofline_twin(name: str, *, step_seconds: float, records_per_step: float,
+                  chips: int, chip_usd_per_hour: float,
+                  base_latency_s: Optional[float] = None) -> Twin:
+    """Capacity from a roofline bound: one serving step processes
+    ``records_per_step`` requests in ``step_seconds``. The accelerator's
+    price has no default (the reference's is a TPU's): the caller states
+    ``chip_usd_per_hour``."""
+    cap = records_per_step / step_seconds
+    return SimpleTwin(name=name, max_rps=cap,
+                      usd_per_hour=chips * chip_usd_per_hour,
+                      base_latency_s=base_latency_s or step_seconds,
+                      kind="roofline")
 
 
 # ---------------------------------------------------------------------------

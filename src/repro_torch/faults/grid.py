@@ -1,7 +1,6 @@
 """Expand sampled fault futures into the matrix+index grid representation.
 
-Counterpart: ``repro.faults.grid``, copied without its ``repro.obs`` span
-and counters (the port has no run telemetry yet).
+Counterpart: ``repro.faults.grid``.
 
 The aggregate grid engine (``core/simulate.py``) runs N scenarios as a
 [K, T] load matrix plus an [N] row index. ``expand_grid`` lifts that
@@ -25,6 +24,8 @@ from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import numpy as np
+
+from repro_torch import obs
 
 from .sampler import SampledFaults
 
@@ -83,6 +84,7 @@ def benign_futures(sampled: SampledFaults) -> np.ndarray:
             & ~np.any(np.asarray(sampled.mask) != 0.0, axis=1))
 
 
+@obs.instrument(name="faults.expand_grid")
 def expand_grid(sampled: SampledFaults, load_matrix: np.ndarray,
                 load_index: np.ndarray) -> FaultGrid:
     """Expand (load_matrix [K,T], load_index [N]) by F fault futures.
@@ -92,6 +94,11 @@ def expand_grid(sampled: SampledFaults, load_matrix: np.ndarray,
     Rows whose future leaves loads untouched reuse the base row
     untouched. Perturbed series that come out negative or NaN raise
     ``ValueError`` naming the fault spec and bin index.
+
+    With run-telemetry on (``repro_torch.obs``) the expansion records a
+    ``faults.expand_grid`` span and counters ``faults.futures`` /
+    ``faults.rows`` / ``faults.load_rows_added`` — how much grid the
+    chaos suite actually created.
     """
     load_matrix = np.asarray(load_matrix)
     load_index = np.asarray(load_index)
@@ -125,6 +132,9 @@ def expand_grid(sampled: SampledFaults, load_matrix: np.ndarray,
     expanded = np.concatenate(rows, axis=0) if len(rows) > 1 else load_matrix
     new_index = row_of[load_index].reshape(-1).astype(np.int32)   # [N*F]
     fault_index = np.tile(np.arange(F, dtype=np.int32), n)        # [N*F]
+    obs.count("faults.futures", F)
+    obs.count("faults.rows", n * F)
+    obs.count("faults.load_rows_added", next_row - k)
     return FaultGrid(load_matrix=expanded, load_index=new_index,
                      cap=np.asarray(sampled.cap, dtype=np.float32),
                      fmask=np.asarray(sampled.mask, dtype=np.float32),

@@ -46,6 +46,8 @@ FLAGS = {"policy_scan": NVCC_FLAGS,
 SOURCES = tuple(FLAGS)
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
+#: sources this process has built with nvcc or loaded (``library_count``)
+_SEEN: set = set()
 
 
 def nvcc_path() -> str:
@@ -106,6 +108,7 @@ def build(names: Iterable[str] = SOURCES) -> float:
             failed.append(f"{name} (exit {rc}, see {log.name})")
         else:
             os.replace(tmp, out)    # atomic: concurrent builds agree
+            _SEEN.add(name)
     if failed:
         raise RuntimeError("nvcc failed: " + ", ".join(failed))
     return time.perf_counter() - t0
@@ -118,4 +121,12 @@ def load(name: str) -> ctypes.CDLL:
         build([name])
         lib = ctypes.CDLL(str(library_path(name)))
         _LOADED[name] = lib
+        _SEEN.add(name)
     return lib
+
+
+def library_count() -> int:
+    """How many kernel libraries this process has built or loaded: it
+    grows on the first launch of each kernel source and never after
+    (``repro_torch.obs.jit_cache_size`` reads it)."""
+    return len(_SEEN)

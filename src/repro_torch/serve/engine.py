@@ -11,11 +11,13 @@ and throughput of a serving pipeline as of the paper's telemetry pipeline.
 The engine runs on one device (``device=``, default ``"cuda"``; it raises
 without a card) and takes no mesh. It holds the parameters as the forward
 pass reads them (``models.model.compute_params``: matrices in the compute
-dtype, cast once). The reference's ``repro.obs`` spans and counters are
-not ported yet.
+dtype, cast once). Every tensor it makes names the engine's device, so a
+pipeline's worker thread (``as_pipeline``) serves on it as the caller's
+thread does.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence
@@ -23,6 +25,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.config import ModelConfig
 from repro_torch.core.pipeline import Pipeline, PipelineStage, Resources
 from repro_torch.core.spans import SpanCollector, span
@@ -81,6 +84,7 @@ class ServeEngine:
         g = len(group)
         if g > self.slots:
             raise ValueError(f"{g} requests for {self.slots} slots")
+        obs.count("serve.requests", g)
         plen = self._prefill_len
         toks = np.zeros((self.slots, plen), np.int32)
         for i, r in enumerate(group):
@@ -122,29 +126,37 @@ class ServeEngine:
     def serve(self, requests: List[Request]) -> List[Request]:
         """FIFO grouped batching over a pre-timestamped request list
         (timestamps relative to start). The stage spans (queue_wait /
-        prefill / decode) land in the engine's collector."""
-        start = self.collector.clock()
-        pending = sorted(requests, key=lambda r: r.submitted)
-        for r in pending:
-            r.submitted += start
-        done: List[Request] = []
-        i = 0
-        while i < len(pending):
-            nowt = self.collector.clock()
-            group = []
-            while (i < len(pending) and len(group) < self.slots
-                   and pending[i].submitted <= nowt):
-                group.append(pending[i])
-                i += 1
-            if not group:
-                nxt = pending[i].submitted
-                time.sleep(max(0.0, min(nxt - nowt, 0.01)))
-                continue
-            with span("queue_wait", self.collector, records=len(group)):
-                pass
-            self.process_group(group)
-            done.extend(group)
-        return done
+        prefill / decode) land in the engine's collector as always and
+        mirror into ``repro_torch.obs`` as ``stage.*`` spans when
+        telemetry is on; the request loop itself records a ``serve.loop``
+        span with the request count and bumps ``serve.requests`` /
+        ``serve.groups`` counters."""
+        with obs.span("serve.loop", requests=len(requests),
+                      slots=self.slots):
+            start = self.collector.clock()
+            pending = sorted(requests, key=lambda r: r.submitted)
+            for r in pending:
+                r.submitted += start
+            done: List[Request] = []
+            i = 0
+            while i < len(pending):
+                nowt = self.collector.clock()
+                group = []
+                while (i < len(pending) and len(group) < self.slots
+                       and pending[i].submitted <= nowt):
+                    group.append(pending[i])
+                    i += 1
+                if not group:
+                    nxt = pending[i].submitted
+                    time.sleep(max(0.0, min(nxt - nowt, 0.01)))
+                    continue
+                with span("queue_wait", self.collector,
+                          records=len(group)):
+                    pass
+                obs.count("serve.groups")
+                self.process_group(group)
+                done.extend(group)
+            return done
 
     def as_pipeline(self, name: str = "serve") -> Pipeline:
         """Wind-tunnel adapter: one stage that serves a group per record
@@ -153,7 +165,10 @@ class ServeEngine:
             toks = batch["tokens"]
             reqs = [Request(rid=i, prompt=list(map(int, row[:8])), max_new=4)
                     for i, row in enumerate(np.atleast_2d(toks)[: self.slots])]
-            self.process_group(reqs)
+            # the worker thread's current card is its own: name the engine's
+            with (torch.cuda.device(self.device)
+                  if self.device.type == "cuda" else contextlib.nullcontext()):
+                self.process_group(reqs)
             return None
         return Pipeline(name, [PipelineStage("serve_group", stage)],
                         resources=Resources(vcpus=2, ram_gb=4,

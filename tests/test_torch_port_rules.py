@@ -1,9 +1,13 @@
 """The port's ground rules.
 
 * ``repro_torch`` imports ``torch`` and numpy, never ``jax`` and nothing
-  of the JAX package ``repro``, not even ``repro.faults`` or ``repro.obs``
-  (checked in a fresh interpreter, and in the source text of the package,
-  its ``faults`` copy included, and of ``chip_smoke.py``);
+  of the JAX package ``repro``, not even ``repro.faults``, ``repro.obs``
+  or ``repro.pipelines`` (checked in a fresh interpreter, and in the
+  source text of the package, its ``faults``, ``obs`` and ``pipelines``
+  copies and wind-tunnel modules included, and of ``chip_smoke.py``);
+* no accelerator has a price by default: ``CostModel`` and
+  ``roofline_twin`` take the chip's price from the caller;
+* run telemetry is off unless asked for;
 * its entry points (the what-if grid's, and the serving slice's
   ``ServeEngine``, ``models.model.init_params`` and ``init_cache``)
   default to the card and raise without one;
@@ -15,6 +19,7 @@
   reciprocals, never the IEEE float32 division.
 """
 import dataclasses
+import inspect
 import os
 import pkgutil
 import re
@@ -29,7 +34,8 @@ import torch
 import repro_torch
 from repro_torch import faults
 from repro_torch.configs import get_smoke_config
-from repro_torch.core import simulate, slo, traffic, twin, whatif
+from repro_torch.core import cost, simulate, slo, traffic, twin, whatif
+from repro_torch.core.pipeline import Resources
 from repro_torch.models import model as M
 from repro_torch.serve.engine import ServeEngine
 
@@ -76,13 +82,26 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
             "repro_torch.kernels.ssm_scan", "repro_torch.models.model",
             "repro_torch.models.transformer", "repro_torch.serve.engine",
             "repro_torch.core.spans", "repro_torch.core.pipeline",
-            "repro_torch.configs.jamba15_large_398b"} <= set(_modules())
+            "repro_torch.configs.jamba15_large_398b",
+            "repro_torch.core.schema", "repro_torch.core.datagen",
+            "repro_torch.core.loadpattern", "repro_torch.core.metrics",
+            "repro_torch.core.experiment", "repro_torch.pipelines.telemetry",
+            "repro_torch.obs.record", "repro_torch.obs.export",
+            "repro_torch.obs.report", "repro_torch.obs.profile",
+            "repro_torch.obs.__main__"} <= set(_modules())
 
 
 def test_port_sources_do_not_import_jax_or_the_reference():
     files = sorted((SRC / "repro_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py"]
-    assert len(files) > 30
+    assert len(files) > 50
+    names = {f.relative_to(SRC / "repro_torch").as_posix() for f in files
+             if f.is_relative_to(SRC / "repro_torch")}
+    assert {"obs/record.py", "obs/export.py", "obs/report.py",
+            "obs/profile.py", "obs/__init__.py", "obs/__main__.py",
+            "pipelines/telemetry.py", "pipelines/__init__.py",
+            "core/experiment.py", "core/datagen.py", "core/schema.py",
+            "core/loadpattern.py", "core/metrics.py"} <= names
     for f in files:
         hit = FORBIDDEN.search(f.read_text())
         assert hit is None, f"{f}: {hit.group(0).strip()}"
@@ -90,6 +109,32 @@ def test_port_sources_do_not_import_jax_or_the_reference():
     assert FORBIDDEN.search("from repro_torch.core import twin") is None
     assert FORBIDDEN.search("from repro.core import twin") is not None
     assert FORBIDDEN.search("import repro") is not None
+
+
+def test_no_accelerator_price_by_default():
+    price = inspect.signature(twin.roofline_twin).parameters[
+        "chip_usd_per_hour"]
+    assert price.default is inspect.Parameter.empty
+    assert price.kind is inspect.Parameter.KEYWORD_ONLY
+    assert cost.CostModel().chip_usd_per_hour is None
+    with pytest.raises(ValueError, match="chip_usd_per_hour"):
+        cost.CostModel().pipeline_usd_per_hour(Resources(chips=1))
+    assert cost.CostModel().pipeline_usd_per_hour(Resources()) > 0
+    assert not hasattr(cost, "TPU_V5E_USD_PER_CHIP_HOUR")
+
+
+def test_run_telemetry_is_off_unless_asked_for():
+    code = ("from repro_torch import obs\n"
+            "print(obs.enabled())\n")
+    env = _env()
+    env.pop("REPRO_OBS", None)
+    for value, want in ((None, "False"), ("1", "True"), ("0", "False")):
+        if value is not None:
+            env["REPRO_OBS"] = value
+        out = subprocess.run([sys.executable, "-c", code], env=env,
+                             capture_output=True, text=True, timeout=120)
+        assert out.returncode == 0, out.stderr
+        assert out.stdout.strip() == want, value
 
 
 def _no_card():

@@ -25,12 +25,15 @@ def reference():
     if aliased:
         jax.experimental.enable_x64 = jax.enable_x64
     try:
-        from repro import configs, faults
+        from repro import configs, faults, obs
         from repro.core import cost, simulate, slo, traffic, twin, whatif
+        from repro.core import (datagen, experiment, loadpattern, metrics,
+                                schema, spans)
         from repro.distributed import sharding
         from repro.kernels import flash_attention, ops, policy_scan, ref
         from repro.kernels import rwkv6_kernel, ssm_scan
         from repro.models import attention, layers, model, rwkv6, ssm
+        from repro.pipelines import telemetry
         yield SimpleNamespace(cost=cost, simulate=simulate, slo=slo,
                               traffic=traffic, twin=twin, whatif=whatif,
                               ops=ops, policy_scan=policy_scan, ref=ref,
@@ -39,7 +42,11 @@ def reference():
                               flash_attention=flash_attention,
                               ssm_scan=ssm_scan, rwkv6_kernel=rwkv6_kernel,
                               attention=attention, layers=layers,
-                              model=model, ssm=ssm, rwkv6=rwkv6)
+                              model=model, ssm=ssm, rwkv6=rwkv6,
+                              datagen=datagen, experiment=experiment,
+                              loadpattern=loadpattern, metrics=metrics,
+                              schema=schema, spans=spans,
+                              telemetry=telemetry, obs=obs)
     finally:
         for name in set(sys.modules) - before:
             if name == "repro" or name.startswith("repro."):
