@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of PlantD on one GPU: the what-if year
-grid, the serving pipeline-under-test (Jamba-1.5 and rwkv6-7b), and the
-wind tunnel that measures a pipeline, fits its twin and forecasts its year.
+grid, the serving pipeline-under-test (Jamba-1.5 and rwkv6-7b), the
+wind tunnel that measures a pipeline, fits its twin and forecasts its
+year, and the gradient calibration of twins from what it measured.
 
     python3 chip_smoke.py
 
@@ -69,10 +70,24 @@ RWKV-6 WKV recurrence, chunked and per step), then:
    ``grid.*`` spans' share of its wall (6c). Each model kernel is then
    held against its plain version at the shapes the serving paths gave
    it;
-7. prints one JSON line of per-kernel numbers (eight kernels: launches
-   on the main paths of phases 3-5 and of 6b, error against the plain
-   version, kernel / plain / bound / library times; no kernel may read
-   faster than its bound; the decode launches of ``ssm_scan`` and
+7. the calibration slice (``repro_torch.calibrate``) on the card: the
+   fit's loss and gradient against the port on the CPU for every policy
+   and through the fault layer, and the device memory of one streamed
+   fit step over a year of hourly bins (7a); shed's parameters recovered
+   from a 6 h ramp replay, with the fit's wall, steps/s, and launches
+   and busy share per step under ``torch.profiler`` (7b); 6b's measured
+   experiment fitted into fifo and shed twins at 1 s bins and played
+   through Table II by ``calibrated_grid``, its rows out of the
+   aggregate kernel bitwise the CPU's (7c); 6a's experiment under
+   ``obs.capture()``, its ``stage.*`` spans exported as OTel dicts,
+   binned into a trace and fitted, with the ``calibrate.fit`` span and
+   counters (7d); a ``{"calibrate": ...}`` line of phase 7's numbers.
+   ``python3 chip_smoke.py --phase 7`` runs the build and phase 7 alone,
+   6a's experiment standing in for 6b's;
+8. prints one JSON line of per-kernel numbers (eight kernels: launches
+   on the main paths of phases 3-5, of 6b and of 7, error against the
+   plain version, kernel / plain / bound / library times; no kernel may
+   read faster than its bound; the decode launches of ``ssm_scan`` and
    ``rwkv6_scan`` also with their device time, 100 launches captured in
    a CUDA graph and replayed, where the wrapper time is mostly host
    work), then the card and ``{"ok": true, ...}`` as its last line.
@@ -1138,27 +1153,35 @@ def forecast_on_card(whatif, twin, traffic, slo, what):
     return agg, rows[False][1], rows[True][1]
 
 
-def wind_tunnel_telemetry(dev, whatif, tr, slo_mod):
-    """Phase 6a: the paper's loop (examples/quickstart.py) on the port —
-    an experiment over the blocking-write telemetry pipeline on the host,
-    its fitted twin, and a year's forecast on the card."""
+def telemetry_experiment(what):
+    """The quickstart experiment of examples/quickstart.py: the
+    blocking-write telemetry pipeline on the host under a 3 s ramp to
+    120 rec/s; fails unless it drained with no stage error."""
     import tempfile
     from repro_torch.core.experiment import Experiment
     from repro_torch.core.loadpattern import LoadPattern
-    from repro_torch.core.report import render_table
-    from repro_torch.core.twin import fit_simple_twin
     from repro_torch.pipelines.telemetry import (make_telemetry_dataset,
                                                  make_telemetry_pipeline)
-    from repro_torch.kernels import policy_scan as pk
     with tempfile.TemporaryDirectory() as blob_dir:
         pipe = make_telemetry_pipeline("blocking-write", blob_dir=blob_dir)
         dataset = make_telemetry_dataset(num_records=40, seed=SEED)
         load = LoadPattern.ramp("0->120rps", duration_s=3.0, peak_rate=120.0)
         res = Experiment("quickstart", pipe, load, dataset).run()
     check(res.drained and not pipe.errors,
-          f"6a: drained={res.drained}, errors {pipe.errors[:3]}")
+          f"{what}: drained={res.drained}, errors {pipe.errors[:3]}")
     check(res.records_done == res.records_sent > 0, (res.records_done,
                                                      res.records_sent))
+    return res
+
+
+def wind_tunnel_telemetry(dev, whatif, tr, slo_mod):
+    """Phase 6a: the paper's loop (examples/quickstart.py) on the port —
+    an experiment over the blocking-write telemetry pipeline on the host,
+    its fitted twin, and a year's forecast on the card."""
+    from repro_torch.core.report import render_table
+    from repro_torch.core.twin import fit_simple_twin
+    from repro_torch.kernels import policy_scan as pk
+    res = telemetry_experiment("6a")
     twin = fit_simple_twin(res)
     print(f"phase 6a: telemetry blocking-write under a 3 s 0->120 rec/s "
           f"ramp: sent {res.records_sent}, done {res.records_done} in "
@@ -1182,10 +1205,11 @@ def wind_tunnel_telemetry(dev, whatif, tr, slo_mod):
 
 
 def wind_tunnel_serving(dev, eng, whatif, tr, slo_mod):
-    """Phase 6b, this slice's main path: the wind tunnel measures the
-    full-size rwkv6-7b engine of 5g as a pipeline under test
-    (``ServeEngine.as_pipeline``), fits a twin and forecasts its year on
-    the card. Every count is set to 0 just before and read just after."""
+    """Phase 6b: the wind tunnel measures the full-size rwkv6-7b engine
+    of 5g as a pipeline under test (``ServeEngine.as_pipeline``), fits a
+    twin and forecasts its year on the card. Every count is set to 0 just
+    before and read just after. Returns the launches, the experiment's
+    result and its closed-form twin (phase 7 calibrates from them)."""
     from repro_torch.core.cost import CostModel
     from repro_torch.core.datagen import DataGenerator
     from repro_torch.core.experiment import Experiment
@@ -1269,7 +1293,7 @@ def wind_tunnel_serving(dev, eng, whatif, tr, slo_mod):
                      "pct_latency_met": row.pct_latency_met,
                      "slo_met": row.slo_met},
         "launches": launches}}))
-    return launches
+    return launches, res, twin
 
 
 def whatif_trace(whatif, slo_mod, sweep_twins, growths256, rows_4b):
@@ -1298,6 +1322,345 @@ def whatif_trace(whatif, slo_mod, sweep_twins, growths256, rows_4b):
         "phase": "6c", "rows": len(rows), "wall_ms": wall * 1e3,
         "spans": spans, "counters": counters,
         "gauges": {k[0]: v for k, v in rec.gauges.items()}}}))
+
+
+#: phase 7a's bounds, the card against the port on the CPU. Both run the
+#: same IEEE float32 operations, one PyTorch kernel each; the log is
+#: CUDA's and the CPU's (an ulp apart), and the card's cumsum of the
+#: target rows associates otherwise (measured 4.8e-6 on the loss)
+CAL_LOSS_RTOL = 1e-5
+#: d loss / d params at the same parameters (denominator floored at 1e-6
+#: of the largest entry, as the reference's gradient tests do)
+CAL_GRAD_RTOL = 1e-5
+#: d loss / d z end to end (the reparameterisation runs in float64 and
+#: rounds once, so both devices fit the same parameters)
+CAL_ZGRAD_RTOL = 1e-5
+#: the reference test's recovery tolerance (tests/test_calibrate.py)
+CAL_RECOVERY_RTOL = 0.05
+
+
+def cal_twins(twin_mod):
+    """One ground-truth twin per built-in policy (tests/test_calibrate.py)."""
+    return [twin_mod.SimpleTwin("fifo", 2.0, 0.05, 0.2),
+            twin_mod.make_twin("quick", "quickscale", max_rps=2.0,
+                               usd_per_hour=0.05, base_latency_s=0.2),
+            twin_mod.make_twin("auto", "autoscale", max_rps=0.5,
+                               usd_per_hour=0.01, base_latency_s=0.1,
+                               max_instances=8, scale_up_hours=3),
+            twin_mod.make_twin("shed", "shed", max_rps=2.0,
+                               usd_per_hour=0.05, base_latency_s=0.2,
+                               queue_cap_hours=1.5),
+            twin_mod.make_twin("batch", "batch_window", max_rps=4.0,
+                               usd_per_hour=0.01, base_latency_s=0.1,
+                               window_hours=6)]
+
+
+def grad_rel(a, b):
+    """Largest |a - b| / max(|b|, 1e-6 max|b|) — the reference's gradient
+    guard."""
+    a = a.detach().double().cpu()
+    b = b.detach().double().cpu()
+    floor = 1e-6 * max(float(b.abs().max()), 1.0)
+    return float(((a - b).abs() / b.abs().clamp_min(floor)).max())
+
+
+def loss_rel(a, b):
+    a = a.detach().double().cpu()
+    b = b.detach().double().cpu()
+    return float(((a - b).abs() / b.abs().clamp_min(1e-30)).max())
+
+
+def ramp_6h(lp):
+    return lp.LoadPattern.ramp("ramp", duration_s=6 * 3600, peak_rate=6.0)
+
+
+def calibration_gradients(dev, twin_mod):
+    """Phase 7a: the fit's loss and gradient on the card against the port
+    on the CPU, every policy, K = 16 lanes of a 6 h ramp in 300 s bins;
+    the fault fold likewise; and the device memory of one streamed fit
+    step at T = 8,736."""
+    from repro_torch import calibrate as cal
+    from repro_torch.calibrate import objective as obj
+    from repro_torch.calibrate.fit import _as_operands
+    from repro_torch.core import loadpattern as lp
+    from repro_torch.core.traffic import TrafficModel
+    from repro_torch.kernels import ops
+    cpu = torch.device("cpu")
+    k_lanes = 16
+    out = {"policies": {}}
+    for i, truth in enumerate(cal_twins(twin_mod)):
+        trace = cal.ObservedTrace.from_loadpattern(ramp_6h(lp), truth,
+                                                   bin_s=300.0)
+        cpu_trace = cal.ObservedTrace.from_loadpattern(
+            ramp_6h(lp), truth, bin_s=300.0, device="cpu")
+        for f in ("processed", "latency_s", "dropped", "cost_usd"):
+            assert_bitwise(f"7a {truth.policy} trace {f}",
+                           np.asarray(getattr(trace, f), np.float32),
+                           np.asarray(getattr(cpu_trace, f), np.float32))
+        spec = cal.fit_spec(truth.policy)
+        box = (spec.lo, spec.hi, spec.log_mask, spec.free_mask, spec.fixed)
+        rng = np.random.default_rng(SEED + i)
+        z = (cal.z_from_params(truth.padded_params(), spec.lo, spec.hi,
+                               spec.log_mask)[None]
+             + rng.normal(0.0, 0.7, (k_lanes, 6))).astype(np.float32)
+        p = cal.params_from_z(torch.from_numpy(z), *box).numpy()
+        got = []
+        for where in (dev, cpu):
+            ops_ = _as_operands(trace, None, where)
+            zt = torch.tensor(z, device=where, requires_grad=True)
+            loss = cal.lane_trace_loss(
+                zt, *ops_, truth.policy_index, trace.bin_hours,
+                *(torch.as_tensor(b, device=where) for b in box))
+            loss.sum().backward()
+            pt_ = torch.tensor(p, device=where, requires_grad=True)
+            cal.lane_series_loss(pt_, *ops_, truth.policy_index,
+                                 trace.bin_hours).sum().backward()
+            got.append((loss.detach(), zt.grad, pt_.grad))
+        (card_loss, card_gz, card_gp), (cpu_loss, cpu_gz, cpu_gp) = got
+        errs = {"loss": loss_rel(card_loss, cpu_loss),
+                "grad_z": grad_rel(card_gz, cpu_gz),
+                "grad_params": grad_rel(card_gp, cpu_gp)}
+        check(errs["loss"] <= CAL_LOSS_RTOL, (truth.policy, errs))
+        check(errs["grad_z"] <= CAL_ZGRAD_RTOL, (truth.policy, errs))
+        check(errs["grad_params"] <= CAL_GRAD_RTOL, (truth.policy, errs))
+        out["policies"][truth.policy] = errs
+    # the fault fold: shed's lanes through one outage (bins 30-37 of 72)
+    # at the uniform blocks' rounding, the calibration loss folded in
+    truth = cal_twins(twin_mod)[3]
+    trace = cal.ObservedTrace.from_loadpattern(ramp_6h(lp), truth,
+                                               bin_s=300.0, device="cpu")
+    t_bins = trace.num_bins
+    caps = np.ones((t_bins, k_lanes), np.float32)
+    caps[30:38] = 0.0
+    p = (np.tile(truth.padded_params(), (k_lanes, 1))
+         * np.random.default_rng(SEED).uniform(0.8, 1.2, (k_lanes, 6))
+         ).astype(np.float32)
+    got = []
+    for where in (dev, cpu):
+        arrivals, targets, scales, weights = _as_operands(trace, None, where)
+        xs, eps = obj._cal_operands(targets, scales)
+        pt_ = torch.tensor(p, device=where, requires_grad=True)
+        _, acc = ops.policy_scan_fold(
+            params=pt_, dt_hours=trace.bin_hours,
+            policy_index=truth.policy_index,
+            loads_t=arrivals[:, None].expand(t_bins, k_lanes),
+            caps_t=torch.from_numpy(caps).to(where),
+            fold_init=obj._cal_fold_init, fold_step=obj._cal_fold,
+            ops_lane=eps.expand(k_lanes, 4), xs=xs,
+            acc_sinks=obj._CAL_SINKS)
+        loss = obj._cal_combine(acc, weights, t_bins)
+        loss.sum().backward()
+        got.append((loss.detach(), pt_.grad))
+    out["fault_fold"] = {"loss": loss_rel(got[0][0], got[1][0]),
+                         "grad_params": grad_rel(got[0][1], got[1][1])}
+    check(out["fault_fold"]["loss"] <= CAL_LOSS_RTOL, out["fault_fold"])
+    check(out["fault_fold"]["grad_params"] <= CAL_GRAD_RTOL,
+          out["fault_fold"])
+    print("phase 7a: the fit's loss and gradient, card vs CPU, K = 16, "
+          "T = 72, dt 1/12 (bounds: loss "
+          f"{CAL_LOSS_RTOL:g}, d/d params {CAL_GRAD_RTOL:g}, d/d z "
+          f"{CAL_ZGRAD_RTOL:g} relative):")
+    for name, e in list(out["policies"].items()) + [
+            ("shed fault fold", out["fault_fold"])]:
+        print(f"  {name}: " + ", ".join(f"{k} {v:.2e}" for k, v in
+                                         e.items()))
+    # one streamed fit step over a year of hourly bins: the O(sqrt(T))
+    # backward holds entry states and one segment's tape, never the
+    # [K, T] series the materialised loss holds
+    year = TrafficModel.honda_default("nom").hourly_loads()
+    trace = cal.ObservedTrace.from_simulation(
+        twin_mod.SimpleTwin("fifo", RPS, USD_HR, LAT), year, 1.0,
+        name="year")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cal.fit(trace, "fifo", restarts=k_lanes, steps=1, seed=SEED)
+    step_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    series = 5 * k_lanes * trace.num_bins * 4
+    check(peak < series, ("7a: a streamed fit step held", peak,
+                          "bytes; the five [K, T] series are", series))
+    out["memory"] = {"t_bins": trace.num_bins, "lanes": k_lanes,
+                     "peak_bytes": peak, "series_bytes": series,
+                     "step_s": step_s}
+    print(f"  one streamed fit step, K = 16, T = {trace.num_bins:,}: "
+          f"{step_s:.2f} s, peak device memory {peak / 1e6:.3f} MB above "
+          f"the operands, against {series / 1e6:.3f} MB for the five "
+          f"[K, T] series it does not hold")
+    return out
+
+
+def fit_profile(trace, policy, restarts, steps):
+    """``steps`` fit steps under ``torch.profiler``: wall, summed kernel
+    time, busy share and kernel launches per step; None where the
+    profiler saw no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import calibrate as cal
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        cal.fit(trace, policy, restarts=restarts, steps=steps, seed=SEED)
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    dev_us = sum(e.self_device_time_total for e in kernels)
+    if not dev_us:
+        return None
+    return {"wall_ms": wall_us / steps / 1e3,
+            "device_ms": dev_us / steps / 1e3, "busy": dev_us / wall_us,
+            "launches": sum(e.count for e in kernels) / steps}
+
+
+def calibration_recovery(dev, twin_mod):
+    """Phase 7b: the first part of examples/calibrate_twin.py on the card
+    — shed's parameters recovered from a noiseless 6 h ramp replay (72
+    bins of 300 s), 8 restarts x 400 steps; then 5 more steps under the
+    profiler."""
+    from repro_torch import calibrate as cal
+    from repro_torch.core import loadpattern as lp
+    truth = twin_mod.make_twin("t", "shed", max_rps=2.0, usd_per_hour=0.05,
+                               base_latency_s=0.2, queue_cap_hours=1.5)
+    trace = cal.ObservedTrace.from_loadpattern(ramp_6h(lp), truth,
+                                               bin_s=300.0)
+    steps = 400
+    t0 = time.perf_counter()
+    res = cal.fit(trace, "shed", restarts=8, steps=steps, seed=0)
+    wall = time.perf_counter() - t0
+    tp = truth.padded_params()
+    errs = {n: float(abs(res.params[i] - tp[i]) / tp[i])
+            for i, n in enumerate(res.spec.param_names)
+            if res.spec.free_mask[i]}
+    check(max(errs.values()) < CAL_RECOVERY_RTOL, ("7b", errs))
+    prof = fit_profile(trace, "shed", 8, 5)
+    if prof is not None:
+        # the profiler's own host work stretches the wall it sees: the
+        # device time over the unprofiled step's wall as well
+        prof["busy_unprofiled"] = prof["device_ms"] / (1e3 * wall / steps)
+    print(f"phase 7b: shed recovered on the card from a 6 h ramp (72 bins "
+          f"of 300 s), 8 restarts x {steps} steps in {wall:.2f} s "
+          f"({steps / wall:.1f} steps/s); worst parameter error "
+          f"{max(errs.values()):.2e} (bound {CAL_RECOVERY_RTOL:g})")
+    if prof is None:
+        print("  profile: the profiler saw no device time (busy share "
+              "and launches per step not measured)")
+    else:
+        print(f"  profile over 5 steps, per step: wall "
+              f"{prof['wall_ms']:.2f} ms, device {prof['device_ms']:.3f} "
+              f"ms, busy {prof['busy']:.1%} ({prof['busy_unprofiled']:.1%}"
+              f" of the unprofiled step's {1e3 * wall / steps:.2f} ms), "
+              f"{prof['launches']:.0f} kernel launches")
+    return {"wall_s": wall, "steps": steps, "steps_per_s": steps / wall,
+            "restarts": 8, "t_bins": trace.num_bins, "rel_err": errs,
+            "loss": res.loss, "profile": prof}
+
+
+def calibrated_table(whatif, tr, slo_mod, res_6b, twin_6b):
+    """Phase 7c: 6b's measured experiment over the full-size rwkv6-7b
+    engine -> fifo and shed twins fitted at 1 s bins (the fit's defaults,
+    16 restarts x 400 steps, 6b's closed-form twins as warm starts) ->
+    Table II rows of 6b's traffic, out of the aggregate kernel on the
+    card, bitwise the CPU's rows of the same twins."""
+    from repro_torch import obs
+    from repro_torch.kernels import policy_scan as pk
+    traffic = tr.TrafficModel.honda_default("requests",
+                                            R=0.4 * twin_6b.max_rps, G=1.3)
+    slo = slo_mod.SLO(limit_s=30.0, met_fraction=0.99)
+    agg0 = pk.launches["policy_agg"]
+    with obs.capture() as rec:
+        t0 = time.perf_counter()
+        rows = whatif.calibrated_grid(res_6b, ["fifo", "shed"], [traffic],
+                                      slo=slo, bin_s=1.0, seed=SEED)
+        wall = time.perf_counter() - t0
+    check(pk.launches["policy_agg"] > agg0, "7c: no aggregate launch")
+    cpu = whatif.run_grid([r.twin for r in rows], [traffic], slo=slo,
+                          device="cpu")
+    same_results(rows, cpu, "7c: calibrated rows, card vs CPU")
+    fits = rec.find(name="calibrate.fit")
+    check([s.attrs["policy"] for s in fits] == ["fifo", "shed"], fits)
+    fit_s = {s.attrs["policy"]: s.duration for s in fits}
+    t_bins = int(fits[0].attrs["t_bins"])
+    print(f"phase 7c: {res_6b.name} ({res_6b.records_sent} records in "
+          f"{res_6b.duration_s:.2f} s) binned at 1 s ({t_bins} bins), fifo "
+          f"and shed fitted on the card (16 restarts x 400 steps: fifo "
+          f"{fit_s['fifo']:.2f} s, shed {fit_s['shed']:.2f} s), Table II "
+          f"at R = 0.4 x capacity, G 1.3, SLO 30 s / 99% through the "
+          f"aggregate kernel, bitwise the CPU rows ({wall:.2f} s in all)")
+    fifo = rows[0].twin
+    print(f"  fifo: calibrated capacity {fifo.max_rps:.3f} rec/s, "
+          f"${fifo.usd_per_hour:.4f}/h, base latency "
+          f"{fifo.base_latency_s * 1e3:.1f} ms; closed-form (6b) "
+          f"{twin_6b.max_rps:.3f} rec/s, ${twin_6b.usd_per_hour:.4f}/h, "
+          f"{twin_6b.base_latency_s * 1e3:.1f} ms")
+    print(json.dumps(whatif.table2_rows(rows)))
+    return {"t_bins": t_bins, "fit_s": fit_s, "wall_s": wall,
+            "twins": {r.twin.policy: list(r.twin.params) for r in rows},
+            "closed_form_fifo": list(twin_6b.params),
+            "annual_cost_usd": {r.twin.policy: r.total_cost_usd
+                                for r in rows}}
+
+
+def otel_roundtrip():
+    """Phase 7d: 6a's telemetry experiment under ``obs.capture()``; its
+    ``stage.*`` spans through ``obs.to_otel_spans`` into
+    ``ObservedTrace.from_otel_spans``, and a fifo fit of that trace on the
+    card, recorded as a ``calibrate.fit`` span with its counters."""
+    from repro_torch import calibrate as cal
+    from repro_torch import obs
+    with obs.capture() as rec:
+        telemetry_experiment("7d")
+    spans = obs.to_otel_spans(rec, prefix="stage.")
+    check(spans and all(d["records"] >= 1 for d in spans), "7d: no spans")
+    trace = cal.ObservedTrace.from_otel_spans(spans, bin_seconds=0.25,
+                                              name="obs-roundtrip")
+    check(float(np.sum(trace.arrivals)) == sum(d["records"] for d in spans),
+          "7d: the trace lost records")
+    with obs.capture() as rec:
+        res = cal.fit(trace, "fifo", restarts=4, steps=60, seed=SEED)
+    check(np.isfinite(res.loss) and res.twin.max_rps > 0, res.loss)
+    (span,) = rec.find(name="calibrate.fit")
+    check(span.attrs["policy"] == "fifo" and span.attrs["restarts"] == 4
+          and span.attrs["steps"] == 60, span.attrs)
+    check(rec.counter_total("calibrate.fits") == 1
+          and rec.counter_total("calibrate.restarts") == 4, rec.counters)
+    print(f"phase 7d: {len(spans)} stage spans of the telemetry experiment "
+          f"-> OTel dicts -> a {trace.num_bins}-bin trace -> a fifo fit on "
+          f"the card (4 x 60 steps, {span.duration:.2f} s): capacity "
+          f"{res.twin.max_rps:.2f} rec/s; calibrate.fit span and counters "
+          f"recorded")
+    return {"spans": len(spans), "t_bins": trace.num_bins,
+            "fit_s": span.duration, "twin": list(res.twin.params)}
+
+
+def calibration_on_card(dev, whatif, tr, twin_mod, slo_mod, res_6b,
+                        twin_6b):
+    """Phase 7, the calibration slice on the card: 7a gradients, 7b the
+    example's recovery, 7c the full-size loop (6b's experiment -> fitted
+    twins -> Table II), 7d the OTel round trip. Returns phase 7's numbers
+    and the policy kernels' launches in it."""
+    from repro_torch.kernels import policy_scan as pk
+    mods = model_kernels()
+    for mod in (pk,) + mods:
+        mod.reset_launches()
+    t0 = time.perf_counter()
+    out = {"7a": calibration_gradients(dev, twin_mod),
+           "7b": calibration_recovery(dev, twin_mod),
+           "7c": calibrated_table(whatif, tr, slo_mod, res_6b, twin_6b),
+           "7d": otel_roundtrip()}
+    out["wall_s"] = time.perf_counter() - t0
+    launches = dict(pk.launches)
+    check(launches["policy_scan"] > 0 and launches["policy_agg"] > 0,
+          launches)
+    check(sum(sum(m.launches.values()) for m in mods) == 0,
+          "a model kernel ran in phase 7")
+    out["launches"] = launches
+    print(f"phase 7: {out['wall_s']:.1f} s")
+    print(json.dumps({"calibrate": out}))
+    return launches
 
 
 def flash_vs_plain(dev):
@@ -1517,6 +1880,15 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    if sys.argv[1:] == ["--phase", "7"]:
+        # the calibration slice alone (for iterating on it): 6a's
+        # experiment stands in for 6b's, which needs the 30 GB engine
+        res = telemetry_experiment("7")
+        calibration_on_card(dev, whatif, tr, twin_mod, slo_mod, res,
+                            twin_mod.fit_twin(res, "fifo"))
+        print(card)
+        return 0
+
     check_random_blocks(dev)
     check_table2_kernels(dev, tr, twin_mod)
     check_fault_random_blocks(dev)
@@ -1569,11 +1941,16 @@ def main():
     # rwkv6-7b engine as the pipeline under test (6b, this slice's main
     # path) and the what-if trace (6c)
     wind_tunnel_telemetry(dev, whatif, tr, slo_mod)
-    launches_6b = wind_tunnel_serving(dev, eng, whatif, tr, slo_mod)
+    launches_6b, res_6b, twin_6b = wind_tunnel_serving(dev, eng, whatif, tr,
+                                                       slo_mod)
     del eng
     torch.cuda.empty_cache()
     whatif_trace(whatif, slo_mod, sweep_twins, growths256, rows_4b)
     del rows_4b
+
+    # the calibration slice: 6b's experiment fitted into twins on the card
+    launches_7 = calibration_on_card(dev, whatif, tr, twin_mod, slo_mod,
+                                     res_6b, twin_6b)
 
     # each kernel against its plain version at the main path's widths
     rows = [
@@ -1617,7 +1994,8 @@ def main():
         dict({"name": name, "route": "cuda",
               "source": f"src/repro_torch/kernels/csrc/{src}.cu",
               "replaces": replaces, "launches": launches[name],
-              "launches_6b": launches_6b[name]}, **stats)
+              "launches_6b": launches_6b[name],
+              "launches_7": launches_7.get(name, 0)}, **stats)
         for name, src, replaces, stats in rows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -19,7 +19,11 @@ module, slice by slice. So far:
   serving engine's ``as_pipeline()``), and ``core.twin.fit_twin`` fits a
   twin from the result for the what-if engine;
 * run telemetry, ``repro_torch.obs`` (off unless ``REPRO_OBS=1`` or
-  ``obs.capture()``).
+  ``obs.capture()``);
+* twin calibration: ``repro_torch.calibrate.fit`` fits a policy's
+  parameters to a measured trace by gradient descent through the
+  simulation scan (``kernels/policy_vjp.py``, ``repro_torch.optim``), and
+  ``core.whatif.calibrated_grid`` takes an experiment to Table II rows.
 
 Importing this package imports ``torch`` and numpy only — never ``jax``,
 never ``repro``. Entry points take ``device=`` (default ``"cuda"``):

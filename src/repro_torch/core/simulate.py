@@ -40,6 +40,10 @@ when the launch built or loaded a kernel library). A launch returns host
 arrays, so the spans time it whole and add no synchronisation; the
 simulated numbers are bitwise the same with telemetry on or off.
 
+``scan_trace`` is one scenario's scan over bins of any width, the
+differentiable core the calibration slice (``repro_torch.calibrate``)
+fits twins through.
+
 Not yet in the port: ``devices`` > 1 (and with it the reference's
 ``grid.round`` spans).
 """
@@ -161,6 +165,27 @@ AGG_BYTES_PER_SCENARIO = (
 #: aggregate grids beyond this many scenarios run in policy-uniform blocks
 #: (a multiple of the kernels' 128-thread blocks)
 AGG_AUTO_BLOCK = AGG_BLOCK_BUDGET_BYTES // AGG_BYTES_PER_SCENARIO // 128 * 128
+
+
+def scan_trace(load: torch.Tensor, params: torch.Tensor, policy_index,
+               dt_hours: float = 1.0):
+    """One scenario's scan over bins of ``dt_hours`` hours.
+
+    load [T] records per bin and params [PARAM_DIM], tensors on one
+    device (cast to float32) -> (carry_end [CARRY_DIM], (processed,
+    queue, latency, cost, dropped)), each series [T]. Runs as ``ops.policy_scan`` with
+    ``policy_index=`` on a block of one: the series kernel on a CUDA
+    tensor, the plain lane step on the CPU — and, when autograd is
+    recording and an operand requires a gradient, the checkpointed
+    gradient scan on either device (bitwise the same values)."""
+    load, params = load.to(torch.float32), params.to(torch.float32)
+    differentiable = torch.is_grad_enabled() and (load.requires_grad
+                                                  or params.requires_grad)
+    carry, outs = ops.policy_scan(load[None], params[None],
+                                  dt_hours=float(dt_hours),
+                                  policy_index=int(policy_index),
+                                  differentiable=differentiable)
+    return carry[0], tuple(o[0] for o in outs)
 
 
 def _agg_block_plan(policy_idx: np.ndarray, block: int):

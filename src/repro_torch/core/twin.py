@@ -32,6 +32,14 @@ refuse any other.
 step in the fault layer of a chaos suite: capacity multipliers, a fault
 backlog beside the policy carry, and the A_FLTH/A_FOKH counters that
 ``update_agg_scalars`` keeps when given an in-fault mask.
+
+Each policy carries the reference's calibration metadata (its parameter
+boxes, the parameters fit in log space, those frozen by default;
+``SHARED_BOUNDS``, ``GENERIC_BOUNDS``, ``SHARED_LOG``), which
+``repro_torch.calibrate`` fits twins through. The lane steps are
+differentiable and pass the reference's gradient at every guard's tie
+(``_max0``); ``fold_triple_add`` is the compensated sum with the
+reference's custom gradient, for the streaming objectives.
 """
 from __future__ import annotations
 
@@ -46,6 +54,16 @@ from repro_torch.core.experiment import ExperimentResult
 
 CARRY_DIM = 2     # [queued/accumulated records, policy state]
 PARAM_DIM = 6     # flat parameter vector, zero-padded per policy
+
+# calibration boxes for the shared triple; extras declare their own via
+# register_policy(bounds=...) or inherit the generic positive box below
+SHARED_BOUNDS: Dict[str, Tuple[float, float]] = {
+    "max_rps": (1e-2, 1e3),
+    "usd_per_hour": (1e-4, 10.0),
+    "base_latency_s": (1e-2, 100.0),
+}
+GENERIC_BOUNDS: Tuple[float, float] = (1e-3, 1e3)
+SHARED_LOG = ("max_rps", "usd_per_hour", "base_latency_s")
 
 
 @dataclass(frozen=True)
@@ -64,20 +82,35 @@ class PolicySpec:
     #: layer runs it, where the reference's compiled fault scans round it
     #: differently (shed, see SHED_FUSE_*); None: ``lane_step``
     fault_lane_step: Optional[Callable] = None
+    # calibration metadata (repro_torch.calibrate): the fit box of each
+    # parameter, those fit in log space, those held fixed by default
+    bounds: Dict[str, Tuple[float, float]] = None
+    log_params: Tuple[str, ...] = ()
+    frozen: Tuple[str, ...] = ()
+
+    def bound(self, pname: str) -> Tuple[float, float]:
+        return (self.bounds or {}).get(pname, GENERIC_BOUNDS)
 
 
 _REGISTRY: Dict[str, PolicySpec] = {}
+_VERSION = 0    # bumped on every registration (``registry_version``)
 
 
 def _register(name, param_names, defaults, doc, kernel_branch,
-              fault_lane_step=None):
+              fault_lane_step=None, bounds=None, log_params=None,
+              frozen=()):
     if len(param_names) > PARAM_DIM:
         raise ValueError(f"{name}: {len(param_names)} params > {PARAM_DIM}")
     if tuple(param_names[:3]) != ("max_rps", "usd_per_hour",
                                   "base_latency_s"):
         raise ValueError(f"{name}: params must start with the shared triple")
+    full_bounds = dict(SHARED_BOUNDS)
+    full_bounds.update(bounds or {})
+    logp = tuple(log_params) if log_params is not None else tuple(
+        p for p in param_names if p in SHARED_LOG)
 
     def deco(fn):
+        global _VERSION
         # overriding an existing policy keeps its index so twins built
         # earlier still select the right one-hot column
         prev = _REGISTRY.get(name)
@@ -86,22 +119,34 @@ def _register(name, param_names, defaults, doc, kernel_branch,
             lane_step=fn, param_names=tuple(param_names),
             defaults=dict(defaults or {}),
             doc=doc or (fn.__doc__ or "").strip(),
-            kernel_branch=kernel_branch, fault_lane_step=fault_lane_step)
+            kernel_branch=kernel_branch, fault_lane_step=fault_lane_step,
+            bounds=full_bounds, log_params=logp, frozen=tuple(frozen))
+        _VERSION += 1
         return fn
     return deco
 
 
 def register_policy(name: str, param_names: Tuple[str, ...],
                     defaults: Optional[Dict[str, float]] = None,
-                    doc: str = ""):
+                    doc: str = "",
+                    bounds: Optional[Dict[str, Tuple[float, float]]] = None,
+                    log_params: Optional[Tuple[str, ...]] = None,
+                    frozen: Tuple[str, ...] = ()):
     """Decorator: register a lane step ``fn(carry, arrive, params, dt)``
     as policy ``name``. ``param_names`` must start with the shared triple
     (max_rps, usd_per_hour, base_latency_s) and fit within PARAM_DIM. The
     step must stay finite on any lane's parameter vector (other policies'
     parameters share the slots), or the masked blend turns its 0 * inf
     into NaN. Such a policy runs on the CPU path only: the CUDA kernels
-    refuse a policy they have no branch for."""
-    return _register(name, param_names, defaults, doc, None)
+    refuse a policy they have no branch for.
+
+    ``bounds`` / ``log_params`` / ``frozen`` are the calibration metadata
+    of the reference's ``register_policy``: the fit box per parameter
+    (the shared triple's boxes are filled in, other parameters default to
+    ``GENERIC_BOUNDS``), the parameters fit in log space (default: those
+    of the shared triple), and those held fixed by default."""
+    return _register(name, param_names, defaults, doc, None,
+                     bounds=bounds, log_params=log_params, frozen=frozen)
 
 
 def policy_spec(name: str) -> PolicySpec:
@@ -131,6 +176,12 @@ def fault_lane_branches(fuse: int) -> Tuple[Callable, ...]:
     return tuple(s.lane_step if s.fault_lane_step is None
                  else functools.partial(s.fault_lane_step, fuse=fuse)
                  for s in _specs())
+
+
+def registry_version() -> int:
+    """Bumped on every registration (the reference keys its compiled fit
+    and grid kernels on it; the port reports it)."""
+    return _VERSION
 
 
 def kernel_branches() -> Tuple[Optional[int], ...]:
@@ -280,6 +331,47 @@ def _neumaier2(s, c, cc, x):
     s, e = _two_sum(s, x)
     c, ee = _two_sum(c, e)
     return s, c, cc + ee
+
+
+def fold_triple_init(shape, device=None) -> tuple:
+    """A fresh twice-compensated accumulator triple ``(sum, comp, comp2)``
+    of f32 zeros — what the streaming gradient objectives fold into their
+    scan state (the calibration residual sums)."""
+    z = torch.zeros(shape, dtype=torch.float32, device=device)
+    return z, z, z
+
+
+class _FoldTripleAdd(torch.autograd.Function):
+    """``(sum, comp, comp2) += x`` with the reference's custom JVP: every
+    two-sum residual is symbolically zero in exact arithmetic, so the
+    gradient rides the plain ``s + x`` channel alone (``d/ds = d/dx = 1``,
+    the compensations pass their cotangents through unchanged) — bitwise
+    the gradient of the plain sum, without three dead two-sum transposes
+    per bin in the backward."""
+
+    @staticmethod
+    def forward(ctx, s, c, cc, x):
+        return _neumaier2(s, c, cc, x)
+
+    @staticmethod
+    def backward(ctx, gs, gc, gcc):
+        return gs, gc, gcc, gs
+
+
+def fold_triple_add(triple: tuple, x) -> tuple:
+    """One differentiable compensated accumulation step: triple += x
+    (elementwise; ``x`` has the triple's shape)."""
+    if not torch.is_grad_enabled():
+        return _neumaier2(*triple, x)
+    return _FoldTripleAdd.apply(*triple, x)
+
+
+def fold_triple_finalize(triple: tuple) -> torch.Tensor:
+    """``(sum, comp, comp2) -> (sum + comp) + comp2`` in float32: the
+    reference's recombination as its fit and search kernels trace it
+    (float64 is off there, so its f64 cast is a no-op)."""
+    s, c, cc = triple
+    return (s + c) + cc
 
 
 def _hist_bucket(latency: torch.Tensor) -> torch.Tensor:
@@ -620,16 +712,20 @@ def _fma(a, b, c):
     The f64 product of two f32 values is exact; the f64 sum is rounded to
     odd (its exact two-sum residual picks the odd neighbour when it is
     inexact), and 53 >= 24 + 2 bits makes the final rounding to f32 the
-    correctly rounded result."""
+    correctly rounded result. The step to the odd neighbour is a
+    constant to autograd (its difference from the sum is exact, so adding
+    it back gives the neighbour exactly): the gradient is that of
+    ``a * b + c``."""
     p = a.to(torch.float64) * b
     c = c.to(torch.float64)
     s = p + c
-    bb = s - p
-    e = (p - (s - bb)) + (c - bb)
-    to_odd = (e != 0) & ((s.view(torch.int64) & 1) == 0)
-    toward = torch.where(e > 0, torch.inf, -torch.inf).to(torch.float64)
-    return torch.where(to_odd, torch.nextafter(s, toward), s).to(
-        torch.float32)
+    with torch.no_grad():
+        bb = s - p
+        e = (p - (s - bb)) + (c - bb)
+        to_odd = (e != 0) & ((s.view(torch.int64) & 1) == 0)
+        toward = torch.where(e > 0, torch.inf, -torch.inf).to(torch.float64)
+        step = torch.where(to_odd, torch.nextafter(s, toward), s) - s
+    return (s + step).to(torch.float32)
 
 
 @_register("fifo", ("max_rps", "usd_per_hour", "base_latency_s"), None,
@@ -675,7 +771,13 @@ def _clip(x, lo, hi):
            ("max_rps", "usd_per_hour", "base_latency_s",
             "min_instances", "max_instances", "scale_up_hours"),
            {"min_instances": 1.0, "max_instances": 64.0,
-            "scale_up_hours": 1.0}, "", kernel_branch=2)
+            "scale_up_hours": 1.0}, "", kernel_branch=2,
+           bounds={"min_instances": (1.0, 4096.0),
+                   "max_instances": (1.0, 4096.0),
+                   "scale_up_hours": (0.1, 48.0)},
+           log_params=("max_rps", "usd_per_hour", "base_latency_s",
+                       "scale_up_hours"),
+           frozen=("min_instances", "max_instances"))
 def _autoscale_lane(carry, arrive, p, dt):
     """Horizontal scaling with scale-up delay and min/max instance bounds.
 
@@ -709,6 +811,14 @@ SHED_FUSE_LATENCY = 1  # mixed aggregate scan: also the queue latency prices
 SHED_FUSE_ALL = 2      # uniform-policy block: also the carried queue
 
 
+def _max0(x):
+    """max(x, 0) with ``jnp.maximum``'s gradient: half of it passes at
+    x == 0 (``clamp_min`` would pass all of it). Shed's overflow sits on
+    that tie whenever a full queue meets a dead pipeline (an outage's
+    zero capacity: backlog and cap both 0)."""
+    return torch.maximum(x, x.new_zeros(()))
+
+
 def _shed(carry, arrive, p, dt, fuse=None):
     """Shed's arithmetic; ``fuse`` None is the benign step, a SHED_FUSE_*
     level the fault layer's."""
@@ -720,10 +830,10 @@ def _shed(carry, arrive, p, dt, fuse=None):
     avail = queue + arrive
     processed = torch.minimum(avail, cap_bin)
     backlog = avail - processed
-    dropped = torch.clamp_min(backlog - qmax, 0.0)
+    dropped = _max0(backlog - qmax)
     new_q = lat_q = backlog - dropped
     if fuse is not None:
-        dropped = torch.clamp_min(_fma(-qcap_h, cap_hour, backlog), 0.0)
+        dropped = _max0(_fma(-qcap_h, cap_hour, backlog))
         if fuse >= SHED_FUSE_LATENCY:
             lat_q = backlog - dropped
         if fuse >= SHED_FUSE_ALL:
@@ -737,7 +847,10 @@ def _shed(carry, arrive, p, dt, fuse=None):
 @_register("shed",
            ("max_rps", "usd_per_hour", "base_latency_s", "queue_cap_hours"),
            {"queue_cap_hours": 4.0}, "", kernel_branch=3,
-           fault_lane_step=_shed)
+           fault_lane_step=_shed,
+           bounds={"queue_cap_hours": (0.05, 168.0)},
+           log_params=("max_rps", "usd_per_hour", "base_latency_s",
+                       "queue_cap_hours"))
 def _shed_lane(carry, arrive, p, dt):
     """Bounded queue with load shedding: overflow beyond the cap is dropped.
 
@@ -751,7 +864,11 @@ def _shed_lane(carry, arrive, p, dt):
            ("max_rps", "usd_per_hour", "base_latency_s",
             "window_hours", "idle_cost_fraction"),
            {"window_hours": 6.0, "idle_cost_fraction": 0.1}, "",
-           kernel_branch=4)
+           kernel_branch=4,
+           bounds={"window_hours": (0.25, 48.0),
+                   "idle_cost_fraction": (0.0, 1.0)},
+           log_params=("max_rps", "usd_per_hour", "base_latency_s",
+                       "window_hours"))
 def _batch_window_lane(carry, arrive, p, dt):
     """Accumulate-then-flush batching: cheap hours, half-a-window latency.
 

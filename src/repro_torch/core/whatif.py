@@ -8,8 +8,13 @@ runs the whole grid through ``simulate_grid`` — on the card by default
 (``device="cuda"``), through the plain PyTorch versions with
 ``device="cpu"``. Aggregate mode (``GridSummary`` rows) is the default;
 ``return_series=True`` returns full ``SimulationResult`` series.
-``calibrated_grid`` and ``optimize_scenario`` come with the calibration
-and search slices of the port.
+
+``calibrated_grid`` closes the paper's loop end to end: it gradient-fits
+one twin per requested policy to a measured ``ExperimentResult`` (or a
+prebuilt ``ObservedTrace``) through ``repro_torch.calibrate`` and plays
+the fitted twins through the Table II grid — measurement in, scenario
+table out. ``optimize_scenario`` comes with the search slice (ROADMAP
+A5).
 """
 from __future__ import annotations
 
@@ -61,6 +66,29 @@ def run_grid(twins: Sequence[Twin], traffics: Sequence[TrafficModel],
                          load_matrix=load_matrix, load_index=load_index,
                          scenario_block=scenario_block, devices=devices,
                          faults=faults, device=device)
+
+
+def calibrated_grid(source, policies: Sequence[str],
+                    traffics: Sequence[TrafficModel],
+                    slo: Optional[SLO] = None,
+                    cost_model: Optional[CostModel] = None,
+                    record_mb: float = 0.0,
+                    bin_s: float = 1.0, device="cuda",
+                    **fit_kwargs) -> List[GridResult]:
+    """Measured pipeline -> fitted twins -> Table II grid, in one call.
+
+    ``source`` is an ``ExperimentResult`` or a
+    ``repro_torch.calibrate.ObservedTrace``; one twin is calibrated per
+    entry of ``policies`` (extra kwargs forward to
+    ``repro_torch.calibrate.fit``), then the whole (traffic x fitted twin)
+    grid runs through ``run_grid`` — fits and grid on ``device``."""
+    from repro_torch.calibrate import calibrated_twin   # late: calibrate
+    twins = [calibrated_twin(source, policy, bin_s=bin_s,  # sits above core
+                             name=f"{policy}-cal", device=device,
+                             **fit_kwargs)
+             for policy in policies]
+    return run_grid(twins, traffics, slo=slo, cost_model=cost_model,
+                    record_mb=record_mb, device=device)
 
 
 def run_scenarios(scenarios: Sequence[Scenario],

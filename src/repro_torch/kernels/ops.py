@@ -20,6 +20,11 @@ block). On CUDA a uniform index becomes its one-hot row broadcast over the
 block, as the reference does for its kernel (with shed's fault rounding
 set to the uniform scans', ``SHED_FUSE_ALL``); on the CPU it runs the one
 lane step without the blend, like the reference's ``lax.switch`` form.
+
+The gradient side (``policy_scan(differentiable=True)`` and
+``policy_scan_fold``) runs the checkpointed scans of
+``kernels/policy_vjp.py`` as PyTorch operations on either device: the
+CUDA policy kernels have no backward.
 """
 from __future__ import annotations
 
@@ -29,7 +34,7 @@ from repro_torch.core.twin import (SHED_FUSE_ALL, SHED_FUSE_DROP,
                                    SHED_FUSE_LATENCY, num_policies)
 from repro_torch.kernels import flash_attention as flash_kernel
 from repro_torch.kernels import policy_scan as policy_kernel
-from repro_torch.kernels import ref
+from repro_torch.kernels import policy_vjp, ref
 from repro_torch.kernels import rwkv6_kernel
 from repro_torch.kernels import ssm_scan as ssm_kernel
 
@@ -40,19 +45,28 @@ def _onehot_rows(policy_index, n: int, device) -> torch.Tensor:
     return row.expand(n, -1).contiguous()
 
 
-def _check_selector(onehot, policy_index):
-    if (onehot is None) == (policy_index is None):
-        raise ValueError("pass exactly one of onehot= (mixed grid) or "
-                         "policy_index= (uniform lane block)")
-
-
 def policy_scan(loads, params, onehot=None, dt_hours: float = 1.0, *,
                 policy_index=None, loads_t=None, load_index=None,
-                caps_t=None, fault_index=None):
+                caps_t=None, fault_index=None, differentiable=False):
     """(carry_end [N, CARRY_DIM], five [N, T] series) — see
     ``kernels.policy_scan.policy_grid_scan`` for the operands; ``caps_t``
-    [T, F] + ``fault_index`` [N] run the fault layer."""
-    _check_selector(onehot, policy_index)
+    [T, F] + ``fault_index`` [N] run the fault layer.
+
+    ``differentiable=True`` takes the gradient path on either device:
+    the checkpointed scan (``policy_vjp.policy_grid_scan_ckpt``, bitwise
+    the plain scan's values), or with a fault schedule the plain scan
+    under autograd, as the reference does. Without it a CUDA tensor runs
+    the kernel."""
+    ref.check_selector(onehot, policy_index)
+    if differentiable:
+        loads = policy_kernel.gather_loads(loads, loads_t, load_index)
+        caps = policy_kernel.gather_rows(caps_t, fault_index)
+        if caps is not None:
+            return ref.policy_grid_scan(loads, params, onehot, dt_hours,
+                                        policy_index=policy_index,
+                                        caps=caps)
+        return policy_vjp.policy_grid_scan_ckpt(
+            loads, params, onehot, dt_hours, policy_index=policy_index)
     shed_fuse = SHED_FUSE_DROP
     if onehot is None:
         if not params.is_cuda:
@@ -68,6 +82,21 @@ def policy_scan(loads, params, onehot=None, dt_hours: float = 1.0, *,
         shed_fuse=shed_fuse)
 
 
+def policy_scan_fold(loads=None, params=None, onehot=None,
+                     dt_hours: float = 1.0, *, policy_index=None,
+                     caps=None, loads_t=None, caps_t=None, fold_init,
+                     fold_step, ops_lane=(), xs=(), acc_sinks=()):
+    """The streaming gradient scan: per-bin outputs folded into a
+    caller-defined accumulator, no [N, T] series in either direction —
+    ``policy_vjp.policy_grid_scan_fold``, the same PyTorch operations on
+    either device (the gradient-path sibling of ``policy_scan_agg``).
+    Returns (carry_end [N, CARRY_DIM], acc)."""
+    return policy_vjp.policy_grid_scan_fold(
+        loads, params, onehot, dt_hours, policy_index=policy_index,
+        caps=caps, loads_t=loads_t, caps_t=caps_t, fold_init=fold_init,
+        fold_step=fold_step, ops_lane=ops_lane, xs=xs, acc_sinks=acc_sinks)
+
+
 def policy_scan_agg(loads, params, onehot=None, dt_hours: float = 1.0, *,
                     policy_index=None, slo_limit: float = float("inf"),
                     slo_mode: int = 0, loads_t=None, load_index=None,
@@ -76,7 +105,7 @@ def policy_scan_agg(loads, params, onehot=None, dt_hours: float = 1.0, *,
     statistics folded into the scan, no [N, T] series on either path;
     see ``kernels.policy_scan.policy_grid_agg``; ``caps_t``/``fmask_t``
     [T, F] + ``fault_index`` [N] run the fault layer."""
-    _check_selector(onehot, policy_index)
+    ref.check_selector(onehot, policy_index)
     shed_fuse = SHED_FUSE_LATENCY
     if onehot is None:
         if not params.is_cuda:

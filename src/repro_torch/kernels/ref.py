@@ -39,16 +39,25 @@ from repro_torch.core.twin import (CARRY_DIM, SHED_FUSE_ALL,
                                    pack_aggregate)
 
 
-def _bin_step(params, onehot, policy_index, dt, fuse):
-    """``step(state, arrive, capmul) -> (state, outs)``. ``fuse`` None is
-    the benign scan (the state is the policy carry); a SHED_FUSE_* level
-    runs the fault layer (the state is (carry, fault backlog)) with the
-    rounding of the reference's scan of that kind."""
+def check_selector(onehot, policy_index):
+    """Exactly one of ``onehot`` and ``policy_index`` selects the
+    policies."""
     if (onehot is None) == (policy_index is None):
         raise ValueError("pass exactly one of onehot= (mixed grid) or "
                          "policy_index= (uniform lane block)")
+
+
+def _bin_step(params, onehot, policy_index, dt, fuse, columns=None):
+    """``step(state, arrive, capmul) -> (state, outs)``. ``fuse`` None is
+    the benign scan (the state is the policy carry); a SHED_FUSE_* level
+    runs the fault layer (the state is (carry, fault backlog)) with the
+    rounding of the reference's scan of that kind. ``columns`` are the
+    policies the masked blend evaluates (default: those some lane
+    selects)."""
+    check_selector(onehot, policy_index)
     if onehot is not None:
-        columns = torch.nonzero(onehot.any(dim=0)).flatten().tolist()
+        if columns is None:
+            columns = torch.nonzero(onehot.any(dim=0)).flatten().tolist()
         if fuse is not None:
             branches = fault_lane_branches(fuse)
             return lambda state, arrive, capmul: fault_lane_policy_step(

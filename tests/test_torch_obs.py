@@ -9,7 +9,10 @@ retention, the report and the serving loop. Then the port against the
 reference: the same grid counters and ``grid.simulate`` attrs for one
 grid, rows bitwise the same with telemetry on and off, the same
 Prometheus text for the Table II rows, and the ``stage.*`` mirror of an
-experiment. ``profile_dispatch`` and ``jit_cache_grew`` on the CPU path
+experiment; the golden round trip (an instrumented experiment's spans,
+exported as OTel dicts, binned by ``ObservedTrace.from_otel_spans`` and
+refitted) with the ``calibrate.fit`` span and counters, the same as the
+reference's. ``profile_dispatch`` and ``jit_cache_grew`` on the CPU path
 close it.
 """
 import json
@@ -459,6 +462,68 @@ def test_experiment_mirrors_stage_spans():
         assert d["name"] == "stage.only_stage" and d["status"] == "OK"
         assert d["records"] >= 1 and d["end"] >= d["start"] > 1e9
     assert sum(d["records"] for d in spans) == res.records_done
+
+
+# ---------------------------------------------------------------------------
+# the golden round trip: instrumented experiment -> OTel export ->
+# from_otel_spans -> refit, and the fit's own span and counters
+# ---------------------------------------------------------------------------
+
+def test_otel_export_roundtrip_refits_twin():
+    from repro_torch.calibrate import ObservedTrace, fit
+
+    def work(batch):
+        time.sleep(0.004)
+        return batch
+
+    pipe = Pipeline("rt", [PipelineStage("only_stage", work)],
+                    resources=Resources(vcpus=1, ram_gb=1))
+    schema = pschema.Schema("one", (pschema.FieldSpec("x", "float"),))
+    ds = pdatagen.DataGenerator(0).generate(schema, 100)
+    load = plp.LoadPattern.steady("rt-load", duration_s=1.2, rate=60)
+    with obs.capture() as rec:
+        res = pexperiment.Experiment("rt", pipe, load, ds,
+                                     drain_timeout_s=30).run()
+    assert res.drained
+    spans = to_otel_spans(rec, prefix="stage.")
+    assert spans, "instrumented experiment produced no stage spans"
+    trace = ObservedTrace.from_otel_spans(spans, bin_seconds=0.25,
+                                          name="obs-roundtrip")
+    assert trace.num_bins >= 2
+    assert float(np.sum(trace.arrivals)) == pytest.approx(
+        sum(d["records"] for d in spans))
+    with obs.capture() as rec:
+        result = fit(trace, "fifo", restarts=2, steps=30, seed=0,
+                     device="cpu")
+    assert np.isfinite(result.loss)
+    assert result.twin.max_rps > 0
+    (span,) = rec.find(name="calibrate.fit")
+    assert span.attrs == {"policy": "fifo", "restarts": 2, "steps": 30,
+                          "t_bins": trace.num_bins, "devices": 1}
+    assert obs.counters() == {"calibrate.fits{policy=fifo}": 1.0,
+                              "calibrate.restarts": 2.0}
+
+
+def test_fit_counters_match_reference(jref):
+    """One fit records the span and counters the reference's records, by
+    name, labels and attrs."""
+    from repro_torch.calibrate import ObservedTrace, fit
+    trace = ObservedTrace.from_otel_spans(
+        [{"start": float(i), "end": i + 0.5} for i in range(40)],
+        bin_seconds=5.0, name="c")
+    jtrace = jref.calibrate.ObservedTrace.from_otel_spans(
+        [{"start": float(i), "end": i + 0.5} for i in range(40)],
+        bin_seconds=5.0, name="c")
+    with obs.capture() as rec:
+        fit(trace, "shed", restarts=3, steps=4, seed=0, device="cpu")
+        got = obs.counters()
+    with jref.obs.capture() as jrec:
+        jref.calibrate.fit(jtrace, "shed", restarts=3, steps=4, seed=0)
+        want = jref.obs.counters()
+    assert got == want
+    (span,) = rec.find(name="calibrate.fit")
+    (jspan,) = jrec.find(name="calibrate.fit")
+    assert span.attrs == jspan.attrs
 
 
 # ---------------------------------------------------------------------------

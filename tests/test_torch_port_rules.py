@@ -4,13 +4,16 @@
   of the JAX package ``repro``, not even ``repro.faults``, ``repro.obs``
   or ``repro.pipelines`` (checked in a fresh interpreter, and in the
   source text of the package, its ``faults``, ``obs`` and ``pipelines``
-  copies and wind-tunnel modules included, and of ``chip_smoke.py``);
+  copies, wind-tunnel, ``calibrate`` and ``optim`` modules included, and
+  of ``chip_smoke.py``);
 * no accelerator has a price by default: ``CostModel`` and
   ``roofline_twin`` take the chip's price from the caller;
 * run telemetry is off unless asked for;
-* its entry points (the what-if grid's, and the serving slice's
-  ``ServeEngine``, ``models.model.init_params`` and ``init_cache``)
-  default to the card and raise without one;
+* its entry points (the what-if grid's, the serving slice's
+  ``ServeEngine``, ``models.model.init_params`` and ``init_cache``, and
+  the calibration slice's ``fit``, ``fit_with_holdout``, ``evaluate``,
+  ``calibrated_twin``, ``calibrated_grid`` and the trace replay) default
+  to the card and raise without one;
 * ``chip_smoke.py`` fails, printing no result, where there is no card;
 * no CUDA source keeps a kernel's shared-memory opt-in once per process
   (the attribute belongs to one device's context, ROADMAP C11): every
@@ -32,7 +35,7 @@ import pytest
 import torch
 
 import repro_torch
-from repro_torch import faults
+from repro_torch import calibrate, faults
 from repro_torch.configs import get_smoke_config
 from repro_torch.core import cost, simulate, slo, traffic, twin, whatif
 from repro_torch.core.pipeline import Resources
@@ -88,7 +91,11 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
             "repro_torch.core.experiment", "repro_torch.pipelines.telemetry",
             "repro_torch.obs.record", "repro_torch.obs.export",
             "repro_torch.obs.report", "repro_torch.obs.profile",
-            "repro_torch.obs.__main__"} <= set(_modules())
+            "repro_torch.obs.__main__", "repro_torch.calibrate",
+            "repro_torch.calibrate.fit", "repro_torch.calibrate.objective",
+            "repro_torch.calibrate.trace", "repro_torch.optim",
+            "repro_torch.optim.adamw",
+            "repro_torch.kernels.policy_vjp"} <= set(_modules())
 
 
 def test_port_sources_do_not_import_jax_or_the_reference():
@@ -101,7 +108,11 @@ def test_port_sources_do_not_import_jax_or_the_reference():
             "obs/profile.py", "obs/__init__.py", "obs/__main__.py",
             "pipelines/telemetry.py", "pipelines/__init__.py",
             "core/experiment.py", "core/datagen.py", "core/schema.py",
-            "core/loadpattern.py", "core/metrics.py"} <= names
+            "core/loadpattern.py", "core/metrics.py",
+            "calibrate/__init__.py", "calibrate/fit.py",
+            "calibrate/objective.py", "calibrate/trace.py",
+            "optim/__init__.py", "optim/adamw.py",
+            "kernels/policy_vjp.py"} <= names
     for f in files:
         hit = FORBIDDEN.search(f.read_text())
         assert hit is None, f"{f}: {hit.group(0).strip()}"
@@ -152,6 +163,8 @@ def test_entry_points_default_to_the_card_and_raise_without_one():
     cfg = dataclasses.replace(get_smoke_config("jamba-1.5-large-398b"),
                               moe=None)
     cpu_params = M.init_params(cfg, device="cpu")
+    trace = calibrate.ObservedTrace.from_simulation(tw[0], loads[:6], 1.0,
+                                                    device="cpu")
     calls = [
         lambda: whatif.run_grid(tw, tr, slo=slo.SLO()),
         lambda: whatif.run_grid(tw, tr, return_series=True),
@@ -165,6 +178,16 @@ def test_entry_points_default_to_the_card_and_raise_without_one():
         lambda: M.init_params(cfg),
         lambda: M.init_cache(cfg, 2, 16),
         lambda: ServeEngine(cfg, cpu_params),
+        lambda: calibrate.fit(trace, "fifo", restarts=2, steps=1),
+        lambda: calibrate.fit_with_holdout(trace, trace, "fifo",
+                                           restarts=2, steps=1),
+        lambda: calibrate.evaluate(tw[0], trace),
+        lambda: calibrate.calibrated_twin(trace, "fifo", restarts=2,
+                                          steps=1),
+        lambda: whatif.calibrated_grid(trace, ["fifo"], tr, restarts=2,
+                                       steps=1),
+        lambda: calibrate.ObservedTrace.from_simulation(tw[0], loads[:4],
+                                                        1.0),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):

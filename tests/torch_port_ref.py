@@ -25,12 +25,13 @@ def reference():
     if aliased:
         jax.experimental.enable_x64 = jax.enable_x64
     try:
-        from repro import configs, faults, obs
+        from repro import calibrate, configs, faults, obs, optim
         from repro.core import cost, simulate, slo, traffic, twin, whatif
         from repro.core import (datagen, experiment, loadpattern, metrics,
                                 schema, spans)
         from repro.distributed import sharding
         from repro.kernels import flash_attention, ops, policy_scan, ref
+        from repro.kernels import policy_vjp
         from repro.kernels import rwkv6_kernel, ssm_scan
         from repro.models import attention, layers, model, rwkv6, ssm
         from repro.pipelines import telemetry
@@ -46,7 +47,9 @@ def reference():
                               datagen=datagen, experiment=experiment,
                               loadpattern=loadpattern, metrics=metrics,
                               schema=schema, spans=spans,
-                              telemetry=telemetry, obs=obs)
+                              telemetry=telemetry, obs=obs,
+                              calibrate=calibrate, optim=optim,
+                              policy_vjp=policy_vjp)
     finally:
         for name in set(sys.modules) - before:
             if name == "repro" or name.startswith("repro."):
@@ -175,3 +178,27 @@ def bucket_run_histogram(latency, weights):
         mem[k, rows, held] = v
     hist = (mem[0].astype(np.float64) + mem[1] + mem[2]).astype(np.float32)
     return hist, changes, revisits
+
+
+def synthetic_result(sp, me, ex, rate_rps=20.0, duration_s=60.0,
+                     svc_s=0.01):
+    """A hand-built ExperimentResult: constant arrivals, one stage that
+    completes each batch svc_s later, flat $/hr."""
+    col = sp.SpanCollector()
+    metrics = me.MetricStore()
+    for i in range(int(duration_s)):
+        t = float(i + 1)
+        metrics.observe("records_sent", rate_rps * (i + 1), t=t)
+        col.add(sp.Span("write", start=t, duration=svc_s,
+                        records=int(rate_rps)))
+    sent = int(rate_rps * int(duration_s))
+    return ex.ExperimentResult(
+        name="synthetic", pipeline_name="synthetic", started=0.0,
+        duration_s=duration_s, records_sent=sent, records_done=sent,
+        ingest_mb=1.0,
+        stage_summary={"write": {"records": sent, "mean_latency_s": svc_s,
+                                 "p50_latency_s": svc_s,
+                                 "throughput_rps": rate_rps,
+                                 "busy_s": svc_s * int(duration_s)}},
+        cost={"usd_per_hour": 0.1, "total_usd": 0.1 * duration_s / 3600.0},
+        collector=col, metrics=metrics, drained=True, time_scale=1.0)
