@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port of PlantD on one GPU: the what-if year
 grid, the serving pipeline-under-test (Jamba-1.5 and rwkv6-7b), the
 wind tunnel that measures a pipeline, fits its twin and forecasts its
-year, and the gradient calibration of twins from what it measured.
+year, the gradient calibration of twins from what it measured, and the
+policy search that answers the what-if questions inversely.
 
     python3 chip_smoke.py
 
@@ -84,8 +85,22 @@ RWKV-6 WKV recurrence, chunked and per step), then:
    counters (7d); a ``{"calibrate": ...}`` line of phase 7's numbers.
    ``python3 chip_smoke.py --phase 7`` runs the build and phase 7 alone,
    6a's experiment standing in for 6b's;
-8. prints one JSON line of per-kernel numbers (eight kernels: launches
-   on the main paths of phases 3-5, of 6b and of 7, error against the
+8. policy search (``repro_torch.search``) on the card: What-if #6 through
+   ``optimize_scenario`` at the example's size (a 2,184-bin gradient
+   loop, the exact re-checks at 8,736 hourly bins through the aggregate
+   kernel), feasible, below the base and within 1% of the reference's
+   winner, against the same call on the CPU, the winner's rows bitwise
+   the CPU's and its series-mode p95/p99 within a histogram bucket; the
+   4,096-point grid of the same space through ``run_grid``, its best
+   feasible row the reference's (8a); the What-if #6b frontier, all
+   targets in one gradient loop, non-increasing (8b); What-if #7's
+   chance-constrained search through the fault aggregate kernel (8c);
+   the grid's aggregate launch against its plain version, one step's
+   operations, launches and busy share under ``torch.profiler`` and a
+   full-resolution step's wall; a ``{"search": ...}`` line.
+   ``python3 chip_smoke.py --phase 8`` runs the build and phase 8 alone;
+9. prints one JSON line of per-kernel numbers (eight kernels: launches
+   on the main paths of phases 3-5, of 6b, of 7 and of 8, error against the
    plain version, kernel / plain / bound / library times; no kernel may
    read faster than its bound; the decode launches of ``ssm_scan`` and
    ``rwkv6_scan`` also with their device time, 100 launches captured in
@@ -108,6 +123,7 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
+HOURS_PER_YEAR = 8736
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 FLOP/s outside
 #: the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -1663,6 +1679,369 @@ def calibration_on_card(dev, whatif, tr, twin_mod, slo_mod, res_6b,
     return launches
 
 
+#: the reference's answers to What-if #6, #6b and #7
+#: (examples/whatif_analysis.py:215-245, :269-292): ``repro`` jitted on
+#: XLA:CPU, seed 0 — the base and winning configurations' exact annual
+#: cost, the best feasible row of the 4,096-point grid over the same
+#: space, the frontier's exact costs (limits 0.5, 1, 2 and 8 h), and the
+#: chance-constrained winner's
+WHATIF6_BASE_USD = 102.8633832205087
+WHATIF6_USD = 84.04913610160897
+WHATIF6_GRID_USD = 83.21698596986455
+WHATIF6B_USD = (101.32187686860561, 101.32187686860561, 101.32187686860561,
+                82.54393454987803)
+WHATIF7_USD = 85.22218589553681
+#: a winner's exact cost against the reference's (or, under a cut, the
+#: port's CPU run of the same call); the grid's best row against the
+#: reference's; p95 / p99 off the histogram against the series: one
+#: quarter-octave bucket (tests/test_search.py:301)
+SEARCH_RTOL = 0.01
+GRID_RTOL = 1e-9
+P_BUCKET_LOG2 = 0.26
+#: What-if #6's free parameters and sizes (8a); 8b and 8c take the
+#: example's sizes at ``SEARCH_CUT_COARSEN`` bins a gradient-loop bin
+SEARCH_FREE = ("max_instances", "scale_up_hours")
+SEARCH_COARSEN = 4
+SEARCH_CUT_COARSEN = 12
+FRONTIER_LIMITS = (1800.0, 3600.0, 7200.0, 28800.0)
+#: the CPU side of phase 8 runs in a second process with this many
+#: threads, beside the card's host thread, and is given this long
+CPU_SEARCH_THREADS = 4
+CPU_SEARCH_TIMEOUT_S = 900
+#: float32 operations per lane-bin of the vectorised search objective
+#: (the compliance sigmoid and the violation softplus with their sums,
+#: the cost sum), beside the policy step's POLICY_OPS; a backward is
+#: counted at twice its forward
+SEARCH_OBJ_OPS = 20
+BACKWARD_OPS_FACTOR = 2
+
+
+def search_problem(tr, twin_mod, slo_mod):
+    """What-if #6's problem: the +40% surge year, p95 under 2 h, the
+    example's autoscale base twin."""
+    surge = tr.TrafficModel.honda_default("surge(+40%)", R=3.5, G=1.4)
+    slo = slo_mod.SLO(limit_s=2 * 3600, met_fraction=0.95)
+    base = twin_mod.make_twin("autoscale-base", "autoscale", max_rps=RPS,
+                              usd_per_hour=USD_HR, base_latency_s=LAT,
+                              max_instances=8, scale_up_hours=2)
+    return surge, slo, base
+
+
+def search_loop_run(space, surge, base_cost, coarsen, steps, restarts=6):
+    """``steps`` steps of What-if #6's gradient loop on the card (the
+    search's own ``_run_kernel``, its read-back included)."""
+    from repro_torch.search import optimize as so
+    loads = surge.hourly_loads()[None].astype(np.float32)
+    g, g_bin = so._coarsen(loads, 1.0, coarsen)
+    ocfg = dataclasses.replace(so.DEFAULT_SEARCH_OPT, total_steps=60)
+    return so._run_kernel(
+        space, g, g_bin, np.ones(1, np.float32), space.z0(restarts, SEED),
+        np.full(restarts, 2 * 3600.0), 0, 0.952, so.DEFAULT_PENALTY_WEIGHT,
+        base_cost, so.annual_scale(g.shape[1], g_bin), steps, ocfg)
+
+
+def search_step_profile(space, surge, base_cost):
+    """One step of 8a's gradient loop (K = 6, 2,184 bins): the PyTorch
+    operations it dispatches (counted by a dispatch mode), then one more
+    under ``torch.profiler`` for its wall, device time, launches and busy
+    share; the wall of one step at full resolution (8,736 bins) for
+    ROADMAP A2; and the least time a step could take."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class OpCount(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            OpCount.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with OpCount():
+        search_loop_run(space, surge, base_cost, SEARCH_COARSEN, 1)
+    out = {"ops": OpCount.n}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        search_loop_run(space, surge, base_cost, SEARCH_COARSEN, 1)
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    dev_us = sum(e.self_device_time_total for e in kernels)
+    out.update({"wall_ms": wall_us / 1e3,
+                "device_ms": dev_us / 1e3 if dev_us else None,
+                "busy": dev_us / wall_us if dev_us else None,
+                "launches": (sum(e.count for e in kernels)
+                             if dev_us else None)})
+    t0 = time.perf_counter()
+    search_loop_run(space, surge, base_cost, 1, 1)
+    out["full_resolution_step_s"] = time.perf_counter() - t0
+    # the least time a step could take on the card: its operations (the
+    # autoscale step and the objective on K x T lane-bins, forward and
+    # backward) over the float32 peak, or its bytes (the load row read,
+    # the parameters and the gradient written) over HBM
+    lane_bins = 6 * (HOURS_PER_YEAR // SEARCH_COARSEN)
+    ops = (lane_bins * (POLICY_OPS[2] + SEARCH_OBJ_OPS)
+           * (1 + BACKWARD_OPS_FACTOR))
+    nbytes = 4 * (HOURS_PER_YEAR // SEARCH_COARSEN + 2 * 6 * 6)
+    t_ops, t_bytes = ops / F32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    out["bound_ms"] = 1e3 * max(t_ops, t_bytes)
+    out["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+    return out
+
+
+def whatif6_on_card(whatif, surge, slo, base):
+    """Phase 8a: What-if #6 at the example's size through
+    ``optimize_scenario`` on the card (a 2,184-bin gradient loop, the
+    polish and the exact re-checks at 8,736 hourly bins through the
+    aggregate kernel), held against the reference's answer; the winner's
+    rows card vs CPU and its series-mode percentiles; then the
+    4,096-point grid of the same space through ``run_grid`` on the
+    card. (``search_on_card`` holds it against the same call on the
+    CPU.)"""
+    from repro_torch import obs
+    kw = whatif6_kwargs()
+    with obs.capture() as rec:
+        t0 = time.perf_counter()
+        res = whatif.optimize_scenario(base, [surge], slo, **kw)
+        wall = time.perf_counter() - t0
+    (span,) = rec.find(name="search.kernel")
+    check(res.feasible and res.cost_usd < WHATIF6_BASE_USD,
+          ("8a", res.feasible, res.cost_usd))
+    check(abs(res.base_cost_usd / WHATIF6_BASE_USD - 1.0) <= GRID_RTOL,
+          ("8a base", res.base_cost_usd))
+    ref_gap = res.cost_usd / WHATIF6_USD - 1.0
+    check(abs(ref_gap) <= SEARCH_RTOL, ("8a vs the reference", res.cost_usd,
+                                        WHATIF6_USD))
+    rows = whatif.run_grid([res.twin], [surge], slo=slo)
+    same_results(rows, whatif.run_grid([res.twin], [surge], slo=slo,
+                                       device="cpu"),
+                 "8a: the winner's rows, card vs CPU")
+    check(rows[0].total_cost_usd == res.cost_usd, (rows[0].total_cost_usd,
+                                                   res.cost_usd))
+    series = whatif.run_grid([res.twin], [surge], slo=slo,
+                             return_series=True)
+    p_log2 = {k: float(np.log2(getattr(rows[0], k) / getattr(series[0], k)))
+              for k in ("p95_latency_s", "p99_latency_s")}
+    check(all(abs(v) <= P_BUCKET_LOG2 for v in p_log2.values()), p_log2)
+    grid = res.space.grid(4096)
+    t0 = time.perf_counter()
+    grid_rows = whatif.run_grid(grid, [surge], slo=slo)
+    grid_wall = time.perf_counter() - t0
+    feasible = [r.total_cost_usd for r in grid_rows if r.slo_met]
+    grid_best = min(feasible)
+    check(abs(grid_best / WHATIF6_GRID_USD - 1.0) <= GRID_RTOL,
+          ("8a grid", grid_best, WHATIF6_GRID_USD))
+    print(f"phase 8a: What-if #6 on the card, autoscale {SEARCH_FREE}, 6 "
+          f"restarts x 60 steps at {span.attrs['t_bins']} bins (coarsen "
+          f"{SEARCH_COARSEN}), re-checked at 8736 h: {wall:.1f} s "
+          f"(gradient loop {span.duration:.1f} s, "
+          f"{60 / span.duration:.2f} steps/s)")
+    print(f"  winner {res.config()}: ${res.cost_usd:.4f}/yr (base "
+          f"${res.base_cost_usd:.4f}; reference ${WHATIF6_USD:.4f}, gap "
+          f"{ref_gap:+.2e}); p95 {rows[0].p95_latency_s:.1f} s")
+    print(f"  the winner's rows bitwise the CPU's; series p95/p99 within "
+          + ", ".join(f"{v:+.3f}" for v in p_log2.values())
+          + " octave of the histogram's")
+    print(f"  the 4,096-point grid through run_grid: {grid_wall:.2f} s, "
+          f"{len(feasible)} feasible rows, best ${grid_best:.4f} "
+          f"(reference ${WHATIF6_GRID_USD:.4f}); search vs grid "
+          f"{res.cost_usd / grid_best - 1.0:+.2%}")
+    return res, grid, {
+        "wall_s": wall, "loop_s": span.duration,
+        "steps_per_s": 60 / span.duration, "t_bins": span.attrs["t_bins"],
+        "cost_usd": res.cost_usd, "config": res.config(),
+        "base_cost_usd": res.base_cost_usd, "ref_gap": ref_gap,
+        "p_log2": p_log2, "grid_wall_s": grid_wall,
+        "grid_best_usd": grid_best, "grid_feasible": len(feasible),
+        "search_vs_grid": res.cost_usd / grid_best - 1.0}
+
+
+def frontier_on_card(space, surge):
+    """Phase 8b: What-if #6b, the cost-vs-p95 frontier over four limits,
+    all targets as lanes of one gradient loop on the card."""
+    from repro_torch import obs
+    from repro_torch.search import pareto_frontier
+    with obs.capture() as rec:
+        t0 = time.perf_counter()
+        fr = pareto_frontier(space, [surge], slo_limits=FRONTIER_LIMITS,
+                             restarts=4, steps=60,
+                             coarsen=SEARCH_CUT_COARSEN, seed=SEED)
+        wall = time.perf_counter() - t0
+    spans = rec.find(name="search.kernel")
+    check(len(spans) == 1 and spans[0].attrs["restarts"] == 16, spans)
+    costs = [p.cost_usd for p in fr.points]
+    check(all(p.feasible for p in fr.points), costs)
+    check(all(b <= a + 1e-9 for a, b in zip(costs, costs[1:])), costs)
+    print(f"phase 8b: What-if #6b frontier, limits "
+          f"{[int(x) for x in FRONTIER_LIMITS]} s, 4 restarts x 4 targets "
+          f"in one loop ({spans[0].attrs['t_bins']} bins): {wall:.1f} s; "
+          f"$" + " / ".join(f"{c:.2f}" for c in costs)
+          + " (reference $" + " / ".join(f"{c:.2f}" for c in WHATIF6B_USD)
+          + ")")
+    return {"wall_s": wall, "loop_s": spans[0].duration,
+            "t_bins": spans[0].attrs["t_bins"], "costs": costs,
+            "configs": [p.config for p in fr.points]}
+
+
+def whatif7_kwargs(faults):
+    """What-if #7's resilient search (examples/whatif_analysis.py:269-292):
+    outage, disconnect and brownout, 4 futures, seed 0, quantile 0.95."""
+    chaos = faults.FaultSchedule(
+        specs=(faults.outage(rate_per_year=6, duration_hours=(1, 4)),
+               faults.disconnect(rate_per_year=12,
+                                 disconnect_frac=(0.2, 0.5),
+                                 flood_hours=1.0),
+               faults.brownout(rate_per_year=8, capacity_mult=(0.3, 0.7))),
+        n_futures=4, seed=0)
+    return dict(search=SEARCH_FREE, faults=chaos, quantile=0.95, restarts=4,
+                steps=60, coarsen=SEARCH_CUT_COARSEN, seed=SEED)
+
+
+def whatif6_kwargs():
+    return dict(search=SEARCH_FREE, restarts=6, steps=60,
+                coarsen=SEARCH_COARSEN, seed=SEED)
+
+
+def search_cpu(out_path):
+    """The CPU side of phase 8, run by a second process beside the card's
+    (``--search-cpu PATH``): What-if #6's call with ``device="cpu"``,
+    and, under the cut, What-if #7's; writes their winners to PATH."""
+    from repro_torch import faults
+    from repro_torch.core import slo as slo_mod
+    from repro_torch.core import traffic as tr
+    from repro_torch.core import twin as twin_mod
+    from repro_torch.core import whatif
+    torch.set_num_threads(CPU_SEARCH_THREADS)
+    surge, slo, base = search_problem(tr, twin_mod, slo_mod)
+    out = {}
+    runs = [("8a", whatif6_kwargs())]
+    if SEARCH_CUT_COARSEN != SEARCH_COARSEN:
+        runs.append(("8c", whatif7_kwargs(faults)))
+    for key, kw in runs:
+        t0 = time.perf_counter()
+        res = whatif.optimize_scenario(base, [surge], slo, device="cpu",
+                                       **kw)
+        out[key] = {"wall_s": time.perf_counter() - t0,
+                    "cost_usd": res.cost_usd, "feasible": res.feasible,
+                    "config": res.config()}
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def resilient_on_card(whatif, faults, surge, slo, base):
+    """Phase 8c: What-if #7's chance-constrained search on the card, its
+    exact re-check through the fault aggregate kernel."""
+    from repro_torch import obs
+    from repro_torch.kernels import policy_scan as pk
+    kw = whatif7_kwargs(faults)
+    fault0 = pk.launches["policy_agg_fault"]
+    with obs.capture() as rec:
+        t0 = time.perf_counter()
+        res = whatif.optimize_scenario(base, [surge], slo, **kw)
+        wall = time.perf_counter() - t0
+    fault_launches = pk.launches["policy_agg_fault"] - fault0
+    check(fault_launches > 0, "8c: the fault aggregate kernel never ran")
+    (span,) = rec.find(name="search.kernel")
+    check(res.feasible and res.achieved_quantile >= 0.95,
+          ("8c", res.feasible, res.achieved_quantile))
+    print(f"phase 8c: What-if #7 resilient search, 4 restarts x 4 futures "
+          f"({span.attrs['t_bins']} bins): {wall:.1f} s; {res.config()} "
+          f"${res.cost_usd:.4f}/yr, achieved quantile "
+          f"{res.achieved_quantile:.2f}; {fault_launches} fault aggregate "
+          f"launches")
+    return {"wall_s": wall, "loop_s": span.duration,
+            "t_bins": span.attrs["t_bins"], "cost_usd": res.cost_usd,
+            "config": res.config(), "achieved_quantile":
+            res.achieved_quantile, "fault_agg_launches": fault_launches}
+
+
+def search_on_card(dev, whatif, tr, twin_mod, slo_mod, faults):
+    """Phase 8, policy search on the card: 8a What-if #6 (and its 4,096-
+    point grid), 8b the What-if #6b frontier, 8c What-if #7's
+    chance-constrained search; the policy kernels' launches in them read
+    from 0; then the grid's aggregate launch against its plain version,
+    the step profile, and a ``{"search": ...}`` line."""
+    import tempfile
+    from repro_torch.kernels import policy_scan as pk
+    mods = model_kernels()
+    for mod in (pk,) + mods:
+        mod.reset_launches()
+    surge, slo, base = search_problem(tr, twin_mod, slo_mod)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        # the same calls on the CPU, in a second process beside the card's
+        cpu_path = os.path.join(tmp, "search_cpu.json")
+        proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                 "--search-cpu", cpu_path])
+        try:
+            res6, grid, out_a = whatif6_on_card(whatif, surge, slo, base)
+            out = {"8a": out_a, "8b": frontier_on_card(res6.space, surge),
+                   "8c": resilient_on_card(whatif, faults, surge, slo,
+                                           base)}
+            out["wall_s"] = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            check(proc.wait(timeout=CPU_SEARCH_TIMEOUT_S) == 0,
+                  "the CPU runs of phase 8 failed")
+            out["cpu_wait_s"] = time.perf_counter() - t1
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        with open(cpu_path) as f:
+            cpu = json.load(f)
+    a, c = out["8a"], out["8c"]
+    a["cpu"] = cpu["8a"]
+    a["cpu_gap"] = a["cost_usd"] / cpu["8a"]["cost_usd"] - 1.0
+    a["param_diff"] = {n: a["config"][n] - cpu["8a"]["config"][n]
+                       for n in SEARCH_FREE}
+    check(cpu["8a"]["feasible"] and abs(a["cpu_gap"]) <= SEARCH_RTOL,
+          ("8a card vs CPU", a["cost_usd"], cpu["8a"]))
+    if "8c" in cpu:
+        # the reference's number is for the example's coarsen: under the
+        # cut the bar is the port's own CPU run of the same call
+        c["cpu"] = cpu["8c"]
+        against, what = cpu["8c"]["cost_usd"], "the CPU run"
+    else:
+        against, what = WHATIF7_USD, "the reference"
+    c["gap"] = c["cost_usd"] / against - 1.0
+    check(abs(c["gap"]) <= SEARCH_RTOL, ("8c", c["cost_usd"], what,
+                                         against))
+    print(f"phase 8a-8c on the CPU ({cpu['8a']['wall_s']:.1f} s for 8a"
+          + (f", {cpu['8c']['wall_s']:.1f} s for 8c" if "8c" in cpu else "")
+          + f", beside the card's runs): 8a {cpu['8a']['config']} "
+          f"${cpu['8a']['cost_usd']:.4f}/yr, card - CPU {a['cpu_gap']:+.2e} "
+          f"relative, parameters "
+          + ", ".join(f"{n} {d:+.3g}" for n, d in a["param_diff"].items())
+          + f"; 8c against {what}'s ${against:.4f}: {c['gap']:+.2e}")
+    launches = dict(pk.launches)
+    check(launches["policy_agg"] > 0 and launches["policy_scan"] > 0
+          and launches["policy_agg_fault"] > 0, launches)
+    check(sum(sum(m.launches.values()) for m in mods) == 0,
+          "a model kernel ran in phase 8")
+    out["launches"] = launches
+    out["grid_kernel"] = kernel_vs_plain(
+        "policy_agg", "4,096 x 8736 (What-if #6 grid)",
+        grid_operands(grid, [surge], dev), True)
+    out["step"] = search_step_profile(res6.space, surge, res6.base_cost_usd)
+    st = out["step"]
+    print(f"phase 8: {out['wall_s']:.1f} s; one gradient-loop step (K = 6, "
+          f"{out_a['t_bins']} bins): {st['ops']:,} PyTorch operations, "
+          + (f"{st['wall_ms']:.1f} ms wall under the profiler, device "
+             f"{st['device_ms']:.2f} ms, busy {st['busy']:.1%}, "
+             f"{st['launches']:.0f} kernel launches"
+             if st["busy"] is not None else
+             "the profiler saw no device time (busy share and launches "
+             "not measured)")
+          + f"; a step at 8,736 bins: {st['full_resolution_step_s']:.2f} s; "
+          f"bound of a step {st['bound_ms']:.2e} ms ({st['bound_by']})")
+    print(json.dumps({"search": out}))
+    return launches
+
+
 def flash_vs_plain(dev):
     """The flash kernel at the serving path's prefill shape (q [4, 2,048,
     64, 128], k/v [4, 2,048, 8, 128], bf16, causal), against its plain
@@ -1846,6 +2225,8 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--search-cpu"]:
+        return search_cpu(sys.argv[2])
     from repro_torch.core import slo as slo_mod
     from repro_torch.core import traffic as tr
     from repro_torch.core import twin as twin_mod
@@ -1880,6 +2261,11 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    if sys.argv[1:] == ["--phase", "8"]:
+        # the search slice alone (for iterating on it)
+        search_on_card(dev, whatif, tr, twin_mod, slo_mod, faults)
+        print(card)
+        return 0
     if sys.argv[1:] == ["--phase", "7"]:
         # the calibration slice alone (for iterating on it): 6a's
         # experiment stands in for 6b's, which needs the 30 GB engine
@@ -1952,6 +2338,9 @@ def main():
     launches_7 = calibration_on_card(dev, whatif, tr, twin_mod, slo_mod,
                                      res_6b, twin_6b)
 
+    # the search slice: What-if #6, #6b and #7's inverse questions
+    launches_8 = search_on_card(dev, whatif, tr, twin_mod, slo_mod, faults)
+
     # each kernel against its plain version at the main path's widths
     rows = [
         ("policy_agg", "src/repro/kernels/policy_scan.py:190",
@@ -1995,7 +2384,8 @@ def main():
               "source": f"src/repro_torch/kernels/csrc/{src}.cu",
               "replaces": replaces, "launches": launches[name],
               "launches_6b": launches_6b[name],
-              "launches_7": launches_7.get(name, 0)}, **stats)
+              "launches_7": launches_7.get(name, 0),
+              "launches_8": launches_8.get(name, 0)}, **stats)
         for name, src, replaces, stats in rows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

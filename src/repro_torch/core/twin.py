@@ -33,6 +33,13 @@ step in the fault layer of a chaos suite: capacity multipliers, a fault
 backlog beside the policy carry, and the A_FLTH/A_FOKH counters that
 ``update_agg_scalars`` keeps when given an in-fault mask.
 
+Each policy also has a surrogate lane step (``surrogate_lane_branches``):
+where the exact step hard-gates a parameter (``PolicySpec.nondiff_params``:
+quickscale's and autoscale's ceil, batch_window's flush comparison) a
+smooth step that ``repro_torch.search`` differentiates instead, else the
+exact step itself. The three smooth steps are bitwise the reference's
+scans of them.
+
 Each policy carries the reference's calibration metadata (its parameter
 boxes, the parameters fit in log space, those frozen by default;
 ``SHARED_BOUNDS``, ``GENERIC_BOUNDS``, ``SHARED_LOG``), which
@@ -87,6 +94,15 @@ class PolicySpec:
     bounds: Dict[str, Tuple[float, float]] = None
     log_params: Tuple[str, ...] = ()
     frozen: Tuple[str, ...] = ()
+    # the differentiability audit (repro_torch.search): parameters the
+    # exact step hard-gates on (ceil, comparisons: zero or no gradient),
+    # and the step with those gates smoothed, used for gradients only;
+    # a policy without hard gates is its own surrogate
+    nondiff_params: Tuple[str, ...] = ()
+    surrogate_lane_step: Callable = None
+    #: the surrogate as the mixed-policy (blend) scans round it, where
+    #: that differs (batch_window, see its step); None: the same
+    surrogate_blend_step: Optional[Callable] = None
 
     def bound(self, pname: str) -> Tuple[float, float]:
         return (self.bounds or {}).get(pname, GENERIC_BOUNDS)
@@ -96,9 +112,37 @@ _REGISTRY: Dict[str, PolicySpec] = {}
 _VERSION = 0    # bumped on every registration (``registry_version``)
 
 
+def _assert_surrogate_sane(name: str, surrogate: Callable, lanes: int = 4,
+                           seed: int = 1):
+    """Registry invariant of a surrogate step: finite outputs and finite
+    parameter gradients on a random lane block, at both bin widths. The
+    surrogate is a gradient guide, not a parity target, so its closeness
+    to the exact step is not asserted."""
+    rng = np.random.default_rng(seed)
+    carry = torch.tensor(rng.uniform(0.0, 50.0, (lanes, CARRY_DIM)),
+                         dtype=torch.float32)
+    arrive = torch.tensor(rng.uniform(0.0, 2e4, (lanes,)),
+                          dtype=torch.float32)
+    params = torch.tensor(rng.uniform(0.05, 8.0, (lanes, PARAM_DIM)),
+                          dtype=torch.float32)
+    for dt in (1.0, 1.0 / 60.0):
+        p = params.clone().requires_grad_()
+        with torch.enable_grad():
+            c, outs = surrogate(carry, arrive, p,
+                                torch.tensor(dt, dtype=torch.float32))
+            val = sum(o.sum() for o in outs) + c.sum()
+            (g,) = torch.autograd.grad(val, p, allow_unused=True)
+        g = torch.zeros_like(p) if g is None else g
+        if not (torch.isfinite(val) and torch.isfinite(g).all()):
+            raise AssertionError(
+                f"{name}: surrogate step produced non-finite output or "
+                f"gradient at dt={dt}")
+
+
 def _register(name, param_names, defaults, doc, kernel_branch,
               fault_lane_step=None, bounds=None, log_params=None,
-              frozen=()):
+              frozen=(), nondiff_params=(), surrogate_lane_step=None,
+              surrogate_blend_step=None):
     if len(param_names) > PARAM_DIM:
         raise ValueError(f"{name}: {len(param_names)} params > {PARAM_DIM}")
     if tuple(param_names[:3]) != ("max_rps", "usd_per_hour",
@@ -111,6 +155,17 @@ def _register(name, param_names, defaults, doc, kernel_branch,
 
     def deco(fn):
         global _VERSION
+        unknown_nd = set(nondiff_params) - set(param_names)
+        if unknown_nd:
+            raise ValueError(f"{name}: nondiff_params {sorted(unknown_nd)} "
+                             f"not in param_names")
+        if nondiff_params and surrogate_lane_step is None:
+            raise ValueError(
+                f"{name}: flags hard-gated params {list(nondiff_params)} "
+                f"but supplies no surrogate_lane_step — gradient search "
+                f"over them would silently see zero gradients")
+        sstep = surrogate_lane_step or fn
+        _assert_surrogate_sane(name, sstep)
         # overriding an existing policy keeps its index so twins built
         # earlier still select the right one-hot column
         prev = _REGISTRY.get(name)
@@ -120,7 +175,10 @@ def _register(name, param_names, defaults, doc, kernel_branch,
             defaults=dict(defaults or {}),
             doc=doc or (fn.__doc__ or "").strip(),
             kernel_branch=kernel_branch, fault_lane_step=fault_lane_step,
-            bounds=full_bounds, log_params=logp, frozen=tuple(frozen))
+            bounds=full_bounds, log_params=logp, frozen=tuple(frozen),
+            nondiff_params=tuple(nondiff_params),
+            surrogate_lane_step=sstep,
+            surrogate_blend_step=surrogate_blend_step)
         _VERSION += 1
         return fn
     return deco
@@ -131,7 +189,9 @@ def register_policy(name: str, param_names: Tuple[str, ...],
                     doc: str = "",
                     bounds: Optional[Dict[str, Tuple[float, float]]] = None,
                     log_params: Optional[Tuple[str, ...]] = None,
-                    frozen: Tuple[str, ...] = ()):
+                    frozen: Tuple[str, ...] = (),
+                    nondiff_params: Tuple[str, ...] = (),
+                    surrogate_lane_step: Optional[Callable] = None):
     """Decorator: register a lane step ``fn(carry, arrive, params, dt)``
     as policy ``name``. ``param_names`` must start with the shared triple
     (max_rps, usd_per_hour, base_latency_s) and fit within PARAM_DIM. The
@@ -144,9 +204,19 @@ def register_policy(name: str, param_names: Tuple[str, ...],
     of the reference's ``register_policy``: the fit box per parameter
     (the shared triple's boxes are filled in, other parameters default to
     ``GENERIC_BOUNDS``), the parameters fit in log space (default: those
-    of the shared triple), and those held fixed by default."""
+    of the shared triple), and those held fixed by default.
+
+    ``nondiff_params`` flags parameters the step hard-gates on (zero
+    gradient through ceil or a comparison); flagging any requires a
+    ``surrogate_lane_step`` of the same signature with those gates
+    smoothed, which ``repro_torch.search`` differentiates instead. A
+    policy with no hard gates leaves both unset and is its own surrogate.
+    Either way the surrogate must give finite outputs and parameter
+    gradients on a random block, or the registration raises."""
     return _register(name, param_names, defaults, doc, None,
-                     bounds=bounds, log_params=log_params, frozen=frozen)
+                     bounds=bounds, log_params=log_params, frozen=frozen,
+                     nondiff_params=nondiff_params,
+                     surrogate_lane_step=surrogate_lane_step)
 
 
 def policy_spec(name: str) -> PolicySpec:
@@ -170,12 +240,33 @@ def lane_branches() -> Tuple[Callable, ...]:
     return tuple(s.lane_step for s in _specs())
 
 
-def fault_lane_branches(fuse: int) -> Tuple[Callable, ...]:
+def _surrogate(spec: PolicySpec, blend: bool) -> Callable:
+    if blend and spec.surrogate_blend_step is not None:
+        return spec.surrogate_blend_step
+    return spec.surrogate_lane_step
+
+
+def surrogate_lane_branches(blend: bool = False) -> Tuple[Callable, ...]:
+    """Smooth-surrogate lane steps ordered by index — the branch table
+    gradient-based policy search scans (``repro_torch.search``). Policies
+    without hard gates reuse their exact lane step here. ``blend``: as
+    the mixed-policy scans round them (the masked blend's table)."""
+    return tuple(_surrogate(s, blend) for s in _specs())
+
+
+def fault_lane_branches(fuse: int, surrogate: bool = False,
+                        blend: bool = False) -> Tuple[Callable, ...]:
     """Lane steps ordered by index, as the fault layer runs them in the
-    scan that ``fuse`` (a SHED_FUSE_* level) names."""
-    return tuple(s.lane_step if s.fault_lane_step is None
-                 else functools.partial(s.fault_lane_step, fuse=fuse)
-                 for s in _specs())
+    scan that ``fuse`` (a SHED_FUSE_* level) names; with ``surrogate``
+    the smooth steps where a policy has its own (a policy that is its own
+    surrogate keeps its fault form), ``blend`` as for
+    ``surrogate_lane_branches``."""
+    return tuple(
+        _surrogate(s, blend)
+        if surrogate and s.surrogate_lane_step is not s.lane_step
+        else s.lane_step if s.fault_lane_step is None
+        else functools.partial(s.fault_lane_step, fuse=fuse)
+        for s in _specs())
 
 
 def registry_version() -> int:
@@ -257,13 +348,14 @@ def fault_lane_policy_step(state, arrive, capmul, params, onehot, dt,
 
 
 def fault_switch_step(state, arrive, capmul, params, policy_index, dt,
-                      fuse=None):
+                      fuse=None, surrogate=False):
     """The uniform-block form of ``fault_lane_policy_step`` (the
     reference's ``kernels.ref._fault_switch_step``): one policy's fault
-    lane step, selected without the blend, rounded at ``fuse`` (default
-    SHED_FUSE_ALL, the reference's uniform scans)."""
+    lane step (its surrogate with ``surrogate``), selected without the
+    blend, rounded at ``fuse`` (default SHED_FUSE_ALL, the reference's
+    uniform scans)."""
     fuse = SHED_FUSE_ALL if fuse is None else fuse
-    lstep = fault_lane_branches(fuse)[int(policy_index)]
+    lstep = fault_lane_branches(fuse, surrogate)[int(policy_index)]
     return _fault_layer(lambda c, a, p: lstep(c, a, p, dt), state, arrive,
                         capmul, params)
 
@@ -717,7 +809,8 @@ def _fma(a, b, c):
     it back gives the neighbour exactly): the gradient is that of
     ``a * b + c``."""
     p = a.to(torch.float64) * b
-    c = c.to(torch.float64)
+    if isinstance(c, torch.Tensor):
+        c = c.to(torch.float64)
     s = p + c
     with torch.no_grad():
         bb = s - p
@@ -746,8 +839,25 @@ def _fifo_lane(carry, arrive, p, dt):
              torch.zeros_like(arrive)))
 
 
+def _quickscale_lane_smooth(carry, arrive, p, dt):
+    # fluid instance count: ceil() has zero gradient w.r.t. max_rps, so
+    # the surrogate pays for fractional instances instead — cost varies
+    # smoothly with capacity while latency and throughput stay exact
+    max_rps, usd_hr, base_lat = p[:, 0], p[:, 1], p[:, 2]
+    cap_bin = max_rps * (3600.0 * dt)
+    queue = carry[:, 0]
+    instances = torch.clamp_min(arrive / torch.clamp_min(cap_bin, 1e-9),
+                                1.0)
+    processed = arrive
+    new_q = queue * 0.0
+    cost = usd_hr * instances * dt
+    return (torch.stack([new_q, carry[:, 1]], dim=1),
+            (processed, new_q, base_lat, cost, torch.zeros_like(arrive)))
+
+
 @_register("quickscale", ("max_rps", "usd_per_hour", "base_latency_s"),
-           None, "", kernel_branch=1)
+           None, "", kernel_branch=1, nondiff_params=("max_rps",),
+           surrogate_lane_step=_quickscale_lane_smooth)
 def _quickscale_lane(carry, arrive, p, dt):
     """Optimal scaling: never queues; pay ceil(load/capacity) instances."""
     max_rps, usd_hr, base_lat = p[:, 0], p[:, 1], p[:, 2]
@@ -767,6 +877,29 @@ def _clip(x, lo, hi):
     return torch.minimum(torch.maximum(x, lo), hi)
 
 
+def _autoscale_lane_smooth(carry, arrive, p, dt):
+    # fluid scaling target: the ceil() goes (zero gradient w.r.t.
+    # max_rps); the clip keeps exact subgradients w.r.t. min/max
+    # instances, and the first-order boot already differentiates cleanly
+    # w.r.t. scale_up_hours
+    max_rps, usd_hr, base_lat = p[:, 0], p[:, 1], p[:, 2]
+    min_i, max_i, delay = p[:, 3], p[:, 4], p[:, 5]
+    cap1 = max_rps * (3600.0 * dt)
+    queue, prev = carry[:, 0], carry[:, 1]
+    prev = _clip(prev, min_i, max_i)
+    avail = queue + arrive
+    target = _clip(avail / torch.clamp_min(cap1, 1e-9), min_i, max_i)
+    booting = prev + (target - prev) * dt / torch.maximum(delay, dt)
+    inst = torch.where(target > prev, booting, target)
+    processed = torch.minimum(avail, inst * cap1)
+    new_q = avail - processed
+    avg_q = 0.5 * (queue + new_q)
+    latency = base_lat + avg_q / torch.clamp_min(inst * max_rps, 1e-9)
+    cost = usd_hr * inst * dt
+    return (torch.stack([new_q, inst], dim=1),
+            (processed, new_q, latency, cost, torch.zeros_like(arrive)))
+
+
 @_register("autoscale",
            ("max_rps", "usd_per_hour", "base_latency_s",
             "min_instances", "max_instances", "scale_up_hours"),
@@ -777,7 +910,9 @@ def _clip(x, lo, hi):
                    "scale_up_hours": (0.1, 48.0)},
            log_params=("max_rps", "usd_per_hour", "base_latency_s",
                        "scale_up_hours"),
-           frozen=("min_instances", "max_instances"))
+           frozen=("min_instances", "max_instances"),
+           nondiff_params=("max_rps",),
+           surrogate_lane_step=_autoscale_lane_smooth)
 def _autoscale_lane(carry, arrive, p, dt):
     """Horizontal scaling with scale-up delay and min/max instance bounds.
 
@@ -860,6 +995,112 @@ def _shed_lane(carry, arrive, p, dt):
     return _shed(carry, arrive, p, dt)
 
 
+def _f32(v: float) -> float:
+    """``v`` rounded to float32 (held as a Python float)."""
+    return float(np.float32(v))
+
+
+#: XLA:CPU's float32 exp: the Cephes range reduction and polynomial its
+#: compiler emits, with the multiply-adds LLVM fuses there
+_EXP_LOG2E = _f32(1.44269504088896341)
+_EXP_C1, _EXP_C2 = _f32(0.693359375), _f32(2.12194440e-4)
+_EXP_P = tuple(_f32(c) for c in (1.9875691500e-4, 1.3981999507e-3,
+                                 8.3334519073e-3, 4.1665795894e-2,
+                                 1.6666665459e-1, 5.0000001201e-1))
+
+
+#: the smallest normal float32; XLA:CPU flushes results below it to zero
+_F32_TINY = 2.0 ** -126
+
+
+class _FlushToZero(torch.autograd.Function):
+    """Subnormal values flushed to (signed) zero, as XLA:CPU computes
+    under flush-to-zero; the gradient passes unchanged, as the
+    reference's (which is no flush of the value's)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return torch.where(torch.abs(x) < _F32_TINY, x * 0.0, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+def _ftz(x):
+    return _FlushToZero.apply(x)
+
+
+def _xla_exp(x):
+    """Float32 ``exp`` bit for bit as XLA:CPU computes it (a PyTorch
+    ``exp`` differs from it in the last bit on ~9% of inputs): n =
+    round(x / log 2) clamped to [-127, 127], a = x - n log 2 in two
+    parts, a degree-6 polynomial in a, times 2^n built from the exponent
+    bits (0 at n = -127)."""
+    x = torch.clamp(x, -87.8, 88.8)
+    n = torch.clamp(torch.floor(_fma(x, _EXP_LOG2E, 0.5)), -127.0, 127.0)
+    a = _fma(n, _EXP_C2, x - _EXP_C1 * n)
+    z = _fma(a, _EXP_P[0], _EXP_P[1])
+    for c in _EXP_P[2:]:
+        z = _fma(z, a, c)
+    z = 1.0 + _fma(z, a * a, a)
+    return _ftz(z * ((n.to(torch.int32) + 127) << 23).view(torch.float32))
+
+
+class _Logistic(torch.autograd.Function):
+    """``jax.nn.sigmoid``: forward as XLA:CPU lowers it, 1 / (1 +
+    exp(-x)) with its exp, flushed to zero below the normal range;
+    backward the logistic's own rule, g * (s * (1 - s))."""
+
+    @staticmethod
+    def forward(ctx, x):
+        s = _ftz(1.0 / (1.0 + _xla_exp(-x)))
+        ctx.save_for_backward(s)
+        return s
+
+    @staticmethod
+    def backward(ctx, g):
+        (s,) = ctx.saved_tensors
+        return g * (s * (1.0 - s))
+
+
+def _logistic(x):
+    return _Logistic.apply(x)
+
+
+def _batch_window_lane_smooth(carry, arrive, p, dt, blend=False):
+    # soft flush gate: ``timer >= window`` has zero gradient w.r.t.
+    # window_hours, so the surrogate flushes a sigmoid fraction of the
+    # accumulator as the timer crosses the window. The timer's reset uses
+    # the gate detached: its gradient would multiply a factor above 1 per
+    # flush into the backward chain (inf over a year of flushes); without
+    # that one term the window keeps its per-bin gradient and the
+    # recurrence stays a contraction.
+    #
+    # As the reference's scans compute it: the gate is the logistic with
+    # XLA:CPU's exp, and the gate and the flush flush to zero below the
+    # normal range (XLA:CPU runs flush-to-zero); the mixed-policy scans
+    # (``blend``) fuse the accumulator's ``avail - gate * flushable`` into
+    # one multiply-add, the uniform blocks do not
+    max_rps, usd_hr, base_lat = p[:, 0], p[:, 1], p[:, 2]
+    window, idle_frac = p[:, 3], p[:, 4]
+    cap_hour = max_rps * 3600.0
+    acc, timer = carry[:, 0], carry[:, 1]
+    timer = timer + dt
+    gate = _logistic((timer - window) / (0.25 * dt))
+    avail = acc + arrive
+    flushable = torch.minimum(avail, cap_hour * window)
+    processed = _ftz(gate * flushable)
+    new_acc = _fma(-gate, flushable, avail) if blend else avail - processed
+    latency = (_fma(0.5 * window, 3600.0, base_lat)
+               + new_acc / torch.clamp_min(max_rps, 1e-9))
+    cost = (usd_hr * idle_frac * dt
+            + usd_hr * processed / torch.clamp_min(cap_hour, 1e-9))
+    new_timer = (1.0 - gate.detach()) * timer
+    return (torch.stack([new_acc, new_timer], dim=1),
+            (processed, new_acc, latency, cost, torch.zeros_like(arrive)))
+
+
 @_register("batch_window",
            ("max_rps", "usd_per_hour", "base_latency_s",
             "window_hours", "idle_cost_fraction"),
@@ -868,7 +1109,11 @@ def _shed_lane(carry, arrive, p, dt):
            bounds={"window_hours": (0.25, 48.0),
                    "idle_cost_fraction": (0.0, 1.0)},
            log_params=("max_rps", "usd_per_hour", "base_latency_s",
-                       "window_hours"))
+                       "window_hours"),
+           nondiff_params=("window_hours",),
+           surrogate_lane_step=_batch_window_lane_smooth,
+           surrogate_blend_step=functools.partial(_batch_window_lane_smooth,
+                                                  blend=True))
 def _batch_window_lane(carry, arrive, p, dt):
     """Accumulate-then-flush batching: cheap hours, half-a-window latency.
 

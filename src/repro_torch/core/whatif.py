@@ -13,8 +13,9 @@ runs the whole grid through ``simulate_grid`` — on the card by default
 one twin per requested policy to a measured ``ExperimentResult`` (or a
 prebuilt ``ObservedTrace``) through ``repro_torch.calibrate`` and plays
 the fitted twins through the Table II grid — measurement in, scenario
-table out. ``optimize_scenario`` comes with the search slice (ROADMAP
-A5).
+table out. ``optimize_scenario`` is the inverse of ``run_grid``: the
+cheapest configuration of a twin's policy that meets an SLO, through
+``repro_torch.search``.
 """
 from __future__ import annotations
 
@@ -89,6 +90,32 @@ def calibrated_grid(source, policies: Sequence[str],
              for policy in policies]
     return run_grid(twins, traffics, slo=slo, cost_model=cost_model,
                     record_mb=record_mb, device=device)
+
+
+def optimize_scenario(base: Twin, traffics, slo: Optional[SLO] = None,
+                      *, search: Optional[Sequence[str]] = None,
+                      bounds: Optional[Dict] = None,
+                      tie: Optional[Dict] = None,
+                      **search_kwargs):
+    """The inverse of ``run_grid``: the cheapest configuration, not a
+    table.
+
+    Searches ``base``'s policy for the cheapest parameter setting that
+    meets ``slo`` on every traffic scenario — gradient descent on the
+    smooth annual-cost objective (``repro_torch.search``), all restarts x
+    scenarios as lanes of one gradient loop, feasibility re-checked
+    through the bit-exact aggregate grid. ``search`` names the free
+    parameters (default: the policy's extras, or priced capacity for
+    extra-less policies); ``bounds``/``tie`` refine the space; remaining
+    kwargs (``restarts``, ``steps``, ``coarsen``, ``faults=`` with
+    ``quantile=`` for the chance-constrained variant, ``device=``, ...)
+    forward to ``repro_torch.search.search``. Returns a
+    ``repro_torch.search.SearchResult`` whose ``.twin`` drops straight
+    into ``run_grid`` / ``table2_rows``."""
+    from repro_torch.search import search as _search     # late: search
+    from repro_torch.search import search_space          # sits above core
+    space = search_space(base, search, bounds=bounds, tie=tie)
+    return _search(space, traffics, slo, **search_kwargs)
 
 
 def run_scenarios(scenarios: Sequence[Scenario],

@@ -47,7 +47,8 @@ def _onehot_rows(policy_index, n: int, device) -> torch.Tensor:
 
 def policy_scan(loads, params, onehot=None, dt_hours: float = 1.0, *,
                 policy_index=None, loads_t=None, load_index=None,
-                caps_t=None, fault_index=None, differentiable=False):
+                caps_t=None, fault_index=None, differentiable=False,
+                surrogate=False):
     """(carry_end [N, CARRY_DIM], five [N, T] series) — see
     ``kernels.policy_scan.policy_grid_scan`` for the operands; ``caps_t``
     [T, F] + ``fault_index`` [N] run the fault layer.
@@ -56,17 +57,19 @@ def policy_scan(loads, params, onehot=None, dt_hours: float = 1.0, *,
     the checkpointed scan (``policy_vjp.policy_grid_scan_ckpt``, bitwise
     the plain scan's values), or with a fault schedule the plain scan
     under autograd, as the reference does. Without it a CUDA tensor runs
-    the kernel."""
+    the kernel. ``surrogate=True`` (the smooth branches of policy search)
+    implies the gradient path."""
     ref.check_selector(onehot, policy_index)
-    if differentiable:
+    if differentiable or surrogate:
         loads = policy_kernel.gather_loads(loads, loads_t, load_index)
         caps = policy_kernel.gather_rows(caps_t, fault_index)
         if caps is not None:
             return ref.policy_grid_scan(loads, params, onehot, dt_hours,
                                         policy_index=policy_index,
-                                        caps=caps)
+                                        caps=caps, surrogate=surrogate)
         return policy_vjp.policy_grid_scan_ckpt(
-            loads, params, onehot, dt_hours, policy_index=policy_index)
+            loads, params, onehot, dt_hours, policy_index=policy_index,
+            surrogate=surrogate)
     shed_fuse = SHED_FUSE_DROP
     if onehot is None:
         if not params.is_cuda:
@@ -84,17 +87,20 @@ def policy_scan(loads, params, onehot=None, dt_hours: float = 1.0, *,
 
 def policy_scan_fold(loads=None, params=None, onehot=None,
                      dt_hours: float = 1.0, *, policy_index=None,
-                     caps=None, loads_t=None, caps_t=None, fold_init,
-                     fold_step, ops_lane=(), xs=(), acc_sinks=()):
+                     surrogate=False, caps=None, loads_t=None, caps_t=None,
+                     fold_init, fold_step, ops_lane=(), xs=(),
+                     acc_sinks=()):
     """The streaming gradient scan: per-bin outputs folded into a
     caller-defined accumulator, no [N, T] series in either direction —
     ``policy_vjp.policy_grid_scan_fold``, the same PyTorch operations on
-    either device (the gradient-path sibling of ``policy_scan_agg``).
-    Returns (carry_end [N, CARRY_DIM], acc)."""
+    either device (the gradient-path sibling of ``policy_scan_agg``);
+    ``surrogate`` scans the smooth branches. Returns (carry_end
+    [N, CARRY_DIM], acc)."""
     return policy_vjp.policy_grid_scan_fold(
         loads, params, onehot, dt_hours, policy_index=policy_index,
-        caps=caps, loads_t=loads_t, caps_t=caps_t, fold_init=fold_init,
-        fold_step=fold_step, ops_lane=ops_lane, xs=xs, acc_sinks=acc_sinks)
+        surrogate=surrogate, caps=caps, loads_t=loads_t, caps_t=caps_t,
+        fold_init=fold_init, fold_step=fold_step, ops_lane=ops_lane, xs=xs,
+        acc_sinks=acc_sinks)
 
 
 def policy_scan_agg(loads, params, onehot=None, dt_hours: float = 1.0, *,

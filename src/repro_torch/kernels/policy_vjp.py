@@ -38,8 +38,9 @@ bins in plain autograd's order (last bin first; ``_Remat.cotangents``).
 
 Gradients flow to ``params``, ``loads`` and ``onehot`` (and, in the
 fold, to ``caps``, the fold's per-lane operands and its per-bin rows);
-``dt_hours`` and the selector are constants. ``surrogate=True`` (the
-smooth branches of ``repro.search``) is not ported yet (ROADMAP A5).
+``dt_hours`` and the selector are constants. ``surrogate=True`` scans
+the smooth surrogate branches (``core.twin.surrogate_lane_branches``),
+the gradient model of ``repro_torch.search``, in both directions.
 
 ``policy_grid_scan_fold`` is the streaming sibling: instead of five
 [N, T] series the per-bin outputs fold into a caller-defined
@@ -96,13 +97,6 @@ def _plan(t_bins: int, n: int, reps: int):
     return seg, nseg, tail, False
 
 
-def _no_surrogate(surrogate):
-    if surrogate:
-        raise NotImplementedError(
-            "surrogate=True (the smooth lane branches of policy search) "
-            "is not in the port yet: ROADMAP A5")
-
-
 # ---------------------------------------------------------------------------
 # pytrees of tensors (nested tuples / lists)
 # ---------------------------------------------------------------------------
@@ -149,8 +143,10 @@ class _Scan:
     ``init_state`` records the accumulator's structure)."""
 
     def __init__(self, dt_hours, policy_index, columns, fault, fold_init,
-                 fold_step, ops_spec, xs_spec, n_ops, n_xs, sinks=()):
+                 fold_step, ops_spec, xs_spec, n_ops, n_xs, sinks=(),
+                 surrogate=False):
         self.sinks = tuple(sinks)
+        self.surrogate = bool(surrogate)
         self.dt_hours = float(dt_hours)
         self.policy_index = (None if policy_index is None
                              else int(policy_index))
@@ -179,7 +175,7 @@ class _Scan:
         if all_columns and onehot is not None:
             columns = list(range(onehot.shape[1]))
         pstep = ref._bin_step(params, onehot, self.policy_index, dt,
-                              self.fuse, columns)
+                              self.fuse, columns, self.surrogate)
         fold = self.fold_step
         ops_tree = (None if fold is None
                     else _unflatten(self.ops_spec, list(ops)))
@@ -667,13 +663,13 @@ def policy_grid_scan_ckpt(loads, params, onehot=None, dt_hours=1.0, *,
     backward: loads [N, T], params [N, PARAM_DIM], exactly one of
     ``onehot`` [N, P] or ``policy_index`` (an int) -> (carry_end
     [N, CARRY_DIM], five [N, T] series). The values are bitwise the plain
-    scan's; only the gradient schedule differs."""
+    scan's; only the gradient schedule differs. ``surrogate`` scans the
+    smooth branches."""
     ref.check_selector(onehot, policy_index)
-    _no_surrogate(surrogate)
     loads_t = loads.t().contiguous()
     scan = _Scan(dt_hours, policy_index,
                  None if onehot is None else _columns(onehot), False, None,
-                 None, None, None, 0, 0)
+                 None, None, None, 0, 0, surrogate=surrogate)
     carry_end, series = _CkptScan.apply(scan, params, loads_t, onehot)
     return carry_end, tuple(series[k].t() for k in range(5))
 
@@ -701,9 +697,9 @@ def policy_grid_scan_fold(loads=None, params=None, onehot=None,
     ``caps`` / ``caps_t`` run the fault layer, as ``ref.policy_grid_scan``
     does (uniform blocks at SHED_FUSE_ALL, mixed grids at
     SHED_FUSE_DROP), and the backlog residue folds into
-    ``carry_end[:, 0]``. Returns (carry_end [N, CARRY_DIM], acc)."""
+    ``carry_end[:, 0]``. ``surrogate`` scans the smooth branches.
+    Returns (carry_end [N, CARRY_DIM], acc)."""
     ref.check_selector(onehot, policy_index)
-    _no_surrogate(surrogate)
     if (loads is None) == (loads_t is None):
         raise ValueError("pass exactly one of loads= ([N, T]) or "
                          "loads_t= ([T, N] scenario-minor)")
@@ -718,7 +714,8 @@ def policy_grid_scan_fold(loads=None, params=None, onehot=None,
     scan = _Scan(dt_hours, policy_index,
                  None if onehot is None else _columns(onehot),
                  caps_t is not None, fold_init, fold_step, ops_spec,
-                 xs_spec, len(ops_leaves), len(xs_leaves), acc_sinks)
+                 xs_spec, len(ops_leaves), len(xs_leaves), acc_sinks,
+                 surrogate)
     state = _FoldScan.apply(scan, params, loads_t, onehot, caps_t,
                             *ops_leaves, *xs_leaves)
     carry = state[0]

@@ -14,7 +14,9 @@ step for a uniform block, selected without the blend). ``caps`` [N, T]
 (and, for the aggregate scan, ``fmask`` [N, T]) run the fault layer
 (``core.twin.fault_lane_policy_step`` / ``fault_switch_step``): a fault
 backlog rides beside the policy carry and folds into ``carry_end[:, 0]``
-at the end. No surrogate branches yet.
+at the end. ``surrogate=True`` steps through the smooth surrogate
+branches (``core.twin.surrogate_lane_branches``), the gradient model of
+policy search.
 
 Model half — ``sdpa`` (the reference's ``ref.sdpa``: bf16 probabilities
 before the PV product, ``kv_len`` and ``logit_cap``), ``flash_attention``
@@ -36,7 +38,7 @@ from repro_torch.core.twin import (CARRY_DIM, SHED_FUSE_ALL,
                                    fault_switch_step, finalize_aggregate,
                                    init_aggregate, lane_branches,
                                    lane_policy_step, lane_update_aggregate,
-                                   pack_aggregate)
+                                   pack_aggregate, surrogate_lane_branches)
 
 
 def check_selector(onehot, policy_index):
@@ -47,29 +49,33 @@ def check_selector(onehot, policy_index):
                          "policy_index= (uniform lane block)")
 
 
-def _bin_step(params, onehot, policy_index, dt, fuse, columns=None):
+def _bin_step(params, onehot, policy_index, dt, fuse, columns=None,
+              surrogate=False):
     """``step(state, arrive, capmul) -> (state, outs)``. ``fuse`` None is
     the benign scan (the state is the policy carry); a SHED_FUSE_* level
     runs the fault layer (the state is (carry, fault backlog)) with the
     rounding of the reference's scan of that kind. ``columns`` are the
     policies the masked blend evaluates (default: those some lane
-    selects)."""
+    selects); ``surrogate`` takes the smooth branches."""
     check_selector(onehot, policy_index)
     if onehot is not None:
         if columns is None:
             columns = torch.nonzero(onehot.any(dim=0)).flatten().tolist()
         if fuse is not None:
-            branches = fault_lane_branches(fuse)
+            branches = fault_lane_branches(fuse, surrogate, blend=True)
             return lambda state, arrive, capmul: fault_lane_policy_step(
                 state, arrive, capmul, params, onehot, dt, branches,
                 columns)
-        branches = lane_branches()
+        branches = surrogate_lane_branches(blend=True) if surrogate \
+            else lane_branches()
         return lambda carry, arrive, _: lane_policy_step(
             carry, arrive, params, onehot, dt, branches, columns)
     if fuse is not None:
         return lambda state, arrive, capmul: fault_switch_step(
-            state, arrive, capmul, params, policy_index, dt, fuse)
-    lstep = lane_branches()[int(policy_index)]
+            state, arrive, capmul, params, policy_index, dt, fuse,
+            surrogate)
+    lstep = (surrogate_lane_branches() if surrogate
+             else lane_branches())[int(policy_index)]
     return lambda carry, arrive, _: lstep(carry, arrive, params, dt)
 
 
@@ -101,19 +107,20 @@ def _carry_end(state, fault: bool):
 def policy_grid_scan(loads: torch.Tensor, params: torch.Tensor,
                      onehot: torch.Tensor = None, dt_hours=1.0,
                      policy_index=None, caps: torch.Tensor = None,
-                     shed_fuse: int = None):
+                     shed_fuse: int = None, surrogate: bool = False):
     """loads [N, T] records/bin, params [N, PARAM_DIM], optional caps
     [N, T] -> (carry_end [N, CARRY_DIM], (processed, queue, latency, cost,
     dropped)), each series [N, T] (a transposed view of a scenario-minor
     [T, N] buffer, the kernel's layout). ``shed_fuse`` overrides the
-    SHED_FUSE_* level (default: DROP mixed, ALL uniform)."""
+    SHED_FUSE_* level (default: DROP mixed, ALL uniform); ``surrogate``
+    scans the smooth branches."""
     n, t_bins = loads.shape
     dev = loads.device
     fault = caps is not None
     dt = torch.tensor(dt_hours, dtype=torch.float32, device=dev)
     step = _bin_step(params, onehot, policy_index, dt,
                      _fuse_level(caps, policy_index, shed_fuse,
-                                 SHED_FUSE_DROP))
+                                 SHED_FUSE_DROP), surrogate=surrogate)
     loads_t = loads.t().contiguous()
     caps_t = caps.t().contiguous() if fault else [None] * t_bins
     series = torch.empty((5, t_bins, n), dtype=torch.float32, device=dev)

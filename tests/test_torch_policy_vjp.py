@@ -213,9 +213,8 @@ def test_selector_ambiguity_rejected():
     with pytest.raises(ValueError, match="exactly one"):
         policy_grid_scan_fold(t(loads), t(params), fold_init=_sum_init,
                               fold_step=_sum_fold)
-    with pytest.raises(NotImplementedError, match="A5"):
-        policy_grid_scan_ckpt(t(loads), t(params), policy_index=0,
-                              surrogate=True)
+    with pytest.raises(ValueError, match="exactly one"):
+        policy_grid_scan_ckpt(t(loads), t(params), surrogate=True)
 
 
 def test_ops_routes_differentiable_scan_through_ckpt(monkeypatch):

@@ -12,8 +12,9 @@
 * its entry points (the what-if grid's, the serving slice's
   ``ServeEngine``, ``models.model.init_params`` and ``init_cache``, and
   the calibration slice's ``fit``, ``fit_with_holdout``, ``evaluate``,
-  ``calibrated_twin``, ``calibrated_grid`` and the trace replay) default
-  to the card and raise without one;
+  ``calibrated_twin``, ``calibrated_grid`` and the trace replay, and the
+  search slice's ``search``, ``search_policies``, ``pareto_frontier`` and
+  ``optimize_scenario``) default to the card and raise without one;
 * ``chip_smoke.py`` fails, printing no result, where there is no card;
 * no CUDA source keeps a kernel's shared-memory opt-in once per process
   (the attribute belongs to one device's context, ROADMAP C11): every
@@ -95,7 +96,10 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
             "repro_torch.calibrate.fit", "repro_torch.calibrate.objective",
             "repro_torch.calibrate.trace", "repro_torch.optim",
             "repro_torch.optim.adamw",
-            "repro_torch.kernels.policy_vjp"} <= set(_modules())
+            "repro_torch.kernels.policy_vjp", "repro_torch.search",
+            "repro_torch.search.space", "repro_torch.search.objective",
+            "repro_torch.search.optimize",
+            "repro_torch.search.frontier"} <= set(_modules())
 
 
 def test_port_sources_do_not_import_jax_or_the_reference():
@@ -112,7 +116,9 @@ def test_port_sources_do_not_import_jax_or_the_reference():
             "calibrate/__init__.py", "calibrate/fit.py",
             "calibrate/objective.py", "calibrate/trace.py",
             "optim/__init__.py", "optim/adamw.py",
-            "kernels/policy_vjp.py"} <= names
+            "kernels/policy_vjp.py", "search/__init__.py",
+            "search/space.py", "search/objective.py",
+            "search/optimize.py", "search/frontier.py"} <= names
     for f in files:
         hit = FORBIDDEN.search(f.read_text())
         assert hit is None, f"{f}: {hit.group(0).strip()}"
@@ -194,6 +200,40 @@ def test_entry_points_default_to_the_card_and_raise_without_one():
             call()
     with pytest.raises(ValueError, match="'cuda' or 'cpu'"):
         repro_torch.resolve_device("mps")
+
+
+def test_search_entry_points_default_to_the_card_and_raise_without_one():
+    from repro_torch import search
+    _no_card()
+    base = twin.make_twin("a", "autoscale", max_rps=1.9512,
+                          usd_per_hour=0.0082, base_latency_s=0.15,
+                          max_instances=8, scale_up_hours=2)
+    tr = [traffic.TrafficModel.honda_default("n")]
+    target = slo.SLO(limit_s=2 * 3600, met_fraction=0.95)
+    free = ("max_instances", "scale_up_hours")
+    calls = [
+        lambda: search.search(base, tr, target, restarts=2, steps=1),
+        lambda: search.search(search.search_space(base, free), tr, target,
+                              restarts=2, steps=1),
+        lambda: search.search_policies([base], tr, target, restarts=2,
+                                       steps=1),
+        lambda: search.pareto_frontier(base, tr, [3600.0, 7200.0],
+                                       restarts=2, steps=1),
+        lambda: whatif.optimize_scenario(base, tr, target, search=free,
+                                         restarts=2, steps=1),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    for entry in (search.search, search.pareto_frontier,
+                  whatif.optimize_scenario):
+        params = inspect.signature(entry).parameters
+        assert "device" not in params or \
+            params["device"].default == "cuda", entry
+    assert inspect.signature(search.search).parameters[
+        "device"].default == "cuda"
+    assert inspect.signature(search.pareto_frontier).parameters[
+        "device"].default == "cuda"
 
 
 def test_chip_smoke_fails_without_a_card():

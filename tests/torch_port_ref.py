@@ -25,7 +25,7 @@ def reference():
     if aliased:
         jax.experimental.enable_x64 = jax.enable_x64
     try:
-        from repro import calibrate, configs, faults, obs, optim
+        from repro import calibrate, configs, faults, obs, optim, search
         from repro.core import cost, simulate, slo, traffic, twin, whatif
         from repro.core import (datagen, experiment, loadpattern, metrics,
                                 schema, spans)
@@ -49,7 +49,7 @@ def reference():
                               schema=schema, spans=spans,
                               telemetry=telemetry, obs=obs,
                               calibrate=calibrate, optim=optim,
-                              policy_vjp=policy_vjp)
+                              policy_vjp=policy_vjp, search=search)
     finally:
         for name in set(sys.modules) - before:
             if name == "repro" or name.startswith("repro."):
