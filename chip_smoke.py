@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of PlantD on one GPU: the what-if year
-grid, the serving pipeline-under-test (Jamba-1.5 and rwkv6-7b), the
+grid, the serving pipeline-under-test (Jamba-1.5, rwkv6-7b, and with
+RoPE and experts llama3.2-1b, moonshot-v1-16b-a3b and phi3.5-moe), the
 wind tunnel that measures a pipeline, fits its twin and forecasts its
 year, the gradient calibration of twins from what it measured, and the
 policy search that answers the what-if questions inversely.
@@ -95,17 +96,32 @@ RWKV-6 WKV recurrence, chunked and per step), then:
    feasible row the reference's (8a); the What-if #6b frontier, all
    targets in one gradient loop, non-increasing (8b); What-if #7's
    chance-constrained search through the fault aggregate kernel (8c);
+   8b and 8c, cut to 728-bin gradient loops, within 1% of the
+   reference's answers to the same calls, and 8c of the CPU's;
    the grid's aggregate launch against its plain version, one step's
    operations, launches and busy share under ``torch.profiler`` and a
    full-resolution step's wall; a ``{"search": ...}`` line.
    ``python3 chip_smoke.py --phase 8`` runs the build and phase 8 alone;
-9. prints one JSON line of per-kernel numbers (eight kernels: launches
-   on the main paths of phases 3-5, of 6b, of 7 and of 8, error against the
-   plain version, kernel / plain / bound / library times; no kernel may
-   read faster than its bound; the decode launches of ``ssm_scan`` and
-   ``rwkv6_scan`` also with their device time, 100 launches captured in
-   a CUDA graph and replayed, where the wrapper time is mostly host
-   work), then the card and ``{"ok": true, ...}`` as its last line.
+9. serving RoPE and MoE: the CLI ``python -m repro_torch.launch.serve``
+   on smoke llama3.2, on the card (9a); smoke llama3.2 and smoke
+   moonshot (its published capacity factor) at 4 layers, card against
+   CPU (9b); then ``ServeEngine`` as in 5d and 5g, from a card that
+   holds no earlier engine, through llama3.2-1b whole (9c),
+   moonshot-v1-16b-a3b whole (48 layers, 28.9 B parameters, 57.8 GB in
+   bf16; 9d) and phi3.5-moe cut to 16 of its 32 layers (9e), the flash
+   kernel's launches held to 2 a layer, each with its decode step's
+   weight-read floor; the flash kernel against its plain version at
+   their prefill shapes. ``python3 chip_smoke.py --phase 9`` runs the
+   build and phase 9 alone;
+10. prints one JSON line of per-kernel numbers (eight kernels: launches
+   on the main paths of phases 3-5, of 6b, of 7, of 8 and of 9, error
+   against the plain version, kernel / plain / bound / library times; no
+   kernel may read faster than its bound; the decode launches of
+   ``ssm_scan`` and ``rwkv6_scan`` also with their device time, 100
+   launches captured in a CUDA graph and replayed, where the wrapper time
+   is mostly host work; the policy rows with their kernel's own device
+   time from ``torch.profiler``; the flash row with phase 9's shapes),
+   then the card and ``{"ok": true, ...}`` as its last line.
 
 Any failed check raises, and the script exits non-zero. It needs a CUDA
 card and the repository's ``src``; it never falls back to the CPU.
@@ -156,6 +172,9 @@ MODEL_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
 SLICE_TOL = 1e-4
 JAMBA = "jamba-1.5-large-398b"
 RWKV = "rwkv6-7b"
+LLAMA = "llama3.2-1b"
+MOONSHOT = "moonshot-v1-16b-a3b"
+PHI = "phi3.5-moe-42b-a6.6b"
 
 RPS, USD_HR, LAT = 1.9512, 0.0082, 0.15
 SEED = 0
@@ -199,6 +218,29 @@ def cuda_ms(fn, reps=1):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps, out
+
+
+def kernel_device_ms(fn, marker, reps=5):
+    """Device time of the one kernel whose name holds ``marker`` in a
+    call of ``fn()``: the mean of its kernel records in ``torch.profiler``
+    (CUPTI) over ``reps`` calls after a warm-up, with no host work and
+    none of the wrapper's other launches in it (the profiler may drop a
+    record; the mean is over those it kept). A policy wrapper reads its
+    operand checks back to the host before its launch, which a CUDA graph
+    capture forbids, so ``graph_ms`` cannot time it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and marker in e.key]
+    check(len(hits) == 1 and 1 <= hits[0].count <= reps,
+          (marker, [(e.key, e.count) for e in hits]))
+    return hits[0].self_device_time_total / hits[0].count / 1e3
 
 
 def graph_ms(fn, launches=100):
@@ -726,10 +768,16 @@ def kernel_vs_plain(name, shape, ops, agg):
         assert_bitwise(f"{name} {shape} {what}", a, b)
     err = max_abs_err([(a, b) for _, a, b in pairs])
     bound_ms, bound_by = bound(ops, agg=agg)
-    print(f"{name} at {shape}: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, "
-          f"bound {bound_ms:.4f} ms ({bound_by}); whole grid bitwise equal")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+    del got, want, pairs
+    device_ms = kernel_device_ms(
+        lambda: kernel(*args, **kw),
+        "policy_agg_kernel" if agg else "policy_scan_kernel")
+    print(f"{name} at {shape}: kernel {ms:.3f} ms through the wrapper "
+          f"(CUDA events), {device_ms:.3f} ms on the device (profiler), "
+          f"plain {plain_ms:.1f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
+          f"whole grid bitwise equal")
+    return {"max_abs_err": err, "ms": ms, "device_ms": device_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def close_or_raise(name, got, want, tol):
@@ -996,19 +1044,46 @@ def model_kernels():
     return fk, sk, rk
 
 
+def decode_floor_bytes(eng, new_tokens=32):
+    """The bytes a decode step must read, averaged over a group's steps:
+    every parameter the step multiplies or reads, as the engine holds it
+    (every expert's, since the dispatch multiplies each expert's
+    capacity slots, filled or not; the embedding table only where it is
+    tied, as the unembedding), and the K/V cache up to the rows' length
+    (the padded prompt and half the new tokens)."""
+    from repro_torch.models import model as M
+    cfg = eng.cfg
+    weights = sum(w.numel() * w.element_size()
+                  for name, w in eng.params.items()
+                  if name != "embed.table" or cfg.tie_embeddings)
+    kv = 0
+    if "attn" in cfg.block_pattern:
+        a = cfg.attention
+        per_token = 2 * a.num_kv_heads * a.head_dim * torch.finfo(
+            M.compute_dtype(cfg)).bits // 8
+        layers = cfg.num_layers * cfg.block_pattern.count("attn") // len(
+            cfg.block_pattern)
+        kv = (eng.slots * (eng._prefill_len + new_tokens // 2) * layers
+              * per_token)
+    return weights, kv
+
+
 def serve_at_width(dev, phase, cfg, label, expect):
-    """Phases 5d and 5g, the serving main path at every published width
-    of ``cfg`` (``label`` says how its depth was cut): 8 requests, two
-    groups of 4. Holds the model kernels' launch counts of this run to
-    ``expect`` and returns them with the engine (one card, priced as one
-    chip by phase 6b)."""
+    """Phases 5d, 5g and 9c-9e, the serving main path at every published
+    width of ``cfg`` (``label`` says how its depth was cut): 8 requests,
+    two groups of 4. The parameters are drawn on the card in the form
+    the engine holds them (``init_params(compute=True)``: matrices in
+    bf16, each stacked leaf drawn in float32 one group at a time). Holds
+    the model kernels' launch counts of this run to ``expect`` and
+    returns them with the engine (one card, priced as one chip by phase
+    6b) and the step profile."""
     from repro_torch.kernels import policy_scan as pk
     from repro_torch.models import model as M
     from repro_torch.serve.engine import Request, ServeEngine
     torch.cuda.empty_cache()            # what an earlier phase held
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    params = M.init_params(cfg, seed=SEED, device=dev)
+    params = M.init_params(cfg, seed=SEED, device=dev, compute=True)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     eng = ServeEngine(cfg, params, slots=4, max_len=4096, chips=1,
@@ -1017,11 +1092,12 @@ def serve_at_width(dev, phase, cfg, label, expect):
     del params
     torch.cuda.empty_cache()
     held = torch.cuda.memory_allocated()
+    active = M.active_param_count(cfg)
     print(f"phase {phase}: {cfg.name} {label}: "
-          f"{M.param_count(cfg):,} parameters drawn in "
-          f"{init_s:.1f} s (float32, peak {load_peak / 2**30:.1f} GiB at "
-          f"load), held as {held / 2**30:.1f} GiB (matrices in "
-          f"{cfg.dtype})")
+          f"{M.param_count(cfg):,} parameters ({active:,} active a "
+          f"token) drawn in {init_s:.1f} s (matrices in {cfg.dtype}; "
+          f"peak {load_peak / 2**30:.2f} GiB at load), held as "
+          f"{held / 2**30:.2f} GiB with the engine")
     rng = np.random.default_rng(SEED)
     lens = rng.integers(1024, 2049, 8)
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lens]
@@ -1058,6 +1134,8 @@ def serve_at_width(dev, phase, cfg, label, expect):
     pre = 1e3 * np.array([s.duration for s in eng.collector.spans("prefill")])
     dec = 1e3 * np.array([s.duration for s in eng.collector.spans("decode")])
     new_tokens = sum(len(r.output) for r in done)
+    w_bytes, kv_bytes = decode_floor_bytes(eng)
+    floor_ms = 1e3 * (w_bytes + kv_bytes) / HBM_BYTES_PER_S
     print(f"phase {phase}: served 8 requests (prompts {int(lens.min())}-"
           f"{int(lens.max())} tokens, padded to {eng._prefill_len}; 32 new "
           f"tokens each) in {wall * 1e3:.1f} ms wall: TTFT p50 "
@@ -1067,21 +1145,26 @@ def serve_at_width(dev, phase, cfg, label, expect):
           f"tokens/s; span means prefill {pre.mean():.1f} ms, decode "
           f"{dec.mean():.2f} ms ({summ['decode']['records']} decode "
           f"records); peak memory {peak / 2**30:.2f} GiB "
-          f"(max_memory_allocated)")
-    print(json.dumps({"serve": {
+          f"(max_memory_allocated); a decode step's floor {floor_ms:.2f} "
+          f"ms ({w_bytes / 1e9:.2f} GB of weights and {kv_bytes / 1e9:.2f}"
+          f" GB of K/V read at {HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
+    out = {
         "phase": phase, "model": cfg.name, "layers": cfg.num_layers,
-        "params": M.param_count(cfg), "requests": 8, "slots": eng.slots,
-        "max_len": eng.max_len,
+        "params": M.param_count(cfg), "active_params": active,
+        "requests": 8, "slots": eng.slots, "max_len": eng.max_len,
         "max_new": 32, "wall_ms": wall * 1e3,
         "ttft_ms_p50": float(np.percentile(ttft, 50)),
         "ttft_ms_p95": float(np.percentile(ttft, 95)),
         "decode_step_ms": float(dec.mean()),
+        "decode_floor_ms": floor_ms,
         "prefill_span_ms": float(pre.mean()),
-        "tokens_per_s": new_tokens / wall, "peak_gib": peak / 2**30,
-        "held_gib": held / 2**30, "launches": launches}}))
-    profile_serving(eng, prompts[:4], dev, phase)
+        "tokens_per_s": new_tokens / wall, "init_s": init_s,
+        "load_peak_gib": load_peak / 2**30, "peak_gib": peak / 2**30,
+        "held_gib": held / 2**30, "launches": launches}
+    print(json.dumps({"serve": out}))
+    out["profile"] = profile_serving(eng, prompts[:4], dev, phase)
     eng._prefill, eng._decode = eng._prefill.step, eng._decode.step
-    return launches, eng
+    return launches, eng, out
 
 
 def profile_serving(eng, prompts, dev, phase):
@@ -1147,6 +1230,7 @@ def profile_serving(eng, prompts, dev, phase):
               f" ms, busy {dev_us / wall_us:.1%}, {host_ops / n:.0f} "
               f"PyTorch operations dispatched")
     print(json.dumps({"profile": dict(out, phase=phase)}))
+    return out
 
 
 def forecast_on_card(whatif, twin, traffic, slo, what):
@@ -1691,8 +1775,14 @@ WHATIF6_GRID_USD = 83.21698596986455
 WHATIF6B_USD = (101.32187686860561, 101.32187686860561, 101.32187686860561,
                 82.54393454987803)
 WHATIF7_USD = 85.22218589553681
-#: a winner's exact cost against the reference's (or, under a cut, the
-#: port's CPU run of the same call); the grid's best row against the
+#: the reference's answers (XLA:CPU, seed 0) to 8b's and 8c's calls under
+#: the cut, ``coarsen=SEARCH_CUT_COARSEN``: the #6b frontier's cost at
+#: each of the four limits, and What-if #7's winner
+WHATIF6B_C12_USD = 94.6702634356916
+WHATIF7_C12_USD = 84.52376812556908
+#: a winner's exact cost against the reference's (under the cut too, and
+#: there against the port's CPU run of the same call as well); the grid's
+#: best row against the
 #: reference's; p95 / p99 off the histogram against the series: one
 #: quarter-octave bucket (tests/test_search.py:301)
 SEARCH_RTOL = 0.01
@@ -1875,15 +1965,21 @@ def frontier_on_card(space, surge):
     costs = [p.cost_usd for p in fr.points]
     check(all(p.feasible for p in fr.points), costs)
     check(all(b <= a + 1e-9 for a, b in zip(costs, costs[1:])), costs)
+    gaps = [c / WHATIF6B_C12_USD - 1.0 for c in costs]
+    check(all(abs(g) <= SEARCH_RTOL for g in gaps),
+          ("8b vs the reference under the cut", costs, WHATIF6B_C12_USD))
     print(f"phase 8b: What-if #6b frontier, limits "
           f"{[int(x) for x in FRONTIER_LIMITS]} s, 4 restarts x 4 targets "
           f"in one loop ({spans[0].attrs['t_bins']} bins): {wall:.1f} s; "
           f"$" + " / ".join(f"{c:.2f}" for c in costs)
-          + " (reference $" + " / ".join(f"{c:.2f}" for c in WHATIF6B_USD)
-          + ")")
+          + f" (reference at coarsen {SEARCH_CUT_COARSEN}: "
+          f"${WHATIF6B_C12_USD:.4f} at each, gaps "
+          + ", ".join(f"{g:+.2e}" for g in gaps)
+          + "; at coarsen 4: $"
+          + " / ".join(f"{c:.2f}" for c in WHATIF6B_USD) + ")")
     return {"wall_s": wall, "loop_s": spans[0].duration,
             "t_bins": spans[0].attrs["t_bins"], "costs": costs,
-            "configs": [p.config for p in fr.points]}
+            "ref_gaps": gaps, "configs": [p.config for p in fr.points]}
 
 
 def whatif7_kwargs(faults):
@@ -2001,12 +2097,16 @@ def search_on_card(dev, whatif, tr, twin_mod, slo_mod, faults):
     check(cpu["8a"]["feasible"] and abs(a["cpu_gap"]) <= SEARCH_RTOL,
           ("8a card vs CPU", a["cost_usd"], cpu["8a"]))
     if "8c" in cpu:
-        # the reference's number is for the example's coarsen: under the
-        # cut the bar is the port's own CPU run of the same call
+        # under the cut, the reference's answer to the same call, and the
+        # port's own CPU run of it as a second bar
         c["cpu"] = cpu["8c"]
-        against, what = cpu["8c"]["cost_usd"], "the CPU run"
+        c["cpu_gap"] = c["cost_usd"] / cpu["8c"]["cost_usd"] - 1.0
+        check(abs(c["cpu_gap"]) <= SEARCH_RTOL,
+              ("8c vs the CPU run", c["cost_usd"], cpu["8c"]))
+        against, what = WHATIF7_C12_USD, (f"the reference's (coarsen "
+                                          f"{SEARCH_CUT_COARSEN})")
     else:
-        against, what = WHATIF7_USD, "the reference"
+        against, what = WHATIF7_USD, "the reference's"
     c["gap"] = c["cost_usd"] / against - 1.0
     check(abs(c["gap"]) <= SEARCH_RTOL, ("8c", c["cost_usd"], what,
                                          against))
@@ -2016,7 +2116,9 @@ def search_on_card(dev, whatif, tr, twin_mod, slo_mod, faults):
           f"${cpu['8a']['cost_usd']:.4f}/yr, card - CPU {a['cpu_gap']:+.2e} "
           f"relative, parameters "
           + ", ".join(f"{n} {d:+.3g}" for n, d in a["param_diff"].items())
-          + f"; 8c against {what}'s ${against:.4f}: {c['gap']:+.2e}")
+          + f"; 8c against {what} ${against:.4f}: {c['gap']:+.2e}"
+          + (f", against the CPU run's ${cpu['8c']['cost_usd']:.4f}: "
+             f"{c['cpu_gap']:+.2e}" if "8c" in cpu else ""))
     launches = dict(pk.launches)
     check(launches["policy_agg"] > 0 and launches["policy_scan"] > 0
           and launches["policy_agg_fault"] > 0, launches)
@@ -2042,12 +2144,82 @@ def search_on_card(dev, whatif, tr, twin_mod, slo_mod, faults):
     return launches
 
 
-def flash_vs_plain(dev):
-    """The flash kernel at the serving path's prefill shape (q [4, 2,048,
-    64, 128], k/v [4, 2,048, 8, 128], bf16, causal), against its plain
-    version, with SDPA's time for the table."""
+#: the flash kernel's prefill shapes on the serving paths, (b, s, h, kh,
+#: d): Jamba-1.5 (5d), llama3.2-1b (9c), moonshot-v1-16b-a3b (9d) and
+#: phi3.5-moe (9e)
+FLASH_SHAPES = {"5d": (4, 2048, 64, 8, 128), "9c": (4, 2048, 32, 8, 64),
+                "9d": (4, 2048, 16, 16, 128), "9e": (4, 2048, 32, 8, 128)}
+
+
+def serve_rope_moe(dev, get_config, get_smoke_config):
+    """Phase 9, serving RoPE and MoE: 9a the CLI
+    (``repro_torch.launch.serve``) on smoke llama3.2, on the card; 9b
+    smoke llama3.2 and smoke moonshot (the published capacity factor) at
+    4 layers, card against CPU; then the main paths at every published
+    width, each from a card that holds no earlier engine: 9c llama3.2-1b
+    whole (16 layers), 9d moonshot-v1-16b-a3b whole (48 layers), 9e
+    phi3.5-moe cut to 16 of its 32 layers (its 83.7 GB of bf16 weights
+    do not fit one card). Then the flash kernel against its plain version
+    at each one's prefill shape. Returns the model kernels' launches
+    summed over 9c-9e, and the flash rows."""
+    from repro_torch.launch import serve as launch_serve
+    fk, _, _ = model_kernels()
+    t0 = time.perf_counter()
+    fk.reset_launches()
+    launch_serve.main(["--arch", LLAMA, "--requests", "8", "--rate", "16",
+                       "--device", "cuda"])
+    a_flash = dict(fk.launches)
+    check(a_flash["flash_attention"] > 0
+          and a_flash["flash_attention"] % 2 == 0
+          and a_flash["flash_attention_f32"] == 0, a_flash)
+    print(f"phase 9a: python -m repro_torch.launch.serve --arch {LLAMA} "
+          f"--device cuda served on the card ({a_flash['flash_attention']} "
+          f"bf16 flash launches at head dim "
+          f"{get_smoke_config(LLAMA).attention.head_dim}); "
+          f"{time.perf_counter() - t0:.1f} s")
+    for arch in (LLAMA, MOONSHOT):
+        cfg = dataclasses.replace(get_smoke_config(arch), num_layers=4,
+                                  dtype="float32")
+        check_smoke_slice(dev, "9b", cfg, f"{cfg.name} (4 layers, float32"
+                          + (f", capacity factor {cfg.moe.capacity_factor}"
+                             if cfg.moe else "") + ")")
+    launches, runs = {}, {}
+    for phase, arch, layers, label in (
+            ("9c", LLAMA, None, "at all 16 layers"),
+            ("9d", MOONSHOT, None, "at all 48 layers"),
+            ("9e", PHI, 16, "cut to 16 of its 32 layers (83.7 GB of bf16 "
+             "weights whole)")):
+        cfg = get_config(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        expect = {"flash_attention": 2 * cfg.num_layers,
+                  "flash_attention_f32": 0, "ssm_scan": 0,
+                  "rwkv6_chunked": 0, "rwkv6_scan": 0}
+        got, eng, runs[phase] = serve_at_width(dev, phase, cfg, label,
+                                               expect)
+        del eng
+        torch.cuda.empty_cache()
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+    flash = {phase: flash_vs_plain(dev, phase) for phase in ("9c", "9d",
+                                                             "9e")}
+    wall = time.perf_counter() - t0
+    print(f"phase 9: {wall:.1f} s; "
+          + "; ".join(f"{p} {r['model']} ({r['layers']} layers): TTFT p50 "
+                      f"{r['ttft_ms_p50']:.1f} ms, decode "
+                      f"{r['decode_step_ms']:.2f} ms a step (floor "
+                      f"{r['decode_floor_ms']:.2f}), "
+                      f"{r['tokens_per_s']:.1f} tokens/s"
+                      for p, r in runs.items()))
+    return launches, flash
+
+
+def flash_vs_plain(dev, phase="5d"):
+    """The flash kernel at a serving path's prefill shape
+    (``FLASH_SHAPES[phase]``, bf16, causal) against its plain version,
+    with SDPA's time for the table."""
     from repro_torch.kernels import flash_attention as fk, ref
-    b, s, h, kh, d = 4, 2048, 64, 8, 128
+    b, s, h, kh, d = FLASH_SHAPES[phase]
     g = torch.Generator(device=dev).manual_seed(SEED + 2)
     q = torch.randn(b, s, h, d, generator=g, device=dev).bfloat16()
     k = torch.randn(b, s, kh, d, generator=g, device=dev).bfloat16()
@@ -2055,7 +2227,7 @@ def flash_vs_plain(dev):
     fk.flash_attention(q, k, v)                                 # warm-up
     ms, got = cuda_ms(lambda: fk.flash_attention(q, k, v), reps=10)
     plain_ms, want = cuda_ms(lambda: ref.flash_attention(q, k, v))
-    err = close_or_raise("flash at width", got, want,
+    err = close_or_raise(f"flash at {phase}'s shape", got, want,
                          MODEL_TOL[torch.bfloat16])
     del want
 
@@ -2070,7 +2242,8 @@ def flash_vs_plain(dev):
     t_ops, t_bytes = flops / BF16_OPS_PER_S, nbytes / HBM_BYTES_PER_S
     bound_ms = 1e3 * max(t_ops, t_bytes)
     bound_by = "operations" if t_ops >= t_bytes else "bytes"
-    print(f"flash_attention at q {list(q.shape)} bf16 causal: kernel "
+    print(f"flash_attention ({phase}) at q {list(q.shape)}, k/v "
+          f"{list(k.shape)} bf16 causal: kernel "
           f"{ms:.3f} ms, plain {plain_ms:.1f} ms, SDPA {library_ms:.3f} ms "
           f"(kernel / SDPA {ms / library_ms:.2f}), bound {bound_ms:.4f} ms "
           f"({bound_by}; the kernel at {bound_ms / ms:.1%} of it, "
@@ -2261,6 +2434,11 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    if sys.argv[1:] == ["--phase", "9"]:
+        # the RoPE and MoE serving slice alone (for iterating on it)
+        serve_rope_moe(dev, get_config, get_smoke_config)
+        print(card)
+        return 0
     if sys.argv[1:] == ["--phase", "8"]:
         # the search slice alone (for iterating on it)
         search_on_card(dev, whatif, tr, twin_mod, slo_mod, faults)
@@ -2317,7 +2495,7 @@ def main():
             ("5g", get_config(RWKV), "at all 32 layers",
              {"flash_attention": 0, "flash_attention_f32": 0, "ssm_scan": 0,
               "rwkv6_chunked": 32 * 2, "rwkv6_scan": 32 * 2 * 31})):
-        got, eng = serve_at_width(dev, phase, cfg, label, expect)
+        got, eng, _ = serve_at_width(dev, phase, cfg, label, expect)
         launches.update({k: v for k, v in got.items() if v})
         if phase != "5g":           # 5g's engine stays for phase 6b
             del eng
@@ -2340,6 +2518,10 @@ def main():
 
     # the search slice: What-if #6, #6b and #7's inverse questions
     launches_8 = search_on_card(dev, whatif, tr, twin_mod, slo_mod, faults)
+
+    # the RoPE and MoE serving slice: llama3.2-1b and moonshot whole,
+    # phi3.5-moe cut, from a card that holds no earlier engine
+    launches_9, flash_9 = serve_rope_moe(dev, get_config, get_smoke_config)
 
     # each kernel against its plain version at the main path's widths
     rows = [
@@ -2368,8 +2550,10 @@ def main():
     ssm_row = dict(ssm_stats["prefill"],
                    decode_ms=ssm_stats["decode"]["ms"],
                    decode_device_ms=ssm_stats["decode"]["device_ms"])
+    # the flash row is 5d's shape; phase 9's shapes ride along
+    flash_row = dict(flash_vs_plain(dev), at_9=flash_9)
     rows += [("flash_attention", "flash_attention",
-              "src/repro/kernels/flash_attention.py:23", flash_vs_plain(dev)),
+              "src/repro/kernels/flash_attention.py:23", flash_row),
              ("ssm_scan", "ssm_scan", "src/repro/kernels/ssm_scan.py:27",
               ssm_row),
              ("rwkv6_chunked", "rwkv6",
@@ -2378,14 +2562,16 @@ def main():
               wkv_stats["decode"])]
     # no kernel runs faster than the least time the card could take
     for name, _, _, stats in rows:
-        check(stats["ms"] >= stats["bound_ms"], (name, stats))
+        for st in [stats] + list(stats.get("at_9", {}).values()):
+            check(st["ms"] >= st["bound_ms"], (name, st))
     print(json.dumps({"kernels": [
         dict({"name": name, "route": "cuda",
               "source": f"src/repro_torch/kernels/csrc/{src}.cu",
               "replaces": replaces, "launches": launches[name],
               "launches_6b": launches_6b[name],
               "launches_7": launches_7.get(name, 0),
-              "launches_8": launches_8.get(name, 0)}, **stats)
+              "launches_8": launches_8.get(name, 0),
+              "launches_9": launches_9.get(name, 0)}, **stats)
         for name, src, replaces, stats in rows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

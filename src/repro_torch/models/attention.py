@@ -6,8 +6,9 @@ tensors sized to the full serve context; prefill fills them from position
 0, decode writes the new K/V at per-sequence positions and masks by valid
 length. Unlike the reference, which returns new arrays, the port writes
 into the cache tensors in place (the reference's engine donates them).
-Not ported yet: MLA, cross-attention (whisper) and RoPE; they raise
-``NotImplementedError``.
+q and k are rotated (``layers.apply_rope``) before the cache write, so
+the cache holds rotated keys. Not ported yet: MLA and cross-attention
+(whisper); ``transformer.check_supported`` refuses them.
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models.layers import ParamDef, Params, Schema
+from repro_torch.models.layers import ParamDef, Params, Schema, apply_rope
 
 Cache = Dict[str, torch.Tensor]
 
@@ -58,8 +59,6 @@ def apply_gqa(params: Params, name: str, x: torch.Tensor,
     filled from position 0. Decode (``cache["decode"]``): t new tokens
     attend to the cache's first ``length + t`` entries."""
     a = cfg.attention
-    if a.rope != "none":
-        raise NotImplementedError(f"RoPE ({a.rope}) is not ported yet")
     b, t, _ = x.shape
     dt = x.dtype
     q = (x @ params[f"{name}.wq"].to(dt)).reshape(b, t, a.num_heads,
@@ -68,6 +67,9 @@ def apply_gqa(params: Params, name: str, x: torch.Tensor,
                                                  a.head_dim)
     v = (x @ params[f"{name}.wv"].to(dt)).reshape(b, t, a.num_kv_heads,
                                                  a.head_dim)
+    if a.rope != "none":
+        q = apply_rope(q, positions, a)
+        k = apply_rope(k, positions, a)
 
     if cache is not None and cache.get("decode", False):
         pos = cache["length"]                                   # [b] int32

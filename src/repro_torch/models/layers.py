@@ -8,19 +8,21 @@ for leaf (``repro_torch.convert.model_params_from_arrays``).
 
 Numerics follow the reference: norms run in float32 and cast back; every
 matrix is cast to the activations' dtype at use (a no-op where the engine
-holds a compute-dtype copy, ``models.model.compute_params``).
+holds a compute-dtype copy, ``models.model.compute_params``); RoPE's cos
+and sin are computed in float32 and cast to the activations' dtype before
+the rotation, so a bf16 model rotates in bf16.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.config import ModelConfig
+from repro_torch.config import AttentionConfig, ModelConfig
 
 Params = Dict[str, torch.Tensor]
 
@@ -60,19 +62,31 @@ def init_std(d: ParamDef) -> float:
     return 1.0 / math.sqrt(max(_fan_in(d.shape), 1))
 
 
-def init_from_schema(schema: Schema, generator: torch.Generator, dtype,
+def init_from_schema(schema: Schema, generator: torch.Generator,
+                     dtype_of: Callable[[str], torch.dtype],
                      device) -> Params:
     """Leaves in sorted name order, each drawn from ``generator`` (which
-    lives on ``device``) as float32 N(0, std) and cast to ``dtype``:
-    the reference's distributions, not its bits (``jax.random`` and
-    ``torch.Generator`` differ; parity tests convert one parameter set)."""
+    lives on ``device``) as float32 N(0, std) and cast to
+    ``dtype_of(name)``: the reference's distributions, not its bits
+    (``jax.random`` and ``torch.Generator`` differ; parity tests convert
+    one parameter set). A stacked leaf (a leading ``groups`` axis) is
+    drawn one group at a time into its cast result, so the float32 draw
+    never holds more than one group's slice."""
     params = {}
     for name in sorted(schema):
         d = schema[name]
+        dtype = dtype_of(name)
         if d.init == "zeros":
             params[name] = torch.zeros(d.shape, dtype=dtype, device=device)
         elif d.init == "ones":
             params[name] = torch.ones(d.shape, dtype=dtype, device=device)
+        elif d.axes[0] == "groups":
+            w = torch.empty(d.shape, dtype=dtype, device=device)
+            for g in range(d.shape[0]):
+                w[g] = torch.randn(d.shape[1:], generator=generator,
+                                   dtype=torch.float32,
+                                   device=device).mul_(init_std(d))
+            params[name] = w
         else:
             w = torch.randn(d.shape, generator=generator,
                             dtype=torch.float32, device=device)
@@ -117,6 +131,48 @@ def apply_norm(params: Params, name: str, x: torch.Tensor,
     if cfg.norm == "layernorm":
         y = y + params[f"{name}.bias"].float()
     return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE (standard, partial, M-RoPE)
+# ---------------------------------------------------------------------------
+
+def rope_freqs(att: AttentionConfig, rot_dim: int,
+               device=None) -> torch.Tensor:
+    exponent = torch.arange(0, rot_dim, 2, dtype=torch.float32,
+                            device=device) / rot_dim
+    return 1.0 / (att.rope_theta ** exponent)          # [rot_dim // 2]
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               att: AttentionConfig) -> torch.Tensor:
+    """x [b, s, h, hd]; positions [b, s], or [3, b, s] for M-RoPE. The
+    first ``int(hd * rotary_pct) // 2 * 2`` channels rotate (as two
+    halves), the rest pass through."""
+    if att.rope == "none":
+        return x
+    hd = x.shape[-1]
+    rot_dim = int(hd * att.rotary_pct) // 2 * 2
+    inv = rope_freqs(att, rot_dim, x.device)           # [rot / 2]
+    if att.rope == "mrope":
+        # positions [3, b, s]; the frequencies split into sections (t, h, w)
+        if positions.dim() != 3:
+            raise ValueError(f"M-RoPE needs [3, b, s] positions, got "
+                             f"{tuple(positions.shape)}")
+        parts, start = [], 0
+        for row, sec in enumerate(att.mrope_sections):
+            pos = positions[row].float()               # [b, s]
+            parts.append(pos[..., None] * inv[start:start + sec])
+            start += sec
+        angles = torch.cat(parts, dim=-1)              # [b, s, rot / 2]
+    else:
+        angles = positions.float()[..., None] * inv    # [b, s, rot / 2]
+    cos = torch.cos(angles)[:, :, None, :].to(x.dtype)
+    sin = torch.sin(angles)[:, :, None, :].to(x.dtype)
+    x_rot, x_pass = x[..., :rot_dim], x[..., rot_dim:]
+    x1, x2 = x_rot.chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return torch.cat([out, x_pass], dim=-1)
 
 
 # ---------------------------------------------------------------------------

@@ -4,12 +4,13 @@ Counterpart: ``repro.models.model``. Batch convention:
   prefill: {"tokens": [b, s] int}            (+ the cache to fill)
   decode:  {"token": [b, 1] int} + the cache (which holds per-row lengths)
 
-The port runs the text-only, dense-MLP, RoPE-free subset that its slices
-have ported (``transformer.check_supported``): attention and Mamba blocks,
-as in Jamba-1.5 without experts, and RWKV-6 blocks, as in rwkv6-7b.
-``init_params`` and ``init_cache`` take ``device=`` (default ``"cuda"``)
-and raise without a card. Caches are updated in place; ``prefill`` and
-``decode_step`` return the same dict.
+The port runs the text-only subset that its slices have ported
+(``transformer.check_supported``): GQA attention blocks with standard or
+partial RoPE or none (llama, stablelm, gemma), Mamba blocks (Jamba-1.5)
+and RWKV-6 blocks (rwkv6-7b), each with a dense MLP or experts
+(moonshot, phi3.5-moe, Jamba). ``init_params`` and ``init_cache`` take
+``device=`` (default ``"cuda"``) and raise without a card. Caches are
+updated in place; ``prefill`` and ``decode_step`` return the same dict.
 """
 from __future__ import annotations
 
@@ -26,10 +27,11 @@ from repro_torch.models.layers import (ParamDef, Params, Schema, apply_norm,
                                        norm_schema, unembed)
 
 #: leaves the reference reads in float32 (norm scales and biases, the
-#: SSM's dt_bias, A_log and D, and RWKV-6's decay_base, decay_w2 and
-#: bonus); every other leaf it casts to the compute dtype at use
+#: SSM's dt_bias, A_log and D, RWKV-6's decay_base, decay_w2 and bonus,
+#: and the MoE router); every other leaf it casts to the compute dtype at
+#: use
 FLOAT32_LEAVES = ("scale", "bias", "dt_bias", "A_log", "D", "decay_base",
-                  "decay_w2", "bonus")
+                  "decay_w2", "bonus", "router")
 
 
 def full_schema(cfg: ModelConfig) -> Schema:
@@ -40,23 +42,54 @@ def full_schema(cfg: ModelConfig) -> Schema:
     return s
 
 
-def init_params(cfg: ModelConfig, seed: int = 0, *,
-                device="cuda") -> Params:
-    """Random parameters in ``cfg.param_dtype`` on ``device``, drawn from
-    a ``torch.Generator`` seeded with ``seed`` on that device."""
+def _is_float32_leaf(name: str) -> bool:
+    return name.rsplit(".", 1)[-1] in FLOAT32_LEAVES
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda",
+                compute: bool = False) -> Params:
+    """Random parameters on ``device``, drawn in float32 from a
+    ``torch.Generator`` seeded with ``seed`` on that device, a stacked
+    leaf one group at a time. In ``cfg.param_dtype``, or with
+    ``compute=True`` in the form ``compute_params`` gives (matrices in the
+    compute dtype, ``FLOAT32_LEAVES`` in float32) with no float32 copy of
+    a whole leaf: the way to draw a model whose float32 parameters do not
+    fit the card."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(int(seed))
-    return init_from_schema(full_schema(cfg), gen,
-                            getattr(torch, cfg.param_dtype), dev)
+    param_dt = getattr(torch, cfg.param_dtype)
+    cdt = compute_dtype(cfg)
+    if compute:
+        def dtype_of(name):
+            return torch.float32 if _is_float32_leaf(name) else cdt
+    else:
+        def dtype_of(name):
+            return param_dt
+    return init_from_schema(full_schema(cfg), gen, dtype_of, dev)
+
+
+def _numel(shape) -> int:
+    n = 1
+    for dim in shape:
+        n *= dim
+    return n
 
 
 def param_count(cfg: ModelConfig) -> int:
+    return sum(_numel(d.shape) for d in full_schema(cfg).values())
+
+
+def active_param_count(cfg: ModelConfig) -> int:
+    """Parameters touched per token (MoE counts top_k + shared experts)."""
+    if cfg.moe is None:
+        return param_count(cfg)
+    m = cfg.moe
     total = 0
-    for d in full_schema(cfg).values():
-        n = 1
-        for dim in d.shape:
-            n *= dim
-        total += n
+    for name, d in full_schema(cfg).items():
+        n = _numel(d.shape)
+        if ".moe.w_" in name:          # routed expert weights
+            n = n * (m.top_k / m.num_experts)
+        total += int(n)
     return total
 
 
@@ -69,7 +102,7 @@ def compute_params(params: Params, cfg: ModelConfig, device) -> Params:
     cdt = compute_dtype(cfg)
     out = {}
     for name, w in params.items():
-        keep = name.rsplit(".", 1)[-1] in FLOAT32_LEAVES
+        keep = _is_float32_leaf(name)
         out[name] = w.to(device=dev, dtype=w.dtype if keep else cdt)
     return out
 

@@ -8,12 +8,15 @@ reference does for its ``lax.scan``. Here a Python loop walks that axis:
 group g's parameters and cache are views ``leaf[g]``, and the new serve
 state is written back into the stacked cache tensors in place.
 
-Block kinds ported: ``attn`` (norm, GQA attention, norm, dense MLP),
-``mamba`` (norm, selective SSM, norm, dense MLP) and ``rwkv`` (norm,
-RWKV-6 time-mix, norm, RWKV channel-mix; its serve state ``x_att``,
-``x_ffn`` and ``wkv`` sits under the block's prefix, not under
-``.mixer``, as in the reference). ``xattn`` blocks, MLA and MoE raise
-``NotImplementedError``.
+Block kinds ported: ``attn`` (norm, GQA attention with or without RoPE,
+norm, MLP) and ``mamba`` (norm, selective SSM, norm, MLP), where the MLP
+is the dense one or, at the pattern positions ``cfg.layer_uses_moe``
+picks, the experts of ``models.moe`` (under ``.moe``); and ``rwkv``
+(norm, RWKV-6 time-mix, norm, RWKV channel-mix; its serve state
+``x_att``, ``x_ffn`` and ``wkv`` sits under the block's prefix, not under
+``.mixer``, as in the reference). The MoE layers' aux losses sum over the
+stack, as the reference's scan carries them. ``xattn`` blocks, MLA, the
+encoder-decoder and the frontends raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv6 as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (Params, Schema, apply_mlp,
@@ -49,10 +53,6 @@ def check_supported(cfg: ModelConfig):
             missing.append(f"{kind!r} blocks")
     if "attn" in cfg.block_pattern and cfg.attention.kind != "gqa":
         missing.append(f"{cfg.attention.kind} attention")
-    if "attn" in cfg.block_pattern and cfg.attention.rope != "none":
-        missing.append(f"RoPE ({cfg.attention.rope})")
-    if cfg.moe is not None:
-        missing.append("MoE")
     if cfg.encdec:
         missing.append("encoder-decoder")
     if cfg.frontend != "none":
@@ -80,6 +80,8 @@ def _block_schema(cfg: ModelConfig, kind: str, idx: int) -> Schema:
     s.update(norm_schema(cfg, f"{pre}.norm2"))
     if kind == "rwkv":
         s.update(rwkv_mod.channel_mix_schema(cfg, f"{pre}.cmix"))
+    elif cfg.layer_uses_moe(idx):
+        s.update(moe_mod.moe_schema(cfg, f"{pre}.moe"))
     else:
         s.update(mlp_schema(cfg, f"{pre}.mlp"))
     return s
@@ -144,7 +146,9 @@ def _store(cache_out: dict, name: str, sub: Optional[dict], keys):
 
 def _apply_block(gp: Params, cfg: ModelConfig, idx: int, kind: str,
                  x: torch.Tensor, positions, cache: Optional[Params],
-                 cache_out: dict, decode: bool, lengths):
+                 cache_out: dict, decode: bool, lengths
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(x after the block, the MoE aux loss or None)."""
     pre = f"blk{idx}"
     h = apply_norm(gp, f"{pre}.norm1", x, cfg)
     if kind == "attn":
@@ -169,8 +173,11 @@ def _apply_block(gp: Params, cfg: ModelConfig, idx: int, kind: str,
         sub = _subcache(cache, pre, {"decode": decode})
         y, sub = rwkv_mod.apply_channel_mix(gp, f"{pre}.cmix", h, cfg, sub)
         _store(cache_out, pre, sub, ("x_ffn",))
-        return x + y
-    return x + apply_mlp(gp, f"{pre}.mlp", h, cfg)
+        return x + y, None
+    if cfg.layer_uses_moe(idx):
+        y, aux = moe_mod.apply_moe(gp, f"{pre}.moe", h, cfg)
+        return x + y, aux
+    return x + apply_mlp(gp, f"{pre}.mlp", h, cfg), None
 
 
 def apply_stack(params: Params, cfg: ModelConfig, x: torch.Tensor,
@@ -179,21 +186,23 @@ def apply_stack(params: Params, cfg: ModelConfig, x: torch.Tensor,
                 prefix: str = "stack"
                 ) -> Tuple[torch.Tensor, Optional[Params], torch.Tensor]:
     """Run the full stack. Returns (y, the stacked cache written in place
-    or None, aux loss: zero without MoE)."""
+    or None, aux loss: the MoE layers' summed, zero without MoE)."""
     check_supported(cfg)
     pre = f"{prefix}."
     stacked = {k[len(pre):]: v for k, v in params.items()
                if k.startswith(pre)}
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for g in range(n_groups(cfg)):
         gp = {k: v[g] for k, v in stacked.items()}
         gcache = None if cache is None else {k: v[g]
                                              for k, v in cache.items()}
         cache_out: dict = {}
         for i, kind in enumerate(cfg.block_pattern):
-            x = _apply_block(gp, cfg, i, kind, x, positions, gcache,
-                             cache_out, decode, lengths)
+            x, a = _apply_block(gp, cfg, i, kind, x, positions, gcache,
+                                cache_out, decode, lengths)
+            if a is not None:
+                aux = aux + a
         for k, v in cache_out.items():
             if v is not gcache[k]:      # K/V were written in place
                 cache[k][g].copy_(v)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x, cache, aux

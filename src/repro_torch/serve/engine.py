@@ -8,6 +8,11 @@ until every member finishes. Stages (queue wait / prefill / decode) are
 wind-tunnel spans, so PlantD experiments measure TTFT, per-token latency
 and throughput of a serving pipeline as of the paper's telemetry pipeline.
 
+With experts (``cfg.moe``), a prefill's ``slots * max_len // 2``
+tokens must make whole dispatch groups of ``models.moe.GROUP_SIZE``
+(the constructor raises otherwise); the padding takes expert capacity,
+and the rows of a decode step share it, as in the reference.
+
 The engine runs on one device (``device=``, default ``"cuda"``; it raises
 without a card) and takes no mesh. It holds the parameters as the forward
 pass reads them (``models.model.compute_params``: matrices in the compute
@@ -31,6 +36,7 @@ from repro_torch.core.pipeline import Pipeline, PipelineStage, Resources
 from repro_torch.core.spans import SpanCollector, span
 from repro_torch.device import resolve_device
 from repro_torch.models import model as M
+from repro_torch.models import moe
 from repro_torch.serve.steps import make_decode_step, make_prefill_step
 
 
@@ -70,6 +76,12 @@ class ServeEngine:
         self._prefill = make_prefill_step(cfg)
         self._decode = make_decode_step(cfg)
         self._prefill_len = max_len // 2
+        if cfg.moe is not None:
+            # a prefill's and a decode step's tokens (padding included,
+            # which takes expert capacity as in the reference) must make
+            # whole dispatch groups
+            moe.group_size(slots * self._prefill_len)
+            moe.group_size(slots)
 
     def _sync(self):
         if self.device.type == "cuda":

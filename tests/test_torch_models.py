@@ -539,13 +539,11 @@ def test_model_params_from_arrays_checks_names_and_shapes():
         model_params_from_arrays(bad, cfg, device="cpu")
 
 
-@pytest.mark.parametrize("what", ["moe", "rope", "whisper", "mla"])
+@pytest.mark.parametrize("what", ["rope", "whisper", "mla"])
 def test_unported_model_features_raise(what):
     cfg = _cfg(torch.float32)
-    if what == "moe":
-        cfg = get_smoke_config("jamba-1.5-large-398b")
-    elif what == "rope":
-        cfg = get_smoke_config("llama3.2-1b")
+    if what == "rope":              # M-RoPE, with the vision frontend
+        cfg = get_smoke_config("qwen2-vl-7b")
     elif what == "whisper":         # encoder-decoder, xattn blocks
         cfg = get_smoke_config("whisper-small")
     else:

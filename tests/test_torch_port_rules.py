@@ -10,12 +10,16 @@
   ``roofline_twin`` take the chip's price from the caller;
 * run telemetry is off unless asked for;
 * its entry points (the what-if grid's, the serving slice's
-  ``ServeEngine``, ``models.model.init_params`` and ``init_cache``, and
+  ``ServeEngine``, ``models.model.init_params`` and ``init_cache`` and
+  the ``launch.serve`` CLI, and
   the calibration slice's ``fit``, ``fit_with_holdout``, ``evaluate``,
   ``calibrated_twin``, ``calibrated_grid`` and the trace replay, and the
   search slice's ``search``, ``search_policies``, ``pareto_frontier`` and
   ``optimize_scenario``) default to the card and raise without one;
 * ``chip_smoke.py`` fails, printing no result, where there is no card;
+* the model refuses, with ``NotImplementedError``, what is not ported:
+  MLA (minicpm3), the encoder-decoder (whisper) and the vision frontend
+  with its M-RoPE positions (qwen2-vl);
 * no CUDA source keeps a kernel's shared-memory opt-in once per process
   (the attribute belongs to one device's context, ROADMAP C11): every
   opt-in goes through ``csrc/smem_opt_in.cuh``, which sets it per device;
@@ -234,6 +238,34 @@ def test_search_entry_points_default_to_the_card_and_raise_without_one():
         "device"].default == "cuda"
     assert inspect.signature(search.pareto_frontier).parameters[
         "device"].default == "cuda"
+
+
+def test_serve_launcher_defaults_to_the_card_and_raises_without_one():
+    from repro_torch.launch import serve as launch_serve
+    _no_card()
+    assert launch_serve.parse_args([]).device == "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch_serve.main(["--requests", "1"])
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                          "--requests", "1"], env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr
+    assert "served" not in out.stdout
+
+
+@pytest.mark.parametrize("arch, what", [
+    ("minicpm3-4b", "mla attention"),
+    ("whisper-small", "encoder-decoder"),
+    ("qwen2-vl-7b", "the vision frontend")])
+def test_model_refuses_what_is_not_ported(arch, what):
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tf
+    for cfg in (get_config(arch), get_smoke_config(arch)):
+        with pytest.raises(NotImplementedError, match=what):
+            tf.check_supported(cfg)
+        with pytest.raises(NotImplementedError, match="not ported"):
+            M.init_params(cfg, device="cpu")
 
 
 def test_chip_smoke_fails_without_a_card():

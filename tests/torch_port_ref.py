@@ -33,7 +33,7 @@ def reference():
         from repro.kernels import flash_attention, ops, policy_scan, ref
         from repro.kernels import policy_vjp
         from repro.kernels import rwkv6_kernel, ssm_scan
-        from repro.models import attention, layers, model, rwkv6, ssm
+        from repro.models import attention, layers, model, moe, rwkv6, ssm
         from repro.pipelines import telemetry
         yield SimpleNamespace(cost=cost, simulate=simulate, slo=slo,
                               traffic=traffic, twin=twin, whatif=whatif,
@@ -43,7 +43,7 @@ def reference():
                               flash_attention=flash_attention,
                               ssm_scan=ssm_scan, rwkv6_kernel=rwkv6_kernel,
                               attention=attention, layers=layers,
-                              model=model, ssm=ssm, rwkv6=rwkv6,
+                              model=model, moe=moe, ssm=ssm, rwkv6=rwkv6,
                               datagen=datagen, experiment=experiment,
                               loadpattern=loadpattern, metrics=metrics,
                               schema=schema, spans=spans,
