@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of PlantD on one GPU: the what-if year
-grid, the serving pipeline-under-test (Jamba-1.5, rwkv6-7b, and with
-RoPE and experts llama3.2-1b, moonshot-v1-16b-a3b and phi3.5-moe), the
+grid, the serving pipeline-under-test (Jamba-1.5, rwkv6-7b, with RoPE
+and experts llama3.2-1b, moonshot-v1-16b-a3b and phi3.5-moe, and with
+the flash kernel at every head dim stablelm-3b, gemma-7b, minicpm3-4b's
+MLA, qwen2-vl-7b and whisper-small's encoder-decoder), the
 wind tunnel that measures a pipeline, fits its twin and forecasts its
 year, the gradient calibration of twins from what it measured, and the
 policy search that answers the what-if questions inversely.
@@ -15,7 +17,9 @@ RWKV-6 WKV recurrence, chunked and per step), then:
 
 1. prints the card (``nvidia-smi`` name and power limit) and the build,
    and checks the machine code (``cuobjdump -sass``): HGMMA and TMA loads
-   in the flash library, HMMA and cp.async in the WKV library, the MUFU's
+   in each of the 36 bf16 flash kernels (q/k and v storage dims 16-256),
+   no local memory in those of d = 256, HMMA and cp.async in the WKV
+   library, the MUFU's
    exp2 and cp.async in the selective-scan library, cp.async and no
    float32 division check in the series policy scans (1b);
 2. holds each kernel against its plain PyTorch version on the card,
@@ -39,7 +43,8 @@ RWKV-6 WKV recurrence, chunked and per step), then:
 5. the serving slices. Jamba-1.5-Large without experts: the flash
    kernels against their plain version on random blocks (float32 on the
    CUDA cores, bf16 on the tensor cores; causal or not, GQA g 1, 4 and
-   8, head dims 64 and 128, sq and sk around the 128-row tile and unequal,
+   8, head dims 64 and 128 (10a takes the others), sq and sk around the
+   128-row tile and unequal,
    and the prefill shape; 5a); the selective-scan kernel likewise (s 1,
    37, 63, 64, 65, 256 and 2,048 around its 32-step chunks, n 16, 4 and
    13, di 1000 and 999, a carried-in state left unchanged, runs split at
@@ -57,7 +62,7 @@ RWKV-6 WKV recurrence, chunked and per step), then:
    tokens and 32 new tokens each, through Jamba-1.5-Large cut to 8
    layers at d_model 8,192 (5d), and through rwkv6-7b at all 32 layers
    and every width, its memory freed first (5g); after each, a
-   ``torch.profiler`` pass over one more prefill and 8 decode steps says
+   ``torch.profiler`` pass over one more prefill and 4 decode steps says
    where their time goes (device busy share, top kernels);
 6. the wind tunnel (``repro_torch.core.experiment``): the paper's loop of
    examples/quickstart.py, an experiment over the blocking-write
@@ -113,14 +118,35 @@ RWKV-6 WKV recurrence, chunked and per step), then:
    weight-read floor; the flash kernel against its plain version at
    their prefill shapes. ``python3 chip_smoke.py --phase 9`` runs the
    build and phase 9 alone;
-10. prints one JSON line of per-kernel numbers (eight kernels: launches
-   on the main paths of phases 3-5, of 6b, of 7, of 8 and of 9, error
-   against the plain version, kernel / plain / bound / library times; no
+10. the flash kernel at every head dim of the configs, MLA, whisper and
+   qwen2-vl: both flash kernels against their plain version at (dqk, dv)
+   (80, 80), (256, 256), (96, 64) and (24, 16), sq and sk 63-300 around
+   the 128-row q tile and d = 256's 64-key tile, GQA g 1 and 7, causal or
+   not, and once at eight more pairs of the rule (10a); smoke minicpm3
+   through ``ServeEngine``, smoke qwen2-vl with 4 patch embeddings and
+   [3, b, s] positions and smoke whisper with frames through
+   ``model.prefill`` / ``decode_step``, card against CPU in float32
+   (10b); then, from a card that holds no earlier engine, stablelm-3b
+   (10c), gemma-7b (10d), minicpm3-4b (10e) and qwen2-vl-7b (10f, plus
+   one prefill with its 256 stub patches) whole through
+   ``ServeEngine`` as in 9c, the flash kernel's launches held to 2 a
+   layer; whisper-small whole through ``model.prefill`` /
+   ``decode_step`` (10g: 4 rows of 1,500 frames, prompts of 64-224
+   tokens, 32 decode steps, 36 flash launches in its prefill; its first
+   row's logits held to the port's CPU run); the flash kernel against
+   its plain version at each one's prefill shape.
+   ``python3 chip_smoke.py --phase 10`` runs the build and phase 10
+   alone;
+11. prints one JSON line of per-kernel numbers (eight kernels: launches
+   on the main paths of phases 3-5, of 6b, of 7, of 8, of 9 and of 10,
+   error against the plain version, kernel / plain / bound / library
+   times; no
    kernel may read faster than its bound; the decode launches of
    ``ssm_scan`` and ``rwkv6_scan`` also with their device time, 100
    launches captured in a CUDA graph and replayed, where the wrapper time
    is mostly host work; the policy rows with their kernel's own device
-   time from ``torch.profiler``; the flash row with phase 9's shapes),
+   time from ``torch.profiler``; the flash row with phase 9's and 10's
+   shapes),
    then the card and ``{"ok": true, ...}`` as its last line.
 
 Any failed check raises, and the script exits non-zero. It needs a CUDA
@@ -834,12 +860,77 @@ def check_flash_random_blocks(dev):
     check(fk.launches == {"flash_attention": n_cases - n_f32,
                           "flash_attention_f32": n_f32}, fk.launches)
     print(f"phase 5a: flash kernels vs plain on {n_cases} random blocks "
-          f"(causal or not, g 1/4/8, d 64/128, sq and sk 64-300 around "
+          f"(causal or not, g 1/4/8, d 64/128 (phase 10a takes the other "
+          f"head dims), sq and sk 64-300 around "
           f"the 128-row tile, and the prefill shape in bf16): max abs "
           f"error float32 {worst[torch.float32]:.3g} (tol "
           f"{MODEL_TOL[torch.float32]:g}), bf16 "
           f"{worst[torch.bfloat16]:.3g} (tol {MODEL_TOL[torch.bfloat16]:g});"
           f" launches {fk.launches}")
+
+
+#: phase 10a's (dqk, dv) pairs: stablelm-3b's 80, gemma-7b's 256,
+#: minicpm3-4b's MLA prefill (64 + 32 / 64) and its smoke config's
+#: (16 + 8 / 16); then one block each at other pairs of the rule, so
+#: every instantiation runs (storage dims 16-256, both key tiles)
+FLASH_DIM_PAIRS = ((80, 80), (256, 256), (96, 64), (24, 16))
+FLASH_RULE_PAIRS = ((8, 8), (192, 192), (256, 64), (64, 256), (136, 200),
+                    (40, 152), (128, 32), (16, 128))
+#: sq and sk around the 128-row q tile and d = 256's 64-key tile
+FLASH_DIM_SEQS = ((63, 63), (64, 64), (65, 65), (127, 127), (129, 129),
+                  (300, 300), (63, 129), (64, 300), (65, 63), (127, 64),
+                  (129, 65), (300, 127))
+
+
+def check_flash_dims_random_blocks(dev):
+    """Phase 10a: both flash kernels against ref.flash_attention at the
+    head dims phase 10's configs use (dqk != dv for MLA), causal or not,
+    GQA g 1 and 7, sq and sk around the 128-row q tile and the 64-key
+    tile of d = 256; then one block at each further pair of the rule.
+    Holds the launch counts. Returns the cases run."""
+    from repro_torch.kernels import flash_attention as fk, ref
+    g = torch.Generator(device=dev).manual_seed(SEED + 10)
+    cases = [(1, sq, sk, h, kh, dq, dv, causal, dtype)
+             for dq, dv in FLASH_DIM_PAIRS for sq, sk in FLASH_DIM_SEQS
+             for h, kh in ((4, 4), (14, 2)) for causal in (True, False)
+             for dtype in (torch.float32, torch.bfloat16)]
+    cases += [(2, 129, 200, 14, 2, dq, dv, causal, dtype)
+              for dq, dv in FLASH_RULE_PAIRS for causal in (True, False)
+              for dtype in (torch.float32, torch.bfloat16)]
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    fk.reset_launches()
+    for b, sq, sk, h, kh, dq, dv, causal, dtype in cases:
+        q = torch.randn(b, sq, h, dq, generator=g, device=dev).to(dtype)
+        k = torch.randn(b, sk, kh, dq, generator=g, device=dev).to(dtype)
+        v = torch.randn(b, sk, kh, dv, generator=g, device=dev).to(dtype)
+        got = fk.flash_attention(q, k, v, causal=causal)
+        want = ref.flash_attention(q, k, v, causal=causal)
+        check(got.dtype == dtype and got.shape == (b, sq, h, dv),
+              (got.dtype, got.shape))
+        err = close_or_raise(
+            f"flash {(b, sq, sk, h, kh)} (dqk, dv) {(dq, dv)} "
+            f"causal={causal} {dtype}", got, want, MODEL_TOL[dtype])
+        worst[dtype] = max(worst[dtype], err)
+    torch.cuda.synchronize()
+    n_f32 = sum(1 for c in cases if c[-1] == torch.float32)
+    check(fk.launches == {"flash_attention": len(cases) - n_f32,
+                          "flash_attention_f32": n_f32}, fk.launches)
+    for dq, dv in ((20, 20), (264, 264), (64, 12)):
+        try:
+            fk.check_head_dims(dq, dv)
+        except NotImplementedError:
+            continue
+        raise AssertionError(f"head dims {(dq, dv)} were not refused")
+    print(f"phase 10a: flash kernels vs plain on {len(cases)} random "
+          f"blocks ((dqk, dv) {', '.join(map(str, FLASH_DIM_PAIRS))} at "
+          f"sq/sk 63-300, g 1 and 7, causal or not; then "
+          f"{', '.join(map(str, FLASH_RULE_PAIRS))}): max abs error "
+          f"float32 {worst[torch.float32]:.3g} (tol "
+          f"{MODEL_TOL[torch.float32]:g}), bf16 "
+          f"{worst[torch.bfloat16]:.3g} (tol {MODEL_TOL[torch.bfloat16]:g});"
+          f" launches {fk.launches}; head dims 20, 264 and a v of 12 "
+          f"refused ({fk.HEAD_DIM_RULE})")
+    return len(cases)
 
 
 def ssm_inputs(b, s, di, n, dtype, dev, g, state=True):
@@ -1049,22 +1140,34 @@ def decode_floor_bytes(eng, new_tokens=32):
     every parameter the step multiplies or reads, as the engine holds it
     (every expert's, since the dispatch multiplies each expert's
     capacity slots, filled or not; the embedding table only where it is
-    tied, as the unembedding), and the K/V cache up to the rows' length
-    (the padded prompt and half the new tokens)."""
+    tied, as the unembedding; not the encoder's, which runs at prefill
+    only), the attention cache up to the rows' length (the padded prompt
+    and half the new tokens): K and V per kv head, or MLA's latent and
+    rope key ((kv_lora_rank + rope) values a token a layer); and an
+    encoder-decoder's cross-attention K/V, ``encoder_seq`` long, whole.
+    ``eng``: a ``ServeEngine`` or anything with its ``cfg``, ``params``,
+    ``slots`` and ``_prefill_len``."""
     from repro_torch.models import model as M
     cfg = eng.cfg
     weights = sum(w.numel() * w.element_size()
                   for name, w in eng.params.items()
-                  if name != "embed.table" or cfg.tie_embeddings)
+                  if (name != "embed.table" or cfg.tie_embeddings)
+                  and not name.startswith(("encoder.", "encoder_norm.")))
     kv = 0
     if "attn" in cfg.block_pattern:
         a = cfg.attention
-        per_token = 2 * a.num_kv_heads * a.head_dim * torch.finfo(
-            M.compute_dtype(cfg)).bits // 8
+        elem = torch.finfo(M.compute_dtype(cfg)).bits // 8
+        if a.kind == "mla":
+            per_token = (a.kv_lora_rank + a.qk_rope_head_dim) * elem
+        else:
+            per_token = 2 * a.num_kv_heads * a.head_dim * elem
         layers = cfg.num_layers * cfg.block_pattern.count("attn") // len(
             cfg.block_pattern)
         kv = (eng.slots * (eng._prefill_len + new_tokens // 2) * layers
               * per_token)
+        if cfg.encdec:
+            kv += (eng.slots * cfg.encoder_seq * layers
+                   * 2 * a.num_kv_heads * a.head_dim * elem)
     return weights, kv
 
 
@@ -1082,7 +1185,7 @@ def serve_at_width(dev, phase, cfg, label, expect):
     from repro_torch.serve.engine import Request, ServeEngine
     torch.cuda.empty_cache()            # what an earlier phase held
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
+    t_phase = t0 = time.perf_counter()
     params = M.init_params(cfg, seed=SEED, device=dev, compute=True)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
@@ -1164,17 +1267,26 @@ def serve_at_width(dev, phase, cfg, label, expect):
     print(json.dumps({"serve": out}))
     out["profile"] = profile_serving(eng, prompts[:4], dev, phase)
     eng._prefill, eng._decode = eng._prefill.step, eng._decode.step
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase {phase}: {out['phase_s']:.1f} s in all")
     return launches, eng, out
 
 
+#: decode steps ``profile_serving`` traces: the profiler's parse of its
+#: events takes seconds a step at ~10,000 operations a step, so every
+#: serving phase traces 4 and reports per-step means
+PROFILE_DECODE_STEPS = 4
+
+
 def profile_serving(eng, prompts, dev, phase):
-    """Where a group's time goes: one prefill and ``steps`` greedy decode
-    steps of the engine's own step functions, as ``process_group`` runs
-    them, under ``torch.profiler``: wall and summed device (kernel) time,
-    the device's busy share, the kernels that take most of it, and the
-    PyTorch operations the host dispatched (top-level ``aten::`` calls,
-    the greedy pick included). Runs after the main path's counts were
-    read."""
+    """Where a group's time goes: one prefill and ``PROFILE_DECODE_STEPS``
+    greedy decode steps of the engine's own step functions, as
+    ``process_group`` runs them, under ``torch.profiler``: wall and summed
+    device (kernel) time, the device's busy share, the kernels that take
+    most of it, and the PyTorch operations the host dispatched (top-level
+    ``aten::`` calls, the greedy pick included), each a step; and the
+    seconds the pass took with the profiler's tables (``cost_s``). Runs
+    after the main path's counts were read."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import model as M
@@ -1182,8 +1294,9 @@ def profile_serving(eng, prompts, dev, phase):
     for i, p in enumerate(prompts):
         toks[i, :len(p)] = p[-eng._prefill_len:]
     cache = M.init_cache(eng.cfg, eng.slots, eng.max_len, device=dev)
-    steps = 8
+    steps = PROFILE_DECODE_STEPS
     out = {}
+    t_all = time.perf_counter()
     for what in ("prefill", "decode"):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -1229,6 +1342,9 @@ def profile_serving(eng, prompts, dev, phase):
               f"wall {wall_us / n / 1e3:.2f} ms, device {dev_us / n / 1e3:.2f}"
               f" ms, busy {dev_us / wall_us:.1%}, {host_ops / n:.0f} "
               f"PyTorch operations dispatched")
+    out["cost_s"] = time.perf_counter() - t_all
+    print(f"profile {phase}: {out['cost_s']:.1f} s with the profiler's "
+          f"tables")
     print(json.dumps({"profile": dict(out, phase=phase)}))
     return out
 
@@ -2145,10 +2261,18 @@ def search_on_card(dev, whatif, tr, twin_mod, slo_mod, faults):
 
 
 #: the flash kernel's prefill shapes on the serving paths, (b, s, h, kh,
-#: d): Jamba-1.5 (5d), llama3.2-1b (9c), moonshot-v1-16b-a3b (9d) and
-#: phi3.5-moe (9e)
-FLASH_SHAPES = {"5d": (4, 2048, 64, 8, 128), "9c": (4, 2048, 32, 8, 64),
-                "9d": (4, 2048, 16, 16, 128), "9e": (4, 2048, 32, 8, 128)}
+#: dqk, dv, causal): Jamba-1.5 (5d), llama3.2-1b (9c), moonshot-v1-16b-a3b
+#: (9d), phi3.5-moe (9e), stablelm-3b (10c), gemma-7b (10d), minicpm3-4b's
+#: MLA (10e), qwen2-vl-7b (10f) and whisper-small's encoder (10g)
+FLASH_SHAPES = {"5d": (4, 2048, 64, 8, 128, 128, True),
+                "9c": (4, 2048, 32, 8, 64, 64, True),
+                "9d": (4, 2048, 16, 16, 128, 128, True),
+                "9e": (4, 2048, 32, 8, 128, 128, True),
+                "10c": (4, 2048, 32, 32, 80, 80, True),
+                "10d": (4, 2048, 16, 16, 256, 256, True),
+                "10e": (4, 2048, 40, 40, 96, 64, True),
+                "10f": (4, 2048, 28, 4, 128, 128, True),
+                "10g": (4, 1500, 12, 12, 64, 64, False)}
 
 
 def serve_rope_moe(dev, get_config, get_smoke_config):
@@ -2214,19 +2338,358 @@ def serve_rope_moe(dev, get_config, get_smoke_config):
     return launches, flash
 
 
+STABLELM = "stablelm-3b"
+GEMMA = "gemma-7b"
+MINICPM = "minicpm3-4b"
+QWEN_VL = "qwen2-vl-7b"
+WHISPER = "whisper-small"
+#: whisper-small at width (10g): 4 rows of frames, prompts of 64-224
+#: tokens right-padded to 224 inside its 448-token decoder context, 32
+#: greedy decode steps
+WHISPER_ROWS, WHISPER_PREFILL, WHISPER_MAX_LEN, WHISPER_STEPS = 4, 224, 448, 32
+WHISPER_MIN_PROMPT = 64
+#: whisper-small at width, card against the port's CPU run, bf16 logits
+#: (atol = rtol): the frameworks round bf16 products and sums at other
+#: places through 24 layers (ROADMAP C9's bound)
+WHISPER_CPU_TOL = 0.15
+
+
+def frontend_inputs(cfg, b, s_text, rng, n_patch=4):
+    """numpy stubs of the frontends for a batch of ``b`` rows: qwen2-vl's
+    ``n_patch`` patch embeddings before ``s_text`` tokens with M-RoPE
+    positions [3, b, s] (patches at time 0 on a 2-D grid, text after, all
+    three rows equal), whisper's ``encoder_seq`` frames; {} otherwise."""
+    out = {}
+    if cfg.frontend == "vision":
+        out["embeds"] = rng.standard_normal(
+            (b, n_patch, cfg.d_model)).astype(np.float32)
+        side = max(1, int(np.sqrt(n_patch)))
+        i = np.arange(n_patch)
+        text = side + np.arange(s_text)
+        rows = [np.concatenate([np.zeros(n_patch), text]),
+                np.concatenate([i // side, text]),
+                np.concatenate([i % side, text])]
+        out["positions"] = np.broadcast_to(
+            np.stack(rows)[:, None], (3, b, n_patch + s_text)).astype(
+                np.int32).copy()
+    if cfg.encdec:
+        out["frames"] = rng.standard_normal(
+            (b, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    return out
+
+
+def check_smoke_model(dev, phase, cfg, label):
+    """Phase 10b: a smoke config with its frontend's inputs through
+    ``model.prefill`` and 6 greedy ``decode_step``s on the card and on
+    the port's CPU, from one seeded parameter set: equal tokens, logits
+    within SLICE_TOL."""
+    from repro_torch.models import model as M
+    params = M.init_params(cfg, seed=SEED, device="cpu")
+    rng = np.random.default_rng(SEED)
+    b, s_text = 4, 24
+    batch = {"tokens": rng.integers(1, cfg.vocab_size,
+                                    (b, s_text)).astype(np.int32)}
+    batch.update(frontend_inputs(cfg, b, s_text, rng))
+    runs = {}
+    for where in ("cpu", dev):
+        p = {k: v.to(where) for k, v in params.items()}
+        logits_all, toks = [], []
+        with torch.inference_mode():
+            cache = M.init_cache(cfg, b, 64, device=where)
+            logits, cache = M.prefill(
+                p, cfg, {k: torch.from_numpy(v).to(where)
+                         for k, v in batch.items()}, cache)
+            for step in range(7):
+                logits_all.append(logits.float().cpu())
+                toks.append(logits[:, -1].argmax(-1).to(torch.int32))
+                if step < 6:
+                    logits, cache = M.decode_step(
+                        p, cfg, cache, {"token": toks[-1][:, None]})
+        runs[str(where)] = ([t.cpu().tolist() for t in toks], logits_all)
+    (tok_c, lg_c), (tok_g, lg_g) = runs["cpu"], runs[str(dev)]
+    check(tok_c == tok_g, f"greedy tokens differ: CPU {tok_c}, card {tok_g}")
+    err = max(close_or_raise(f"{cfg.name} logits step {i}", a, b_, SLICE_TOL)
+              for i, (a, b_) in enumerate(zip(lg_g, lg_c)))
+    print(f"phase {phase}: {label} on the card: greedy tokens equal to the "
+          f"CPU run's, logits max abs error {err:.3g} (tol {SLICE_TOL:g})")
+
+
+class FramesServe:
+    """whisper's serving at width: ``model.prefill`` with the group's
+    frames and ``decode_step``, shaped as a ``ServeEngine`` is where
+    ``profile_serving`` and ``decode_floor_bytes`` read one (the engine
+    takes tokens only, as the reference's does)."""
+
+    def __init__(self, cfg, params, frames, slots, max_len, prefill_len):
+        from repro_torch.serve.steps import make_decode_step, \
+            make_prefill_step
+        self.cfg, self.params, self.frames = cfg, params, frames
+        self.slots, self.max_len = slots, max_len
+        self._prefill_len = prefill_len
+        step = make_prefill_step(cfg)
+        self._prefill = lambda p, batch, cache: step(
+            p, dict(batch, frames=self.frames), cache)
+        self._decode = make_decode_step(cfg)
+
+
+def whisper_at_width(dev, cfg, expect):
+    """Phase 10g: whisper-small whole (12 encoder and 12 decoder layers
+    at every published width) through ``model.prefill`` /
+    ``decode_step``: 4 rows of 1,500 frames and prompts of 64-224 tokens
+    right-padded to 224 (the first token from the last padded position,
+    as the engine takes it), then 32 greedy decode steps. Holds the model
+    kernels' launches to ``expect`` (the flash kernel 12 times for the
+    encoder, 12 for the decoder's self- and 12 for its cross-attention,
+    in the one prefill). Holds the first row's logits over the prefill
+    and 3 decode steps to the port's CPU run of the same parameters,
+    frames and tokens (the plain versions, bf16 on both; C9's bound)."""
+    from repro_torch.kernels import policy_scan as pk
+    from repro_torch.models import model as M
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, seed=SEED, device=dev, compute=True)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    load_peak = torch.cuda.max_memory_allocated()
+    rng = np.random.default_rng(SEED)
+    lens = rng.integers(WHISPER_MIN_PROMPT, WHISPER_PREFILL + 1,
+                        WHISPER_ROWS)
+    toks = np.zeros((WHISPER_ROWS, WHISPER_PREFILL), np.int32)
+    for i, n in enumerate(lens):
+        toks[i, :n] = rng.integers(0, cfg.vocab_size, n)
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    frames = torch.randn(WHISPER_ROWS, cfg.encoder_seq, cfg.d_model,
+                         generator=g, device=dev).to(M.compute_dtype(cfg))
+    srv = FramesServe(cfg, params, frames, WHISPER_ROWS, WHISPER_MAX_LEN,
+                      WHISPER_PREFILL)
+    held = torch.cuda.memory_allocated()
+    print(f"phase 10g: {cfg.name} at all {cfg.encoder_layers} encoder and "
+          f"{cfg.num_layers} decoder layers: {M.param_count(cfg):,} "
+          f"parameters drawn in {init_s:.1f} s (peak "
+          f"{load_peak / 2**30:.2f} GiB at load), held as "
+          f"{held / 2**30:.2f} GiB with 4 rows of {cfg.encoder_seq} frames")
+    tok_t = torch.from_numpy(toks).to(dev)
+
+    def run(steps, keep=0):
+        """prefill and ``steps`` greedy decode steps; the first row's
+        logits of the first ``keep`` outputs"""
+        cache = M.init_cache(cfg, WHISPER_ROWS, WHISPER_MAX_LEN, device=dev)
+        t0 = time.perf_counter()
+        logits, cache = srv._prefill(params, {"tokens": tok_t}, cache)
+        out = [logits[:, -1].argmax(-1).to(torch.int32)]
+        torch.cuda.synchronize()
+        ttft = time.perf_counter() - t0
+        dec, kept = [], []
+        if keep:
+            kept.append(logits[:1, -1].float().cpu())
+        for _ in range(steps):
+            t1 = time.perf_counter()
+            logits, cache = srv._decode(params, cache,
+                                        {"token": out[-1][:, None]})
+            check(bool(torch.isfinite(logits).all()), "non-finite logits")
+            out.append(logits[:, -1].argmax(-1).to(torch.int32))
+            torch.cuda.synchronize()
+            dec.append(time.perf_counter() - t1)
+            if len(kept) < keep:
+                kept.append(logits[:1, -1].float().cpu())
+        return ttft, dec, torch.stack(out, 1).cpu(), cache, kept
+
+    run(2)                                          # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mods = model_kernels()
+    for mod in (pk,) + mods:
+        mod.reset_launches()
+    t0 = time.perf_counter()
+    ttft, dec, tokens, cache, kept = run(WHISPER_STEPS, keep=4)
+    wall = time.perf_counter() - t0
+    launches = {k: v for mod in mods for k, v in mod.launches.items()}
+    check(sum(pk.launches.values()) == 0, pk.launches)
+    peak = torch.cuda.max_memory_allocated()
+    check(launches == expect, (launches, expect))
+    check(tokens.shape == (WHISPER_ROWS, WHISPER_STEPS + 1)
+          and int(tokens.min()) >= 0
+          and int(tokens.max()) < cfg.vocab_size, tokens.shape)
+    check(cache["length"].tolist() == [WHISPER_PREFILL + WHISPER_STEPS]
+          * WHISPER_ROWS, cache["length"])
+    # the port's CPU run (the plain versions) of the first row, fed the
+    # card's tokens: its logits over the prefill and 3 decode steps
+    cpu = {k: v.cpu() for k, v in params.items()}
+    with torch.inference_mode():
+        ccache = M.init_cache(cfg, 1, WHISPER_MAX_LEN, device="cpu")
+        logits, ccache = M.prefill(cpu, cfg, {"tokens": tok_t[:1].cpu(),
+                                              "frames": frames[:1].cpu()},
+                                   ccache)
+        clog = [logits[:, -1].float()]
+        for i in range(3):
+            logits, ccache = M.decode_step(cpu, cfg, ccache,
+                                           {"token": tokens[:1, i:i + 1]})
+            clog.append(logits[:, -1].float())
+    del cpu, ccache
+    cpu_err = max(close_or_raise(f"whisper row 0 logits, output {i}", a, b,
+                                 WHISPER_CPU_TOL)
+                  for i, (a, b) in enumerate(zip(kept, clog)))
+    agree = float(np.mean([int(a.argmax()) == int(b.argmax())
+                           for a, b in zip(kept, clog)]))
+    dec_ms = 1e3 * np.array(dec)
+    w_bytes, kv_bytes = decode_floor_bytes(srv, new_tokens=WHISPER_STEPS)
+    floor_ms = 1e3 * (w_bytes + kv_bytes) / HBM_BYTES_PER_S
+    new_tokens = WHISPER_ROWS * (WHISPER_STEPS + 1)
+    print(f"phase 10g: prompts {int(lens.min())}-{int(lens.max())} tokens "
+          f"padded to {WHISPER_PREFILL}, {WHISPER_STEPS} decode steps: "
+          f"TTFT (encoder and decoder prefill) {ttft * 1e3:.1f} ms; decode "
+          f"{dec_ms.mean():.2f} ms a step (floor {floor_ms:.3f} ms: "
+          f"{w_bytes / 1e9:.3f} GB of decoder weights and "
+          f"{kv_bytes / 1e9:.3f} GB of self and cross K/V); "
+          f"{new_tokens / wall:.1f} tokens/s; peak "
+          f"{peak / 2**30:.2f} GiB; row 0 against the port's CPU run: "
+          f"logits max abs error {cpu_err:.3g} (tol {WHISPER_CPU_TOL:g}), "
+          f"greedy tokens equal on {agree:.0%} of 4 outputs; launches "
+          f"{launches}")
+    out = {
+        "phase": "10g", "model": cfg.name, "layers": cfg.num_layers,
+        "encoder_layers": cfg.encoder_layers,
+        "params": M.param_count(cfg), "rows": WHISPER_ROWS,
+        "prefill_len": WHISPER_PREFILL, "max_len": WHISPER_MAX_LEN,
+        "decode_steps": WHISPER_STEPS, "wall_ms": wall * 1e3,
+        "ttft_ms": ttft * 1e3, "decode_step_ms": float(dec_ms.mean()),
+        "decode_floor_ms": floor_ms, "tokens_per_s": new_tokens / wall,
+        "init_s": init_s, "load_peak_gib": load_peak / 2**30,
+        "peak_gib": peak / 2**30, "held_gib": held / 2**30,
+        "cpu_logits_err": cpu_err, "cpu_token_agreement": agree,
+        "launches": launches}
+    print(json.dumps({"serve": out}))
+    out["profile"] = profile_serving(
+        srv, [toks[i, :n].tolist() for i, n in enumerate(lens)], dev, "10g")
+    return launches, out
+
+
+def qwen_patches_prefill(dev, eng):
+    """Phase 10f's second call: one ``model.prefill`` of qwen2-vl-7b
+    with ``N_PATCHES`` (256) stub patch embeddings before 1,792 tokens
+    and M-RoPE positions [3, 4, 2,048], on the engine's parameters:
+    finite last-position logits, 28 flash launches, its wall."""
+    from repro_torch.configs.qwen2_vl_7b import N_PATCHES
+    from repro_torch.models import model as M
+    fk, _, _ = model_kernels()
+    cfg, b, s = eng.cfg, eng.slots, eng._prefill_len
+    rng = np.random.default_rng(SEED + 4)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size,
+                                    (b, s - N_PATCHES)).astype(np.int32)}
+    batch.update(frontend_inputs(cfg, b, s - N_PATCHES, rng, N_PATCHES))
+    tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    tb["embeds"] = tb["embeds"].to(M.compute_dtype(cfg))
+    cache = M.init_cache(cfg, b, eng.max_len, device=dev)
+    fk.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = eng._prefill(eng.params, tb, cache)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(logits.shape == (b, 1, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()), logits.shape)
+    check(fk.launches == {"flash_attention": cfg.num_layers,
+                          "flash_attention_f32": 0}, fk.launches)
+    check(cache["length"].tolist() == [s] * b, cache["length"])
+    print(f"phase 10f: model.prefill with {N_PATCHES} stub patches before "
+          f"{s - N_PATCHES} tokens a row (M-RoPE positions [3, {b}, {s}]): "
+          f"{wall * 1e3:.1f} ms, finite logits, {fk.launches}")
+    return {"patches": N_PATCHES, "tokens": s - N_PATCHES,
+            "wall_ms": wall * 1e3}
+
+
+def serve_mla_encdec(dev, get_config, get_smoke_config):
+    """Phase 10, the flash kernel at every head dim of the configs, MLA,
+    whisper's encoder-decoder and qwen2-vl's frontend: 10a the kernels
+    at the new head dims; 10b smoke minicpm3 (through ``ServeEngine``),
+    qwen2-vl (4 patch embeddings, [3, b, s] positions) and whisper
+    (frames), card against CPU in float32; then, each from a card that
+    holds no earlier engine, stablelm-3b (10c), gemma-7b (10d),
+    minicpm3-4b (10e) and qwen2-vl-7b (10f, and one prefill with its 256
+    stub patches) whole through ``serve_at_width`` (flash launches 2 a
+    layer), and whisper-small whole through ``model.prefill`` /
+    ``decode_step`` (10g); the flash kernel against its plain version at
+    each one's prefill shape. Returns the model kernels' launches summed
+    over 10c-10g, the flash rows and the serving rows."""
+    t0 = time.perf_counter()
+    check_flash_dims_random_blocks(dev)
+    check_smoke_slice(dev, "10b", dataclasses.replace(
+        get_smoke_config(MINICPM), dtype="float32"),
+        "minicpm3 smoke (MLA, float32)")
+    for arch, label in ((QWEN_VL, "qwen2-vl smoke (4 patch embeddings, "
+                         "M-RoPE positions [3, b, s], float32)"),
+                        (WHISPER, "whisper smoke (16 frames through the "
+                         "encoder, float32)")):
+        check_smoke_model(dev, "10b", dataclasses.replace(
+            get_smoke_config(arch), dtype="float32"), label)
+    launches, runs = {}, {}
+    zero = {"flash_attention_f32": 0, "ssm_scan": 0, "rwkv6_chunked": 0,
+            "rwkv6_scan": 0}
+    for phase, arch, label in (
+            ("10c", STABLELM, "at all 32 layers"),
+            ("10d", GEMMA, "at all 28 layers"),
+            ("10e", MINICPM, "at all 62 layers"),
+            ("10f", QWEN_VL, "at all 28 layers (text through the engine)")):
+        cfg = get_config(arch)
+        expect = dict(zero, flash_attention=2 * cfg.num_layers)
+        got, eng, runs[phase] = serve_at_width(dev, phase, cfg, label,
+                                               expect)
+        if phase == "10f":
+            runs[phase]["patch_prefill"] = qwen_patches_prefill(dev, eng)
+        del eng
+        torch.cuda.empty_cache()
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+    wcfg = get_config(WHISPER)
+    got, runs["10g"] = whisper_at_width(dev, wcfg, dict(
+        zero, flash_attention=wcfg.encoder_layers + 2 * wcfg.num_layers))
+    torch.cuda.empty_cache()
+    for k, v in got.items():
+        launches[k] = launches.get(k, 0) + v
+    flash = {phase: flash_vs_plain(dev, phase)
+             for phase in ("10c", "10d", "10e", "10f", "10g")}
+    wall = time.perf_counter() - t0
+    print(f"phase 10: {wall:.1f} s; "
+          + "; ".join(f"{p} {r['model']} ({r['layers']} layers): TTFT "
+                      f"{r.get('ttft_ms_p50', r.get('ttft_ms')):.1f} ms, "
+                      f"decode {r['decode_step_ms']:.2f} ms a step (floor "
+                      f"{r['decode_floor_ms']:.2f}), "
+                      f"{r['tokens_per_s']:.1f} tokens/s"
+                      for p, r in runs.items()))
+    return launches, flash, runs
+
+
+def flash_bound(b, sq, sk, h, kh, dq, dv, causal):
+    """(bound_ms, bound_by) of one flash call: 2 b h sq sk (dqk + dv)
+    operations (S = QK^T and PV), half of them when causal, at the bf16
+    tensor-core peak; q, k, v and the output once each in bf16 at HBM's
+    rate."""
+    flops = 2 * b * h * sq * sk * (dq + dv) / (2 if causal else 1)
+    nbytes = 2 * (b * sq * h * dq + b * sk * kh * (dq + dv)
+                  + b * sq * h * dv)
+    t_ops, t_bytes = flops / BF16_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes", flops)
+
+
 def flash_vs_plain(dev, phase="5d"):
     """The flash kernel at a serving path's prefill shape
-    (``FLASH_SHAPES[phase]``, bf16, causal) against its plain version,
-    with SDPA's time for the table."""
+    (``FLASH_SHAPES[phase]``, bf16) against its plain version, with
+    SDPA's time for the table (null where SDPA refuses the shape)."""
     from repro_torch.kernels import flash_attention as fk, ref
-    b, s, h, kh, d = FLASH_SHAPES[phase]
+    b, s, h, kh, dq, dv, causal = FLASH_SHAPES[phase]
     g = torch.Generator(device=dev).manual_seed(SEED + 2)
-    q = torch.randn(b, s, h, d, generator=g, device=dev).bfloat16()
-    k = torch.randn(b, s, kh, d, generator=g, device=dev).bfloat16()
-    v = torch.randn(b, s, kh, d, generator=g, device=dev).bfloat16()
-    fk.flash_attention(q, k, v)                                 # warm-up
-    ms, got = cuda_ms(lambda: fk.flash_attention(q, k, v), reps=10)
-    plain_ms, want = cuda_ms(lambda: ref.flash_attention(q, k, v))
+    q = torch.randn(b, s, h, dq, generator=g, device=dev).bfloat16()
+    k = torch.randn(b, s, kh, dq, generator=g, device=dev).bfloat16()
+    v = torch.randn(b, s, kh, dv, generator=g, device=dev).bfloat16()
+
+    def kernel():
+        return fk.flash_attention(q, k, v, causal=causal)
+    kernel()                                                    # warm-up
+    ms, got = cuda_ms(kernel, reps=10)
+    plain_ms, want = cuda_ms(
+        lambda: ref.flash_attention(q, k, v, causal=causal))
     err = close_or_raise(f"flash at {phase}'s shape", got, want,
                          MODEL_TOL[torch.bfloat16])
     del want
@@ -2234,23 +2697,28 @@ def flash_vs_plain(dev, phase="5d"):
     def library():
         return torch.nn.functional.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            is_causal=True, enable_gqa=True)
-    library()
-    library_ms, _ = cuda_ms(library, reps=10)
-    flops = 4 * b * h * s * s * d / 2                  # causal: half
-    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
-    t_ops, t_bytes = flops / BF16_OPS_PER_S, nbytes / HBM_BYTES_PER_S
-    bound_ms = 1e3 * max(t_ops, t_bytes)
-    bound_by = "operations" if t_ops >= t_bytes else "bytes"
-    print(f"flash_attention ({phase}) at q {list(q.shape)}, k/v "
-          f"{list(k.shape)} bf16 causal: kernel "
-          f"{ms:.3f} ms, plain {plain_ms:.1f} ms, SDPA {library_ms:.3f} ms "
-          f"(kernel / SDPA {ms / library_ms:.2f}), bound {bound_ms:.4f} ms "
-          f"({bound_by}; the kernel at {bound_ms / ms:.1%} of it, "
-          f"{flops / ms / 1e9:.0f} TFLOP/s); max abs error {err:.3g}")
+            is_causal=causal, enable_gqa=True)
+    try:
+        library()
+        library_ms, _ = cuda_ms(library, reps=10)
+    except RuntimeError as e:               # no SDPA backend takes it
+        print(f"flash_attention ({phase}): SDPA refused the shape: "
+              f"{str(e).splitlines()[0][:200]}")
+        library_ms = None
+    bound_ms, bound_by, flops = flash_bound(b, s, s, h, kh, dq, dv, causal)
+    lib = ("not run" if library_ms is None else
+           f"{library_ms:.3f} ms (kernel / SDPA {ms / library_ms:.2f})")
+    print(f"flash_attention ({phase}) at q {list(q.shape)}, k "
+          f"{list(k.shape)}, v {list(v.shape)} bf16 "
+          f"{'causal' if causal else 'not causal'}: kernel "
+          f"{ms:.3f} ms, plain {plain_ms:.1f} ms, SDPA {lib}, bound "
+          f"{bound_ms:.4f} ms ({bound_by}; the kernel at "
+          f"{bound_ms / ms:.1%} of it, {flops / ms / 1e9:.0f} TFLOP/s); max "
+          f"abs error {err:.3g}")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+            "library_ms": library_ms, "shape": [b, s, h, kh, dq, dv],
+            "causal": causal}
 
 
 def ssm_bound(b, s, di, n, state_in):
@@ -2359,17 +2827,51 @@ def sass_functions(sass):
     return out
 
 
+def sass_flash(tool, build):
+    """Phase 1b's flash part: every bf16 instantiation
+    (``flash_wgmma_kernel<DQ, DV>`` over the q/k and v storage dims, 36
+    of them) holds wgmma (HGMMA) and TMA loads (UTMALDG); the ones of
+    d = 256 (a storage dim past 128, which takes the 64-key tile; dv's
+    256 holds 128 accumulator registers a thread) touch no local memory
+    (LDL / STL: no spills)."""
+    import re
+    sass = subprocess.run([tool, "-sass",
+                           str(build.library_path("flash_attention"))],
+                          capture_output=True, text=True, check=True).stdout
+    local = re.compile(r"\b(LDL|STL)\b")
+    found = {}
+    for fn, lines in sass_functions(sass).items():
+        m = re.search(r"flash_wgmma_kernelILi(\d+)ELi(\d+)E", fn)
+        if m is None:
+            continue
+        dq, dv = int(m.group(1)), int(m.group(2))
+        counts = [sum("HGMMA" in line for line in lines),
+                  sum("UTMALDG" in line for line in lines),
+                  sum(bool(local.search(line)) for line in lines)]
+        check(counts[0] and counts[1], (dq, dv, counts))
+        if max(dq, dv) > 128:
+            check(counts[2] == 0, ("local memory", dq, dv, counts))
+        found[(dq, dv)] = counts
+    check(len(found) == 36, sorted(found))
+    print("phase 1b: cuobjdump -sass flash_attention: bf16 kernels "
+          "<dqk storage, dv storage>: HGMMA / UTMALDG / LDL+STL "
+          "instructions " + ", ".join(
+              f"<{dq}, {dv}> {c[0]}/{c[1]}/{c[2]}"
+              for (dq, dv), c in sorted(found.items())))
+
+
 def sass_check(build):
     """Phase 1b: the built libraries' machine code holds the instructions
     the redesigned kernels are built on: wgmma (HGMMA) and TMA loads
-    (UTMALDG) in flash_attention, mma.sync (HMMA) and cp.async (LDGSTS)
+    (UTMALDG) in each bf16 flash kernel, and no local memory in those of
+    d = 256 (``sass_flash``), mma.sync (HMMA) and cp.async (LDGSTS)
     in rwkv6, the special-function unit's exp2 (MUFU.EX2) and cp.async in
     ssm_scan, and cp.async in both series kernels of policy_scan, which
     have no float32 division check (FCHK, the branch to the IEEE
     division's slow path): they divide through float64 reciprocals."""
     tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
-    for name, want in (("flash_attention", ("HGMMA", "UTMALDG")),
-                       ("rwkv6", ("HMMA", "LDGSTS")),
+    sass_flash(tool, build)
+    for name, want in (("rwkv6", ("HMMA", "LDGSTS")),
                        ("ssm_scan", ("MUFU.EX2", "LDGSTS")),
                        ("policy_scan", ("LDGSTS", "FCHK"))):
         sass = subprocess.run([tool, "-sass", str(build.library_path(name))],
@@ -2434,6 +2936,11 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    if sys.argv[1:] == ["--phase", "10"]:
+        # the MLA / encoder-decoder / vision slice alone (for iterating)
+        serve_mla_encdec(dev, get_config, get_smoke_config)
+        print(card)
+        return 0
     if sys.argv[1:] == ["--phase", "9"]:
         # the RoPE and MoE serving slice alone (for iterating on it)
         serve_rope_moe(dev, get_config, get_smoke_config)
@@ -2523,6 +3030,12 @@ def main():
     # phi3.5-moe cut, from a card that holds no earlier engine
     launches_9, flash_9 = serve_rope_moe(dev, get_config, get_smoke_config)
 
+    # the flash kernel at every head dim, MLA, whisper and qwen2-vl:
+    # stablelm-3b, gemma-7b, minicpm3-4b, qwen2-vl-7b and whisper-small
+    # whole, from a card that holds no earlier engine
+    launches_10, flash_10, _ = serve_mla_encdec(dev, get_config,
+                                                get_smoke_config)
+
     # each kernel against its plain version at the main path's widths
     rows = [
         ("policy_agg", "src/repro/kernels/policy_scan.py:190",
@@ -2550,8 +3063,8 @@ def main():
     ssm_row = dict(ssm_stats["prefill"],
                    decode_ms=ssm_stats["decode"]["ms"],
                    decode_device_ms=ssm_stats["decode"]["device_ms"])
-    # the flash row is 5d's shape; phase 9's shapes ride along
-    flash_row = dict(flash_vs_plain(dev), at_9=flash_9)
+    # the flash row is 5d's shape; phase 9's and 10's shapes ride along
+    flash_row = dict(flash_vs_plain(dev), at_9=flash_9, at_10=flash_10)
     rows += [("flash_attention", "flash_attention",
               "src/repro/kernels/flash_attention.py:23", flash_row),
              ("ssm_scan", "ssm_scan", "src/repro/kernels/ssm_scan.py:27",
@@ -2562,7 +3075,8 @@ def main():
               wkv_stats["decode"])]
     # no kernel runs faster than the least time the card could take
     for name, _, _, stats in rows:
-        for st in [stats] + list(stats.get("at_9", {}).values()):
+        for st in ([stats] + list(stats.get("at_9", {}).values())
+                   + list(stats.get("at_10", {}).values())):
             check(st["ms"] >= st["bound_ms"], (name, st))
     print(json.dumps({"kernels": [
         dict({"name": name, "route": "cuda",
@@ -2571,7 +3085,8 @@ def main():
               "launches_6b": launches_6b[name],
               "launches_7": launches_7.get(name, 0),
               "launches_8": launches_8.get(name, 0),
-              "launches_9": launches_9.get(name, 0)}, **stats)
+              "launches_9": launches_9.get(name, 0),
+              "launches_10": launches_10.get(name, 0)}, **stats)
         for name, src, replaces, stats in rows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,14 +1,24 @@
-"""Grouped-query self-attention (MHA and MQA are special cases).
+"""Attention blocks: GQA (MHA and MQA are special cases), MLA and
+cross-attention.
 
-Counterpart: the GQA half of ``repro.models.attention`` (``gqa_schema``,
-``_write_kv``, ``apply_gqa``, ``gqa_cache_schema``). Caches are dicts of
-tensors sized to the full serve context; prefill fills them from position
-0, decode writes the new K/V at per-sequence positions and masks by valid
+Counterpart: ``repro.models.attention``. Caches are dicts of tensors
+sized to the full serve context; prefill fills them from position 0,
+decode writes the new K/V at per-sequence positions and masks by valid
 length. Unlike the reference, which returns new arrays, the port writes
 into the cache tensors in place (the reference's engine donates them).
 q and k are rotated (``layers.apply_rope``) before the cache write, so
-the cache holds rotated keys. Not ported yet: MLA and cross-attention
-(whisper); ``transformer.check_supported`` refuses them.
+the cache holds rotated keys.
+
+MLA (minicpm3) caches the compressed latent (``ckv``, kv_lora_rank wide)
+and the one-head rotated ``k_rope``. Prefill expands them into per-head
+K (nope + rope) and V and runs the flash kernel with q/k and v head dims
+that differ; decode takes the absorbed form (scores over the latent in
+float32, ``-1e30`` past the valid length, probabilities cast to the
+compute dtype before the latent product), as the reference does.
+Cross-attention (whisper's decoder) takes K/V from the encoder's output
+at prefill, through the flash kernel without a causal mask, and keeps
+them whole in its cache (``encoder_seq`` long) for decode, which reads
+them through ``ref.sdpa``.
 """
 from __future__ import annotations
 
@@ -16,7 +26,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.config import ModelConfig
+from repro_torch.config import AttentionConfig, ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import ParamDef, Params, Schema, apply_rope
 
@@ -51,18 +61,55 @@ def _write_kv(cache_k, cache_v, k_new, v_new, pos):
     return cache_k, cache_v
 
 
+def _cross_kv(params: Params, name: str, q: torch.Tensor,
+              memory: Optional[torch.Tensor], cfg: ModelConfig,
+              cache: Optional[Cache]):
+    """Cross-attention's K/V: projected from ``memory`` (the encoder's
+    output) at prefill and written whole into the cache, read back from
+    it at decode."""
+    a = cfg.attention
+    dt = q.dtype
+    if memory is None:
+        if cache is None or not cache.get("decode", False):
+            raise ValueError(f"{name}: cross-attention needs the encoder's "
+                             f"output at prefill")
+        return cache["k"].to(dt), cache["v"].to(dt), cache
+    b = q.shape[0]
+    k = (memory @ params[f"{name}.wk"].to(dt)).reshape(
+        b, -1, a.num_kv_heads, a.head_dim)
+    v = (memory @ params[f"{name}.wv"].to(dt)).reshape(
+        b, -1, a.num_kv_heads, a.head_dim)
+    if cache is not None:
+        if cache["k"].shape != k.shape:
+            raise ValueError(f"{name}: the encoder's output gives K/V "
+                             f"{tuple(k.shape)}, the cache holds "
+                             f"{tuple(cache['k'].shape)} (encoder_seq "
+                             f"{cfg.encoder_seq})")
+        cache["k"].copy_(k)
+        cache["v"].copy_(v)
+    return k, v, cache
+
+
 def apply_gqa(params: Params, name: str, x: torch.Tensor,
               positions: torch.Tensor, cfg: ModelConfig,
-              cache: Optional[Cache] = None
+              cache: Optional[Cache] = None,
+              memory: Optional[torch.Tensor] = None,
+              is_cross: bool = False
               ) -> Tuple[torch.Tensor, Optional[Cache]]:
     """x [b, t, d]. Prefill: t is the whole prompt; a cache, if given, is
     filled from position 0. Decode (``cache["decode"]``): t new tokens
-    attend to the cache's first ``length + t`` entries."""
+    attend to the cache's first ``length + t`` entries. ``is_cross`` (or
+    a ``memory`` [b, s_enc, d]): cross-attention, K/V from the encoder's
+    output (``memory`` at prefill, the cache at decode), no mask."""
     a = cfg.attention
     b, t, _ = x.shape
     dt = x.dtype
     q = (x @ params[f"{name}.wq"].to(dt)).reshape(b, t, a.num_heads,
                                                  a.head_dim)
+    if is_cross or memory is not None:
+        k, v, cache = _cross_kv(params, name, q, memory, cfg, cache)
+        out = ops.sdpa(q, k, v, causal=False, logit_cap=a.logit_cap)
+        return out.reshape(b, t, -1) @ params[f"{name}.wo"].to(dt), cache
     k = (x @ params[f"{name}.wk"].to(dt)).reshape(b, t, a.num_kv_heads,
                                                  a.head_dim)
     v = (x @ params[f"{name}.wv"].to(dt)).reshape(b, t, a.num_kv_heads,
@@ -92,13 +139,144 @@ def apply_gqa(params: Params, name: str, x: torch.Tensor,
 
 
 def gqa_cache_schema(cfg: ModelConfig, name: str, batch: int,
+                     max_len: int, cross: bool = False) -> Schema:
+    """Self-attention's K/V cache (``max_len`` long), or with ``cross``
+    cross-attention's (``cfg.encoder_seq`` long)."""
+    a = cfg.attention
+    s_len = cfg.encoder_seq if cross else max_len
+    return {
+        f"{name}.k": ParamDef((batch, s_len, a.num_kv_heads, a.head_dim),
+                              ("batch", "cache_seq", "kv_heads", None),
+                              "zeros"),
+        f"{name}.v": ParamDef((batch, s_len, a.num_kv_heads, a.head_dim),
+                              ("batch", "cache_seq", "kv_heads", None),
+                              "zeros"),
+    }
+
+
+# ---------------------------------------------------------------------------
+# MLA (multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+def mla_schema(cfg: ModelConfig, name: str) -> Schema:
+    a = cfg.attention
+    d = cfg.d_model
+    qk = a.qk_nope_head_dim + a.qk_rope_head_dim
+    s: Schema = {}
+    if a.q_lora_rank > 0:
+        s[f"{name}.wq_a"] = ParamDef((d, a.q_lora_rank), ("embed", "rank"))
+        s[f"{name}.q_norm"] = ParamDef((a.q_lora_rank,), ("rank",), "ones")
+        s[f"{name}.wq_b"] = ParamDef((a.q_lora_rank, a.num_heads * qk),
+                                     ("rank", "heads"))
+    else:
+        s[f"{name}.wq"] = ParamDef((d, a.num_heads * qk), ("embed", "heads"))
+    s[f"{name}.wkv_a"] = ParamDef((d, a.kv_lora_rank + a.qk_rope_head_dim),
+                                  ("embed", "rank"))
+    s[f"{name}.kv_norm"] = ParamDef((a.kv_lora_rank,), ("rank",), "ones")
+    s[f"{name}.wkv_b"] = ParamDef(
+        (a.kv_lora_rank, a.num_heads * (a.qk_nope_head_dim + a.v_head_dim)),
+        ("rank", "heads"))
+    s[f"{name}.wo"] = ParamDef((a.num_heads * a.v_head_dim, d),
+                               ("heads", "embed"))
+    return s
+
+
+def _rms(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    """RMSNorm in float32, cast back (MLA's latent norms)."""
+    x32 = x.float()
+    y = x32 * torch.rsqrt(x32.square().mean(dim=-1, keepdim=True) + eps)
+    return (y * scale.float()).to(x.dtype)
+
+
+def _rope_cfg(a: AttentionConfig) -> AttentionConfig:
+    """MLA rotates its rope parts with standard RoPE over their width."""
+    return AttentionConfig(rope="standard", rope_theta=a.rope_theta)
+
+
+def _mla_q(params: Params, name: str, x: torch.Tensor,
+           positions: torch.Tensor, a: AttentionConfig, eps: float):
+    """(q_nope [b, t, h, nope], q_rope [b, t, h, rope] rotated)."""
+    b, t, _ = x.shape
+    dt = x.dtype
+    if a.q_lora_rank > 0:
+        ql = x @ params[f"{name}.wq_a"].to(dt)
+        ql = _rms(ql, params[f"{name}.q_norm"], eps)
+        q = ql @ params[f"{name}.wq_b"].to(dt)
+    else:
+        q = x @ params[f"{name}.wq"].to(dt)
+    q = q.reshape(b, t, a.num_heads, a.qk_nope_head_dim + a.qk_rope_head_dim)
+    q_nope, q_rope = q[..., :a.qk_nope_head_dim], q[..., a.qk_nope_head_dim:]
+    return q_nope, apply_rope(q_rope, positions, _rope_cfg(a))
+
+
+def apply_mla(params: Params, name: str, x: torch.Tensor,
+              positions: torch.Tensor, cfg: ModelConfig,
+              cache: Optional[Cache] = None
+              ) -> Tuple[torch.Tensor, Optional[Cache]]:
+    """x [b, t, d]. Prefill expands the latent into K and V per head and
+    runs ``ops.sdpa`` at q/k head dim nope + rope and v head dim
+    ``v_head_dim`` with scale (nope + rope)^-0.5; decode scores the new
+    queries against the cached latent directly (absorbed form)."""
+    a = cfg.attention
+    b, t, _ = x.shape
+    dt = x.dtype
+    n_nope, n_rope, n_v = a.qk_nope_head_dim, a.qk_rope_head_dim, a.v_head_dim
+    r = a.kv_lora_rank
+    scale = (n_nope + n_rope) ** -0.5
+
+    kv_a = x @ params[f"{name}.wkv_a"].to(dt)
+    ckv = _rms(kv_a[..., :r], params[f"{name}.kv_norm"], cfg.norm_eps)
+    k_rope = apply_rope(kv_a[..., None, r:], positions,
+                        _rope_cfg(a))                       # [b, t, 1, rope]
+    q_nope, q_rope = _mla_q(params, name, x, positions, a, cfg.norm_eps)
+
+    wkv_b = params[f"{name}.wkv_b"].to(dt).reshape(r, a.num_heads,
+                                                   n_nope + n_v)
+    wk_b, wv_b = wkv_b[..., :n_nope], wkv_b[..., n_nope:]   # [r, h, n|v]
+
+    if cache is not None and cache.get("decode", False):
+        pos = cache["length"]
+        _write_kv(cache["ckv"][..., None], cache["k_rope"], ckv[..., None],
+                  k_rope, pos)
+        cckv, ckr = cache["ckv"], cache["k_rope"]
+        new_len = pos + t
+        q_abs = torch.einsum("bthn,rhn->bthr", q_nope, wk_b)   # [b, t, h, r]
+        logits = (torch.einsum("bthr,bsr->bhts", q_abs.float(),
+                               cckv.float())
+                  + torch.einsum("bthn,bsn->bhts", q_rope.float(),
+                                 ckr[:, :, 0].float())) * scale
+        valid = (torch.arange(cckv.shape[1], device=x.device)[None, :]
+                 < new_len[:, None])
+        logits = torch.where(valid[:, None, None, :], logits, -1e30)
+        probs = torch.softmax(logits, dim=-1)
+        out_lat = torch.einsum("bhts,bsr->bthr", probs.to(dt), cckv.to(dt))
+        out = torch.einsum("bthr,rhv->bthv", out_lat, wv_b)
+        cache = dict(cache, ckv=cckv, k_rope=ckr, length=new_len)
+    else:
+        kv = (ckv @ wkv_b.reshape(r, -1)).reshape(b, t, a.num_heads,
+                                                  n_nope + n_v)
+        k_nope, v = kv[..., :n_nope], kv[..., n_nope:]
+        k = torch.cat([k_nope, k_rope.expand(b, t, a.num_heads, n_rope)],
+                      dim=-1)
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        out = ops.sdpa(q, k, v, causal=a.causal, scale=scale)
+        if cache is not None:
+            _write_kv(cache["ckv"][..., None], cache["k_rope"],
+                      ckv[..., None], k_rope,
+                      torch.zeros(b, dtype=torch.int32, device=x.device))
+            cache = dict(cache, length=torch.full((b,), t, dtype=torch.int32,
+                                                  device=x.device))
+    out = out.reshape(b, t, a.num_heads * n_v)
+    return out @ params[f"{name}.wo"].to(dt), cache
+
+
+def mla_cache_schema(cfg: ModelConfig, name: str, batch: int,
                      max_len: int) -> Schema:
     a = cfg.attention
     return {
-        f"{name}.k": ParamDef((batch, max_len, a.num_kv_heads, a.head_dim),
-                              ("batch", "cache_seq", "kv_heads", None),
-                              "zeros"),
-        f"{name}.v": ParamDef((batch, max_len, a.num_kv_heads, a.head_dim),
-                              ("batch", "cache_seq", "kv_heads", None),
-                              "zeros"),
+        f"{name}.ckv": ParamDef((batch, max_len, a.kv_lora_rank),
+                                ("batch", "cache_seq", None), "zeros"),
+        f"{name}.k_rope": ParamDef((batch, max_len, 1, a.qk_rope_head_dim),
+                                   ("batch", "cache_seq", None, None),
+                                   "zeros"),
     }

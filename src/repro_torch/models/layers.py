@@ -176,6 +176,29 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# Sinusoidal positions (whisper)
+# ---------------------------------------------------------------------------
+
+def sinusoidal_positions(seq: int, dim: int) -> torch.Tensor:
+    """[seq, dim] float32: sin then cos of pos / 10000^(2i / dim), the
+    angles in float64 (numpy), as the reference builds its table."""
+    pos = np.arange(seq)[:, None]
+    i = np.arange(dim // 2)[None, :]
+    angle = pos / np.power(10000.0, 2 * i / dim)
+    emb = np.concatenate([np.sin(angle), np.cos(angle)], axis=-1)
+    return torch.from_numpy(emb.astype(np.float32))
+
+
+def sinusoidal_embed(positions: torch.Tensor, dim: int) -> torch.Tensor:
+    """[..., dim] float32 for positions [...]: sin then cos of
+    pos / 10000^(2i / dim), computed in float32; the caller casts."""
+    i = torch.arange(dim // 2, dtype=torch.float32,
+                     device=positions.device)
+    angle = positions.float()[..., None] / torch.pow(10000.0, 2 * i / dim)
+    return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1)
+
+
+# ---------------------------------------------------------------------------
 # MLP (dense)
 # ---------------------------------------------------------------------------
 

@@ -1,19 +1,26 @@
 """Top-level model API: schemas, init, prefill, decode.
 
 Counterpart: ``repro.models.model``. Batch convention:
-  prefill: {"tokens": [b, s] int}            (+ the cache to fill)
+  prefill: {"tokens": [b, s_text] int, "positions": [b, s] or [3, b, s]
+            (optional), "embeds": [b, n_patch, d] (vision frontend stub,
+            optional), "frames": [b, encoder_seq, d] (audio frontend stub,
+            needed by an encoder-decoder)}   (+ the cache to fill)
   decode:  {"token": [b, 1] int} + the cache (which holds per-row lengths)
 
-The port runs the text-only subset that its slices have ported
-(``transformer.check_supported``): GQA attention blocks with standard or
-partial RoPE or none (llama, stablelm, gemma), Mamba blocks (Jamba-1.5)
-and RWKV-6 blocks (rwkv6-7b), each with a dense MLP or experts
-(moonshot, phi3.5-moe, Jamba). ``init_params`` and ``init_cache`` take
-``device=`` (default ``"cuda"``) and raise without a card. Caches are
-updated in place; ``prefill`` and ``decode_step`` return the same dict.
+Every config of ``configs`` runs: GQA attention blocks with standard,
+partial or M-RoPE or none, or MLA (minicpm3); Mamba (Jamba-1.5) and
+RWKV-6 (rwkv6-7b) blocks; a dense MLP or experts; the vision frontend
+stub (qwen2-vl: precomputed patch embeddings at model width, placed
+before the tokens) and the encoder-decoder (whisper: precomputed frames
+through the encoder stack and ``encoder_norm``, sinusoidal positions on
+frames and decoder tokens, the decoder's blocks attending to the
+encoder's output). ``init_params`` and ``init_cache`` take ``device=``
+(default ``"cuda"``) and raise without a card. Caches are updated in
+place; ``prefill`` and ``decode_step`` return the same dict.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -24,21 +31,36 @@ from repro_torch.models import transformer as tf
 from repro_torch.models.layers import (ParamDef, Params, Schema, apply_norm,
                                        compute_dtype, embed_schema,
                                        embed_tokens, init_from_schema,
-                                       norm_schema, unembed)
+                                       norm_schema, sinusoidal_embed,
+                                       unembed)
 
-#: leaves the reference reads in float32 (norm scales and biases, the
-#: SSM's dt_bias, A_log and D, RWKV-6's decay_base, decay_w2 and bonus,
-#: and the MoE router); every other leaf it casts to the compute dtype at
-#: use
-FLOAT32_LEAVES = ("scale", "bias", "dt_bias", "A_log", "D", "decay_base",
-                  "decay_w2", "bonus", "router")
+#: leaves the reference reads in float32 (norm scales and biases, MLA's
+#: latent norms, the SSM's dt_bias, A_log and D, RWKV-6's decay_base,
+#: decay_w2 and bonus, and the MoE router); every other leaf it casts to
+#: the compute dtype at use
+FLOAT32_LEAVES = ("scale", "bias", "q_norm", "kv_norm", "dt_bias", "A_log",
+                  "D", "decay_base", "decay_w2", "bonus", "router")
+
+
+def encoder_cfg(cfg: ModelConfig) -> ModelConfig:
+    """The encoder stack of an encoder-decoder: ``encoder_layers``
+    attention blocks, not causal, no RoPE, dense MLPs."""
+    return dataclasses.replace(
+        cfg, num_layers=cfg.encoder_layers, block_pattern=("attn",),
+        attention=dataclasses.replace(cfg.attention, causal=False,
+                                      rope="none"),
+        moe=None, moe_every=0)
 
 
 def full_schema(cfg: ModelConfig) -> Schema:
     s: Schema = {}
     s.update(embed_schema(cfg))
-    s.update(tf.stack_params_schema(cfg, "stack"))
+    s.update(tf.stack_params_schema(cfg, "stack", cross=cfg.encdec))
     s.update(norm_schema(cfg, "final_norm"))
+    if cfg.encdec:
+        ecfg = encoder_cfg(cfg)
+        s.update(tf.stack_params_schema(ecfg, "encoder"))
+        s.update(norm_schema(ecfg, "encoder_norm"))
     return s
 
 
@@ -116,6 +138,57 @@ def _stack_cache(cache: Params) -> Params:
             if k.startswith("stack.")}
 
 
+def _default_positions(cfg: ModelConfig, b: int, s: int, device,
+                       offset=0) -> torch.Tensor:
+    """Positions 0 .. s - 1 (+ ``offset``) for every row: [b, s], or
+    [3, b, s] under M-RoPE (the three rows equal, as for text)."""
+    pos = (torch.arange(s, dtype=torch.int32, device=device)[None, :]
+           + offset).expand(b, s)
+    if cfg.attention.rope == "mrope":
+        return pos[None].expand(3, b, s)
+    return pos
+
+
+def _encode(params: Params, cfg: ModelConfig,
+            frames: torch.Tensor) -> torch.Tensor:
+    """The encoder's output [b, s_enc, d]: frames plus sinusoidal
+    positions through the encoder stack and ``encoder_norm``."""
+    ecfg = encoder_cfg(cfg)
+    b, s, _ = frames.shape
+    x = frames.to(compute_dtype(cfg))
+    x = x + sinusoidal_embed(torch.arange(s, device=x.device),
+                             cfg.d_model)[None].to(x.dtype)
+    pos = _default_positions(ecfg, b, s, x.device)
+    x, _, _ = tf.apply_stack(params, ecfg, x, pos, prefix="encoder")
+    return apply_norm(params, "encoder_norm", x, ecfg)
+
+
+def _embed_inputs(params: Params, cfg: ModelConfig, batch: Dict
+                  ) -> Tuple[torch.Tensor, torch.Tensor,
+                             Optional[torch.Tensor]]:
+    """(x [b, s, d], positions, the encoder's output or None): patch
+    embeddings (``embeds``) before the tokens; for an encoder-decoder the
+    frames through the encoder and sinusoidal positions on the tokens."""
+    x = embed_tokens(params, batch["tokens"], cfg)
+    memory = None
+    if cfg.frontend == "vision" and "embeds" in batch:
+        x = torch.cat([batch["embeds"].to(x.dtype), x], dim=1)
+    if cfg.encdec:
+        if "frames" not in batch:
+            raise ValueError(
+                f"{cfg.name} is an encoder-decoder: its prefill needs "
+                f"'frames' [b, {cfg.encoder_seq}, {cfg.d_model}] beside "
+                f"the tokens (the audio frontend's stub output)")
+        memory = _encode(params, cfg, batch["frames"])
+        x = x + sinusoidal_embed(torch.arange(x.shape[1], device=x.device),
+                                 cfg.d_model)[None].to(x.dtype)
+    b, s, _ = x.shape
+    positions = batch.get("positions")
+    if positions is None:
+        positions = _default_positions(cfg, b, s, x.device)
+    return x, positions, memory
+
+
 def forward(params: Params, cfg: ModelConfig, batch: Dict,
             cache: Optional[Params] = None, decode: bool = False
             ) -> Tuple[torch.Tensor, Optional[Params], torch.Tensor]:
@@ -126,24 +199,27 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict,
         b, t = tokens.shape
         x = embed_tokens(params, tokens, cfg)
         lengths = cache["length"]
+        if cfg.encdec:
+            # the absolute position at each row's current length
+            x = x + sinusoidal_embed(lengths.float(),
+                                     cfg.d_model)[:, None].to(x.dtype)
         positions = lengths[:, None].to(torch.int32)
+        if cfg.attention.rope == "mrope":
+            positions = positions[None].expand(3, b, t)
         y, _, aux = tf.apply_stack(params, cfg, x, positions,
                                    cache=_stack_cache(cache), decode=True,
-                                   lengths=lengths, prefix="stack")
+                                   lengths=lengths, prefix="stack",
+                                   cross=cfg.encdec)
         cache["length"] = lengths + t
     else:
-        tokens = batch["tokens"]
-        b, s = tokens.shape
-        x = embed_tokens(params, tokens, cfg)
-        positions = batch.get("positions")
-        if positions is None:
-            positions = torch.arange(s, dtype=torch.int32,
-                                     device=x.device).expand(b, s)
+        x, positions, memory = _embed_inputs(params, cfg, batch)
+        b, s, _ = x.shape
         stack_cache = None if cache is None else _stack_cache(cache)
         lengths = None if cache is None else cache["length"]
         y, _, aux = tf.apply_stack(params, cfg, x, positions,
                                    cache=stack_cache, decode=False,
-                                   lengths=lengths, prefix="stack")
+                                   lengths=lengths, prefix="stack",
+                                   memory=memory, cross=cfg.encdec)
         if cache is not None:
             cache["length"] = torch.full((b,), s, dtype=torch.int32,
                                          device=x.device)
@@ -156,7 +232,8 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict,
 # ---------------------------------------------------------------------------
 
 def cache_schema(cfg: ModelConfig, batch: int, max_len: int) -> Schema:
-    s = tf.stack_cache_schema(cfg, batch, max_len, "stack")
+    s = tf.stack_cache_schema(cfg, batch, max_len, "stack",
+                              cross=cfg.encdec)
     s["length"] = ParamDef((batch,), ("batch",), "zeros")
     return s
 

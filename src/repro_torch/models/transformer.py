@@ -8,15 +8,18 @@ reference does for its ``lax.scan``. Here a Python loop walks that axis:
 group g's parameters and cache are views ``leaf[g]``, and the new serve
 state is written back into the stacked cache tensors in place.
 
-Block kinds ported: ``attn`` (norm, GQA attention with or without RoPE,
-norm, MLP) and ``mamba`` (norm, selective SSM, norm, MLP), where the MLP
-is the dense one or, at the pattern positions ``cfg.layer_uses_moe``
-picks, the experts of ``models.moe`` (under ``.moe``); and ``rwkv``
-(norm, RWKV-6 time-mix, norm, RWKV channel-mix; its serve state
-``x_att``, ``x_ffn`` and ``wkv`` sits under the block's prefix, not under
-``.mixer``, as in the reference). The MoE layers' aux losses sum over the
-stack, as the reference's scan carries them. ``xattn`` blocks, MLA, the
-encoder-decoder and the frontends raise ``NotImplementedError``.
+Block kinds: ``attn`` (norm, GQA or MLA attention, norm, MLP) and
+``mamba`` (norm, selective SSM, norm, MLP), where the MLP is the dense
+one or, at the pattern positions ``cfg.layer_uses_moe`` picks, the
+experts of ``models.moe`` (under ``.moe``); ``rwkv`` (norm, RWKV-6
+time-mix, norm, RWKV channel-mix; its serve state ``x_att``, ``x_ffn``
+and ``wkv`` sits under the block's prefix, not under ``.mixer``, as in
+the reference); and ``xattn``, the ``attn`` blocks of a decoder stack
+built with ``cross=True`` (whisper): an attention block with a
+cross-attention sub-block (``norm_x``, then GQA over the encoder's
+output under ``.cross``, its K/V cache ``encoder_seq`` long) before the
+MLP. The MoE layers' aux losses sum over the stack, as the reference's
+scan carries them.
 """
 from __future__ import annotations
 
@@ -34,6 +37,8 @@ from repro_torch.models.layers import (Params, Schema, apply_mlp,
                                        prefix_schema, stack_schema)
 
 BLOCK_KINDS = ("attn", "mamba", "rwkv")
+ATTENTION_KINDS = ("gqa", "mla")
+FRONTENDS = ("none", "vision", "audio")
 
 
 def n_groups(cfg: ModelConfig) -> int:
@@ -45,21 +50,20 @@ def n_groups(cfg: ModelConfig) -> int:
 
 
 def check_supported(cfg: ModelConfig):
-    """Raise ``NotImplementedError`` for what the port's model does not
-    run yet."""
+    """Raise ``NotImplementedError`` for a block kind, attention kind or
+    frontend the model does not know (every config of ``configs`` runs)."""
     missing = []
     for kind in cfg.block_pattern:
         if kind not in BLOCK_KINDS:
             missing.append(f"{kind!r} blocks")
-    if "attn" in cfg.block_pattern and cfg.attention.kind != "gqa":
+    if ("attn" in cfg.block_pattern
+            and cfg.attention.kind not in ATTENTION_KINDS):
         missing.append(f"{cfg.attention.kind} attention")
-    if cfg.encdec:
-        missing.append("encoder-decoder")
-    if cfg.frontend != "none":
+    if cfg.frontend not in FRONTENDS:
         missing.append(f"the {cfg.frontend} frontend")
     if missing:
         raise NotImplementedError(f"{cfg.name}: {', '.join(missing)} not "
-                                  f"ported yet")
+                                  f"supported")
 
 
 # ---------------------------------------------------------------------------
@@ -71,12 +75,18 @@ def _block_schema(cfg: ModelConfig, kind: str, idx: int) -> Schema:
     pre = f"blk{idx}"
     s: Schema = {}
     s.update(norm_schema(cfg, f"{pre}.norm1"))
-    if kind == "attn":
-        s.update(attn_mod.gqa_schema(cfg, f"{pre}.attn"))
+    if kind in ("attn", "xattn"):
+        if cfg.attention.kind == "mla":
+            s.update(attn_mod.mla_schema(cfg, f"{pre}.attn"))
+        else:
+            s.update(attn_mod.gqa_schema(cfg, f"{pre}.attn"))
     elif kind == "mamba":
         s.update(ssm_mod.mamba_schema(cfg, f"{pre}.mixer"))
     else:
         s.update(rwkv_mod.rwkv_schema(cfg, f"{pre}.mixer"))
+    if kind == "xattn":
+        s.update(norm_schema(cfg, f"{pre}.norm_x"))
+        s.update(attn_mod.gqa_schema(cfg, f"{pre}.cross"))
     s.update(norm_schema(cfg, f"{pre}.norm2"))
     if kind == "rwkv":
         s.update(rwkv_mod.channel_mix_schema(cfg, f"{pre}.cmix"))
@@ -87,28 +97,44 @@ def _block_schema(cfg: ModelConfig, kind: str, idx: int) -> Schema:
     return s
 
 
-def group_schema(cfg: ModelConfig) -> Schema:
+def _kind(kind: str, cross: bool) -> str:
+    """A decoder stack built with ``cross`` runs its attention blocks as
+    ``xattn``."""
+    return "xattn" if (cross and kind == "attn") else kind
+
+
+def group_schema(cfg: ModelConfig, cross: bool = False) -> Schema:
     check_supported(cfg)
     s: Schema = {}
     for i, kind in enumerate(cfg.block_pattern):
-        s.update(_block_schema(cfg, kind, i))
+        s.update(_block_schema(cfg, _kind(kind, cross), i))
     return s
 
 
-def stack_params_schema(cfg: ModelConfig, prefix: str = "stack") -> Schema:
-    return prefix_schema(prefix, stack_schema(group_schema(cfg),
+def stack_params_schema(cfg: ModelConfig, prefix: str = "stack",
+                        cross: bool = False) -> Schema:
+    return prefix_schema(prefix, stack_schema(group_schema(cfg, cross),
                                               n_groups(cfg), "groups"))
 
 
-def group_cache_schema(cfg: ModelConfig, batch: int, max_len: int) -> Schema:
+def group_cache_schema(cfg: ModelConfig, batch: int, max_len: int,
+                       cross: bool = False) -> Schema:
     """Serve-state schema for one group (stacked by caller)."""
     check_supported(cfg)
     s: Schema = {}
     for i, kind in enumerate(cfg.block_pattern):
         pre = f"blk{i}"
         if kind == "attn":
-            s.update(attn_mod.gqa_cache_schema(cfg, f"{pre}.attn", batch,
-                                               max_len))
+            if cfg.attention.kind == "mla":
+                s.update(attn_mod.mla_cache_schema(cfg, f"{pre}.attn",
+                                                   batch, max_len))
+            else:
+                s.update(attn_mod.gqa_cache_schema(cfg, f"{pre}.attn",
+                                                   batch, max_len))
+            if cross:
+                s.update(attn_mod.gqa_cache_schema(cfg, f"{pre}.cross",
+                                                   batch, max_len,
+                                                   cross=True))
         elif kind == "mamba":
             s.update(ssm_mod.mamba_state_schema(cfg, f"{pre}.mixer", batch))
         else:
@@ -117,9 +143,10 @@ def group_cache_schema(cfg: ModelConfig, batch: int, max_len: int) -> Schema:
 
 
 def stack_cache_schema(cfg: ModelConfig, batch: int, max_len: int,
-                       prefix: str = "stack") -> Schema:
+                       prefix: str = "stack", cross: bool = False) -> Schema:
     return prefix_schema(prefix, stack_schema(
-        group_cache_schema(cfg, batch, max_len), n_groups(cfg), "groups"))
+        group_cache_schema(cfg, batch, max_len, cross), n_groups(cfg),
+        "groups"))
 
 
 # ---------------------------------------------------------------------------
@@ -146,18 +173,24 @@ def _store(cache_out: dict, name: str, sub: Optional[dict], keys):
 
 def _apply_block(gp: Params, cfg: ModelConfig, idx: int, kind: str,
                  x: torch.Tensor, positions, cache: Optional[Params],
-                 cache_out: dict, decode: bool, lengths
+                 cache_out: dict, decode: bool, lengths,
+                 memory: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """(x after the block, the MoE aux loss or None)."""
+    """(x after the block, the MoE aux loss or None). ``memory``: the
+    encoder's output, read by an ``xattn`` block at prefill."""
     pre = f"blk{idx}"
     h = apply_norm(gp, f"{pre}.norm1", x, cfg)
-    if kind == "attn":
+    if kind in ("attn", "xattn"):
         extra = {"decode": decode, "length": lengths} if decode else (
             {"length": lengths} if lengths is not None else {})
         name = f"{pre}.attn"
         sub = _subcache(cache, name, extra)
-        y, sub = attn_mod.apply_gqa(gp, name, h, positions, cfg, sub)
-        _store(cache_out, name, sub, ("k", "v"))
+        if cfg.attention.kind == "mla":
+            y, sub = attn_mod.apply_mla(gp, name, h, positions, cfg, sub)
+            _store(cache_out, name, sub, ("ckv", "k_rope"))
+        else:
+            y, sub = attn_mod.apply_gqa(gp, name, h, positions, cfg, sub)
+            _store(cache_out, name, sub, ("k", "v"))
     elif kind == "mamba":
         name = f"{pre}.mixer"
         sub = _subcache(cache, name, {"decode": decode})
@@ -168,6 +201,14 @@ def _apply_block(gp: Params, cfg: ModelConfig, idx: int, kind: str,
         y, sub = rwkv_mod.apply_time_mix(gp, f"{pre}.mixer", h, cfg, sub)
         _store(cache_out, pre, sub, ("x_att", "wkv"))
     x = x + y
+    if kind == "xattn":
+        h = apply_norm(gp, f"{pre}.norm_x", x, cfg)
+        name = f"{pre}.cross"
+        sub = _subcache(cache, name, {"decode": decode})
+        y, sub = attn_mod.apply_gqa(gp, name, h, positions, cfg, sub,
+                                    memory=memory, is_cross=True)
+        _store(cache_out, name, sub, ("k", "v"))
+        x = x + y
     h = apply_norm(gp, f"{pre}.norm2", x, cfg)
     if kind == "rwkv":
         sub = _subcache(cache, pre, {"decode": decode})
@@ -183,10 +224,13 @@ def _apply_block(gp: Params, cfg: ModelConfig, idx: int, kind: str,
 def apply_stack(params: Params, cfg: ModelConfig, x: torch.Tensor,
                 positions, cache: Optional[Params] = None,
                 decode: bool = False, lengths: Optional[torch.Tensor] = None,
-                prefix: str = "stack"
+                prefix: str = "stack", memory: Optional[torch.Tensor] = None,
+                cross: bool = False
                 ) -> Tuple[torch.Tensor, Optional[Params], torch.Tensor]:
     """Run the full stack. Returns (y, the stacked cache written in place
-    or None, aux loss: the MoE layers' summed, zero without MoE)."""
+    or None, aux loss: the MoE layers' summed, zero without MoE).
+    ``cross``: a decoder stack whose attention blocks also attend to the
+    encoder's output (``memory`` at prefill, the cache at decode)."""
     check_supported(cfg)
     pre = f"{prefix}."
     stacked = {k[len(pre):]: v for k, v in params.items()
@@ -198,8 +242,9 @@ def apply_stack(params: Params, cfg: ModelConfig, x: torch.Tensor,
                                              for k, v in cache.items()}
         cache_out: dict = {}
         for i, kind in enumerate(cfg.block_pattern):
-            x, a = _apply_block(gp, cfg, i, kind, x, positions, gcache,
-                                cache_out, decode, lengths)
+            x, a = _apply_block(gp, cfg, i, _kind(kind, cross), x,
+                                positions, gcache, cache_out, decode,
+                                lengths, memory)
             if a is not None:
                 aux = aux + a
         for k, v in cache_out.items():

@@ -13,6 +13,12 @@ tokens must make whole dispatch groups of ``models.moe.GROUP_SIZE``
 (the constructor raises otherwise); the padding takes expert capacity,
 and the rows of a decode step share it, as in the reference.
 
+Requests are token prompts only, as the reference's: the vision model
+(qwen2-vl) serves text, its M-RoPE positions made by the model, and an
+encoder-decoder (whisper) fails at its first prefill for want of frames
+(``ValueError``); ``models.model.prefill`` / ``decode_step`` take frames
+and patch embeddings.
+
 The engine runs on one device (``device=``, default ``"cuda"``; it raises
 without a card) and takes no mesh. It holds the parameters as the forward
 pass reads them (``models.model.compute_params``: matrices in the compute

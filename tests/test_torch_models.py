@@ -541,15 +541,37 @@ def test_model_params_from_arrays_checks_names_and_shapes():
 
 @pytest.mark.parametrize("what", ["rope", "whisper", "mla"])
 def test_unported_model_features_raise(what):
-    cfg = _cfg(torch.float32)
+    """M-RoPE with the vision frontend, the encoder-decoder and MLA were
+    refused until they were ported; now each runs, and what is still
+    refused is the input it cannot take: M-RoPE positions without their
+    three rows, a whisper prefill without frames, and on the card an MLA
+    whose q/k head dim breaks the flash kernel's rule."""
     if what == "rope":              # M-RoPE, with the vision frontend
         cfg = get_smoke_config("qwen2-vl-7b")
     elif what == "whisper":         # encoder-decoder, xattn blocks
         cfg = get_smoke_config("whisper-small")
     else:
         cfg = dataclasses.replace(get_smoke_config("minicpm3-4b"), moe=None)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        M.init_params(cfg, device="cpu")
+    params = M.init_params(cfg, device="cpu")
+    tokens = torch.arange(1, 9, dtype=torch.int32)[None].repeat(2, 1)
+    batch = {"tokens": tokens}
+    if what == "whisper":
+        with pytest.raises(ValueError, match="frames"):
+            M.forward(params, cfg, batch)
+        batch["frames"] = torch.randn(2, cfg.encoder_seq, cfg.d_model)
+    with torch.inference_mode():
+        logits, _, _ = M.forward(params, cfg, batch)
+    assert logits.shape == (2, 8, cfg.vocab_size)
+    assert torch.isfinite(logits.float()).all()
+    if what == "rope":
+        with pytest.raises(ValueError, match=r"\[3, b, s\]"):
+            M.forward(params, cfg, dict(batch, positions=tokens))
+    elif what == "mla":
+        a = cfg.attention
+        fk.check_head_dims(a.qk_nope_head_dim + a.qk_rope_head_dim,
+                           a.v_head_dim)
+        with pytest.raises(NotImplementedError, match="multiple of 8"):
+            fk.check_head_dims(a.qk_nope_head_dim + 4, a.v_head_dim)
 
 
 # ---------------------------------------------------------------------------

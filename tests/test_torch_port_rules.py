@@ -17,9 +17,10 @@
   search slice's ``search``, ``search_policies``, ``pareto_frontier`` and
   ``optimize_scenario``) default to the card and raise without one;
 * ``chip_smoke.py`` fails, printing no result, where there is no card;
-* the model refuses, with ``NotImplementedError``, what is not ported:
-  MLA (minicpm3), the encoder-decoder (whisper) and the vision frontend
-  with its M-RoPE positions (qwen2-vl);
+* the model runs every config, MLA (minicpm3), the encoder-decoder
+  (whisper) and the vision frontend with its M-RoPE positions (qwen2-vl)
+  among them, and refuses, with ``NotImplementedError``, an attention
+  kind, block kind or frontend it does not know;
 * no CUDA source keeps a kernel's shared-memory opt-in once per process
   (the attribute belongs to one device's context, ROADMAP C11): every
   opt-in goes through ``csrc/smem_opt_in.cuh``, which sets it per device;
@@ -103,7 +104,8 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
             "repro_torch.kernels.policy_vjp", "repro_torch.search",
             "repro_torch.search.space", "repro_torch.search.objective",
             "repro_torch.search.optimize",
-            "repro_torch.search.frontier"} <= set(_modules())
+            "repro_torch.search.frontier", "repro_torch.launch.specs",
+            "repro_torch.launch.serve"} <= set(_modules())
 
 
 def test_port_sources_do_not_import_jax_or_the_reference():
@@ -122,7 +124,8 @@ def test_port_sources_do_not_import_jax_or_the_reference():
             "optim/__init__.py", "optim/adamw.py",
             "kernels/policy_vjp.py", "search/__init__.py",
             "search/space.py", "search/objective.py",
-            "search/optimize.py", "search/frontier.py"} <= names
+            "search/optimize.py", "search/frontier.py",
+            "launch/specs.py", "launch/serve.py"} <= names
     for f in files:
         hit = FORBIDDEN.search(f.read_text())
         assert hit is None, f"{f}: {hit.group(0).strip()}"
@@ -259,13 +262,30 @@ def test_serve_launcher_defaults_to_the_card_and_raises_without_one():
     ("whisper-small", "encoder-decoder"),
     ("qwen2-vl-7b", "the vision frontend")])
 def test_model_refuses_what_is_not_ported(arch, what):
+    """The three features were refused until ported; the configs that
+    need them now run, and the model still refuses what it does not
+    know in their place."""
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as tf
     for cfg in (get_config(arch), get_smoke_config(arch)):
-        with pytest.raises(NotImplementedError, match=what):
-            tf.check_supported(cfg)
-        with pytest.raises(NotImplementedError, match="not ported"):
-            M.init_params(cfg, device="cpu")
+        tf.check_supported(cfg)
+        if what == "mla attention":
+            unknown = dataclasses.replace(cfg, attention=dataclasses.replace(
+                cfg.attention, kind="linear"))
+            refusal = "linear attention not supported"
+        elif what == "encoder-decoder":
+            unknown = dataclasses.replace(cfg, block_pattern=("hyena",))
+            refusal = "'hyena' blocks not supported"
+        else:
+            unknown = dataclasses.replace(cfg, frontend="video")
+            refusal = "the video frontend not supported"
+        with pytest.raises(NotImplementedError, match=refusal):
+            tf.check_supported(unknown)
+        with pytest.raises(NotImplementedError, match=refusal):
+            M.init_params(unknown, device="cpu")
+    assert M.param_count(get_smoke_config(arch)) == sum(
+        w.numel() for w in M.init_params(get_smoke_config(arch),
+                                         device="cpu").values())
 
 
 def test_chip_smoke_fails_without_a_card():

@@ -44,8 +44,8 @@ ROPE_ULP = 4 * 2.0 ** -24
 MOE_TOL = {torch.float32: 5e-6, torch.bfloat16: 4e-2}
 AUX_ATOL = 1e-8
 MOONSHOT, PHI = "moonshot-v1-16b-a3b", "phi3.5-moe-42b-a6.6b"
-#: the archs the port serves (every RoPE / MoE / attention-free config
-#: of the reference without MLA, a frontend or an encoder-decoder)
+#: the RoPE / MoE / attention-free archs (the MLA, vision and
+#: encoder-decoder ones: tests/test_torch_serve_mla_encdec.py)
 SERVED = ("llama3.2-1b", "stablelm-3b", "gemma-7b", MOONSHOT, PHI,
           "jamba-1.5-large-398b", "rwkv6-7b")
 
@@ -253,13 +253,16 @@ def test_active_param_count_matches_reference(jref, arch):
 
 
 def test_served_archs_are_the_unrefused_ones():
+    """Every arch is served: MLA, the encoder-decoder and the vision
+    frontend joined the RoPE / MoE / attention-free ones."""
     refused = []
     for arch in all_archs():
         try:
             tf.check_supported(get_config(arch))
         except NotImplementedError:
             refused.append(arch)
-    assert sorted(set(all_archs()) - set(refused)) == sorted(SERVED)
+    assert refused == []
+    assert set(SERVED) < set(all_archs()) and len(all_archs()) == 10
 
 
 def test_moonshot_parameters_convert_from_the_reference(jref):

@@ -30,6 +30,7 @@ def reference():
         from repro.core import (datagen, experiment, loadpattern, metrics,
                                 schema, spans)
         from repro.distributed import sharding
+        from repro.launch import specs as launch_specs
         from repro.kernels import flash_attention, ops, policy_scan, ref
         from repro.kernels import policy_vjp
         from repro.kernels import rwkv6_kernel, ssm_scan
@@ -49,7 +50,8 @@ def reference():
                               schema=schema, spans=spans,
                               telemetry=telemetry, obs=obs,
                               calibrate=calibrate, optim=optim,
-                              policy_vjp=policy_vjp, search=search)
+                              policy_vjp=policy_vjp, search=search,
+                              launch_specs=launch_specs)
     finally:
         for name in set(sys.modules) - before:
             if name == "repro" or name.startswith("repro."):
