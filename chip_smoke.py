@@ -1,19 +1,22 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of PlantD on one GPU: the what-if year
-grid, the serving pipeline-under-test (Jamba-1.5, rwkv6-7b, with RoPE
+grid (registered policies included), the serving pipeline-under-test
+(Jamba-1.5, rwkv6-7b, with RoPE
 and experts llama3.2-1b, moonshot-v1-16b-a3b and phi3.5-moe, and with
 the flash kernel at every head dim stablelm-3b, gemma-7b, minicpm3-4b's
 MLA, qwen2-vl-7b and whisper-small's encoder-decoder), the
 wind tunnel that measures a pipeline, fits its twin and forecasts its
 year, the gradient calibration of twins from what it measured, and the
-policy search that answers the what-if questions inversely.
+policy search that answers the what-if questions inversely, and the
+training side.
 
     python3 chip_smoke.py
 
 Builds the kernels from ``src/repro_torch/kernels/csrc`` with nvcc (one
 process per source, all started together: the policy scans, benign and
 fault; flash attention, bf16 and float32; the Mamba selective scan; the
-RWKV-6 WKV recurrence, chunked and per step), then:
+RWKV-6 WKV recurrence, chunked and per step; and the policy scans again
+with phase 11's registered policies translated into them), then:
 
 1. prints the card (``nvidia-smi`` name and power limit) and the build,
    and checks the machine code (``cuobjdump -sass``): HGMMA and TMA loads
@@ -112,8 +115,9 @@ RWKV-6 WKV recurrence, chunked and per step), then:
    moonshot (its published capacity factor) at 4 layers, card against
    CPU (9b); then ``ServeEngine`` as in 5d and 5g, from a card that
    holds no earlier engine, through llama3.2-1b whole (9c),
-   moonshot-v1-16b-a3b whole (48 layers, 28.9 B parameters, 57.8 GB in
-   bf16; 9d) and phi3.5-moe cut to 16 of its 32 layers (9e), the flash
+   moonshot-v1-16b-a3b cut to 24 of its 48 layers (whole it is 28.9 B
+   parameters, 57.8 GB in bf16; 9d) and phi3.5-moe cut to 16 of its 32
+   layers (9e), the flash
    kernel's launches held to 2 a layer, each with its decode step's
    weight-read floor; the flash kernel against its plain version at
    their prefill shapes. ``python3 chip_smoke.py --phase 9`` runs the
@@ -127,8 +131,9 @@ RWKV-6 WKV recurrence, chunked and per step), then:
    [3, b, s] positions and smoke whisper with frames through
    ``model.prefill`` / ``decode_step``, card against CPU in float32
    (10b); then, from a card that holds no earlier engine, stablelm-3b
-   (10c), gemma-7b (10d), minicpm3-4b (10e) and qwen2-vl-7b (10f, plus
-   one prefill with its 256 stub patches) whole through
+   (10c), gemma-7b (10d), minicpm3-4b cut to 31 of its 62 layers (10e)
+   and qwen2-vl-7b (10f, plus
+   one prefill with its 256 stub patches) through
    ``ServeEngine`` as in 9c, the flash kernel's launches held to 2 a
    layer; whisper-small whole through ``model.prefill`` /
    ``decode_step`` (10g: 4 rows of 1,500 frames, prompts of 64-224
@@ -137,8 +142,35 @@ RWKV-6 WKV recurrence, chunked and per step), then:
    its plain version at each one's prefill shape.
    ``python3 chip_smoke.py --phase 10`` runs the build and phase 10
    alone;
-11. prints one JSON line of per-kernel numbers (eight kernels: launches
-   on the main paths of phases 3-5, of 6b, of 7, of 8, of 9 and of 10,
+11. registered policies on the card (``register_policy``: ``null``,
+   shed overridden, ``capped``), their steps translated into the policy
+   kernels (``kernels/lane_codegen.py``; the library of phase 11's
+   registry is built in phase 1): ``run_grid`` over 64 full-year
+   scenarios of four built-ins and the three, both modes, the
+   registered rows bitwise the port's CPU run and the built-in rows
+   bitwise the plain library's run of the built-ins alone, the counters
+   showing every registered row ran in the kernel; a chaos suite
+   through the fault kernel (11a); a search over ``capped``'s replicas
+   re-checked through the aggregate kernel (11b); both flash
+   kernels at head dims the wrapper pads to a multiple of 8 (4, 20,
+   100; q/k 96 with v 20) against their plain version.
+   ``python3 chip_smoke.py --phase 11`` runs the build and phase 11
+   alone;
+12. training on one card: one ``make_train_step`` step of smoke
+   llama3.2 in float32 against the CPU's (loss, gradients, parameters;
+   no model kernel in the step, a serving prefill right after launching
+   flash; 12a); ``examples/train_telemetry.py``'s ~100M llama through
+   ``train`` for 30 steps with a transient fault and a node loss, its
+   losses held to an uninterrupted run's (12b); llama3.2-1b at full
+   width and depth, 8 x 1,024 tokens a step, remat full, int8 moments,
+   6 steps and a final checkpoint restored bitwise, with step ms,
+   tokens/s, the share of 989 TFLOP/s, the busy share of a profiled
+   step, peak memory and checkpoint seconds (12c); a ``{"train": ...}``
+   line. ``python3 chip_smoke.py --phase 12`` runs the build and phase
+   12 alone;
+13. prints one JSON line of per-kernel numbers (eight kernels: launches
+   on the main paths of phases 3-5, of 6b, of 7, of 8, of 9, of 10, of
+   11 and of 12,
    error against the plain version, kernel / plain / bound / library
    times; no
    kernel may read faster than its bound; the decode launches of
@@ -155,8 +187,10 @@ card and the repository's ``src``; it never falls back to the CPU.
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -915,7 +949,7 @@ def check_flash_dims_random_blocks(dev):
     n_f32 = sum(1 for c in cases if c[-1] == torch.float32)
     check(fk.launches == {"flash_attention": len(cases) - n_f32,
                           "flash_attention_f32": n_f32}, fk.launches)
-    for dq, dv in ((20, 20), (264, 264), (64, 12)):
+    for dq, dv in ((264, 264), (64, 264)):
         try:
             fk.check_head_dims(dq, dv)
         except NotImplementedError:
@@ -928,8 +962,8 @@ def check_flash_dims_random_blocks(dev):
           f"float32 {worst[torch.float32]:.3g} (tol "
           f"{MODEL_TOL[torch.float32]:g}), bf16 "
           f"{worst[torch.bfloat16]:.3g} (tol {MODEL_TOL[torch.bfloat16]:g});"
-          f" launches {fk.launches}; head dims 20, 264 and a v of 12 "
-          f"refused ({fk.HEAD_DIM_RULE})")
+          f" launches {fk.launches}; head dims past 256 refused "
+          f"({fk.HEAD_DIM_RULE}; phase 11 runs the padded dims)")
     return len(cases)
 
 
@@ -2281,7 +2315,8 @@ def serve_rope_moe(dev, get_config, get_smoke_config):
     smoke llama3.2 and smoke moonshot (the published capacity factor) at
     4 layers, card against CPU; then the main paths at every published
     width, each from a card that holds no earlier engine: 9c llama3.2-1b
-    whole (16 layers), 9d moonshot-v1-16b-a3b whole (48 layers), 9e
+    whole (16 layers), 9d moonshot-v1-16b-a3b cut to 24 of its 48
+    layers (to keep the script inside its time limit), 9e
     phi3.5-moe cut to 16 of its 32 layers (its 83.7 GB of bf16 weights
     do not fit one card). Then the flash kernel against its plain version
     at each one's prefill shape. Returns the model kernels' launches
@@ -2310,7 +2345,9 @@ def serve_rope_moe(dev, get_config, get_smoke_config):
     launches, runs = {}, {}
     for phase, arch, layers, label in (
             ("9c", LLAMA, None, "at all 16 layers"),
-            ("9d", MOONSHOT, None, "at all 48 layers"),
+            ("9d", MOONSHOT, 24, "cut to 24 of its 48 layers (57.8 GB of "
+             "bf16 weights whole; cut to keep the script inside its time "
+             "limit)"),
             ("9e", PHI, 16, "cut to 16 of its 32 layers (83.7 GB of bf16 "
              "weights whole)")):
         cfg = get_config(arch)
@@ -2606,9 +2643,10 @@ def serve_mla_encdec(dev, get_config, get_smoke_config):
     qwen2-vl (4 patch embeddings, [3, b, s] positions) and whisper
     (frames), card against CPU in float32; then, each from a card that
     holds no earlier engine, stablelm-3b (10c), gemma-7b (10d),
-    minicpm3-4b (10e) and qwen2-vl-7b (10f, and one prefill with its 256
-    stub patches) whole through ``serve_at_width`` (flash launches 2 a
-    layer), and whisper-small whole through ``model.prefill`` /
+    minicpm3-4b cut to 31 of its 62 layers (10e) and qwen2-vl-7b (10f,
+    and one prefill with its 256 stub patches) through
+    ``serve_at_width`` (flash launches 2 a layer), and whisper-small
+    whole through ``model.prefill`` /
     ``decode_step`` (10g); the flash kernel against its plain version at
     each one's prefill shape. Returns the model kernels' launches summed
     over 10c-10g, the flash rows and the serving rows."""
@@ -2626,12 +2664,17 @@ def serve_mla_encdec(dev, get_config, get_smoke_config):
     launches, runs = {}, {}
     zero = {"flash_attention_f32": 0, "ssm_scan": 0, "rwkv6_chunked": 0,
             "rwkv6_scan": 0}
-    for phase, arch, label in (
-            ("10c", STABLELM, "at all 32 layers"),
-            ("10d", GEMMA, "at all 28 layers"),
-            ("10e", MINICPM, "at all 62 layers"),
-            ("10f", QWEN_VL, "at all 28 layers (text through the engine)")):
+    # 10e is cut to half its depth to keep the whole script well inside
+    # its time limit (phases 11 and 12 came after it)
+    for phase, arch, layers, label in (
+            ("10c", STABLELM, None, "at all 32 layers"),
+            ("10d", GEMMA, None, "at all 28 layers"),
+            ("10e", MINICPM, 31, "cut to 31 of its 62 layers"),
+            ("10f", QWEN_VL, None,
+             "at all 28 layers (text through the engine)")):
         cfg = get_config(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
         expect = dict(zero, flash_attention=2 * cfg.num_layers)
         got, eng, runs[phase] = serve_at_width(dev, phase, cfg, label,
                                                expect)
@@ -2815,6 +2858,689 @@ def wkv_vs_plain(dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: registered policies on the card (ROADMAP A10)
+# ---------------------------------------------------------------------------
+
+#: phase 11's registered policies: the reference's
+#: ``test_register_policy_extends_and_overrides`` pair (``null``, and
+#: ``shed`` overridden to drop everything) and ``capped``, a step of
+#: + - * / min max (finite at any parameters, a fault's zero capacity
+#: included), so its rows are bitwise the CPU's
+REGISTERED = ("null", "shed", "capped")
+CAP_HOURS = 3600.0
+#: head dims the wrapper pads to the kernels' multiple of 8 (C17)
+FLASH_PAD_PAIRS = ((4, 4), (20, 20), (100, 100), (96, 20))
+
+
+def register_phase11_policies(twin_mod):
+    triple = ("max_rps", "usd_per_hour", "base_latency_s")
+
+    @twin_mod.register_policy("null", triple)
+    def _null(carry, arrive, p, dt):
+        z = torch.zeros_like(arrive)
+        return carry, (z, carry[:, 0], p[:, 2], z, z)
+
+    @twin_mod.register_policy("shed", triple + ("queue_cap_hours",),
+                              defaults={"queue_cap_hours": 4.0})
+    def _shed_v2(carry, arrive, p, dt):
+        z = torch.zeros_like(arrive)
+        return carry, (z, carry[:, 0], p[:, 2], p[:, 1], arrive)
+
+    @twin_mod.register_policy("capped", triple + ("replicas",),
+                              defaults={"replicas": 1.0},
+                              bounds={"replicas": (0.5, 16.0)})
+    def _capped(carry, arrive, p, dt):
+        cap = torch.clamp_min(p[:, 0] * p[:, 3] * CAP_HOURS, 1.0)
+        avail = carry[:, 0] + arrive
+        proc = torch.minimum(avail, cap)
+        queue = avail - proc
+        lat = p[:, 2] + queue / cap
+        new = torch.stack([queue, carry[:, 1]], dim=1)
+        return new, (proc, queue, lat, p[:, 1] * p[:, 3],
+                     torch.zeros_like(arrive))
+
+
+def phase11_builtin_twins(twin_mod):
+    """16 twins of the built-ins that keep their kernel branch: Table
+    II's three and 13 more."""
+    tw = paper_twins(twin_mod)
+    for i in range(4):
+        tw.append(twin_mod.QuickscalingTwin(f"quick{i}", 0.5 + 0.5 * i,
+                                            0.0082, 0.15))
+        tw.append(twin_mod.make_twin(
+            f"auto{i}", "autoscale", max_rps=0.5, usd_per_hour=0.002,
+            base_latency_s=0.1, max_instances=8 + 8 * i, scale_up_hours=3))
+        tw.append(twin_mod.make_twin(
+            f"batch{i}", "batch_window", max_rps=6.15, usd_per_hour=0.0703,
+            base_latency_s=0.06, window_hours=2 + 2 * i))
+    tw.append(twin_mod.SimpleTwin("fifo-slow", 0.9, 0.004, 0.2))
+    return tw
+
+
+def phase11_registered_twins(twin_mod):
+    """16 twins of the registered policies (shed's override included)."""
+    tw = []
+    for i in range(4):
+        tw.append(twin_mod.make_twin(
+            f"shed{i}", "shed", max_rps=1.0 + i, usd_per_hour=0.0082,
+            base_latency_s=0.15, queue_cap_hours=2))
+        tw.append(twin_mod.make_twin(f"null{i}", "null", max_rps=1.0,
+                                     usd_per_hour=0.01 * (i + 1),
+                                     base_latency_s=0.1))
+    for i in range(8):
+        tw.append(twin_mod.make_twin(
+            f"capped{i}", "capped", max_rps=0.5, usd_per_hour=0.0082,
+            base_latency_s=0.15, replicas=0.5 + i))
+    return tw
+
+
+def phase11_header(twin_mod):
+    """The generated header of phase 11's registry (built with the other
+    sources at the start, so that phase 11 loads its library)."""
+    from repro_torch.kernels import lane_codegen
+    saved = (dict(twin_mod._REGISTRY), twin_mod._VERSION)
+    try:
+        register_phase11_policies(twin_mod)
+        gen = lane_codegen.generated()
+        check(gen.header is not None and not gen.refused, gen.refused)
+        return gen.header
+    finally:
+        twin_mod._REGISTRY.clear()
+        twin_mod._REGISTRY.update(saved[0])
+        twin_mod._VERSION = saved[1]
+
+
+def by_name(rows, names):
+    """The rows of ``names``, in that order."""
+    index = {r.name: r for r in rows}
+    return [index[n] for n in names]
+
+
+def check_flash_padding(dev):
+    """Phase 11 (C17): both flash kernels against ref.flash_attention at
+    head dims the wrapper pads to the kernels' multiple of 8, causal or
+    not, GQA g 1 and 7, sq/sk around the 128-row tile; one launch a
+    call."""
+    from repro_torch.kernels import flash_attention as fk, ref
+    g = torch.Generator(device=dev).manual_seed(SEED + 11)
+    cases = [(1, sq, sk, h, kh, dq, dv, causal, dtype)
+             for dq, dv in FLASH_PAD_PAIRS
+             for sq, sk in ((63, 63), (129, 129), (300, 127), (127, 300))
+             for h, kh in ((4, 4), (14, 2)) for causal in (True, False)
+             for dtype in (torch.float32, torch.bfloat16)]
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    fk.reset_launches()
+    for b, sq, sk, h, kh, dq, dv, causal, dtype in cases:
+        q = torch.randn(b, sq, h, dq, generator=g, device=dev).to(dtype)
+        k = torch.randn(b, sk, kh, dq, generator=g, device=dev).to(dtype)
+        v = torch.randn(b, sk, kh, dv, generator=g, device=dev).to(dtype)
+        got = fk.flash_attention(q, k, v, causal=causal)
+        want = ref.flash_attention(q, k, v, causal=causal)
+        check(got.dtype == dtype and got.shape == (b, sq, h, dv),
+              (got.dtype, got.shape))
+        worst[dtype] = max(worst[dtype], close_or_raise(
+            f"padded flash {(b, sq, sk, h, kh)} (dqk, dv) {(dq, dv)} "
+            f"causal={causal} {dtype}", got, want, MODEL_TOL[dtype]))
+    torch.cuda.synchronize()
+    n_f32 = sum(1 for c in cases if c[-1] == torch.float32)
+    check(fk.launches == {"flash_attention": len(cases) - n_f32,
+                          "flash_attention_f32": n_f32}, fk.launches)
+    for dq, dv in ((264, 264), (64, 264)):
+        try:
+            fk.check_head_dims(dq, dv)
+        except NotImplementedError:
+            continue
+        raise AssertionError(f"head dims {(dq, dv)} were not refused")
+    print(f"phase 11: flash kernels vs plain at padded head dims "
+          f"{', '.join(map(str, FLASH_PAD_PAIRS))} on {len(cases)} random "
+          f"blocks: max abs error float32 {worst[torch.float32]:.3g} (tol "
+          f"{MODEL_TOL[torch.float32]:g}), bf16 {worst[torch.bfloat16]:.3g}"
+          f" (tol {MODEL_TOL[torch.bfloat16]:g}); launches {fk.launches}; "
+          f"264 refused ({fk.HEAD_DIM_RULE})")
+
+
+def registered_policies_on_card(dev, whatif, tr, twin_mod, slo_mod, faults):
+    """Phase 11: policies added with ``register_policy`` on the card,
+    their steps translated into the policy kernels
+    (``kernels/lane_codegen.py``). 11a: ``run_grid`` over 32 twins (four
+    built-ins that keep their branch, Table II's among them, and three
+    registered policies, shed's override included) x 2 traffics = 64
+    full-year scenarios, both modes, through the kernels: the registered
+    rows bitwise the port's CPU run, the built-in rows bitwise the plain
+    library's run of the built-ins alone, before anything is registered;
+    ``registered_rows`` counts every registered row in the kernels; the
+    registered twins under a chaos schedule (the aggregate fault kernel)
+    bitwise the CPU. 11b: a search over ``capped``'s replicas, re-checked
+    through the aggregate kernel. Then the flash kernels at padded head
+    dims (C17). The registry is restored at the end. Returns the policy
+    kernels' launches of 11a's main path and the phase's record."""
+    from repro_torch.kernels import lane_codegen
+    from repro_torch.kernels import policy_scan as pk
+    from repro_torch.search import search, search_space
+    t0 = time.perf_counter()
+    traffics = [tr.TrafficModel.honda_default("nominal", R=3.5, G=1.0),
+                tr.TrafficModel.honda_default("high(+50%)", R=3.5, G=1.5)]
+    slo = slo_mod.SLO(limit_s=4 * 3600, met_fraction=0.95)
+    builtin = phase11_builtin_twins(twin_mod)
+    # the built-ins alone, through the plain library (nothing registered)
+    alone = {}
+    for series in (False, True):
+        check(lane_codegen.generated().header is None, "a stale registry")
+        t1 = time.perf_counter()
+        alone[series] = (whatif.run_grid(builtin, traffics, slo=slo,
+                                         return_series=series),
+                         time.perf_counter() - t1)
+    saved = (dict(twin_mod._REGISTRY), twin_mod._VERSION)
+    record = {}
+    try:
+        register_phase11_policies(twin_mod)
+        names = twin_mod.policy_names()
+        branches = lane_codegen.generated().branches
+        check(names[:5] == ["fifo", "quickscale", "autoscale", "shed",
+                            "batch_window"]
+              and twin_mod.kernel_branches()[3] is None
+              and all(branches[names.index(p)]
+                      == lane_codegen.FIRST_GENERATED + names.index(p)
+                      for p in REGISTERED), (names, branches))
+        reg = phase11_registered_twins(twin_mod)
+        # interleaved, so that the kernels' sort by policy has work to do
+        twins = [t for pair in zip(builtin, reg) for t in pair]
+        n_scen = len(twins) * len(traffics)
+        n_reg = len(reg) * len(traffics)
+        check(n_scen >= 64 and len(reg) == 16, (n_scen, len(reg)))
+
+        launches = {k: 0 for k in pk.launches}
+        for series in (False, True):
+            mode = "series" if series else "aggregate"
+            kernel = "policy_scan" if series else "policy_agg"
+            pk.reset_launches()
+            t1 = time.perf_counter()
+            card = whatif.run_grid(twins, traffics, slo=slo,
+                                   return_series=series)
+            wall = time.perf_counter() - t1
+            got, rows = dict(pk.launches), dict(pk.registered_rows)
+            for k, v in got.items():
+                launches[k] += v
+            check(got[kernel] > 0 and rows[kernel] == n_reg
+                  and sum(rows.values()) == n_reg, (mode, got, rows))
+            reg_names = {f"{t_.name} {tw.name}" for t_ in traffics
+                         for tw in reg}
+            only_reg = [r for r in card if r.name in reg_names]
+            t1 = time.perf_counter()
+            cpu = whatif.run_grid(reg, traffics, slo=slo,
+                                  return_series=series, device="cpu")
+            cpu_s = time.perf_counter() - t1
+            same_results(by_name(only_reg, [r.name for r in cpu]), cpu,
+                         f"11a {mode}: registered rows card vs CPU")
+            rows_alone, alone_s = alone[series]
+            same_results(by_name(card, [r.name for r in rows_alone]),
+                         rows_alone,
+                         f"11a {mode}: built-in rows vs the plain library's "
+                         f"run of the built-ins alone")
+            record[mode] = {"wall_ms": 1e3 * wall, "launches": got,
+                            "registered_rows": rows[kernel],
+                            "builtin_alone_ms": 1e3 * alone_s,
+                            "cpu_registered_ms": 1e3 * cpu_s}
+            print(f"phase 11a: run_grid {mode}, {n_scen} full-year "
+                  f"scenarios ({len(builtin)} built-in and {len(reg)} "
+                  f"registered twins x {len(traffics)} traffics): "
+                  f"{1e3 * wall:.1f} ms wall; {kernel} launches "
+                  f"{got[kernel]}, of them {rows[kernel]} rows through "
+                  f"generated steps; the registered rows bitwise the CPU "
+                  f"run's, the built-in rows bitwise the plain library's "
+                  f"run of the built-ins alone ({1e3 * alone_s:.1f} ms for "
+                  f"{len(builtin) * len(traffics)} scenarios); the CPU's "
+                  f"run of the registered rows {1e3 * cpu_s:.1f} ms")
+        # the fault kernel: a registered twin beside built-ins
+        schedule = chaos_schedule(faults, 2)
+        pk.reset_launches()
+        mixed = [t for t in reg if t.policy == "capped"][:1] + builtin[:2]
+        t1 = time.perf_counter()
+        card = whatif.run_grid(mixed, traffics, slo=slo, faults=schedule)
+        fault_s = time.perf_counter() - t1
+        check(pk.launches["policy_agg_fault"] > 0
+              and pk.registered_rows["policy_agg_fault"] > 0,
+              (pk.launches, pk.registered_rows))
+        cpu = whatif.run_grid(mixed, traffics, slo=slo, faults=schedule,
+                              device="cpu")
+        same_results(card, cpu, "11a chaos: card vs CPU")
+        record["chaos"] = {"rows": len(card), "wall_ms": 1e3 * fault_s,
+                           "registered_rows":
+                           pk.registered_rows["policy_agg_fault"]}
+        print(f"phase 11a: chaos suite (2 fault futures) over "
+              f"{len(mixed)} twins, registered and built-in: {len(card)} "
+              f"rows in {1e3 * fault_s:.1f} ms, bitwise the CPU run "
+              f"(fault-kernel launches {pk.launches['policy_agg_fault']}, "
+              f"registered rows {pk.registered_rows['policy_agg_fault']})")
+
+        # 11b: search over the registered policy, re-checked on the card
+        base = twin_mod.make_twin("capped", "capped", max_rps=0.5,
+                                  usd_per_hour=0.0082, base_latency_s=0.15,
+                                  replicas=1.0)
+        surge = tr.TrafficModel.honda_default("surge", R=3.5, G=1.5)
+        pk.reset_launches()
+        t1 = time.perf_counter()
+        res = search(search_space(base, ("replicas",)), [surge], slo,
+                     restarts=2, steps=10, coarsen=12, polish_rounds=0)
+        search_s = time.perf_counter() - t1
+        rows = pk.registered_rows["policy_agg"]
+        check(res.feasible and np.isfinite(res.cost_usd) and rows > 0
+              and pk.launches["policy_agg"] > 0,
+              ("11b", res.feasible, res.cost_usd, pk.launches,
+               pk.registered_rows))
+        win = [res.twin]
+        same_results(whatif.run_grid(win, [surge], slo=slo),
+                     whatif.run_grid(win, [surge], slo=slo, device="cpu"),
+                     "11b winner card vs CPU")
+        record["search"] = {"s": search_s, "replicas":
+                            res.twin.param("replicas"),
+                            "cost_usd": res.cost_usd,
+                            "launches": pk.launches["policy_agg"],
+                            "registered_rows": rows}
+        print(f"phase 11b: search over capped's replicas (2 restarts x 10 "
+              f"steps at 728 bins, no polish round), re-checked through "
+              f"the aggregate kernel ({pk.launches['policy_agg']} "
+              f"launches, {rows} registered rows): {search_s:.1f} s, "
+              f"feasible, replicas {res.twin.param('replicas'):.4f}, "
+              f"${res.cost_usd:.4f}; its rows bitwise the CPU run's")
+    finally:
+        twin_mod._REGISTRY.clear()
+        twin_mod._REGISTRY.update(saved[0])
+        twin_mod._VERSION = saved[1]
+        pk.reset_launches()
+    check_flash_padding(dev)
+    record["s"] = time.perf_counter() - t0
+    print(f"phase 11: {record['s']:.1f} s")
+    print(json.dumps({"registered": record}))
+    return launches, record
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: training on one card (ROADMAP A9)
+# ---------------------------------------------------------------------------
+
+#: 12a's bounds, card against CPU in float32 (TF32 off): the loss
+#: relative; each gradient relative to its leaf's largest |value|
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_RTOL = 1e-4
+#: the card's ``adamw_update`` against the CPU's, both on the card's
+#: gradients, in units in the last place of the new parameter (the two
+#: differ only in the order of the global norm's sum)
+TRAIN_OPT_ULPS = 4
+#: the new parameters of the whole step, card against CPU, in units of
+#: the learning rate. AdamW's first step moves a parameter by lr * g /
+#: (|g| + eps) (plus the same decay on both sides), which a gradient
+#: error dg changes by at most lr * eps * dg / |g|^2: where |g| >= 100 *
+#: max(eps, dg) that is below 1e-4 lr, and the step is held to
+#: TRAIN_PARAM_LR; the rest, gradients within rounding of eps or of
+#: their own error, may move anywhere in (-lr, lr) on either side, and
+#: are held to the width of that range
+TRAIN_PARAM_LR = 1e-3
+TRAIN_PARAM_REST_LR = 2.0
+#: 12b's bound on a loss of the restarted run against the uninterrupted
+#: one, relative (checked bitwise first; the bound only where it is not)
+TRAIN_RESTART_RTOL = 1e-3
+H100_BF16_FLOPS = 989e12
+#: kernel-name marks that sort a profiled step's device time by kind
+STEP_KERNEL_KINDS = (
+    ("matmul", ("gemm", "nvjet", "cutlass", "xmma", "sm90_")),
+    ("softmax", ("softmax",)),
+    ("reduce", ("reduce_kernel", "Reduce")),
+    ("index", ("index", "scatter", "gather")),
+    ("elementwise", ("elementwise", "copy", "fill")))
+
+
+def train_smoke_card_vs_cpu(dev, get_smoke_config):
+    """12a: one ``make_train_step`` step of smoke llama3.2 in float32 on
+    the card against the same step on the CPU (loss, every gradient,
+    every new parameter); no model kernel launches in it, and a serving
+    prefill right after launches flash."""
+    from repro_torch.config import OptimizerConfig, ParallelConfig
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import adamw_update, init_opt_state
+    from repro_torch.train.steps import make_train_step
+    mods = model_kernels()
+    cfg = dataclasses.replace(get_smoke_config(LLAMA), dtype="float32")
+    ocfg = OptimizerConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    par = ParallelConfig(batch_axes=("data",))
+    params = M.init_params(cfg, seed=SEED, device="cpu")
+    rng = np.random.default_rng(SEED)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (4, 64)).astype(np.int32)),
+        "loss_mask": torch.ones(4, 64)}
+    out = {}
+    for where in ("cpu", dev):
+        step = make_train_step(cfg, ocfg, par, device=where)
+        p = {k: v.to(where) for k, v in params.items()}
+        b = {k: v.to(where) for k, v in batch.items()}
+        for mod in mods:
+            mod.reset_launches()
+        grads, metrics = step.grads(p, b)
+        new_p, _, m = step(p, init_opt_state(p, ocfg), b)
+        # the optimizer alone, on the gradients above
+        upd_p, _ = adamw_update(p, grads, init_opt_state(p, ocfg), ocfg)
+        if where != "cpu":
+            torch.cuda.synchronize()
+            launched = {k: v for mod in mods for k, v in mod.launches.items()}
+            check(sum(launched.values()) == 0, ("12a", launched))
+        out[str(where)] = tuple({k: v.cpu() for k, v in d.items()}
+                                for d in (grads, new_p, upd_p)) + (
+            float(m["loss"]),)
+    (g_c, p_c, _, l_c), (g_g, p_g, u_g, l_g) = out["cpu"], out[str(dev)]
+    loss_err = abs(l_g - l_c) / abs(l_c)
+    check(loss_err <= TRAIN_LOSS_RTOL, ("12a loss", l_g, l_c))
+    grad_err = max(float((g_g[k] - g_c[k]).abs().max())
+                   / max(float(g_c[k].abs().max()), 1e-30) for k in g_c)
+    check(grad_err <= TRAIN_GRAD_RTOL, ("12a grads", grad_err))
+    # the optimizer: the CPU's update of the card's gradients
+    u_c, _ = adamw_update(params, g_g, init_opt_state(params, ocfg), ocfg)
+    opt_ulps = 0.0
+    for k in u_c:
+        ulp = torch.nextafter(u_c[k].abs(), torch.tensor(float("inf"))) \
+            - u_c[k].abs()
+        opt_ulps = max(opt_ulps, float(((u_g[k] - u_c[k]).abs() / ulp)
+                                       .max()))
+    check(opt_ulps <= TRAIN_OPT_ULPS, ("12a optimizer", opt_ulps))
+    # the whole step, split by how far each gradient stands above eps
+    # and above its own error
+    tight = rest = 0.0
+    n_tight = n_rest = 0
+    worst = None
+    for k in p_c:
+        err = (p_g[k] - p_c[k]).abs() / ocfg.lr
+        dg = (g_g[k] - g_c[k]).abs()
+        held = g_c[k].abs() >= 100.0 * torch.clamp_min(dg, ocfg.eps)
+        n_tight += int(held.sum())
+        n_rest += int((~held).sum())
+        if held.any():
+            tight = max(tight, float(err[held].max()))
+        if (~held).any():
+            rest = max(rest, float(err[~held].max()))
+        i = int(err.argmax())
+        e = float(err.flatten()[i])
+        if worst is None or e > worst["err_lr"]:
+            worst = {"leaf": k, "index": list(np.unravel_index(
+                i, tuple(err.shape))), "err_lr": e,
+                "g_cpu": float(g_c[k].flatten()[i]),
+                "g_card": float(g_g[k].flatten()[i]),
+                "held_tight": bool(held.flatten()[i])}
+    worst["index"] = [int(x) for x in worst["index"]]
+    check(tight <= TRAIN_PARAM_LR and rest <= TRAIN_PARAM_REST_LR,
+          ("12a params", tight, rest, worst))
+    param_err = max(tight, rest)
+    # serving right after the train step still takes the flash kernel
+    fk = mods[0]
+    fk.reset_launches()
+    with torch.inference_mode():
+        p = {k: v.to(dev) for k, v in params.items()}
+        cache = M.init_cache(cfg, 4, 64, device=dev)
+        logits, _ = M.prefill(p, cfg, {"tokens": batch["tokens"][:, :32]
+                                       .to(dev)}, cache)
+    torch.cuda.synchronize()
+    check(fk.launches["flash_attention_f32"] == cfg.num_layers
+          and bool(torch.isfinite(logits).all()), ("12a serve", fk.launches))
+    print(f"phase 12a: one train step of {cfg.name} (float32, 4 x 64 "
+          f"tokens) on the card vs the CPU: loss {l_g:.6f} (rel error "
+          f"{loss_err:.3g}, tol {TRAIN_LOSS_RTOL:g}), gradients max "
+          f"{grad_err:.3g} of the leaf's largest (tol {TRAIN_GRAD_RTOL:g}),"
+          f" the card's AdamW vs the CPU's on the card's gradients "
+          f"{opt_ulps:.3g} ulp (tol {TRAIN_OPT_ULPS}); new parameters "
+          f"{tight:.3g} lr over the {n_tight:,} with |g| >= 100 max(eps, "
+          f"|dg|) (tol {TRAIN_PARAM_LR:g} lr), {rest:.3g} lr over the other"
+          f" {n_rest:,} (tol {TRAIN_PARAM_REST_LR:g} lr); the largest at "
+          f"{worst['leaf']}{worst['index']}: g {worst['g_cpu']:.4g} on the "
+          f"CPU, {worst['g_card']:.4g} on the card; no model kernel "
+          f"launched in the step; a serving prefill right after: "
+          f"{fk.launches['flash_attention_f32']} flash launches")
+    return {"loss_rel_err": loss_err, "grad_rel_err": grad_err,
+            "opt_ulps": opt_ulps, "param_tight_lr": tight,
+            "param_rest_lr": rest, "n_tight": n_tight, "n_rest": n_rest,
+            "param_worst": worst, "param_err_lr": param_err}
+
+
+def llama_100m():
+    """``examples/train_telemetry.py``'s ~100M llama-family model."""
+    from repro_torch.config import AttentionConfig, ModelConfig
+    return ModelConfig(
+        name="llama-100m", family="dense", num_layers=8, d_model=512,
+        d_ff=2048, vocab_size=32768,
+        attention=AttentionConfig(kind="gqa", num_heads=8, num_kv_heads=4,
+                                  head_dim=64, rope="standard"),
+        mlp_kind="swiglu", norm="rmsnorm", tie_embeddings=True,
+        max_seq_len=128)
+
+
+def span_means_ms(collector, names):
+    return {n: 1e3 * float(np.mean([s.duration for s in
+                                    collector.spans(n)]))
+            for n in names if collector.spans(n)}
+
+
+def train_100m_faults(dev, root):
+    """12b: the ~100M llama through ``train`` on the card, 30 steps of
+    8 x 128 tokens, a checkpoint every 10, a transient fault and a node
+    loss; then the same run uninterrupted, held against it."""
+    from repro_torch.config import (OptimizerConfig, ParallelConfig,
+                                    TrainConfig)
+    from repro_torch.distributed.fault import FaultInjector
+    from repro_torch.models.model import param_count
+    from repro_torch.train.loop import train
+    from repro_torch.kernels import policy_scan as pk
+    mods = model_kernels() + (pk,)
+    cfg = llama_100m()
+    ocfg = OptimizerConfig(lr=6e-4, total_steps=30, warmup_steps=1)
+    par = ParallelConfig(batch_axes=("data",))
+    runs, launches = {}, {}
+    # the injector counts attempts and the transient fault's retry takes
+    # one: attempt 11 is the first after step 10's checkpoint
+    for what, inj in (("faults", FaultInjector(transient_at=(2,),
+                                               node_loss_at=(11,))),
+                      ("clean", None)):
+        tcfg = TrainConfig(steps=30, seq_len=128, global_batch=8,
+                           checkpoint_every=10, log_every=100,
+                           checkpoint_dir=os.path.join(root, what))
+        for mod in mods:
+            mod.reset_launches()
+        t0 = time.perf_counter()
+        res = train(cfg, tcfg, ocfg, par, device=dev, injector=inj,
+                    verbose=False)
+        runs[what] = (res, time.perf_counter() - t0, inj)
+        launched = {k: v for mod in mods for k, v in mod.launches.items()}
+        check(sum(launched.values()) == 0, ("12b", what, launched))
+        for k, v in launched.items():
+            launches[k] = launches.get(k, 0) + v
+    (res, wall, inj), (clean, clean_wall, _) = runs["faults"], runs["clean"]
+    check(res.steps_done == 30 and res.restarts == 1
+          and inj.fired == ["transient@2", "node_loss@11"]
+          and res.final_loss < res.losses[0], ("12b", res.steps_done,
+                                               res.restarts, inj.fired))
+    check(len(res.losses) == len(clean.losses) == 30, len(res.losses))
+    a, b = np.array(res.losses), np.array(clean.losses)
+    bitwise = bool((a.view(np.uint64) == b.view(np.uint64)).all())
+    rel = float(np.max(np.abs(a - b) / np.abs(b)))
+    check(bitwise or rel <= TRAIN_RESTART_RTOL, ("12b restart", rel))
+    spans = span_means_ms(res.collector, ("datagen", "datagen+next", "h2d",
+                                          "train_step", "checkpoint"))
+    print(f"phase 12b: {cfg.name} ({param_count(cfg):,} parameters), 30 "
+          f"steps of 8 x 128 tokens, checkpoints every 10, a transient "
+          f"fault at attempt 2 and a node loss at attempt 11: "
+          f"{res.steps_done} steps, {res.restarts} restart, loss "
+          f"{res.losses[0]:.4f} -> {res.final_loss:.4f} in {wall:.1f} s "
+          f"(uninterrupted {clean_wall:.1f} s); losses "
+          + ("bitwise the uninterrupted run's" if bitwise else
+             f"within {rel:.3g} of the uninterrupted run's (tol "
+             f"{TRAIN_RESTART_RTOL:g})")
+          + "; span means " + ", ".join(f"{k} {v:.2f} ms"
+                                        for k, v in spans.items()))
+    return {"steps": res.steps_done, "restarts": res.restarts,
+            "first_loss": res.losses[0], "final_loss": res.final_loss,
+            "wall_s": wall, "clean_wall_s": clean_wall,
+            "restart_bitwise": bitwise, "restart_rel_err": rel,
+            "span_ms": spans, "launches": launches}
+
+
+def step_profile(step_fn, params, opt_state, batch):
+    """One more train step under ``torch.profiler``: wall and summed
+    kernel time (ms), the busy share, and the PyTorch operations the
+    host dispatched."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = step_fn(params, opt_state, batch)
+        out[2]["loss"].item()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    del out
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    dev_us = sum(e.self_device_time_total for e in kernels)
+    ops = sum(1 for e in prof.events() if e.name.startswith("aten::")
+              and not (e.cpu_parent is not None
+                       and e.cpu_parent.name.startswith("aten::")))
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+    kinds = {}
+    for e in kernels:
+        kind = next((k for k, marks in STEP_KERNEL_KINDS
+                     if any(m in e.key for m in marks)), "other")
+        kinds[kind] = kinds.get(kind, 0.0) + e.self_device_time_total
+    return {"wall_ms": wall_us / 1e3, "device_ms": dev_us / 1e3,
+            "busy": dev_us / wall_us if dev_us else None, "host_ops": ops,
+            "kinds": {k: round(v / max(dev_us, 1), 4)
+                      for k, v in sorted(kinds.items(),
+                                         key=lambda kv: -kv[1])},
+            "top": [[e.key[:90], round(e.self_device_time_total
+                                       / max(dev_us, 1), 4), e.count]
+                    for e in top]}
+
+
+def train_llama_1b(dev, root):
+    """12c: llama3.2-1b at full width and depth through ``train`` as
+    ``python -m repro_torch.launch.train`` builds its configs: 8 x 1024
+    tokens a step, ``remat="full"``, int8 moments, 6 steps and one
+    final checkpoint (written synchronously, so its span is the write),
+    restored onto the card and held bitwise to the final state, then
+    deleted; one more step under ``torch.profiler``."""
+    from repro_torch.checkpoint.ckpt import restore_checkpoint
+    from repro_torch.data.loader import TokenBatchLoader
+    from repro_torch.distributed.elastic import state_like
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.model import param_count
+    from repro_torch.train.loop import train
+    from repro_torch.train.steps import make_train_step
+    from repro_torch.kernels import policy_scan as pk
+    mods = model_kernels() + (pk,)
+    ckpt = os.path.join(root, "llama1b")
+    args = launch_train.parse_args([
+        "--arch", LLAMA, "--steps", "6", "--seq-len", "1024", "--batch",
+        "8", "--ckpt-dir", ckpt, "--ckpt-every", "6", "--remat", "full",
+        "--device", "cuda"])
+    cfg, tcfg, ocfg, par = launch_train.configs(args)
+    tcfg = dataclasses.replace(tcfg, async_checkpoint=False)
+    ocfg = dataclasses.replace(ocfg, state_dtype="int8")
+    n_params = param_count(cfg)
+    tokens = tcfg.global_batch * tcfg.seq_len
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for mod in mods:
+        mod.reset_launches()
+    t0 = time.perf_counter()
+    res = train(cfg, tcfg, ocfg, par, device=dev, verbose=False)
+    wall = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    launched = {k: v for mod in mods for k, v in mod.launches.items()}
+    check(sum(launched.values()) == 0, ("12c", launched))
+    check(res.steps_done == 6 and all(np.isfinite(res.losses)),
+          ("12c", res.losses))
+    steps = [s.duration for s in res.collector.spans("train_step")]
+    step_ms = 1e3 * float(np.mean(steps[1:6]))
+    (ck,) = res.collector.spans("checkpoint")
+    t1 = time.perf_counter()
+    (p2, o2), step, _ = restore_checkpoint(ckpt, None,
+                                           state_like(cfg, ocfg, dev))
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t1
+    check(step == 6, step)
+    for k in res.params:
+        assert_bitwise(f"12c restored {k}", p2[k], res.params[k])
+    for field in ("m", "v", "m_scale", "v_scale"):
+        got, want = getattr(o2, field), getattr(res.opt_state, field)
+        check(set(got) == set(want), field)
+        for k in want:
+            check(bool(torch.equal(got[k], want[k])), ("12c", field, k))
+    check(int(o2.step) == int(res.opt_state.step) == 6, "12c opt step")
+    ckpt_bytes = sum(os.path.getsize(os.path.join(dp, f))
+                     for dp, _, fs in os.walk(ckpt) for f in fs)
+    del p2, o2
+    shutil.rmtree(ckpt)
+    torch.cuda.empty_cache()
+    loader = TokenBatchLoader(cfg.vocab_size, tcfg.seq_len,
+                              tcfg.global_batch, seed=tcfg.seed)
+    loader.load_state_dict({"step": 6, "seed": tcfg.seed})
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in loader.next().items()}
+    loader.close()
+    prof = step_profile(make_train_step(cfg, ocfg, par, dev), res.params,
+                        res.opt_state, batch)
+    mfu = 6.0 * n_params * tokens / (step_ms / 1e3) / H100_BF16_FLOPS
+    out = {"model": cfg.name, "layers": cfg.num_layers, "params": n_params,
+           "tokens_per_step": tokens, "remat": par.remat,
+           "state_dtype": ocfg.state_dtype, "step_ms": step_ms,
+           "step_ms_all": [1e3 * s for s in steps],
+           "tokens_per_s": tokens / (step_ms / 1e3), "mfu_bf16": mfu,
+           "peak_gib": peak_gib,
+           "first_loss": res.losses[0], "last_loss": res.losses[-1],
+           "losses": res.losses, "ckpt_write_s": ck.duration,
+           "ckpt_restore_s": restore_s, "ckpt_bytes": ckpt_bytes,
+           "wall_s": wall, "profile": prof, "launches": launched}
+    print(f"phase 12c: {cfg.name} at all {cfg.num_layers} layers "
+          f"({n_params:,} float32 parameters, int8 moments, remat full), "
+          f"6 steps of {tcfg.global_batch} x {tcfg.seq_len} tokens through "
+          f"train(): step {step_ms:.1f} ms (mean of steps 2-6), "
+          f"{out['tokens_per_s']:.0f} tokens/s, 6 N T / step = "
+          f"{mfu:.1%} of 989 TFLOP/s bf16; loss {res.losses[0]:.4f} -> "
+          f"{res.losses[-1]:.4f}; peak {peak_gib:.2f} GiB; checkpoint "
+          f"{ckpt_bytes / 1e9:.2f} GB written in {ck.duration:.2f} s, "
+          f"restored in {restore_s:.2f} s, bitwise the final state; one "
+          f"step profiled: wall {prof['wall_ms']:.1f} ms, device "
+          f"{prof['device_ms']:.1f} ms, busy "
+          + (f"{prof['busy']:.1%}" if prof["busy"] is not None
+             else "not measured (the profiler saw no device time)")
+          + f", {prof['host_ops']} PyTorch operations; device time by "
+          f"kind {prof['kinds']}")
+    return out
+
+
+def training_on_card(dev, get_smoke_config):
+    """Phase 12: the training side on one card (12a-12c, see those).
+    Returns the model kernels' launches that 12b (both runs) and 12c
+    read after their resets, summed (each checked to be zero), and the
+    phase's record, printed as a ``{"train": ...}`` line."""
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="plantd_train_")
+    try:
+        print(f"phase 12: checkpoints under {root} "
+              f"({shutil.disk_usage(root).free / 1e9:.1f} GB free)")
+        record = {"12a": train_smoke_card_vs_cpu(dev, get_smoke_config)}
+        record["12b"] = train_100m_faults(dev, root)
+        # 12c from a card that holds no earlier model
+        torch.cuda.empty_cache()
+        record["12c"] = train_llama_1b(dev, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    record["s"] = time.perf_counter() - t0
+    print(f"phase 12: {record['s']:.1f} s")
+    print(json.dumps({"train": record}))
+    launches = {}
+    for part in ("12b", "12c"):
+        for k, v in record[part]["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    return launches, record
+
+
 def sass_functions(sass):
     """{kernel name: its lines} of ``cuobjdump -sass`` output."""
     out, name = {}, None
@@ -2918,9 +3644,13 @@ def main():
     print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
-    build_s = build.build()
-    print(f"phase 1: nvcc build of {len(build.SOURCES)} sources in "
-          f"parallel, {build_s:.2f} s")
+    # phase 11's registry gets a library of its own (its steps in a
+    # generated header), built beside the four sources
+    header_11 = phase11_header(twin_mod)
+    build_s = build.build(variants=[("policy_scan", header_11)])
+    print(f"phase 1: nvcc build of {len(build.SOURCES)} sources and "
+          f"policy_scan with phase 11's generated steps in parallel, "
+          f"{build_s:.2f} s")
     for name in build.SOURCES:
         print(f"  {name}: {' '.join(build.FLAGS[name])}")
         log = build.library_path(name).with_suffix(".log")
@@ -2936,6 +3666,17 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    if sys.argv[1:] == ["--phase", "12"]:
+        # the training side alone (for iterating on it)
+        training_on_card(dev, get_smoke_config)
+        print(card)
+        return 0
+    if sys.argv[1:] == ["--phase", "11"]:
+        # registered policies and the padded flash head dims alone
+        registered_policies_on_card(dev, whatif, tr, twin_mod, slo_mod,
+                                    faults)
+        print(card)
+        return 0
     if sys.argv[1:] == ["--phase", "10"]:
         # the MLA / encoder-decoder / vision slice alone (for iterating)
         serve_mla_encdec(dev, get_config, get_smoke_config)
@@ -3026,15 +3767,23 @@ def main():
     # the search slice: What-if #6, #6b and #7's inverse questions
     launches_8 = search_on_card(dev, whatif, tr, twin_mod, slo_mod, faults)
 
-    # the RoPE and MoE serving slice: llama3.2-1b and moonshot whole,
+    # the RoPE and MoE serving slice: llama3.2-1b whole, moonshot and
     # phi3.5-moe cut, from a card that holds no earlier engine
     launches_9, flash_9 = serve_rope_moe(dev, get_config, get_smoke_config)
 
     # the flash kernel at every head dim, MLA, whisper and qwen2-vl:
-    # stablelm-3b, gemma-7b, minicpm3-4b, qwen2-vl-7b and whisper-small
-    # whole, from a card that holds no earlier engine
+    # stablelm-3b, gemma-7b, qwen2-vl-7b and whisper-small whole,
+    # minicpm3-4b cut, from a card that holds no earlier engine
     launches_10, flash_10, _ = serve_mla_encdec(dev, get_config,
                                                 get_smoke_config)
+
+    # registered policies on the card (their steps translated into the
+    # policy kernels) and the padded flash head dims
+    launches_11, _ = registered_policies_on_card(dev, whatif, tr, twin_mod,
+                                                 slo_mod, faults)
+
+    # the training side: no model kernel runs in a train step
+    launches_12, _ = training_on_card(dev, get_smoke_config)
 
     # each kernel against its plain version at the main path's widths
     rows = [
@@ -3086,7 +3835,9 @@ def main():
               "launches_7": launches_7.get(name, 0),
               "launches_8": launches_8.get(name, 0),
               "launches_9": launches_9.get(name, 0),
-              "launches_10": launches_10.get(name, 0)}, **stats)
+              "launches_10": launches_10.get(name, 0),
+              "launches_11": launches_11.get(name, 0),
+              "launches_12": launches_12.get(name, 0)}, **stats)
         for name, src, replaces, stats in rows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -14,7 +14,12 @@ the reference's fault arrays.
 The serving model's state is its parameter dict: ``model_params_from_arrays``
 takes the JAX package's (as numpy arrays, with its flat ``stack.blk{i}.…``
 names and the leading ``groups`` axis, which the port shares) and returns
-the port's, checked leaf for leaf against the port's schema.
+the port's, checked leaf for leaf against the port's schema. Training adds
+the optimizer's state: ``opt_state_from_arrays`` takes the reference's
+``OptState`` fields as numpy arrays (step, moments of float32, bfloat16 or
+int8, and the int8 moments' per-block scales) and returns the port's.
+(Checkpoints carry both across as files: ``repro_torch.checkpoint`` reads
+and writes the reference's layout.)
 """
 from __future__ import annotations
 
@@ -29,6 +34,7 @@ from repro_torch.core.twin import (PARAM_DIM, Twin, policy_names,
 from repro_torch.device import resolve_device
 from repro_torch.faults import ReplayTerm, SampledFaults, validate_sampled
 from repro_torch.models.model import full_schema
+from repro_torch.optim.adamw import OptState
 
 
 def check_policy_order(reference_names: Sequence[str]):
@@ -132,3 +138,36 @@ def model_params_from_arrays(arrays: Dict[str, np.ndarray], cfg: ModelConfig,
         out[name] = torch.from_numpy(np.array(a, np.float32)).to(
             device=dev, dtype=dtype)
     return out
+
+
+def _tensor(a, dev) -> torch.Tensor:
+    """A numpy array as a tensor of its dtype (bfloat16, which numpy
+    holds as ml_dtypes', through float32: exact)."""
+    a = np.asarray(a)
+    if str(a.dtype) == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(
+            device=dev, dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(a)).to(dev)
+
+
+def opt_state_from_arrays(step, m: Dict[str, np.ndarray],
+                          v: Dict[str, np.ndarray],
+                          m_scale: Dict[str, np.ndarray] = None,
+                          v_scale: Dict[str, np.ndarray] = None,
+                          device="cuda") -> OptState:
+    """The port's ``OptState`` from the reference's fields as numpy
+    arrays, values and dtypes unchanged: ``step`` (int32), the moments
+    ``m`` and ``v`` keyed as the parameters, and for int8 moments their
+    per-block scales (the same keys)."""
+    dev = resolve_device(device)
+    m_scale, v_scale = m_scale or {}, v_scale or {}
+    if set(m) != set(v) or set(m_scale) != set(v_scale) or (
+            m_scale and set(m_scale) != set(m)):
+        raise ValueError("m, v (and the scales, when given) must have the "
+                         "same keys")
+    return OptState(
+        torch.tensor(int(np.asarray(step)), dtype=torch.int32, device=dev),
+        {k: _tensor(x, dev) for k, x in m.items()},
+        {k: _tensor(x, dev) for k, x in v.items()},
+        {k: _tensor(x, dev) for k, x in m_scale.items()},
+        {k: _tensor(x, dev) for k, x in v_scale.items()})

@@ -24,9 +24,11 @@ mask exactly as the reference does: on finite branch outputs the blend
 equals the selected branch plus +0.0, which is the rule the CUDA kernels
 apply instead of evaluating all five.
 
-Policies registered with ``register_policy`` run on the CPU path; the CUDA
-kernels know only the five built-ins (``PolicySpec.kernel_branch``) and
-refuse any other.
+The CUDA kernels hold the five built-ins (``PolicySpec.kernel_branch``).
+A policy registered with ``register_policy`` (an override of a built-in
+included) has no built-in branch: ``kernels/lane_codegen.py`` translates
+its lane step into a device function of the kernels, built for the
+registry at the first call on the card.
 
 ``fault_lane_policy_step`` (and the uniform ``fault_switch_step``) wrap a
 step in the fault layer of a chaos suite: capacity multipliers, a fault
@@ -83,7 +85,8 @@ class PolicySpec:
     defaults: Dict[str, float]
     doc: str
     #: branch id of this policy in the CUDA kernels; None for a policy
-    #: the kernels do not implement (any user registration)
+    #: the kernels do not implement (any user registration): on the card
+    #: its rows run its step as translated by ``kernels/lane_codegen.py``
     kernel_branch: Optional[int] = None
     #: ``fn(carry, arrive, params, dt, fuse)``: the step as the fault
     #: layer runs it, where the reference's compiled fault scans round it
@@ -197,8 +200,11 @@ def register_policy(name: str, param_names: Tuple[str, ...],
     (max_rps, usd_per_hour, base_latency_s) and fit within PARAM_DIM. The
     step must stay finite on any lane's parameter vector (other policies'
     parameters share the slots), or the masked blend turns its 0 * inf
-    into NaN. Such a policy runs on the CPU path only: the CUDA kernels
-    refuse a policy they have no branch for.
+    into NaN. Such a policy has no built-in CUDA kernel branch (an
+    override of a built-in loses its branch): on the card its scenarios
+    run the step as ``kernels/lane_codegen.py`` translates it into the
+    kernels, which take the operations whose rounding they reproduce bit
+    for bit and refuse a step with any other.
 
     ``bounds`` / ``log_params`` / ``frozen`` are the calibration metadata
     of the reference's ``register_policy``: the fit box per parameter

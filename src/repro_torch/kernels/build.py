@@ -9,6 +9,12 @@ rebuilds and an unchanged one loads at once; ``_build/`` is listed in
 ``nvcc`` per source, all together, and waits for them.
 
 Flags, per source (``FLAGS``): ``sm_90a`` (Hopper) and ``-O3`` for all;
+``policy_scan`` may also be built with a generated header
+(``load(name, generated=text)``, ``build(variants=...)``): the lane steps
+of the registered policies (``kernels/lane_codegen.py``), written to
+``_build/<name>-<hash>.gen/`` and included with
+``-DREPRO_REGISTERED_STEPS``; the header's text is part of the hash, so
+each registry gets a library of its own.
 ``-Xptxas -v`` writes each kernel's registers and spills to
 ``<name>-<hash>.log``. ``policy_scan`` adds ``--fmad=false`` with IEEE
 division and square root and no flush-to-zero, because its kernels must
@@ -28,7 +34,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Optional, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -45,7 +51,9 @@ FLAGS = {"policy_scan": NVCC_FLAGS,
          "ssm_scan": MODEL_FLAGS, "rwkv6": MODEL_FLAGS}
 SOURCES = tuple(FLAGS)
 
-_LOADED: Dict[str, ctypes.CDLL] = {}
+#: loaded libraries by (source name, generated header or None): a lookup
+#: per kernel call, so it reads no file (``library_path`` hashes them)
+_LOADED: Dict[Tuple[str, Optional[str]], ctypes.CDLL] = {}
 #: sources this process has built with nvcc or loaded (``library_count``)
 _SEEN: set = set()
 
@@ -67,38 +75,57 @@ def nvcc_path() -> str:
                        "kernels/csrc at first use and need the CUDA toolkit")
 
 
-def library_path(name: str) -> Path:
+#: the generated header each source includes when it is given one
+GENERATED_HEADER = {"policy_scan": "registered_steps.cuh"}
+
+
+def library_path(name: str, generated: Optional[str] = None) -> Path:
     """The built library of ``csrc/<name>.cu``, keyed by the source, the
-    shared headers (``csrc/*.cuh``) and the flags."""
+    shared headers (``csrc/*.cuh``), the flags and the generated header's
+    text (None: none)."""
     text = (CSRC / f"{name}.cu").read_bytes() + b"".join(
         h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    if generated is not None:
+        text += b"\0" + generated.encode()
     digest = hashlib.sha256(text + " ".join(FLAGS[name]).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 
-def nvcc_command(name: str, source: Path, out: Path) -> list:
+def nvcc_command(name: str, source: Path, out: Path,
+                 generated_dir: Optional[Path] = None) -> list:
     """The nvcc command that builds ``source`` (``csrc/<name>.cu`` or an
     edited copy of it elsewhere) with ``name``'s flags into ``out``; the
-    shared headers are found in ``csrc``."""
-    return [nvcc_path(), *FLAGS[name], "-I", str(CSRC), "-o", str(out),
-            str(source)]
+    shared headers are found in ``csrc``, a generated one in
+    ``generated_dir``."""
+    extra = [] if generated_dir is None else [
+        "-DREPRO_REGISTERED_STEPS", "-I", str(generated_dir)]
+    return [nvcc_path(), *FLAGS[name], *extra, "-I", str(CSRC), "-o",
+            str(out), str(source)]
 
 
-def build(names: Iterable[str] = SOURCES) -> float:
-    """Compile every named source that is not built yet, one ``nvcc``
-    per source, all started together. Returns the seconds spent."""
+def build(names: Iterable[str] = SOURCES,
+          variants: Iterable[Tuple[str, str]] = ()) -> float:
+    """Compile every named source that is not built yet, and each
+    (name, generated header) of ``variants``, one ``nvcc`` per library,
+    all started together. Returns the seconds spent."""
     t0 = time.perf_counter()
-    todo = [n for n in names if not library_path(n).exists()]
+    jobs = [(n, None) for n in names] + list(variants)
+    todo = [(n, g) for n, g in jobs if not library_path(n, g).exists()]
     if not todo:
         return 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = []
-    for name in todo:
-        out = library_path(name)
+    for name, generated in todo:
+        out = library_path(name, generated)
         tmp = out.with_suffix(f".tmp{os.getpid()}")
+        gen_dir = None
+        if generated is not None:
+            gen_dir = out.with_suffix(".gen")
+            gen_dir.mkdir(exist_ok=True)
+            (gen_dir / GENERATED_HEADER[name]).write_text(generated)
         log = open(out.with_suffix(".log"), "w")
         procs.append((name, out, tmp, log, subprocess.Popen(
-            nvcc_command(name, CSRC / f"{name}.cu", tmp),
+            nvcc_command(name, CSRC / f"{name}.cu", tmp, gen_dir),
             stdout=log, stderr=subprocess.STDOUT)))
     failed = []
     for name, out, tmp, log, proc in procs:
@@ -114,13 +141,17 @@ def build(names: Iterable[str] = SOURCES) -> float:
     return time.perf_counter() - t0
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The built library of ``csrc/<name>.cu`` (built first if needed)."""
-    lib = _LOADED.get(name)
+def load(name: str, generated: Optional[str] = None) -> ctypes.CDLL:
+    """The built library of ``csrc/<name>.cu``, with the generated header
+    ``generated`` when given (built first if needed)."""
+    lib = _LOADED.get((name, generated))
     if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(library_path(name)))
-        _LOADED[name] = lib
+        if generated is None:
+            build([name])
+        else:
+            build([], [(name, generated)])
+        lib = ctypes.CDLL(str(library_path(name, generated)))
+        _LOADED[(name, generated)] = lib
         _SEEN.add(name)
     return lib
 

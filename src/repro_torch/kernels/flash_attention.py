@@ -13,12 +13,23 @@ no fallback. The type picks the kernel: bfloat16 runs
 ``flash_wgmma_kernel`` (TMA loads, ``wgmma`` products on the tensor
 cores, P rounded to bf16 before the PV product), float32 runs
 ``flash_fwd_kernel`` (float32 on the CUDA cores). Both take dqk and dv
-separately, each under ``HEAD_DIM_RULE`` (a multiple of 8 from 8 to 256,
-``check_head_dims``; the Pallas kernel takes any, ROADMAP C17): on the
-card a head dim outside it raises ``NotImplementedError``, it never goes
-to the plain version. Each launch adds one to its
-kernel's count, ``launches["flash_attention"]`` (bf16) or
+separately, each a multiple of 8 from 8 to 256 (a tensor map's row stride
+is a multiple of 16 bytes). The wrapper takes any head dim from 1 to 256
+(``HEAD_DIM_RULE``, ``check_head_dims``): it pads q and k, and v, with
+zero columns to the next multiple of 8 (zeros add nothing to a q.k
+product and give zero output columns), scales by the real q/k dim and
+slices the output back to the real v dim. Past 256 raises
+``NotImplementedError`` (the Pallas kernel takes any; ROADMAP C17); it
+never goes to the plain version. Each launch adds one to its kernel's
+count, ``launches["flash_attention"]`` (bf16) or
 ``launches["flash_attention_f32"]``, and nothing else does.
+
+This is a forward kernel: its output is written outside autograd. A call
+in grad mode with an operand that requires grad raises ``RuntimeError``
+(``no_grad_operands``), on either device, rather than return an output
+whose gradient would be dropped. Training attention goes through
+``kernels/ops.py``, which routes it to ``ref.sdpa`` as the reference's
+training does.
 """
 from __future__ import annotations
 
@@ -31,10 +42,12 @@ from repro_torch.kernels import build, ref
 #: kernel launches since the last ``reset_launches()``
 launches = {"flash_attention": 0, "flash_attention_f32": 0}
 
-#: the head dims the kernels take, q/k and v alike (a tensor map's row
-#: stride must be a multiple of 16 bytes; the kernels pad to 256 at most)
-HEAD_DIM_RULE = "a multiple of 8 from 8 to 256"
+#: the head dims the wrapper takes, q/k and v alike; the kernels run
+#: multiples of 8 (a tensor map's row stride must be a multiple of 16
+#: bytes) up to 256, and the wrapper pads the rest with zeros
+HEAD_DIM_RULE = "from 1 to 256 (padded with zeros to a multiple of 8)"
 MAX_HEAD_DIM = 256
+DIM_STEP = 8
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -61,13 +74,55 @@ def _lib():
 
 
 def check_head_dims(dqk: int, dv: int):
-    """Raise ``NotImplementedError`` unless the kernels take q/k head dim
-    ``dqk`` and v head dim ``dv`` (``HEAD_DIM_RULE``, each on its own)."""
+    """Raise unless the wrapper takes q/k head dim ``dqk`` and v head dim
+    ``dv`` (``HEAD_DIM_RULE``, each on its own): ``ValueError`` below 1,
+    ``NotImplementedError`` past ``MAX_HEAD_DIM``."""
     for what, d in (("q/k", dqk), ("v", dv)):
-        if not (8 <= d <= MAX_HEAD_DIM and d % 8 == 0):
+        if d < 1:
+            raise ValueError(f"{what} head dim {d}: a head needs at least "
+                             f"one dimension")
+        if d > MAX_HEAD_DIM:
             raise NotImplementedError(
                 f"{what} head dim {d}: the flash kernels take head dims "
-                f"that are {HEAD_DIM_RULE}")
+                f"{HEAD_DIM_RULE}")
+
+
+def padded_dim(d: int) -> int:
+    """The storage dim a kernel runs head dim ``d`` at: the next multiple
+    of ``DIM_STEP``."""
+    return -(-d // DIM_STEP) * DIM_STEP
+
+
+def pad_head_dims(q, k, v):
+    """q, k and v with zero columns up to ``padded_dim`` of their head
+    dims (the operands themselves where no padding is needed)."""
+    pq = padded_dim(q.shape[3]) - q.shape[3]
+    pv = padded_dim(v.shape[3]) - v.shape[3]
+    if pq:
+        q, k = (torch.nn.functional.pad(x, (0, pq)) for x in (q, k))
+    if pv:
+        v = torch.nn.functional.pad(v, (0, pv))
+    return q, k, v
+
+
+def needs_grad(*operands) -> bool:
+    """Grad mode is on and an operand requires grad: the call belongs to
+    a training step."""
+    return torch.is_grad_enabled() and any(
+        x is not None and x.requires_grad for x in operands)
+
+
+def no_grad_operands(what: str, *operands):
+    """Raise ``RuntimeError`` when ``needs_grad(*operands)``: the kernels
+    write their outputs outside autograd, so the gradient would be
+    dropped without a word."""
+    if needs_grad(*operands):
+        raise RuntimeError(
+            f"{what} is a forward kernel with no backward: an operand "
+            f"requires grad in grad mode, and its gradient would be "
+            f"dropped. Call it under torch.no_grad(), or go through "
+            f"repro_torch.kernels.ops, which routes training to the "
+            f"reference's differentiable plain version")
 
 
 def _check_operands(q, k, v):
@@ -95,12 +150,22 @@ def _check_operands(q, k, v):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, scale: float = None) -> torch.Tensor:
     """Forward attention, ``ref.flash_attention``'s semantics."""
+    no_grad_operands("flash_attention", q, k, v)
     if not q.is_cuda:
         return ref.flash_attention(q, k, v, causal=causal, scale=scale)
     _check_operands(q, k, v)
+    d, dv_real = q.shape[3], v.shape[3]
+    scale = scale if scale is not None else d ** -0.5
+    if d % DIM_STEP or dv_real % DIM_STEP:
+        q, k, v = pad_head_dims(q, k, v)
+        return _launch(q, k, v, causal, scale)[..., :dv_real].contiguous()
+    return _launch(q, k, v, causal, scale)
+
+
+def _launch(q, k, v, causal: bool, scale: float) -> torch.Tensor:
+    """One kernel launch; head dims already multiples of ``DIM_STEP``."""
     b, sq, h, d = q.shape
     sk, kh, dv = k.shape[1], k.shape[2], v.shape[3]
-    scale = scale if scale is not None else d ** -0.5
     # the bf16 kernel's tensor maps need 16-byte aligned bases
     q, k, v = (x.contiguous() for x in (q, k, v))
     q, k, v = (x.clone() if x.data_ptr() % 16 else x for x in (q, k, v))

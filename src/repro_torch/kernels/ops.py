@@ -14,12 +14,25 @@ query) and ``ref.sdpa`` otherwise, on either device; ``ssm_scan`` and
 ``rwkv6_scan``'s semantics are the exact recurrence of the reference's
 oracle, which its Pallas kernel departs from at strong decays.
 
+Training mirrors the reference, whose training never enables Pallas
+(``ops.use_pallas`` is off, and ``make_train_step`` does not turn it on):
+a call in grad mode with an operand that requires grad
+(``flash_attention.needs_grad``) takes the reference's non-Pallas route
+on the tensors' own device, under
+autograd: ``sdpa`` to ``ref.sdpa`` (bf16 probabilities, the causal mask
+aligned to the end), ``ssm_scan`` to ``ref.ssm_scan``, ``rwkv6_scan`` to
+``ref.rwkv6_scan``. The forward kernels have no backward, and their
+wrappers refuse such a call. Calls without a gradient (serving, the
+engine, every what-if path) route as above.
+
 In the policy half the selector is exactly one of ``onehot`` [N, P] (a
 mixed grid, the masked blend) or ``policy_index`` (an int: a uniform
 block). On CUDA a uniform index becomes its one-hot row broadcast over the
 block, as the reference does for its kernel (with shed's fault rounding
 set to the uniform scans', ``SHED_FUSE_ALL``); on the CPU it runs the one
 lane step without the blend, like the reference's ``lax.switch`` form.
+Registered policies run in the kernels too, in either selector form, as
+steps translated by ``kernels/lane_codegen.py``.
 
 The gradient side (``policy_scan(differentiable=True)`` and
 ``policy_scan_fold``) runs the checkpointed scans of
@@ -134,8 +147,9 @@ def sdpa(q, k, v, *, causal=True, scale=None, logit_cap=0.0, kv_len=None):
     """Attention, routed as the reference's ``ops.sdpa`` under Pallas:
     the flash kernel (its float32 semantics) for prefill, ``ref.sdpa``
     (bf16 probabilities, ``kv_len`` masking) for decode and capped
-    logits."""
-    if kv_len is None and logit_cap == 0.0 and q.shape[1] > 1:
+    logits; in training ``ref.sdpa`` always, as the reference trains."""
+    if (not flash_kernel.needs_grad(q, k, v) and kv_len is None
+            and logit_cap == 0.0 and q.shape[1] > 1):
         return flash_kernel.flash_attention(q, k, v, causal=causal,
                                             scale=scale)
     return ref.sdpa(q, k, v, causal=causal, scale=scale,
@@ -144,11 +158,17 @@ def sdpa(q, k, v, *, causal=True, scale=None, logit_cap=0.0, kv_len=None):
 
 def ssm_scan(x, dt, A, B, C, D, state=None):
     """The Mamba-1 selective scan: (y [b, s, di], final state [b, di, n]),
-    the kernel on CUDA tensors, prefill and decode alike."""
+    the kernel on CUDA tensors, prefill and decode alike; in training
+    ``ref.ssm_scan``."""
+    if flash_kernel.needs_grad(x, dt, A, B, C, D, state):
+        return ref.ssm_scan(x, dt, A, B, C, D, state)
     return ssm_kernel.ssm(x, dt, A, B, C, D, state)
 
 
 def rwkv6_scan(r, k, v, w, u, state=None):
     """The RWKV-6 WKV recurrence: (out [b, s, h, n], final state
-    [b, h, n, n]), the kernel on CUDA tensors, prefill and decode alike."""
+    [b, h, n, n]), the kernel on CUDA tensors, prefill and decode alike;
+    in training ``ref.rwkv6_scan``."""
+    if flash_kernel.needs_grad(r, k, v, w, u, state):
+        return ref.rwkv6_scan(r, k, v, w, u, state)
     return rwkv6_kernel.rwkv6(r, k, v, w, u, state)

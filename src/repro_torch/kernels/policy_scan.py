@@ -21,9 +21,15 @@ into ``carry_end[:, 0]``).
 
 A tensor on the CPU goes to the plain PyTorch version in ``ref.py``. A
 tensor on a CUDA device goes to the kernel, or the call raises: there is
-no fallback. The kernels run only the five built-in policies; a one-hot
-row that selects any other policy, or is not a one-hot row, raises. Each
-kernel launch adds one to ``launches[<kernel>]``, and nothing else does.
+no fallback. The kernels run the five built-in policies
+(``PolicySpec.kernel_branch``) and every policy added with
+``register_policy`` (an override of a built-in included), whose lane step
+``kernels/lane_codegen.py`` translates into a device function of a
+library built for the registry (``lane_codegen.generated()``); a row
+whose step has no CUDA form, or that is not a one-hot row, raises. Each
+kernel launch adds one to ``launches[<kernel>]``, and nothing else does;
+``registered_rows[<kernel>]`` counts the scenarios a launch ran through a
+registered policy's generated step.
 ``shed_fuse`` (a ``core.twin.SHED_FUSE_*`` level) picks the rounding of
 shed under the fault layer; the defaults are the mixed-policy scans'.
 """
@@ -36,18 +42,22 @@ import torch
 from repro_torch.core.twin import (AGG_HIST_BINS, AGG_SCALARS, CARRY_DIM,
                                    PARAM_DIM, SHED_FUSE_DROP,
                                    SHED_FUSE_LATENCY, finalize_aggregate,
-                                   kernel_branches, num_policies,
-                                   policy_names)
-from repro_torch.kernels import build, ref
+                                   num_policies, policy_names)
+from repro_torch.kernels import build, lane_codegen, ref
 
 #: kernel launches since the last ``reset_launches()``
 launches = {"policy_scan": 0, "policy_agg": 0, "policy_scan_fault": 0,
             "policy_agg_fault": 0}
+#: scenarios run through a registered policy's generated step since the
+#: last ``reset_launches()``, by kernel (read back with the checks, and
+#: only while a policy is registered)
+registered_rows = {k: 0 for k in launches}
 
 
 def reset_launches():
-    for k in launches:
-        launches[k] = 0
+    for counts in (launches, registered_rows):
+        for k in counts:
+            counts[k] = 0
 
 
 def gather_loads(loads, loads_t, load_index) -> torch.Tensor:
@@ -75,8 +85,10 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 
 
-def _lib():
-    lib = build.load("policy_scan")
+def _lib(generated=None):
+    """The kernels' library: the plain build, or with ``generated`` (the
+    header of the registry's steps) the one built for it."""
+    lib = build.load("policy_scan", generated)
     if not getattr(lib, "bound", False):
         lib.bound = True
         lib.policy_agg_launch.argtypes = [_P, _I, _I, _P, _P, _P, _I, _F,
@@ -106,32 +118,46 @@ def _check(lib, rc: int, what: str):
 
 
 #: [P + 1] int32 per device and policy registry: entry 0 is -1 (an
-#: all-zero row), entry p + 1 policy p's kernel branch, or -2 for none.
+#: all-zero row), entry p + 1 policy p's kernel branch (``lane_codegen``'s
+#: ``Generated.branches``: built-in, generated or ``REFUSED``).
 #: Made once: a table copied from the host at each call would wait for
 #: the work already queued on the card, as a read-back does.
 _BRANCH_TABLES = {}
 
 
 def _branch_table(dev) -> torch.Tensor:
-    branches = tuple(kernel_branches())
+    branches = lane_codegen.generated().branches
     table = _BRANCH_TABLES.get((dev, branches))
     if table is None:
-        table = torch.tensor([-1] + [-2 if b is None else b
-                                     for b in branches],
-                             dtype=torch.int32, device=dev)
+        table = torch.tensor([-1, *branches], dtype=torch.int32, device=dev)
         _BRANCH_TABLES[(dev, branches)] = table
     return table
 
 
-def _raise_failed(checks):
+def _raise_failed(checks, count=None):
     """Raise the error of the first failing check: (flag, error) pairs,
-    each flag a 0-dim bool tensor, all read back in one copy."""
-    if not checks:
-        return
-    flags = torch.stack([flag for flag, _ in checks]).tolist()
-    for failed, (_, error) in zip(flags, checks):
+    each flag a 0-dim bool tensor, all read back in one copy, with
+    ``count`` (a 0-dim integer tensor, or None) beside them. Returns the
+    count as an int (0 for None)."""
+    if count is None:
+        values = [flag for flag, _ in checks]
+    else:
+        values = [flag.to(torch.int64) for flag, _ in checks] + [count]
+    if not values:
+        return 0
+    got = torch.stack(values).tolist()
+    for failed, (_, error) in zip(got, checks):
         if failed:
             raise error()
+    return got[-1] if count is not None else 0
+
+
+def _registered_count(branch: torch.Tensor):
+    """The 0-dim count of rows that run a generated step, or None when
+    no policy is registered (then nothing is added to the read-back)."""
+    if lane_codegen.generated().header is None:
+        return None
+    return (branch >= lane_codegen.FIRST_GENERATED).sum()
 
 
 def _defer_or_raise(checks, flag, error):
@@ -144,24 +170,29 @@ def _defer_or_raise(checks, flag, error):
 
 def _kernel_branch_index(onehot: torch.Tensor, checks=None) -> torch.Tensor:
     """[N] int32 kernel branch per scenario from the [N, P] one-hot mask
-    (-1 for an all-zero row, which the blend turns into zeros). A row that
-    is not one-hot, or selects a policy without a kernel branch, raises:
-    here, or where ``checks`` are read when a list is passed."""
+    (-1 for an all-zero row, which the blend turns into zeros; a
+    registered policy's generated branch). A row that is not one-hot, or
+    selects a registered policy whose step has no CUDA form, raises: here,
+    or where ``checks`` are read when a list is passed."""
     rows = onehot.sum(dim=1)
     col = onehot.argmax(dim=1)
     branch = _branch_table(onehot.device)[torch.where(rows > 0, col + 1, 0)]
     bad = ~(((onehot == 0) | (onehot == 1)).all(dim=1) & (rows <= 1))
-
-    def no_branch():
-        names = sorted({policy_names()[c] for c in
-                        col[branch == -2].unique().tolist()})
-        return NotImplementedError(
-            f"policies {names} have no CUDA kernel branch; the kernels run "
-            f"the built-ins only (run them with device='cpu')")
     _defer_or_raise(checks, bad.any(), lambda: ValueError(
         "onehot rows must be one-hot (a single 1.0) or all zeros for the "
         "CUDA kernels"))
-    _defer_or_raise(checks, (branch == -2).any(), no_branch)
+    refused = lane_codegen.generated().refused
+    if refused:
+        def no_branch():
+            names = sorted({policy_names()[c] for c in
+                            col[branch == lane_codegen.REFUSED]
+                            .unique().tolist()})
+            why = "; ".join(f"{k}: {refused[k]}" for k in names)
+            return NotImplementedError(
+                f"policies {names} have no CUDA form ({why}); run them "
+                f"with device='cpu'")
+        _defer_or_raise(checks, (branch == lane_codegen.REFUSED).any(),
+                        no_branch)
     return branch
 
 
@@ -287,8 +318,8 @@ def policy_grid_scan(loads, params, onehot, dt_hours: float = 1.0, *,
     series = torch.empty((5, t_bins, n), dtype=torch.float32, device=dev)
     # read back once, with all of the above queued: the card runs it
     # while the host waits, right after the work queued before this call
-    _raise_failed(checks)
-    lib = _lib()
+    n_reg = _raise_failed(checks, _registered_count(branch))
+    lib = _lib(lane_codegen.generated().header)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if fault:
@@ -307,6 +338,7 @@ def policy_grid_scan(loads, params, onehot, dt_hours: float = 1.0, *,
     name = "policy_scan_fault" if fault else "policy_scan"
     _check(lib, rc, name)
     launches[name] += 1
+    registered_rows[name] += n_reg
     return carry_end, tuple(series[k].t() for k in range(5))
 
 
@@ -349,8 +381,8 @@ def policy_grid_agg(loads, params, onehot, dt_hours: float = 1.0, *,
     # [152, N, 4]: each bucket's compensated triple, padded to 16 bytes
     hist = torch.zeros((AGG_HIST_BINS, n, 4), dtype=torch.float32,
                        device=dev)
-    _raise_failed(checks)
-    lib = _lib()
+    n_reg = _raise_failed(checks, _registered_count(branch))
+    lib = _lib(lane_codegen.generated().header)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if fault:
@@ -370,6 +402,7 @@ def policy_grid_agg(loads, params, onehot, dt_hours: float = 1.0, *,
     name = "policy_agg_fault" if fault else "policy_agg"
     _check(lib, rc, name)
     launches[name] += 1
+    registered_rows[name] += n_reg
     packed = torch.cat([scal.t(),
                         hist[..., :3].permute(1, 2, 0).reshape(n, -1)], dim=1)
     back = torch.empty_like(order)

@@ -18,7 +18,10 @@ on the tensor cores, every decay factor <= 1), shorter runs and decode
 (s = 1) run ``wkv_kernel`` (the per-step recurrence). Both take float32
 and bfloat16 and are built for head dims 16, 32 and 64. Each launch adds
 one to its kernel's count, ``launches["rwkv6_chunked"]`` or
-``launches["rwkv6_scan"]``, and nothing else does.
+``launches["rwkv6_scan"]``, and nothing else does. A forward kernel: a
+call in grad mode with an operand that requires grad raises
+``RuntimeError`` on either device (``flash_attention.no_grad_operands``);
+``kernels/ops.py`` routes training to ``ref.rwkv6_scan``.
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch.kernels.flash_attention import no_grad_operands
 
 #: kernel launches since the last ``reset_launches()``
 launches = {"rwkv6_chunked": 0, "rwkv6_scan": 0}
@@ -87,6 +91,7 @@ def rwkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
           w: torch.Tensor, u: torch.Tensor, state: torch.Tensor = None):
     """The WKV recurrence, ``ref.rwkv6_scan``'s semantics: (out, final
     state)."""
+    no_grad_operands("rwkv6", r, k, v, w, u, state)
     if not r.is_cuda:
         return ref.rwkv6_scan(r, k, v, w, u, state)
     _check_operands(r, k, v, w, u, state)

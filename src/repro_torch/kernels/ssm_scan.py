@@ -13,7 +13,10 @@ A tensor on the CPU goes to the plain version, ``ref.ssm_scan``. A
 tensor on a CUDA device goes to the kernel, or the call raises: there is
 no fallback. The kernel holds n <= 16 state values per channel in
 registers. Each launch adds one to ``launches["ssm_scan"]``, and nothing
-else does.
+else does. A forward kernel: a call in grad mode with an operand that
+requires grad raises ``RuntimeError`` on either device
+(``flash_attention.no_grad_operands``); ``kernels/ops.py`` routes training
+to ``ref.ssm_scan``.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch.kernels.flash_attention import no_grad_operands
 
 #: kernel launches since the last ``reset_launches()``
 launches = {"ssm_scan": 0}
@@ -79,6 +83,7 @@ def _check_operands(x, dt, A, B, C, D, state):
 def ssm(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
         C: torch.Tensor, D: torch.Tensor, state: torch.Tensor = None):
     """Selective scan, ``ref.ssm_scan``'s semantics: (y, final state)."""
+    no_grad_operands("ssm_scan", x, dt, A, B, C, D, state)
     if not x.is_cuda:
         return ref.ssm_scan(x, dt, A, B, C, D, state)
     _check_operands(x, dt, A, B, C, D, state)

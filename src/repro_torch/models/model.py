@@ -1,11 +1,18 @@
-"""Top-level model API: schemas, init, prefill, decode.
+"""Top-level model API: schemas, init, loss, prefill, decode.
 
 Counterpart: ``repro.models.model``. Batch convention:
-  prefill: {"tokens": [b, s_text] int, "positions": [b, s] or [3, b, s]
-            (optional), "embeds": [b, n_patch, d] (vision frontend stub,
+  train / prefill: {"tokens": [b, s_text] int, "positions": [b, s] or
+            [3, b, s] (optional), "loss_mask": [b, s] (train only,
+            optional), "embeds": [b, n_patch, d] (vision frontend stub,
             optional), "frames": [b, encoder_seq, d] (audio frontend stub,
             needed by an encoder-decoder)}   (+ the cache to fill)
   decode:  {"token": [b, 1] int} + the cache (which holds per-row lengths)
+
+``loss_fn`` is the reference's training loss: next-token cross-entropy
+over the text positions (after any patch embeddings), a float32
+logsumexp, the loss mask, and the MoE balance loss. Called with
+parameters that require grad, its attention and scans take the
+reference's training semantics (``kernels/ops.py``).
 
 Every config of ``configs`` runs: GQA attention blocks with standard,
 partial or M-RoPE or none, or MLA (minicpm3); Mamba (Jamba-1.5) and
@@ -190,10 +197,12 @@ def _embed_inputs(params: Params, cfg: ModelConfig, batch: Dict
 
 
 def forward(params: Params, cfg: ModelConfig, batch: Dict,
-            cache: Optional[Params] = None, decode: bool = False
+            cache: Optional[Params] = None, decode: bool = False,
+            remat: str = "none"
             ) -> Tuple[torch.Tensor, Optional[Params], torch.Tensor]:
     """Full forward. Returns (logits [b, s, vocab], the cache updated in
-    place or None, aux loss)."""
+    place or None, aux loss). ``remat``: the decoder stack's training
+    remat policy (``transformer.REMAT_POLICIES``)."""
     if decode:
         tokens = batch["token"]
         b, t = tokens.shape
@@ -219,12 +228,39 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict,
         y, _, aux = tf.apply_stack(params, cfg, x, positions,
                                    cache=stack_cache, decode=False,
                                    lengths=lengths, prefix="stack",
-                                   memory=memory, cross=cfg.encdec)
+                                   memory=memory, cross=cfg.encdec,
+                                   remat=remat)
         if cache is not None:
             cache["length"] = torch.full((b,), s, dtype=torch.int32,
                                          device=x.device)
     y = apply_norm(params, "final_norm", y, cfg)
     return unembed(params, y, cfg), cache, aux
+
+
+def loss_fn(params: Params, cfg: ModelConfig, batch: Dict,
+            remat: str = "none") -> Tuple[torch.Tensor, Dict]:
+    """(loss, {"loss", "nll", "aux", "tokens"}): the mean next-token
+    negative log-likelihood over the unmasked text positions (float32
+    logsumexp; the logits of prepended patch embeddings are not scored),
+    plus the MoE balance loss ``aux``; ``tokens`` is the mask's sum
+    (at least 1), the mean's denominator."""
+    logits, _, aux = forward(params, cfg, batch, remat=remat)
+    tokens = batch["tokens"]
+    n_text = tokens.shape[1]
+    lg = logits[:, -n_text:][:, :-1].to(torch.float32)
+    targets = tokens[:, 1:].long()
+    mask = batch.get("loss_mask")
+    mask = (torch.ones(targets.shape, dtype=torch.float32,
+                       device=lg.device) if mask is None
+            else mask[:, -n_text:][:, 1:].to(torch.float32))
+    logz = torch.logsumexp(lg, dim=-1)
+    gold = torch.gather(lg, -1, targets[..., None])[..., 0]
+    nll = (logz - gold) * mask
+    denom = torch.clamp_min(mask.sum(), 1.0)
+    nll_mean = nll.sum() / denom
+    loss = nll_mean + aux
+    return loss, {"loss": loss, "nll": nll_mean, "aux": aux,
+                  "tokens": denom}
 
 
 # ---------------------------------------------------------------------------

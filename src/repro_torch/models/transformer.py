@@ -20,12 +20,24 @@ cross-attention sub-block (``norm_x``, then GQA over the encoder's
 output under ``.cross``, its K/V cache ``encoder_seq`` long) before the
 MLP. The MoE layers' aux losses sum over the stack, as the reference's
 scan carries them.
+
+``remat`` (``REMAT_POLICIES``, the reference's ``set_remat``, passed as
+an argument here) checkpoints each group's body in training, as the
+reference wraps its scan body: ``"none"`` keeps every activation for the
+backward, ``"full"`` keeps only the group's inputs and recomputes the
+rest (``torch.utils.checkpoint``), ``"dots"`` keeps the outputs of the
+matrix products and recomputes the rest (a selective-checkpoint policy,
+the counterpart of ``jax.checkpoint_policies.checkpoint_dots``). The
+recomputation runs the same operations on the same inputs, so gradients
+are those of ``"none"``. A serving call (with a cache) runs no remat.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
+from torch.utils import checkpoint as torch_checkpoint
 
 from repro_torch.config import ModelConfig
 from repro_torch.models import attention as attn_mod
@@ -37,6 +49,11 @@ from repro_torch.models.layers import (Params, Schema, apply_mlp,
                                        prefix_schema, stack_schema)
 
 BLOCK_KINDS = ("attn", "mamba", "rwkv")
+REMAT_POLICIES = ("none", "full", "dots")
+#: the matrix products whose outputs ``"dots"`` keeps (what ``@``,
+#: ``einsum`` and ``F.linear`` dispatch to)
+_DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+            torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
 ATTENTION_KINDS = ("gqa", "mla")
 FRONTENDS = ("none", "vision", "audio")
 
@@ -221,25 +238,59 @@ def _apply_block(gp: Params, cfg: ModelConfig, idx: int, kind: str,
     return x + apply_mlp(gp, f"{pre}.mlp", h, cfg), None
 
 
+def _save_dots(ctx, op, *args, **kwargs):
+    policy = torch_checkpoint.CheckpointPolicy
+    return policy.MUST_SAVE if op in _DOT_OPS else policy.PREFER_RECOMPUTE
+
+
+def _remat(body, remat: str):
+    """``body`` under the remat policy (see the module docstring)."""
+    if remat not in REMAT_POLICIES:
+        raise ValueError(f"remat={remat!r}: one of {REMAT_POLICIES}")
+    if remat == "none":
+        return body
+    kw = {}
+    if remat == "dots":
+        kw["context_fn"] = functools.partial(
+            torch_checkpoint.create_selective_checkpoint_contexts,
+            _save_dots)
+    return functools.partial(torch_checkpoint.checkpoint, body,
+                             use_reentrant=False, **kw)
+
+
 def apply_stack(params: Params, cfg: ModelConfig, x: torch.Tensor,
                 positions, cache: Optional[Params] = None,
                 decode: bool = False, lengths: Optional[torch.Tensor] = None,
                 prefix: str = "stack", memory: Optional[torch.Tensor] = None,
-                cross: bool = False
+                cross: bool = False, remat: str = "none"
                 ) -> Tuple[torch.Tensor, Optional[Params], torch.Tensor]:
     """Run the full stack. Returns (y, the stacked cache written in place
     or None, aux loss: the MoE layers' summed, zero without MoE).
     ``cross``: a decoder stack whose attention blocks also attend to the
-    encoder's output (``memory`` at prefill, the cache at decode)."""
+    encoder's output (``memory`` at prefill, the cache at decode).
+    ``remat``: the training remat policy of each group's body (ignored
+    with a cache)."""
     check_supported(cfg)
     pre = f"{prefix}."
     stacked = {k[len(pre):]: v for k, v in params.items()
                if k.startswith(pre)}
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cache is None:
+        def group(x, aux, gp):
+            for i, kind in enumerate(cfg.block_pattern):
+                x, a = _apply_block(gp, cfg, i, _kind(kind, cross), x,
+                                    positions, None, {}, decode, lengths,
+                                    memory)
+                if a is not None:
+                    aux = aux + a
+            return x, aux
+        body = _remat(group, remat)
+        for g in range(n_groups(cfg)):
+            x, aux = body(x, aux, {k: v[g] for k, v in stacked.items()})
+        return x, None, aux
     for g in range(n_groups(cfg)):
         gp = {k: v[g] for k, v in stacked.items()}
-        gcache = None if cache is None else {k: v[g]
-                                             for k, v in cache.items()}
+        gcache = {k: v[g] for k, v in cache.items()}
         cache_out: dict = {}
         for i, kind in enumerate(cfg.block_pattern):
             x, a = _apply_block(gp, cfg, i, _kind(kind, cross), x,

@@ -1,4 +1,5 @@
-"""AdamW with global-norm clipping and a warmup + cosine schedule.
+"""AdamW with global-norm clipping, a warmup + cosine schedule, and
+float32, bfloat16 or int8 moments.
 
 Counterpart: ``repro.optim.adamw`` (``lr_at``, ``init_opt_state``,
 ``adamw_update``), in the reference's update order: the global-norm
@@ -7,14 +8,19 @@ moments, the bias corrections from ``b ** step`` in float32, then the
 decoupled weight decay. Plain functions over dicts of tensors — no
 ``torch.optim`` optimizer stands in.
 
-Only float32 moments are ported: the reference's int8 (block-quantized)
-and bfloat16 states belong to the training side (ROADMAP A9), and
-``state_dtype`` other than ``"float32"`` raises.
+``OptimizerConfig.state_dtype`` picks the moments' storage, as in the
+reference: ``"float32"``; ``"bfloat16"`` (each moment rounded to bf16
+after the update); ``"int8"``, block-quantized by ``state_block``
+(``optim.compression``: int8 [n / block, block] with the per-block
+scales in ``m_scale`` / ``v_scale``; the second moment stored as
+sqrt(v), which halves the range the int8 grid covers). A stored moment
+is widened to float32 before the update and stored again after it.
 
 ``lanes=`` extends the reference's per-problem contract to a batch:
 the leading ``lanes`` axes of every parameter index independent
 problems, each clipped by its own global norm — what the reference gets
 by ``jax.vmap`` over the update (the K restarts of a calibration fit).
+It takes float32 moments only.
 """
 from __future__ import annotations
 
@@ -24,34 +30,73 @@ from typing import Dict, NamedTuple, Tuple
 import torch
 
 from repro_torch.config import OptimizerConfig
+from repro_torch.optim.compression import dequantize_int8, quantize_int8
 
 
 class OptState(NamedTuple):
     step: torch.Tensor               # int32, shared by every lane
     m: Dict[str, torch.Tensor]
     v: Dict[str, torch.Tensor]
-    # the reference's int8 per-block scales; empty for float32 moments
+    # the int8 moments' per-block scales; empty for float32 and bfloat16
     m_scale: Dict[str, torch.Tensor]
     v_scale: Dict[str, torch.Tensor]
 
 
-def _float32_only(ocfg: OptimizerConfig):
-    if ocfg.state_dtype != "float32":
-        raise NotImplementedError(
-            f"state_dtype={ocfg.state_dtype!r}: only float32 optimizer "
-            f"states are in the port; the int8 and bfloat16 moments "
-            f"come with the training side (ROADMAP A9)")
+STATE_DTYPES = ("float32", "bfloat16", "int8")
+
+
+def _check_state_dtype(ocfg: OptimizerConfig, lanes: int = 0):
+    if ocfg.state_dtype not in STATE_DTYPES:
+        raise ValueError(f"state_dtype={ocfg.state_dtype!r}: one of "
+                         f"{STATE_DTYPES}")
+    if lanes and ocfg.state_dtype != "float32":
+        raise ValueError(f"lanes={lanes} takes float32 moments, not "
+                         f"{ocfg.state_dtype!r}")
+
+
+def _moment_like(p: torch.Tensor, ocfg: OptimizerConfig):
+    """(zero moment, zero per-block scales or None) for parameter p."""
+    if ocfg.state_dtype == "int8":
+        nblk = -(-p.numel() // ocfg.state_block)
+        return (torch.zeros((nblk, ocfg.state_block), dtype=torch.int8,
+                            device=p.device),
+                torch.zeros((nblk,), dtype=torch.float32, device=p.device))
+    dt = torch.bfloat16 if ocfg.state_dtype == "bfloat16" else torch.float32
+    return torch.zeros(p.shape, dtype=dt, device=p.device), None
 
 
 def init_opt_state(params: Dict[str, torch.Tensor],
                    ocfg: OptimizerConfig) -> OptState:
-    _float32_only(ocfg)
-    m = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-         for k, p in params.items()}
-    v = {k: torch.zeros_like(x) for k, x in m.items()}
+    _check_state_dtype(ocfg)
+    m, v, ms, vs = {}, {}, {}, {}
+    for k, p in params.items():
+        m[k], sc = _moment_like(p, ocfg)
+        v[k] = torch.zeros_like(m[k])
+        if sc is not None:
+            ms[k], vs[k] = sc, torch.zeros_like(sc)
     dev = next(iter(params.values())).device if params else None
     return OptState(torch.zeros((), dtype=torch.int32, device=dev), m, v,
-                    {}, {})
+                    ms, vs)
+
+
+def _load_moment(mm, sc, shape, ocfg: OptimizerConfig,
+                 second: bool = False) -> torch.Tensor:
+    """A stored moment widened to float32 (float32 moments as they are)."""
+    if ocfg.state_dtype == "int8":
+        x = dequantize_int8(mm, sc, shape)
+        return torch.square(x) if second else x
+    return mm.to(torch.float32)
+
+
+def _store_moment(x: torch.Tensor, ocfg: OptimizerConfig,
+                  second: bool = False):
+    """(stored moment, per-block scales or None)."""
+    if ocfg.state_dtype == "int8":
+        return quantize_int8(torch.sqrt(x) if second else x,
+                             ocfg.state_block)
+    if ocfg.state_dtype == "bfloat16":
+        return x.to(torch.bfloat16), None
+    return x, None
 
 
 def lr_at(step, ocfg: OptimizerConfig) -> torch.Tensor:
@@ -74,7 +119,7 @@ def adamw_update(params: Dict[str, torch.Tensor],
     """One AdamW step: (new params, new state). ``lanes`` leading axes of
     every parameter index independent problems (see the module
     docstring); the global norm reduces over the other axes."""
-    _float32_only(ocfg)
+    _check_state_dtype(ocfg, lanes)
     step = state.step + 1
 
     def sq_norm(g):
@@ -89,16 +134,22 @@ def adamw_update(params: Dict[str, torch.Tensor],
     bc1 = 1.0 - torch.pow(b1, stepf)
     bc2 = 1.0 - torch.pow(b2, stepf)
 
-    new_p, new_m, new_v = {}, {}, {}
+    new_p, new_m, new_v, new_ms, new_vs = {}, {}, {}, {}, {}
     for k, p in params.items():
         c = clip.reshape(clip.shape + (1,) * (p.dim() - lanes))
         g = grads[k].to(torch.float32) * c
-        m = b1 * state.m[k] + (1 - b1) * g
-        v = b2 * state.v[k] + (1 - b2) * torch.square(g)
+        m = _load_moment(state.m[k], state.m_scale.get(k), p.shape, ocfg)
+        v = _load_moment(state.v[k], state.v_scale.get(k), p.shape, ocfg,
+                         second=True)
+        m = b1 * m + (1 - b1) * g
+        v = b2 * v + (1 - b2) * torch.square(g)
         mhat = m / bc1
         vhat = v / bc2
         upd = (mhat / (torch.sqrt(vhat) + ocfg.eps)
                + ocfg.weight_decay * p.to(torch.float32))
         new_p[k] = (p.to(torch.float32) - lr * upd).to(p.dtype)
-        new_m[k], new_v[k] = m, v
-    return new_p, OptState(step, new_m, new_v, {}, {})
+        new_m[k], msc = _store_moment(m, ocfg)
+        new_v[k], vsc = _store_moment(v, ocfg, second=True)
+        if msc is not None:
+            new_ms[k], new_vs[k] = msc, vsc
+    return new_p, OptState(step, new_m, new_v, new_ms, new_vs)

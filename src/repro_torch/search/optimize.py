@@ -571,10 +571,9 @@ def search(space_or_base: Union[SearchSpace, Twin],
 
     ``device`` is ``"cuda"`` (default; raises without a card) or
     ``"cpu"``: the gradient loop and every exact re-check run there. On
-    the card the re-check runs through the CUDA aggregate kernels, which
-    refuse a policy added with ``register_policy``; such a search raises
-    that refusal instead of moving the re-check to the CPU. ``devices``
-    > 1 raises (ROADMAP A8).
+    the card the re-check runs through the CUDA aggregate kernels, a
+    policy added with ``register_policy`` as its translated step (see
+    ``kernels/lane_codegen.py``). ``devices`` > 1 raises (ROADMAP A8).
     """
     _restart_devices(devices)
     resolve_device(device)

@@ -599,10 +599,31 @@ def test_lr_schedule_shape(jref):
 
 
 @pytest.mark.parametrize("state_dtype", ["bfloat16", "int8"])
-def test_quantized_states_are_not_ported(state_dtype):
-    ocfg = OptimizerConfig(state_dtype=state_dtype)
-    with pytest.raises(NotImplementedError, match="A9"):
-        init_opt_state({"w": torch.zeros(3)}, ocfg)
+def test_quantized_states_are_not_ported(jref, state_dtype):
+    """The quantized moments were refused until the training side was
+    ported (ROADMAP A9); now their layout is the reference's (int8 blocks
+    of ``state_block`` with per-block scales; bf16 moments of the
+    parameter's shape) and an update runs. Only the fit's ``lanes`` form
+    still takes float32 moments alone. The values against the
+    reference's are ``tests/test_torch_train.py``'s."""
+    from repro.config import OptimizerConfig as JOptimizerConfig
+    ocfg = OptimizerConfig(state_dtype=state_dtype, state_block=4)
+    p = {"w": torch.arange(10, dtype=torch.float32)}
+    st = init_opt_state(p, ocfg)
+    jst = jref.optim.init_opt_state(
+        {"w": jref.jax.numpy.asarray(p["w"].numpy())},
+        JOptimizerConfig(state_dtype=state_dtype, state_block=4))
+    for got, want in ((st.m, jst.m), (st.v, jst.v), (st.m_scale, jst.m_scale),
+                      (st.v_scale, jst.v_scale)):
+        assert set(got) == set(want)
+        for k in got:
+            assert tuple(got[k].shape) == tuple(want[k].shape)
+            assert str(got[k].dtype).split(".")[-1] == str(want[k].dtype)
+    new_p, st2 = adamw_update(p, {"w": torch.ones(10)}, st, ocfg)
+    assert int(st2.step) == 1 and st2.m["w"].dtype == st.m["w"].dtype
+    assert torch.isfinite(new_p["w"]).all()
+    with pytest.raises(ValueError, match="float32 moments"):
+        adamw_update(p, {"w": torch.ones(10)}, st, ocfg, lanes=1)
 
 
 # ---------------------------------------------------------------------------

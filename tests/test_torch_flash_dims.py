@@ -16,11 +16,15 @@ measured 2.8e-7 here), bf16 2^-7, one bf16 step of the output (measured
 1.5e-3).
 
 The wrapper's rule (``flash_attention.check_head_dims``): q/k and v head
-dims each a multiple of 8 from 8 to 256. It takes every pair of the ten
-configs and their smoke configs, and refuses 20 and 264 with
+dims each from 1 to 256; the kernels run multiples of 8, and the wrapper
+pads any other dim with zero columns (``pad_head_dims``), scales by the
+real q/k dim and slices the output back to the real v dim. It takes every
+pair of the ten configs and their smoke configs; at (20, 20), (96, 20)
+and (4, 4) the padded plain route is bitwise the unpadded plain flash
+(zero columns add exact zeros to every product); 264 is refused with
 ``NotImplementedError`` naming the rule (the Pallas kernel takes any d,
-ROADMAP C17); ``_check_operands``, run before every launch on the card,
-applies it.
+ROADMAP C17), and 0 with ``ValueError``. ``_check_operands``, run before
+every launch on the card, applies it.
 """
 import numpy as np
 import pytest
@@ -89,13 +93,35 @@ def test_head_dim_rule_takes_every_config():
 @pytest.mark.parametrize("dq, dv", [(20, 20), (264, 264), (96, 20),
                                     (64, 264), (0, 64), (4, 4)])
 def test_head_dim_rule_refuses_the_rest(dq, dv):
-    with pytest.raises(NotImplementedError, match=fk.HEAD_DIM_RULE):
-        fk.check_head_dims(dq, dv)
-    q = torch.zeros(1, 4, 2, dq)
-    k = torch.zeros(1, 4, 2, dq)
-    v = torch.zeros(1, 4, 2, dv)
-    with pytest.raises(NotImplementedError, match="multiple of 8"):
-        fk._check_operands(q, k, v)
+    g = torch.Generator().manual_seed(dq * 1000 + dv)
+    q = torch.randn(1, 70, 4, dq, generator=g)
+    k = torch.randn(1, 70, 2, dq, generator=g)
+    v = torch.randn(1, 70, 2, dv, generator=g)
+    if max(dq, dv) > fk.MAX_HEAD_DIM:
+        with pytest.raises(NotImplementedError,
+                           match=fk.HEAD_DIM_RULE.replace("(", r"\(")
+                           .replace(")", r"\)")):
+            fk.check_head_dims(dq, dv)
+        with pytest.raises(NotImplementedError, match="from 1 to 256"):
+            fk._check_operands(q, k, v)
+        return
+    if min(dq, dv) < 1:
+        with pytest.raises(ValueError, match="at least one"):
+            fk.check_head_dims(dq, dv)
+        with pytest.raises(ValueError, match="at least one"):
+            fk._check_operands(q, k, v)
+        return
+    fk._check_operands(q, k, v)
+    pq, pk_, pv = fk.pad_head_dims(q, k, v)
+    assert pq.shape[3] == pk_.shape[3] == fk.padded_dim(dq) >= dq
+    assert pv.shape[3] == fk.padded_dim(dv) >= dv
+    assert (pq.shape[3], pv.shape[3]) != (dq, dv)
+    assert pq.shape[3] % 8 == pv.shape[3] % 8 == 0
+    for causal in (True, False):
+        padded = ref.flash_attention(pq, pk_, pv, causal=causal,
+                                     scale=dq ** -0.5)[..., :dv]
+        assert torch.equal(padded, ref.flash_attention(q, k, v,
+                                                       causal=causal))
 
 
 def test_wrapper_takes_a_value_head_dim_of_its_own():

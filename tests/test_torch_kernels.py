@@ -197,10 +197,31 @@ def test_kernel_branch_index_from_onehot(monkeypatch):
                                   [4, -1, 2, 1, 3])
     with pytest.raises(ValueError, match="one-hot"):
         pk._kernel_branch_index(onehot * 0.5)
-    # a policy without a CUDA branch (any user registration) is refused
-    monkeypatch.setattr(pk, "kernel_branches", lambda: (0, 1, 2, 3, None))
-    with pytest.raises(NotImplementedError, match="batch_window"):
-        pk._kernel_branch_index(onehot)
+    # a policy without a built-in branch (any user registration, here an
+    # override of batch_window) runs its translated step: branch 5 + its
+    # index; one whose step has no CUDA form is refused by name
+    saved = dict(pt._REGISTRY)
+    monkeypatch.setattr(pt, "_VERSION", pt._VERSION)
+    try:
+        @pt.register_policy("batch_window", ("max_rps", "usd_per_hour",
+                                             "base_latency_s"))
+        def _batch_v2(carry, arrive, p, dt):
+            return carry, (arrive, carry[:, 0], p[:, 2], p[:, 1],
+                           torch.zeros_like(arrive))
+        np.testing.assert_array_equal(
+            pk._kernel_branch_index(onehot).numpy(), [9, -1, 2, 1, 3])
+
+        @pt.register_policy("batch_window", ("max_rps", "usd_per_hour",
+                                             "base_latency_s"))
+        def _batch_v3(carry, arrive, p, dt):
+            return carry, (arrive, carry[:, 0], torch.log1p(p[:, 2]),
+                           p[:, 1], torch.zeros_like(arrive))
+        with pytest.raises(NotImplementedError,
+                           match="batch_window.*aten.log1p"):
+            pk._kernel_branch_index(onehot)
+    finally:
+        pt._REGISTRY.clear()
+        pt._REGISTRY.update(saved)
 
 
 @pytest.mark.parametrize("n", [1, 33, 4097])
@@ -230,21 +251,25 @@ def test_policy_order_round_trips_through_the_destination_index(n):
 
 def test_card_checks_are_read_back_once_in_order():
     """The CUDA path queues the checks that read the card (one-hot rows,
-    kernel branches, row indices) and reads them back in one copy, after
-    its sort and gathers are queued and before the launch; the first
-    failing check raises, as it would have where it was made."""
+    row indices) and reads them back in one copy, after its sort and
+    gathers are queued and before the launch, with the count of rows
+    that run a registered policy's step beside them when one is
+    registered; the first failing check raises, as it would have where
+    it was made."""
     onehot = torch.from_numpy(pt.policy_onehot([0, 1, 2]))
     checks = []
     pk._kernel_branch_index(onehot * 0.5, checks)        # queued, no raise
     pk._row_index(torch.tensor([0, 5, 1], dtype=torch.int32), 3, 4,
                   torch.device("cpu"), "load", checks)
-    assert len(checks) == 3
+    assert len(checks) == 2
     with pytest.raises(ValueError, match="one-hot"):
-        pk._raise_failed(checks)
+        pk._raise_failed(checks, torch.tensor(1))
     with pytest.raises(ValueError, match="out of range"):
         pk._raise_failed(checks[1:])
-    pk._raise_failed(checks[1:2])           # every row has a branch
-    pk._raise_failed([])
+    ok = []
+    pk._kernel_branch_index(onehot, ok)
+    assert pk._raise_failed(ok, torch.tensor(2)) == 2    # the count
+    assert pk._raise_failed([]) == 0
 
 
 def test_build_flags_keep_ieee_rounding():

@@ -545,7 +545,8 @@ def test_unported_model_features_raise(what):
     refused until they were ported; now each runs, and what is still
     refused is the input it cannot take: M-RoPE positions without their
     three rows, a whisper prefill without frames, and on the card an MLA
-    whose q/k head dim breaks the flash kernel's rule."""
+    whose q/k head dim is past the flash kernels' 256 (below it the
+    wrapper pads any dim to the kernels' multiple of 8)."""
     if what == "rope":              # M-RoPE, with the vision frontend
         cfg = get_smoke_config("qwen2-vl-7b")
     elif what == "whisper":         # encoder-decoder, xattn blocks
@@ -570,8 +571,9 @@ def test_unported_model_features_raise(what):
         a = cfg.attention
         fk.check_head_dims(a.qk_nope_head_dim + a.qk_rope_head_dim,
                            a.v_head_dim)
-        with pytest.raises(NotImplementedError, match="multiple of 8"):
-            fk.check_head_dims(a.qk_nope_head_dim + 4, a.v_head_dim)
+        fk.check_head_dims(a.qk_nope_head_dim + 4, a.v_head_dim)
+        with pytest.raises(NotImplementedError, match="from 1 to 256"):
+            fk.check_head_dims(fk.MAX_HEAD_DIM + 8, a.v_head_dim)
 
 
 # ---------------------------------------------------------------------------

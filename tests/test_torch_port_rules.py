@@ -15,7 +15,9 @@
   the calibration slice's ``fit``, ``fit_with_holdout``, ``evaluate``,
   ``calibrated_twin``, ``calibrated_grid`` and the trace replay, and the
   search slice's ``search``, ``search_policies``, ``pareto_frontier`` and
-  ``optimize_scenario``) default to the card and raise without one;
+  ``optimize_scenario``, and the training side's ``make_train_step``,
+  ``train``, ``elastic_restore``, ``state_like`` and the ``launch.train``
+  CLI) default to the card and raise without one;
 * ``chip_smoke.py`` fails, printing no result, where there is no card;
 * the model runs every config, MLA (minicpm3), the encoder-decoder
   (whisper) and the vision frontend with its M-RoPE positions (qwen2-vl)
@@ -105,7 +107,12 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
             "repro_torch.search.space", "repro_torch.search.objective",
             "repro_torch.search.optimize",
             "repro_torch.search.frontier", "repro_torch.launch.specs",
-            "repro_torch.launch.serve"} <= set(_modules())
+            "repro_torch.launch.serve", "repro_torch.optim.compression",
+            "repro_torch.data.loader", "repro_torch.checkpoint.ckpt",
+            "repro_torch.distributed.fault",
+            "repro_torch.distributed.elastic", "repro_torch.train.steps",
+            "repro_torch.train.loop", "repro_torch.launch.train",
+            "repro_torch.kernels.lane_codegen"} <= set(_modules())
 
 
 def test_port_sources_do_not_import_jax_or_the_reference():
@@ -125,7 +132,12 @@ def test_port_sources_do_not_import_jax_or_the_reference():
             "kernels/policy_vjp.py", "search/__init__.py",
             "search/space.py", "search/objective.py",
             "search/optimize.py", "search/frontier.py",
-            "launch/specs.py", "launch/serve.py"} <= names
+            "launch/specs.py", "launch/serve.py", "optim/compression.py",
+            "data/__init__.py", "data/loader.py", "checkpoint/__init__.py",
+            "checkpoint/ckpt.py", "distributed/__init__.py",
+            "distributed/fault.py", "distributed/elastic.py",
+            "train/__init__.py", "train/steps.py", "train/loop.py",
+            "launch/train.py", "kernels/lane_codegen.py"} <= names
     for f in files:
         hit = FORBIDDEN.search(f.read_text())
         assert hit is None, f"{f}: {hit.group(0).strip()}"
@@ -241,6 +253,33 @@ def test_search_entry_points_default_to_the_card_and_raise_without_one():
         "device"].default == "cuda"
     assert inspect.signature(search.pareto_frontier).parameters[
         "device"].default == "cuda"
+
+
+def test_training_entry_points_default_to_the_card_and_raise_without_one():
+    from repro_torch.config import (OptimizerConfig, ParallelConfig,
+                                    TrainConfig)
+    from repro_torch.distributed.elastic import elastic_restore, state_like
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train.loop import train
+    from repro_torch.train.steps import make_train_step
+    _no_card()
+    cfg = get_smoke_config("llama3.2-1b")
+    ocfg, par = OptimizerConfig(), ParallelConfig()
+    calls = [
+        lambda: make_train_step(cfg, ocfg, par),
+        lambda: train(cfg, TrainConfig(steps=1, checkpoint_dir="unused"),
+                      ocfg, par),
+        lambda: elastic_restore("unused", cfg, ocfg, par),
+        lambda: state_like(cfg, ocfg),
+        lambda: launch_train.main(["--smoke", "--steps", "1"]),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert launch_train.parse_args([]).device == "cuda"
+    for entry in (make_train_step, train, elastic_restore, state_like):
+        assert inspect.signature(entry).parameters[
+            "device"].default == "cuda", entry
 
 
 def test_serve_launcher_defaults_to_the_card_and_raises_without_one():

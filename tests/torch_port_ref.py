@@ -36,6 +36,13 @@ def reference():
         from repro.kernels import rwkv6_kernel, ssm_scan
         from repro.models import attention, layers, model, moe, rwkv6, ssm
         from repro.pipelines import telemetry
+        from repro.checkpoint import ckpt
+        from repro.data import loader
+        from repro.distributed import fault
+        from repro.launch import mesh
+        from repro.optim import adamw, compression
+        from repro.train import loop as train_loop
+        from repro.train import steps as train_steps
         yield SimpleNamespace(cost=cost, simulate=simulate, slo=slo,
                               traffic=traffic, twin=twin, whatif=whatif,
                               ops=ops, policy_scan=policy_scan, ref=ref,
@@ -51,7 +58,11 @@ def reference():
                               telemetry=telemetry, obs=obs,
                               calibrate=calibrate, optim=optim,
                               policy_vjp=policy_vjp, search=search,
-                              launch_specs=launch_specs)
+                              launch_specs=launch_specs, ckpt=ckpt,
+                              loader=loader, fault=fault, mesh=mesh,
+                              adamw=adamw, compression=compression,
+                              train_loop=train_loop,
+                              train_steps=train_steps)
     finally:
         for name in set(sys.modules) - before:
             if name == "repro" or name.startswith("repro."):

@@ -365,7 +365,8 @@ def main():
             ops[kernel] = operands(kernel, dev)
         so, ptxas = built[spec]
         name = SOURCE[kernel]
-        build._LOADED[name] = ctypes.CDLL(str(so))   # the wrapper binds it
+        # the wrapper binds it
+        build._LOADED[(name, None)] = ctypes.CDLL(str(so))
         fn, reps = runner(kernel, ops[kernel])
         # `unsorted`: the wrapper's argsort by policy returns the identity
         order = (mock.patch.object(torch, "argsort", caller_order)
@@ -381,7 +382,8 @@ def main():
             if name == "policy_scan":
                 from repro_torch.kernels import policy_scan as pk
                 timed = TimedLaunches(pk._lib())
-                with mock.patch.object(pk, "_lib", lambda: timed):
+                with mock.patch.object(pk, "_lib",
+                                       lambda generated=None: timed):
                     for _ in range(reps):
                         fn()
                 kernel_ms = timed.ms()
