@@ -7,8 +7,8 @@ the flash kernel at every head dim stablelm-3b, gemma-7b, minicpm3-4b's
 MLA, qwen2-vl-7b and whisper-small's encoder-decoder), the
 wind tunnel that measures a pipeline, fits its twin and forecasts its
 year, the gradient calibration of twins from what it measured, and the
-policy search that answers the what-if questions inversely, and the
-training side.
+policy search that answers the what-if questions inversely, the
+training side, and the multi-GPU layer over ``torch.distributed``.
 
     python3 chip_smoke.py
 
@@ -151,7 +151,11 @@ with phase 11's registered policies translated into them), then:
    bitwise the plain library's run of the built-ins alone, the counters
    showing every registered row ran in the kernel; a chaos suite
    through the fault kernel (11a); a search over ``capped``'s replicas
-   re-checked through the aggregate kernel (11b); both flash
+   re-checked through the aggregate kernel (11b); a registered step
+   with ``exp`` and ``log`` (``softlat``, its library built in phase 1)
+   over 16 full-year scenarios in both modes, its latency within
+   ``SOFTLAT_ULPS`` of the CPU run and everything else bitwise (11c,
+   ROADMAP C15); both flash
    kernels at head dims the wrapper pads to a multiple of 8 (4, 20,
    100; q/k 96 with v 20) against their plain version.
    ``python3 chip_smoke.py --phase 11`` runs the build and phase 11
@@ -168,9 +172,24 @@ with phase 11's registered policies translated into them), then:
    step, peak memory and checkpoint seconds (12c); a ``{"train": ...}``
    line. ``python3 chip_smoke.py --phase 12`` runs the build and phase
    12 alone;
-13. prints one JSON line of per-kernel numbers (eight kernels: launches
+13. the multi-GPU layer (ROADMAP A8.1): two ``gloo`` ranks started once
+   on the one card (``torch.multiprocessing``; NCCL will not put two
+   ranks on one GPU, so this checks correctness and measures no
+   scaling): 4b's 65,536-scenario grid with ``devices=2`` at two
+   scenario blocks and 4d's fault grid, bitwise their ``devices=None``
+   rows, with their ``grid.round`` spans (13a); 7b's fit and a What-if
+   #6 search with ``devices=2`` against ``devices=None`` (13b); 12b's
+   model in float32 over ``data=2`` against one rank (loss, first gradients, parameters), checkpoints
+   moving 2 -> 2, 2 -> 1 and 1 -> 2 ranks bitwise, a ``pod=2`` step
+   with int8 gradient compression bitwise its host emulation (13c);
+   llama3.2-1b cut to 8 of 16 layers over ``data=2`` (int8 moments,
+   remat full), each step's loss against one rank's, step ms and peak
+   memory per rank (13d); a
+   ``{"mesh": ...}`` line. ``python3 chip_smoke.py --phase 13`` runs the
+   build, 4b and 4d, and phase 13 alone;
+14. prints one JSON line of per-kernel numbers (eight kernels: launches
    on the main paths of phases 3-5, of 6b, of 7, of 8, of 9, of 10, of
-   11 and of 12,
+   11, of 12 and of 13 (13a-13b, both ranks),
    error against the plain version, kernel / plain / bound / library
    times; no
    kernel may read faster than its bound; the decode launches of
@@ -726,7 +745,7 @@ def at_width(whatif, tr, twin_mod, slo_mod):
 
 def chaos_at_width(whatif, tr, slo_mod, faults, sweep_twins, growths16):
     """Phases 4c and 4d: the chaos sweeps through run_grid(faults=).
-    Returns the 4d forecasts."""
+    Returns the 4d forecasts and 4d's aggregate rows."""
     from repro_torch.core import simulate as psim
     slo = slo_mod.SLO(limit_s=4 * 3600, met_fraction=0.95)
     schedule = chaos_schedule(faults, 16)
@@ -790,7 +809,7 @@ def chaos_at_width(whatif, tr, slo_mod, faults, sweep_twins, growths16):
           f"{len(series):,} rows: series {wall_s:.1f} ms wall, aggregate "
           f"{wall_a:.1f} ms wall; sums, max, queue and SLO shares bitwise "
           f"equal")
-    return growths4
+    return growths4, aggs
 
 
 def kernel_vs_plain(name, shape, ops, agg):
@@ -2901,6 +2920,130 @@ def register_phase11_policies(twin_mod):
                      torch.zeros_like(arrive))
 
 
+#: 11c's bound on a latency that goes through CUDA's ``expf`` / ``logf``
+#: (2 and 1 ulp from the correctly rounded value) against the CPU's
+#: (SLEEF's, 1 ulp each), in float32 ulps of the latency (ROADMAP C15)
+SOFTLAT_ULPS = 8
+#: 11c's bound on the aggregate rows' latency statistics (relative): each
+#: a load-weighted sum of latencies within SOFTLAT_ULPS
+SOFTLAT_AGG_RTOL = SOFTLAT_ULPS * 2.0 ** -23
+
+
+def register_softlat(twin_mod):
+    """11c's registered policy (ROADMAP C15): a capped queue whose
+    latency goes through ``exp`` and ``log``; its carry and its other
+    outputs are exact operations."""
+    @twin_mod.register_policy("softlat", ("max_rps", "usd_per_hour",
+                                          "base_latency_s"))
+    def _softlat(carry, arrive, p, dt):
+        cap = torch.clamp_min(p[:, 0] * CAP_HOURS * dt, 1.0)
+        avail = carry[:, 0] + arrive
+        proc = torch.minimum(avail, cap)
+        queue = avail - proc
+        lat = p[:, 2] + (torch.log(1.0 + queue / cap)
+                         * torch.exp(-proc / cap) * 3600.0)
+        new = torch.stack([queue, carry[:, 1]], dim=1)
+        return new, (proc, queue, lat, p[:, 1] * dt,
+                     torch.zeros_like(arrive))
+
+
+def softlat_header(twin_mod):
+    """The generated header of 11c's registry (built in phase 1)."""
+    from repro_torch.kernels import lane_codegen
+    saved = (dict(twin_mod._REGISTRY), twin_mod._VERSION)
+    try:
+        register_softlat(twin_mod)
+        gen = lane_codegen.generated()
+        check(gen.transcendental == ("softlat",) and not gen.refused,
+              (gen.transcendental, gen.refused))
+        return gen.header
+    finally:
+        twin_mod._REGISTRY.clear()
+        twin_mod._REGISTRY.update(saved[0])
+        twin_mod._VERSION = saved[1]
+
+
+def ulp_distance(a, b):
+    """Float32 ulps between equal-signed float32 arrays."""
+    a = np.ascontiguousarray(a, np.float32).view(np.int32).astype(np.int64)
+    b = np.ascontiguousarray(b, np.float32).view(np.int32).astype(np.int64)
+    return np.abs(a - b)
+
+
+def softlat_on_card(whatif, tr, twin_mod, slo_mod):
+    """11c (ROADMAP C15): a registered step with ``exp`` and ``log`` in
+    the policy kernels: 8 twins x 2 traffics, full year, both modes,
+    against the CPU run. Processed, queue, cost and drops bitwise; each
+    bin's latency within SOFTLAT_ULPS; the aggregate rows' latency
+    statistics within SOFTLAT_AGG_RTOL, their SLO shares within one
+    bin."""
+    from repro_torch.kernels import policy_scan as pk
+    saved = (dict(twin_mod._REGISTRY), twin_mod._VERSION)
+    record = {}
+    try:
+        register_softlat(twin_mod)
+        twins = [twin_mod.make_twin(f"softlat{i}", "softlat",
+                                    max_rps=0.25 + 0.25 * i,
+                                    usd_per_hour=0.0082, base_latency_s=0.15)
+                 for i in range(8)]
+        traffics = [tr.TrafficModel.honda_default("nominal", R=3.5, G=1.0),
+                    tr.TrafficModel.honda_default("high(+50%)", R=3.5,
+                                                  G=1.5)]
+        slo = slo_mod.SLO(limit_s=4 * 3600, met_fraction=0.95)
+        for series in (True, False):
+            mode = "series" if series else "aggregate"
+            pk.reset_launches()
+            t0 = time.perf_counter()
+            card = whatif.run_grid(twins, traffics, slo=slo,
+                                   return_series=series)
+            wall = time.perf_counter() - t0
+            rows = dict(pk.registered_rows)
+            check(sum(rows.values()) == 16 and sum(pk.launches.values()) > 0,
+                  ("11c", mode, pk.launches, rows))
+            cpu = whatif.run_grid(twins, traffics, slo=slo,
+                                  return_series=series, device="cpu")
+            worst = 0
+            for c, h in zip(card, cpu):
+                check(c.name == h.name, (c.name, h.name))
+                exact = (("processed", "queue", "cost_usd", "dropped")
+                         if series else
+                         ("total_cost_usd", "processed_records",
+                          "dropped_records", "queue_end", "backlog_s"))
+                for f in exact:
+                    u, v = getattr(c, f), getattr(h, f)
+                    check(np.array_equal(np.asarray(u), np.asarray(v)),
+                          ("11c", mode, c.name, f))
+                if series:
+                    ulps = int(ulp_distance(c.latency_s.astype(np.float32),
+                                            h.latency_s.astype(np.float32)
+                                            ).max())
+                    worst = max(worst, ulps)
+                    check(ulps <= SOFTLAT_ULPS, ("11c", c.name, ulps))
+                else:
+                    err = abs(c.mean_latency_s - h.mean_latency_s) / max(
+                        abs(h.mean_latency_s), 1e-30)
+                    worst = max(worst, err)
+                    check(err <= SOFTLAT_AGG_RTOL, ("11c", c.name, err))
+                    check(abs(c.pct_hours_met - h.pct_hours_met)
+                          <= 100.0 / HOURS_PER_YEAR, ("11c", c.name))
+            record[mode] = {"wall_ms": 1e3 * wall, "worst": worst,
+                            "registered_rows": sum(rows.values())}
+        print(f"phase 11c: softlat (exp and log in a translated step), 16 "
+              f"full-year scenarios in the policy kernels: series "
+              f"{record['series']['wall_ms']:.1f} ms, latency within "
+              f"{record['series']['worst']} ulp of the CPU run (bound "
+              f"{SOFTLAT_ULPS}), the other series bitwise; aggregate "
+              f"{record['aggregate']['wall_ms']:.1f} ms, mean latency "
+              f"within {record['aggregate']['worst']:.3g} relative (bound "
+              f"{SOFTLAT_AGG_RTOL:.3g}), the exact statistics bitwise")
+    finally:
+        twin_mod._REGISTRY.clear()
+        twin_mod._REGISTRY.update(saved[0])
+        twin_mod._VERSION = saved[1]
+        pk.reset_launches()
+    return record
+
+
 def phase11_builtin_twins(twin_mod):
     """16 twins of the built-ins that keep their kernel branch: Table
     II's three and 13 more."""
@@ -3149,6 +3292,7 @@ def registered_policies_on_card(dev, whatif, tr, twin_mod, slo_mod, faults):
         twin_mod._REGISTRY.update(saved[0])
         twin_mod._VERSION = saved[1]
         pk.reset_launches()
+    record["softlat"] = softlat_on_card(whatif, tr, twin_mod, slo_mod)
     check_flash_padding(dev)
     record["s"] = time.perf_counter() - t0
     print(f"phase 11: {record['s']:.1f} s")
@@ -3541,6 +3685,517 @@ def training_on_card(dev, get_smoke_config):
     return launches, record
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the multi-GPU layer (ROADMAP A8.1) over two gloo ranks on the
+# one card: correctness, not scaling (the ranks share the card's time)
+# ---------------------------------------------------------------------------
+
+MESH_RANKS = 2
+#: 13a's scenario blocks for 4b's grid (five policy runs of 8,192 to
+#: 16,384 scenarios: 5 and 8 policy-uniform blocks) and for 4d's
+MESH_BLOCKS = (32768, 8192)
+MESH_4D_BLOCK = 2048
+#: 13b: phase 7b's fit cut to 20 steps; a search at coarsen=12
+MESH_FIT_STEPS = 20
+MESH_SEARCH_STEPS = 8
+#: 13b's bound where a restart mesh is not bitwise: the reference's own
+#: bound on its sharded fit (src/repro/calibrate/fit.py:177-185)
+MESH_RESTART_RTOL = 2e-6
+#: 13c, 12b's model in float32 (TF32 off) over data=2 against one rank
+#: on the whole batch: the loss of each step (relative), the first
+#: step's gradients (each leaf's largest difference over its largest
+#: |value|, the bound of tests/test_torch_train_mesh.py), and the
+#: parameters after MESH_100M_STEPS steps in learning rates (measured on
+#: the H100: 1.17e-7, 2.61e-6, 0.0514 lr; AdamW moves a
+#: parameter by about lr a step, so a step that never updated would
+#: miss by about MESH_100M_STEPS lr)
+MESH_100M_STEPS = 4
+MESH_LOSS_RTOL = 1e-5
+MESH_GRAD_RTOL = 1e-5
+MESH_PARAM_LR = 0.5
+#: 13d: llama3.2-1b over data=2, each step's loss against one rank's
+#: steps on the whole batch (bf16 products over 4 rows a rank against
+#: 8), about 10x what the H100 measured at 8 layers: 7.99e-8, then
+#: 8.46e-5 after one AdamW step (a parameter moves by about lr times
+#: its gradient's sign, which flips where the gradient is near zero)
+MESH_1B_STEPS = 2
+MESH_1B_LOSS_RTOL = (1e-6, 1e-3)
+#: 13d's depth: 8 of llama3.2-1b's 16 layers, for the script's time
+#: limit (at all 16 the first loss equalled 12c's bitwise)
+MESH_1B_LAYERS = 8
+
+
+def rows_array(rows):
+    """The numbers of grid result rows as {field: array}, for a bitwise
+    comparison (``slo_met`` None as -1)."""
+    out = {}
+    for f in rows[0].__dataclass_fields__:
+        if f in ("name", "twin"):
+            continue
+        vals = [getattr(r, f) for r in rows]
+        if f == "slo_met":
+            vals = [-1 if v is None else int(v) for v in vals]
+        out[f] = np.asarray(vals)
+    return out
+
+
+def same_arrays(got, want, what):
+    check(sorted(got) == sorted(want), what)
+    for f, v in want.items():
+        g = got[f]
+        ok = g.shape == v.shape and (
+            np.array_equal(g.view(np.uint64), v.view(np.uint64))
+            if v.dtype == np.float64 else np.array_equal(g, v))
+        check(ok, f"{what}: field {f} differs")
+
+
+def mesh_grid(ref):
+    """13a: 4b's 65,536-scenario grid and 4d's 4,096-row fault grid with
+    ``devices=2``, bitwise their ``devices=None`` rows (``ref``), and
+    each round's ``grid.round`` span."""
+    from repro_torch import faults, obs
+    from repro_torch.core import slo as slo_mod
+    from repro_torch.core import traffic as tr
+    from repro_torch.core import twin as twin_mod
+    from repro_torch.core import whatif
+    sweep = whatif5_twins(twin_mod)
+    slo = slo_mod.SLO(limit_s=4 * 3600, met_fraction=0.95)
+    growths256 = [tr.TrafficModel.honda_default(f"g{g:.4f}", R=3.5,
+                                                G=float(g))
+                  for g in np.linspace(1.0, 1.75, 256)]
+    out = {}
+    for block in MESH_BLOCKS:
+        with obs.capture() as rec:
+            t0 = time.perf_counter()
+            rows = whatif.run_grid(sweep, growths256, slo=slo,
+                                   scenario_block=block, devices=MESH_RANKS)
+            wall = time.perf_counter() - t0
+        rounds = [dict(sp.attrs) for sp in rec.find("grid.round")]
+        check(len(rounds) >= 1 and all(
+            r == {"round": i, "devices": MESH_RANKS, "block": block,
+                  "backend": "cuda", "scenarios": MESH_RANKS * block}
+            for i, r in enumerate(rounds)), ("13a rounds", rounds))
+        same_arrays(rows_array(rows), ref["4b"], f"13a block {block}")
+        out[f"block_{block}"] = {"wall_ms": 1e3 * wall,
+                                 "rounds": len(rounds)}
+    growths4 = [tr.TrafficModel.honda_default(f"g{g:.2f}", R=3.5,
+                                              G=float(g))
+                for g in np.linspace(1.0, 1.75, 4)]
+    t0 = time.perf_counter()
+    rows = whatif.run_grid(sweep, growths4, slo=slo,
+                           faults=chaos_schedule(faults, 4),
+                           scenario_block=MESH_4D_BLOCK, devices=MESH_RANKS)
+    out["fault_wall_ms"] = 1e3 * (time.perf_counter() - t0)
+    same_arrays(rows_array(rows), ref["4d"], "13a 4d's fault grid")
+    return out
+
+
+def rel_or_bitwise(a, b):
+    """(bitwise, largest relative difference) of two float arrays."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    bitwise = a.shape == b.shape and np.array_equal(a.view(np.uint64),
+                                                    b.view(np.uint64))
+    rel = float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-30))) \
+        if a.size else 0.0
+    return bitwise, rel
+
+
+def mesh_restarts():
+    """13b: phase 7b's fit (cut to MESH_FIT_STEPS steps) and a small
+    What-if #6 search, each with ``devices=2`` against ``devices=None``
+    on the same card."""
+    from repro_torch import calibrate as cal
+    from repro_torch.core import loadpattern as lp
+    from repro_torch.core import slo as slo_mod
+    from repro_torch.core import traffic as tr
+    from repro_torch.core import twin as twin_mod
+    from repro_torch.search import search, search_space
+    truth = twin_mod.make_twin("t", "shed", max_rps=2.0, usd_per_hour=0.05,
+                               base_latency_s=0.2, queue_cap_hours=1.5)
+    trace = cal.ObservedTrace.from_loadpattern(ramp_6h(lp), truth,
+                                               bin_s=300.0)
+    surge, slo, base = search_problem(tr, twin_mod, slo_mod)
+    space = search_space(base, SEARCH_FREE)
+    runs = {}
+    for devices in (MESH_RANKS, None):
+        t0 = time.perf_counter()
+        fit = cal.fit(trace, "shed", restarts=8, steps=MESH_FIT_STEPS,
+                      seed=SEED, devices=devices)
+        t1 = time.perf_counter()
+        res = search(space, [surge], slo, restarts=4,
+                     steps=MESH_SEARCH_STEPS, coarsen=SEARCH_CUT_COARSEN,
+                     polish_rounds=0, devices=devices)
+        runs[devices] = (fit, res, t1 - t0, time.perf_counter() - t1)
+    (fit, res, fit_s, search_s), (fit1, res1, fit1_s, search1_s) = (
+        runs[MESH_RANKS], runs[None])
+    out = {"fit_s": fit_s, "fit_s_unsharded": fit1_s, "search_s": search_s,
+           "search_s_unsharded": search1_s}
+    for name, a, b in (("fit_params", fit.start_params, fit1.start_params),
+                       ("fit_losses", fit.start_losses, fit1.start_losses),
+                       ("fit_history", fit.loss_history, fit1.loss_history),
+                       ("search_params", res.restart_params,
+                        res1.restart_params),
+                       ("search_history", res.history, res1.history)):
+        bitwise, rel = rel_or_bitwise(a, b)
+        check(bitwise or rel <= MESH_RESTART_RTOL, ("13b", name, rel))
+        out[name] = {"bitwise": bitwise, "rel": rel}
+    check(res.cost_usd == res1.cost_usd or abs(
+        res.cost_usd - res1.cost_usd) <= MESH_RESTART_RTOL * res1.cost_usd,
+        ("13b search cost", res.cost_usd, res1.cost_usd))
+    out["search_cost_usd"] = res.cost_usd
+    return out
+
+
+def mesh_state_equal(a, b):
+    from repro_torch.checkpoint.ckpt import _items
+    a, b = dict(_items(a)), dict(_items(b))
+    return sorted(a) == sorted(b) and all(torch.equal(a[k], b[k])
+                                          for k in a)
+
+
+def mesh_train_100m(rank, dev, root):
+    """13c: 12b's model in float32 over data=2 for MESH_100M_STEPS steps
+    of 8 x 128 against one rank; checkpoints 2 -> 2, 2 -> 1 and 1 -> 2
+    ranks bitwise; a pod=2 step with int8 gradient compression against
+    its host emulation."""
+    from repro_torch.checkpoint.ckpt import (gather_tree, reshard_tree,
+                                             save_checkpoint)
+    from repro_torch.config import OptimizerConfig, ParallelConfig
+    from repro_torch.data.loader import TokenBatchLoader
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.distributed.elastic import elastic_restore
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import init_opt_state
+    from repro_torch.train.steps import make_train_step
+    from torch.distributed.device_mesh import DeviceMesh
+    cfg = dataclasses.replace(llama_100m(), dtype="float32")
+    ocfg = OptimizerConfig(lr=6e-4, total_steps=30, warmup_steps=1)
+    par = ParallelConfig(batch_axes=("data",))
+    loader = TokenBatchLoader(cfg.vocab_size, 128, 8, seed=SEED)
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in
+                loader.next().items()} for _ in range(MESH_100M_STEPS)]
+    loader.close()
+    rows = torch.from_numpy(sh.batch_rows(8, rank, MESH_RANKS)).to(dev)
+    fresh = M.init_params(cfg, seed=SEED, device=dev)
+    out, one = {}, None
+    if rank == 0:           # the one-rank run, on rank 0 alone
+        step1 = make_train_step(cfg, ocfg, par, dev)
+        one_grads, _ = step1.grads(fresh, batches[0])
+        one = (fresh, init_opt_state(fresh, ocfg))
+        one_losses = []
+        for b in batches:
+            p, o, m = step1(one[0], one[1], b)
+            one = (p, o)
+            one_losses.append(float(m["loss"]))
+    sh.barrier()
+    mesh = make_host_mesh(MESH_RANKS, 1)
+    step = make_train_step(cfg, ocfg, par, dev, mesh=mesh)
+    state = reshard_tree((fresh, init_opt_state(fresh, ocfg)),
+                         step.shardings)
+    grads, _ = step.grads(state[0], {k: v[rows] for k, v in
+                                     batches[0].items()})
+    grads = {k: step.shardings[0][k].gather(g) for k, g in grads.items()}
+    if rank == 0:
+        grad_err = max(float((grads[k] - g).abs().max())
+                       / max(float(g.abs().max()), 1e-30)
+                       for k, g in one_grads.items())
+        check(grad_err <= MESH_GRAD_RTOL, ("13c gradients", grad_err))
+        out["grad_rel"] = grad_err
+        del one_grads
+    del grads
+    losses = []
+    t0 = time.perf_counter()
+    for b in batches:
+        p, o, m = step(state[0], state[1], {k: v[rows] for k, v in
+                                             b.items()})
+        state = (p, o)
+        losses.append(float(m["loss"]))
+    out["step_ms"] = 1e3 * (time.perf_counter() - t0) / MESH_100M_STEPS
+    whole = gather_tree(state, step.shardings)
+    out["losses"] = losses
+    if rank == 0:
+        rels = [abs(a - b) / abs(b) for a, b in zip(losses, one_losses)]
+        lr_err = max(float((whole[0][k] - one[0][k]).abs().max())
+                     for k in one[0]) / ocfg.lr
+        check(max(rels) <= MESH_LOSS_RTOL, ("13c loss", rels))
+        check(lr_err <= MESH_PARAM_LR, ("13c params", lr_err))
+        out.update(one_losses=one_losses, loss_rel=max(rels),
+                   param_err_lr=lr_err)
+    # checkpoints 2 -> 2 and 2 -> 1
+    two = os.path.join(root, "two")
+    if rank == 0:
+        save_checkpoint(two, MESH_100M_STEPS, whole)
+    sh.barrier()
+    p2, o2, _, _ = elastic_restore(two, cfg, ocfg, par, devices=MESH_RANKS)
+    check(mesh_state_equal(state, (p2, o2)), "13c checkpoint 2 -> 2")
+    if rank == 0:
+        p1, o1, _, _ = elastic_restore(two, cfg, ocfg, par, devices=1)
+        check(mesh_state_equal(whole, (p1, o1)), "13c checkpoint 2 -> 1")
+        del p1, o1
+    del p2, o2, whole
+    # 1 -> 2: rank 0's one-rank state onto both ranks
+    one_dir = os.path.join(root, "one")
+    if rank == 0:
+        save_checkpoint(one_dir, MESH_100M_STEPS, one)
+    sh.barrier()
+    p3, o3, _, _ = elastic_restore(one_dir, cfg, ocfg, par,
+                                   devices=MESH_RANKS)
+    back = gather_tree((p3, o3), step.shardings)
+    if rank == 0:
+        check(mesh_state_equal(back, one), "13c checkpoint 1 -> 2")
+    del p3, o3, back, state, one
+    shutil.rmtree(two, ignore_errors=True)
+    shutil.rmtree(one_dir, ignore_errors=True)
+    # pod=2 with int8 gradient compression, one step's gradients
+    pods = DeviceMesh("cuda", torch.arange(MESH_RANKS).reshape(
+        MESH_RANKS, 1, 1), mesh_dim_names=("pod", "data", "model"))
+    pod_par = ParallelConfig(batch_axes=("pod", "data"),
+                             grad_compression="int8")
+    pod_step = make_train_step(cfg, ocfg, pod_par, dev, mesh=pods)
+    batch = {k: v[rows] for k, v in batches[0].items()}
+    comp, _ = pod_step.grads(fresh, batch)
+    own, _ = make_train_step(cfg, ocfg, par, dev).grads(fresh, batch)
+    torch.save({k: v.cpu() for k, v in own.items()},
+               os.path.join(root, f"own{rank}.pt"))
+    sh.barrier()
+    if rank == 0:
+        owns = [torch.load(os.path.join(root, f"own{r}.pt"))
+                for r in range(MESH_RANKS)]
+        for k, g in comp.items():
+            want = pod_emulation([o[k].numpy() for o in owns])
+            got = g.cpu().numpy()
+            check(np.array_equal(got.view(np.uint32), want.view(np.uint32)),
+                  ("13c pod compression", k))
+        out["pod_leaves"] = len(comp)
+    sh.barrier()
+    return out
+
+
+def pod_emulation(grads, block=256):
+    """The reference's cross-pod int8 reduction in numpy: a shared
+    per-block scale (the pods' absmax MAX / 127), int8 payloads against
+    it (round half to even), their int32 sum, dequantized over the
+    number of pods; float32 throughout."""
+    shape, n = grads[0].shape, grads[0].size
+    pad = (-n) % block
+
+    def blocks(g):
+        return np.concatenate([g.reshape(-1).astype(np.float32),
+                               np.zeros(pad, np.float32)]).reshape(-1, block)
+    bs = [blocks(g) for g in grads]
+    scale = np.maximum.reduce([np.abs(b).max(axis=1) for b in bs]) \
+        / np.float32(127.0)
+    safe = np.where(scale > 0, scale, np.float32(1.0)).astype(np.float32)
+    qsum = sum(np.clip(np.round(b / safe[:, None]), -127, 127
+                       ).astype(np.int8).astype(np.int32) for b in bs)
+    deq = (qsum.astype(np.float32) * scale[:, None]).reshape(-1)[:n]
+    return (deq.reshape(shape) / np.float32(len(grads))).astype(np.float32)
+
+
+def mesh_train_1b(rank, dev):
+    """13d: llama3.2-1b over data=2 as ``launch/train.py --data 2``
+    builds it (int8 moments, remat full), cut to MESH_1B_LAYERS layers,
+    MESH_1B_STEPS steps of 8 x 1,024 tokens (4 rows a rank): each loss
+    against one rank's steps on the whole batch (rank 0, before the mesh
+    runs), step ms and peak memory per rank."""
+    from repro_torch.checkpoint.ckpt import reshard_tree
+    from repro_torch.data.loader import TokenBatchLoader
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import model as M
+    from repro_torch.models.model import param_count
+    from repro_torch.optim.adamw import init_opt_state
+    from repro_torch.train.steps import make_train_step
+    args = launch_train.parse_args([
+        "--arch", LLAMA, "--steps", str(MESH_1B_STEPS), "--seq-len", "1024",
+        "--batch", "8", "--remat", "full", "--data", str(MESH_RANKS)])
+    cfg, tcfg, ocfg, par = launch_train.configs(args)
+    ocfg = dataclasses.replace(ocfg, state_dtype="int8")
+    if MESH_1B_LAYERS is not None:
+        cfg = dataclasses.replace(cfg, num_layers=MESH_1B_LAYERS)
+
+    def fresh():
+        params = M.init_params(cfg, seed=tcfg.seed, device=dev)
+        return params, init_opt_state(params, ocfg)
+
+    def batches(rows=None):
+        loader = TokenBatchLoader(cfg.vocab_size, tcfg.seq_len,
+                                  tcfg.global_batch, seed=tcfg.seed,
+                                  rows=rows)
+        got = [loader.next() for _ in range(MESH_1B_STEPS)]
+        loader.close()
+        return [{k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+                for b in got]
+
+    one_losses = None
+    if rank == 0:
+        one, state, one_losses = make_train_step(cfg, ocfg, par, dev), \
+            fresh(), []
+        for batch in batches():
+            p, o, m = one(state[0], state[1], batch)
+            one_losses.append(float(m["loss"]))
+            state = (p, o)
+        del one, state, p, o
+    torch.cuda.empty_cache()
+    sh.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    step = make_train_step(cfg, ocfg, par, dev, mesh=launch_train.mesh_of(
+        args))
+    state = reshard_tree(fresh(), step.shardings)
+    losses, ms = [], []
+    for batch in batches(sh.batch_rows(tcfg.global_batch, rank,
+                                       MESH_RANKS)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, o, m = step(state[0], state[1], batch)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        state = (p, o)
+    check(all(np.isfinite(losses)), ("13d", losses))
+    out = {"layers": cfg.num_layers, "params": param_count(cfg),
+           "losses": losses, "step_ms": ms,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    if rank == 0:
+        out["one_rank_losses"] = one_losses
+        out["loss_rel"] = [abs(a - b) / abs(b)
+                           for a, b in zip(losses, one_losses)]
+        check(all(r <= bound for r, bound in
+                  zip(out["loss_rel"], MESH_1B_LOSS_RTOL)),
+              ("13d losses", losses, one_losses))
+    del state, p, o
+    return out
+
+
+def mesh_rank(rank, init_file, root):
+    """One of phase 13's ranks: joins the gloo group on the one card and
+    runs 13a-13d, writing its record to ``root``."""
+    import torch.distributed as dist
+    from repro_torch.kernels import policy_scan as pk
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            rank=rank, world_size=MESH_RANKS)
+    try:
+        mods = model_kernels() + (pk,)
+        rec = {"backend": dist.get_backend(), "world": dist.get_world_size()}
+        data = np.load(os.path.join(root, "ref.npz"))
+        ref = {g: {k[len(g) + 1:]: data[k] for k in data.files
+                   if k.startswith(g + ".")} for g in ("4b", "4d")}
+        for mod in mods:
+            mod.reset_launches()
+        for part, run in (("13a", lambda: mesh_grid(ref)),
+                          ("13b", mesh_restarts)):
+            t0 = time.perf_counter()
+            rec[part] = run()
+            rec[part]["s"] = time.perf_counter() - t0
+        rec["launches"] = {k: v for mod in mods
+                           for k, v in mod.launches.items()}
+        del ref, data
+        for mod in mods:
+            mod.reset_launches()
+        for part, run in (("13c", lambda: mesh_train_100m(rank, dev, root)),
+                          ("13d", lambda: mesh_train_1b(rank, dev))):
+            t0 = time.perf_counter()
+            rec[part] = run()
+            rec[part]["s"] = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+        train_launches = sum(sum(mod.launches.values()) for mod in mods)
+        check(train_launches == 0, ("13c-13d launched kernels",
+                                    train_launches))
+        with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
+            json.dump(rec, f)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_on_card(rows_4b, rows_4d):
+    """Phase 13: the multi-GPU layer, two gloo ranks started once on the
+    one card (NCCL will not put two ranks on one GPU; gloo stages the
+    card's tensors through host memory), for 13a-13d (see those). It
+    checks correctness and measures no scaling: the ranks share the
+    card. Returns the policy kernels' launches of 13a-13b, summed over
+    the ranks, and the phase's record (a ``{"mesh": ...}`` line)."""
+    import torch.multiprocessing as mp
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="plantd_mesh_")
+    try:
+        np.savez(os.path.join(root, "ref.npz"),
+                 **{f"4b.{k}": v for k, v in rows_4b.items()},
+                 **{f"4d.{k}": v for k, v in rows_4d.items()})
+        torch.cuda.empty_cache()
+        mp.start_processes(mesh_rank, args=(os.path.join(root, "init"),
+                                            root),
+                           nprocs=MESH_RANKS, start_method="spawn",
+                           join=True)
+        recs = []
+        for r in range(MESH_RANKS):
+            with open(os.path.join(root, f"rank{r}.json")) as f:
+                recs.append(json.load(f))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    rec = recs[0]
+    check(recs[1]["13c"]["losses"] == rec["13c"]["losses"]
+          and recs[1]["13d"]["losses"] == rec["13d"]["losses"],
+          "13c-13d: the ranks' losses differ")
+    launches = {}
+    for r in recs:
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    check(launches["policy_agg"] > 0 and launches["policy_agg_fault"] > 0,
+          ("13a launches", launches))
+    a, b, c, d = rec["13a"], rec["13b"], rec["13c"], rec["13d"]
+    for block in MESH_BLOCKS:
+        x = a[f"block_{block}"]
+        print(f"phase 13a: 4b's 65,536 x 8736 grid with devices=2, "
+              f"scenario_block {block:,}: {x['rounds']} rounds, "
+              f"{x['wall_ms']:.1f} ms wall, rows bitwise 4b's "
+              f"devices=None rows")
+    print(f"phase 13a: 4d's 4,096-row fault grid with devices=2 in blocks "
+          f"of {MESH_4D_BLOCK:,}: {a['fault_wall_ms']:.1f} ms wall, rows "
+          f"bitwise 4d's; grid.round spans with the reference's attrs")
+    print(f"phase 13b: fit (8 restarts x {MESH_FIT_STEPS} steps) "
+          f"{b['fit_s']:.2f} s with devices=2, {b['fit_s_unsharded']:.2f} s "
+          f"without; search (4 restarts x {MESH_SEARCH_STEPS} steps at "
+          f"coarsen={SEARCH_CUT_COARSEN}) {b['search_s']:.2f} s / "
+          f"{b['search_s_unsharded']:.2f} s; against devices=None: "
+          + ", ".join(f"{k} " + ("bitwise" if b[k]["bitwise"] else
+                                 f"{b[k]['rel']:.3g} relative")
+                      for k in ("fit_params", "fit_losses", "fit_history",
+                                "search_params", "search_history")))
+    print(f"phase 13c: {llama_100m().name} in float32 over data=2, "
+          f"{MESH_100M_STEPS} steps of 8 x 128: {c['step_ms']:.1f} ms a "
+          f"step (two ranks on one card, gloo through the host); loss "
+          f"within {c['loss_rel']:.3g} of one rank's (bound "
+          f"{MESH_LOSS_RTOL:g}), first gradients within "
+          f"{c['grad_rel']:.3g} (bound {MESH_GRAD_RTOL:g}), parameters "
+          f"within {c['param_err_lr']:.3g} lr (bound {MESH_PARAM_LR:g}); "
+          f"checkpoints 2 -> 2, 2 -> 1 and 1 -> 2 ranks bitwise; pod=2 "
+          f"int8 compression bitwise its host emulation over "
+          f"{c['pod_leaves']} leaves")
+    print(f"phase 13d: {LLAMA} ({d['layers']} layers, {d['params']:,} "
+          f"parameters) over data=2, int8 moments, remat full, "
+          f"{MESH_1B_STEPS} steps of 8 x 1,024 tokens: losses "
+          f"{d['losses']} against one rank's {d['one_rank_losses']} on "
+          f"the whole batch ({[f'{r:.3g}' for r in d['loss_rel']]} "
+          f"relative, bounds {list(MESH_1B_LOSS_RTOL)}), step ms "
+          f"{[round(x, 1) for x in d['step_ms']]}, "
+          f"peak {d['peak_gib']:.2f} / {recs[1]['13d']['peak_gib']:.2f} GiB "
+          f"per rank")
+    record = {"backend": rec["backend"], "world": rec["world"],
+              "s": {k: rec[k]["s"] for k in ("13a", "13b", "13c", "13d")},
+              "13a": a, "13b": b, "13c": c, "13d": d,
+              "13d_rank1_peak_gib": recs[1]["13d"]["peak_gib"],
+              "launches": launches, "wall_s": time.perf_counter() - t0}
+    print(f"phase 13: {record['wall_s']:.1f} s")
+    print(json.dumps({"mesh": record}))
+    return launches, record
+
+
 def sass_functions(sass):
     """{kernel name: its lines} of ``cuobjdump -sass`` output."""
     out, name = {}, None
@@ -3647,10 +4302,12 @@ def main():
     # phase 11's registry gets a library of its own (its steps in a
     # generated header), built beside the four sources
     header_11 = phase11_header(twin_mod)
-    build_s = build.build(variants=[("policy_scan", header_11)])
+    build_s = build.build(variants=[("policy_scan", header_11),
+                                    ("policy_scan",
+                                     softlat_header(twin_mod))])
     print(f"phase 1: nvcc build of {len(build.SOURCES)} sources and "
-          f"policy_scan with phase 11's generated steps in parallel, "
-          f"{build_s:.2f} s")
+          f"policy_scan with phase 11's and 11c's generated steps in "
+          f"parallel, {build_s:.2f} s")
     for name in build.SOURCES:
         print(f"  {name}: {' '.join(build.FLAGS[name])}")
         log = build.library_path(name).with_suffix(".log")
@@ -3666,6 +4323,15 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    if sys.argv[1:] == ["--phase", "13"]:
+        # the multi-GPU layer alone, 4b's and 4d's rows first
+        sweep_twins, growths16, _, rows_4b = at_width(whatif, tr, twin_mod,
+                                                      slo_mod)
+        _, rows_4d = chaos_at_width(whatif, tr, slo_mod, faults,
+                                    sweep_twins, growths16)
+        mesh_on_card(rows_array(rows_4b), rows_array(rows_4d))
+        print(card)
+        return 0
     if sys.argv[1:] == ["--phase", "12"]:
         # the training side alone (for iterating on it)
         training_on_card(dev, get_smoke_config)
@@ -3722,8 +4388,8 @@ def main():
     main_path_whatif7(whatif, tr, twin_mod, slo_mod, faults)
     sweep_twins, growths16, growths256, rows_4b = at_width(
         whatif, tr, twin_mod, slo_mod)
-    growths4 = chaos_at_width(whatif, tr, slo_mod, faults, sweep_twins,
-                              growths16)
+    growths4, rows_4d = chaos_at_width(whatif, tr, slo_mod, faults,
+                                       sweep_twins, growths16)
     launches = dict(pk.launches)
     check(all(v > 0 for v in launches.values()), launches)
     check(sum(sum(mod.launches.values()) for mod in mods) == 0,
@@ -3758,7 +4424,7 @@ def main():
     del eng
     torch.cuda.empty_cache()
     whatif_trace(whatif, slo_mod, sweep_twins, growths256, rows_4b)
-    del rows_4b
+    rows_4b, rows_4d = rows_array(rows_4b), rows_array(rows_4d)
 
     # the calibration slice: 6b's experiment fitted into twins on the card
     launches_7 = calibration_on_card(dev, whatif, tr, twin_mod, slo_mod,
@@ -3784,6 +4450,10 @@ def main():
 
     # the training side: no model kernel runs in a train step
     launches_12, _ = training_on_card(dev, get_smoke_config)
+
+    # the multi-GPU layer: two gloo ranks on the one card
+    launches_13, _ = mesh_on_card(rows_4b, rows_4d)
+    del rows_4b, rows_4d
 
     # each kernel against its plain version at the main path's widths
     rows = [
@@ -3837,7 +4507,8 @@ def main():
               "launches_9": launches_9.get(name, 0),
               "launches_10": launches_10.get(name, 0),
               "launches_11": launches_11.get(name, 0),
-              "launches_12": launches_12.get(name, 0)}, **stats)
+              "launches_12": launches_12.get(name, 0),
+              "launches_13": launches_13.get(name, 0)}, **stats)
         for name, src, replaces, stats in rows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -23,7 +23,11 @@ module, slice by slice. So far:
 * twin calibration: ``repro_torch.calibrate.fit`` fits a policy's
   parameters to a measured trace by gradient descent through the
   simulation scan (``kernels/policy_vjp.py``, ``repro_torch.optim``), and
-  ``core.whatif.calibrated_grid`` takes an experiment to Table II rows.
+  ``core.whatif.calibrated_grid`` takes an experiment to Table II rows;
+* policy search (``repro_torch.search``), training (``train``,
+  ``launch.train``), and the multi-GPU layer over ``torch.distributed``
+  (``distributed.sharding``, ``launch.mesh``: ``devices=`` of the grid,
+  the fits and the searches, FSDP training over a mesh).
 
 Importing this package imports ``torch`` and numpy only — never ``jax``,
 never ``repro``. Entry points take ``device=`` (default ``"cuda"``):

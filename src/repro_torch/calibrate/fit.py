@@ -16,8 +16,14 @@ the same steps eagerly, on the card by default (``device=``), with the
 loss history and each restart's best-seen iterate kept on the device and
 read back once at the end (no host read inside the step loop).
 
-``fit(devices=D)`` for D > 1 (the reference's restart mesh) is not
-ported yet (ROADMAP A8).
+``fit(devices=D)`` is the reference's restart mesh over the first D
+ranks of the ``torch.distributed`` default group: each runs its K/D
+restarts through the same loop on its own device, and every rank gets
+z, the losses and the history in restart order. Restarts are
+independent lanes, and the backward's schedule is planned for all K
+(``policy_vjp.whole_lanes``), so the result is bitwise the unsharded
+fit's. A K that D does not divide runs unsharded, with the warn-once
+replication ``RuntimeWarning``.
 
 The public surface:
 
@@ -54,6 +60,8 @@ from repro_torch.calibrate.trace import SERIES_KEYS, ObservedTrace
 from repro_torch.config import OptimizerConfig
 from repro_torch.core.twin import PARAM_DIM, Twin, fit_twin, policy_spec
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import resolve_mesh_axis, run_lanes
+from repro_torch.kernels.policy_vjp import whole_lanes
 from repro_torch.optim.adamw import adamw_update, init_opt_state
 
 #: AdamW settings tuned for the z-space objective: no weight decay (z=0 is
@@ -151,19 +159,6 @@ def _as_operands(trace: ObservedTrace, weights: Optional[Dict[str, float]],
     return arrivals, targets, scales, {k: f32(w[k]) for k in SERIES_KEYS}
 
 
-def _restart_devices(devices) -> int:
-    """``devices=`` of the reference's fit: None or 1 run here; more
-    than one is the restart mesh, not in the port yet."""
-    if devices is None or devices == 1:
-        return 1
-    if int(devices) <= 0:
-        raise ValueError(f"devices must be a positive mesh size, "
-                         f"got {devices}")
-    raise NotImplementedError(
-        "fit(devices=) > 1 is not in the port yet: the restart mesh "
-        "comes with the multi-GPU slice (ROADMAP A8)")
-
-
 def fit(trace: ObservedTrace, policy: str = "fifo", *,
         restarts: int = 16, steps: int = 400, seed: int = 0,
         init: Optional[Twin] = None,
@@ -183,9 +178,12 @@ def fit(trace: ObservedTrace, policy: str = "fifo", *,
     ``device`` is ``"cuda"`` (default; raises without a card) or
     ``"cpu"``. Warns (and counts a ``warn.*`` event) when the warm start
     lies outside the calibration box, and when the best fit is pinned at
-    an edge of a finite box.
+    an edge of a finite box. ``devices=D`` splits the restarts over D
+    ranks (see the module docstring); it raises ``ValueError`` without a
+    ``torch.distributed`` group of at least D ranks.
     """
-    d = _restart_devices(devices)
+    d = resolve_mesh_axis(devices, int(restarts),
+                          "fit(devices=) restart mesh") or 1
     dev = resolve_device(device)
     spec = fit_spec(policy, freeze=freeze, unfreeze=unfreeze,
                     fixed_values=fixed_values, init=init)
@@ -219,12 +217,19 @@ def fit(trace: ObservedTrace, policy: str = "fifo", *,
     with obs.span("calibrate.fit", policy=policy, restarts=restarts,
                   steps=int(steps), t_bins=int(arrivals.shape[0]),
                   devices=d):
-        z_fin, final_loss, history = _fit_loop(
-            int(steps), float(trace.bin_hours), ocfg,
-            torch.as_tensor(z0, device=dev), arrivals, targets, scales, w,
-            box, policy_spec(policy).index)
-        z_fin, final_loss, history = (x.cpu().numpy() for x in (
-            z_fin, final_loss, history))
+        def run(lo, hi):
+            with whole_lanes(d):
+                out = _fit_loop(
+                    int(steps), float(trace.bin_hours), ocfg,
+                    torch.as_tensor(z0[lo:hi], device=dev), arrivals,
+                    targets, scales, w, box, policy_spec(policy).index)
+            return tuple(x.cpu().numpy() for x in out)
+
+        if d == 1:
+            z_fin, final_loss, history = run(0, restarts)
+        else:
+            z_fin, final_loss, history = run_lanes(run, restarts, d,
+                                                   (0, 0, 1))
 
     final_loss = np.asarray(final_loss, np.float64)
     best = int(np.nanargmin(final_loss))

@@ -1,5 +1,6 @@
 """The port's checkpoints (``repro.checkpoint``), on the reference's
-on-disk layout; ``reshard_tree`` is the multi-GPU slice (ROADMAP A8)."""
+on-disk layout, and ``reshard_tree`` / ``gather_tree`` for a mesh."""
 from repro_torch.checkpoint.ckpt import (  # noqa: F401
-    AsyncCheckpointer, latest_step, restore_checkpoint, save_checkpoint,
+    AsyncCheckpointer, gather_tree, latest_step, reshard_tree,
+    restore_checkpoint, save_checkpoint,
 )

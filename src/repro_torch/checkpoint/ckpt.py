@@ -18,6 +18,13 @@ worker thread, keeping the newest ``keep`` checkpoints. Trees are nested
 dicts, tuples, lists and NamedTuples (``OptState``) of tensors or numpy
 arrays; restore places each leaf on the device and in the dtype of the
 matching leaf of ``like``.
+
+Over a mesh (``distributed.sharding``) a checkpoint stays whole: the
+writer gathers the shards (``gather_tree``) and one rank writes; restore
+with ``shardings=`` (a matching tree of ``Sharding``s) cuts each rank's
+shard out of the whole leaf, so a checkpoint written by any number of
+ranks restores onto any other. ``reshard_tree`` re-places a whole tree
+under shardings without touching disk.
 """
 from __future__ import annotations
 
@@ -118,10 +125,45 @@ def latest_step(directory: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore_checkpoint(directory: str, step: Optional[int], like):
+def _zip_shardings(tree, shardings) -> Dict[str, Any]:
+    """{key: Sharding} of ``shardings``, keyed as ``tree``'s leaves."""
+    got = dict(_items(shardings))
+    keys = [k for k, _ in _items(tree)]
+    missing = [k for k in keys if k not in got]
+    if missing:
+        raise KeyError(f"no sharding for {missing[:3]}")
+    return got
+
+
+def reshard_tree(tree, shardings):
+    """Each leaf of a whole ``tree`` (tensors or arrays, on any device)
+    cut to this rank's shard under the matching ``Sharding`` of
+    ``shardings`` and placed on its device: the reference's re-placement
+    of a tree under new shardings, without touching disk."""
+    sh = _zip_shardings(tree, shardings)
+
+    def leaf_of(key, leaf):
+        t = leaf if isinstance(leaf, torch.Tensor) else torch.as_tensor(
+            np.asarray(leaf))
+        return sh[key].shard(t).to(sh[key].device)
+    return _rebuild(tree, leaf_of)
+
+
+def gather_tree(tree, shardings):
+    """The whole tree from every rank's shards (a collective: every rank
+    of the mesh calls it), each leaf on its shard's device."""
+    sh = _zip_shardings(tree, shardings)
+    return _rebuild(tree, lambda key, leaf: sh[key].gather(leaf))
+
+
+def restore_checkpoint(directory: str, step: Optional[int], like,
+                       shardings=None):
     """(tree, step, extra): the checkpoint at ``step`` (the latest when
     None) in the structure of ``like``, each leaf a tensor on the device
-    and in the dtype of ``like``'s leaf."""
+    and in the dtype of ``like``'s leaf. With ``shardings`` (a tree of
+    ``Sharding``s matching ``like``, whose leaves then only give the
+    whole shapes and dtypes: ``meta`` tensors do) each leaf is this
+    rank's shard, on its sharding's device."""
     step = latest_step(directory) if step is None else step
     if step is None:
         raise FileNotFoundError(f"no checkpoint under {directory}")
@@ -130,6 +172,7 @@ def restore_checkpoint(directory: str, step: Optional[int], like):
         manifest = json.load(f)
     data = np.load(os.path.join(path, "shard_0.npz"))
     names = {e["key"]: e["name"] for e in manifest["keys"]}
+    sh = None if shardings is None else _zip_shardings(like, shardings)
 
     def leaf_of(key, leaf):
         if key not in names:
@@ -138,7 +181,11 @@ def restore_checkpoint(directory: str, step: Optional[int], like):
         if tuple(arr.shape) != tuple(leaf.shape):
             raise ValueError(f"{key}: checkpoint shape {arr.shape}, "
                              f"expected {tuple(leaf.shape)}")
-        return torch.from_numpy(arr).to(device=leaf.device, dtype=leaf.dtype)
+        t = torch.from_numpy(arr)
+        if sh is not None:
+            return sh[key].shard(t).to(device=sh[key].device,
+                                       dtype=leaf.dtype)
+        return t.to(device=leaf.device, dtype=leaf.dtype)
     tree = _rebuild(like, leaf_of)
     return tree, step, manifest.get("extra", {})
 

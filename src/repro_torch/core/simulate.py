@@ -40,15 +40,21 @@ when the launch built or loaded a kernel library). A launch returns host
 arrays, so the spans time it whole and add no synchronisation; the
 simulated numbers are bitwise the same with telemetry on or off.
 
+``devices=D`` splits an aggregate grid's policy-uniform blocks over the
+first D ranks of the ``torch.distributed`` default group (one process
+per GPU; every rank calls with the same arguments and gets the same
+rows): in round r rank k launches block r*D + k on its own device, the
+rows come back to every rank in block order (``sharding.gather_host``),
+bitwise the one-device rows, and each round is a ``grid.round`` span
+(attrs ``round``, ``devices``, ``block``, ``backend``, ``scenarios``).
+
 ``scan_trace`` is one scenario's scan over bins of any width, the
 differentiable core the calibration slice (``repro_torch.calibrate``)
 fits twins through.
-
-Not yet in the port: ``devices`` > 1 (and with it the reference's
-``grid.round`` spans).
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence
 
@@ -67,6 +73,7 @@ from repro_torch.core.twin import (A_COST, A_DROP, A_FLTH, A_FOKH, A_LATW,
                                    Twin, aggregate_hist_centers,
                                    num_policies, policy_onehot)
 from repro_torch.device import resolve_device
+from repro_torch.distributed import sharding
 from repro_torch.faults import (FaultSchedule, SampledFaults, expand_grid,
                                 sample_futures, validate_sampled)
 from repro_torch.kernels import ops
@@ -290,14 +297,16 @@ def _grid_agg_dispatch(load_matrix: np.ndarray, load_index: np.ndarray,
                        params: np.ndarray, policy_idx: np.ndarray,
                        dt_hours: float, slo_limit: float, slo_mode: int,
                        scenario_block: Optional[int], device: torch.device,
-                       fault=None):
+                       fault=None, devices: int = 1):
     """Aggregate scan over (matrix, index)-encoded scenarios: one launch,
     or policy-uniform blocks of ``scenario_block`` (default: beyond
-    ``AGG_AUTO_BLOCK`` scenarios). Duplicate rows run once. ``fault`` =
-    (cap [F, T], fmask [F, T], fault_index [N]) threads a fault grid
-    through every path: fault rows are read through the index as load
-    rows are. Returns host (carry_end [N, CARRY_DIM], agg [N, AGG_DIM])
-    in f64, bit-identical on every path."""
+    ``AGG_AUTO_BLOCK`` scenarios, or with ``devices`` > 1, the
+    reference's plan). Duplicate rows run once. ``fault`` = (cap [F, T],
+    fmask [F, T], fault_index [N]) threads a fault grid through every
+    path: fault rows are read through the index as load rows are.
+    ``devices`` > 1 runs the blocks in rounds over that many ranks
+    (``_run_blocks``). Returns host (carry_end [N, CARRY_DIM],
+    agg [N, AGG_DIM]) in f64, bit-identical on every path."""
     n = len(load_index)
     dd = _dedup_rows(load_index, params, policy_idx, fault)
     if dd is not None:
@@ -310,7 +319,8 @@ def _grid_agg_dispatch(load_matrix: np.ndarray, load_index: np.ndarray,
         carry_u, agg_u = _grid_agg_dispatch(
             load_matrix, np.asarray(load_index)[keep],
             np.asarray(params)[keep], np.asarray(policy_idx)[keep],
-            dt_hours, slo_limit, slo_mode, scenario_block, device, fault_k)
+            dt_hours, slo_limit, slo_mode, scenario_block, device, fault_k,
+            devices)
         return carry_u[inv], agg_u[inv]
     matrix_t = _to(device, np.asarray(load_matrix).T, np.float32)
     fault_t = fidx = None
@@ -318,25 +328,65 @@ def _grid_agg_dispatch(load_matrix: np.ndarray, load_index: np.ndarray,
         fault_t = (_to(device, np.asarray(fault[0]).T, np.float32),
                    _to(device, np.asarray(fault[1]).T, np.float32))
         fidx = np.asarray(fault[2])
-    if scenario_block is None and n > AGG_AUTO_BLOCK:
+    if scenario_block is None and (n > AGG_AUTO_BLOCK or devices > 1):
         scenario_block = AGG_AUTO_BLOCK
-    if scenario_block is None or scenario_block >= n:
+    if scenario_block is None or (scenario_block >= n and devices <= 1):
         return _agg_launch(matrix_t, load_index, params, policy_idx,
                            dt_hours, slo_limit, slo_mode, fault_t, fidx)
-    block = int(scenario_block)
+    block = int(min(scenario_block, max(n, 1)))
     positions, block_policy = _agg_block_plan(policy_idx, block)
     obs.gauge("grid.block_size", block)
     obs.count("grid.blocks", positions.shape[0], backend=_backend(device),
-              devices=1)
+              devices=devices)
+    return _run_blocks(matrix_t, load_index, params, policy_idx, positions,
+                       block_policy, devices, dt_hours, slo_limit, slo_mode,
+                       fault_t, fidx)
+
+
+def _run_blocks(matrix_t, load_index, params, policy_idx, positions,
+                block_policy, devices: int, dt_hours: float,
+                slo_limit: float, slo_mode: int, fault_t, fidx):
+    """The blocks in rounds over the first ``devices`` ranks of the
+    default group (one device: every block, in order, on this rank):
+    the block count padded to a multiple of ``devices`` with all-pad
+    blocks, rank k launching block r * devices + k of round r through
+    ``_agg_launch`` (ranks past ``devices`` launch nothing), then every
+    rank's [block, CARRY_DIM + AGG_DIM] f64 rows gathered to every rank
+    in block order. A row is finished in its launch, so the rows do not
+    depend on ``devices``. Each round over ranks is a ``grid.round``
+    span. Returns host (carry_end [N, CARRY_DIM], agg [N, AGG_DIM])."""
+    nb, block = positions.shape
+    n = len(load_index)
+    me = sharding.rank() if devices > 1 else 0
+    dev = matrix_t.device
     carry_end = np.zeros((n, CARRY_DIM), np.float64)
     out_agg = np.zeros((n, AGG_DIM), np.float64)
-    for b, pos in enumerate(positions):
-        pos = pos[pos >= 0]     # pad slots run nothing
-        carry_end[pos], out_agg[pos] = _agg_launch(
-            matrix_t, np.asarray(load_index)[pos], np.asarray(params)[pos],
-            np.asarray(policy_idx)[pos], dt_hours, slo_limit, slo_mode,
-            fault_t, None if fidx is None else fidx[pos], block=b,
-            policy=int(block_policy[b]))
+    for r in range(-(-nb // devices)):
+        with (obs.span("grid.round", round=r, devices=devices, block=block,
+                       backend=_backend(dev), scenarios=devices * block)
+              if devices > 1 else contextlib.nullcontext()):
+            rows = np.zeros((block, CARRY_DIM + AGG_DIM), np.float64)
+            b = r * devices + me
+            if me < devices and b < nb:
+                pos = positions[b][positions[b] >= 0]   # pad slots run nothing
+                if len(pos):
+                    c, a = _agg_launch(
+                        matrix_t, np.asarray(load_index)[pos],
+                        np.asarray(params)[pos],
+                        np.asarray(policy_idx)[pos], dt_hours, slo_limit,
+                        slo_mode, fault_t,
+                        None if fidx is None else fidx[pos], block=b,
+                        policy=int(block_policy[b]))
+                    rows[:len(pos), :CARRY_DIM] = c
+                    rows[:len(pos), CARRY_DIM:] = a
+            got = sharding.gather_host(rows) if devices > 1 else [rows]
+        for k in range(devices):
+            b = r * devices + k
+            if b >= nb:         # an all-pad block
+                continue
+            pos = positions[b][positions[b] >= 0]
+            carry_end[pos] = got[k][:len(pos), :CARRY_DIM]
+            out_agg[pos] = got[k][:len(pos), CARRY_DIM:]
     return carry_end, out_agg
 
 
@@ -384,9 +434,11 @@ def simulate_grid(twins: Sequence[Twin], loads: Optional[np.ndarray] = None,
     crosses the grid with F fault futures (rows ``i * F + f`` named
     ``"{name}/f{f}"``; a negative or non-finite sampled multiplier raises
     ``ValueError`` naming the spec and bin). ``device`` is ``"cuda"`` (the
-    kernels; raises without a card) or ``"cpu"`` (the plain versions).
-    ``devices`` > 1 is not ported yet and raises
-    ``NotImplementedError``."""
+    kernels on the rank's current card; raises without one) or ``"cpu"``
+    (the plain versions). ``devices=D`` runs an aggregate grid's blocks
+    over the first D ranks of the ``torch.distributed`` default group
+    (see the module docstring); it raises ``ValueError`` without a group
+    of at least D ranks, and with ``return_series=True``."""
     if (loads is None) == (load_matrix is None):
         raise ValueError("pass exactly one of loads= (stacked [N, T] grid) "
                          "or load_matrix= [K, T] + load_index= [N]")
@@ -443,9 +495,7 @@ def simulate_grid(twins: Sequence[Twin], loads: Optional[np.ndarray] = None,
             raise ValueError(f"devices must be a positive mesh size, "
                              f"got {devices}")
         if devices > 1:
-            raise NotImplementedError(
-                "devices > 1 is not in the port yet: the multi-GPU slice "
-                "shards the scenario blocks with torch.distributed")
+            sharding.require_ranks(devices, "simulate_grid")
     dev = resolve_device(device)
     params = np.stack([tw.padded_params() for tw in twins]) if n else \
         np.zeros((0, PARAM_DIM), np.float32)
@@ -475,7 +525,8 @@ def simulate_grid(twins: Sequence[Twin], loads: Optional[np.ndarray] = None,
                       faulted=fault is not None):
             carry_end, agg = _grid_agg_dispatch(
                 load_matrix, load_index, params, idx, float(bin_hours),
-                slo_limit, slo_mode, scenario_block, dev, fault)
+                slo_limit, slo_mode, scenario_block, dev, fault,
+                int(devices or 1))
         return _summarise_aggregates(
             names, twins, carry_end[:, 0], agg, slo, cost_model, record_mb,
             float(bin_hours), t_bins, load_matrix, load_index)

@@ -7,7 +7,10 @@ datagen -> pack -> h2d are the spans the wind tunnel measures). A
 background thread prefetches; ``state_dict``/``load_state_dict`` make the
 stream restart-exactly (checkpointed alongside model state). Batch
 ``step`` is zipf tokens from ``default_rng((seed * 1_000_003 + step) %
-2**31)``, numpy arrays bitwise the reference's.
+2**31)``, numpy arrays bitwise the reference's. A rank of a data mesh
+passes ``rows=``, its rows of every global batch
+(``distributed.sharding.batch_rows``): it draws the whole batch, as every
+rank does, and keeps those.
 """
 from __future__ import annotations
 
@@ -25,7 +28,7 @@ class TokenBatchLoader:
     def __init__(self, vocab_size: int, seq_len: int, batch: int,
                  seed: int = 0, prefetch: int = 2,
                  collector: Optional[SpanCollector] = None,
-                 zipf_a: float = 1.2):
+                 zipf_a: float = 1.2, rows: Optional[np.ndarray] = None):
         self.schema = token_stream_schema(vocab_size, seq_len)
         self.vocab_size = vocab_size
         self.seq_len = seq_len
@@ -34,6 +37,7 @@ class TokenBatchLoader:
         self.step = 0
         self.collector = collector
         self.zipf_a = zipf_a
+        self.rows = None if rows is None else np.asarray(rows)
         self._q: "queue.Queue" = queue.Queue(maxsize=prefetch)
         self._lock = threading.Lock()
         self._thread = threading.Thread(target=self._producer, daemon=True)
@@ -46,6 +50,8 @@ class TokenBatchLoader:
         rng = np.random.default_rng((self.seed * 1_000_003 + step) % 2 ** 31)
         z = rng.zipf(self.zipf_a, size=(self.batch, self.seq_len))
         tokens = ((z - 1) % self.vocab_size).astype(np.int32)
+        if self.rows is not None:
+            tokens = tokens[self.rows]
         return {"tokens": tokens,
                 "loss_mask": np.ones_like(tokens, np.float32)}
 

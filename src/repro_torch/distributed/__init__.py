@@ -1,3 +1,4 @@
-"""The port's fault tolerance (``distributed.fault``) and elastic restore
-onto one device (``distributed.elastic``); the reference's sharding rules
-and meshes are the multi-GPU slice (ROADMAP A8)."""
+"""The multi-GPU layer over ``torch.distributed``: the rule table,
+specs, shardings and collectives (``distributed.sharding``), fault
+tolerance (``distributed.fault``) and elastic restore onto a mesh
+(``distributed.elastic``)."""

@@ -1,0 +1,455 @@
+"""Logical-axis -> mesh-axis rules, specs, shardings and the collectives
+of the multi-GPU layer.
+
+Counterpart: ``repro.distributed.sharding``. The reference is
+single-controller SPMD: one program over a ``jax.sharding.Mesh``, laid
+out by ``PartitionSpec``s, ``shard_map`` and GSPMD. The port is one
+process per GPU under ``torch.distributed``: the caller starts the ranks
+(``torchrun``, or ``torch.multiprocessing`` in tests), every rank makes
+the same call with the same arguments, and every rank gets the same
+result. "cuda" means the rank's current CUDA device, which the launcher
+sets from ``LOCAL_RANK``.
+
+* The rule table (``build_rules``, ``batch_partition``,
+  ``input_batch_specs``) is the reference's, over the mesh's axis sizes:
+  a ``torch.distributed.device_mesh.DeviceMesh`` (``launch.mesh``) or a
+  plain ``{axis: size}`` mapping, for planning without ranks.
+* A spec is a tuple with one entry per dim: ``None`` (not split), a mesh
+  axis name, or a tuple of names (split over their product, the first
+  slowest) — the counterpart of ``PartitionSpec``, and equal to
+  ``tuple(spec)`` of the reference's; ``()`` replicates every dim.
+* ``Sharding`` (the counterpart of ``NamedSharding``) places a leaf: it
+  cuts a rank's shard out of a whole tensor and gathers the shards back.
+  With ``block=`` the spec applies to the leaf's flattened, zero-padded
+  ``[n_blocks, block]`` view, the layout of the int8 optimizer moments.
+* ``shard_map``, ``set_activation_mesh`` and ``constrain`` have no
+  counterpart. They are anchors for GSPMD's layout solve; here each rank
+  runs its own program and the modules split tensors explicitly. The
+  reference's warn-once on a dim that does not divide its mesh axis
+  therefore fires where the port splits a tensor: ``input_batch_specs``
+  and ``resolve_mesh_axis`` (each also counting
+  ``warn.replication_fallback``).
+* The collectives live here and nowhere else: ``all_gather``,
+  ``reduce_scatter``, ``all_reduce``, ``gather_host`` (a rank's host
+  result rows to every rank) and ``gather_objects`` (``run_lanes``, the
+  restart meshes). On a ``gloo`` group they stage CUDA
+  tensors through host memory (gloo's collectives are host collectives)
+  and a reduce-scatter is an all-reduce and a slice; on ``nccl`` host
+  arrays travel through the rank's card.
+"""
+from __future__ import annotations
+
+import warnings
+from dataclasses import dataclass
+from typing import Dict, List, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch import obs
+from repro_torch.config import ParallelConfig
+
+Spec = Tuple
+
+# replication fall-backs already reported, keyed by (where, axis, dim,
+# size): each distinct one warns once a process
+_REPLICATION_WARNED = set()
+
+
+def _warn_replicated(where: str, axis, dim: int, size: int):
+    # the counter bumps on every fall-back; the warning fires once
+    obs.event("warn.replication_fallback", where=where, axis=str(axis))
+    key = (where, str(axis), int(dim), int(size))
+    if key in _REPLICATION_WARNED:
+        return
+    _REPLICATION_WARNED.add(key)
+    warnings.warn(
+        f"{where}: dim {dim} is not divisible by mesh axis {axis!r} "
+        f"(size {size}); falling back to replication — this dimension "
+        f"gets NO parallelism. Pad the dim to a multiple of {size} or "
+        f"shrink the mesh axis to recover it.",
+        RuntimeWarning, stacklevel=3)
+
+
+# ---------------------------------------------------------------------------
+# ranks
+# ---------------------------------------------------------------------------
+
+def world_size() -> int:
+    """Ranks in the default process group (0 when there is none)."""
+    if not (dist.is_available() and dist.is_initialized()):
+        return 0
+    return dist.get_world_size()
+
+
+def rank() -> int:
+    return dist.get_rank() if world_size() else 0
+
+
+def require_ranks(devices: int, where: str) -> int:
+    """``devices`` as a mesh size the default group can give: a positive
+    int no larger than its world. Raises ``ValueError`` naming how to
+    start the ranks otherwise (the counterpart of the reference's
+    ``XLA_FLAGS`` message)."""
+    devices = int(devices)
+    if devices <= 0:
+        raise ValueError(f"devices must be a positive mesh size, "
+                         f"got {devices}")
+    world = world_size()
+    if devices > world:
+        have = ("no torch.distributed process group is initialized"
+                if not world else
+                f"the process group has only {world} rank(s)")
+        raise ValueError(
+            f"{where}: devices={devices} but {have}; start {devices} "
+            f"ranks (torchrun --nproc-per-node={devices} ..., or "
+            f"torch.multiprocessing) and call "
+            f"torch.distributed.init_process_group in each before this "
+            f"call")
+    return devices
+
+
+def resolve_mesh_axis(devices, dim: int, where: str,
+                      axis: str = "restart") -> Optional[int]:
+    """Validate a user-facing ``devices=`` request and return the mesh
+    size to run, or ``None`` to run unsharded.
+
+    ``None``/1 asks for no mesh; a non-positive size, or more than the
+    default group's ranks (or no group at all), raises ``ValueError``;
+    a ``dim`` that the size does not divide falls back to the unsharded
+    path with the warn-once replication ``RuntimeWarning`` — results are
+    the same either way."""
+    if devices is None or devices == 1:
+        return None
+    devices = require_ranks(devices, where)
+    if dim % devices != 0:
+        _warn_replicated(where, axis, dim, devices)
+        return None
+    return devices
+
+
+# ---------------------------------------------------------------------------
+# the rule table
+# ---------------------------------------------------------------------------
+
+def mesh_shape_dict(mesh) -> Dict[str, int]:
+    """{axis: size} of a ``DeviceMesh`` or of an ``{axis: size}``
+    mapping, in the mesh's axis order."""
+    if isinstance(mesh, Mapping):
+        return {str(k): int(v) for k, v in mesh.items()}
+    names = getattr(mesh, "mesh_dim_names", None)
+    if names is None:
+        raise TypeError(f"a mesh is a DeviceMesh with named axes or an "
+                        f"{{axis: size}} mapping, got {type(mesh).__name__}")
+    return dict(zip(names, (int(s) for s in mesh.shape)))
+
+
+def build_rules(parallel: ParallelConfig, mesh) -> Dict[str, object]:
+    axes = set(mesh_shape_dict(mesh))
+
+    def ax(a):
+        return a if a in axes else None
+
+    batch = tuple(a for a in parallel.batch_axes if a in axes)
+    seq_ax = parallel.seq_axis
+    if isinstance(seq_ax, tuple):
+        seq_ax = tuple(a for a in seq_ax if a in axes) or None
+    else:
+        seq_ax = ax(seq_ax)
+    return {
+        "vocab": ax(parallel.tp_axis),
+        "embed": ax(parallel.fsdp_axis),
+        "mlp": ax(parallel.tp_axis),
+        "heads": ax(parallel.tp_axis),
+        "kv": ax(parallel.tp_axis),
+        "kv_heads": ax(parallel.tp_axis),
+        "expert": ax(parallel.expert_axis),
+        "batch": batch if batch else None,
+        "cache_seq": seq_ax if parallel.shard_cache_seq else None,
+        # activation-only logical axes (the reference's constrain())
+        "heads_act": ax(parallel.tp_axis),
+        "kv_heads_act": ax(parallel.tp_axis),
+        "vocab_act": ax(parallel.tp_axis),
+        "mlp_act": ax(parallel.tp_axis),
+        "expert_act": ax(parallel.expert_axis),
+        "seq_act": None,
+        # small / replicated dims
+        "rank": None, "state": None, "conv": None, "norm": None,
+        "layers": None, "groups": None,
+    }
+
+
+def batch_partition(parallel: ParallelConfig, mesh) -> Tuple[str, ...]:
+    axes = set(mesh_shape_dict(mesh))
+    return tuple(a for a in parallel.batch_axes if a in axes)
+
+
+def axis_size(mesh_shape: Dict[str, int], entry) -> int:
+    """The number of shards a spec entry makes."""
+    if entry is None:
+        return 1
+    names = entry if isinstance(entry, tuple) else (entry,)
+    return int(np.prod([mesh_shape.get(a, 1) for a in names]))
+
+
+def _entry(axes: Tuple[str, ...]):
+    """A spec entry of ``axes``, written as the reference's
+    ``PartitionSpec`` normalizes it: one axis by its name, none as
+    ``None``."""
+    if not axes:
+        return None
+    return axes[0] if len(axes) == 1 else tuple(axes)
+
+
+def input_batch_specs(batch_abstract: Dict, parallel: ParallelConfig,
+                      mesh) -> Dict[str, Spec]:
+    """Specs of a model input batch (values with a ``.shape``): dim 0
+    (the batch) split over the data-parallel axes when it divides them;
+    positions [3, b, s] split on dim 1."""
+    dp = batch_partition(parallel, mesh)
+    size = axis_size(mesh_shape_dict(mesh), dp)
+    dp_entry = _entry(dp)
+    out = {}
+    for k, v in batch_abstract.items():
+        shape = tuple(v.shape)
+        if k == "positions" and len(shape) == 3:
+            if shape[1] % size == 0:
+                out[k] = (None, dp_entry, None)
+            else:
+                if size > 1:
+                    _warn_replicated(f"input_batch_specs({k!r})", dp,
+                                     shape[1], size)
+                out[k] = ()
+        elif len(shape) >= 1 and shape[0] % size == 0 and size > 1:
+            out[k] = (dp_entry,) + (None,) * (len(shape) - 1)
+        else:
+            if size > 1 and len(shape) >= 1:
+                _warn_replicated(f"input_batch_specs({k!r})", dp,
+                                 shape[0], size)
+            out[k] = ()
+    return out
+
+
+def batch_rows(batch: int, index: int, size: int,
+               microbatches: int = 1) -> np.ndarray:
+    """The rows of a global batch of ``batch`` that shard ``index`` of
+    ``size`` holds under a batch spec, in the order it feeds them: with
+    ``microbatches`` k the reference splits the global batch into k
+    microbatches first and each of them over the shards, so shard
+    ``index`` holds rows ``i * b/k + index * b/(k size) + [0, b/(k
+    size))`` for each microbatch i."""
+    if batch % (size * microbatches):
+        raise ValueError(f"a batch of {batch} does not split into "
+                         f"{microbatches} microbatch(es) over {size} "
+                         f"shard(s)")
+    per_mb = batch // microbatches
+    per = per_mb // size
+    return np.concatenate([i * per_mb + index * per + np.arange(per)
+                           for i in range(microbatches)])
+
+
+# ---------------------------------------------------------------------------
+# collectives
+# ---------------------------------------------------------------------------
+
+def _comm_device(group, like: torch.device) -> torch.device:
+    """Where a collective's tensors must live: the host for gloo, the
+    rank's card for nccl."""
+    if dist.get_backend(group) == "gloo":
+        return torch.device("cpu")
+    if like.type == "cuda":
+        return like
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def all_gather(x: torch.Tensor, dim: int = 0, group=None) -> torch.Tensor:
+    """Every rank's ``x`` (equal shapes) concatenated along ``dim``, in
+    rank order, on ``x``'s device."""
+    n = dist.get_world_size(group)
+    if n == 1:
+        return x
+    dev = _comm_device(group, x.device)
+    src = x.movedim(dim, 0).contiguous().to(dev)
+    parts = [torch.empty_like(src) for _ in range(n)]
+    dist.all_gather(parts, src, group=group)
+    return torch.cat(parts).to(x.device).movedim(0, dim).contiguous()
+
+
+def reduce_scatter(x: torch.Tensor, dim: int = 0,
+                   group=None) -> torch.Tensor:
+    """The sum of every rank's ``x`` (equal shapes), this rank's equal
+    part of it along ``dim``, on ``x``'s device: ``reduce_scatter_tensor``
+    on ``nccl``; on ``gloo`` the whole sum (an all-reduce, which every
+    gloo build has) and this rank's part of it."""
+    n = dist.get_world_size(group)
+    if n == 1:
+        return x
+    if x.shape[dim] % n:
+        raise ValueError(f"dim {dim} of size {x.shape[dim]} does not split "
+                         f"over {n} ranks")
+    dev = _comm_device(group, x.device)
+    src = x.movedim(dim, 0).contiguous().to(dev)
+    part = src.shape[0] // n
+    if dist.get_backend(group) == "gloo":
+        dist.all_reduce(src, group=group)
+        me = dist.get_rank(group)
+        out = src[me * part:(me + 1) * part]
+    else:
+        out = torch.empty((part,) + tuple(src.shape[1:]), dtype=src.dtype,
+                          device=dev)
+        dist.reduce_scatter_tensor(out, src, group=group)
+    return out.to(x.device).movedim(0, dim).contiguous()
+
+
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
+        "min": dist.ReduceOp.MIN}
+
+
+def all_reduce(x: torch.Tensor, op: str = "sum", group=None) -> torch.Tensor:
+    """The reduction (``"sum"``, ``"max"`` or ``"min"``) of every rank's
+    ``x``, as a new tensor on ``x``'s device."""
+    if dist.get_world_size(group) == 1:
+        return x.clone()
+    dev = _comm_device(group, x.device)
+    buf = x.detach().to(dev, copy=True).contiguous()
+    dist.all_reduce(buf, op=_OPS[op], group=group)
+    return buf.to(x.device)
+
+
+def gather_host(rows: np.ndarray, group=None) -> List[np.ndarray]:
+    """Every rank's host array (equal shapes and dtypes), in rank order,
+    on every rank: how a rank's result rows reach the others, bit for
+    bit. Without a process group (or in a group of one) ``[rows]``."""
+    if not world_size() or dist.get_world_size(group) == 1:
+        return [rows]
+    t = torch.from_numpy(np.ascontiguousarray(rows))
+    n = dist.get_world_size(group)
+    full = all_gather(t.reshape((1,) + t.shape), 0, group)
+    return [full[k].numpy() for k in range(n)]
+
+
+def gather_objects(obj, group=None) -> list:
+    """Every rank's picklable ``obj`` (a tuple of host arrays, or None
+    from a rank that computed nothing), in rank order, on every rank."""
+    n = dist.get_world_size(group)
+    if n == 1:
+        return [obj]
+    out = [None] * n
+    dist.all_gather_object(out, obj, group=group)
+    return out
+
+
+def run_lanes(run, lanes: int, devices: int, axes: Tuple[int, ...]):
+    """A lane-parallel problem over the first ``devices`` ranks: rank k
+    calls ``run(lo, hi)`` on its equal share [lo, hi) of the ``lanes``
+    lanes (ranks past ``devices`` call nothing), and every rank gets the
+    tuple of host arrays ``run`` returns with the shares joined in lane
+    order, each array along its entry of ``axes``."""
+    me, per = rank(), lanes // devices
+    got = gather_objects(run(me * per, (me + 1) * per)
+                         if me < devices else None)
+    return tuple(np.concatenate([g[i] for g in got[:devices]], axis=ax)
+                 for i, ax in enumerate(axes))
+
+
+def barrier(group=None):
+    if world_size():
+        dist.barrier(group=group)
+
+
+# ---------------------------------------------------------------------------
+# placement
+# ---------------------------------------------------------------------------
+
+def _block_view(x: torch.Tensor, block: int) -> torch.Tensor:
+    flat = x.reshape(-1)
+    pad = (-flat.numel()) % block
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    return flat.reshape(-1, block)
+
+
+@dataclass(frozen=True)
+class Sharding:
+    """How a leaf of global shape ``shape`` is laid out over ``mesh`` (a
+    ``DeviceMesh``): ``spec`` names the mesh axes each dim is split over
+    (the reference's ``NamedSharding(mesh, spec)``). With ``block`` the
+    spec applies to the leaf's flattened, zero-padded ``[n_blocks,
+    block]`` view. A rank outside the mesh holds the whole leaf."""
+    mesh: object
+    spec: Spec
+    shape: Tuple[int, ...]
+    block: Optional[int] = None
+
+    @property
+    def device(self) -> torch.device:
+        kind = self.mesh.device_type
+        if kind == "cuda":
+            return torch.device("cuda", torch.cuda.current_device())
+        return torch.device(kind)
+
+    def _view_shape(self) -> Tuple[int, ...]:
+        if self.block is None:
+            return tuple(self.shape)
+        n = int(np.prod(self.shape)) if self.shape else 1
+        return (-(-n // self.block), self.block)
+
+    def _splits(self):
+        """[(dim, axis, size)] of the dims actually split here."""
+        if self.mesh.get_coordinate() is None:
+            return []
+        shape = mesh_shape_dict(self.mesh)
+        out = []
+        for dim, entry in enumerate(self.spec):
+            if entry is None:
+                continue
+            names = [a for a in (entry if isinstance(entry, tuple)
+                                 else (entry,)) if shape.get(a, 1) > 1]
+            if not names:
+                continue
+            if len(names) > 1:
+                raise NotImplementedError(
+                    f"a dim split over several mesh axes ({entry!r}) has "
+                    f"no gather here")
+            out.append((dim, names[0], shape[names[0]]))
+        return out
+
+    @property
+    def axes(self) -> Tuple[str, ...]:
+        """The mesh axes this leaf is split over on this rank."""
+        return tuple(a for _, a, _ in self._splits())
+
+    def shard(self, full: torch.Tensor) -> torch.Tensor:
+        """This rank's shard of the whole leaf ``full`` (a new tensor on
+        ``full``'s device)."""
+        if tuple(full.shape) != tuple(self.shape):
+            raise ValueError(f"a leaf of shape {tuple(full.shape)} for a "
+                             f"sharding of {tuple(self.shape)}")
+        x = full if self.block is None else _block_view(full, self.block)
+        for dim, axis, size in self._splits():
+            if x.shape[dim] % size:
+                raise ValueError(f"dim {dim} of {tuple(x.shape)} does not "
+                                 f"split over {axis!r} ({size})")
+            x = x.chunk(size, dim=dim)[self.mesh.get_local_rank(axis)]
+        return x.contiguous().clone()
+
+    def gather(self, local: torch.Tensor) -> torch.Tensor:
+        """The whole leaf from every rank's shard (a collective over the
+        split axes), on ``local``'s device."""
+        x = local
+        for dim, axis, _ in reversed(self._splits()):
+            x = all_gather(x, dim, self.mesh.get_group(axis))
+        if self.block is not None:
+            n = int(np.prod(self.shape)) if self.shape else 1
+            x = x.reshape(-1)[:n].reshape(self.shape)
+        return x
+
+    def reduce(self, full: torch.Tensor) -> torch.Tensor:
+        """This rank's shard of the sum over the split axes of every
+        rank's whole ``full`` (a reduce-scatter); unsplit leaves come
+        back whole and unreduced."""
+        x = full if self.block is None else _block_view(full, self.block)
+        for dim, axis, _ in self._splits():
+            x = reduce_scatter(x, dim, self.mesh.get_group(axis))
+        return x

@@ -17,16 +17,20 @@ built-in one.
 Kernel branch ids: the five built-ins are 0-4; a registered policy with
 registry index ``p`` is ``FIRST_GENERATED + p``.
 
-Only operations whose float32 (or float64) rounding CUDA reproduces bit
+The operations whose float32 (or float64) rounding CUDA reproduces bit
 for bit under the kernels' flags (``--fmad=false``, IEEE division and
 square root) are translated: + - * /, neg, abs, min, max, clamp, ceil,
 floor, trunc, round, sqrt, reciprocal, integer powers 2 and -1 and the
 power 0.5, comparisons, logical operations, ``where``, casts between
 float32, float64 and bool, constants, and the indexing, stacking and
-reshaping that keep the lane dimension first. A step that uses anything
-else (``exp``, ``log``, a bit view, data-dependent Python control flow)
-has no CUDA form: the wrappers refuse its rows on the card, naming the
-operation (``Generated.refused``), and it runs with ``device="cpu"``.
+reshaping that keep the lane dimension first. So are ``exp`` and
+``log`` (CUDA's ``expf`` / ``logf``, ``exp`` / ``log`` in float64),
+which do not round as the CPU's do: a policy whose step uses them is
+listed in ``Generated.transcendental``, and its rows are held to the CPU
+run within an ulp bound, not bit for bit. A step that uses anything else
+(``tanh``, a bit view, data-dependent Python control flow) has no CUDA
+form: the wrappers refuse its rows on the card, naming the operation
+(``Generated.refused``), and it runs with ``device="cpu"``.
 
 ``interpret`` runs a translation with PyTorch operations, one per scalar
 operation, so the CPU tests can hold the decomposition against the step
@@ -96,11 +100,13 @@ class Generated:
     ``registered_steps.cuh``, None when no policy is registered),
     ``branches`` (the kernel branch of each policy, by registry index:
     a built-in's own, ``FIRST_GENERATED + index`` for a translated step,
-    ``REFUSED``) and ``refused`` (policy name -> why its step has no CUDA
-    form)."""
+    ``REFUSED``), ``refused`` (policy name -> why its step has no CUDA
+    form) and ``transcendental`` (the policies whose translated step
+    uses ``exp`` or ``log``)."""
     header: Optional[str]
     branches: Tuple[int, ...]
     refused: Dict[str, str]
+    transcendental: Tuple[str, ...] = ()
 
 
 class _Arr:
@@ -157,7 +163,10 @@ def _pow_form(exponent) -> str:
 #: ATen elementwise operations: packet name -> scalar op
 _UNARY = {"neg": "neg", "abs": "abs", "ceil": "ceil", "floor": "floor",
           "trunc": "trunc", "sqrt": "sqrt", "reciprocal": "reciprocal",
+          "exp": "exp", "log": "log",
           "logical_not": "not", "bitwise_not": "not"}
+#: scalar operations that CUDA rounds otherwise than the CPU
+TRANSCENDENTAL = ("exp", "log")
 _BINARY = {"add": "add", "sub": "sub", "mul": "mul", "div": "div",
            "minimum": "min", "maximum": "max", "fmin": "min", "fmax": "max",
            "logical_and": "and", "logical_or": "or", "logical_xor": "xor",
@@ -440,9 +449,10 @@ def _c(s: Scalar) -> str:
 
 _F32_FN = {"min": "fminf", "max": "fmaxf", "ceil": "ceilf",
            "floor": "floorf", "trunc": "truncf", "round": "rintf",
-           "abs": "fabsf", "sqrt": "sqrtf"}
+           "abs": "fabsf", "sqrt": "sqrtf", "exp": "expf", "log": "logf"}
 _F64_FN = {"min": "fmin", "max": "fmax", "ceil": "ceil", "floor": "floor",
-           "trunc": "trunc", "round": "rint", "abs": "fabs", "sqrt": "sqrt"}
+           "trunc": "trunc", "round": "rint", "abs": "fabs", "sqrt": "sqrt",
+           "exp": "exp", "log": "log"}
 _INFIX = {"add": "+", "sub": "-", "mul": "*", "div": "/", "lt": "<",
           "le": "<=", "gt": ">", "ge": ">=", "eq": "==", "ne": "!=",
           "and": "&&", "or": "||", "xor": "!="}
@@ -528,7 +538,7 @@ def generated() -> Generated:
     got = _CACHE.get(key)
     if got is not None:
         return got
-    branches, refused, functions = [], {}, {}
+    branches, refused, functions, inexact = [], {}, {}, []
     for s in specs:
         if s.kernel_branch is not None:
             branches.append(s.kernel_branch)
@@ -539,13 +549,15 @@ def generated() -> Generated:
             branches.append(REFUSED)
             refused[s.name] = str(e)
             continue
+        if any(ins.op in TRANSCENDENTAL for ins in prog.instrs):
+            inexact.append(s.name)
         branch = FIRST_GENERATED + s.index
         name = f"registered_step_{branch}"
         functions[branch] = (name, emit_function(
             prog, name, f"policy {s.name!r} (registry index {s.index})"))
         branches.append(branch)
     got = Generated(emit_header(functions) if functions else None,
-                    tuple(branches), refused)
+                    tuple(branches), refused, tuple(inexact))
     _CACHE[key] = got
     return got
 
@@ -561,7 +573,8 @@ _TORCH_OP = {"add": torch.add, "sub": torch.sub, "mul": torch.mul,
              "or": torch.logical_or, "xor": torch.logical_xor,
              "not": torch.logical_not, "neg": torch.neg, "abs": torch.abs,
              "ceil": torch.ceil, "floor": torch.floor, "trunc": torch.trunc,
-             "round": torch.round, "sqrt": torch.sqrt,
+             "round": torch.round, "sqrt": torch.sqrt, "exp": torch.exp,
+             "log": torch.log,
              "reciprocal": torch.reciprocal, "where": torch.where}
 
 

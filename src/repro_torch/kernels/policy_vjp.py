@@ -53,11 +53,18 @@ accumulator's leaves and the ``ops_lane`` leaves carry the lanes on
 their first axis ([N, ...]); ``xs`` leaves are [T, ...] rows shared by
 every lane (a row broadcasts against lane-first tensors).
 
+The schedule is chosen from the lane count, so a caller that runs a
+share of a problem's lanes (a rank of a restart mesh) says how many
+lanes the whole problem has (``whole_lanes``): every rank then takes
+the schedule the unsharded call takes, and each lane's gradient is the
+same bit for bit.
+
 The CUDA policy kernels have no backward; on the card these scans run
 as PyTorch operations, the same code as on the CPU.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -72,6 +79,23 @@ PARALLEL_REMAT_BYTES = 64 << 20
 TAPE_BYTES_PER_LANE_BIN = 256
 #: segment length of the batched rematerialisation
 PARALLEL_SEG_BINS = 4
+
+
+#: lanes of the whole problem per lane of this call (``whole_lanes``)
+_LANE_FACTOR = [1]
+
+
+@contextlib.contextmanager
+def whole_lanes(factor: int):
+    """Within the block, plan the backward as for ``factor`` times the
+    lanes each call has: the call runs one of ``factor`` equal shares of
+    a problem's lanes."""
+    prev = _LANE_FACTOR[0]
+    _LANE_FACTOR[0] = int(factor)
+    try:
+        yield
+    finally:
+        _LANE_FACTOR[0] = prev
 
 
 def _segment_plan(t_bins: int):
@@ -90,6 +114,7 @@ def _plan(t_bins: int, n: int, reps: int):
     passes are that many bins long, and the chain between them is one
     small product per segment)."""
     seg, nseg, tail = _segment_plan(t_bins)
+    n = n * _LANE_FACTOR[0]
     if reps * t_bins * n * TAPE_BYTES_PER_LANE_BIN <= PARALLEL_REMAT_BYTES:
         pseg = min(PARALLEL_SEG_BINS, t_bins)
         if t_bins // pseg > 1:

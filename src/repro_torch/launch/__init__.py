@@ -1,1 +1,2 @@
-"""Command-line entry points (counterpart: ``repro.launch``): ``serve``."""
+"""Command-line entry points (counterpart: ``repro.launch``): ``serve``,
+``train`` and the meshes of ``mesh``."""

@@ -94,6 +94,31 @@ def init_from_schema(schema: Schema, generator: torch.Generator,
     return params
 
 
+def specs_from_schema(schema: Schema, rules: Dict[str, object],
+                      mesh_shape: Dict[str, int]) -> Dict[str, tuple]:
+    """Each leaf's spec (``distributed.sharding``): its logical axes
+    mapped through ``rules``, an entry dropped to ``None`` where the dim
+    does not divide the mesh axis or the axis is already taken."""
+    specs = {}
+    for name, d in schema.items():
+        out, used = [], set()
+        for dim, ax in zip(d.shape, d.axes):
+            mesh_ax = rules.get(ax) if ax is not None else None
+            if mesh_ax is None or mesh_ax in used:
+                out.append(None)
+                continue
+            names = mesh_ax if isinstance(mesh_ax, tuple) else (mesh_ax,)
+            size = int(np.prod([mesh_shape.get(a, 1) for a in names]))
+            if size > 1 and dim % size == 0:
+                # one axis by its name, as PartitionSpec writes it
+                out.append(names[0] if len(names) == 1 else mesh_ax)
+                used.add(mesh_ax)
+            else:
+                out.append(None)
+        specs[name] = tuple(out)
+    return specs
+
+
 def prefix_schema(prefix: str, schema: Schema) -> Schema:
     return {f"{prefix}.{k}": v for k, v in schema.items()}
 

@@ -39,7 +39,7 @@ from repro_torch.models.layers import (ParamDef, Params, Schema, apply_norm,
                                        compute_dtype, embed_schema,
                                        embed_tokens, init_from_schema,
                                        norm_schema, sinusoidal_embed,
-                                       unembed)
+                                       specs_from_schema, unembed)
 
 #: leaves the reference reads in float32 (norm scales and biases, MLA's
 #: latent norms, the SSM's dt_bias, A_log and D, RWKV-6's decay_base,
@@ -95,6 +95,21 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda",
         def dtype_of(name):
             return param_dt
     return init_from_schema(full_schema(cfg), gen, dtype_of, dev)
+
+
+def abstract_params(cfg: ModelConfig) -> Params:
+    """The parameters' shapes and dtype as ``meta`` tensors (no memory):
+    the counterpart of the reference's ``ShapeDtypeStruct`` tree."""
+    dt = getattr(torch, cfg.param_dtype)
+    return {name: torch.empty(d.shape, dtype=dt, device="meta")
+            for name, d in sorted(full_schema(cfg).items())}
+
+
+def partition_specs(cfg: ModelConfig, rules: Dict[str, object],
+                    mesh_shape: Dict[str, int]) -> Dict[str, tuple]:
+    """Each parameter's spec over a mesh of ``mesh_shape`` under
+    ``rules`` (``distributed.sharding.build_rules``)."""
+    return specs_from_schema(full_schema(cfg), rules, mesh_shape)
 
 
 def _numel(shape) -> int:
@@ -237,26 +252,39 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict,
     return unembed(params, y, cfg), cache, aux
 
 
+def loss_mask(batch: Dict) -> torch.Tensor:
+    """The float32 weights [b, s_text - 1] of the scored next-token
+    positions: ``loss_mask`` past the first text token, or ones."""
+    tokens = batch["tokens"]
+    n_text = tokens.shape[1]
+    mask = batch.get("loss_mask")
+    if mask is None:
+        return torch.ones((tokens.shape[0], n_text - 1), dtype=torch.float32,
+                          device=tokens.device)
+    return mask[:, -n_text:][:, 1:].to(torch.float32)
+
+
 def loss_fn(params: Params, cfg: ModelConfig, batch: Dict,
-            remat: str = "none") -> Tuple[torch.Tensor, Dict]:
+            remat: str = "none", denom: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, Dict]:
     """(loss, {"loss", "nll", "aux", "tokens"}): the mean next-token
     negative log-likelihood over the unmasked text positions (float32
     logsumexp; the logits of prepended patch embeddings are not scored),
     plus the MoE balance loss ``aux``; ``tokens`` is the mask's sum
-    (at least 1), the mean's denominator."""
+    (at least 1), the mean's denominator. A rank of a data mesh passes
+    ``denom``, the whole batch's denominator, so its rows' ``nll`` is
+    their share of the whole batch's mean."""
     logits, _, aux = forward(params, cfg, batch, remat=remat)
     tokens = batch["tokens"]
     n_text = tokens.shape[1]
     lg = logits[:, -n_text:][:, :-1].to(torch.float32)
     targets = tokens[:, 1:].long()
-    mask = batch.get("loss_mask")
-    mask = (torch.ones(targets.shape, dtype=torch.float32,
-                       device=lg.device) if mask is None
-            else mask[:, -n_text:][:, 1:].to(torch.float32))
+    mask = loss_mask(batch)
     logz = torch.logsumexp(lg, dim=-1)
     gold = torch.gather(lg, -1, targets[..., None])[..., 0]
     nll = (logz - gold) * mask
-    denom = torch.clamp_min(mask.sum(), 1.0)
+    if denom is None:
+        denom = torch.clamp_min(mask.sum(), 1.0)
     nll_mean = nll.sum() / denom
     loss = nll_mean + aux
     return loss, {"loss": loss, "nll": nll_mean, "aux": aux,

@@ -21,6 +21,7 @@ them outside any Pallas kernel.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Tuple
 
@@ -32,6 +33,27 @@ from repro_torch.models.layers import ParamDef, Params, Schema
 
 #: tokens per dispatch group (capacity is per group and expert)
 GROUP_SIZE = 256
+
+# the whole batch's balance statistics on a rank of a data mesh: a
+# function of this rank's (token fractions, probability means) [E], set
+# by ``batch_stats`` (``train.steps``); None on one device
+_BATCH_STATS = None
+
+
+@contextlib.contextmanager
+def batch_stats(fn):
+    """Within the block, every MoE layer takes its balance loss's two
+    per-expert means [E] through ``fn(frac_tokens, frac_probs)``: a rank
+    of a data mesh turns its rows' means into the whole batch's, so the
+    loss is the reference's product of whole-batch means (see
+    ``train.steps``). A module global rather than a context variable, so
+    that the recomputation of remat in autograd's threads sees it."""
+    global _BATCH_STATS
+    prev, _BATCH_STATS = _BATCH_STATS, fn
+    try:
+        yield
+    finally:
+        _BATCH_STATS = prev
 
 
 def moe_schema(cfg: ModelConfig, name: str) -> Schema:
@@ -143,5 +165,7 @@ def apply_moe(params: Params, name: str, x: torch.Tensor,
     # the Switch load-balancing loss
     frac_tokens = F.one_hot(tope[..., 0], E).float().mean(dim=(0, 1))
     frac_probs = probs.mean(dim=(0, 1))
+    if _BATCH_STATS is not None:
+        frac_tokens, frac_probs = _BATCH_STATS(frac_tokens, frac_probs)
     aux = E * (frac_tokens * frac_probs).sum() * m.aux_loss_weight
     return y, aux

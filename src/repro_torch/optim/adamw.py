@@ -99,6 +99,33 @@ def _store_moment(x: torch.Tensor, ocfg: OptimizerConfig,
     return x, None
 
 
+def opt_state_specs(param_specs: Dict[str, tuple], ocfg: OptimizerConfig,
+                    params_abstract: Dict = None, fsdp_axis: str = "data",
+                    mesh_shape: Dict[str, int] = None) -> OptState:
+    """The optimizer state's specs (``distributed.sharding``): float32
+    and bfloat16 moments take their parameter's spec; the int8 moments'
+    [n_blocks, block] layout (and its [n_blocks] scales) split the block
+    dim over ``fsdp_axis`` when it divides the number of blocks, and are
+    replicated otherwise. ``params_abstract`` gives the parameters'
+    shapes (``models.model.abstract_params``)."""
+    if ocfg.state_dtype == "int8":
+        size = (mesh_shape or {}).get(fsdp_axis, 1)
+
+        def blk_spec(k):
+            if params_abstract is None or size <= 1:
+                return (), ()
+            nblk = -(-params_abstract[k].numel() // ocfg.state_block)
+            if nblk % size == 0:
+                return (fsdp_axis, None), (fsdp_axis,)
+            return (), ()
+        m, scales = {}, {}
+        for k in param_specs:
+            m[k], scales[k] = blk_spec(k)
+        return OptState((), m, dict(m), scales, dict(scales))
+    m = dict(param_specs)
+    return OptState((), m, dict(m), {}, {})
+
+
 def lr_at(step, ocfg: OptimizerConfig) -> torch.Tensor:
     """The float32 learning rate at ``step`` (an int or an integer
     tensor): linear warmup over ``warmup_steps``, then a cosine from 1 to
@@ -112,21 +139,28 @@ def lr_at(step, ocfg: OptimizerConfig) -> torch.Tensor:
     return ocfg.lr * warm * (0.1 + 0.9 * cos)
 
 
+def sq_norm(g: torch.Tensor, lanes: int = 0) -> torch.Tensor:
+    """The float32 sum of squares of ``g`` over all but its ``lanes``
+    leading axes: one leaf's share of the global gradient norm."""
+    return torch.sum(torch.square(g.to(torch.float32)),
+                     dim=tuple(range(lanes, g.dim())))
+
+
 def adamw_update(params: Dict[str, torch.Tensor],
                  grads: Dict[str, torch.Tensor], state: OptState,
-                 ocfg: OptimizerConfig, lanes: int = 0
+                 ocfg: OptimizerConfig, lanes: int = 0,
+                 gnorm: torch.Tensor = None
                  ) -> Tuple[Dict[str, torch.Tensor], OptState]:
     """One AdamW step: (new params, new state). ``lanes`` leading axes of
     every parameter index independent problems (see the module
-    docstring); the global norm reduces over the other axes."""
+    docstring); the global norm reduces over the other axes. A rank that
+    holds shards passes ``gnorm``, the norm of the whole gradient
+    (``train.steps`` sums the shards' ``sq_norm`` over the mesh); the
+    update is elementwise, so it runs on the shards as they are."""
     _check_state_dtype(ocfg, lanes)
     step = state.step + 1
-
-    def sq_norm(g):
-        return torch.sum(torch.square(g.to(torch.float32)),
-                         dim=tuple(range(lanes, g.dim())))
-
-    gnorm = torch.sqrt(sum(sq_norm(g) for g in grads.values()))
+    if gnorm is None:
+        gnorm = torch.sqrt(sum(sq_norm(g, lanes) for g in grads.values()))
     clip = torch.clamp_max(ocfg.grad_clip / (gnorm + 1e-9), 1.0)
     lr = lr_at(step, ocfg)
     b1, b2 = ocfg.betas

@@ -1,6 +1,6 @@
 """Block-wise int8 quantization: the 8-bit moments of ``optim.adamw``
 (``state_dtype="int8"``) and the payload of the reference's cross-pod
-gradient compression (ROADMAP A8).
+gradient compression (``train.steps``, a mesh with a ``pod`` axis).
 
 Counterpart: ``repro.optim.compression``, operation for operation: a
 tensor is flattened, zero-padded to whole blocks of ``block`` values, and

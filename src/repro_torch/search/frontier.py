@@ -96,8 +96,8 @@ def pareto_frontier(space_or_base: Union[SearchSpace, Twin],
     ``search.kernel`` span; the per-target exact re-checks and the
     monotone assembly happen on the host. Targets are processed tightest
     first regardless of input order; the returned points follow that
-    order. ``device`` as in ``search`` (default ``"cuda"``); ``devices``
-    > 1 raises (ROADMAP A8).
+    order. ``device`` and ``devices`` as in ``search`` (default
+    ``"cuda"``; ``devices=D`` splits the M*K restarts over D ranks).
     """
     if len(slo_limits) == 0:
         raise ValueError("pareto_frontier needs at least one SLO limit")

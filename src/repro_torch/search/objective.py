@@ -260,8 +260,12 @@ def lane_objective_vectorized(params_block, loads_block, dt_hours,
         policy_index=policy_index, differentiable=True,
         surrogate=surrogate,
         caps_t=None if caps_block is None else caps_block.t())
+    # lane-major rows: a row sum of a transposed view is blocked by the
+    # lane count, which would tie each lane's value to how many lanes
+    # run beside it (a restart mesh's share)
+    lat, cost, drop = (x.contiguous() for x in (lat, cost, drop))
     limits, width = _obj_ops_lane(slo_limit_lane, slo_mode, tau)
-    w = loads_block
+    w = loads_block.contiguous()
     values = (drop / torch.clamp_min(w, 1e-9)
               if slo_mode == AGG_SLO_DROP_RATE else lat)
     cost_ann = (cost.sum(dim=1) + _backlog_cost(carry_end, params_block)) \

@@ -30,8 +30,15 @@ cost). Feasibility failures are never silent: a search whose candidates
 all miss the SLO warns with the policy, the achieved vs required
 compliance, and any parameters pinned against their search box.
 
-``devices`` > 1 (the reference's restart mesh) is not ported yet
-(ROADMAP A8) and raises.
+``devices=D`` is the reference's restart mesh over the first D ranks
+of the ``torch.distributed`` default group: each rank runs its K/D
+restarts through the same gradient loop, every rank gets the candidates
+and the history in restart order, and the exact re-checks run on every
+rank. The streamed-vs-vectorised objective is decided from the global
+K*S*F*T and the backward's schedule is planned for all K
+(``policy_vjp.whole_lanes``), so the sharded loop is bitwise the
+unsharded one. A K that D does not divide runs unsharded, with the
+warn-once replication ``RuntimeWarning``.
 
 With run telemetry on (``repro_torch.obs``) each gradient loop records a
 ``search.kernel`` span (attrs restarts, scenarios, futures, t_bins,
@@ -60,6 +67,9 @@ from repro_torch.core.traffic import TrafficModel
 from repro_torch.core.twin import (AGG_SLO_DROP_RATE, AGG_SLO_LATENCY,
                                    PARAM_DIM, Twin)
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import (require_ranks,
+                                              resolve_mesh_axis, run_lanes)
+from repro_torch.kernels.policy_vjp import whole_lanes
 from repro_torch.optim.adamw import adamw_update, init_opt_state
 from repro_torch.search.objective import (CHANCE_W, HINGE_S, annual_scale,
                                           lane_objective_t,
@@ -272,17 +282,11 @@ def _norm_weights(scenario_weights, n_scen: int) -> np.ndarray:
     return w / max(w.sum(), 1e-12)
 
 
-def _restart_devices(devices) -> int:
-    """``devices=`` of the reference's search: None or 1 run here; more
-    than one is the restart mesh, not in the port yet."""
-    if devices is None or devices == 1:
-        return 1
-    if int(devices) <= 0:
-        raise ValueError(f"devices must be a positive mesh size, "
-                         f"got {devices}")
-    raise NotImplementedError(
-        "search(devices=) > 1 is not in the port yet: the restart mesh "
-        "comes with the multi-GPU slice (ROADMAP A8)")
+def _restart_devices(devices):
+    """Check ``devices=`` before any work (``_run_kernel`` resolves it):
+    more than one needs a ``torch.distributed`` group that large."""
+    if devices is not None and devices != 1:
+        require_ranks(devices, "search(devices=) restart mesh")
 
 
 def _run_kernel(space: SearchSpace, g_loads: np.ndarray, g_bin: float,
@@ -299,9 +303,12 @@ def _run_kernel(space: SearchSpace, g_loads: np.ndarray, g_bin: float,
     lane-packed limits). ``caps`` [S*F, T] + ``n_fut``/``quantile``
     switch to the chance-constrained objective; ``g_loads`` then has S*F
     rows, scenario-major / future-minor. The streamed-vs-vectorised
-    choice is made here, from the global K*S*F*T lane-bin count."""
-    d = _restart_devices(devices)
+    choice is made here, from the global K*S*F*T lane-bin count, never
+    from a rank's share. ``devices=D`` runs K/D restarts a rank
+    (``sharding.run_lanes``)."""
     dev = resolve_device(device)
+    d = resolve_mesh_axis(devices, z0.shape[0],
+                          "search(devices=) restart mesh") or 1
     stream = (z0.shape[0] * g_loads.shape[0] * g_loads.shape[1]
               >= _STREAM_MIN_ELEMS)
 
@@ -317,18 +324,30 @@ def _run_kernel(space: SearchSpace, g_loads: np.ndarray, g_bin: float,
                   futures=int(n_fut), t_bins=g_loads.shape[1],
                   steps=int(steps), stream=stream, devices=d,
                   policy=space.policy):
-        out = _search_loop(
-            int(steps), g_loads.shape[0] // int(n_fut), int(n_fut),
-            float(g_bin), int(slo_mode), bool(space.needs_surrogate), ocfg,
-            stream, put(z0, torch.float32), put(g_loads.T, torch.float32),
-            put(scen_w, torch.float32), box,
-            (put(space.tie_src), put(space.tie_coeff)), space.policy_index,
-            put(slo_limit_k, torch.float32), float(met),
-            float(penalty_weight), float(penalty_scale), float(g_horizon),
-            caps_t=None if caps is None else put(caps.T, torch.float32),
-            quantile=float(quantile))
-        p_fin = out[1].cpu().numpy().astype(np.float64)
-        history = out[5].cpu().numpy().astype(np.float64)
+        def run(lo, hi):
+            with whole_lanes(d):
+                out = _search_loop(
+                    int(steps), g_loads.shape[0] // int(n_fut), int(n_fut),
+                    float(g_bin), int(slo_mode),
+                    bool(space.needs_surrogate), ocfg, stream,
+                    put(z0[lo:hi], torch.float32),
+                    put(g_loads.T, torch.float32),
+                    put(scen_w, torch.float32), box,
+                    (put(space.tie_src), put(space.tie_coeff)),
+                    space.policy_index,
+                    put(slo_limit_k[lo:hi], torch.float32), float(met),
+                    float(penalty_weight), float(penalty_scale),
+                    float(g_horizon),
+                    caps_t=None if caps is None else put(caps.T,
+                                                         torch.float32),
+                    quantile=float(quantile))
+            return (out[1].cpu().numpy().astype(np.float64),
+                    out[5].cpu().numpy().astype(np.float64))
+
+        if d == 1:
+            p_fin, history = run(0, z0.shape[0])
+        else:
+            p_fin, history = run_lanes(run, z0.shape[0], d, (0, 1))
     bad = ~np.isfinite(p_fin).all(axis=1)
     obs.count("search.restarts", z0.shape[0], policy=space.policy)
     if bad.any():
@@ -573,7 +592,9 @@ def search(space_or_base: Union[SearchSpace, Twin],
     ``"cpu"``: the gradient loop and every exact re-check run there. On
     the card the re-check runs through the CUDA aggregate kernels, a
     policy added with ``register_policy`` as its translated step (see
-    ``kernels/lane_codegen.py``). ``devices`` > 1 raises (ROADMAP A8).
+    ``kernels/lane_codegen.py``). ``devices=D`` splits the restarts over
+    D ranks (see the module docstring); it raises ``ValueError`` without
+    a ``torch.distributed`` group of at least D ranks.
     """
     _restart_devices(devices)
     resolve_device(device)

@@ -8,11 +8,18 @@ tolerance: transient faults retry in place; ``NodeLoss`` restarts from the
 latest checkpoint (parameters, optimizer state and data-stream position
 all restore); the straggler watchdog reports stages that fall behind.
 
-The port runs on one device (``device=``, ``"cuda"`` by default; raises
-without a card). The fresh state is ``init_params`` drawn on that device
-from ``tcfg.seed`` (a stacked leaf one layer group at a time) with zero
-moments; the ``train_step`` span ends when the step's loss has reached
-the host.
+The loop runs on one device (``device=``, ``"cuda"`` by default, the
+rank's current card; raises without one) or, with ``mesh=``, as one rank
+of an FSDP mesh (``train.steps``): every rank calls ``train`` with the
+same arguments. The loader gives each rank its rows of the global batch;
+the fresh state is ``init_params`` drawn on the device from
+``tcfg.seed`` (a stacked leaf one layer group at a time) with zero
+moments, cut to the rank's shards; a checkpoint is gathered whole and
+written once, by rank 0, in the single-device layout, and restored by
+every rank onto its shards, so checkpoints move between mesh sizes. The
+fault injector fires on every rank alike (it counts attempts), and every
+rank restarts from the same checkpoint. The ``train_step`` span ends
+when the step's loss has reached the host.
 """
 from __future__ import annotations
 
@@ -21,7 +28,8 @@ from typing import Dict, Optional
 
 import torch
 
-from repro_torch.checkpoint.ckpt import (AsyncCheckpointer, latest_step,
+from repro_torch.checkpoint.ckpt import (AsyncCheckpointer, gather_tree,
+                                         latest_step, reshard_tree,
                                          restore_checkpoint, save_checkpoint)
 from repro_torch.config import (ModelConfig, OptimizerConfig, ParallelConfig,
                                 TrainConfig)
@@ -29,6 +37,7 @@ from repro_torch.core.metrics import MetricStore
 from repro_torch.core.spans import SpanCollector, span
 from repro_torch.data.loader import TokenBatchLoader
 from repro_torch.device import resolve_device
+from repro_torch.distributed import sharding as sh
 from repro_torch.distributed.elastic import state_like
 from repro_torch.distributed.fault import (FaultInjector, NodeLoss,
                                            StragglerWatchdog, TransientFault,
@@ -58,27 +67,51 @@ def train(cfg: ModelConfig, tcfg: TrainConfig, ocfg: OptimizerConfig,
           parallel: ParallelConfig, device="cuda",
           injector: Optional[FaultInjector] = None,
           collector: Optional[SpanCollector] = None,
-          verbose: bool = True) -> TrainResult:
+          verbose: bool = True, mesh=None) -> TrainResult:
+    """Train for ``tcfg.steps`` steps; see the module docstring. With
+    ``mesh`` the result's ``params`` / ``opt_state`` are the rank's
+    shards (``distributed.elastic.state_shardings``)."""
     dev = resolve_device(device)
     collector = collector or SpanCollector()
     metrics = MetricStore()
-    step_fn = make_train_step(cfg, ocfg, parallel, dev)
+    step_fn = make_train_step(cfg, ocfg, parallel, dev, mesh=mesh)
+    rows, writer = None, True
+    if mesh is not None:
+        shardings = step_fn.shardings
+        axes = sh.batch_partition(parallel, mesh)
+        sizes = sh.mesh_shape_dict(mesh)
+        index = 0
+        for a in axes:
+            index = index * sizes[a] + mesh.get_local_rank(a)
+        rows = sh.batch_rows(tcfg.global_batch, index,
+                             sh.axis_size(sizes, axes),
+                             int(parallel.microbatches))
+        writer = sh.rank() == 0
     loader = TokenBatchLoader(cfg.vocab_size, tcfg.seq_len, tcfg.global_batch,
-                              seed=tcfg.seed, collector=collector)
+                              seed=tcfg.seed, collector=collector, rows=rows)
+    records = tcfg.global_batch if rows is None else len(rows)
     watchdog = StragglerWatchdog(collector)
     ckpt_dir = tcfg.checkpoint_dir
-    ckptr = AsyncCheckpointer(ckpt_dir) if tcfg.async_checkpoint else None
+    ckptr = (AsyncCheckpointer(ckpt_dir)
+             if tcfg.async_checkpoint and writer else None)
 
     def fresh_state():
         params = M.init_params(cfg, seed=tcfg.seed, device=dev)
-        return params, init_opt_state(params, ocfg)
+        state = (params, init_opt_state(params, ocfg))
+        return state if mesh is None else reshard_tree(state, shardings)
 
     def try_restore():
+        if mesh is not None:
+            sh.barrier()        # the writer's checkpoint is on disk
         ls = latest_step(ckpt_dir)
         if ls is None:
             return None
+        if mesh is None:
+            like, placed = state_like(cfg, ocfg, dev), None
+        else:
+            like, placed = state_like(cfg, ocfg, "meta"), shardings
         (params, opt_state), step0, extra = restore_checkpoint(
-            ckpt_dir, ls, state_like(cfg, ocfg, dev))
+            ckpt_dir, ls, like, placed)
         loader.load_state_dict(extra.get("loader", {"step": step0,
                                                     "seed": tcfg.seed}))
         return params, opt_state, step0
@@ -97,16 +130,14 @@ def train(cfg: ModelConfig, tcfg: TrainConfig, ocfg: OptimizerConfig,
         step = step0
         while step < tcfg.steps:
             try:
-                with span("datagen+next", collector,
-                          records=tcfg.global_batch):
+                with span("datagen+next", collector, records=records):
                     host_batch = loader.next()
-                with span("h2d", collector, records=tcfg.global_batch):
+                with span("h2d", collector, records=records):
                     batch = {k: torch.from_numpy(v).to(dev)
                              for k, v in host_batch.items()}
 
                 def do_step():
-                    with span("train_step", collector,
-                              records=tcfg.global_batch):
+                    with span("train_step", collector, records=records):
                         out = step_fn(params, opt_state, batch)
                         out[2]["loss"].item()     # the step has finished
                         return out
@@ -131,12 +162,15 @@ def train(cfg: ModelConfig, tcfg: TrainConfig, ocfg: OptimizerConfig,
                 if step % tcfg.checkpoint_every == 0 or step == tcfg.steps:
                     with span("checkpoint", collector, records=1):
                         extra = {"loader": loader.state_dict()}
+                        state = (params, opt_state)
+                        if mesh is not None:
+                            state = gather_tree(state, shardings)
                         if ckptr is not None:
-                            ckptr.save(step, (params, opt_state), extra)
-                        else:
-                            save_checkpoint(ckpt_dir, step,
-                                            (params, opt_state), extra)
-                if verbose and step % tcfg.log_every == 0:
+                            ckptr.save(step, state, extra)
+                        elif writer:
+                            save_checkpoint(ckpt_dir, step, state, extra)
+                        del state
+                if verbose and writer and step % tcfg.log_every == 0:
                     print(f"step {step:5d} loss {loss:.4f}")
             except NodeLoss:
                 # restart-from-checkpoint: the real cluster would re-mesh

@@ -704,7 +704,10 @@ def test_fit_history_matches_reference_first_steps(jref):
 def test_fit_devices_beyond_one_are_not_ported():
     tr = pc.ObservedTrace.from_loadpattern(ramp(plp), SHED_TRUTH,
                                            bin_s=300.0, device="cpu")
-    with pytest.raises(NotImplementedError, match="A8"):
+    # more than one device is the restart mesh over torch.distributed
+    # ranks (tests/test_torch_restart_mesh.py); without a process group
+    # it raises, naming how to start the ranks
+    with pytest.raises(ValueError, match="torchrun"):
         pc.fit(tr, "shed", restarts=4, steps=2, devices=2, device="cpu")
     with pytest.raises(ValueError, match="positive"):
         pc.fit(tr, "shed", restarts=4, steps=2, devices=-2, device="cpu")

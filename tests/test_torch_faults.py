@@ -180,7 +180,7 @@ def test_faults_argument_errors():
         psim.simulate_grid(tw, faults=_hand_sampled(pf, None, 12), **kw)
     with pytest.raises(TypeError, match="FaultSchedule"):
         psim.simulate_grid(tw, faults={"not": "a schedule"}, **kw)
-    with pytest.raises(NotImplementedError, match="devices"):
+    with pytest.raises(ValueError, match="devices=2.*torchrun"):
         psim.simulate_grid(tw, faults=dense_schedule(pf), devices=2, **kw)
 
 

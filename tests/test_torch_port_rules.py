@@ -112,12 +112,14 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
             "repro_torch.distributed.fault",
             "repro_torch.distributed.elastic", "repro_torch.train.steps",
             "repro_torch.train.loop", "repro_torch.launch.train",
-            "repro_torch.kernels.lane_codegen"} <= set(_modules())
+            "repro_torch.kernels.lane_codegen",
+            "repro_torch.distributed.sharding",
+            "repro_torch.launch.mesh"} <= set(_modules())
 
 
 def test_port_sources_do_not_import_jax_or_the_reference():
     files = sorted((SRC / "repro_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py"]
+        ROOT / "chip_smoke.py", ROOT / "tests" / "torch_mesh_workers.py"]
     assert len(files) > 50
     names = {f.relative_to(SRC / "repro_torch").as_posix() for f in files
              if f.is_relative_to(SRC / "repro_torch")}
@@ -137,7 +139,8 @@ def test_port_sources_do_not_import_jax_or_the_reference():
             "checkpoint/ckpt.py", "distributed/__init__.py",
             "distributed/fault.py", "distributed/elastic.py",
             "train/__init__.py", "train/steps.py", "train/loop.py",
-            "launch/train.py", "kernels/lane_codegen.py"} <= names
+            "launch/train.py", "kernels/lane_codegen.py",
+            "distributed/sharding.py", "launch/mesh.py"} <= names
     for f in files:
         hit = FORBIDDEN.search(f.read_text())
         assert hit is None, f"{f}: {hit.group(0).strip()}"
@@ -280,6 +283,32 @@ def test_training_entry_points_default_to_the_card_and_raise_without_one():
     for entry in (make_train_step, train, elastic_restore, state_like):
         assert inspect.signature(entry).parameters[
             "device"].default == "cuda", entry
+
+
+def test_mesh_entry_points_default_to_the_card_and_need_ranks():
+    """The multi-GPU layer: the meshes are built on the card by default,
+    and every ``devices=`` > 1 and every mesh needs a process group,
+    naming how to start one (no quiet one-process fall-back)."""
+    from repro_torch.distributed.elastic import elastic_restore
+    from repro_torch.launch import mesh
+    from repro_torch.launch import train as launch_train
+    for entry in (mesh.make_host_mesh, mesh.make_production_mesh):
+        assert inspect.signature(entry).parameters[
+            "device"].default == "cuda", entry
+    with pytest.raises(ValueError, match="torchrun"):
+        mesh.make_host_mesh(2, 1)
+    with pytest.raises(ValueError, match=r"\(16, 16\).*torchrun"):
+        mesh.make_production_mesh()
+    with pytest.raises(ValueError, match=r"\(2, 16, 16\).*torchrun"):
+        mesh.make_production_mesh(multi_pod=True)
+    cfg = get_smoke_config("llama3.2-1b")
+    from repro_torch.config import OptimizerConfig, ParallelConfig
+    with pytest.raises(ValueError, match="torchrun"):
+        elastic_restore("unused", cfg, OptimizerConfig(), ParallelConfig(),
+                        devices=2, device="cpu")
+    args = launch_train.parse_args(["--data", "2", "--model", "1"])
+    assert (args.data, args.model, args.device) == (2, 1, "cuda")
+    assert launch_train.mesh_of(launch_train.parse_args([])) is None
 
 
 def test_serve_launcher_defaults_to_the_card_and_raises_without_one():

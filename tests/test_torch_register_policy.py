@@ -256,8 +256,63 @@ def test_translated_operations_equal_pytorch(step, dt):
     assert all(isinstance(cg._c_expr(i), str) for i in prog.instrs)
 
 
-def _exp_step(carry, arrive, p, dt):
-    return carry, (arrive, carry[:, 0], torch.exp(p[:, 2]), p[:, 1], arrive)
+def softlat_step(carry, arrive, p, dt):
+    """A capped queue whose latency goes through ``exp`` and ``log``
+    (ROADMAP C15): the carry and the other outputs are exact operations,
+    the latency is not."""
+    cap = torch.clamp_min(p[:, 0] * CAP_HOURS * dt, 1.0)
+    avail = carry[:, 0] + arrive
+    proc = torch.minimum(avail, cap)
+    queue = avail - proc
+    lat = p[:, 2] + (torch.log(1.0 + queue / cap)
+                     * torch.exp(-proc / cap) * 3600.0)
+    new = torch.stack([queue, carry[:, 1]], dim=1)
+    return new, (proc, queue, lat, p[:, 1] * dt, torch.zeros_like(arrive))
+
+
+def _explog64_step(carry, arrive, p, dt):
+    """``exp`` and ``log`` in float64, rounded once to float32."""
+    x = torch.log(arrive.double() + 1.0) * torch.exp(-p[:, 2].double())
+    return carry, (arrive, carry[:, 0], x.float(), p[:, 1], arrive)
+
+
+@pytest.mark.parametrize("step, fns", [(softlat_step, ("expf(", "logf(")),
+                                       (_explog64_step, ("exp(", "log("))])
+@pytest.mark.parametrize("dt", [1.0, 1.0 / 60.0])
+def test_exp_and_log_translate(step, fns, dt):
+    """C15: ``exp`` and ``log`` become CUDA's functions of their type; run
+    as their scalar operations on the CPU the translation is bitwise the
+    step (the card is held to the CPU within an ulp bound, chip_smoke.py
+    phase 11c)."""
+    prog = cg.translate(step)
+    assert {"exp", "log"} <= {i.op for i in prog.instrs}
+    carry, arrive, params = lane_block(seed=23)
+    dtt = torch.tensor(dt, dtype=torch.float32)
+    want_c, want = step(carry, arrive, params, dtt)
+    got_c, got = cg.interpret(prog, carry, arrive, params, dtt)
+    np.testing.assert_array_equal(bits(got_c.numpy()), bits(want_c.numpy()))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(
+            bits(g.numpy()), bits(w.expand(arrive.shape[0]).numpy()))
+    src = cg.emit_function(prog, "f", "explog")
+    assert all(fn in src for fn in fns), src
+
+
+def test_exp_and_log_steps_run_in_the_kernels():
+    """C15: a registered ``exp`` / ``log`` step gets a generated branch,
+    not ``REFUSED``, and is listed among the transcendental ones."""
+    with restored(ptwin):
+        ptwin.register_policy("softlat", ("max_rps", "usd_per_hour",
+                                          "base_latency_s"))(softlat_step)
+        gen = cg.generated()
+        index = ptwin.policy_names().index("softlat")
+        assert gen.branches[index] == cg.FIRST_GENERATED + index
+        assert gen.transcendental == ("softlat",) and not gen.refused
+        assert "expf(" in gen.header and "logf(" in gen.header
+
+
+def _tanh_step(carry, arrive, p, dt):
+    return carry, (arrive, carry[:, 0], torch.tanh(p[:, 2]), p[:, 1], arrive)
 
 
 def _branchy_step(carry, arrive, p, dt):
@@ -274,7 +329,7 @@ def _lane_index_step(carry, arrive, p, dt):
 
 
 @pytest.mark.parametrize("step, what", [
-    (_exp_step, "aten.exp"), (_branchy_step, "does not trace"),
+    (_tanh_step, "aten.tanh"), (_branchy_step, "does not trace"),
     (_cross_lane_step, "aten.cumsum"), (_lane_index_step, "select of dim 0"),
     (ptwin.policy_spec("batch_window").lane_step, "dtype torch.int64")])
 def test_steps_without_a_cuda_form_are_refused(step, what):
@@ -288,13 +343,13 @@ def test_refused_rows_raise_on_the_card_path(jref):
     and the other policies keep their branches."""
     with restored(ptwin):
         ptwin.register_policy("expo", ("max_rps", "usd_per_hour",
-                                       "base_latency_s"))(_exp_step)
+                                       "base_latency_s"))(_tanh_step)
         gen = cg.generated()
         assert gen.branches[-1] == cg.REFUSED
-        assert "aten.exp" in gen.refused["expo"]
+        assert "aten.tanh" in gen.refused["expo"]
         assert gen.branches[:-1] == (0, 1, 2, 8, 4, 10, 11)
         onehot = torch.from_numpy(ptwin.policy_onehot([0, 6, 7]))
-        with pytest.raises(NotImplementedError, match="expo.*aten.exp"):
+        with pytest.raises(NotImplementedError, match="expo.*aten.tanh"):
             pk._kernel_branch_index(onehot)
         np.testing.assert_array_equal(
             pk._kernel_branch_index(onehot[:2]).numpy(), [0, 11])

@@ -209,6 +209,8 @@ def test_unported_options_raise():
     twins, matrix, index = _mixed_grid(ptwin, n=4)
     kw = dict(load_matrix=matrix, load_index=index, bin_hours=1.0,
               return_series=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="devices"):
+    # devices > 1 runs over torch.distributed ranks
+    # (tests/test_torch_grid_shard.py); without a group it raises
+    with pytest.raises(ValueError, match="devices=2.*torchrun"):
         psim.simulate_grid(twins, devices=2, **kw)
     assert dataclasses.replace(pcost.CostModel()).chip_usd_per_hour is None

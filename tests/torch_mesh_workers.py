@@ -1,0 +1,452 @@
+"""Worker processes of the port's mesh tests (gloo on the CPU).
+
+``spawn(fn, world, tmp_path, *args)`` starts ``world`` processes with
+``torch.multiprocessing`` (spawn), joins them into one ``gloo`` group
+through a ``file://`` rendezvous under ``tmp_path`` (so parallel test
+workers never share a port), runs ``fn(rank, world, *args)`` in each
+on one intra-op thread, and returns each rank's pickled result dict.
+The workers import ``torch``, ``numpy`` and ``repro_torch`` only: the
+tests compute the reference's answers in their own process. The
+problems are built here, from seeds, so the test process rebuilds the
+same inputs.
+"""
+import os
+import pickle
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+#: a month of hourly bins keeps the parity grids fast (the engine
+#: treats the horizon as opaque)
+T_MONTH = 744
+
+
+def _entry(rank, fn, world, init, out_dir, args):
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init}",
+                            rank=rank, world_size=world)
+    try:
+        got = fn(rank, world, *args)
+        with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(got, f)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn(fn, world, tmp_path, *args):
+    """Run ``fn(rank, world, *args)`` on ``world`` gloo ranks; returns
+    the list of the dicts each rank returned."""
+    out = tmp_path / f"world{world}_{fn.__name__}"
+    out.mkdir(parents=True, exist_ok=True)
+    mp.start_processes(_entry, args=(fn, world, str(out / "init"),
+                                      str(out), args),
+                       nprocs=world, start_method="spawn", join=True)
+    got = []
+    for r in range(world):
+        with open(out / f"rank{r}.pkl", "rb") as f:
+            got.append(pickle.load(f))
+    return got
+
+
+# ---------------------------------------------------------------------------
+# the scenario mesh
+# ---------------------------------------------------------------------------
+
+def policy_twins(tw):
+    """One twin of every built-in policy (``tests/test_grid_shard.py``'s
+    ``ALL_POLICY_TWINS``)."""
+    return [tw.SimpleTwin("fifo", 1.9512, 0.0082, 0.15),
+            tw.QuickscalingTwin("quick", 1.9512, 0.0082, 0.15),
+            tw.make_twin("auto", "autoscale", max_rps=0.5,
+                         usd_per_hour=0.002, base_latency_s=0.1,
+                         max_instances=32, scale_up_hours=3),
+            tw.make_twin("shed", "shed", max_rps=1.0, usd_per_hour=0.0082,
+                         base_latency_s=0.15, queue_cap_hours=2),
+            tw.make_twin("batch", "batch_window", max_rps=6.15,
+                         usd_per_hour=0.0703, base_latency_s=0.06,
+                         window_hours=6)]
+
+
+def traffics(tr):
+    return [tr.TrafficModel.honda_default("nom"),
+            tr.TrafficModel.honda_default("high", G=1.5)]
+
+
+def grid_arrays(tw, tr, n, t_bins=T_MONTH):
+    """(twins, matrix, index, params, policy index) of an n-row grid
+    cycling through every policy over two traffic rows."""
+    pt = policy_twins(tw)
+    twins = [pt[i % len(pt)] for i in range(n)]
+    matrix = np.stack([t.hourly_loads()[:t_bins] for t in traffics(tr)]) \
+        .astype(np.float32)
+    index = np.arange(n, dtype=np.int32) % 2
+    params = np.stack([t.padded_params() for t in twins])
+    idx = np.asarray([t.policy_index for t in twins], np.int32)
+    return twins, matrix, index, params, idx
+
+
+def chaos_schedule(f):
+    """``tests/test_faults.py``'s chaos schedule."""
+    return f.FaultSchedule(
+        specs=(f.outage(rate_per_year=200, duration_hours=(2, 6)),
+               f.disconnect(rate_per_year=150),
+               f.brownout(rate_per_year=150)),
+        n_futures=3, seed=7)
+
+
+#: (name, n, scenario_block, devices as a share of the world: "all" or
+#: 2) of the dispatch cases: n = 23 is divisible by neither the block
+#: nor 4 (per-policy pads and an all-pad block both run); n = 11 in
+#: blocks of 4 is three policy blocks over two ranks; no block is the
+#: reference's auto block (one per policy)
+DISPATCH_CASES = (("n23_block5", 23, 5, "all"), ("n11_block4_d2", 11, 4, 2),
+                  ("n10_auto", 10, None, "all"))
+SLO_LIMIT = 4 * 3600.0
+
+
+def grid_worker(rank, world):
+    from repro_torch import faults as pf
+    from repro_torch import obs
+    from repro_torch.core import simulate as psim
+    from repro_torch.core import slo as pslo
+    from repro_torch.core import traffic as ptr
+    from repro_torch.core import twin as ptw
+    from repro_torch.core import whatif as pwhatif
+    cpu = torch.device("cpu")
+    out = {}
+    for name, n, block, d in DISPATCH_CASES:
+        d = world if d == "all" else d
+        _, matrix, index, params, idx = grid_arrays(ptw, ptr, n)
+        out[name] = psim._grid_agg_dispatch(
+            matrix, index, params, idx, 1.0, SLO_LIMIT, 0, block, cpu,
+            devices=d)
+    twins, matrix, index, _, _ = grid_arrays(ptw, ptr, 10)
+    slo = pslo.SLO(limit_s=SLO_LIMIT, met_fraction=0.95)
+    with obs.capture() as rec:
+        out["end_to_end"] = psim.simulate_grid(
+            twins, load_matrix=matrix, load_index=index, bin_hours=1.0,
+            slo=slo, return_series=False, scenario_block=4, devices=world,
+            device="cpu")
+    out["rounds"] = [dict(s.attrs) for s in rec.find("grid.round")]
+    out["blocks_counter"] = {k: v for k, v in rec.counters.items()
+                             if k[0] == "grid.blocks"}
+    out["fault"] = psim.simulate_grid(
+        twins[:5], load_matrix=matrix, load_index=index[:5],
+        bin_hours=1.0, slo=slo, return_series=False, scenario_block=4,
+        devices=world, faults=chaos_schedule(pf), device="cpu")
+    if world == 2:      # a full year: one world is enough
+        out["run_grid"] = pwhatif.run_grid(
+            policy_twins(ptw), traffics(ptr), slo=slo, scenario_block=4,
+            devices=2, device="cpu")
+    try:
+        psim.simulate_grid(twins, load_matrix=matrix, load_index=index,
+                           bin_hours=1.0, return_series=False,
+                           devices=world + 1, device="cpu")
+        out["too_many"] = None
+    except ValueError as e:
+        out["too_many"] = str(e)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the restart meshes
+# ---------------------------------------------------------------------------
+
+RESTARTS = 4
+FIT_STEPS = 30
+SEARCH_STEPS = 12
+
+
+def fit_problem(pc, plp, pt):
+    """A noiseless shed replay of a 2 h ramp in 300 s bins."""
+    truth = pt.make_twin("t", "shed", max_rps=2.0, usd_per_hour=0.05,
+                         base_latency_s=0.2, queue_cap_hours=1.5)
+    ramp = plp.LoadPattern.ramp("ramp", duration_s=2 * 3600, peak_rate=6.0)
+    return pc.ObservedTrace.from_loadpattern(ramp, truth, bin_s=300.0,
+                                             device="cpu")
+
+
+def weekly_load(t_bins=168, mean=4000.0):
+    rng = np.random.default_rng(0)
+    t = np.arange(t_bins)
+    load = (mean + 0.75 * mean * np.sin(2 * np.pi * t / 24.0)
+            + rng.uniform(0, 0.2 * mean, t_bins))
+    return np.maximum(load, 50.0).astype(np.float32)[None]
+
+
+def search_base(pt):
+    return pt.make_twin("auto", "autoscale", max_rps=2.5, usd_per_hour=0.01,
+                        base_latency_s=0.2, max_instances=8.0,
+                        scale_up_hours=2.0)
+
+
+def restart_runs(devices, world=None):
+    """(fit result, search result) of the restart-mesh problems."""
+    from repro_torch import calibrate as pc
+    from repro_torch.core import loadpattern as plp
+    from repro_torch.core import slo as pslo
+    from repro_torch.core import twin as pt
+    from repro_torch.search import search
+    fit = pc.fit(fit_problem(pc, plp, pt), "shed", restarts=RESTARTS,
+                 steps=FIT_STEPS, seed=0, device="cpu", devices=devices)
+    res = search(search_base(pt), loads=weekly_load(), bin_hours=1.0,
+                 slo=pslo.SLO(limit_s=3600.0, met_fraction=0.95),
+                 restarts=RESTARTS, steps=SEARCH_STEPS, seed=0,
+                 polish_rounds=1, device="cpu", devices=devices)
+    return fit, res
+
+
+def restart_summary(fit, res):
+    return {"fit_z": fit.start_params, "fit_losses": fit.start_losses,
+            "fit_history": fit.loss_history, "fit_best": fit.best_start,
+            "search_params": res.restart_params,
+            "search_history": res.history, "search_cost": res.cost_usd,
+            "search_best": res.best_restart}
+
+
+def restart_worker(rank, world):
+    import warnings
+    out = {"mesh": restart_summary(*restart_runs(world))}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        from repro_torch import calibrate as pc
+        from repro_torch.core import loadpattern as plp
+        from repro_torch.core import twin as pt
+        pc.fit(fit_problem(pc, plp, pt), "shed", restarts=RESTARTS + 1,
+               steps=2, seed=0, device="cpu", devices=world)
+    out["fallback_warnings"] = [str(w.message) for w in caught
+                                if issubclass(w.category, RuntimeWarning)]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# training over a mesh
+# ---------------------------------------------------------------------------
+
+BATCH, SEQ = 4, 32
+TRAIN_STEPS = 2
+OPT = dict(lr=1e-3, warmup_steps=1, total_steps=10)
+#: an MoE model over data=2: 2 rows of 128 a rank are one dispatch group
+#: of 256 tokens, as the whole batch's groups are
+MOE_ARCH, MOE_SEQ = "phi3.5-moe-42b-a6.6b", 128
+
+
+def train_batch(vocab, seed=1, b=BATCH, s=SEQ):
+    """``tests/test_torch_train.py``'s batch: row 0 has a masked tail, so
+    the ranks' mask counts differ."""
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, vocab, (b, s)).astype(np.int32)
+    mask = np.ones((b, s), np.float32)
+    mask[0, s // 2:] = 0.0
+    return {"tokens": tokens, "loss_mask": mask}
+
+
+def smoke(dtype, arch="llama3.2-1b"):
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    return dataclasses.replace(get_smoke_config(arch), dtype=dtype)
+
+
+def cpu_mesh(shape, axes):
+    from torch.distributed.device_mesh import DeviceMesh
+    n = int(np.prod(shape))
+    return DeviceMesh("cpu", torch.arange(n).reshape(shape),
+                      mesh_dim_names=axes)
+
+
+def np_tree(tree):
+    """Tensors of a (params, OptState) or dict tree as numpy (bf16
+    widened), for pickling."""
+    from repro_torch.checkpoint.ckpt import _items
+    return {k: (v.float() if v.dtype == torch.bfloat16 else v).numpy()
+            for k, v in _items(tree)}
+
+
+def mesh_run(cfg, ocfg, par, mesh, params_np, batch_np, steps=TRAIN_STEPS,
+             batch=BATCH):
+    """``steps`` mesh steps from ``params_np`` on the rank's rows of
+    ``batch_np``: (metrics per step, the whole state after each step,
+    the whole gradient of the first step, the live shards)."""
+    from repro_torch.checkpoint.ckpt import gather_tree, reshard_tree
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.optim.adamw import init_opt_state
+    from repro_torch.train.steps import make_train_step
+    step = make_train_step(cfg, ocfg, par, "cpu", mesh=mesh)
+    pshard, oshard = step.shardings
+    params = {k: torch.tensor(v) for k, v in params_np.items()}
+    state = reshard_tree((params, init_opt_state(params, ocfg)),
+                         (pshard, oshard))
+    axes = sh.batch_partition(par, mesh)
+    sizes = sh.mesh_shape_dict(mesh)
+    index = 0
+    for a in axes:
+        index = index * sizes[a] + mesh.get_local_rank(a)
+    rows = sh.batch_rows(batch, index, sh.axis_size(sizes, axes),
+                         par.microbatches)
+    batch = {k: torch.from_numpy(v[rows]) for k, v in batch_np.items()}
+    grads, _ = step.grads(state[0], batch)
+    grads = {k: pshard[k].gather(g) for k, g in grads.items()}
+    metrics, whole = [], []
+    for _ in range(steps):
+        p, o, m = step(state[0], state[1], batch)
+        state = (p, o)
+        metrics.append({k: float(v) for k, v in m.items()})
+        whole.append(np_tree(gather_tree(state, (pshard, oshard))))
+    return metrics, whole, np_tree(grads), state, step
+
+
+def train_worker(rank, world, params_np, moe_params_np, root):
+    from repro_torch.checkpoint.ckpt import (gather_tree, reshard_tree,
+                                             save_checkpoint)
+    from repro_torch.config import OptimizerConfig, ParallelConfig
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.distributed.elastic import elastic_restore
+    from repro_torch.optim.adamw import init_opt_state
+    from repro_torch.train.steps import make_train_step
+    out = {}
+    data2 = cpu_mesh((world, 1), ("data", "model"))
+    par = ParallelConfig(batch_axes=("data",))
+    for name, dtype, state_dtype, k in (
+            ("float32", "float32", "float32", 1),
+            ("bf16_int8", "bfloat16", "int8", 1),
+            ("microbatches", "float32", "float32", 2)):
+        cfg = smoke(dtype)
+        ocfg = OptimizerConfig(state_dtype=state_dtype, **OPT)
+        p = ParallelConfig(batch_axes=("data",), microbatches=k)
+        metrics, whole, grads, state, step = mesh_run(
+            cfg, ocfg, p, data2, params_np, train_batch(cfg.vocab_size))
+        out[name] = {"metrics": metrics, "whole": whole, "grads": grads}
+    # pod int8 compression: the pods' own gradients beside the compressed
+    cfg = smoke("float32")
+    ocfg = OptimizerConfig(**OPT)
+    pods = cpu_mesh((world, 1, 1), ("pod", "data", "model"))
+    pod_par = ParallelConfig(batch_axes=("pod", "data"),
+                             grad_compression="int8")
+    batch_np = train_batch(cfg.vocab_size)
+    metrics, whole, grads, _, _ = mesh_run(cfg, ocfg, pod_par, pods,
+                                           params_np, batch_np, steps=1)
+    rows = sh.batch_rows(BATCH, rank, world)
+    local = make_train_step(cfg, ocfg, par, "cpu")
+    own, own_m = local.grads({k: torch.tensor(v)
+                              for k, v in params_np.items()},
+                             {k: torch.from_numpy(v[rows])
+                              for k, v in batch_np.items()})
+    out["pod"] = {"metrics": metrics, "grads": grads,
+                  "own_grads": np_tree(own),
+                  "own_metrics": {k: float(v) for k, v in own_m.items()}}
+    # an MoE model: the balance loss of the whole batch's statistics,
+    # beside this rank's rows' own (what a mean over ranks would take)
+    cfg = smoke("float32", MOE_ARCH)
+    moe_np = train_batch(cfg.vocab_size, s=MOE_SEQ)
+    metrics, _, grads, _, _ = mesh_run(cfg, ocfg, par, data2, moe_params_np,
+                                       moe_np, steps=1)
+    _, own_m = make_train_step(cfg, ocfg, par, "cpu").grads(
+        {k: torch.tensor(v) for k, v in moe_params_np.items()},
+        {k: torch.from_numpy(v[rows]) for k, v in moe_np.items()})
+    try:        # 2 rows of 32 tokens a rank: no whole dispatch group
+        mesh_run(cfg, ocfg, par, data2, moe_params_np,
+                 train_batch(cfg.vocab_size), steps=1)
+        groups = None
+    except ValueError as e:
+        groups = str(e)
+    # under remat the recomputed layers take the statistics again
+    remat_m, _, remat_g, _, _ = mesh_run(
+        cfg, ocfg, ParallelConfig(batch_axes=("data",), remat="full"),
+        data2, moe_params_np, moe_np, steps=1)
+    out["moe"] = {"metrics": metrics, "grads": grads,
+                  "own_aux": float(own_m["aux"]), "groups": groups,
+                  "remat_metrics": remat_m, "remat_grads": remat_g}
+    # checkpoints: 2 ranks -> disk -> 2 ranks, and a one-device state ->
+    # disk -> 2 ranks
+    cfg = smoke("bfloat16")
+    ocfg = OptimizerConfig(state_dtype="int8", **OPT)
+    _, _, _, state, step = mesh_run(cfg, ocfg, par, data2, params_np,
+                                    train_batch(cfg.vocab_size))
+    shardings = step.shardings
+    whole = gather_tree(state, shardings)
+    two = os.path.join(root, "two")
+    if rank == 0:
+        save_checkpoint(two, TRAIN_STEPS, whole, {"ranks": world})
+    sh.barrier()
+    p2, o2, step_r, _ = elastic_restore(two, cfg, ocfg, par, devices=world,
+                                        device="cpu")
+    from repro_torch.checkpoint.ckpt import _items
+    live, back = dict(_items(state)), dict(_items((p2, o2)))
+    out["ckpt"] = {"two_dir": two, "step": step_r,
+                   "two_to_two_bitwise": sorted(live) == sorted(back) and all(
+                       torch.equal(live[k], back[k]) for k in live),
+                   "two_whole": np_tree(whole)}
+    one_step = make_train_step(cfg, ocfg, par, "cpu")
+    params = {k: torch.tensor(v) for k, v in params_np.items()}
+    one = (params, init_opt_state(params, ocfg))
+    full_batch = {k: torch.from_numpy(v)
+                  for k, v in train_batch(cfg.vocab_size).items()}
+    for _ in range(TRAIN_STEPS):
+        p_, o_, _ = one_step(one[0], one[1], full_batch)
+        one = (p_, o_)
+    one_dir = os.path.join(root, "one")
+    if rank == 0:
+        save_checkpoint(one_dir, TRAIN_STEPS, one)
+    sh.barrier()
+    p3, o3, _, _ = elastic_restore(one_dir, cfg, ocfg, par, devices=world,
+                                   device="cpu")
+    want = dict(_items(reshard_tree(one, shardings)))
+    got = dict(_items((p3, o3)))
+    round_trip = dict(_items(gather_tree((p3, o3), shardings)))
+    one_items = dict(_items(one))
+    out["ckpt"]["one_to_two_bitwise"] = all(
+        torch.equal(got[k], want[k]) for k in want)
+    out["ckpt"]["one_to_two_gathers_back"] = all(
+        torch.equal(round_trip[k], one_items[k]) for k in one_items)
+    # the loop: faults on every rank alike, restart from the same step
+    out["loop"] = loop_runs(root, data2)
+    # the launcher
+    from repro_torch.launch import train as launch_train
+    ckdir = os.path.join(root, "launch")
+    out["launch_rc"] = launch_train.main(
+        ["--smoke", "--device", "cpu", "--data", str(world), "--steps", "3",
+         "--seq-len", "32", "--batch", "4", "--ckpt-dir", ckdir,
+         "--ckpt-every", "3"])
+    out["launch_dir"] = ckdir
+    try:
+        make_train_step(cfg, ocfg, par, "cpu",
+                        mesh=cpu_mesh((1, world), ("data", "model")))
+        out["model_axis"] = None
+    except NotImplementedError as e:
+        out["model_axis"] = str(e)
+    return out
+
+
+LOOP_STEPS = 6
+
+
+def loop_config(root, name):
+    from repro_torch.config import (OptimizerConfig, ParallelConfig,
+                                    TrainConfig)
+    tcfg = TrainConfig(steps=LOOP_STEPS, seq_len=SEQ, global_batch=BATCH,
+                       checkpoint_every=2, log_every=100,
+                       checkpoint_dir=os.path.join(root, name),
+                       async_checkpoint=False)
+    return (smoke("float32"), tcfg, OptimizerConfig(**OPT),
+            ParallelConfig(batch_axes=("data",)))
+
+
+def loop_runs(root, mesh):
+    """The loop on the mesh with a transient fault and a node loss, and
+    uninterrupted: (losses, restarts, retries) of each."""
+    from repro_torch.distributed.fault import FaultInjector
+    from repro_torch.train.loop import train
+    got = {}
+    for name, inj in (("faults", FaultInjector(transient_at=(2,),
+                                               node_loss_at=(5,))),
+                      ("clean", None)):
+        cfg, tcfg, ocfg, par = loop_config(root, f"loop_{name}")
+        res = train(cfg, tcfg, ocfg, par, device="cpu", injector=inj,
+                    verbose=False, mesh=mesh)
+        got[name] = {"losses": res.losses, "restarts": res.restarts,
+                     "fired": [] if inj is None else list(inj.fired),
+                     "dir": tcfg.checkpoint_dir}
+    return got
