@@ -115,7 +115,7 @@ with phase 11's registered policies translated into them), then:
    moonshot (its published capacity factor) at 4 layers, card against
    CPU (9b); then ``ServeEngine`` as in 5d and 5g, from a card that
    holds no earlier engine, through llama3.2-1b whole (9c),
-   moonshot-v1-16b-a3b cut to 24 of its 48 layers (whole it is 28.9 B
+   moonshot-v1-16b-a3b cut to 12 of its 48 layers (whole it is 28.9 B
    parameters, 57.8 GB in bf16; 9d) and phi3.5-moe cut to 16 of its 32
    layers (9e), the flash
    kernel's launches held to 2 a layer, each with its decode step's
@@ -131,8 +131,8 @@ with phase 11's registered policies translated into them), then:
    [3, b, s] positions and smoke whisper with frames through
    ``model.prefill`` / ``decode_step``, card against CPU in float32
    (10b); then, from a card that holds no earlier engine, stablelm-3b
-   (10c), gemma-7b (10d), minicpm3-4b cut to 31 of its 62 layers (10e)
-   and qwen2-vl-7b (10f, plus
+   at 16 of its 32 layers (10c), gemma-7b at 14 of 28 (10d), minicpm3-4b
+   at 16 of 62 (10e) and qwen2-vl-7b at 14 of 28 (10f, plus
    one prefill with its 256 stub patches) through
    ``ServeEngine`` as in 9c, the flash kernel's launches held to 2 a
    layer; whisper-small whole through ``model.prefill`` /
@@ -182,14 +182,31 @@ with phase 11's registered policies translated into them), then:
    model in float32 over ``data=2`` against one rank (loss, first gradients, parameters), checkpoints
    moving 2 -> 2, 2 -> 1 and 1 -> 2 ranks bitwise, a ``pod=2`` step
    with int8 gradient compression bitwise its host emulation (13c);
-   llama3.2-1b cut to 8 of 16 layers over ``data=2`` (int8 moments,
+   llama3.2-1b cut to 4 of 16 layers over ``data=2`` (int8 moments,
    remat full), each step's loss against one rank's, step ms and peak
    memory per rank (13d); a
    ``{"mesh": ...}`` line. ``python3 chip_smoke.py --phase 13`` runs the
-   build, 4b and 4d, and phase 13 alone;
-14. prints one JSON line of per-kernel numbers (eight kernels: launches
+   build, 4b and 4d, and phases 13 and 14;
+14. serving over a (data, model) mesh (ROADMAP A8.2a), in phase 13's two
+   ranks: the six smoke kinds (GQA, MLA, Mamba with experts, RWKV-6,
+   whisper with frames, experts with a shared expert) in float32 over
+   (1, 2) and (2, 1), a prefill and 3 decode steps against one rank on
+   the card (14e); then ``ServeEngine(mesh=)`` with bf16 weights drawn
+   on the card a leaf at a time into each rank's shards
+   (``init_params(placement=)``), 4 of 9c's prompts: llama3.2-1b whole
+   over model=2 (14a, max_len 4,096, 16 new tokens), and at max_len
+   1,024 with 8 new tokens Jamba cut as 5d (14b) and rwkv6-7b cut to 8
+   layers (14c, then again in float32) over model=2, moonshot-v1-16b-a3b
+   cut to 8 layers over data=2, 32 experts a rank (14d): each rank's
+   leaves of its placement's shard shapes (none that is split held
+   whole) and their bytes, its load peak within its shards and
+   one whole leaf, the launches a rank, first-token logits against a
+   one-rank engine's in rank 0, both ranks' tokens equal; a
+   ``{"serve_mesh": ...}`` line. ``python3 chip_smoke.py --phase 14``
+   runs the build and phase 14 alone;
+15. prints one JSON line of per-kernel numbers (eight kernels: launches
    on the main paths of phases 3-5, of 6b, of 7, of 8, of 9, of 10, of
-   11, of 12 and of 13 (13a-13b, both ranks),
+   11, of 12, of 13 (13a-13b, both ranks) and of 14 (14a-14d, both ranks),
    error against the plain version, kernel / plain / bound / library
    times; no
    kernel may read faster than its bound; the decode launches of
@@ -197,7 +214,7 @@ with phase 11's registered policies translated into them), then:
    launches captured in a CUDA graph and replayed, where the wrapper time
    is mostly host work; the policy rows with their kernel's own device
    time from ``torch.profiler``; the flash row with phase 9's and 10's
-   shapes),
+   shapes, and 14a's, a rank's heads),
    then the card and ``{"ok": true, ...}`` as its last line.
 
 Any failed check raises, and the script exits non-zero. It needs a CUDA
@@ -1327,8 +1344,8 @@ def serve_at_width(dev, phase, cfg, label, expect):
 
 #: decode steps ``profile_serving`` traces: the profiler's parse of its
 #: events takes seconds a step at ~10,000 operations a step, so every
-#: serving phase traces 4 and reports per-step means
-PROFILE_DECODE_STEPS = 4
+#: serving phase traces 2 and reports per-step means
+PROFILE_DECODE_STEPS = 2
 
 
 def profile_serving(eng, prompts, dev, phase):
@@ -2325,7 +2342,8 @@ FLASH_SHAPES = {"5d": (4, 2048, 64, 8, 128, 128, True),
                 "10d": (4, 2048, 16, 16, 256, 256, True),
                 "10e": (4, 2048, 40, 40, 96, 64, True),
                 "10f": (4, 2048, 28, 4, 128, 128, True),
-                "10g": (4, 1500, 12, 12, 64, 64, False)}
+                "10g": (4, 1500, 12, 12, 64, 64, False),
+                "14a": (4, 2048, 16, 4, 64, 64, True)}
 
 
 def serve_rope_moe(dev, get_config, get_smoke_config):
@@ -2334,7 +2352,7 @@ def serve_rope_moe(dev, get_config, get_smoke_config):
     smoke llama3.2 and smoke moonshot (the published capacity factor) at
     4 layers, card against CPU; then the main paths at every published
     width, each from a card that holds no earlier engine: 9c llama3.2-1b
-    whole (16 layers), 9d moonshot-v1-16b-a3b cut to 24 of its 48
+    whole (16 layers), 9d moonshot-v1-16b-a3b cut to 12 of its 48
     layers (to keep the script inside its time limit), 9e
     phi3.5-moe cut to 16 of its 32 layers (its 83.7 GB of bf16 weights
     do not fit one card). Then the flash kernel against its plain version
@@ -2364,7 +2382,7 @@ def serve_rope_moe(dev, get_config, get_smoke_config):
     launches, runs = {}, {}
     for phase, arch, layers, label in (
             ("9c", LLAMA, None, "at all 16 layers"),
-            ("9d", MOONSHOT, 24, "cut to 24 of its 48 layers (57.8 GB of "
+            ("9d", MOONSHOT, 12, "cut to 12 of its 48 layers (57.8 GB of "
              "bf16 weights whole; cut to keep the script inside its time "
              "limit)"),
             ("9e", PHI, 16, "cut to 16 of its 32 layers (83.7 GB of bf16 "
@@ -2662,9 +2680,10 @@ def serve_mla_encdec(dev, get_config, get_smoke_config):
     qwen2-vl (4 patch embeddings, [3, b, s] positions) and whisper
     (frames), card against CPU in float32; then, each from a card that
     holds no earlier engine, stablelm-3b (10c), gemma-7b (10d),
-    minicpm3-4b cut to 31 of its 62 layers (10e) and qwen2-vl-7b (10f,
-    and one prefill with its 256 stub patches) through
-    ``serve_at_width`` (flash launches 2 a layer), and whisper-small
+    minicpm3-4b (10e) and qwen2-vl-7b (10f) cut in depth for the time
+    limit (16 of 32, 14 of 28, 16 of 62, 14 of 28 layers; 10f also one
+    prefill with its 256 stub patches) through ``serve_at_width`` (flash
+    launches 2 a layer), and whisper-small
     whole through ``model.prefill`` /
     ``decode_step`` (10g); the flash kernel against its plain version at
     each one's prefill shape. Returns the model kernels' launches summed
@@ -2683,14 +2702,14 @@ def serve_mla_encdec(dev, get_config, get_smoke_config):
     launches, runs = {}, {}
     zero = {"flash_attention_f32": 0, "ssm_scan": 0, "rwkv6_chunked": 0,
             "rwkv6_scan": 0}
-    # 10e is cut to half its depth to keep the whole script well inside
-    # its time limit (phases 11 and 12 came after it)
+    # cut in depth to keep the whole script inside its time limit
+    # (phases 11-14 came after them)
     for phase, arch, layers, label in (
-            ("10c", STABLELM, None, "at all 32 layers"),
-            ("10d", GEMMA, None, "at all 28 layers"),
-            ("10e", MINICPM, 31, "cut to 31 of its 62 layers"),
-            ("10f", QWEN_VL, None,
-             "at all 28 layers (text through the engine)")):
+            ("10c", STABLELM, 16, "cut to 16 of its 32 layers"),
+            ("10d", GEMMA, 14, "cut to 14 of its 28 layers"),
+            ("10e", MINICPM, 16, "cut to 16 of its 62 layers"),
+            ("10f", QWEN_VL, 14,
+             "cut to 14 of its 28 layers (text through the engine)")):
         cfg = get_config(arch)
         if layers is not None:
             cfg = dataclasses.replace(cfg, num_layers=layers)
@@ -2730,6 +2749,28 @@ def flash_bound(b, sq, sk, h, kh, dq, dv, causal):
     flops = 2 * b * h * sq * sk * (dq + dv) / (2 if causal else 1)
     nbytes = 2 * (b * sq * h * dq + b * sk * kh * (dq + dv)
                   + b * sq * h * dv)
+    t_ops, t_bytes = flops / BF16_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes", flops)
+
+
+def train_attention_bound(cfg, b, s, remat):
+    """(bound_ms, bound_by, operations) of one train step's attention,
+    worked from the code's shapes: the training route (``ref.sdpa``)
+    forms the whole [s, s] logits and masks them, so a layer's forward
+    is 2 b h s^2 (dqk + dv) operations at the bf16 peak, its backward
+    twice that, and remat "full" runs the forward once more; bytes: a
+    forward reads q, k, v and writes the output, the backward reads q, k,
+    v and the output's gradient and writes theirs, all bf16, at HBM's
+    rate."""
+    a = cfg.attention
+    layers = cfg.num_layers * cfg.block_pattern.count("attn") // len(
+        cfg.block_pattern)
+    h, kh, d = a.num_heads, a.num_kv_heads, a.head_dim
+    forwards = 2 if remat == "full" else 1
+    flops = layers * 2 * b * h * s * s * (d + d) * (forwards + 2)
+    q, k, v, o = b * s * h * d, b * s * kh * d, b * s * kh * d, b * s * h * d
+    nbytes = 2 * layers * ((forwards + 1) * (q + k + v + o) + (q + k + v))
     t_ops, t_bytes = flops / BF16_OPS_PER_S, nbytes / HBM_BYTES_PER_S
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes", flops)
@@ -3630,7 +3671,11 @@ def train_llama_1b(dev, root):
     prof = step_profile(make_train_step(cfg, ocfg, par, dev), res.params,
                         res.opt_state, batch)
     mfu = 6.0 * n_params * tokens / (step_ms / 1e3) / H100_BF16_FLOPS
+    att_ms, att_by, att_ops = train_attention_bound(
+        cfg, tcfg.global_batch, tcfg.seq_len, par.remat)
     out = {"model": cfg.name, "layers": cfg.num_layers, "params": n_params,
+           "attention_bound_ms": att_ms, "attention_bound_by": att_by,
+           "attention_ops": att_ops,
            "tokens_per_step": tokens, "remat": par.remat,
            "state_dtype": ocfg.state_dtype, "step_ms": step_ms,
            "step_ms_all": [1e3 * s for s in steps],
@@ -3654,7 +3699,9 @@ def train_llama_1b(dev, root):
           + (f"{prof['busy']:.1%}" if prof["busy"] is not None
              else "not measured (the profiler saw no device time)")
           + f", {prof['host_ops']} PyTorch operations; device time by "
-          f"kind {prof['kinds']}")
+          f"kind {prof['kinds']}; the step's attention (ref.sdpa's whole "
+          f"[s, s], remat {par.remat}) {att_ops / 1e12:.2f} TFLOP, bound "
+          f"{att_ms:.3f} ms ({att_by})")
     return out
 
 
@@ -3720,9 +3767,10 @@ MESH_PARAM_LR = 0.5
 #: its gradient's sign, which flips where the gradient is near zero)
 MESH_1B_STEPS = 2
 MESH_1B_LOSS_RTOL = (1e-6, 1e-3)
-#: 13d's depth: 8 of llama3.2-1b's 16 layers, for the script's time
-#: limit (at all 16 the first loss equalled 12c's bitwise)
-MESH_1B_LAYERS = 8
+#: 13d's depth: 4 of llama3.2-1b's 16 layers, for the script's time
+#: limit (at all 16 the first loss equalled 12c's bitwise; at 8, 7.99e-8
+#: and 8.46e-5 of one rank's)
+MESH_1B_LAYERS = 4
 
 
 def rows_array(rows):
@@ -4068,9 +4116,336 @@ def mesh_train_1b(rank, dev):
     return out
 
 
-def mesh_rank(rank, init_file, root):
+# ---------------------------------------------------------------------------
+# Phase 14: serving over a (data, model) mesh, in phase 13's two gloo ranks
+# ---------------------------------------------------------------------------
+
+#: 14e: the CPU tests' bound on float32 serving over a mesh against one
+#: device (tests/test_torch_serve_mesh.py's MESH_RTOL), here card
+#: against card, max |mesh - one| / (1 + max |one|)
+SERVE_MESH_F32_RTOL = 1e-5
+#: 14a-14d: first-token logits of bf16 weights over a mesh against a
+#: one-rank engine's in the same rank, max |mesh - one| / (1 + |one|)
+#: elementwise: C9's scale (the row-parallel sums round at other places).
+#: RWKV-6 grows any rounding ~2.5-3x for each doubling of its depth:
+#: tools/serve_mesh_drift.py read rwkv6-7b over model=2 on an H100 at
+#: 0.033 / 0.096 / 0.286 (2 / 4 / 8 layers), while one rank's own bf16
+#: read 0.156 / 0.258 / 0.752 from its float32; 14c's 0.5 is below that
+SERVE_MESH_BF16_TOL = {RWKV: 0.5}
+SERVE_MESH_BF16_DEFAULT_TOL = 0.15
+#: 14c in float32 at the same width and depth, the same measure: only
+#: the float32 summation order differs, which the depth grows as it
+#: grows bf16's (the drift tool: 2.4e-5 / 5.6e-5 / 1.5e-4 at 2 / 4 / 8
+#: layers); a wrong shard reads O(0.1) at any depth
+SERVE_MESH_F32_WIDTH_TOL = 1e-3
+#: 14e's smoke kinds (GQA with RoPE, MLA, Mamba with experts, RWKV-6,
+#: whisper with frames, experts with a shared expert) and meshes
+SERVE_MESH_SMOKE = (LLAMA, MINICPM, JAMBA, RWKV, WHISPER, MOONSHOT)
+SERVE_MESH_SHAPES = ((1, 2), (2, 1))
+#: (part, arch, (data, model), layers or None, max_len, new tokens, dtype
+#: or None for the config's) of 14a-14d: 4 of 9c's seeded prompts, one
+#: group of 4 slots. 14a is llama3.2-1b whole at 9c's max_len; 14b-14d
+#: take prompts padded to 512 (max_len 1,024) and 8 new tokens, and
+#: rwkv6-7b and moonshot 8 layers, to keep phase 14 near 90 s of the
+#: script's limit; "14c-f32" is 14c with float32 weights
+SERVE_MESH_RUNS = (("14a", LLAMA, (1, 2), None, 4096, 16, None),
+                   ("14b", JAMBA, (1, 2), 8, 1024, 8, None),
+                   ("14c", RWKV, (1, 2), 8, 1024, 8, None),
+                   ("14c-f32", RWKV, (1, 2), 8, 1024, 8, "float32"),
+                   ("14d", MOONSHOT, (2, 1), 8, 1024, 8, None))
+#: what a rank may hold while its parameters are drawn, past its shards
+#: and one whole leaf (with its float32 group draw): the allocator's
+#: rounding and the index of a cut
+SERVE_MESH_LOAD_SLACK = 256 * 2 ** 20
+
+
+def shard_bytes(part, what, held, placement, mesh_shape):
+    """The bytes of ``held``'s leaves, checked against their placement:
+    each leaf has its ``Sharding``'s local shape (so nothing is held
+    beyond the rank's shard), and none that its spec splits over a mesh
+    axis of more than one rank is held whole. Returns (bytes held, bytes
+    of the placement's shards)."""
+    from repro_torch.distributed import sharding as sh
+    nbytes = plan = 0
+    for name, w in held.items():
+        p = placement[name]
+        check(tuple(w.shape) == tuple(p.local_shape),
+              (part, what, name, tuple(w.shape), p.local_shape))
+        nbytes += w.numel() * w.element_size()
+        plan += int(np.prod(p.local_shape)) * w.element_size()
+        if any(sh.axis_size(mesh_shape, e) > 1 for e in p.spec):
+            check(int(np.prod(p.local_shape)) < int(np.prod(p.shape)),
+                  (part, what, name, "held whole", p.shape))
+    return nbytes, plan
+
+
+def whole_leaf_bytes(cfg):
+    """The largest whole leaf in the engine's form, plus one group's
+    float32 draw of it."""
+    from repro_torch.models import model as M
+    elem = torch.finfo(M.compute_dtype(cfg)).bits // 8
+    most = 0
+    for name, d in M.full_schema(cfg).items():
+        n = int(np.prod(d.shape))
+        size = 4 if M._is_float32_leaf(name) else elem
+        group = n // d.shape[0] if d.axes[0] == "groups" else n
+        most = max(most, n * size + 4 * group)
+    return most
+
+
+def serve_mesh_smoke(rank, dev, get_smoke_config):
+    """14e: the six smoke kinds in float32 over (1, 2) and (2, 1), a
+    prefill of 4 x 128 tokens and 3 decode steps through the steps on
+    the rank's rows and shards, against one rank's steps on the card
+    (rank 0): tokens equal, logits within SERVE_MESH_F32_RTOL. Returns
+    {kind: worst error}."""
+    from repro_torch.config import ParallelConfig
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as M
+    from repro_torch.serve.steps import make_decode_step, make_prefill_step
+    par, b, max_len = ParallelConfig(), 4, 256
+
+    def run(cfg, params, batch, mesh):
+        rows = np.arange(b)
+        cplace = None
+        if mesh is not None:
+            smesh = sh.ServeMesh.of(mesh, par)
+            rows = sh.batch_rows(b, smesh.batch_rank, smesh.batch_size)
+            pplace, cplace = M.serve_placement(cfg, par, mesh, b, max_len)
+            params = M.place_params(params, pplace)
+        prefill = make_prefill_step(cfg, par, mesh)
+        decode = make_decode_step(cfg, par, mesh)
+        cache = M.init_cache(cfg, b, max_len, device=dev, placement=cplace)
+        logits, cache = prefill(params, {k: v[rows] for k, v in
+                                         batch.items()}, cache)
+        got = [logits.float().cpu()]
+        for _ in range(3):
+            tok = got[-1][:, -1].argmax(-1).to(torch.int32)
+            logits, cache = decode(params, cache,
+                                   {"token": tok[rows][:, None].to(dev)})
+            got.append(logits.float().cpu())
+        return got
+
+    worst = {}
+    for shape in SERVE_MESH_SHAPES:
+        mesh = make_host_mesh(*shape)
+        for arch in SERVE_MESH_SMOKE:
+            cfg = dataclasses.replace(get_smoke_config(arch),
+                                      dtype="float32")
+            params = M.compute_params(M.init_params(cfg, seed=SEED,
+                                                    device=dev), cfg, dev)
+            rng = np.random.default_rng(SEED)
+            batch = {"tokens": torch.from_numpy(rng.integers(
+                1, cfg.vocab_size, (b, max_len // 2)).astype(np.int32)).to(
+                    dev)}
+            if cfg.encdec:
+                batch["frames"] = torch.from_numpy(rng.standard_normal(
+                    (b, cfg.encoder_seq, cfg.d_model)).astype(
+                        np.float32)).to(dev)
+            got = run(cfg, params, batch, mesh)
+            if rank == 0:
+                one = run(cfg, params, batch, None)
+                for step, (a, w) in enumerate(zip(got, one)):
+                    check(torch.equal(a[:, -1].argmax(-1),
+                                      w[:, -1].argmax(-1)),
+                          ("14e tokens", arch, shape, step))
+                    e = float((a - w).abs().max()) / (1 + float(
+                        w.abs().max()))
+                    check(e <= SERVE_MESH_F32_RTOL, ("14e logits", arch,
+                                                     shape, step, e))
+                    key = f"{arch} {shape[0]}x{shape[1]}"
+                    worst[key] = max(worst.get(key, 0.0), e)
+            del params
+    return worst
+
+
+def serve_mesh_at_width(rank, dev, part, cfg, shape, max_len, new,
+                        expect, tol):
+    """One of 14a-14d: ``cfg`` served by ``ServeEngine(mesh=)`` over a
+    (data, model) = ``shape`` mesh of the two ranks, weights in the
+    config's compute dtype drawn on the card a leaf at a time into each
+    rank's shards (``init_params(placement=)``), 4 of 9c's seeded prompts
+    and ``new`` greedy tokens; rank 0 first serves them through a
+    one-rank engine. Checks the rank's bytes against its placement's
+    shards, its load peak against its shards and one whole leaf, the
+    launch counts against ``expect``, and (on rank 0) the first-token
+    logits against the one-rank engine's within ``tol``. Returns the
+    record and (on rank 0) the one-rank engine's first-token logits."""
+    from repro_torch.config import ParallelConfig
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import Request, ServeEngine
+    par, slots = ParallelConfig(), 4
+    rng = np.random.default_rng(SEED)
+    lens = rng.integers(1024, 2049, 8)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in lens][:slots]
+    t_part = time.perf_counter()
+
+    def requests():
+        return [Request(rid=i, prompt=p, max_new=new)
+                for i, p in enumerate(prompts)]
+
+    one = None
+    if rank == 0:               # the one-rank engine, on the whole model
+        eng = ServeEngine(cfg, M.init_params(cfg, seed=SEED, device=dev,
+                                             compute=True),
+                          slots=slots, max_len=max_len, device=dev)
+        eng._prefill = LogitRecorder(eng._prefill)
+        reqs = requests()
+        eng.process_group(reqs)
+        one = ([r.output for r in reqs], eng._prefill.logits[0])
+        del eng, reqs
+    torch.cuda.empty_cache()
+    sh.barrier()
+
+    mesh = make_host_mesh(*shape)
+    mesh_shape = {"data": shape[0], "model": shape[1]}
+    pplace, cplace = M.serve_placement(cfg, par, mesh, slots, max_len)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, seed=SEED, device=dev, compute=True,
+                           placement=pplace)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    load_peak = torch.cuda.max_memory_allocated() - base
+    held, plan_p = shard_bytes(part, "parameters", params, pplace,
+                               mesh_shape)
+    check(held == plan_p, (part, "parameter bytes", held, plan_p))
+    whole = whole_leaf_bytes(cfg)
+    check(load_peak <= plan_p + whole + SERVE_MESH_LOAD_SLACK,
+          (part, "load peak", load_peak, plan_p, whole))
+    cache = M.init_cache(cfg, slots, max_len, device=dev, placement=cplace)
+    cache_bytes, plan_c = shard_bytes(part, "cache", cache, cplace,
+                                      mesh_shape)
+    check(cache_bytes == plan_c, (part, "cache bytes", cache_bytes, plan_c))
+    del cache
+    eng = ServeEngine(cfg, params, mesh=mesh, parallel=par, slots=slots,
+                      max_len=max_len, device=dev)
+    del params
+    eng._prefill = LogitRecorder(eng._prefill)
+    mods = model_kernels()
+    torch.cuda.synchronize()
+    sh.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    for mod in mods:
+        mod.reset_launches()
+    t0 = time.perf_counter()
+    done = eng.serve(requests())
+    wall = time.perf_counter() - t0
+    launches = {k: v for mod in mods for k, v in mod.launches.items()}
+    peak = torch.cuda.max_memory_allocated()
+    check(launches == expect, (part, launches, expect))
+    outputs = [r.output for r in sorted(done, key=lambda r: r.rid)]
+    check(all(len(o) == new and all(0 <= t < cfg.vocab_size for t in o)
+              for o in outputs), (part, outputs))
+    ttft = np.array([r.ttft_s for r in done]) * 1e3
+    dec = 1e3 * np.array([s.duration for s in eng.collector.spans("decode")])
+    pre = 1e3 * np.array([s.duration
+                          for s in eng.collector.spans("prefill")])
+    out = {"model": cfg.name, "layers": cfg.num_layers, "dtype": cfg.dtype,
+           "mesh": list(shape), "max_len": max_len, "new_tokens": new,
+           "outputs": outputs, "param_gib": held / 2 ** 30,
+           "plan_param_gib": plan_p / 2 ** 30,
+           "cache_gib": cache_bytes / 2 ** 30,
+           "load_peak_gib": load_peak / 2 ** 30,
+           "whole_leaf_gib": whole / 2 ** 30, "init_s": init_s,
+           "wall_ms": wall * 1e3,
+           "ttft_ms_p50": float(np.percentile(ttft, 50)),
+           "ttft_ms_p95": float(np.percentile(ttft, 95)),
+           "prefill_span_ms": float(pre.mean()),
+           "decode_step_ms": float(dec.mean()) if len(dec) else None,
+           "peak_gib": peak / 2 ** 30, "launches": launches}
+    if one is not None:
+        err = first_logits_rel(eng._prefill.logits[0], one[1])
+        print(f"phase {part} (rank 0): first-token logits within {err:.3g} "
+              f"of one rank's (bound {tol:g})", flush=True)
+        check(err <= tol, (part, "first-token logits", err))
+        same = sum(x == y for o, p in zip(outputs, one[0])
+                   for x, y in zip(o, p))
+        out.update(first_logits_err=err, first_logits_tol=tol,
+                   same_tokens=same / (len(outputs) * new),
+                   first_tokens_equal=[o[0] for o in outputs]
+                   == [p[0] for p in one[0]])
+    del eng
+    torch.cuda.empty_cache()
+    out["s"] = time.perf_counter() - t_part
+    return out, (None if one is None else one[1])
+
+
+def serve_mesh_config(arch, layers, dtype):
+    """A config of 14a-14d (or the drift tool's): Jamba as 5d (one
+    group, no experts), cut to ``layers`` where given, in ``dtype``."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if arch == JAMBA:
+        cfg = dataclasses.replace(cfg, moe=None)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+    return cfg
+
+
+def serve_mesh_launches(cfg, new):
+    """The model kernels' launches a rank makes serving one group of
+    ``cfg`` with ``new`` new tokens: one flash launch an attention layer
+    (the prefill; decode attends in PyTorch), a scan a Mamba layer and
+    token, a chunked WKV launch an RWKV layer and a per-step one for each
+    token after the first."""
+    n_attn = cfg.num_layers * cfg.block_pattern.count("attn") // len(
+        cfg.block_pattern)
+    n_other = cfg.num_layers - n_attn
+    f32 = cfg.dtype == "float32"
+    return {"flash_attention": 0 if f32 else n_attn,
+            "flash_attention_f32": n_attn if f32 else 0,
+            "ssm_scan": n_other * new if cfg.name == JAMBA else 0,
+            "rwkv6_chunked": n_other if cfg.name == RWKV else 0,
+            "rwkv6_scan": n_other * (new - 1) if cfg.name == RWKV else 0}
+
+
+def first_logits_rel(a, w):
+    """max |a - w| / (1 + |w|), elementwise."""
+    return float(((a - w).abs() / (1 + w.abs())).max())
+
+
+def serve_mesh_rank(rank, dev):
+    """Phase 14 in one of the ranks: 14e, then 14a-14d (14c also in
+    float32). Returns its record and the model kernels' launches of
+    14a-14d's serves."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed import sharding as sh
+    rec, launches, one_logits = {}, {}, {}
+    t0 = time.perf_counter()
+    rec["14e"] = serve_mesh_smoke(rank, dev, get_smoke_config)
+    rec["14e_s"] = time.perf_counter() - t0
+    for part, arch, shape, layers, max_len, new, dtype in SERVE_MESH_RUNS:
+        cfg = serve_mesh_config(arch, layers, dtype)
+        tol = (SERVE_MESH_F32_WIDTH_TOL if cfg.dtype == "float32" else
+               SERVE_MESH_BF16_TOL.get(cfg.name,
+                                       SERVE_MESH_BF16_DEFAULT_TOL))
+        rec[part], one_logits[part] = serve_mesh_at_width(
+            rank, dev, part, cfg, shape, max_len, new,
+            serve_mesh_launches(cfg, new), tol)
+        for k, v in rec[part]["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        sh.barrier()
+    if rank == 0:
+        # one rank's own bf16 drift from its float32 logits, the scale
+        # 14c's bf16 bound is read against
+        rec["14c"]["one_bf16_vs_f32"] = first_logits_rel(
+            one_logits["14c"], one_logits["14c-f32"])
+    rec["s"] = time.perf_counter() - t0
+    return rec, launches
+
+
+def mesh_rank(rank, init_file, root, parts):
     """One of phase 13's ranks: joins the gloo group on the one card and
-    runs 13a-13d, writing its record to ``root``."""
+    runs 13a-13d (with "13" in ``parts``) and phase 14 (with "14"),
+    writing its record to ``root``."""
     import torch.distributed as dist
     from repro_torch.kernels import policy_scan as pk
     torch.cuda.set_device(0)
@@ -4082,30 +4457,34 @@ def mesh_rank(rank, init_file, root):
     try:
         mods = model_kernels() + (pk,)
         rec = {"backend": dist.get_backend(), "world": dist.get_world_size()}
-        data = np.load(os.path.join(root, "ref.npz"))
-        ref = {g: {k[len(g) + 1:]: data[k] for k in data.files
-                   if k.startswith(g + ".")} for g in ("4b", "4d")}
-        for mod in mods:
-            mod.reset_launches()
-        for part, run in (("13a", lambda: mesh_grid(ref)),
-                          ("13b", mesh_restarts)):
-            t0 = time.perf_counter()
-            rec[part] = run()
-            rec[part]["s"] = time.perf_counter() - t0
-        rec["launches"] = {k: v for mod in mods
-                           for k, v in mod.launches.items()}
-        del ref, data
-        for mod in mods:
-            mod.reset_launches()
-        for part, run in (("13c", lambda: mesh_train_100m(rank, dev, root)),
-                          ("13d", lambda: mesh_train_1b(rank, dev))):
-            t0 = time.perf_counter()
-            rec[part] = run()
-            rec[part]["s"] = time.perf_counter() - t0
-            torch.cuda.empty_cache()
-        train_launches = sum(sum(mod.launches.values()) for mod in mods)
-        check(train_launches == 0, ("13c-13d launched kernels",
-                                    train_launches))
+        if "13" in parts:
+            data = np.load(os.path.join(root, "ref.npz"))
+            ref = {g: {k[len(g) + 1:]: data[k] for k in data.files
+                       if k.startswith(g + ".")} for g in ("4b", "4d")}
+            for mod in mods:
+                mod.reset_launches()
+            for part, run in (("13a", lambda: mesh_grid(ref)),
+                              ("13b", mesh_restarts)):
+                t0 = time.perf_counter()
+                rec[part] = run()
+                rec[part]["s"] = time.perf_counter() - t0
+            rec["launches"] = {k: v for mod in mods
+                               for k, v in mod.launches.items()}
+            del ref, data
+            for mod in mods:
+                mod.reset_launches()
+            for part, run in (("13c", lambda: mesh_train_100m(rank, dev,
+                                                              root)),
+                              ("13d", lambda: mesh_train_1b(rank, dev))):
+                t0 = time.perf_counter()
+                rec[part] = run()
+                rec[part]["s"] = time.perf_counter() - t0
+                torch.cuda.empty_cache()
+            train_launches = sum(sum(mod.launches.values()) for mod in mods)
+            check(train_launches == 0, ("13c-13d launched kernels",
+                                        train_launches))
+        if "14" in parts:
+            rec["14"], rec["launches_14"] = serve_mesh_rank(rank, dev)
         with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
             json.dump(rec, f)
         dist.barrier()
@@ -4113,31 +4492,9 @@ def mesh_rank(rank, init_file, root):
         dist.destroy_process_group()
 
 
-def mesh_on_card(rows_4b, rows_4d):
-    """Phase 13: the multi-GPU layer, two gloo ranks started once on the
-    one card (NCCL will not put two ranks on one GPU; gloo stages the
-    card's tensors through host memory), for 13a-13d (see those). It
-    checks correctness and measures no scaling: the ranks share the
-    card. Returns the policy kernels' launches of 13a-13b, summed over
-    the ranks, and the phase's record (a ``{"mesh": ...}`` line)."""
-    import torch.multiprocessing as mp
-    t0 = time.perf_counter()
-    root = tempfile.mkdtemp(prefix="plantd_mesh_")
-    try:
-        np.savez(os.path.join(root, "ref.npz"),
-                 **{f"4b.{k}": v for k, v in rows_4b.items()},
-                 **{f"4d.{k}": v for k, v in rows_4d.items()})
-        torch.cuda.empty_cache()
-        mp.start_processes(mesh_rank, args=(os.path.join(root, "init"),
-                                            root),
-                           nprocs=MESH_RANKS, start_method="spawn",
-                           join=True)
-        recs = []
-        for r in range(MESH_RANKS):
-            with open(os.path.join(root, f"rank{r}.json")) as f:
-                recs.append(json.load(f))
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+def mesh_report_13(recs):
+    """Phase 13's lines from the ranks' records; returns the policy
+    kernels' launches of 13a-13b summed over the ranks and its record."""
     rec = recs[0]
     check(recs[1]["13c"]["losses"] == rec["13c"]["losses"]
           and recs[1]["13d"]["losses"] == rec["13d"]["losses"],
@@ -4190,10 +4547,98 @@ def mesh_on_card(rows_4b, rows_4d):
               "s": {k: rec[k]["s"] for k in ("13a", "13b", "13c", "13d")},
               "13a": a, "13b": b, "13c": c, "13d": d,
               "13d_rank1_peak_gib": recs[1]["13d"]["peak_gib"],
-              "launches": launches, "wall_s": time.perf_counter() - t0}
-    print(f"phase 13: {record['wall_s']:.1f} s")
-    print(json.dumps({"mesh": record}))
+              "launches": launches}
     return launches, record
+
+
+def mesh_report_14(recs):
+    """Phase 14's lines from the ranks' records (the ranks' tokens
+    equal); returns the model kernels' launches of 14a-14d summed over
+    the ranks and a ``{"serve_mesh": ...}`` record."""
+    rec = recs[0]["14"]
+    launches = {}
+    for r in recs:
+        for k, v in r["launches_14"].items():
+            launches[k] = launches.get(k, 0) + v
+    print(f"phase 14e: {len(SERVE_MESH_SMOKE)} smoke kinds in float32 over "
+          f"(data, model) {SERVE_MESH_SHAPES}, prefill + 3 decode steps "
+          f"against one rank on the card: tokens equal, logits within "
+          + ", ".join(f"{k} {v:.3g}" for k, v in rec["14e"].items())
+          + f" (bound {SERVE_MESH_F32_RTOL:g}); {rec['14e_s']:.1f} s")
+    runs = {}
+    for part, *_ in SERVE_MESH_RUNS:
+        x, y = rec[part], recs[1]["14"][part]
+        check(x["outputs"] == y["outputs"], (part, "the ranks' tokens"))
+        print(f"phase {part}: {x['model']} ({x['layers']} layers, "
+              f"{x['dtype']}) over "
+              f"(data, model) {tuple(x['mesh'])}, max_len {x['max_len']}, "
+              f"4 requests x {x['new_tokens']} new tokens: TTFT p50 "
+              f"{x['ttft_ms_p50']:.1f} ms, p95 {x['ttft_ms_p95']:.1f} ms, "
+              f"decode {x['decode_step_ms']:.2f} ms a step; first-token "
+              f"logits within {x['first_logits_err']:.3g} of one rank's "
+              f"(bound {x['first_logits_tol']:g}), "
+              f"{x['same_tokens']:.1%} of greedy tokens equal to one "
+              f"rank's; both ranks' tokens equal; parameters "
+              f"{x['param_gib']:.2f} / {y['param_gib']:.2f} GiB a rank "
+              f"(the plan's), cache {x['cache_gib']:.3f} GiB, load peak "
+              f"{x['load_peak_gib']:.2f} GiB (shards + one whole leaf "
+              f"{x['whole_leaf_gib']:.2f}), peak {x['peak_gib']:.2f} / "
+              f"{y['peak_gib']:.2f} GiB; launches a rank {x['launches']}; "
+              f"{x['s']:.1f} s")
+        if "one_bf16_vs_f32" in x:
+            print(f"phase {part}: one rank's bf16 first-token logits within "
+                  f"{x['one_bf16_vs_f32']:.3g} of its float32 ones")
+        runs[part] = {k: v for k, v in x.items() if k != "outputs"}
+        runs[part]["rank1_peak_gib"] = y["peak_gib"]
+    record = {"runs": runs, "smoke_f32_err": rec["14e"],
+              "bounds": {"smoke_f32_rtol": SERVE_MESH_F32_RTOL,
+                         "first_logits": {
+                             p: rec[p]["first_logits_tol"]
+                             for p, *_ in SERVE_MESH_RUNS}},
+              "launches": launches, "s": rec["s"]}
+    print(json.dumps({"serve_mesh": record}))
+    return launches, record
+
+
+def mesh_on_card(rows_4b=None, rows_4d=None, parts=("13", "14")):
+    """Phases 13 and 14: the multi-GPU layer, two gloo ranks started once
+    on the one card (NCCL will not put two ranks on one GPU; gloo stages
+    the card's tensors through host memory), for 13a-13d and 14a-14e
+    (see those). It checks correctness and measures no scaling: the
+    ranks share the card. Returns the launches of 13a-13b (the policy
+    kernels, summed over the ranks), of 14a-14d (the model kernels) and
+    the phases' records (``{"mesh": ...}`` and ``{"serve_mesh": ...}``
+    lines)."""
+    import torch.multiprocessing as mp
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="plantd_mesh_")
+    try:
+        if "13" in parts:
+            np.savez(os.path.join(root, "ref.npz"),
+                     **{f"4b.{k}": v for k, v in rows_4b.items()},
+                     **{f"4d.{k}": v for k, v in rows_4d.items()})
+        torch.cuda.empty_cache()
+        mp.start_processes(mesh_rank, args=(os.path.join(root, "init"),
+                                            root, parts),
+                           nprocs=MESH_RANKS, start_method="spawn",
+                           join=True)
+        recs = []
+        for r in range(MESH_RANKS):
+            with open(os.path.join(root, f"rank{r}.json")) as f:
+                recs.append(json.load(f))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    launches_13 = launches_14 = record_13 = record_14 = None
+    if "13" in parts:
+        launches_13, record_13 = mesh_report_13(recs)
+        print(f"phase 13: {sum(record_13['s'].values()):.1f} s")
+        print(json.dumps({"mesh": record_13}))
+    if "14" in parts:
+        launches_14, record_14 = mesh_report_14(recs)
+        print(f"phase 14: {record_14['s']:.1f} s")
+    print(f"phases {' and '.join(parts)} (the ranks' start included): "
+          f"{time.perf_counter() - t0:.1f} s")
+    return launches_13, launches_14, record_13, record_14
 
 
 def sass_functions(sass):
@@ -4330,6 +4775,13 @@ def main():
         _, rows_4d = chaos_at_width(whatif, tr, slo_mod, faults,
                                     sweep_twins, growths16)
         mesh_on_card(rows_array(rows_4b), rows_array(rows_4d))
+        flash_vs_plain(dev, "14a")
+        print(card)
+        return 0
+    if sys.argv[1:] == ["--phase", "14"]:
+        # serving over a mesh alone (for iterating on it)
+        mesh_on_card(parts=("14",))
+        flash_vs_plain(dev, "14a")
         print(card)
         return 0
     if sys.argv[1:] == ["--phase", "12"]:
@@ -4451,8 +4903,9 @@ def main():
     # the training side: no model kernel runs in a train step
     launches_12, _ = training_on_card(dev, get_smoke_config)
 
-    # the multi-GPU layer: two gloo ranks on the one card
-    launches_13, _ = mesh_on_card(rows_4b, rows_4d)
+    # the multi-GPU layer and serving over a mesh: two gloo ranks on the
+    # one card
+    launches_13, launches_14, _, _ = mesh_on_card(rows_4b, rows_4d)
     del rows_4b, rows_4d
 
     # each kernel against its plain version at the main path's widths
@@ -4482,8 +4935,10 @@ def main():
     ssm_row = dict(ssm_stats["prefill"],
                    decode_ms=ssm_stats["decode"]["ms"],
                    decode_device_ms=ssm_stats["decode"]["device_ms"])
-    # the flash row is 5d's shape; phase 9's and 10's shapes ride along
-    flash_row = dict(flash_vs_plain(dev), at_9=flash_9, at_10=flash_10)
+    # the flash row is 5d's shape; phase 9's, 10's and 14a's (a rank's
+    # heads) shapes ride along
+    flash_row = dict(flash_vs_plain(dev), at_9=flash_9, at_10=flash_10,
+                     at_14={"14a": flash_vs_plain(dev, "14a")})
     rows += [("flash_attention", "flash_attention",
               "src/repro/kernels/flash_attention.py:23", flash_row),
              ("ssm_scan", "ssm_scan", "src/repro/kernels/ssm_scan.py:27",
@@ -4495,7 +4950,8 @@ def main():
     # no kernel runs faster than the least time the card could take
     for name, _, _, stats in rows:
         for st in ([stats] + list(stats.get("at_9", {}).values())
-                   + list(stats.get("at_10", {}).values())):
+                   + list(stats.get("at_10", {}).values())
+                   + list(stats.get("at_14", {}).values())):
             check(st["ms"] >= st["bound_ms"], (name, st))
     print(json.dumps({"kernels": [
         dict({"name": name, "route": "cuda",
@@ -4508,7 +4964,8 @@ def main():
               "launches_10": launches_10.get(name, 0),
               "launches_11": launches_11.get(name, 0),
               "launches_12": launches_12.get(name, 0),
-              "launches_13": launches_13.get(name, 0)}, **stats)
+              "launches_13": launches_13.get(name, 0),
+              "launches_14": launches_14.get(name, 0)}, **stats)
         for name, src, replaces, stats in rows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

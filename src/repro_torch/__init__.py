@@ -27,7 +27,8 @@ module, slice by slice. So far:
 * policy search (``repro_torch.search``), training (``train``,
   ``launch.train``), and the multi-GPU layer over ``torch.distributed``
   (``distributed.sharding``, ``launch.mesh``: ``devices=`` of the grid,
-  the fits and the searches, FSDP training over a mesh).
+  the fits and the searches, FSDP training over a mesh, and serving over
+  a (data, model) mesh: ``ServeEngine(mesh=)``).
 
 Importing this package imports ``torch`` and numpy only — never ``jax``,
 never ``repro``. Entry points take ``device=`` (default ``"cuda"``):

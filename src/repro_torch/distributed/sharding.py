@@ -32,13 +32,25 @@ sets from ``LOCAL_RANK``.
 * The collectives live here and nowhere else: ``all_gather``,
   ``reduce_scatter``, ``all_reduce``, ``gather_host`` (a rank's host
   result rows to every rank) and ``gather_objects`` (``run_lanes``, the
-  restart meshes). On a ``gloo`` group they stage CUDA
+  restart meshes), and serving's: ``row_sum`` (a row-parallel product's
+  partials summed over ``model`` in float32), ``vocab_embed`` and
+  ``vocab_logits`` (the vocabulary split over ``model``) and
+  ``expert_exchange`` (the experts' slots to and from their ranks over
+  the expert axis, ``all_to_all_single``). Each is a plain function of
+  tensors, which a backward can wrap. On a ``gloo`` group they stage CUDA
   tensors through host memory (gloo's collectives are host collectives)
   and a reduce-scatter is an all-reduce and a slice; on ``nccl`` host
   arrays travel through the rank's card.
+* Serving over a mesh (``ServeMesh``, ``serving``): the model code asks
+  ``serve_mesh()`` for the mesh of the step it runs in (None on one
+  device) and splits its work by it; ``Sharding`` with ``kind`` places
+  the leaves whose compute layout is not the spec's contiguous chunk
+  (``models.model.serve_placement``).
 """
 from __future__ import annotations
 
+import contextlib
+import threading
 import warnings
 from dataclasses import dataclass
 from typing import Dict, List, Mapping, Optional, Tuple
@@ -359,6 +371,130 @@ def barrier(group=None):
 
 
 # ---------------------------------------------------------------------------
+# serving's collectives
+# ---------------------------------------------------------------------------
+
+def row_sum(partial: torch.Tensor, dtype: torch.dtype,
+            group=None) -> torch.Tensor:
+    """A row-parallel product's result: every rank's float32 partial
+    product (its rows of the contraction) summed in float32 and rounded
+    once to ``dtype``, as a one-device product accumulates in float32
+    and rounds once."""
+    return all_reduce(partial.float(), group=group).to(dtype)
+
+
+def vocab_embed(table: torch.Tensor, tokens: torch.Tensor, lo: int,
+                group=None) -> torch.Tensor:
+    """Rows of a vocabulary-parallel table for ``tokens``: this rank holds
+    rows [lo, lo + len(table)); a token outside them takes zeros here, and
+    the sum over ``group`` gives each token its one row (exact: the other
+    terms are zeros)."""
+    local = tokens.long() - lo
+    inside = (local >= 0) & (local < table.shape[0])
+    rows = table[local.clamp(0, table.shape[0] - 1)].float()
+    rows = rows * inside[..., None]
+    return all_reduce(rows, group=group).to(table.dtype)
+
+
+def vocab_logits(local: torch.Tensor, group=None) -> torch.Tensor:
+    """The whole vocabulary's logits from every rank's columns (its
+    vocabulary rows), in rank order along the last dim."""
+    return all_gather(local, local.dim() - 1, group)
+
+
+def expert_exchange(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The expert-parallel exchange over ``group`` (n ranks): ``x``'s dim 0
+    in n equal chunks, chunk j sent to rank j; returns the chunks received,
+    rank i's in place i (``all_to_all_single``; gloo stages CUDA tensors
+    through the host)."""
+    n = dist.get_world_size(group)
+    if n == 1:
+        return x
+    if x.shape[0] % n:
+        raise ValueError(f"dim 0 of size {x.shape[0]} does not split over "
+                         f"{n} ranks")
+    dev = _comm_device(group, x.device)
+    src = x.contiguous().to(dev)
+    out = torch.empty_like(src)
+    dist.all_to_all_single(out, src, group=group)
+    return out.to(x.device)
+
+
+@dataclass(frozen=True)
+class ServeMesh:
+    """The groups a serving step splits its work over: ``model`` (the
+    tensor-parallel axis: heads, channels, MLP widths, the vocabulary),
+    the expert axis (``ParallelConfig.expert_axis``) and the batch axes
+    (the rows), each with its size and this rank's place in it."""
+    model: object
+    model_size: int
+    model_rank: int
+    experts: object
+    expert_size: int
+    expert_rank: int
+    batch: object
+    batch_size: int
+    batch_rank: int
+
+    @classmethod
+    def of(cls, mesh, parallel: ParallelConfig) -> "ServeMesh":
+        shape = mesh_shape_dict(mesh)
+
+        def axis(name):
+            if name is None or shape.get(name, 1) == 1:
+                return None, 1, 0
+            return (mesh.get_group(name), shape[name],
+                    mesh.get_local_rank(name))
+        batch = batch_partition(parallel, mesh)
+        batch = tuple(a for a in batch if shape[a] > 1)
+        if len(batch) > 1:
+            raise NotImplementedError(
+                f"serving splits the rows over one mesh axis; the batch "
+                f"axes {batch} are {len(batch)}")
+        m, e = axis(parallel.tp_axis), axis(parallel.expert_axis)
+        b = axis(batch[0] if batch else None)
+        if e[1] > 1 and (not batch or parallel.expert_axis != batch[0]):
+            raise NotImplementedError(
+                f"experts over {parallel.expert_axis!r} (size {e[1]}) "
+                f"serve only where that axis also splits the rows (the "
+                f"batch axes {batch})")
+        if parallel.shard_cache_seq:
+            raise NotImplementedError(
+                "a cache split along its sequence (shard_cache_seq) is not "
+                "served over a mesh (ROADMAP A8.3)")
+        return cls(*m, *e, *b)
+
+    def gather_rows(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """The whole batch's ``x`` from every rank's rows."""
+        if self.batch_size == 1:
+            return x
+        return all_gather(x, dim, self.batch)
+
+
+_SERVING = threading.local()
+
+
+@contextlib.contextmanager
+def serving(mesh: Optional[ServeMesh]):
+    """Within the block the model code splits its work over ``mesh``
+    (None: one device), on this thread only: an engine serving on a
+    worker thread (``ServeEngine.as_pipeline``) leaves the routing of
+    another thread's steps as it was."""
+    prev = serve_mesh()
+    _SERVING.mesh = mesh
+    try:
+        yield
+    finally:
+        _SERVING.mesh = prev
+
+
+def serve_mesh() -> Optional[ServeMesh]:
+    """The ``ServeMesh`` of the serving step that runs on this thread, or
+    None."""
+    return getattr(_SERVING, "mesh", None)
+
+
+# ---------------------------------------------------------------------------
 # placement
 # ---------------------------------------------------------------------------
 
@@ -370,17 +506,79 @@ def _block_view(x: torch.Tensor, block: int) -> torch.Tensor:
     return flat.reshape(-1, block)
 
 
+def split_index(n: int, size: int, index: int, kind: str = "chunk",
+                heads: int = 0) -> torch.Tensor:
+    """The positions along a dim of ``n`` that shard ``index`` of ``size``
+    holds: ``"chunk"``, the contiguous chunk (the reference's layout);
+    ``"halves"``, chunk ``index`` of each half (a Mamba ``in_proj``, whose
+    halves are x and z: a rank needs its channels of both); ``"heads"``,
+    a dim of ``heads`` equal heads: the contiguous chunk where they split
+    evenly, else (``size`` a multiple of ``heads``) the one head that
+    shard's query heads read, which ``size / heads`` shards share."""
+    if kind == "halves":
+        half = n // 2
+        if half % size:
+            raise ValueError(f"halves of {half} do not split over {size}")
+        part = half // size
+        own = torch.arange(index * part, (index + 1) * part)
+        return torch.cat([own, half + own])
+    if kind == "heads" and heads % size:
+        if size % heads:
+            raise NotImplementedError(
+                f"{heads} heads over {size} shards: the shards must split "
+                f"the heads or the heads the shards")
+        width = n // heads
+        head = index * heads // size
+        return torch.arange(head * width, (head + 1) * width)
+    if kind not in ("chunk", "heads"):
+        raise ValueError(f"unknown split kind {kind!r}")
+    if n % size:
+        raise ValueError(f"a dim of {n} does not split over {size}")
+    part = n // size
+    return torch.arange(index * part, (index + 1) * part)
+
+
+def cut_indices(shape, spec: Spec, mesh_shape: Dict[str, int],
+                coord: Dict[str, int], kind=None) -> List[Tuple]:
+    """[(dim, mesh axis, positions)] of each dim a leaf of ``shape`` is
+    split along at mesh coordinate ``coord`` ({axis: index}) under
+    ``spec``; ``kind`` (dim, kind, heads) names a dim cut by
+    ``split_index``'s other kinds."""
+    out = []
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        names = [a for a in (entry if isinstance(entry, tuple)
+                             else (entry,)) if mesh_shape.get(a, 1) > 1]
+        if not names:
+            continue
+        if len(names) > 1:
+            raise NotImplementedError(
+                f"a dim split over several mesh axes ({entry!r}) has "
+                f"no gather here")
+        axis = names[0]
+        k, heads = ("chunk", 0)
+        if kind is not None and kind[0] == dim:
+            k, heads = kind[1], kind[2]
+        out.append((dim, axis, split_index(shape[dim], mesh_shape[axis],
+                                           coord[axis], k, heads)))
+    return out
+
+
 @dataclass(frozen=True)
 class Sharding:
     """How a leaf of global shape ``shape`` is laid out over ``mesh`` (a
     ``DeviceMesh``): ``spec`` names the mesh axes each dim is split over
     (the reference's ``NamedSharding(mesh, spec)``). With ``block`` the
     spec applies to the leaf's flattened, zero-padded ``[n_blocks,
-    block]`` view. A rank outside the mesh holds the whole leaf."""
+    block]`` view. ``kind`` (dim, kind, heads) cuts that dim by
+    ``split_index``'s ``"halves"`` or ``"heads"`` instead of in chunks. A
+    rank outside the mesh holds the whole leaf."""
     mesh: object
     spec: Spec
     shape: Tuple[int, ...]
     block: Optional[int] = None
+    kind: Optional[Tuple[int, str, int]] = None
 
     @property
     def device(self) -> torch.device:
@@ -396,29 +594,27 @@ class Sharding:
         return (-(-n // self.block), self.block)
 
     def _splits(self):
-        """[(dim, axis, size)] of the dims actually split here."""
+        """[(dim, axis, positions)] of the dims actually split here."""
         if self.mesh.get_coordinate() is None:
             return []
         shape = mesh_shape_dict(self.mesh)
-        out = []
-        for dim, entry in enumerate(self.spec):
-            if entry is None:
-                continue
-            names = [a for a in (entry if isinstance(entry, tuple)
-                                 else (entry,)) if shape.get(a, 1) > 1]
-            if not names:
-                continue
-            if len(names) > 1:
-                raise NotImplementedError(
-                    f"a dim split over several mesh axes ({entry!r}) has "
-                    f"no gather here")
-            out.append((dim, names[0], shape[names[0]]))
-        return out
+        coord = {a: self.mesh.get_local_rank(a) for a in shape
+                 if shape[a] > 1}
+        return cut_indices(self._view_shape(), self.spec, shape, coord,
+                           self.kind)
 
     @property
     def axes(self) -> Tuple[str, ...]:
         """The mesh axes this leaf is split over on this rank."""
         return tuple(a for _, a, _ in self._splits())
+
+    @property
+    def local_shape(self) -> Tuple[int, ...]:
+        """This rank's shard's shape (of the block view with ``block``)."""
+        shape = list(self._view_shape())
+        for dim, _, idx in self._splits():
+            shape[dim] = len(idx)
+        return tuple(shape)
 
     def shard(self, full: torch.Tensor) -> torch.Tensor:
         """This rank's shard of the whole leaf ``full`` (a new tensor on
@@ -427,19 +623,30 @@ class Sharding:
             raise ValueError(f"a leaf of shape {tuple(full.shape)} for a "
                              f"sharding of {tuple(self.shape)}")
         x = full if self.block is None else _block_view(full, self.block)
-        for dim, axis, size in self._splits():
-            if x.shape[dim] % size:
-                raise ValueError(f"dim {dim} of {tuple(x.shape)} does not "
-                                 f"split over {axis!r} ({size})")
-            x = x.chunk(size, dim=dim)[self.mesh.get_local_rank(axis)]
-        return x.contiguous().clone()
+        splits = self._splits()
+        for dim, _, idx in splits:
+            x = x.index_select(dim, idx.to(x.device))
+        return x.contiguous() if splits else x.clone()
 
     def gather(self, local: torch.Tensor) -> torch.Tensor:
         """The whole leaf from every rank's shard (a collective over the
         split axes), on ``local``'s device."""
         x = local
+        shape = mesh_shape_dict(self.mesh) if self._splits() else {}
+        view = self._view_shape()
         for dim, axis, _ in reversed(self._splits()):
-            x = all_gather(x, dim, self.mesh.get_group(axis))
+            parts = all_gather(x, dim, self.mesh.get_group(axis)).chunk(
+                shape[axis], dim)
+            whole = list(x.shape)
+            whole[dim] = view[dim]
+            out = x.new_empty(whole)
+            k, heads = (self.kind[1], self.kind[2]) if (
+                self.kind is not None and self.kind[0] == dim) else (
+                "chunk", 0)
+            for j, part in enumerate(parts):
+                idx = split_index(view[dim], shape[axis], j, k, heads)
+                out.index_copy_(dim, idx.to(x.device), part)
+            x = out
         if self.block is not None:
             n = int(np.prod(self.shape)) if self.shape else 1
             x = x.reshape(-1)[:n].reshape(self.shape)
@@ -449,6 +656,9 @@ class Sharding:
         """This rank's shard of the sum over the split axes of every
         rank's whole ``full`` (a reduce-scatter); unsplit leaves come
         back whole and unreduced."""
+        if self.kind is not None:
+            raise NotImplementedError("a reduce-scatter of a leaf cut by "
+                                      f"kind {self.kind[1]!r}")
         x = full if self.block is None else _block_view(full, self.block)
         for dim, axis, _ in self._splits():
             x = reduce_scatter(x, dim, self.mesh.get_group(axis))

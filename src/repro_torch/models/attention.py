@@ -19,6 +19,14 @@ Cross-attention (whisper's decoder) takes K/V from the encoder's output
 at prefill, through the flash kernel without a causal mask, and keeps
 them whole in its cache (``encoder_seq`` long) for decode, which reads
 them through ``ref.sdpa``.
+
+Under a serving mesh each rank runs its query heads (``wq``'s, ``wq_b``'s
+and ``wkv_b``'s columns) and the KV heads they read (``wk`` / ``wv``'s
+columns: its share of them, or where ``model`` exceeds the KV heads the
+one head its query heads read), its K/V cache holding those heads; the
+head counts come from the shapes of the rank's leaves. ``wo`` is
+row-parallel (``layers.row_parallel``). MLA's latent, rope key and their
+cache are replicated over ``model``.
 """
 from __future__ import annotations
 
@@ -28,7 +36,8 @@ import torch
 
 from repro_torch.config import AttentionConfig, ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models.layers import ParamDef, Params, Schema, apply_rope
+from repro_torch.models.layers import (ParamDef, Params, Schema, apply_rope,
+                                       row_parallel)
 
 Cache = Dict[str, torch.Tensor]
 
@@ -76,9 +85,9 @@ def _cross_kv(params: Params, name: str, q: torch.Tensor,
         return cache["k"].to(dt), cache["v"].to(dt), cache
     b = q.shape[0]
     k = (memory @ params[f"{name}.wk"].to(dt)).reshape(
-        b, -1, a.num_kv_heads, a.head_dim)
+        b, memory.shape[1], -1, a.head_dim)
     v = (memory @ params[f"{name}.wv"].to(dt)).reshape(
-        b, -1, a.num_kv_heads, a.head_dim)
+        b, memory.shape[1], -1, a.head_dim)
     if cache is not None:
         if cache["k"].shape != k.shape:
             raise ValueError(f"{name}: the encoder's output gives K/V "
@@ -104,16 +113,14 @@ def apply_gqa(params: Params, name: str, x: torch.Tensor,
     a = cfg.attention
     b, t, _ = x.shape
     dt = x.dtype
-    q = (x @ params[f"{name}.wq"].to(dt)).reshape(b, t, a.num_heads,
-                                                 a.head_dim)
+    q = (x @ params[f"{name}.wq"].to(dt)).reshape(b, t, -1, a.head_dim)
     if is_cross or memory is not None:
         k, v, cache = _cross_kv(params, name, q, memory, cfg, cache)
         out = ops.sdpa(q, k, v, causal=False, logit_cap=a.logit_cap)
-        return out.reshape(b, t, -1) @ params[f"{name}.wo"].to(dt), cache
-    k = (x @ params[f"{name}.wk"].to(dt)).reshape(b, t, a.num_kv_heads,
-                                                 a.head_dim)
-    v = (x @ params[f"{name}.wv"].to(dt)).reshape(b, t, a.num_kv_heads,
-                                                 a.head_dim)
+        return row_parallel(out.reshape(b, t, -1),
+                            params[f"{name}.wo"].to(dt)), cache
+    k = (x @ params[f"{name}.wk"].to(dt)).reshape(b, t, -1, a.head_dim)
+    v = (x @ params[f"{name}.wv"].to(dt)).reshape(b, t, -1, a.head_dim)
     if a.rope != "none":
         q = apply_rope(q, positions, a)
         k = apply_rope(k, positions, a)
@@ -135,7 +142,7 @@ def apply_gqa(params: Params, name: str, x: torch.Tensor,
                          length=torch.full((b,), t, dtype=torch.int32,
                                            device=x.device))
     out = out.reshape(b, t, -1)
-    return out @ params[f"{name}.wo"].to(dt), cache
+    return row_parallel(out, params[f"{name}.wo"].to(dt)), cache
 
 
 def gqa_cache_schema(cfg: ModelConfig, name: str, batch: int,
@@ -204,7 +211,7 @@ def _mla_q(params: Params, name: str, x: torch.Tensor,
         q = ql @ params[f"{name}.wq_b"].to(dt)
     else:
         q = x @ params[f"{name}.wq"].to(dt)
-    q = q.reshape(b, t, a.num_heads, a.qk_nope_head_dim + a.qk_rope_head_dim)
+    q = q.reshape(b, t, -1, a.qk_nope_head_dim + a.qk_rope_head_dim)
     q_nope, q_rope = q[..., :a.qk_nope_head_dim], q[..., a.qk_nope_head_dim:]
     return q_nope, apply_rope(q_rope, positions, _rope_cfg(a))
 
@@ -230,8 +237,8 @@ def apply_mla(params: Params, name: str, x: torch.Tensor,
                         _rope_cfg(a))                       # [b, t, 1, rope]
     q_nope, q_rope = _mla_q(params, name, x, positions, a, cfg.norm_eps)
 
-    wkv_b = params[f"{name}.wkv_b"].to(dt).reshape(r, a.num_heads,
-                                                   n_nope + n_v)
+    heads = params[f"{name}.wkv_b"].shape[1] // (n_nope + n_v)  # the rank's
+    wkv_b = params[f"{name}.wkv_b"].to(dt).reshape(r, heads, n_nope + n_v)
     wk_b, wv_b = wkv_b[..., :n_nope], wkv_b[..., n_nope:]   # [r, h, n|v]
 
     if cache is not None and cache.get("decode", False):
@@ -253,11 +260,9 @@ def apply_mla(params: Params, name: str, x: torch.Tensor,
         out = torch.einsum("bthr,rhv->bthv", out_lat, wv_b)
         cache = dict(cache, ckv=cckv, k_rope=ckr, length=new_len)
     else:
-        kv = (ckv @ wkv_b.reshape(r, -1)).reshape(b, t, a.num_heads,
-                                                  n_nope + n_v)
+        kv = (ckv @ wkv_b.reshape(r, -1)).reshape(b, t, heads, n_nope + n_v)
         k_nope, v = kv[..., :n_nope], kv[..., n_nope:]
-        k = torch.cat([k_nope, k_rope.expand(b, t, a.num_heads, n_rope)],
-                      dim=-1)
+        k = torch.cat([k_nope, k_rope.expand(b, t, heads, n_rope)], dim=-1)
         q = torch.cat([q_nope, q_rope], dim=-1)
         out = ops.sdpa(q, k, v, causal=a.causal, scale=scale)
         if cache is not None:
@@ -266,8 +271,8 @@ def apply_mla(params: Params, name: str, x: torch.Tensor,
                       torch.zeros(b, dtype=torch.int32, device=x.device))
             cache = dict(cache, length=torch.full((b,), t, dtype=torch.int32,
                                                   device=x.device))
-    out = out.reshape(b, t, a.num_heads * n_v)
-    return out @ params[f"{name}.wo"].to(dt), cache
+    out = out.reshape(b, t, heads * n_v)
+    return row_parallel(out, params[f"{name}.wo"].to(dt)), cache
 
 
 def mla_cache_schema(cfg: ModelConfig, name: str, batch: int,

@@ -11,6 +11,14 @@ matrix is cast to the activations' dtype at use (a no-op where the engine
 holds a compute-dtype copy, ``models.model.compute_params``); RoPE's cos
 and sin are computed in float32 and cast to the activations' dtype before
 the rotation, so a bf16 model rotates in bf16.
+
+Under a serving mesh (``distributed.sharding.serve_mesh()``) the
+functions here take a rank's shards: ``row_parallel`` sums a
+row-parallel product over ``model`` (float32 partials, rounded once),
+``embed_tokens`` and ``unembed`` split the vocabulary over ``model``
+where it divides (a vocabulary it does not divide stays whole, with the
+reference's warn-once), ``apply_mlp`` is column-parallel in ``w_gate`` /
+``w_up`` and row-parallel in ``w_down``; norms are replicated.
 """
 from __future__ import annotations
 
@@ -23,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import AttentionConfig, ModelConfig
+from repro_torch.distributed import sharding as sh
 
 Params = Dict[str, torch.Tensor]
 
@@ -64,14 +73,16 @@ def init_std(d: ParamDef) -> float:
 
 def init_from_schema(schema: Schema, generator: torch.Generator,
                      dtype_of: Callable[[str], torch.dtype],
-                     device) -> Params:
+                     device, place: Optional[Callable] = None) -> Params:
     """Leaves in sorted name order, each drawn from ``generator`` (which
     lives on ``device``) as float32 N(0, std) and cast to
     ``dtype_of(name)``: the reference's distributions, not its bits
     (``jax.random`` and ``torch.Generator`` differ; parity tests convert
     one parameter set). A stacked leaf (a leading ``groups`` axis) is
     drawn one group at a time into its cast result, so the float32 draw
-    never holds more than one group's slice."""
+    never holds more than one group's slice. ``place(name, leaf)``, where
+    given, takes each whole leaf as it is drawn and returns what is kept
+    of it (a rank's shard), so at most one whole leaf is held."""
     params = {}
     for name in sorted(schema):
         d = schema[name]
@@ -91,6 +102,9 @@ def init_from_schema(schema: Schema, generator: torch.Generator,
             w = torch.randn(d.shape, generator=generator,
                             dtype=torch.float32, device=device)
             params[name] = w.mul_(init_std(d)).to(dtype)
+        if place is not None:
+            params[name] = place(name, params[name])
+            w = None                    # the whole leaf goes before the next
     return params
 
 
@@ -129,6 +143,66 @@ def stack_schema(schema: Schema, n: int, axis_name: str = "layers") -> Schema:
         k: ParamDef((n,) + d.shape, (axis_name,) + d.axes, d.init, d.scale)
         for k, d in schema.items()
     }
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism
+# ---------------------------------------------------------------------------
+
+def f32_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` (batched where both are 3-dim) accumulated and returned in
+    float32: for low-precision operands on the card cuBLAS's product with
+    a float32 output (a PyTorch without ``out_dtype`` raises), else the
+    float32 product of the widened operands (exact products, float32
+    sums)."""
+    if x.dtype == torch.float32 or not x.is_cuda:
+        return x.float() @ w.float()
+    if x.dim() == 3 and w.dim() == 3:
+        return torch.bmm(x, w, out_dtype=torch.float32)
+    y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+    return y.reshape(*x.shape[:-1], w.shape[-1])
+
+
+def row_parallel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` where ``x``'s last dim and ``w``'s rows are this rank's
+    part of the contraction: the partials summed over ``model`` in
+    float32 and rounded once to ``x``'s dtype. Without a ``model`` axis,
+    the plain product."""
+    mesh = sh.serve_mesh()
+    if mesh is None or mesh.model_size == 1:
+        return x @ w
+    return sh.row_sum(f32_product(x, w), x.dtype, mesh.model)
+
+
+def tp_slice(x: torch.Tensor, width: int, dim: int = -1) -> torch.Tensor:
+    """This rank's ``width``-wide part along ``dim`` of a replicated
+    tensor whose width the ``model`` axis splits."""
+    mesh = sh.serve_mesh()
+    if mesh is None or mesh.model_size == 1 or x.shape[dim] == width:
+        return x
+    return x.narrow(dim, mesh.model_rank * width, width)
+
+
+def tp_gather(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """The whole tensor along ``dim`` from every ``model`` rank's part."""
+    mesh = sh.serve_mesh()
+    if mesh is None or mesh.model_size == 1:
+        return x
+    return sh.all_gather(x, dim % x.dim(), mesh.model)
+
+
+def _vocab_split(table_rows: int, cfg: ModelConfig) -> bool:
+    """Whether this rank holds part of the vocabulary; a vocabulary the
+    ``model`` axis does not divide stays whole, with the warn-once."""
+    mesh = sh.serve_mesh()
+    size = 1 if mesh is None else mesh.model_size
+    if size == 1:
+        return False
+    if table_rows == cfg.vocab_size:
+        sh._warn_replicated("constrain(logical axis 'vocab_act')", "model",
+                            cfg.vocab_size, size)
+        return False
+    return True
 
 
 # ---------------------------------------------------------------------------
@@ -251,7 +325,7 @@ def apply_mlp(params: Params, name: str, x: torch.Tensor,
                    approximate="tanh") * up
     else:
         h = F.gelu(up, approximate="tanh")
-    return h @ params[f"{name}.w_down"].to(dt)
+    return row_parallel(h, params[f"{name}.w_down"].to(dt))
 
 
 # ---------------------------------------------------------------------------
@@ -276,7 +350,13 @@ def embed_tokens(params: Params, tokens: torch.Tensor,
     """Rows of the table in the compute dtype. The reference casts the
     whole table and then gathers; gathering first and casting the rows
     gives the same numbers without a table-sized copy."""
-    x = params["embed.table"][tokens.long()].to(compute_dtype(cfg))
+    table = params["embed.table"]
+    if _vocab_split(table.shape[0], cfg):
+        mesh = sh.serve_mesh()
+        x = sh.vocab_embed(table, tokens, mesh.model_rank * table.shape[0],
+                           mesh.model).to(compute_dtype(cfg))
+    else:
+        x = table[tokens.long()].to(compute_dtype(cfg))
     if cfg.scale_embeddings:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
     return x
@@ -285,5 +365,9 @@ def embed_tokens(params: Params, tokens: torch.Tensor,
 def unembed(params: Params, x: torch.Tensor,
             cfg: ModelConfig) -> torch.Tensor:
     if cfg.tie_embeddings:
-        return x @ params["embed.table"].to(x.dtype).t()
-    return x @ params["unembed.w"].to(x.dtype)
+        w = params["embed.table"].to(x.dtype).t()
+    else:
+        w = params["unembed.w"].to(x.dtype)
+    if _vocab_split(w.shape[1], cfg):
+        return sh.vocab_logits(x @ w, sh.serve_mesh().model)
+    return x @ w

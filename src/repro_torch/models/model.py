@@ -24,6 +24,21 @@ frames and decoder tokens, the decoder's blocks attending to the
 encoder's output). ``init_params`` and ``init_cache`` take ``device=``
 (default ``"cuda"``) and raise without a card. Caches are updated in
 place; ``prefill`` and ``decode_step`` return the same dict.
+
+Serving over a mesh (``serve_placement``): each rank holds its shard of
+every parameter and cache leaf, laid out by the reference's
+``partition_specs`` / ``cache_partition_specs`` with the FSDP axis
+(``embed``) left whole (serving gathers no weights; ROADMAP C20), and
+in the compute layout where that differs from the specs' contiguous
+chunks: a Mamba ``in_proj`` takes the rank's channels of both halves
+(x and z), and where ``model`` exceeds the KV heads ``wk`` / ``wv`` and
+the K/V caches hold the one head the rank's query heads read
+(``distributed.sharding.split_index``). ``init_params(placement=)``
+draws each leaf whole, keeps the rank's part and frees the rest, so the
+draws are one device's; ``checkpoint.gather_tree`` over the placement
+gives the whole leaves back.
+``prefill`` / ``decode_step`` take the rank's rows and leaves, inside
+the step's ``sharding.serving`` block (``serve.steps``).
 """
 from __future__ import annotations
 
@@ -32,8 +47,9 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.config import ModelConfig
+from repro_torch.config import ModelConfig, ParallelConfig
 from repro_torch.device import resolve_device
+from repro_torch.distributed import sharding as sh
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import (ParamDef, Params, Schema, apply_norm,
                                        compute_dtype, embed_schema,
@@ -76,14 +92,16 @@ def _is_float32_leaf(name: str) -> bool:
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda",
-                compute: bool = False) -> Params:
+                compute: bool = False, placement=None) -> Params:
     """Random parameters on ``device``, drawn in float32 from a
     ``torch.Generator`` seeded with ``seed`` on that device, a stacked
     leaf one group at a time. In ``cfg.param_dtype``, or with
     ``compute=True`` in the form ``compute_params`` gives (matrices in the
     compute dtype, ``FLOAT32_LEAVES`` in float32) with no float32 copy of
     a whole leaf: the way to draw a model whose float32 parameters do not
-    fit the card."""
+    fit the card. With ``placement`` (``serve_placement``'s parameter
+    shardings) each leaf is drawn whole, this rank's shard kept and the
+    rest freed: the draws are one device's."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(int(seed))
     param_dt = getattr(torch, cfg.param_dtype)
@@ -94,7 +112,11 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda",
     else:
         def dtype_of(name):
             return param_dt
-    return init_from_schema(full_schema(cfg), gen, dtype_of, dev)
+    place = None
+    if placement is not None:
+        def place(name, w):
+            return placement[name].shard(w)
+    return init_from_schema(full_schema(cfg), gen, dtype_of, dev, place)
 
 
 def abstract_params(cfg: ModelConfig) -> Params:
@@ -312,11 +334,140 @@ def _cache_dtype(cfg: ModelConfig, name: str) -> torch.dtype:
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
-               device="cuda") -> Params:
+               device="cuda", placement=None) -> Params:
+    """Zeroed caches for ``batch`` rows of ``max_len``; with
+    ``placement`` (``serve_placement``'s cache shardings of a ``batch``
+    of the whole batch) only this rank's shard of each leaf."""
     dev = resolve_device(device)
-    return {name: torch.zeros(d.shape, dtype=_cache_dtype(cfg, name),
-                              device=dev)
+    return {name: torch.zeros(d.shape if placement is None
+                              else placement[name].local_shape,
+                              dtype=_cache_dtype(cfg, name), device=dev)
             for name, d in cache_schema(cfg, batch, max_len).items()}
+
+
+def cache_partition_specs(cfg: ModelConfig, batch: int, max_len: int,
+                          rules: Dict[str, object],
+                          mesh_shape: Dict[str, int]) -> Dict[str, tuple]:
+    """Each cache leaf's spec over a mesh of ``mesh_shape``."""
+    return specs_from_schema(cache_schema(cfg, batch, max_len), rules,
+                             mesh_shape)
+
+
+# ---------------------------------------------------------------------------
+# Serving placement
+# ---------------------------------------------------------------------------
+
+#: leaves whose last dim holds the KV heads (GQA's and cross-attention's
+#: K/V projections) and the K/V caches, whose dim -2 does
+_KV_WEIGHTS = (".attn.wk", ".attn.wv", ".cross.wk", ".cross.wv")
+_KV_CACHES = (".attn.k", ".attn.v", ".cross.k", ".cross.v")
+
+
+def check_serve_model_axis(cfg: ModelConfig, size: int):
+    """Raise ``NotImplementedError`` naming the rule where a ``model``
+    axis of ``size`` does not split a width the blocks split (ROADMAP
+    C19): the query heads (of the decoder and an encoder), the KV heads
+    unless the axis is a multiple of them, the MLP, expert and Mamba
+    widths and RWKV's heads. The vocabulary may stay whole."""
+    if size == 1:
+        return
+    widths = {"d_ff": cfg.d_ff}
+    kinds = set(cfg.block_pattern)
+    if "attn" in kinds:
+        a = cfg.attention
+        widths["query heads (num_heads)"] = a.num_heads
+        if a.kind != "mla" and a.num_kv_heads % size and \
+                size % a.num_kv_heads:
+            raise NotImplementedError(
+                f"{cfg.name}: {a.num_kv_heads} KV heads over a model axis "
+                f"of {size}: the axis must split the KV heads or be a "
+                f"multiple of them (ROADMAP C19)")
+    if cfg.moe is not None:
+        widths["expert d_ff"] = cfg.moe.d_ff
+    if "mamba" in kinds:
+        widths["Mamba d_inner"] = cfg.ssm.expand * cfg.d_model
+    if "rwkv" in kinds:
+        widths["RWKV heads"] = cfg.d_model // cfg.rwkv.head_dim
+    for what, n in widths.items():
+        if n % size:
+            raise NotImplementedError(
+                f"{cfg.name}: a model axis of {size} does not divide its "
+                f"{n} {what}; tensor-parallel serving splits them evenly "
+                f"(ROADMAP C19)")
+
+
+def serve_specs(cfg: ModelConfig, parallel: ParallelConfig, mesh,
+                batch: int, max_len: int):
+    """(parameter specs, cache specs) a serving rank is placed by: the
+    reference's, with the FSDP axis (``embed``) left whole."""
+    rules = dict(sh.build_rules(parallel, mesh), embed=None)
+    shape = sh.mesh_shape_dict(mesh)
+    return (partition_specs(cfg, rules, shape),
+            cache_partition_specs(cfg, batch, max_len, rules, shape))
+
+
+def _with_entry(spec: tuple, dim: int, axis: str) -> tuple:
+    out = list(spec)
+    out[dim] = axis
+    return tuple(out)
+
+
+def serve_layout(cfg: ModelConfig, parallel: ParallelConfig, mesh,
+                 batch: int, max_len: int):
+    """({name: (spec, shape, kind)} of the parameters, of the cache) over
+    ``mesh`` (a ``DeviceMesh`` or an ``{axis: size}`` mapping):
+    ``serve_specs`` in the compute layout (see the module docstring), a
+    ``kind`` as ``sharding.Sharding`` takes it or None."""
+    shape = sh.mesh_shape_dict(mesh)
+    tp = parallel.tp_axis
+    size = shape.get(tp, 1) if tp else 1
+    check_serve_model_axis(cfg, size)
+    pspecs, cspecs = serve_specs(cfg, parallel, mesh, batch, max_len)
+    kv = cfg.attention.num_kv_heads
+
+    def layout(schema, specs, kv_names, kv_dim):
+        out = {}
+        for name, d in schema.items():
+            spec, kind = specs[name], None
+            if size > 1 and name.endswith(".mixer.in_proj"):
+                kind = (len(d.shape) - 1, "halves", 0)
+            elif size > 1 and name.endswith(kv_names):
+                dim = len(d.shape) + kv_dim
+                spec = _with_entry(spec, dim, tp)
+                kind = (dim, "heads", kv)
+            out[name] = (spec, tuple(d.shape), kind)
+        return out
+    return (layout(full_schema(cfg), pspecs, _KV_WEIGHTS, -1),
+            layout(cache_schema(cfg, batch, max_len), cspecs, _KV_CACHES,
+                   -2))
+
+
+def serve_placement(cfg: ModelConfig, parallel: ParallelConfig, mesh,
+                    batch: int, max_len: int):
+    """({name: Sharding} of the parameters, {name: Sharding} of the cache
+    of a ``batch`` x ``max_len`` serve) over ``mesh`` (a ``DeviceMesh``),
+    by ``serve_layout``."""
+    return tuple({name: sh.Sharding(mesh, spec, shape, kind=kind)
+                  for name, (spec, shape, kind) in part.items()}
+                 for part in serve_layout(cfg, parallel, mesh, batch,
+                                          max_len))
+
+
+def place_params(params: Params, placement) -> Params:
+    """This rank's shard of each leaf: a whole leaf is cut, a leaf that
+    is already the rank's shard (``init_params(placement=)``) kept."""
+    out = {}
+    for name, w in params.items():
+        p = placement[name]
+        if tuple(w.shape) == tuple(p.local_shape):
+            out[name] = w
+        elif tuple(w.shape) == tuple(p.shape):
+            out[name] = p.shard(w)
+        else:
+            raise ValueError(f"{name}: a leaf of {tuple(w.shape)} is neither "
+                             f"the whole {p.shape} nor this rank's "
+                             f"{p.local_shape}")
+    return out
 
 
 def prefill(params: Params, cfg: ModelConfig, batch: Dict, cache: Params

@@ -18,10 +18,23 @@ load-balancing loss beside the output.
 The expert products are batched matrix products over the expert axis,
 in the activations' dtype (cuBLAS on the card): the JAX package computes
 them outside any Pallas kernel.
+
+Under a serving mesh whose expert axis (``ParallelConfig.expert_axis``,
+``data`` by default) splits the experts, a rank holds ``E / size``
+experts and the rows the batch axis gives it, and the groups stay the
+whole batch's: where the rank's tokens make whole groups it routes them
+and sends each expert's slots to its rank and back
+(``sharding.expert_exchange``); where a group straddles ranks (a decode
+step, a short prefill) the rank gathers the whole batch's tokens, routes
+every group as one device does, multiplies its experts' slots and
+gathers every expert's results. The expert weights' ``mlp`` columns on
+``model`` make the products row-parallel. The balance loss is that of
+the rank's groups (serving does not read it).
 """
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 from typing import Tuple
 
@@ -29,7 +42,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
-from repro_torch.models.layers import ParamDef, Params, Schema
+from repro_torch.distributed import sharding as sh
+from repro_torch.models.layers import ParamDef, Params, Schema, row_parallel
 
 #: tokens per dispatch group (capacity is per group and expert)
 GROUP_SIZE = 256
@@ -108,9 +122,45 @@ def dispatch(probs: torch.Tensor, top_k: int, cap: int):
     return tope, topw * keep, pos, keep
 
 
-def apply_moe(params: Params, name: str, x: torch.Tensor,
-              cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x [b, s, d] -> (y [b, s, d], aux loss, a float32 scalar)."""
+def _local_experts(params: Params, name: str, xe: torch.Tensor
+                   ) -> torch.Tensor:
+    """Every held expert's products on its slots: xe [E_held, slots, d]."""
+    dt = xe.dtype
+    h = (F.silu(torch.bmm(xe, params[f"{name}.w_gate"].to(dt)))
+         * torch.bmm(xe, params[f"{name}.w_up"].to(dt)))
+    return row_parallel(h, params[f"{name}.w_down"].to(dt))
+
+
+def _exchanged_experts(params, name, xe, mesh):
+    """The experts' results for this rank's groups, xe [E, slots, d]:
+    each expert's slots sent to its rank, multiplied there with the
+    slots of every rank's groups, and returned."""
+    n, held = mesh.expert_size, xe.shape[0] // mesh.expert_size
+    got = sh.expert_exchange(xe, mesh.experts)          # [n * held, S, d]
+    slots = got.shape[1]
+    mine = got.reshape(n, held, slots, -1).transpose(0, 1).reshape(
+        held, n * slots, -1)
+    ye = _local_experts(params, name, mine)
+    back = ye.reshape(held, n, slots, -1).transpose(0, 1).reshape(
+        n * held, slots, -1)
+    return sh.expert_exchange(back, mesh.experts)       # [E, S, d]
+
+
+def _gathered_experts(params, name, xe, mesh):
+    """The experts' results for the whole batch's groups, held by every
+    rank: this rank's experts' slots multiplied and every rank's
+    gathered."""
+    held = xe.shape[0] // mesh.expert_size
+    mine = xe[mesh.expert_rank * held:(mesh.expert_rank + 1) * held]
+    return sh.all_gather(_local_experts(params, name, mine), 0,
+                         mesh.experts)
+
+
+def _routed(params: Params, name: str, x: torch.Tensor, cfg: ModelConfig,
+            experts) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The routed experts' output [b, s, d] and the balance loss:
+    ``experts(xe)`` turns the expert-major payload [E, G * cap, d] into
+    the experts' results."""
     m = cfg.moe
     b, s, d = x.shape
     dt = x.dtype
@@ -143,10 +193,7 @@ def apply_moe(params: Params, name: str, x: torch.Tensor,
     filled = slot_filled[:, :E * cap].reshape(n_groups, E, cap).transpose(
         0, 1).reshape(E, -1, 1)
     xe = x.reshape(tokens, d)[rows] * filled                   # [E, GC, d]
-
-    h = (F.silu(torch.bmm(xe, params[f"{name}.w_gate"].to(dt)))
-         * torch.bmm(xe, params[f"{name}.w_up"].to(dt)))
-    ye = torch.bmm(h, params[f"{name}.w_down"].to(dt))         # [E, GC, d]
+    ye = experts(xe)                                           # [E, GC, d]
 
     # each pair's expert output, a dropped pair's from slot 0 (weight 0)
     gidx = torch.arange(n_groups, device=x.device)[:, None, None] * cap
@@ -154,13 +201,6 @@ def apply_moe(params: Params, name: str, x: torch.Tensor,
     picked = ye.reshape(E * n_groups * cap, d)[src.reshape(-1)].reshape(
         n_groups, group, K, d)
     y = (picked.float() * weight[..., None]).sum(dim=2).to(dt)
-    y = y.reshape(b, s, d)
-
-    if m.num_shared_experts > 0:
-        pre = f"{name}.shared"
-        h = (F.silu(x @ params[f"{pre}.w_gate"].to(dt))
-             * (x @ params[f"{pre}.w_up"].to(dt)))
-        y = y + h @ params[f"{pre}.w_down"].to(dt)
 
     # the Switch load-balancing loss
     frac_tokens = F.one_hot(tope[..., 0], E).float().mean(dim=(0, 1))
@@ -168,4 +208,34 @@ def apply_moe(params: Params, name: str, x: torch.Tensor,
     if _BATCH_STATS is not None:
         frac_tokens, frac_probs = _BATCH_STATS(frac_tokens, frac_probs)
     aux = E * (frac_tokens * frac_probs).sum() * m.aux_loss_weight
+    return y.reshape(b, s, d), aux
+
+
+def apply_moe(params: Params, name: str, x: torch.Tensor,
+              cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x [b, s, d] -> (y [b, s, d], aux loss, a float32 scalar)."""
+    m = cfg.moe
+    mesh = sh.serve_mesh()
+    b, s, _ = x.shape
+    if mesh is None or mesh.batch_size == 1:
+        y, aux = _routed(params, name, x, cfg,
+                         lambda xe: _local_experts(params, name, xe))
+    elif (b * s) % min(GROUP_SIZE, b * s * mesh.batch_size):
+        # a group straddles the ranks: route the whole batch
+        whole = mesh.gather_rows(x)
+        experts = (functools.partial(_gathered_experts, mesh=mesh)
+                   if mesh.expert_size > 1 else _local_experts)
+        y, aux = _routed(params, name, whole, cfg,
+                         lambda xe: experts(params, name, xe))
+        y = y.narrow(0, mesh.batch_rank * b, b)
+    else:
+        experts = (functools.partial(_exchanged_experts, mesh=mesh)
+                   if mesh.expert_size > 1 else _local_experts)
+        y, aux = _routed(params, name, x, cfg,
+                         lambda xe: experts(params, name, xe))
+    if m.num_shared_experts > 0:
+        pre, dt = f"{name}.shared", x.dtype
+        h = (F.silu(x @ params[f"{pre}.w_gate"].to(dt))
+             * (x @ params[f"{pre}.w_up"].to(dt)))
+        y = y + row_parallel(h, params[f"{pre}.w_down"].to(dt))
     return y, aux

@@ -13,6 +13,13 @@ Serve state per layer: {x_att, x_ffn: [b, d] the previous token's
 activations; wkv: [b, H, n, n] the recurrent state, float32}. Only a
 decode step reads it back: a prefill shifts in zeros and starts the
 recurrence from a zero state, as the reference does.
+
+Under a serving mesh a rank runs its ``H / model`` heads of the time mix
+(``wr`` / ``wk`` / ``wv`` / ``wg``'s columns, ``bonus``, its part of the
+whole-width decay and of ``ln_x``, its heads of the ``wkv`` state; ``wo``
+row-parallel) and its share of the channel mix's width: ``k @ wv`` is a
+row-parallel sum whose result is the whole width, and the gate's
+columns are gathered to meet it. ``x_att`` / ``x_ffn`` are replicated.
 """
 from __future__ import annotations
 
@@ -23,7 +30,8 @@ import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models.layers import ParamDef, Params, Schema
+from repro_torch.models.layers import (ParamDef, Params, Schema,
+                                       row_parallel, tp_gather, tp_slice)
 
 State = Dict[str, torch.Tensor]
 MIXES = 5  # r, w, k, v, g
@@ -89,8 +97,9 @@ def apply_time_mix(params: Params, name: str, x: torch.Tensor,
                    cfg: ModelConfig, state: Optional[State] = None
                    ) -> Tuple[torch.Tensor, Optional[State]]:
     r_cfg = cfg.rwkv
-    b, s, d = x.shape
+    b, s, _ = x.shape
     dt = x.dtype
+    d = params[f"{name}.wr"].shape[1]           # the rank's heads' width
     H, n = d // r_cfg.head_dim, r_cfg.head_dim
     decode = _decoding(state)
 
@@ -113,7 +122,7 @@ def apply_time_mix(params: Params, name: str, x: torch.Tensor,
     dlora = torch.tanh(xw @ params[f"{name}.decay_w1"].to(dt))
     decay_log = params[f"{name}.decay_base"].float() + (
         dlora.float() @ params[f"{name}.decay_w2"].float())
-    w = torch.exp(-torch.exp(decay_log)).reshape(b, s, H, n)
+    w = torch.exp(-torch.exp(tp_slice(decay_log, d))).reshape(b, s, H, n)
 
     u = params[f"{name}.bonus"].float()
     out, new_wkv = ops.rwkv6_scan(rr, kk, vv, w.to(rr.dtype), u,
@@ -124,10 +133,10 @@ def apply_time_mix(params: Params, name: str, x: torch.Tensor,
     mean = o.mean(dim=-1, keepdim=True)
     var = o.var(dim=-1, keepdim=True, unbiased=False)
     o = ((o - mean) * torch.rsqrt(var + 64e-5)).reshape(b, s, d)
-    o = (o * params[f"{name}.ln_x.scale"].float()
-         + params[f"{name}.ln_x.bias"].float())
+    o = (o * tp_slice(params[f"{name}.ln_x.scale"], d).float()
+         + tp_slice(params[f"{name}.ln_x.bias"], d).float())
     o = o.to(dt) * F.silu(gg)
-    y = o @ params[f"{name}.wo"].to(dt)
+    y = row_parallel(o, params[f"{name}.wo"].to(dt))
 
     if state is not None:
         state = dict(state, x_att=x[:, -1], wkv=new_wkv)
@@ -144,8 +153,8 @@ def apply_channel_mix(params: Params, name: str, x: torch.Tensor,
     xk = x + dx * params[f"{name}.mix_k"].to(dt)
     xr = x + dx * params[f"{name}.mix_r"].to(dt)
     k = torch.square(F.relu(xk @ params[f"{name}.wk"].to(dt)))
-    r = torch.sigmoid(xr @ params[f"{name}.wr"].to(dt))
-    y = r * (k @ params[f"{name}.wv"].to(dt))
+    r = tp_gather(torch.sigmoid(xr @ params[f"{name}.wr"].to(dt)))
+    y = r * row_parallel(k, params[f"{name}.wv"].to(dt))
     if state is not None:
         state = dict(state, x_ffn=x[:, -1])
     return y, state

@@ -9,6 +9,12 @@ the CPU), gated output, out_proj.
 Serve state per layer: {conv: [b, d_conv - 1, d_inner], ssm: [b, d_inner,
 n]}; only a decode step reads it back (a prefill starts from zeros even
 when a state is passed, as the reference does).
+
+Under a serving mesh a rank runs its ``d_inner / model`` channels
+(``in_proj``'s x and z columns of them, the conv, ``dt_proj``, ``A_log``,
+``D`` and the scan, and its channels of the state); ``x_proj`` is
+row-parallel, so every rank reads the whole (dt, B, C), and so is
+``out_proj``.
 """
 from __future__ import annotations
 
@@ -20,7 +26,7 @@ import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models.layers import ParamDef, Params, Schema
+from repro_torch.models.layers import ParamDef, Params, Schema, row_parallel
 
 State = Dict[str, torch.Tensor]
 
@@ -73,7 +79,8 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 def apply_mamba(params: Params, name: str, x: torch.Tensor,
                 cfg: ModelConfig, state: Optional[State] = None
                 ) -> Tuple[torch.Tensor, Optional[State]]:
-    di, dtr, n = _dims(cfg)
+    _, dtr, n = _dims(cfg)
+    di = params[f"{name}.D"].shape[0]               # the rank's channels
     dt_ = x.dtype
 
     xz = x @ params[f"{name}.in_proj"].to(dt_)
@@ -85,7 +92,7 @@ def apply_mamba(params: Params, name: str, x: torch.Tensor,
                                 params[f"{name}.conv_b"].to(dt_), conv_prev)
     xs = F.silu(xs)
 
-    proj = xs @ params[f"{name}.x_proj"].to(dt_)
+    proj = row_parallel(xs, params[f"{name}.x_proj"].to(dt_))
     dt_raw, B, C = torch.split(proj, [dtr, n, n], dim=-1)
     dt = F.softplus((dt_raw @ params[f"{name}.dt_proj"].to(dt_)).float()
                     + params[f"{name}.dt_bias"].float())
@@ -95,7 +102,7 @@ def apply_mamba(params: Params, name: str, x: torch.Tensor,
     y, new_ssm = ops.ssm_scan(xs, dt.to(dt_), A, B, C,
                               params[f"{name}.D"].float(), ssm_prev)
     y = y * F.silu(z)
-    out = y @ params[f"{name}.out_proj"].to(dt_)
+    out = row_parallel(y, params[f"{name}.out_proj"].to(dt_))
 
     if state is not None:
         state = dict(state, conv=conv_buf, ssm=new_ssm)

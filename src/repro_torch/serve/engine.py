@@ -10,8 +10,9 @@ and throughput of a serving pipeline as of the paper's telemetry pipeline.
 
 With experts (``cfg.moe``), a prefill's ``slots * max_len // 2``
 tokens must make whole dispatch groups of ``models.moe.GROUP_SIZE``
-(the constructor raises otherwise); the padding takes expert capacity,
-and the rows of a decode step share it, as in the reference.
+(the constructor raises otherwise): the whole batch's tokens, over a
+mesh too; the padding takes expert capacity, and the rows of a decode
+step share it, as in the reference.
 
 Requests are token prompts only, as the reference's: the vision model
 (qwen2-vl) serves text, its M-RoPE positions made by the model, and an
@@ -19,12 +20,22 @@ encoder-decoder (whisper) fails at its first prefill for want of frames
 (``ValueError``); ``models.model.prefill`` / ``decode_step`` take frames
 and patch embeddings.
 
-The engine runs on one device (``device=``, default ``"cuda"``; it raises
-without a card) and takes no mesh. It holds the parameters as the forward
-pass reads them (``models.model.compute_params``: matrices in the compute
-dtype, cast once). Every tensor it makes names the engine's device, so a
-pipeline's worker thread (``as_pipeline``) serves on it as the caller's
-thread does.
+The engine runs on ``device`` (default ``"cuda"``, the rank's card; it
+raises without one). With ``mesh=`` (a ``DeviceMesh`` of ``data`` and
+``model``, ``launch.mesh.make_host_mesh``) and ``parallel=`` (default
+``ParallelConfig()``) it serves over the ranks, one process per GPU, as
+the reference serves over its mesh: every rank makes the same calls with
+the same requests and gets the same tokens. A rank holds its shards of
+the parameters (``models.model.serve_placement``; whole parameters are
+cut, a rank's shards from ``init_params(placement=)`` kept) and of each
+group's cache, and feeds its rows of each group (``slots`` must split
+over the batch axes); the steps return the whole batch's logits, so the
+greedy tokens are the same on every rank, and every rank records the
+spans. One device is the case of no mesh. It holds the parameters as the
+forward pass reads them (``models.model.compute_params``: matrices in
+the compute dtype, cast once). Every tensor it makes names the engine's
+device, so a pipeline's worker thread (``as_pipeline``) serves on it as
+the caller's thread does.
 """
 from __future__ import annotations
 
@@ -37,10 +48,11 @@ import numpy as np
 import torch
 
 from repro_torch import obs
-from repro_torch.config import ModelConfig
+from repro_torch.config import ModelConfig, ParallelConfig
 from repro_torch.core.pipeline import Pipeline, PipelineStage, Resources
 from repro_torch.core.spans import SpanCollector, span
 from repro_torch.device import resolve_device
+from repro_torch.distributed import sharding as sh
 from repro_torch.models import model as M
 from repro_torch.models import moe
 from repro_torch.serve.steps import make_decode_step, make_prefill_step
@@ -68,19 +80,36 @@ class Request:
 
 
 class ServeEngine:
-    def __init__(self, cfg: ModelConfig, params, *, slots: int = 4,
+    def __init__(self, cfg: ModelConfig, params, *, mesh=None,
+                 parallel: Optional[ParallelConfig] = None, slots: int = 4,
                  max_len: int = 256,
                  collector: Optional[SpanCollector] = None, chips: int = 0,
                  device="cuda"):
         self.device = resolve_device(device)
         self.cfg = cfg
-        self.params = M.compute_params(params, cfg, self.device)
+        self.mesh = mesh
+        self.parallel = parallel
         self.slots = slots
         self.max_len = max_len
         self.collector = collector or SpanCollector()
         self.chips = chips
-        self._prefill = make_prefill_step(cfg)
-        self._decode = make_decode_step(cfg)
+        self._rows = np.arange(slots)
+        self.placement = self._cache_placement = None
+        if mesh is not None:
+            self.parallel = parallel = parallel or ParallelConfig()
+            smesh = sh.ServeMesh.of(mesh, parallel)
+            if slots % smesh.batch_size:
+                raise ValueError(
+                    f"{slots} slots do not split over the batch axes' "
+                    f"{smesh.batch_size} ranks")
+            self._rows = sh.batch_rows(slots, smesh.batch_rank,
+                                       smesh.batch_size)
+            self.placement, self._cache_placement = M.serve_placement(
+                cfg, parallel, mesh, slots, max_len)
+            params = M.place_params(params, self.placement)
+        self.params = M.compute_params(params, cfg, self.device)
+        self._prefill = make_prefill_step(cfg, parallel, mesh)
+        self._decode = make_decode_step(cfg, parallel, mesh)
         self._prefill_len = max_len // 2
         if cfg.moe is not None:
             # a prefill's and a decode step's tokens (padding included,
@@ -110,10 +139,12 @@ class ServeEngine:
             toks[i, :len(p)] = p        # left-aligned, right-padded
         with span("prefill", self.collector, records=g):
             cache = M.init_cache(self.cfg, self.slots, self.max_len,
-                                 device=self.device)
+                                 device=self.device,
+                                 placement=self._cache_placement)
             logits, cache = self._prefill(
                 self.params,
-                {"tokens": torch.from_numpy(toks).to(self.device)}, cache)
+                {"tokens": torch.from_numpy(toks[self._rows]).to(
+                    self.device)}, cache)
             self._sync()
         tok = self._greedy(logits)
         t = now()
@@ -121,7 +152,7 @@ class ServeEngine:
             r.first_token = t
             r.output.append(int(tok[i]))
         max_new = max(r.max_new for r in group)
-        cur = torch.from_numpy(tok)[:, None].to(self.device)
+        cur = torch.from_numpy(tok[self._rows])[:, None].to(self.device)
         for _ in range(1, max_new):
             with span("decode", self.collector, records=g):
                 logits, cache = self._decode(self.params, cache,
@@ -134,7 +165,7 @@ class ServeEngine:
                     r.output.append(int(nxt[i]))
                     if len(r.output) == r.max_new:
                         r.completed = t
-            cur = torch.from_numpy(nxt)[:, None].to(self.device)
+            cur = torch.from_numpy(nxt[self._rows])[:, None].to(self.device)
         t = now()
         for r in group:
             if r.completed is None:

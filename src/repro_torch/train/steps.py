@@ -51,7 +51,9 @@ device is the step with no mesh axes):
   a pod axis (one device included) it does nothing, as in the
   reference;
 * a ``model`` axis larger than one (tensor parallelism) raises
-  ``NotImplementedError`` (ROADMAP A8.2).
+  ``NotImplementedError`` (ROADMAP A8.2b: serving's tensor-parallel
+  forward is ported, its collectives' backward and this step over
+  ``model`` are not).
 """
 from __future__ import annotations
 
@@ -122,8 +124,8 @@ def make_train_step(cfg: ModelConfig, ocfg: OptimizerConfig,
     if shape.get("model", 1) > 1:
         raise NotImplementedError(
             f"a model axis of {shape['model']} (tensor parallelism) is not "
-            f"in the port yet (ROADMAP A8.2); train over data and pod "
-            f"axes, with model=1")
+            f"in the port's training yet (ROADMAP A8.2b; serving takes "
+            f"one); train over data and pod axes, with model=1")
     pshard = oshard = None
     if mesh is not None:
         pshard, oshard = state_shardings(cfg, ocfg, parallel, mesh)

@@ -311,6 +311,21 @@ def test_mesh_entry_points_default_to_the_card_and_need_ranks():
     assert launch_train.mesh_of(launch_train.parse_args([])) is None
 
 
+def test_collectives_are_called_in_sharding_alone():
+    """Every ``torch.distributed`` collective of the port, serving's row
+    sums, vocabulary gathers and expert exchange among them, is called in
+    ``distributed/sharding.py`` and nowhere else."""
+    call = re.compile(r"\bdist\.(all_\w+|reduce\w*|broadcast\w*|barrier|"
+                      r"gather\w*|scatter\w*|send|recv)\(")
+    sites = {f.relative_to(SRC / "repro_torch").as_posix()
+             for f in (SRC / "repro_torch").rglob("*.py")
+             if call.search(f.read_text())}
+    assert sites == {"distributed/sharding.py"}
+    text = (SRC / "repro_torch" / "distributed" / "sharding.py").read_text()
+    for name in ("all_to_all_single", "all_reduce", "all_gather"):
+        assert f"dist.{name}(" in text, name
+
+
 def test_serve_launcher_defaults_to_the_card_and_raises_without_one():
     from repro_torch.launch import serve as launch_serve
     _no_card()

@@ -1,0 +1,208 @@
+"""Serving over a mesh without ranks (ROADMAP A8.2a): the specs and the
+compute layout on an ``{axis: size}`` mapping.
+
+* ``serve.steps.serve_shardings`` is the reference's ``serve_shardings``
+  (its parameter, cache and batch specs, as tuples) for all ten configs
+  at ``(data=16, model=16)`` and ``(2, 2)``, for the engine's prefill
+  and decode batches;
+* the compute layout of each case where it is not the specs' contiguous
+  chunk, cut at every mesh coordinate and put back by the positions
+  ``sharding.split_index`` gives, is the whole leaf bit for bit: a
+  Mamba ``in_proj`` (each rank's channels of both halves), ``wk`` /
+  ``wv`` and the K/V cache where ``model`` exceeds the KV heads (one
+  head a rank), RWKV's channel mix (the specs' own chunks; its compute
+  gathers the gate) and whisper's vocabulary, which ``model`` does not
+  divide (whole on every rank);
+* a query-head count that ``model`` does not divide raises
+  ``NotImplementedError`` naming the rule (ROADMAP C19), and so does a
+  KV-head count that neither divides nor is divided by it;
+* training over a ``model`` axis still raises, naming A8.2b;
+* the serving mesh is the thread's own, and ``f32_product`` off the
+  card is the float32 product of the widened operands.
+"""
+import dataclasses
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.config import OptimizerConfig, ParallelConfig
+from repro_torch.configs import ARCHS, get_config, get_smoke_config
+from repro_torch.distributed import sharding as sh
+from repro_torch.models import model as M
+from repro_torch.serve.steps import serve_shardings
+from repro_torch.train.steps import make_train_step
+
+from torch_port_ref import one_torch_thread  # noqa: F401
+from torch_port_ref import model_ref as jref  # noqa: F401
+
+MESHES = ((16, 16), (2, 2))
+SLOTS, MAX_LEN = 4, 256
+
+
+def jax_mesh(shape):
+    """What the reference's rule table reads of a mesh."""
+    return SimpleNamespace(axis_names=("data", "model"),
+                           devices=np.empty(shape, dtype=object))
+
+
+@pytest.mark.parametrize("shape", MESHES, ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_serve_shardings_are_the_references(jref, arch, shape):
+    from repro.config import ParallelConfig as JParallelConfig
+    jax = jref.jax
+    cfg, jcfg = get_config(arch), jref.configs.get_config(arch)
+    jmesh = jax_mesh(shape)
+    mesh = {"data": shape[0], "model": shape[1]}
+    for batch in ({"tokens": (SLOTS, MAX_LEN // 2)}, {"token": (SLOTS, 1)}):
+        jrules = jref.sharding.build_rules(JParallelConfig(), jmesh)
+        jshape = jref.sharding.mesh_shape_dict(jmesh)
+        want_p = jref.model.partition_specs(jcfg, jrules, jshape)
+        want_c = jref.model.cache_partition_specs(jcfg, SLOTS, MAX_LEN,
+                                                  jrules, jshape)
+        want_b = jref.sharding.input_batch_specs(
+            {k: jax.ShapeDtypeStruct(v, jax.numpy.int32)
+             for k, v in batch.items()}, JParallelConfig(), jmesh)
+        got_p, got_c, got_b = serve_shardings(
+            cfg, ParallelConfig(), mesh,
+            {k: torch.empty(v, device="meta") for k, v in batch.items()},
+            SLOTS, MAX_LEN)
+        for got, want in ((got_p, want_p), (got_c, want_c),
+                          (got_b, want_b)):
+            assert sorted(got) == sorted(want)
+            for k in want:
+                assert got[k] == tuple(want[k]), (k, got[k], want[k])
+
+
+def cut_and_rejoin(whole, spec, kind, mesh):
+    """Every rank's cut of ``whole`` by the layout, put back into a new
+    tensor at the positions each came from."""
+    axes = list(mesh)
+    out = torch.full_like(whole, float("nan"))
+    for flat in range(int(np.prod([mesh[a] for a in axes]))):
+        coord = dict(zip(axes, np.unravel_index(flat, [mesh[a]
+                                                         for a in axes])))
+        cuts = sh.cut_indices(tuple(whole.shape), spec, mesh, coord, kind)
+        piece, index = whole, [slice(None)] * whole.dim()
+        for dim, _, idx in cuts:
+            piece = piece.index_select(dim, idx)
+            index[dim] = idx
+        grid = torch.meshgrid(*[
+            torch.arange(whole.shape[d]) if isinstance(index[d], slice)
+            else index[d] for d in range(whole.dim())], indexing="ij")
+        out[grid] = piece
+    return out
+
+
+#: (arch, overrides, leaf name suffix, whether it is a cache leaf)
+LAYOUT_CASES = (
+    ("jamba-1.5-large-398b", {}, "mixer.in_proj", False),
+    ("jamba-1.5-large-398b", {}, "mixer.conv", True),
+    ("llama3.2-1b", {}, "attn.wk", False),
+    ("llama3.2-1b", {}, "attn.v", True),
+    ("phi3.5-moe-42b-a6.6b", {}, "moe.w_down", False),
+    ("rwkv6-7b", {}, "cmix.wv", False),
+    ("rwkv6-7b", {}, "cmix.wr", False),
+    ("rwkv6-7b", {}, ".wkv", True),
+    ("whisper-small", {"vocab_size": 257}, "embed.table", False),
+)
+
+
+@pytest.mark.parametrize("model", (2, 4))
+@pytest.mark.parametrize("arch, kw, leaf, cache", LAYOUT_CASES,
+                         ids=[f"{a[:6]}-{n}" for a, _, n, _ in
+                              LAYOUT_CASES])
+def test_compute_layout_gathers_back_bitwise(arch, kw, leaf, cache, model):
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32", **kw)
+    mesh = {"data": 2, "model": model}
+    pl, cl = M.serve_layout(cfg, ParallelConfig(), mesh, SLOTS, MAX_LEN)
+    layout = cl if cache else pl
+    names = [n for n in layout if n.endswith(leaf)]
+    assert names, leaf
+    gen = torch.Generator().manual_seed(0)
+    for name in names:
+        spec, shape, kind = layout[name]
+        whole = torch.randn(shape, generator=gen)
+        back = cut_and_rejoin(whole, spec, kind, mesh)
+        assert torch.equal(back, whole), name
+        # the rank's cut is the compute layout's: rank (0, 1)'s channels
+        cut = sh.cut_indices(shape, spec, mesh, {"data": 0, "model": 1},
+                             kind)
+        if leaf == "mixer.in_proj":
+            di = shape[-1] // 2
+            (_, _, idx), = [c for c in cut if c[1] == "model"]
+            part = di // model
+            assert idx.tolist() == list(range(part, 2 * part)) + list(
+                range(di + part, di + 2 * part))
+        if leaf in ("attn.wk", "attn.v") and model == 4:
+            # 2 KV heads over 4: rank 1's query heads read head 0
+            (dim, _, idx), = [c for c in cut if c[1] == "model"]
+            width = shape[dim] // cfg.attention.num_kv_heads
+            assert idx.tolist() == list(range(width))
+        if leaf == "embed.table":
+            assert not [c for c in cut if c[1] == "model"]
+
+
+def test_query_heads_the_model_axis_does_not_divide_raise():
+    cfg = get_config("qwen2-vl-7b")         # 28 query heads
+    M.check_serve_model_axis(cfg, 4)
+    with pytest.raises(NotImplementedError, match="query heads.*C19"):
+        M.check_serve_model_axis(cfg, 8)
+    with pytest.raises(NotImplementedError, match="query heads.*C19"):
+        M.serve_layout(cfg, ParallelConfig(), {"data": 1, "model": 8},
+                       SLOTS, MAX_LEN)
+    odd = dataclasses.replace(get_smoke_config("llama3.2-1b"),
+                              attention=dataclasses.replace(
+                                  get_smoke_config("llama3.2-1b").attention,
+                                  num_heads=12, num_kv_heads=3))
+    with pytest.raises(NotImplementedError, match="3 KV heads.*C19"):
+        M.check_serve_model_axis(odd, 4)
+
+
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_every_config_serves_at_model_2_and_4(arch):
+    for size in (2, 4):
+        M.check_serve_model_axis(get_config(arch), size)
+
+
+def test_training_over_model_still_raises_naming_a8_2b():
+    with pytest.raises(NotImplementedError, match="A8.2b"):
+        make_train_step(get_smoke_config("llama3.2-1b"), OptimizerConfig(),
+                        ParallelConfig(), "cpu",
+                        mesh={"data": 1, "model": 2})
+
+
+def test_the_serving_mesh_is_this_threads_only():
+    """A step serving over a mesh on one thread leaves the steps of
+    another thread on one device (``ServeEngine.as_pipeline`` serves on a
+    worker thread)."""
+    import threading
+    mesh = sh.ServeMesh(None, 2, 1, None, 1, 0, None, 1, 0)
+    inside, looked = threading.Event(), threading.Event()
+    seen = {}
+
+    def other():
+        inside.wait(10)
+        seen["other"] = sh.serve_mesh()
+        looked.set()
+    worker = threading.Thread(target=other)
+    worker.start()
+    with sh.serving(mesh):
+        inside.set()
+        looked.wait(10)
+        seen["here"] = sh.serve_mesh()
+    worker.join()
+    assert seen == {"other": None, "here": mesh}
+    assert sh.serve_mesh() is None
+
+
+def test_f32_product_off_the_card_is_the_widened_product():
+    from repro_torch.models.layers import f32_product
+    gen = torch.Generator().manual_seed(0)
+    w = torch.randn(8, 5, generator=gen).bfloat16()
+    for x in (torch.randn(2, 3, 8, generator=gen).bfloat16(),
+              torch.randn(3, 8, generator=gen)):
+        y = f32_product(x, w)
+        assert y.dtype == torch.float32
+        assert torch.equal(y, x.float() @ w.float())

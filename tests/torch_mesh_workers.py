@@ -450,3 +450,187 @@ def loop_runs(root, mesh):
                      "fired": [] if inj is None else list(inj.fired),
                      "dir": tcfg.checkpoint_dir}
     return got
+
+
+# ---------------------------------------------------------------------------
+# serving over a mesh
+# ---------------------------------------------------------------------------
+
+#: (case, arch, overrides) of the serving cases: every block kind, in
+#: float32; whisper's vocabulary made odd so that ``model`` does not
+#: divide it (it stays whole, as whisper-small's 51,865 does)
+SERVE_CASES = (("llama", "llama3.2-1b", {}),
+               ("minicpm3", "minicpm3-4b", {}),
+               ("jamba_moe", "jamba-1.5-large-398b", {}),
+               ("jamba", "jamba-1.5-large-398b", {"moe": None}),
+               ("rwkv6", "rwkv6-7b", {}),
+               ("whisper", "whisper-small", {"vocab_size": 257}),
+               ("moonshot", "moonshot-v1-16b-a3b", {}),
+               ("phi35_moe", "phi3.5-moe-42b-a6.6b", {}))
+#: the meshes (data, model) of each world
+SERVE_MESHES = {2: ((1, 2), (2, 1)), 4: ((2, 2), (1, 4))}
+#: the steps run: 4 rows, prompts of 128 (with experts 512 tokens, two
+#: dispatch groups of 256: a rank's rows make whole groups at data=2),
+#: 3 decode steps (4 tokens, one group that straddles the ranks)
+SERVE_B, SERVE_MAX_LEN, SERVE_DECODE = 4, 256, 3
+#: the engine: 4 slots of max_len 128 (a prefill of 4 x 64 tokens is one
+#: group of 256, which straddles the ranks at data=2), 6 requests
+ENGINE_MAX_LEN, ENGINE_NEW = 128, 4
+
+
+def serve_cfg(case):
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    _, arch, kw = next(c for c in SERVE_CASES if c[0] == case)
+    return dataclasses.replace(get_smoke_config(arch), dtype="float32", **kw)
+
+
+def serve_inputs(cfg, b=SERVE_B, max_len=SERVE_MAX_LEN, seed=3):
+    """The steps' prefill batch: {"tokens"} (+ whisper's "frames")."""
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": rng.integers(1, cfg.vocab_size,
+                                    (b, max_len // 2)).astype(np.int32)}
+    if cfg.encdec:
+        batch["frames"] = rng.standard_normal(
+            (b, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    return batch
+
+
+def engine_prompts(cfg, n=6, seed=4):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(1, cfg.vocab_size, int(k)).tolist()
+            for k in rng.integers(3, 90, n)]
+
+
+def serve_steps(cfg, params, batch_np, mesh=None, parallel=None):
+    """Prefill and SERVE_DECODE greedy decode steps on ``batch_np``:
+    (logits of each step, greedy tokens [b, steps + 1], the cache, its
+    placement). ``params`` are whole; over a mesh the rank's rows and
+    shards."""
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models import model as M
+    from repro_torch.serve.steps import make_decode_step, make_prefill_step
+    b = batch_np["tokens"].shape[0]
+    rows = np.arange(b)
+    pplace = cplace = None
+    if mesh is not None:
+        smesh = sh.ServeMesh.of(mesh, parallel)
+        rows = sh.batch_rows(b, smesh.batch_rank, smesh.batch_size)
+        pplace, cplace = M.serve_placement(cfg, parallel, mesh, b,
+                                           SERVE_MAX_LEN)
+        params = M.place_params(params, pplace)
+    params = M.compute_params(params, cfg, "cpu")
+    prefill = make_prefill_step(cfg, parallel, mesh)
+    decode = make_decode_step(cfg, parallel, mesh)
+    cache = M.init_cache(cfg, b, SERVE_MAX_LEN, device="cpu",
+                         placement=cplace)
+    logits, cache = prefill(params, {k: torch.from_numpy(v[rows])
+                                     for k, v in batch_np.items()}, cache)
+    out, toks = [logits.numpy().copy()], [logits[:, -1].argmax(-1).numpy()]
+    for _ in range(SERVE_DECODE):
+        tok = torch.from_numpy(toks[-1][rows].astype(np.int32))[:, None]
+        logits, cache = decode(params, cache, {"token": tok})
+        out.append(logits.numpy().copy())
+        toks.append(logits[:, -1].argmax(-1).numpy())
+    return out, np.stack(toks, 1), cache, (params, pplace, cplace)
+
+
+def serve_engine(cfg, params, mesh=None, parallel=None):
+    """ServeEngine.serve of 6 requests over 4 slots: (outputs, span
+    counts, the engine)."""
+    from repro_torch.serve.engine import Request, ServeEngine
+    eng = ServeEngine(cfg, params, mesh=mesh, parallel=parallel, slots=4,
+                      max_len=ENGINE_MAX_LEN, device="cpu")
+    reqs = [Request(rid=i, prompt=p, max_new=ENGINE_NEW)
+            for i, p in enumerate(engine_prompts(cfg))]
+    done = eng.serve(reqs)
+    spans = {k: len(eng.collector.spans(k)) for k in ("prefill", "decode")}
+    return [r.output for r in sorted(done, key=lambda r: r.rid)], spans, eng
+
+
+def serve_worker(rank, world, params_np):
+    """Every serving case over each mesh of this world: the steps'
+    logits and tokens, the gathered cache, the rank's bytes, the
+    gathered parameters against the whole ones, and the engine's
+    outputs."""
+    import warnings
+    from repro_torch.checkpoint.ckpt import gather_tree
+    from repro_torch.config import ParallelConfig
+    from repro_torch.convert import model_params_from_arrays
+    from repro_torch.models import model as M
+    par = ParallelConfig()
+    out = {}
+    for shape in SERVE_MESHES[world]:
+        mesh = cpu_mesh(shape, ("data", "model"))
+        for case, _, _ in SERVE_CASES:
+            cfg = serve_cfg(case)
+            params = model_params_from_arrays(params_np[case], cfg,
+                                              device="cpu")
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                logits, toks, cache, (local, pplace, cplace) = serve_steps(
+                    cfg, params, serve_inputs(cfg), mesh, par)
+            rec = {"logits": logits, "tokens": toks,
+                   "cache": {k: cplace[k].gather(v).numpy()
+                             for k, v in cache.items()},
+                   "param_shapes": {k: tuple(v.shape)
+                                    for k, v in local.items()},
+                   "cache_shapes": {k: tuple(v.shape)
+                                    for k, v in cache.items()},
+                   "warnings": [str(w.message) for w in caught
+                                if issubclass(w.category, RuntimeWarning)]}
+            whole = M.compute_params(params, cfg, "cpu")
+            back = gather_tree(local, pplace)
+            rec["params_bitwise"] = sorted(back) == sorted(whole) and all(
+                torch.equal(back[k], whole[k]) for k in whole)
+            if not cfg.encdec:
+                rec["engine"], rec["spans"], eng = serve_engine(
+                    cfg, params, mesh, par)
+                eng_back = gather_tree(eng.params, eng.placement)
+                rec["engine_params_bitwise"] = all(
+                    torch.equal(eng_back[k], whole[k]) for k in whole)
+            out[(shape, case)] = rec
+    try:
+        from repro_torch.serve.engine import ServeEngine
+        cfg = serve_cfg("llama")
+        ServeEngine(cfg, model_params_from_arrays(params_np["llama"], cfg,
+                                                  device="cpu"),
+                    mesh=cpu_mesh((world, 1), ("data", "model")),
+                    slots=world + 1, max_len=64, device="cpu")
+        out["slots"] = None
+    except ValueError as e:
+        out["slots"] = str(e)
+    return out
+
+
+def serve_plan_shapes(cfg, mesh_shape, batch=SERVE_B,
+                      max_len=SERVE_MAX_LEN):
+    """({name: shape} of a rank's parameters, of its cache) by the plan:
+    each dim the reference's spec splits over a mesh axis other than the
+    FSDP axis (``embed``) divided by that axis, except that where
+    ``model`` exceeds the KV heads ``wk`` / ``wv`` and the K/V caches keep
+    one head."""
+    from repro_torch.config import ParallelConfig
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import specs_from_schema
+    rules = dict(sh.build_rules(ParallelConfig(), mesh_shape), embed=None)
+    m = mesh_shape.get("model", 1)
+    kv = cfg.attention.num_kv_heads
+    out = []
+    for schema, kv_names, kv_dim in (
+            (M.full_schema(cfg), (".attn.wk", ".attn.wv", ".cross.wk",
+                                  ".cross.wv"), -1),
+            (M.cache_schema(cfg, batch, max_len), (".attn.k", ".attn.v",
+                                                   ".cross.k", ".cross.v"),
+             -2)):
+        specs = specs_from_schema(schema, rules, mesh_shape)
+        shapes = {}
+        for name, d in schema.items():
+            shape = [n // sh.axis_size(mesh_shape, e)
+                     for n, e in zip(d.shape, specs[name])]
+            if m > 1 and name.endswith(kv_names):
+                shape[kv_dim] = d.shape[kv_dim] * max(kv // m, 1) // kv
+            shapes[name] = tuple(shape)
+        out.append(shapes)
+    return tuple(out)
