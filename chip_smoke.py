@@ -184,8 +184,15 @@ with phase 11's registered policies translated into them), then:
    with int8 gradient compression bitwise its host emulation (13c);
    llama3.2-1b cut to 4 of 16 layers over ``data=2`` (int8 moments,
    remat full), each step's loss against one rank's, step ms and peak
-   memory per rank (13d); a
-   ``{"mesh": ...}`` line. ``python3 chip_smoke.py --phase 13`` runs the
+   memory per rank (13d); training over ``model`` (ROADMAP A8.2b): the
+   five smoke kinds (GQA, MLA, Mamba, RWKV-6, experts) in float32 over
+   (data, model) = (1, 2) with remat full, losses and first gradients
+   against one rank's, remat's recomputation on autograd's CUDA thread
+   (13e-smoke), then llama3.2-1b at full width cut to 2 layers over
+   (1, 2) as ``launch/train.py --model 2`` builds it, both ranks on the
+   whole batch, losses against one rank's, step ms, peak memory,
+   parameter and moment GiB a rank and the collectives a step stages
+   (13e); a ``{"mesh": ...}`` line. ``python3 chip_smoke.py --phase 13`` runs the
    build, 4b and 4d, and phases 13 and 14;
 14. serving over a (data, model) mesh (ROADMAP A8.2a), in phase 13's two
    ranks: the six smoke kinds (GQA, MLA, Mamba with experts, RWKV-6,
@@ -1623,6 +1630,11 @@ CAL_GRAD_RTOL = 1e-5
 CAL_ZGRAD_RTOL = 1e-5
 #: the reference test's recovery tolerance (tests/test_calibrate.py)
 CAL_RECOVERY_RTOL = 0.05
+#: 7b's and 7c's fit steps a restart, cut from the fits' 400 for the
+#: script's time limit: 7b's recovery reads 2.45e-4 at 200 (the CPU; at
+#: 400 the H100 read 7.52e-5), 7c holds the card's rows bitwise the
+#: CPU's rows of the same twins at any step count
+CAL_FIT_STEPS = 200
 
 
 def cal_twins(twin_mod):
@@ -1805,15 +1817,15 @@ def fit_profile(trace, policy, restarts, steps):
 def calibration_recovery(dev, twin_mod):
     """Phase 7b: the first part of examples/calibrate_twin.py on the card
     — shed's parameters recovered from a noiseless 6 h ramp replay (72
-    bins of 300 s), 8 restarts x 400 steps; then 5 more steps under the
-    profiler."""
+    bins of 300 s), 8 restarts x CAL_FIT_STEPS steps; then 5 more steps
+    under the profiler."""
     from repro_torch import calibrate as cal
     from repro_torch.core import loadpattern as lp
     truth = twin_mod.make_twin("t", "shed", max_rps=2.0, usd_per_hour=0.05,
                                base_latency_s=0.2, queue_cap_hours=1.5)
     trace = cal.ObservedTrace.from_loadpattern(ramp_6h(lp), truth,
                                                bin_s=300.0)
-    steps = 400
+    steps = CAL_FIT_STEPS
     t0 = time.perf_counter()
     res = cal.fit(trace, "shed", restarts=8, steps=steps, seed=0)
     wall = time.perf_counter() - t0
@@ -1848,7 +1860,8 @@ def calibration_recovery(dev, twin_mod):
 def calibrated_table(whatif, tr, slo_mod, res_6b, twin_6b):
     """Phase 7c: 6b's measured experiment over the full-size rwkv6-7b
     engine -> fifo and shed twins fitted at 1 s bins (the fit's defaults,
-    16 restarts x 400 steps, 6b's closed-form twins as warm starts) ->
+    16 restarts x CAL_FIT_STEPS steps, 6b's closed-form twins as warm
+    starts) ->
     Table II rows of 6b's traffic, out of the aggregate kernel on the
     card, bitwise the CPU's rows of the same twins."""
     from repro_torch import obs
@@ -1860,7 +1873,8 @@ def calibrated_table(whatif, tr, slo_mod, res_6b, twin_6b):
     with obs.capture() as rec:
         t0 = time.perf_counter()
         rows = whatif.calibrated_grid(res_6b, ["fifo", "shed"], [traffic],
-                                      slo=slo, bin_s=1.0, seed=SEED)
+                                      slo=slo, bin_s=1.0, seed=SEED,
+                                      steps=CAL_FIT_STEPS)
         wall = time.perf_counter() - t0
     check(pk.launches["policy_agg"] > agg0, "7c: no aggregate launch")
     cpu = whatif.run_grid([r.twin for r in rows], [traffic], slo=slo,
@@ -1872,7 +1886,8 @@ def calibrated_table(whatif, tr, slo_mod, res_6b, twin_6b):
     t_bins = int(fits[0].attrs["t_bins"])
     print(f"phase 7c: {res_6b.name} ({res_6b.records_sent} records in "
           f"{res_6b.duration_s:.2f} s) binned at 1 s ({t_bins} bins), fifo "
-          f"and shed fitted on the card (16 restarts x 400 steps: fifo "
+          f"and shed fitted on the card (16 restarts x {CAL_FIT_STEPS} "
+          f"steps: fifo "
           f"{fit_s['fifo']:.2f} s, shed {fit_s['shed']:.2f} s), Table II "
           f"at R = 0.4 x capacity, G 1.3, SLO 30 s / 99% through the "
           f"aggregate kernel, bitwise the CPU rows ({wall:.2f} s in all)")
@@ -2168,9 +2183,17 @@ def frontier_on_card(space, surge):
             "ref_gaps": gaps, "configs": [p.config for p in fr.points]}
 
 
+#: 8c's gradient steps, cut from the example's 60 for the script's time
+#: limit: the port's CPU run at 30 steps finds the 60-step winner,
+#: {max_instances 9.399, scale_up_hours 34.233}, $84.5238, 1.27e-8 from
+#: the reference's 60-step answer (WHATIF7_C12_USD), as at 60
+WHATIF7_STEPS = 30
+
+
 def whatif7_kwargs(faults):
     """What-if #7's resilient search (examples/whatif_analysis.py:269-292):
-    outage, disconnect and brownout, 4 futures, seed 0, quantile 0.95."""
+    outage, disconnect and brownout, 4 futures, seed 0, quantile 0.95;
+    WHATIF7_STEPS steps."""
     chaos = faults.FaultSchedule(
         specs=(faults.outage(rate_per_year=6, duration_hours=(1, 4)),
                faults.disconnect(rate_per_year=12,
@@ -2179,7 +2202,7 @@ def whatif7_kwargs(faults):
                faults.brownout(rate_per_year=8, capacity_mult=(0.3, 0.7))),
         n_futures=4, seed=0)
     return dict(search=SEARCH_FREE, faults=chaos, quantile=0.95, restarts=4,
-                steps=60, coarsen=SEARCH_CUT_COARSEN, seed=SEED)
+                steps=WHATIF7_STEPS, coarsen=SEARCH_CUT_COARSEN, seed=SEED)
 
 
 def whatif6_kwargs():
@@ -2231,7 +2254,8 @@ def resilient_on_card(whatif, faults, surge, slo, base):
     check(res.feasible and res.achieved_quantile >= 0.95,
           ("8c", res.feasible, res.achieved_quantile))
     print(f"phase 8c: What-if #7 resilient search, 4 restarts x 4 futures "
-          f"({span.attrs['t_bins']} bins): {wall:.1f} s; {res.config()} "
+          f"x {WHATIF7_STEPS} steps ({span.attrs['t_bins']} bins): "
+          f"{wall:.1f} s; {res.config()} "
           f"${res.cost_usd:.4f}/yr, achieved quantile "
           f"{res.achieved_quantile:.2f}; {fault_launches} fault aggregate "
           f"launches")
@@ -2774,6 +2798,45 @@ def train_attention_bound(cfg, b, s, remat):
     t_ops, t_bytes = flops / BF16_OPS_PER_S, nbytes / HBM_BYTES_PER_S
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes", flops)
+
+
+def train_attention_times(dev, cfg, b, s, remat):
+    """One layer's training attention at a step's shape (bf16 q, k, v,
+    causal): the training route (``ref.sdpa`` under autograd, the plain
+    version) and ``scaled_dot_product_attention`` (the library), each
+    forward alone and forward + backward by CUDA events; and the step's
+    equivalent, each layer's forward + backward plus remat "full"'s
+    second forward. Returns {"plain": ..., "library": ...} of {"fwd_ms",
+    "fwd_bwd_ms", "step_ms"}."""
+    from repro_torch.kernels import ref
+    a = cfg.attention
+    layers = cfg.num_layers * cfg.block_pattern.count("attn") // len(
+        cfg.block_pattern)
+    h, kh, d = a.num_heads, a.num_kv_heads, a.head_dim
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    q, k, v = (torch.randn(b, s, n, d, generator=g, device=dev).bfloat16()
+               .requires_grad_() for n in (h, kh, kh))
+    dout = torch.randn(b, s, h, d, generator=g, device=dev).bfloat16()
+
+    def plain():
+        return ref.sdpa(q, k, v, causal=True)
+
+    def library():
+        return torch.nn.functional.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=True).transpose(1, 2)
+    out = {}
+    for name, fn in (("plain", plain), ("library", library)):
+        def both():
+            return torch.autograd.grad(fn(), (q, k, v), dout)
+        with torch.enable_grad():
+            both()                                       # warm-up
+            fwd, _ = cuda_ms(fn, reps=3)
+            fwd_bwd, _ = cuda_ms(both, reps=3)
+        out[name] = {"fwd_ms": fwd, "fwd_bwd_ms": fwd_bwd,
+                     "step_ms": layers * (fwd_bwd
+                                          + (fwd if remat == "full" else 0))}
+    return out
 
 
 def flash_vs_plain(dev, phase="5d"):
@@ -3673,9 +3736,11 @@ def train_llama_1b(dev, root):
     mfu = 6.0 * n_params * tokens / (step_ms / 1e3) / H100_BF16_FLOPS
     att_ms, att_by, att_ops = train_attention_bound(
         cfg, tcfg.global_batch, tcfg.seq_len, par.remat)
+    att_times = train_attention_times(dev, cfg, tcfg.global_batch,
+                                      tcfg.seq_len, par.remat)
     out = {"model": cfg.name, "layers": cfg.num_layers, "params": n_params,
            "attention_bound_ms": att_ms, "attention_bound_by": att_by,
-           "attention_ops": att_ops,
+           "attention_ops": att_ops, "attention_times": att_times,
            "tokens_per_step": tokens, "remat": par.remat,
            "state_dtype": ocfg.state_dtype, "step_ms": step_ms,
            "step_ms_all": [1e3 * s for s in steps],
@@ -3701,7 +3766,12 @@ def train_llama_1b(dev, root):
           + f", {prof['host_ops']} PyTorch operations; device time by "
           f"kind {prof['kinds']}; the step's attention (ref.sdpa's whole "
           f"[s, s], remat {par.remat}) {att_ops / 1e12:.2f} TFLOP, bound "
-          f"{att_ms:.3f} ms ({att_by})")
+          f"{att_ms:.3f} ms ({att_by}); a layer's attention forward / "
+          f"forward + backward at {tcfg.global_batch} x {tcfg.seq_len}: "
+          + ", ".join(f"{n} {t['fwd_ms']:.3f} / {t['fwd_bwd_ms']:.3f} ms "
+                      f"({t['step_ms']:.1f} ms a step)"
+                      for n, t in (("ref.sdpa", att_times["plain"]),
+                                   ("SDPA", att_times["library"]))))
     return out
 
 
@@ -3769,8 +3839,40 @@ MESH_1B_STEPS = 2
 MESH_1B_LOSS_RTOL = (1e-6, 1e-3)
 #: 13d's depth: 4 of llama3.2-1b's 16 layers, for the script's time
 #: limit (at all 16 the first loss equalled 12c's bitwise; at 8, 7.99e-8
-#: and 8.46e-5 of one rank's)
+#: and 8.46e-5 of one rank's). 2 layers ran 18.1 s against 4's 19.4 s:
+#: staging the embedding's gather and reduce through the host dominates
 MESH_1B_LAYERS = 4
+#: 13e-smoke: the five smoke kinds the training step splits over
+#: ``model`` (GQA with RoPE, MLA, Mamba without experts, RWKV-6,
+#: experts), in float32 with TF32 off, over (data, model) = (1, 2),
+#: remat "full", MESH_TP_STEPS steps against one rank's on the whole
+#: batch, within 13c's bounds (MESH_LOSS_RTOL on each loss,
+#: MESH_GRAD_RTOL on each first gradient)
+MESH_TP_SMOKE = ((LLAMA, {}), ("minicpm3-4b", {}), (JAMBA, {"moe": None}),
+                 (RWKV, {}), (PHI, {}))
+MESH_TP_STEPS = 2
+#: 13e-smoke's bound on RWKV-6's first gradients: the H100 read 2.05e-5
+#: of one rank's (the CPU 5.4e-6), past 13c's 1e-5, where the other four
+#: kinds read 5.7e-7 to 4.4e-6. The WKV recurrence grows summation-order
+#: rounding (tools/serve_mesh_drift.py --parts: one rank drifts from a
+#: float64 forward as far as the mesh does); the CPU tests hold RWKV-6
+#: to the reference at 1e-4 (tests/test_torch_train_tp.py's
+#: REF_GRAD_RTOL); a wrong shard reads O(0.1)
+MESH_TP_GRAD_RTOL = {RWKV: 1e-4}
+#: 13e: llama3.2-1b at full width over model=2 as ``launch/train.py
+#: --model 2`` builds it (int8 moments, remat full), cut to
+#: MESH_TP_1B_LAYERS layers, MESH_TP_STEPS steps of 4 x 1,024 tokens,
+#: both ranks on the whole batch. Each loss against one rank's steps,
+#: bounds set before the first run (PERF.md section 6): the
+#: first differs from one rank only by where bf16 rounds (a row-parallel
+#: sum rounds once after the ranks' float32 partials; the
+#: vocabulary-parallel logsumexp sums exponentials in another order),
+#: the second also by an int8 AdamW step, which moves a parameter by
+#: about lr and flips where its gradient is near zero (13d over data=2:
+#: 7.6e-8, then 3.5e-4)
+MESH_TP_1B_LAYERS = 2
+MESH_TP_1B_BATCH = 4
+MESH_TP_1B_LOSS_RTOL = (1e-3, 5e-3)
 
 
 def rows_array(rows):
@@ -4116,6 +4218,197 @@ def mesh_train_1b(rank, dev):
     return out
 
 
+class CollectiveCount:
+    """Within the block, the calls and bytes of each
+    ``torch.distributed`` collective this process makes (the port calls
+    them only in ``distributed/sharding.py``, through the module, so
+    wrapping the module's functions sees every one, on every thread):
+    {name: [calls, bytes]}, the bytes those of the tensor the rank puts
+    in (gloo stages each through the host)."""
+    NAMES = ("all_reduce", "all_gather", "reduce_scatter_tensor",
+             "all_to_all_single")
+
+    def __enter__(self):
+        import torch.distributed as dist
+        self.counts, self._orig = {}, {}
+
+        def counted(name, fn):
+            def call(*args, **kwargs):
+                # all_reduce(tensor); all_gather(parts, src);
+                # reduce_scatter_tensor(out, src); all_to_all_single(out,
+                # src)
+                t = args[0] if name == "all_reduce" else args[1]
+                c = self.counts.setdefault(name, [0, 0])
+                c[0] += 1
+                c[1] += t.numel() * t.element_size()
+                return fn(*args, **kwargs)
+            return call
+        for name in self.NAMES:
+            self._orig[name] = getattr(dist, name)
+            setattr(dist, name, counted(name, self._orig[name]))
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+        for name, fn in self._orig.items():
+            setattr(dist, name, fn)
+        return False
+
+
+def smoke_train_batch(vocab, s, dev):
+    """4 seeded rows of ``s`` tokens, row 0's second half masked (the
+    CPU tests' batch: the ranks' mask counts could differ)."""
+    rng = np.random.default_rng(SEED)
+    mask = np.ones((4, s), np.float32)
+    mask[0, s // 2:] = 0.0
+    return {"tokens": torch.from_numpy(rng.integers(
+        0, vocab, (4, s)).astype(np.int32)).to(dev),
+        "loss_mask": torch.from_numpy(mask).to(dev)}
+
+
+def mesh_tp_smoke(rank, dev):
+    """13e-smoke: each of MESH_TP_SMOKE in float32 over (data, model) =
+    (1, 2), remat "full", both ranks on the whole batch: the losses of
+    MESH_TP_STEPS steps and the first gradients against one rank's
+    (rank 0, on the card). The recomputation of remat runs in backward,
+    on autograd's CUDA device thread, inside the forward's mesh context.
+    Returns {arch: (loss error, gradient error)} on rank 0."""
+    from repro_torch.checkpoint.ckpt import reshard_tree
+    from repro_torch.config import OptimizerConfig, ParallelConfig
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import init_opt_state
+    from repro_torch.train.steps import make_train_step
+    ocfg = OptimizerConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    par = ParallelConfig(batch_axes=("data",), remat="full")
+    mesh = make_host_mesh(1, 2)
+    out = {}
+    for arch, kw in MESH_TP_SMOKE:
+        cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32",
+                                  **kw)
+        params = M.init_params(cfg, seed=SEED, device=dev)
+        batch = smoke_train_batch(cfg.vocab_size,
+                                  128 if cfg.moe is not None else 32, dev)
+        step = make_train_step(cfg, ocfg, par, dev, mesh=mesh)
+        state = reshard_tree((params, init_opt_state(params, ocfg)),
+                             step.shardings)
+        grads, _ = step.grads(state[0], batch)
+        grads = {k: step.shardings[0][k].gather(g) for k, g in grads.items()}
+        losses = []
+        for _ in range(MESH_TP_STEPS):
+            p, o, m = step(state[0], state[1], batch)
+            state = (p, o)
+            losses.append(float(m["loss"]))
+        if rank == 0:
+            one = make_train_step(cfg, ocfg, par, dev)
+            one_grads, _ = one.grads(params, batch)
+            state, one_losses = (params, init_opt_state(params, ocfg)), []
+            for _ in range(MESH_TP_STEPS):
+                p, o, m = one(state[0], state[1], batch)
+                state = (p, o)
+                one_losses.append(float(m["loss"]))
+            out[arch] = (max(abs(a - b) / abs(b)
+                             for a, b in zip(losses, one_losses)),
+                         max(float((grads[k] - g).abs().max())
+                             / max(float(g.abs().max()), 1e-30)
+                             for k, g in one_grads.items()))
+        del params, state, grads
+    if rank == 0:
+        print("phase 13e-smoke (rank 0): "
+              + ", ".join(f"{a} loss {e[0]:.3g} gradients {e[1]:.3g}"
+                          for a, e in out.items()), flush=True)
+        check(all(e[0] <= MESH_LOSS_RTOL and e[1] <= MESH_TP_GRAD_RTOL.get(
+            a, MESH_GRAD_RTOL) for a, e in out.items()), ("13e-smoke", out))
+    return out
+
+
+def state_gib(tree):
+    from repro_torch.checkpoint.ckpt import _items
+    return sum(v.numel() * v.element_size() for _, v in _items(tree)) / 2 ** 30
+
+
+def mesh_train_tp_1b(rank, dev):
+    """13e: llama3.2-1b at full width over (data, model) = (1, 2) as
+    ``launch/train.py --model 2`` builds it (int8 moments, remat full),
+    cut to MESH_TP_1B_LAYERS layers, MESH_TP_STEPS steps of 4 x 1,024
+    tokens, both ranks on the whole batch: each loss against one rank's
+    steps (rank 0, before the mesh runs), step ms, peak memory, the
+    parameter and moment GiB a rank holds, and the collectives a step
+    stages (calls and bytes, ``CollectiveCount``)."""
+    from repro_torch.checkpoint.ckpt import reshard_tree
+    from repro_torch.data.loader import TokenBatchLoader
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import model as M
+    from repro_torch.models.model import param_count
+    from repro_torch.optim.adamw import init_opt_state
+    from repro_torch.train.steps import make_train_step
+    args = launch_train.parse_args([
+        "--arch", LLAMA, "--steps", str(MESH_TP_STEPS), "--seq-len", "1024",
+        "--batch", str(MESH_TP_1B_BATCH), "--remat", "full", "--data", "1",
+        "--model", str(MESH_RANKS)])
+    cfg, tcfg, ocfg, par = launch_train.configs(args)
+    ocfg = dataclasses.replace(ocfg, state_dtype="int8")
+    cfg = dataclasses.replace(cfg, num_layers=MESH_TP_1B_LAYERS)
+
+    def fresh():
+        params = M.init_params(cfg, seed=tcfg.seed, device=dev)
+        return params, init_opt_state(params, ocfg)
+
+    loader = TokenBatchLoader(cfg.vocab_size, tcfg.seq_len,
+                              tcfg.global_batch, seed=tcfg.seed)
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in
+                loader.next().items()} for _ in range(MESH_TP_STEPS)]
+    loader.close()
+    one_losses = None
+    if rank == 0:
+        one, state, one_losses = make_train_step(cfg, ocfg, par, dev), \
+            fresh(), []
+        for batch in batches:
+            p, o, m = one(state[0], state[1], batch)
+            one_losses.append(float(m["loss"]))
+            state = (p, o)
+        del one, state, p, o
+    torch.cuda.empty_cache()
+    sh.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    step = make_train_step(cfg, ocfg, par, dev,
+                           mesh=launch_train.mesh_of(args))
+    state = reshard_tree(fresh(), step.shardings)
+    param_gib, moment_gib = state_gib(state[0]), state_gib(state[1])
+    losses, ms, staged = [], [], []
+    for batch in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with CollectiveCount() as cc:
+            p, o, m = step(state[0], state[1], batch)
+            losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        staged.append(cc.counts)
+        state = (p, o)
+    check(all(np.isfinite(losses)), ("13e", losses))
+    check(staged[0] == staged[-1], ("13e collectives a step", staged))
+    out = {"layers": cfg.num_layers, "params": param_count(cfg),
+           "mesh": [1, MESH_RANKS], "losses": losses, "step_ms": ms,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "param_gib": param_gib, "moment_gib": moment_gib,
+           "collectives": staged[0],
+           "staged_gb": sum(b for _, b in staged[0].values()) / 1e9}
+    if rank == 0:
+        out["one_rank_losses"] = one_losses
+        out["loss_rel"] = [abs(a - b) / abs(b)
+                           for a, b in zip(losses, one_losses)]
+        print(f"phase 13e (rank 0): losses {losses} against one rank's "
+              f"{one_losses}", flush=True)
+        check(all(r <= bound for r, bound in
+                  zip(out["loss_rel"], MESH_TP_1B_LOSS_RTOL)),
+              ("13e losses", losses, one_losses))
+    del state, p, o
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Phase 14: serving over a (data, model) mesh, in phase 13's two gloo ranks
 # ---------------------------------------------------------------------------
@@ -4444,7 +4737,7 @@ def serve_mesh_rank(rank, dev):
 
 def mesh_rank(rank, init_file, root, parts):
     """One of phase 13's ranks: joins the gloo group on the one card and
-    runs 13a-13d (with "13" in ``parts``) and phase 14 (with "14"),
+    runs 13a-13e (with "13" in ``parts``) and phase 14 (with "14"),
     writing its record to ``root``."""
     import torch.distributed as dist
     from repro_torch.kernels import policy_scan as pk
@@ -4475,13 +4768,16 @@ def mesh_rank(rank, init_file, root, parts):
                 mod.reset_launches()
             for part, run in (("13c", lambda: mesh_train_100m(rank, dev,
                                                               root)),
-                              ("13d", lambda: mesh_train_1b(rank, dev))):
+                              ("13d", lambda: mesh_train_1b(rank, dev)),
+                              ("13e-smoke", lambda: {
+                                  "errors": mesh_tp_smoke(rank, dev)}),
+                              ("13e", lambda: mesh_train_tp_1b(rank, dev))):
                 t0 = time.perf_counter()
                 rec[part] = run()
                 rec[part]["s"] = time.perf_counter() - t0
                 torch.cuda.empty_cache()
             train_launches = sum(sum(mod.launches.values()) for mod in mods)
-            check(train_launches == 0, ("13c-13d launched kernels",
+            check(train_launches == 0, ("13c-13e launched kernels",
                                         train_launches))
         if "14" in parts:
             rec["14"], rec["launches_14"] = serve_mesh_rank(rank, dev)
@@ -4496,9 +4792,9 @@ def mesh_report_13(recs):
     """Phase 13's lines from the ranks' records; returns the policy
     kernels' launches of 13a-13b summed over the ranks and its record."""
     rec = recs[0]
-    check(recs[1]["13c"]["losses"] == rec["13c"]["losses"]
-          and recs[1]["13d"]["losses"] == rec["13d"]["losses"],
-          "13c-13d: the ranks' losses differ")
+    check(all(recs[1][p]["losses"] == rec[p]["losses"]
+              for p in ("13c", "13d", "13e")),
+          "13c-13e: the ranks' losses differ")
     launches = {}
     for r in recs:
         for k, v in r["launches"].items():
@@ -4543,10 +4839,36 @@ def mesh_report_13(recs):
           f"{[round(x, 1) for x in d['step_ms']]}, "
           f"peak {d['peak_gib']:.2f} / {recs[1]['13d']['peak_gib']:.2f} GiB "
           f"per rank")
+    es, e = rec["13e-smoke"], rec["13e"]
+    print(f"phase 13e-smoke: {len(MESH_TP_SMOKE)} smoke kinds in float32 "
+          f"over (data, model) (1, 2), remat full, {MESH_TP_STEPS} steps "
+          f"against one rank on the whole batch: "
+          + ", ".join(f"{k} loss {v[0]:.3g} gradients {v[1]:.3g}"
+                      for k, v in es["errors"].items())
+          + f" (bounds {MESH_LOSS_RTOL:g}, {MESH_GRAD_RTOL:g}; "
+          f"{RWKV}'s gradients {MESH_TP_GRAD_RTOL[RWKV]:g}); "
+          f"{es['s']:.1f} s")
+    print(f"phase 13e: {LLAMA} ({e['layers']} layers, {e['params']:,} "
+          f"parameters) over (data, model) (1, 2) as launch/train.py "
+          f"--model 2 builds it, int8 moments, remat full, {MESH_TP_STEPS} "
+          f"steps of {MESH_TP_1B_BATCH} x 1,024 tokens: losses "
+          f"{e['losses']} against one rank's {e['one_rank_losses']} "
+          f"({[f'{r:.3g}' for r in e['loss_rel']]} relative, bounds "
+          f"{list(MESH_TP_1B_LOSS_RTOL)}), step ms "
+          f"{[round(x, 1) for x in e['step_ms']]}, peak {e['peak_gib']:.2f} "
+          f"/ {recs[1]['13e']['peak_gib']:.2f} GiB per rank, parameters "
+          f"{e['param_gib']:.2f} GiB and moments {e['moment_gib']:.2f} GiB "
+          f"a rank; staged a step: "
+          + ", ".join(f"{k} {v[0]} calls {v[1] / 1e9:.3f} GB"
+                      for k, v in sorted(e["collectives"].items()))
+          + f" ({e['staged_gb']:.3f} GB); {e['s']:.1f} s")
     record = {"backend": rec["backend"], "world": rec["world"],
-              "s": {k: rec[k]["s"] for k in ("13a", "13b", "13c", "13d")},
+              "s": {k: rec[k]["s"] for k in ("13a", "13b", "13c", "13d",
+                                             "13e-smoke", "13e")},
               "13a": a, "13b": b, "13c": c, "13d": d,
               "13d_rank1_peak_gib": recs[1]["13d"]["peak_gib"],
+              "13e-smoke": es, "13e": e,
+              "13e_rank1_peak_gib": recs[1]["13e"]["peak_gib"],
               "launches": launches}
     return launches, record
 
@@ -4603,7 +4925,7 @@ def mesh_report_14(recs):
 def mesh_on_card(rows_4b=None, rows_4d=None, parts=("13", "14")):
     """Phases 13 and 14: the multi-GPU layer, two gloo ranks started once
     on the one card (NCCL will not put two ranks on one GPU; gloo stages
-    the card's tensors through host memory), for 13a-13d and 14a-14e
+    the card's tensors through host memory), for 13a-13e and 14a-14e
     (see those). It checks correctness and measures no scaling: the
     ranks share the card. Returns the launches of 13a-13b (the policy
     kernels, summed over the ranks), of 14a-14d (the model kernels) and

@@ -39,17 +39,20 @@ def state_like(cfg: ModelConfig, ocfg: OptimizerConfig, device="cuda"
 def state_shardings(cfg: ModelConfig, ocfg: OptimizerConfig,
                     parallel: ParallelConfig, mesh):
     """({name: Sharding} of the parameters, an ``OptState`` of
-    Shardings): how each rank holds the train state over ``mesh``. The
-    optimizer state follows ``opt_state_specs``; a parameter follows its
-    spec, or with int8 moments its moments' block layout (the block
+    Shardings): how each rank holds the train state over ``mesh``. A
+    parameter and its float32 or bf16 moments follow
+    ``models.model.train_layout`` (the reference's specs in the compute
+    layout over ``model``); int8 moments follow ``opt_state_specs``
+    (blocks of the whole leaf over the FSDP axis, replicated over
+    ``model``), and their parameter their block layout (the block
     quantization couples a block's values, so a parameter and its
     moments are split alike)."""
     rules = sh.build_rules(parallel, mesh)
     mshape = sh.mesh_shape_dict(mesh)
-    pspecs = M.partition_specs(cfg, rules, mshape)
+    layout = M.train_layout(cfg, parallel, mesh)
     abstract = M.abstract_params(cfg)
-    ospecs = opt_state_specs(pspecs, ocfg, abstract,
-                             parallel.fsdp_axis or "data", mshape)
+    ospecs = opt_state_specs(M.partition_specs(cfg, rules, mshape), ocfg,
+                             abstract, parallel.fsdp_axis or "data", mshape)
     int8 = ocfg.state_dtype == "int8"
     blk = ocfg.state_block
     params, m, ms = {}, {}, {}
@@ -61,8 +64,9 @@ def state_shardings(cfg: ModelConfig, ocfg: OptimizerConfig,
             m[k] = sh.Sharding(mesh, ospecs.m[k], (nblk, blk))
             ms[k] = sh.Sharding(mesh, ospecs.m_scale[k], (nblk,))
         else:
-            params[k] = sh.Sharding(mesh, pspecs[k], shape)
-            m[k] = sh.Sharding(mesh, ospecs.m[k], shape)
+            spec, _, kind = layout[k]
+            params[k] = sh.Sharding(mesh, spec, shape, kind=kind)
+            m[k] = params[k]
     step = sh.Sharding(mesh, (), ())
     return params, OptState(step, m, dict(m), ms, dict(ms))
 

@@ -32,20 +32,29 @@ sets from ``LOCAL_RANK``.
 * The collectives live here and nowhere else: ``all_gather``,
   ``reduce_scatter``, ``all_reduce``, ``gather_host`` (a rank's host
   result rows to every rank) and ``gather_objects`` (``run_lanes``, the
-  restart meshes), and serving's: ``row_sum`` (a row-parallel product's
-  partials summed over ``model`` in float32), ``vocab_embed`` and
-  ``vocab_logits`` (the vocabulary split over ``model``) and
-  ``expert_exchange`` (the experts' slots to and from their ranks over
-  the expert axis, ``all_to_all_single``). Each is a plain function of
-  tensors, which a backward can wrap. On a ``gloo`` group they stage CUDA
-  tensors through host memory (gloo's collectives are host collectives)
-  and a reduce-scatter is an all-reduce and a slice; on ``nccl`` host
-  arrays travel through the rank's card.
-* Serving over a mesh (``ServeMesh``, ``serving``): the model code asks
-  ``serve_mesh()`` for the mesh of the step it runs in (None on one
-  device) and splits its work by it; ``Sharding`` with ``kind`` places
-  the leaves whose compute layout is not the spec's contiguous chunk
-  (``models.model.serve_placement``).
+  restart meshes), plain functions of tensors that carry no gradient (a
+  tensor that needs one raises), and the model's, each a
+  ``torch.autograd.Function`` that keeps its process group from its
+  forward for its backward: ``row_sum`` (a row-parallel product's
+  partials summed over ``model`` in float32) and ``model_sum`` (its
+  backward the identity: the sum feeds work every rank repeats),
+  ``tp_enter`` (Megatron's "f": the identity, and in backward the
+  ranks' gradients summed), ``vocab_embed`` and ``vocab_logits`` /
+  ``tp_gather`` (the vocabulary or a width split over ``model``; the
+  gather's backward the rank's slice) and ``expert_exchange`` (the
+  experts' slots to and from their ranks over the expert axis,
+  ``all_to_all_single``; its backward the reverse exchange). On a
+  ``gloo`` group they stage CUDA tensors through host memory (gloo's
+  collectives are host collectives) and a reduce-scatter is an
+  all-reduce and a slice; on ``nccl`` host arrays travel through the
+  rank's card.
+* A step over a mesh (``ServeMesh``, ``RankContext``, ``within``): the
+  model code asks ``serve_mesh()`` for the mesh of the serving or
+  training step it runs in (None on one device) and splits its work by
+  it, and an MoE layer asks ``context().batch_stats`` for the whole
+  batch's balance statistics; ``Sharding`` with ``kind`` places the
+  leaves whose compute layout is not the spec's contiguous chunk
+  (``models.model.serve_placement`` / ``train_layout``).
 """
 from __future__ import annotations
 
@@ -53,7 +62,7 @@ import contextlib
 import threading
 import warnings
 from dataclasses import dataclass
-from typing import Dict, List, Mapping, Optional, Tuple
+from typing import Callable, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -275,9 +284,21 @@ def _comm_device(group, like: torch.device) -> torch.device:
     return torch.device("cuda", torch.cuda.current_device())
 
 
+def _no_gradient(x: torch.Tensor, what: str):
+    """A plain collective carries no gradient: refuse a tensor that needs
+    one rather than cut it (the model's collectives are the
+    ``autograd.Function``s below)."""
+    if x.requires_grad and torch.is_grad_enabled():
+        raise RuntimeError(f"sharding.{what} carries no gradient; a tensor "
+                           f"that needs one goes through the model's "
+                           f"collectives (row_sum, model_sum, tp_enter, "
+                           f"tp_gather, expert_exchange)")
+
+
 def all_gather(x: torch.Tensor, dim: int = 0, group=None) -> torch.Tensor:
     """Every rank's ``x`` (equal shapes) concatenated along ``dim``, in
     rank order, on ``x``'s device."""
+    _no_gradient(x, "all_gather")
     n = dist.get_world_size(group)
     if n == 1:
         return x
@@ -321,10 +342,11 @@ _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
 def all_reduce(x: torch.Tensor, op: str = "sum", group=None) -> torch.Tensor:
     """The reduction (``"sum"``, ``"max"`` or ``"min"``) of every rank's
     ``x``, as a new tensor on ``x``'s device."""
+    _no_gradient(x, "all_reduce")
     if dist.get_world_size(group) == 1:
         return x.clone()
     dev = _comm_device(group, x.device)
-    buf = x.detach().to(dev, copy=True).contiguous()
+    buf = x.to(dev, copy=True).contiguous()
     dist.all_reduce(buf, op=_OPS[op], group=group)
     return buf.to(x.device)
 
@@ -371,48 +393,56 @@ def barrier(group=None):
 
 
 # ---------------------------------------------------------------------------
-# serving's collectives
+# the model's collectives, under autograd
 # ---------------------------------------------------------------------------
+#
+# Each keeps its group in ``ctx`` at forward time: autograd may run the
+# backward on another thread (CUDA's device thread), where nothing of the
+# forward's ``RankContext`` is set.
 
-def row_sum(partial: torch.Tensor, dtype: torch.dtype,
-            group=None) -> torch.Tensor:
-    """A row-parallel product's result: every rank's float32 partial
-    product (its rows of the contraction) summed in float32 and rounded
-    once to ``dtype``, as a one-device product accumulates in float32
-    and rounds once."""
-    return all_reduce(partial.float(), group=group).to(dtype)
+class _ModelSum(torch.autograd.Function):
+    """The sum over ``group``; backward the identity (the sum feeds work
+    every rank repeats, so each rank's gradient of it is the whole)."""
 
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x, group=group)
 
-def vocab_embed(table: torch.Tensor, tokens: torch.Tensor, lo: int,
-                group=None) -> torch.Tensor:
-    """Rows of a vocabulary-parallel table for ``tokens``: this rank holds
-    rows [lo, lo + len(table)); a token outside them takes zeros here, and
-    the sum over ``group`` gives each token its one row (exact: the other
-    terms are zeros)."""
-    local = tokens.long() - lo
-    inside = (local >= 0) & (local < table.shape[0])
-    rows = table[local.clamp(0, table.shape[0] - 1)].float()
-    rows = rows * inside[..., None]
-    return all_reduce(rows, group=group).to(table.dtype)
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
 
 
-def vocab_logits(local: torch.Tensor, group=None) -> torch.Tensor:
-    """The whole vocabulary's logits from every rank's columns (its
-    vocabulary rows), in rank order along the last dim."""
-    return all_gather(local, local.dim() - 1, group)
+class _Enter(torch.autograd.Function):
+    """Megatron's "f": the identity; backward the sum over ``group``, in
+    float32 and rounded once to the gradient's dtype (as ``row_sum``)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce(grad.float(), group=ctx.group).to(grad.dtype), None
 
 
-def expert_exchange(x: torch.Tensor, group=None) -> torch.Tensor:
-    """The expert-parallel exchange over ``group`` (n ranks): ``x``'s dim 0
-    in n equal chunks, chunk j sent to rank j; returns the chunks received,
-    rank i's in place i (``all_to_all_single``; gloo stages CUDA tensors
-    through the host)."""
-    n = dist.get_world_size(group)
-    if n == 1:
-        return x
-    if x.shape[0] % n:
-        raise ValueError(f"dim 0 of size {x.shape[0]} does not split over "
-                         f"{n} ranks")
+class _Gather(torch.autograd.Function):
+    """Every rank's part along ``dim`` concatenated; backward the slice
+    of this rank's part (the whole feeds work every rank repeats)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.width, ctx.group = dim, x.shape[dim], group
+        return all_gather(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        me = dist.get_rank(ctx.group)
+        return grad.narrow(ctx.dim, me * ctx.width, ctx.width), None, None
+
+
+def _exchange(x: torch.Tensor, group) -> torch.Tensor:
     dev = _comm_device(group, x.device)
     src = x.contiguous().to(dev)
     out = torch.empty_like(src)
@@ -420,12 +450,101 @@ def expert_exchange(x: torch.Tensor, group=None) -> torch.Tensor:
     return out.to(x.device)
 
 
+class _Exchange(torch.autograd.Function):
+    """``all_to_all_single`` of equal chunks; backward the same exchange
+    of the gradient, which sends each chunk back where it came from."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _exchange(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _exchange(grad, ctx.group), None
+
+
+def model_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum over ``group`` of every rank's ``x``, for work that every
+    rank of the group then repeats; the gradient of the sum is each
+    rank's gradient of its own term."""
+    if dist.get_world_size(group) == 1:
+        return x
+    return _ModelSum.apply(x, group)
+
+
+def tp_enter(x: torch.Tensor, group) -> torch.Tensor:
+    """``x``, replicated over ``group``, where it enters the rank's part of
+    a split computation: the identity, whose backward sums the ranks'
+    gradients of their parts, so every rank holds the whole gradient of
+    ``x`` (Megatron's "f"). A tensor without a gradient is returned as
+    it is."""
+    if not (x.requires_grad and torch.is_grad_enabled()) or \
+            dist.get_world_size(group) == 1:
+        return x
+    return _Enter.apply(x, group)
+
+
+def tp_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The whole tensor along ``dim`` from every rank's equal part, in
+    rank order, for work that every rank then repeats."""
+    if dist.get_world_size(group) == 1:
+        return x
+    return _Gather.apply(x, dim % x.dim(), group)
+
+
+def row_sum(partial: torch.Tensor, dtype: torch.dtype,
+            group=None) -> torch.Tensor:
+    """A row-parallel product's result: every rank's float32 partial
+    product (its rows of the contraction) summed in float32 and rounded
+    once to ``dtype``, as a one-device product accumulates in float32
+    and rounds once. The gradient of the partial is the result's, cast to
+    the partial's dtype."""
+    return model_sum(partial.float(), group).to(dtype)
+
+
+def vocab_embed(table: torch.Tensor, tokens: torch.Tensor, lo: int,
+                group=None) -> torch.Tensor:
+    """Rows of a vocabulary-parallel table for ``tokens``: this rank holds
+    rows [lo, lo + len(table)); a token outside them takes zeros here, and
+    the sum over ``group`` gives each token its one row (exact: the other
+    terms are zeros). The gradient reaches the rank's own rows."""
+    local = tokens.long() - lo
+    inside = (local >= 0) & (local < table.shape[0])
+    rows = table[local.clamp(0, table.shape[0] - 1)].float()
+    rows = rows * inside[..., None]
+    return model_sum(rows, group).to(table.dtype)
+
+
+def vocab_logits(local: torch.Tensor, group=None) -> torch.Tensor:
+    """The whole vocabulary's logits from every rank's columns (its
+    vocabulary rows), in rank order along the last dim."""
+    return tp_gather(local, local.dim() - 1, group)
+
+
+def expert_exchange(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The expert-parallel exchange over ``group`` (n ranks): ``x``'s dim 0
+    in n equal chunks, chunk j sent to rank j; returns the chunks received,
+    rank i's in place i (``all_to_all_single``; gloo stages CUDA tensors
+    through the host). Its backward is the reverse exchange."""
+    n = dist.get_world_size(group)
+    if n == 1:
+        return x
+    if x.shape[0] % n:
+        raise ValueError(f"dim 0 of size {x.shape[0]} does not split over "
+                         f"{n} ranks")
+    return _Exchange.apply(x, group)
+
+
 @dataclass(frozen=True)
 class ServeMesh:
-    """The groups a serving step splits its work over: ``model`` (the
+    """The groups a step splits its work over: ``model`` (the
     tensor-parallel axis: heads, channels, MLP widths, the vocabulary),
     the expert axis (``ParallelConfig.expert_axis``) and the batch axes
-    (the rows), each with its size and this rank's place in it."""
+    (the rows), each with its size and this rank's place in it. A
+    training step splits its blocks over ``model`` alone (``of(...,
+    model_only=True)``): its rows are the rank's own batch, and FSDP
+    gathers every expert."""
     model: object
     model_size: int
     model_rank: int
@@ -437,7 +556,8 @@ class ServeMesh:
     batch_rank: int
 
     @classmethod
-    def of(cls, mesh, parallel: ParallelConfig) -> "ServeMesh":
+    def of(cls, mesh, parallel: ParallelConfig,
+           model_only: bool = False) -> "ServeMesh":
         shape = mesh_shape_dict(mesh)
 
         def axis(name):
@@ -445,13 +565,16 @@ class ServeMesh:
                 return None, 1, 0
             return (mesh.get_group(name), shape[name],
                     mesh.get_local_rank(name))
+        m = axis(parallel.tp_axis)
+        if model_only:
+            return cls(*m, *axis(None), *axis(None))
         batch = batch_partition(parallel, mesh)
         batch = tuple(a for a in batch if shape[a] > 1)
         if len(batch) > 1:
             raise NotImplementedError(
                 f"serving splits the rows over one mesh axis; the batch "
                 f"axes {batch} are {len(batch)}")
-        m, e = axis(parallel.tp_axis), axis(parallel.expert_axis)
+        e = axis(parallel.expert_axis)
         b = axis(batch[0] if batch else None)
         if e[1] > 1 and (not batch or parallel.expert_axis != batch[0]):
             raise NotImplementedError(
@@ -471,27 +594,52 @@ class ServeMesh:
         return all_gather(x, dim, self.batch)
 
 
-_SERVING = threading.local()
+@dataclass(frozen=True)
+class RankContext:
+    """What the model code reads of the step it runs in: ``mesh``, the
+    ``ServeMesh`` it splits its work over (None: one device), and
+    ``batch_stats``, a function that turns an MoE layer's per-expert
+    balance means [E] of the rank's rows into the whole batch's (None:
+    the rank's rows are the batch; ``train.steps``)."""
+    mesh: Optional[ServeMesh] = None
+    batch_stats: Optional[Callable] = None
+
+
+_NO_CONTEXT = RankContext()
+_LOCAL = threading.local()
 
 
 @contextlib.contextmanager
-def serving(mesh: Optional[ServeMesh]):
-    """Within the block the model code splits its work over ``mesh``
-    (None: one device), on this thread only: an engine serving on a
-    worker thread (``ServeEngine.as_pipeline``) leaves the routing of
-    another thread's steps as it was."""
-    prev = serve_mesh()
-    _SERVING.mesh = mesh
+def within(ctx: RankContext):
+    """Within the block the model code runs in ``ctx``, on this thread
+    only: an engine serving on a worker thread (``ServeEngine.as_pipeline``)
+    leaves the routing of another thread's steps as it was. A
+    recomputation in backward, which autograd may run on another thread,
+    re-enters the context its forward saw (``models.transformer``'s
+    remat)."""
+    prev = context()
+    _LOCAL.ctx = ctx
     try:
         yield
     finally:
-        _SERVING.mesh = prev
+        _LOCAL.ctx = prev
+
+
+def context() -> RankContext:
+    """The ``RankContext`` of the step that runs on this thread."""
+    return getattr(_LOCAL, "ctx", _NO_CONTEXT)
+
+
+def serving(mesh: Optional[ServeMesh]):
+    """``within`` a serving step's context: its mesh (None: one
+    device)."""
+    return within(RankContext(mesh=mesh))
 
 
 def serve_mesh() -> Optional[ServeMesh]:
-    """The ``ServeMesh`` of the serving step that runs on this thread, or
-    None."""
-    return getattr(_SERVING, "mesh", None)
+    """The ``ServeMesh`` of the serving or training step that runs on
+    this thread, or None."""
+    return context().mesh
 
 
 # ---------------------------------------------------------------------------
@@ -593,15 +741,17 @@ class Sharding:
         n = int(np.prod(self.shape)) if self.shape else 1
         return (-(-n // self.block), self.block)
 
-    def _splits(self):
-        """[(dim, axis, positions)] of the dims actually split here."""
+    def _splits(self, axes=None):
+        """[(dim, axis, positions)] of the dims actually split here (over
+        ``axes`` alone, where given)."""
         if self.mesh.get_coordinate() is None:
             return []
         shape = mesh_shape_dict(self.mesh)
         coord = {a: self.mesh.get_local_rank(a) for a in shape
                  if shape[a] > 1}
-        return cut_indices(self._view_shape(), self.spec, shape, coord,
+        cuts = cut_indices(self._view_shape(), self.spec, shape, coord,
                            self.kind)
+        return [c for c in cuts if axes is None or c[1] in axes]
 
     @property
     def axes(self) -> Tuple[str, ...]:
@@ -616,6 +766,27 @@ class Sharding:
             shape[dim] = len(idx)
         return tuple(shape)
 
+    def sharers(self) -> int:
+        """How many ranks hold this rank's shard: more than one for a
+        ``"heads"`` cut where the axis exceeds the heads (the ranks whose
+        query heads read one K/V head)."""
+        if self.kind is None or self.kind[1] != "heads":
+            return 1
+        for dim, axis, _ in self._splits():
+            if dim == self.kind[0]:
+                size, heads = mesh_shape_dict(self.mesh)[axis], self.kind[2]
+                return size // heads if heads % size else 1
+        return 1
+
+    def counted(self) -> bool:
+        """Whether this rank's shard counts in a sum over the ranks (a
+        norm): the first of its sharers."""
+        n = self.sharers()
+        if n == 1:
+            return True
+        axis = next(a for d, a, _ in self._splits() if d == self.kind[0])
+        return self.mesh.get_local_rank(axis) % n == 0
+
     def shard(self, full: torch.Tensor) -> torch.Tensor:
         """This rank's shard of the whole leaf ``full`` (a new tensor on
         ``full``'s device)."""
@@ -628,13 +799,24 @@ class Sharding:
             x = x.index_select(dim, idx.to(x.device))
         return x.contiguous() if splits else x.clone()
 
-    def gather(self, local: torch.Tensor) -> torch.Tensor:
+    def _partial(self, axes, what: str):
+        splits = self._splits(axes)
+        if axes is not None and self.block is not None and \
+                len(splits) != len(self._splits()):
+            raise NotImplementedError(f"a {what} over some of a block "
+                                      f"layout's axes")
+        return splits
+
+    def gather(self, local: torch.Tensor, axes=None) -> torch.Tensor:
         """The whole leaf from every rank's shard (a collective over the
-        split axes), on ``local``'s device."""
+        split axes), on ``local``'s device; with ``axes`` the leaf whole
+        along those mesh axes alone (a training rank's compute shard from
+        its FSDP shard)."""
         x = local
-        shape = mesh_shape_dict(self.mesh) if self._splits() else {}
+        splits = self._partial(axes, "gather")
+        shape = mesh_shape_dict(self.mesh) if splits else {}
         view = self._view_shape()
-        for dim, axis, _ in reversed(self._splits()):
+        for dim, axis, _ in reversed(splits):
             parts = all_gather(x, dim, self.mesh.get_group(axis)).chunk(
                 shape[axis], dim)
             whole = list(x.shape)
@@ -652,14 +834,33 @@ class Sharding:
             x = x.reshape(-1)[:n].reshape(self.shape)
         return x
 
-    def reduce(self, full: torch.Tensor) -> torch.Tensor:
-        """This rank's shard of the sum over the split axes of every
-        rank's whole ``full`` (a reduce-scatter); unsplit leaves come
-        back whole and unreduced."""
-        if self.kind is not None:
+    def assemble(self, local: torch.Tensor) -> torch.Tensor:
+        """The whole leaf as the sum over the ranks of each rank's
+        ``local`` put at its positions (zeros elsewhere): ``shard``'s
+        adjoint, which turns the ranks' gradients of their parts into the
+        whole leaf's gradient, parts that several ranks hold (``sharers``)
+        summed. Not for a block layout."""
+        if self.block is not None:
+            raise NotImplementedError("assemble of a block layout")
+        x = local
+        for dim, axis, idx in self._splits():
+            whole = list(x.shape)
+            whole[dim] = self.shape[dim]
+            x = all_reduce(x.new_zeros(whole).index_copy_(
+                dim, idx.to(x.device), x), group=self.mesh.get_group(axis))
+        return x
+
+    def reduce(self, full: torch.Tensor, axes=None) -> torch.Tensor:
+        """This rank's shard of the sum over the split axes (over ``axes``
+        alone, where given) of every rank's ``full`` (a reduce-scatter),
+        ``full`` whole along those axes; unsplit leaves come back whole
+        and unreduced. A dim cut by ``kind`` takes no reduce-scatter."""
+        splits = self._partial(axes, "reduce")
+        if self.kind is not None and any(d == self.kind[0]
+                                         for d, _, _ in splits):
             raise NotImplementedError("a reduce-scatter of a leaf cut by "
                                       f"kind {self.kind[1]!r}")
         x = full if self.block is None else _block_view(full, self.block)
-        for dim, axis, _ in self._splits():
+        for dim, axis, _ in splits:
             x = reduce_scatter(x, dim, self.mesh.get_group(axis))
         return x

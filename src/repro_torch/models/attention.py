@@ -26,7 +26,11 @@ columns: its share of them, or where ``model`` exceeds the KV heads the
 one head its query heads read), its K/V cache holding those heads; the
 head counts come from the shapes of the rank's leaves. ``wo`` is
 row-parallel (``layers.row_parallel``). MLA's latent, rope key and their
-cache are replicated over ``model``.
+cache are replicated over ``model``. Under autograd (training over a
+mesh) each replicated tensor enters the rank's heads through
+``layers.tp_in``: x before q/k/v, MLA's query latent before ``wq_b``, its
+KV latent before ``wkv_b`` and its rope key before it joins the rank's
+heads.
 """
 from __future__ import annotations
 
@@ -37,7 +41,7 @@ import torch
 from repro_torch.config import AttentionConfig, ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (ParamDef, Params, Schema, apply_rope,
-                                       row_parallel)
+                                       row_parallel, tp_in)
 
 Cache = Dict[str, torch.Tensor]
 
@@ -84,6 +88,7 @@ def _cross_kv(params: Params, name: str, q: torch.Tensor,
                              f"output at prefill")
         return cache["k"].to(dt), cache["v"].to(dt), cache
     b = q.shape[0]
+    memory = tp_in(memory)
     k = (memory @ params[f"{name}.wk"].to(dt)).reshape(
         b, memory.shape[1], -1, a.head_dim)
     v = (memory @ params[f"{name}.wv"].to(dt)).reshape(
@@ -113,6 +118,7 @@ def apply_gqa(params: Params, name: str, x: torch.Tensor,
     a = cfg.attention
     b, t, _ = x.shape
     dt = x.dtype
+    x = tp_in(x)
     q = (x @ params[f"{name}.wq"].to(dt)).reshape(b, t, -1, a.head_dim)
     if is_cross or memory is not None:
         k, v, cache = _cross_kv(params, name, q, memory, cfg, cache)
@@ -208,9 +214,9 @@ def _mla_q(params: Params, name: str, x: torch.Tensor,
     if a.q_lora_rank > 0:
         ql = x @ params[f"{name}.wq_a"].to(dt)
         ql = _rms(ql, params[f"{name}.q_norm"], eps)
-        q = ql @ params[f"{name}.wq_b"].to(dt)
+        q = tp_in(ql) @ params[f"{name}.wq_b"].to(dt)
     else:
-        q = x @ params[f"{name}.wq"].to(dt)
+        q = tp_in(x) @ params[f"{name}.wq"].to(dt)
     q = q.reshape(b, t, -1, a.qk_nope_head_dim + a.qk_rope_head_dim)
     q_nope, q_rope = q[..., :a.qk_nope_head_dim], q[..., a.qk_nope_head_dim:]
     return q_nope, apply_rope(q_rope, positions, _rope_cfg(a))
@@ -260,9 +266,11 @@ def apply_mla(params: Params, name: str, x: torch.Tensor,
         out = torch.einsum("bthr,rhv->bthv", out_lat, wv_b)
         cache = dict(cache, ckv=cckv, k_rope=ckr, length=new_len)
     else:
-        kv = (ckv @ wkv_b.reshape(r, -1)).reshape(b, t, heads, n_nope + n_v)
+        kv = (tp_in(ckv) @ wkv_b.reshape(r, -1)).reshape(b, t, heads,
+                                                         n_nope + n_v)
         k_nope, v = kv[..., :n_nope], kv[..., n_nope:]
-        k = torch.cat([k_nope, k_rope.expand(b, t, heads, n_rope)], dim=-1)
+        k = torch.cat([k_nope, tp_in(k_rope).expand(b, t, heads, n_rope)],
+                      dim=-1)
         q = torch.cat([q_nope, q_rope], dim=-1)
         out = ops.sdpa(q, k, v, causal=a.causal, scale=scale)
         if cache is not None:

@@ -12,13 +12,17 @@ holds a compute-dtype copy, ``models.model.compute_params``); RoPE's cos
 and sin are computed in float32 and cast to the activations' dtype before
 the rotation, so a bf16 model rotates in bf16.
 
-Under a serving mesh (``distributed.sharding.serve_mesh()``) the
-functions here take a rank's shards: ``row_parallel`` sums a
+Under a serving or training mesh (``distributed.sharding.serve_mesh()``)
+the functions here take a rank's shards: ``row_parallel`` sums a
 row-parallel product over ``model`` (float32 partials, rounded once),
 ``embed_tokens`` and ``unembed`` split the vocabulary over ``model``
 where it divides (a vocabulary it does not divide stays whole, with the
 reference's warn-once), ``apply_mlp`` is column-parallel in ``w_gate`` /
-``w_up`` and row-parallel in ``w_down``; norms are replicated.
+``w_up`` and row-parallel in ``w_down``; norms are replicated. Under
+autograd a replicated tensor enters each split computation through
+``tp_in`` (Megatron's "f"), so every rank holds the whole gradient of
+every replicated tensor and leaf: the blocks call it before each
+column-parallel product, and ``tp_slice`` calls it itself.
 """
 from __future__ import annotations
 
@@ -149,18 +153,52 @@ def stack_schema(schema: Schema, n: int, axis_name: str = "layers") -> Schema:
 # Tensor parallelism
 # ---------------------------------------------------------------------------
 
-def f32_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x @ w`` (batched where both are 3-dim) accumulated and returned in
-    float32: for low-precision operands on the card cuBLAS's product with
-    a float32 output (a PyTorch without ``out_dtype`` raises), else the
-    float32 product of the widened operands (exact products, float32
-    sums)."""
-    if x.dtype == torch.float32 or not x.is_cuda:
-        return x.float() @ w.float()
+def _mm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.dim() == 3 and w.dim() == 3:
         return torch.bmm(x, w, out_dtype=torch.float32)
     y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
     return y.reshape(*x.shape[:-1], w.shape[-1])
+
+
+class _F32Product(torch.autograd.Function):
+    """cuBLAS's float32-output product, which has no derivative of its
+    own; its backward runs in the operands' dtype, as the product of one
+    device does (the float32 result's gradient is ``row_sum``'s: a
+    gradient of the operands' dtype widened, so casting it back is
+    exact)."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _mm_f32(x, w)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, w = ctx.saved_tensors
+        g = grad.to(x.dtype)
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            gx = g @ w.transpose(-1, -2)
+        if ctx.needs_input_grad[1]:
+            if w.dim() == 3:
+                gw = x.transpose(-1, -2) @ g
+            else:
+                gw = x.reshape(-1, x.shape[-1]).t() @ g.reshape(
+                    -1, g.shape[-1])
+        return gx, gw
+
+
+def f32_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` (batched where both are 3-dim) accumulated and returned in
+    float32: for low-precision operands on the card cuBLAS's product with
+    a float32 output (a PyTorch without ``out_dtype`` raises; under
+    autograd ``_F32Product``), else the float32 product of the widened
+    operands (exact products, float32 sums)."""
+    if x.dtype == torch.float32 or not x.is_cuda:
+        return x.float() @ w.float()
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _F32Product.apply(x, w)
+    return _mm_f32(x, w)
 
 
 def row_parallel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -174,13 +212,24 @@ def row_parallel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return sh.row_sum(f32_product(x, w), x.dtype, mesh.model)
 
 
+def tp_in(x: torch.Tensor) -> torch.Tensor:
+    """``x``, replicated over ``model``, where it enters this rank's part
+    of a split computation (a column-parallel product): the identity,
+    whose backward sums the ranks' gradients over ``model``
+    (``sharding.tp_enter``). Without a ``model`` axis, ``x``."""
+    mesh = sh.serve_mesh()
+    if mesh is None or mesh.model_size == 1:
+        return x
+    return sh.tp_enter(x, mesh.model)
+
+
 def tp_slice(x: torch.Tensor, width: int, dim: int = -1) -> torch.Tensor:
     """This rank's ``width``-wide part along ``dim`` of a replicated
-    tensor whose width the ``model`` axis splits."""
+    tensor whose width the ``model`` axis splits (entered by ``tp_in``)."""
     mesh = sh.serve_mesh()
     if mesh is None or mesh.model_size == 1 or x.shape[dim] == width:
         return x
-    return x.narrow(dim, mesh.model_rank * width, width)
+    return tp_in(x).narrow(dim, mesh.model_rank * width, width)
 
 
 def tp_gather(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -188,7 +237,7 @@ def tp_gather(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     mesh = sh.serve_mesh()
     if mesh is None or mesh.model_size == 1:
         return x
-    return sh.all_gather(x, dim % x.dim(), mesh.model)
+    return sh.tp_gather(x, dim, mesh.model)
 
 
 def _vocab_split(table_rows: int, cfg: ModelConfig) -> bool:
@@ -317,6 +366,7 @@ def mlp_schema(cfg: ModelConfig, name: str,
 def apply_mlp(params: Params, name: str, x: torch.Tensor,
               cfg: ModelConfig) -> torch.Tensor:
     dt = x.dtype
+    x = tp_in(x)
     up = x @ params[f"{name}.w_up"].to(dt)
     if cfg.mlp_kind == "swiglu":
         h = F.silu(x @ params[f"{name}.w_gate"].to(dt)) * up
@@ -362,12 +412,17 @@ def embed_tokens(params: Params, tokens: torch.Tensor,
     return x
 
 
-def unembed(params: Params, x: torch.Tensor,
-            cfg: ModelConfig) -> torch.Tensor:
+def unembed(params: Params, x: torch.Tensor, cfg: ModelConfig,
+            gather: bool = True) -> torch.Tensor:
+    """The logits of ``x``; where ``model`` splits the vocabulary, every
+    rank's columns gathered, or with ``gather=False`` this rank's
+    columns alone (training's loss reduces them where they lie)."""
     if cfg.tie_embeddings:
         w = params["embed.table"].to(x.dtype).t()
     else:
         w = params["unembed.w"].to(x.dtype)
     if _vocab_split(w.shape[1], cfg):
-        return sh.vocab_logits(x @ w, sh.serve_mesh().model)
+        local = tp_in(x) @ w
+        return sh.vocab_logits(local, sh.serve_mesh().model) if gather \
+            else local
     return x @ w

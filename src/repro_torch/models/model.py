@@ -39,6 +39,13 @@ draws are one device's; ``checkpoint.gather_tree`` over the placement
 gives the whole leaves back.
 ``prefill`` / ``decode_step`` take the rank's rows and leaves, inside
 the step's ``sharding.serving`` block (``serve.steps``).
+
+Training over a mesh (``train_layout``, ``train.steps``) computes in the
+same layout with ``embed`` split over the FSDP axis, as the reference's
+specs split it (FSDP gathers it before the forward); ``loss_fn`` over a
+vocabulary split over ``model`` reduces the rank's columns of the logits
+where they lie (``sharding.model_sum`` of the [b, s] sums of
+exponentials and gold logits) and never gathers them.
 """
 from __future__ import annotations
 
@@ -235,11 +242,12 @@ def _embed_inputs(params: Params, cfg: ModelConfig, batch: Dict
 
 def forward(params: Params, cfg: ModelConfig, batch: Dict,
             cache: Optional[Params] = None, decode: bool = False,
-            remat: str = "none"
+            remat: str = "none", gather_logits: bool = True
             ) -> Tuple[torch.Tensor, Optional[Params], torch.Tensor]:
     """Full forward. Returns (logits [b, s, vocab], the cache updated in
     place or None, aux loss). ``remat``: the decoder stack's training
-    remat policy (``transformer.REMAT_POLICIES``)."""
+    remat policy (``transformer.REMAT_POLICIES``). ``gather_logits=False``
+    leaves a vocabulary split over ``model`` as this rank's columns."""
     if decode:
         tokens = batch["token"]
         b, t = tokens.shape
@@ -271,7 +279,7 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict,
             cache["length"] = torch.full((b,), s, dtype=torch.int32,
                                          device=x.device)
     y = apply_norm(params, "final_norm", y, cfg)
-    return unembed(params, y, cfg), cache, aux
+    return unembed(params, y, cfg, gather_logits), cache, aux
 
 
 def loss_mask(batch: Dict) -> torch.Tensor:
@@ -286,6 +294,26 @@ def loss_mask(batch: Dict) -> torch.Tensor:
     return mask[:, -n_text:][:, 1:].to(torch.float32)
 
 
+def _split_logz_gold(lg: torch.Tensor, targets: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(logsumexp, gold logit) [b, s] of float32 logits whose vocabulary
+    ``model`` splits, ``lg`` this rank's columns [b, s, V / m]: the
+    row's max over every rank (no gradient: the logsumexp does not
+    depend on it), each rank's sum of exponentials below it and its gold
+    logit where the target is one of its columns, both summed over
+    ``model``."""
+    mesh = sh.serve_mesh()
+    width = lg.shape[-1]
+    top = sh.all_reduce(lg.detach().amax(dim=-1), "max", mesh.model)
+    local = targets - mesh.model_rank * width
+    inside = (local >= 0) & (local < width)
+    gold = torch.gather(lg, -1, local.clamp(0, width - 1)[..., None])[..., 0]
+    part = torch.stack([torch.exp(lg - top[..., None]).sum(dim=-1),
+                        gold * inside])
+    total, gold = sh.model_sum(part, mesh.model).unbind(0)
+    return top + torch.log(total), gold
+
+
 def loss_fn(params: Params, cfg: ModelConfig, batch: Dict,
             remat: str = "none", denom: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, Dict]:
@@ -295,15 +323,20 @@ def loss_fn(params: Params, cfg: ModelConfig, batch: Dict,
     plus the MoE balance loss ``aux``; ``tokens`` is the mask's sum
     (at least 1), the mean's denominator. A rank of a data mesh passes
     ``denom``, the whole batch's denominator, so its rows' ``nll`` is
-    their share of the whole batch's mean."""
-    logits, _, aux = forward(params, cfg, batch, remat=remat)
+    their share of the whole batch's mean. A vocabulary split over
+    ``model`` is reduced where it lies (``_split_logz_gold``)."""
+    logits, _, aux = forward(params, cfg, batch, remat=remat,
+                             gather_logits=False)
     tokens = batch["tokens"]
     n_text = tokens.shape[1]
     lg = logits[:, -n_text:][:, :-1].to(torch.float32)
     targets = tokens[:, 1:].long()
     mask = loss_mask(batch)
-    logz = torch.logsumexp(lg, dim=-1)
-    gold = torch.gather(lg, -1, targets[..., None])[..., 0]
+    if lg.shape[-1] < cfg.vocab_size:
+        logz, gold = _split_logz_gold(lg, targets)
+    else:
+        logz = torch.logsumexp(lg, dim=-1)
+        gold = torch.gather(lg, -1, targets[..., None])[..., 0]
     nll = (logz - gold) * mask
     if denom is None:
         denom = torch.clamp_min(mask.sum(), 1.0)
@@ -363,12 +396,14 @@ _KV_WEIGHTS = (".attn.wk", ".attn.wv", ".cross.wk", ".cross.wv")
 _KV_CACHES = (".attn.k", ".attn.v", ".cross.k", ".cross.v")
 
 
-def check_serve_model_axis(cfg: ModelConfig, size: int):
+def check_serve_model_axis(cfg: ModelConfig, size: int,
+                           use: str = "serving"):
     """Raise ``NotImplementedError`` naming the rule where a ``model``
     axis of ``size`` does not split a width the blocks split (ROADMAP
-    C19): the query heads (of the decoder and an encoder), the KV heads
-    unless the axis is a multiple of them, the MLP, expert and Mamba
-    widths and RWKV's heads. The vocabulary may stay whole."""
+    C19), in tensor-parallel ``use`` (serving or training): the query
+    heads (of the decoder and an encoder), the KV heads unless the axis
+    is a multiple of them, the MLP, expert and Mamba widths and RWKV's
+    heads. The vocabulary may stay whole."""
     if size == 1:
         return
     widths = {"d_ff": cfg.d_ff}
@@ -380,8 +415,8 @@ def check_serve_model_axis(cfg: ModelConfig, size: int):
                 size % a.num_kv_heads:
             raise NotImplementedError(
                 f"{cfg.name}: {a.num_kv_heads} KV heads over a model axis "
-                f"of {size}: the axis must split the KV heads or be a "
-                f"multiple of them (ROADMAP C19)")
+                f"of {size}: tensor-parallel {use} needs the axis to split "
+                f"the KV heads or be a multiple of them (ROADMAP C19)")
     if cfg.moe is not None:
         widths["expert d_ff"] = cfg.moe.d_ff
     if "mamba" in kinds:
@@ -392,7 +427,7 @@ def check_serve_model_axis(cfg: ModelConfig, size: int):
         if n % size:
             raise NotImplementedError(
                 f"{cfg.name}: a model axis of {size} does not divide its "
-                f"{n} {what}; tensor-parallel serving splits them evenly "
+                f"{n} {what}; tensor-parallel {use} splits them evenly "
                 f"(ROADMAP C19)")
 
 
@@ -412,34 +447,57 @@ def _with_entry(spec: tuple, dim: int, axis: str) -> tuple:
     return tuple(out)
 
 
+def _compute_layout(schema: Schema, specs, tp: str, size: int, kv: int,
+                    kv_names, kv_dim: int):
+    """{name: (spec, shape, kind)}: ``specs`` in the compute layout (see
+    the module docstring) over a ``model`` axis ``tp`` of ``size``."""
+    out = {}
+    for name, d in schema.items():
+        spec, kind = specs[name], None
+        if size > 1 and name.endswith(".mixer.in_proj"):
+            kind = (len(d.shape) - 1, "halves", 0)
+        elif size > 1 and name.endswith(kv_names):
+            dim = len(d.shape) + kv_dim
+            spec = _with_entry(spec, dim, tp)
+            kind = (dim, "heads", kv)
+        out[name] = (spec, tuple(d.shape), kind)
+    return out
+
+
+def _model_size(parallel: ParallelConfig, mesh) -> int:
+    tp = parallel.tp_axis
+    return sh.mesh_shape_dict(mesh).get(tp, 1) if tp else 1
+
+
 def serve_layout(cfg: ModelConfig, parallel: ParallelConfig, mesh,
                  batch: int, max_len: int):
     """({name: (spec, shape, kind)} of the parameters, of the cache) over
     ``mesh`` (a ``DeviceMesh`` or an ``{axis: size}`` mapping):
     ``serve_specs`` in the compute layout (see the module docstring), a
     ``kind`` as ``sharding.Sharding`` takes it or None."""
-    shape = sh.mesh_shape_dict(mesh)
-    tp = parallel.tp_axis
-    size = shape.get(tp, 1) if tp else 1
+    size = _model_size(parallel, mesh)
     check_serve_model_axis(cfg, size)
     pspecs, cspecs = serve_specs(cfg, parallel, mesh, batch, max_len)
-    kv = cfg.attention.num_kv_heads
+    tp, kv = parallel.tp_axis, cfg.attention.num_kv_heads
+    return (_compute_layout(full_schema(cfg), pspecs, tp, size, kv,
+                            _KV_WEIGHTS, -1),
+            _compute_layout(cache_schema(cfg, batch, max_len), cspecs, tp,
+                            size, kv, _KV_CACHES, -2))
 
-    def layout(schema, specs, kv_names, kv_dim):
-        out = {}
-        for name, d in schema.items():
-            spec, kind = specs[name], None
-            if size > 1 and name.endswith(".mixer.in_proj"):
-                kind = (len(d.shape) - 1, "halves", 0)
-            elif size > 1 and name.endswith(kv_names):
-                dim = len(d.shape) + kv_dim
-                spec = _with_entry(spec, dim, tp)
-                kind = (dim, "heads", kv)
-            out[name] = (spec, tuple(d.shape), kind)
-        return out
-    return (layout(full_schema(cfg), pspecs, _KV_WEIGHTS, -1),
-            layout(cache_schema(cfg, batch, max_len), cspecs, _KV_CACHES,
-                   -2))
+
+def train_layout(cfg: ModelConfig, parallel: ParallelConfig, mesh):
+    """{name: (spec, shape, kind)} of the parameters a training rank
+    holds and computes with over ``mesh``: the reference's
+    ``partition_specs`` (``embed`` over the FSDP axis, which the step
+    gathers) in the compute layout where ``model`` splits a leaf
+    otherwise than in the spec's chunk, as ``serve_layout``. A ``model``
+    axis that does not split a width the blocks split raises (C19)."""
+    size = _model_size(parallel, mesh)
+    check_serve_model_axis(cfg, size, "training")
+    shape = sh.mesh_shape_dict(mesh)
+    pspecs = partition_specs(cfg, sh.build_rules(parallel, mesh), shape)
+    return _compute_layout(full_schema(cfg), pspecs, parallel.tp_axis, size,
+                           cfg.attention.num_kv_heads, _KV_WEIGHTS, -1)
 
 
 def serve_placement(cfg: ModelConfig, parallel: ParallelConfig, mesh,

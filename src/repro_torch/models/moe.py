@@ -30,10 +30,15 @@ every group as one device does, multiplies its experts' slots and
 gathers every expert's results. The expert weights' ``mlp`` columns on
 ``model`` make the products row-parallel. The balance loss is that of
 the rank's groups (serving does not read it).
+
+A training step over a mesh (``train.steps``) gathers every expert (FSDP
+over ``data``) and routes the rank's own rows; ``model`` splits the
+experts' ``mlp`` width (the payload enters through ``layers.tp_in``),
+and the step's ``sharding.RankContext`` turns the balance loss's two
+per-expert means into the whole batch's (``batch_stats``).
 """
 from __future__ import annotations
 
-import contextlib
 import functools
 import math
 from typing import Tuple
@@ -43,31 +48,11 @@ import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
 from repro_torch.distributed import sharding as sh
-from repro_torch.models.layers import ParamDef, Params, Schema, row_parallel
+from repro_torch.models.layers import (ParamDef, Params, Schema, row_parallel,
+                                       tp_in)
 
 #: tokens per dispatch group (capacity is per group and expert)
 GROUP_SIZE = 256
-
-# the whole batch's balance statistics on a rank of a data mesh: a
-# function of this rank's (token fractions, probability means) [E], set
-# by ``batch_stats`` (``train.steps``); None on one device
-_BATCH_STATS = None
-
-
-@contextlib.contextmanager
-def batch_stats(fn):
-    """Within the block, every MoE layer takes its balance loss's two
-    per-expert means [E] through ``fn(frac_tokens, frac_probs)``: a rank
-    of a data mesh turns its rows' means into the whole batch's, so the
-    loss is the reference's product of whole-batch means (see
-    ``train.steps``). A module global rather than a context variable, so
-    that the recomputation of remat in autograd's threads sees it."""
-    global _BATCH_STATS
-    prev, _BATCH_STATS = _BATCH_STATS, fn
-    try:
-        yield
-    finally:
-        _BATCH_STATS = prev
 
 
 def moe_schema(cfg: ModelConfig, name: str) -> Schema:
@@ -126,6 +111,7 @@ def _local_experts(params: Params, name: str, xe: torch.Tensor
                    ) -> torch.Tensor:
     """Every held expert's products on its slots: xe [E_held, slots, d]."""
     dt = xe.dtype
+    xe = tp_in(xe)
     h = (F.silu(torch.bmm(xe, params[f"{name}.w_gate"].to(dt)))
          * torch.bmm(xe, params[f"{name}.w_up"].to(dt)))
     return row_parallel(h, params[f"{name}.w_down"].to(dt))
@@ -205,8 +191,9 @@ def _routed(params: Params, name: str, x: torch.Tensor, cfg: ModelConfig,
     # the Switch load-balancing loss
     frac_tokens = F.one_hot(tope[..., 0], E).float().mean(dim=(0, 1))
     frac_probs = probs.mean(dim=(0, 1))
-    if _BATCH_STATS is not None:
-        frac_tokens, frac_probs = _BATCH_STATS(frac_tokens, frac_probs)
+    stats = sh.context().batch_stats
+    if stats is not None:
+        frac_tokens, frac_probs = stats(frac_tokens, frac_probs)
     aux = E * (frac_tokens * frac_probs).sum() * m.aux_loss_weight
     return y.reshape(b, s, d), aux
 
@@ -234,8 +221,8 @@ def apply_moe(params: Params, name: str, x: torch.Tensor,
         y, aux = _routed(params, name, x, cfg,
                          lambda xe: experts(params, name, xe))
     if m.num_shared_experts > 0:
-        pre, dt = f"{name}.shared", x.dtype
-        h = (F.silu(x @ params[f"{pre}.w_gate"].to(dt))
-             * (x @ params[f"{pre}.w_up"].to(dt)))
+        pre, dt, xs = f"{name}.shared", x.dtype, tp_in(x)
+        h = (F.silu(xs @ params[f"{pre}.w_gate"].to(dt))
+             * (xs @ params[f"{pre}.w_up"].to(dt)))
         y = y + row_parallel(h, params[f"{pre}.w_down"].to(dt))
     return y, aux

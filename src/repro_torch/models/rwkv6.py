@@ -20,6 +20,8 @@ whole-width decay and of ``ln_x``, its heads of the ``wkv`` state; ``wo``
 row-parallel) and its share of the channel mix's width: ``k @ wv`` is a
 row-parallel sum whose result is the whole width, and the gate's
 columns are gathered to meet it. ``x_att`` / ``x_ffn`` are replicated.
+Under autograd the replicated mixes enter the rank's columns through
+``layers.tp_in``, and the decay and ``ln_x`` through ``tp_slice``.
 """
 from __future__ import annotations
 
@@ -31,7 +33,8 @@ import torch.nn.functional as F
 from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (ParamDef, Params, Schema,
-                                       row_parallel, tp_gather, tp_slice)
+                                       row_parallel, tp_gather, tp_in,
+                                       tp_slice)
 
 State = Dict[str, torch.Tensor]
 MIXES = 5  # r, w, k, v, g
@@ -113,10 +116,10 @@ def apply_time_mix(params: Params, name: str, x: torch.Tensor,
         "bsmr,mrd->bsmd", lora, params[f"{name}.maa_w2"].to(dt))
     xr, xw, xk, xv, xg = [x + dx * mix[:, :, i] for i in range(MIXES)]
 
-    rr = (xr @ params[f"{name}.wr"].to(dt)).reshape(b, s, H, n)
-    kk = (xk @ params[f"{name}.wk"].to(dt)).reshape(b, s, H, n)
-    vv = (xv @ params[f"{name}.wv"].to(dt)).reshape(b, s, H, n)
-    gg = xg @ params[f"{name}.wg"].to(dt)
+    rr = (tp_in(xr) @ params[f"{name}.wr"].to(dt)).reshape(b, s, H, n)
+    kk = (tp_in(xk) @ params[f"{name}.wk"].to(dt)).reshape(b, s, H, n)
+    vv = (tp_in(xv) @ params[f"{name}.wv"].to(dt)).reshape(b, s, H, n)
+    gg = tp_in(xg) @ params[f"{name}.wg"].to(dt)
 
     # data-dependent decay in (0, 1), formed in float32
     dlora = torch.tanh(xw @ params[f"{name}.decay_w1"].to(dt))
@@ -152,8 +155,8 @@ def apply_channel_mix(params: Params, name: str, x: torch.Tensor,
     dx = xs - x
     xk = x + dx * params[f"{name}.mix_k"].to(dt)
     xr = x + dx * params[f"{name}.mix_r"].to(dt)
-    k = torch.square(F.relu(xk @ params[f"{name}.wk"].to(dt)))
-    r = tp_gather(torch.sigmoid(xr @ params[f"{name}.wr"].to(dt)))
+    k = torch.square(F.relu(tp_in(xk) @ params[f"{name}.wk"].to(dt)))
+    r = tp_gather(torch.sigmoid(tp_in(xr) @ params[f"{name}.wr"].to(dt)))
     y = r * row_parallel(k, params[f"{name}.wv"].to(dt))
     if state is not None:
         state = dict(state, x_ffn=x[:, -1])

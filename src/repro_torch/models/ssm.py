@@ -14,7 +14,8 @@ Under a serving mesh a rank runs its ``d_inner / model`` channels
 (``in_proj``'s x and z columns of them, the conv, ``dt_proj``, ``A_log``,
 ``D`` and the scan, and its channels of the state); ``x_proj`` is
 row-parallel, so every rank reads the whole (dt, B, C), and so is
-``out_proj``.
+``out_proj``. Under autograd x enters ``in_proj`` and the whole (dt, B,
+C) the rank's channels through ``layers.tp_in``.
 """
 from __future__ import annotations
 
@@ -26,7 +27,8 @@ import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models.layers import ParamDef, Params, Schema, row_parallel
+from repro_torch.models.layers import (ParamDef, Params, Schema, row_parallel,
+                                       tp_in)
 
 State = Dict[str, torch.Tensor]
 
@@ -83,7 +85,7 @@ def apply_mamba(params: Params, name: str, x: torch.Tensor,
     di = params[f"{name}.D"].shape[0]               # the rank's channels
     dt_ = x.dtype
 
-    xz = x @ params[f"{name}.in_proj"].to(dt_)
+    xz = tp_in(x) @ params[f"{name}.in_proj"].to(dt_)
     xs, z = xz[..., :di], xz[..., di:]
 
     decode = state is not None and state.get("decode", False)
@@ -92,7 +94,7 @@ def apply_mamba(params: Params, name: str, x: torch.Tensor,
                                 params[f"{name}.conv_b"].to(dt_), conv_prev)
     xs = F.silu(xs)
 
-    proj = row_parallel(xs, params[f"{name}.x_proj"].to(dt_))
+    proj = tp_in(row_parallel(xs, params[f"{name}.x_proj"].to(dt_)))
     dt_raw, B, C = torch.split(proj, [dtr, n, n], dim=-1)
     dt = F.softplus((dt_raw @ params[f"{name}.dt_proj"].to(dt_)).float()
                     + params[f"{name}.dt_bias"].float())

@@ -30,6 +30,10 @@ matrix products and recomputes the rest (a selective-checkpoint policy,
 the counterpart of ``jax.checkpoint_policies.checkpoint_dots``). The
 recomputation runs the same operations on the same inputs, so gradients
 are those of ``"none"``. A serving call (with a cache) runs no remat.
+The recomputation runs inside backward, which autograd may run on
+another thread (CUDA's device thread): the checkpointed body re-enters
+the ``sharding.RankContext`` its forward ran in (a rank's mesh, the
+whole batch's MoE statistics), so it splits its work as the forward did.
 """
 from __future__ import annotations
 
@@ -40,6 +44,7 @@ import torch
 from torch.utils import checkpoint as torch_checkpoint
 
 from repro_torch.config import ModelConfig
+from repro_torch.distributed import sharding as sh
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv6 as rwkv_mod
@@ -254,8 +259,16 @@ def _remat(body, remat: str):
         kw["context_fn"] = functools.partial(
             torch_checkpoint.create_selective_checkpoint_contexts,
             _save_dots)
-    return functools.partial(torch_checkpoint.checkpoint, body,
-                             use_reentrant=False, **kw)
+
+    def checkpointed(*args):
+        ctx = sh.context()
+
+        def within(*a):
+            with sh.within(ctx):
+                return body(*a)
+        return torch_checkpoint.checkpoint(within, *args,
+                                           use_reentrant=False, **kw)
+    return checkpointed
 
 
 def apply_stack(params: Params, cfg: ModelConfig, x: torch.Tensor,

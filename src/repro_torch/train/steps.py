@@ -21,39 +21,48 @@ computes:
   gradient.
 
 With ``mesh=`` (a ``DeviceMesh`` with axes among ``pod``, ``data`` and
-``model``; ``launch.mesh``) the same step is FSDP over the ranks, one
-process per GPU, each calling it with its own shards and rows (one
-device is the step with no mesh axes):
+``model``; ``launch.mesh``) the same step is FSDP over the batch axes
+and tensor parallelism over ``model``, one process per GPU, each calling
+it with its own shards and rows (one device is the step with no mesh
+axes):
 
 * each rank holds its shard of every leaf as
   ``distributed.elastic.state_shardings`` lays it out (the reference's
-  specs; under int8 moments a parameter takes its moments' block
-  layout, since the block quantization couples a block's values);
-* the float32 shards are cast, then all-gathered;
+  specs in the compute layout over ``model``; under int8 moments a
+  parameter takes its moments' block layout, whole along ``model``,
+  since the block quantization couples a block's values);
+* the float32 shards are cast, then all-gathered over the FSDP axis
+  alone into the rank's compute shard (a block-laid leaf is gathered
+  whole and cut to its ``model`` part); the forward runs inside the
+  step's ``sharding.RankContext``: the blocks split their heads, widths
+  and vocabulary over ``model`` (``models``), and remat's recomputation
+  re-enters that context on whatever thread autograd runs it;
 * the batch arrives as the rank's rows over ``batch_axes``
   (``sharding.batch_rows``, microbatch by microbatch as the reference
-  splits); the loss is the reference's, the nll summed over the whole
-  (micro)batch over the mask count of the whole (micro)batch, an
-  all-reduced count, so ranks whose masks differ still give its mean;
-  the MoE balance loss is the product of the whole (micro)batch's
-  per-expert means (``models.moe.batch_stats``: the ranks' [E] token
-  fractions and probability means all-reduced before the product), which
+  splits; the ranks of one batch index take the same rows); the loss is
+  the reference's, the nll summed over the whole (micro)batch over the
+  mask count of the whole (micro)batch, an all-reduced count, so ranks
+  whose masks differ still give its mean; over a vocabulary split over
+  ``model`` the loss reduces the rank's columns where they lie; the MoE
+  balance loss is the product of the whole (micro)batch's per-expert
+  means (the ranks' [E] token fractions and probability means
+  all-reduced before the product, ``RankContext.batch_stats``), which
   needs each rank's tokens in whole dispatch groups;
-* the gradients (float32) are reduce-scattered back to the shards and
-  summed over the batch axes a leaf is not split over; AdamW runs on
-  the shards, clipped by the norm of the whole gradient;
+* the gradients (float32) of the compute shards are reduce-scattered
+  back over the FSDP axis and summed over the batch axes a leaf is not
+  split over; a leaf whose ``model`` parts several ranks hold (K/V heads
+  where ``model`` exceeds them) has its parts' gradients summed over
+  those ranks, and a block-laid leaf its ``model`` parts assembled into
+  the whole leaf first; AdamW runs on the shards, clipped by the norm of
+  the whole gradient (each shard counted once);
 * ``grad_compression="int8"`` on a mesh with a ``pod`` axis is the
   reference's ``_pod_compressed_grads``: each pod's gradient of its own
-  rows' mean loss (all-reduced over its ``data`` ranks), a per-block
-  absmax taken as a MAX across pods, int8 quantization against that
-  shared scale, an int32 SUM across pods, dequantization divided by the
-  number of pods; the metrics are averaged over pods. On a mesh without
-  a pod axis (one device included) it does nothing, as in the
-  reference;
-* a ``model`` axis larger than one (tensor parallelism) raises
-  ``NotImplementedError`` (ROADMAP A8.2b: serving's tensor-parallel
-  forward is ported, its collectives' backward and this step over
-  ``model`` are not).
+  rows' mean loss (all-reduced over its ``data`` ranks, whole along
+  ``model``), a per-block absmax taken as a MAX across pods, int8
+  quantization against that shared scale, an int32 SUM across pods,
+  dequantization divided by the number of pods; the metrics are
+  averaged over pods. On a mesh without a pod axis (one device
+  included) it does nothing, as in the reference.
 """
 from __future__ import annotations
 
@@ -121,14 +130,14 @@ def make_train_step(cfg: ModelConfig, ocfg: OptimizerConfig,
     split."""
     resolve_device(device)
     shape = sh.mesh_shape_dict(mesh) if mesh is not None else {}
-    if shape.get("model", 1) > 1:
-        raise NotImplementedError(
-            f"a model axis of {shape['model']} (tensor parallelism) is not "
-            f"in the port's training yet (ROADMAP A8.2b; serving takes "
-            f"one); train over data and pod axes, with model=1")
-    pshard = oshard = None
+    tp = parallel.tp_axis
+    pshard = oshard = comp = None
     if mesh is not None:
         pshard, oshard = state_shardings(cfg, ocfg, parallel, mesh)
+        comp = {n: sh.Sharding(mesh, tuple(e if e == tp else None
+                                           for e in spec), shp, kind=kind)
+                for n, (spec, shp, kind) in M.train_layout(
+                    cfg, parallel, mesh).items()}
     cdt = compute_dtype(cfg)
     cast = bool(parallel.fsdp_axis) and cdt != getattr(torch,
                                                        cfg.param_dtype)
@@ -164,13 +173,45 @@ def make_train_step(cfg: ModelConfig, ocfg: OptimizerConfig,
         return (batch_mean(frac_tokens.detach()),
                 probs + (frac_probs - frac_probs.detach()) / float(n_mean))
 
+    tp_mesh = None
+    if shape.get(tp, 1) > 1:
+        tp_mesh = sh.ServeMesh.of(mesh, parallel, model_only=True)
+    context = sh.RankContext(tp_mesh, stats if moe_stats else None)
+
+    def fsdp(s):
+        # the axes a leaf's FSDP shard is gathered and reduced over
+        return tuple(a for a in s.axes if a != tp)
+
     def gathered(params):
         full = {}
         for n, p in params.items():
             if cast and p.dtype == torch.float32:
                 p = p.to(cdt)
-            full[n] = pshard[n].gather(p) if pshard else p
+            if pshard is None:
+                full[n] = p
+            elif pshard[n].block is not None:
+                # the block layout: the whole leaf, then its model part
+                p = pshard[n].gather(p)
+                full[n] = comp[n].shard(p) if comp[n].axes else p
+            else:
+                full[n] = pshard[n].gather(p, fsdp(pshard[n]))
         return full
+
+    def to_shard(n, g):
+        # this rank's shard of the whole batch's gradient, from the
+        # gradient of its compute shard
+        s, c = pshard[n], comp[n]
+        rest = tuple(a for a in mean_axes if a not in s.axes)
+        if compress or s.block is not None:
+            if c.axes:
+                g = c.assemble(g) if c.sharers() > 1 else c.gather(g)
+            if compress:
+                return s.shard(_pod_compress(over(mean_axes, g), pods,
+                                             npods))
+            return over(rest, s.reduce(g))
+        if c.sharers() > 1:
+            g = c.shard(c.assemble(g))
+        return over(rest, s.reduce(g, fsdp(s)))
 
     def grad_fn(full, batch, denom):
         if moe_stats and batch["tokens"].numel() % moe_mod.GROUP_SIZE:
@@ -181,8 +222,7 @@ def make_train_step(cfg: ModelConfig, ocfg: OptimizerConfig,
                 f"microbatch)")
         names = list(full)
         leaves = [full[n].detach().requires_grad_() for n in names]
-        with torch.enable_grad(), moe_mod.batch_stats(
-                stats if moe_stats else None):
+        with torch.enable_grad(), sh.within(context):
             loss, metrics = M.loss_fn(dict(zip(names, leaves)), cfg, batch,
                                       remat=parallel.remat, denom=denom)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
@@ -214,27 +254,23 @@ def make_train_step(cfg: ModelConfig, ocfg: OptimizerConfig,
         if k > 1:
             gsum = {n: g / float(k) for n, g in gsum.items()}
             metrics = {m: v / float(k) for m, v in metrics.items()}
-        local = {}
-        for n, g in gsum.items():
-            if compress:
-                g = _pod_compress(over(mean_axes, g), pods, npods)
-                local[n] = pshard[n].shard(g)
-            elif pshard:
-                rest = tuple(a for a in mean_axes if a not in pshard[n].axes)
-                local[n] = over(rest, pshard[n].reduce(g))
-            else:
-                local[n] = g
+        local = {n: to_shard(n, g) if pshard else g
+                 for n, g in gsum.items()}
         if compress:
             metrics = {m: sh.all_reduce(v, "sum", pods) / float(npods)
                        for m, v in metrics.items()}
         return local, metrics
 
     def global_norm(grads):
-        # each leaf's squares summed over the axes it is split over
+        # each leaf's squares summed over the axes it is split over, a
+        # shard that several ranks hold counted once
         by_axes = {}
         for n, g in grads.items():
             a = pshard[n].axes if pshard else ()
-            by_axes[a] = by_axes.get(a, 0.0) + sq_norm(g)
+            sq = sq_norm(g)
+            if pshard and not pshard[n].counted():
+                sq = torch.zeros_like(sq)
+            by_axes[a] = by_axes.get(a, 0.0) + sq
         total = sum(over(a, v) for a, v in sorted(by_axes.items()))
         return torch.sqrt(total)
 
@@ -247,6 +283,10 @@ def make_train_step(cfg: ModelConfig, ocfg: OptimizerConfig,
     #: ``grads(params, batch) -> (grads, metrics)``: the step's gradient
     #: half alone, for checks against another device or the reference
     step.grads = compute_grads
+    #: the rank's compute shards of its state's parameters, and the
+    #: context its forward runs in (for driving the forward by hand)
+    step.compute_params = gathered
+    step.context = context
     step.shardings = (pshard, oshard)
     return step
 

@@ -16,7 +16,10 @@ compute layout on an ``{axis: size}`` mapping.
 * a query-head count that ``model`` does not divide raises
   ``NotImplementedError`` naming the rule (ROADMAP C19), and so does a
   KV-head count that neither divides nor is divided by it;
-* training over a ``model`` axis still raises, naming A8.2b;
+* training over a ``model`` axis (``train_layout``) takes the
+  reference's specs with ``embed`` over the FSDP axis, in serving's
+  compute layout, for all ten configs; it refuses a width the axis does
+  not divide (C19), naming training;
 * the serving mesh is the thread's own, and ``f32_product`` off the
   card is the float32 product of the widened operands.
 """
@@ -166,11 +169,38 @@ def test_every_config_serves_at_model_2_and_4(arch):
         M.check_serve_model_axis(get_config(arch), size)
 
 
-def test_training_over_model_still_raises_naming_a8_2b():
-    with pytest.raises(NotImplementedError, match="A8.2b"):
-        make_train_step(get_smoke_config("llama3.2-1b"), OptimizerConfig(),
-                        ParallelConfig(), "cpu",
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_training_layout_keeps_fsdp_in_the_compute_layout(arch):
+    """Training over (data, model) computes in serving's layout with
+    ``embed`` split over ``data`` where the reference's specs split it;
+    every other entry and kind is serving's."""
+    cfg = get_config(arch)
+    par = ParallelConfig()
+    for shape in ((2, 2), (1, 4)):
+        mesh = {"data": shape[0], "model": shape[1]}
+        train = M.train_layout(cfg, par, mesh)
+        serve, _ = M.serve_layout(cfg, par, mesh, SLOTS, MAX_LEN)
+        ref = M.partition_specs(cfg, sh.build_rules(par, mesh), mesh)
+        assert sorted(train) == sorted(serve)
+        for name, (spec, shape_, kind) in train.items():
+            sspec, sshape, skind = serve[name]
+            assert (shape_, kind) == (sshape, skind), name
+            for e, s_, r in zip(spec, sspec, ref[name]):
+                assert e == (r if r == "data" else s_), (name, spec)
+
+
+def test_training_over_model_refuses_what_does_not_divide():
+    odd = dataclasses.replace(get_smoke_config("llama3.2-1b"),
+                              attention=dataclasses.replace(
+                                  get_smoke_config("llama3.2-1b").attention,
+                                  num_heads=3, num_kv_heads=1))
+    with pytest.raises(NotImplementedError,
+                       match="tensor-parallel training.*C19"):
+        make_train_step(odd, OptimizerConfig(), ParallelConfig(), "cpu",
                         mesh={"data": 1, "model": 2})
+    with pytest.raises(NotImplementedError,
+                       match="3 query heads.*training.*C19"):
+        M.train_layout(odd, ParallelConfig(), {"data": 2, "model": 2})
 
 
 def test_the_serving_mesh_is_this_threads_only():

@@ -29,7 +29,10 @@ one-device step and to the reference's:
 * ``train(mesh=)`` with a transient fault and a node loss bitwise its
   uninterrupted run, and near the one-device loop;
 * ``python -m repro_torch.launch.train --data 2``;
-* a ``model`` axis of 2 raises ``NotImplementedError`` naming A8.2.
+* a ``model`` axis that does not divide a width the blocks split (3
+  query heads over model=2) raises ``NotImplementedError`` naming
+  training and C19 (the model axis itself trains:
+  ``tests/test_torch_train_tp*.py``).
 """
 import dataclasses
 import os
@@ -315,6 +318,10 @@ def test_launcher_trains_over_data_2(ranks, tmp_path):
         assert err <= BF16_PARAM_LR * ocfg.lr, (k, err)
 
 
-def test_model_axis_raises_naming_a8_2(ranks):
-    assert "A8.2" in ranks[0]["model_axis"]
+def test_model_axis_that_does_not_divide_raises_c19(ranks):
+    for r in ranks:
+        msg = r["model_axis"]
+        assert msg is not None
+        assert "3 query heads" in msg and "training" in msg, msg
+        assert "C19" in msg
     assert os.path.isdir(ranks[0]["launch_dir"])

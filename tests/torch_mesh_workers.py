@@ -299,6 +299,7 @@ def mesh_run(cfg, ocfg, par, mesh, params_np, batch_np, steps=TRAIN_STEPS,
 
 
 def train_worker(rank, world, params_np, moe_params_np, root):
+    import dataclasses
     from repro_torch.checkpoint.ckpt import (gather_tree, reshard_tree,
                                              save_checkpoint)
     from repro_torch.config import OptimizerConfig, ParallelConfig
@@ -411,8 +412,10 @@ def train_worker(rank, world, params_np, moe_params_np, root):
          "--seq-len", "32", "--batch", "4", "--ckpt-dir", ckdir,
          "--ckpt-every", "3"])
     out["launch_dir"] = ckdir
-    try:
-        make_train_step(cfg, ocfg, par, "cpu",
+    try:        # 3 query heads over a model axis of 2 (ROADMAP C19)
+        odd = dataclasses.replace(cfg, attention=dataclasses.replace(
+            cfg.attention, num_heads=3, num_kv_heads=1))
+        make_train_step(odd, ocfg, par, "cpu",
                         mesh=cpu_mesh((1, world), ("data", "model")))
         out["model_axis"] = None
     except NotImplementedError as e:
@@ -450,6 +453,230 @@ def loop_runs(root, mesh):
                      "fired": [] if inj is None else list(inj.fired),
                      "dir": tcfg.checkpoint_dir}
     return got
+
+
+# ---------------------------------------------------------------------------
+# training over a (data, model) mesh
+# ---------------------------------------------------------------------------
+
+#: (case, arch, overrides) of the tensor-parallel training cases: GQA
+#: with RoPE, MLA, Mamba (Jamba without experts), RWKV-6 and experts
+TP_CASES = (("llama", "llama3.2-1b", {}),
+            ("minicpm3", "minicpm3-4b", {}),
+            ("jamba", "jamba-1.5-large-398b", {"moe": None}),
+            ("rwkv6", "rwkv6-7b", {}),
+            ("phi35_moe", MOE_ARCH, {}))
+#: the (data, model) meshes of each world
+TP_MESHES = {2: ((1, 2),), 4: ((2, 2), (1, 4))}
+TP_REMATS = ("none", "full")
+
+
+def tp_cfg(case, dtype="float32"):
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    _, arch, kw = next(c for c in TP_CASES if c[0] == case)
+    return dataclasses.replace(get_smoke_config(arch), dtype=dtype, **kw)
+
+
+def tp_batch(case):
+    """The case's batch: an MoE model's rows of MOE_SEQ, so that a rank
+    of data=2 holds whole dispatch groups."""
+    cfg = tp_cfg(case)
+    return train_batch(cfg.vocab_size,
+                       s=MOE_SEQ if cfg.moe is not None else SEQ)
+
+
+def rows_of(mesh, par, batch=BATCH):
+    """This rank's rows: its index over the batch axes alone, so the
+    ranks of one data index take the same rows."""
+    from repro_torch.distributed import sharding as sh
+    axes = sh.batch_partition(par, mesh)
+    sizes = sh.mesh_shape_dict(mesh)
+    index = 0
+    for a in axes:
+        index = index * sizes[a] + mesh.get_local_rank(a)
+    return sh.batch_rows(batch, index, sh.axis_size(sizes, axes),
+                         par.microbatches)
+
+
+def model_shared(state, shardings, tp="model"):
+    """{key: (holders, array)} of the rank's shards that other ranks of
+    its ``model`` axis hold too: leaves and moments not split over
+    ``model`` (``holders`` -1: every model rank) and K/V heads that
+    several ``model`` ranks read (``holders`` the index of that group of
+    sharers), as numpy."""
+    from repro_torch.checkpoint.ckpt import _items, _zip_shardings
+    places = _zip_shardings(state, shardings)
+    out = {}
+    for k, v in _items(state):
+        p = places[k]
+        if tp in p.axes and p.sharers() == 1:
+            continue
+        holders = (-1 if tp not in p.axes
+                   else p.mesh.get_local_rank(tp) // p.sharers())
+        out[k] = (holders,
+                  (v.float() if v.dtype == torch.bfloat16 else v).numpy())
+    return out
+
+
+def one_device_run(cfg, ocfg, par, params_np, batch_np, steps=TRAIN_STEPS):
+    """The port's one-device step on the whole batch: (metrics of each
+    step, the params after the last, the first step's gradients)."""
+    from repro_torch.optim.adamw import init_opt_state
+    from repro_torch.train.steps import make_train_step
+    step = make_train_step(cfg, ocfg, par, device="cpu")
+    params = {k: torch.tensor(v) for k, v in params_np.items()}
+    batch = {k: torch.from_numpy(v) for k, v in batch_np.items()}
+    grads, _ = step.grads(params, batch)
+    state = (params, init_opt_state(params, ocfg))
+    metrics = []
+    for _ in range(steps):
+        p, o, m = step(state[0], state[1], batch)
+        state = (p, o)
+        metrics.append({k: float(v) for k, v in m.items()})
+    return (metrics, {k: v.float().numpy() for k, v in state[0].items()},
+            {k: g.float().numpy() for k, g in grads.items()})
+
+
+def thread_grads(case, mesh, params_np):
+    """A remat="full" backward run on the forward's thread and on
+    another one (the CPU's stand-in for CUDA's device thread, where no
+    context of the forward is set): each one's gradients of the rank's
+    compute shards."""
+    import threading
+    from repro_torch.checkpoint.ckpt import reshard_tree
+    from repro_torch.config import OptimizerConfig, ParallelConfig
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import init_opt_state
+    from repro_torch.train.steps import make_train_step
+    cfg = tp_cfg(case)
+    par = ParallelConfig(batch_axes=("data",), remat="full")
+    ocfg = OptimizerConfig(**OPT)
+    step = make_train_step(cfg, ocfg, par, "cpu", mesh=mesh)
+    params = {k: torch.tensor(v) for k, v in params_np.items()}
+    state = reshard_tree((params, init_opt_state(params, ocfg)),
+                         step.shardings)
+    full = step.compute_params(state[0])
+    rows = rows_of(mesh, par)
+    batch = {k: torch.from_numpy(v[rows]) for k, v in tp_batch(case).items()}
+    got, names = {}, list(full)
+    for where in ("same", "other"):
+        leaves = [full[n].detach().requires_grad_() for n in names]
+
+        def backward():
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            got[where] = {n: None if g is None else g.numpy()
+                          for n, g in zip(names, grads)}
+        with torch.enable_grad(), sh.within(step.context):
+            loss, _ = M.loss_fn(dict(zip(names, leaves)), cfg, batch,
+                                remat="full")
+            if where == "same":     # as the step runs it
+                backward()
+        if where == "other":
+            t = threading.Thread(target=backward)
+            t.start()
+            t.join()
+    return got
+
+
+def tp_worker(rank, world, params_np, root):
+    """Every tensor-parallel case over each mesh of this world, and (rank
+    0 keeping the whole tensors) the first step's gradients, two steps'
+    metrics and the last whole parameters; the state the rank shares
+    with its model axis; at world 2 the thread and launcher checks, at
+    world 4 bf16 + int8, two microbatches and checkpoints."""
+    import os
+    from repro_torch.config import OptimizerConfig, ParallelConfig
+    out = {}
+    ocfg = OptimizerConfig(**OPT)
+    for shape in TP_MESHES[world]:
+        mesh = cpu_mesh(shape, ("data", "model"))
+        for case, _, _ in TP_CASES:
+            for remat in TP_REMATS:
+                par = ParallelConfig(batch_axes=("data",), remat=remat)
+                metrics, whole, grads, state, step = mesh_run(
+                    tp_cfg(case), ocfg, par, mesh, params_np[case],
+                    tp_batch(case))
+                rec = {"metrics": metrics,
+                       "shared": model_shared(state, step.shardings)}
+                if rank == 0:
+                    rec.update(grads=grads, whole=params_of(whole[-1]))
+                out[(shape, case, remat)] = rec
+    if world == 2:
+        mesh = cpu_mesh((1, 2), ("data", "model"))
+        out["thread"] = {case: thread_grads(case, mesh, params_np[case])
+                         for case in ("llama", "phi35_moe")}
+        from repro_torch.launch import train as launch_train
+        ckdir = os.path.join(root, "launch_model")
+        out["launch_rc"] = launch_train.main(
+            ["--smoke", "--device", "cpu", "--model", "2", "--data", "1",
+             "--steps", "3", "--seq-len", "32", "--batch", "4",
+             "--ckpt-dir", ckdir, "--ckpt-every", "3"])
+        out["launch_dir"] = ckdir
+    if world == 4:
+        out.update(tp_mesh22_cases(rank, params_np["llama"], root))
+    return out
+
+
+def params_of(whole):
+    """The parameters of a gathered (params, OptState) tree."""
+    return {k[len("[0]['"):-2]: v for k, v in whole.items()
+            if k.startswith("[0]")}
+
+
+def tp_mesh22_cases(rank, params_np, root):
+    """Smoke llama3.2 over (2, 2): bf16 compute with int8 moments, two
+    microbatches, and a checkpoint (2, 2) -> one device -> (2, 2)."""
+    import os
+    from repro_torch.checkpoint.ckpt import (_items, gather_tree,
+                                             reshard_tree, save_checkpoint)
+    from repro_torch.config import OptimizerConfig, ParallelConfig
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.distributed.elastic import elastic_restore
+    mesh = cpu_mesh((2, 2), ("data", "model"))
+    out = {}
+    for name, dtype, state_dtype, k in (
+            ("bf16_int8", "bfloat16", "int8", 1),
+            ("microbatches", "float32", "float32", 2)):
+        cfg = tp_cfg("llama", dtype)
+        ocfg = OptimizerConfig(state_dtype=state_dtype, **OPT)
+        par = ParallelConfig(batch_axes=("data",), microbatches=k)
+        metrics, whole, grads, state, step = mesh_run(
+            cfg, ocfg, par, mesh, params_np, tp_batch("llama"))
+        rec = {"metrics": metrics,
+               "shared": model_shared(state, step.shardings)}
+        if rank == 0:
+            rec.update(grads=grads, whole=params_of(whole[-1]))
+        out[name] = rec
+        if name == "bf16_int8":
+            # the checkpoint: the live shards gathered whole (one
+            # device's layout), written, and restored onto one device
+            # and onto (2, 2)
+            par_ck, ocfg_ck, live, shardings = par, ocfg, state, \
+                step.shardings
+    whole = gather_tree(live, shardings)
+    ckdir = os.path.join(root, "ckpt22")
+    if rank == 0:
+        save_checkpoint(ckdir, TRAIN_STEPS, whole)
+    sh.barrier()
+    cfg = tp_cfg("llama", "bfloat16")
+    p1, o1, _, _ = elastic_restore(ckdir, cfg, ocfg_ck, par_ck, device="cpu")
+    one = dict(_items((p1, o1)))
+    whole_items = dict(_items(whole))
+    p2, o2, _, _ = elastic_restore(ckdir, cfg, ocfg_ck, par_ck, mesh=mesh,
+                                   device="cpu")
+    back = dict(_items((p2, o2)))
+    again = dict(_items(reshard_tree((p1, o1), shardings)))
+    live_items = dict(_items(live))
+    out["ckpt"] = {
+        "to_one_bitwise": sorted(one) == sorted(whole_items) and all(
+            torch.equal(one[k], whole_items[k]) for k in one),
+        "back_bitwise": sorted(back) == sorted(live_items) and all(
+            torch.equal(back[k], live_items[k]) for k in back),
+        "reshard_bitwise": all(torch.equal(again[k], live_items[k])
+                               for k in live_items)}
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -215,3 +215,29 @@ def synthetic_result(sp, me, ex, rate_rps=20.0, duration_s=60.0,
                                  "busy_s": svc_s * int(duration_s)}},
         cost={"usd_per_hour": 0.1, "total_usd": 0.1 * duration_s / 3600.0},
         collector=col, metrics=metrics, drained=True, time_scale=1.0)
+
+
+def reference_train_grads(jref, cfg_overrides, arch, key, batch_np, opt):
+    """The reference's single-device loss and gradient on the whole batch
+    ``batch_np`` (``loss_fn`` under ``value_and_grad``, what its
+    ``make_train_step`` differentiates), for smoke ``arch`` in float32
+    with ``cfg_overrides`` and the parameters of ``PRNGKey(key)``: (the
+    parameters as numpy, {"loss": ...}, the gradients as numpy). Its
+    activation mesh is cleared for the call and restored after."""
+    import dataclasses
+    jax = jref.jax
+    jcfg = dataclasses.replace(jref.configs.get_smoke_config(arch),
+                               dtype="float32", **cfg_overrides)
+    jparams = jref.model.init_params(jcfg, jax.random.PRNGKey(key))
+    jb = {k: jax.numpy.asarray(v) for k, v in batch_np.items()}
+    act = dict(jref.sharding._ACT)
+    try:
+        jref.sharding.set_activation_mesh(None, None)
+        (loss, _), jgrads = jax.jit(jax.value_and_grad(
+            lambda p: jref.model.loss_fn(p, jcfg, jb), has_aux=True))(
+                jparams)
+    finally:
+        jref.sharding.set_activation_mesh(act["mesh"], act["rules"])
+    return ({k: np.asarray(v) for k, v in jparams.items()},
+            {"loss": float(loss)},
+            {k: np.asarray(g) for k, g in jgrads.items()})
