@@ -116,7 +116,7 @@ with phase 11's registered policies translated into them), then:
    CPU (9b); then ``ServeEngine`` as in 5d and 5g, from a card that
    holds no earlier engine, through llama3.2-1b whole (9c),
    moonshot-v1-16b-a3b cut to 12 of its 48 layers (whole it is 28.9 B
-   parameters, 57.8 GB in bf16; 9d) and phi3.5-moe cut to 16 of its 32
+   parameters, 57.8 GB in bf16; 9d) and phi3.5-moe cut to 8 of its 32
    layers (9e), the flash
    kernel's launches held to 2 a layer, each with its decode step's
    weight-read floor; the flash kernel against its plain version at
@@ -209,13 +209,32 @@ with phase 11's registered policies translated into them), then:
    whole) and their bytes, its load peak within its shards and
    one whole leaf, the launches a rank, first-token logits against a
    one-rank engine's in rank 0, both ranks' tokens equal; a
-   ``{"serve_mesh": ...}`` line. ``python3 chip_smoke.py --phase 14``
-   runs the build and phase 14 alone;
-15. prints one JSON line of per-kernel numbers (eight kernels: launches
+   ``{"serve_mesh": ...}`` line; then 14f, a cache split along its
+   sequence over model (ROADMAP A8.3, the reference's decode_32k
+   layout): smoke GQA and MLA in float32 over (1, 2) against one rank,
+   and llama3.2-1b at full width cut to 2 layers in float32 (max_len
+   1,024, 8 new tokens), every greedy token and the first-token logits
+   held to a one-rank engine's, TTFT, decode ms and the collectives the
+   serve issues. ``python3 chip_smoke.py --phase 14`` runs the build and
+   phase 14 alone;
+15. the dry run (``python -m repro_torch.launch.dryrun``, CPU only, on
+   a fake world of 256 ranks, in background processes beside phases
+   13-14's ranks)
+   of llama3.2-1b decode_32k and jamba-1.5-large long_500k in every mode,
+   each mode ``ok`` on the torch that runs the script (its private
+   fake process group and ``FlopCounterMode``), and their roofline rows
+   with the H100's constants (analytic, not measured); a
+   ``{"dryrun": ...}`` line. ``python3 chip_smoke.py --phase 15`` runs it alone;
+16. prints one JSON line of per-kernel numbers (nine kernels: launches
    on the main paths of phases 3-5, of 6b, of 7, of 8, of 9, of 10, of
-   11, of 12, of 13 (13a-13b, both ranks) and of 14 (14a-14d, both ranks),
-   error against the plain version, kernel / plain / bound / library
-   times; no
+   11, of 12, of 13 (13a-13b, both ranks), of 14 (14a-14d, both ranks)
+   and of 14f (both ranks); the flash source's float32 kernel has a row
+   of its own, ``flash_attention_f32``, at 14f's prefill shape on a rank,
+   its ``launches`` those of 14f, its main path), error against the
+   plain version, kernel / plain / bound / library times (the policy
+   kernels' plain versions run while phase 13-14's ranks work, and their
+   times share the card and host with them; each kernel is timed
+   alone after); no
    kernel may read faster than its bound; the decode launches of
    ``ssm_scan`` and ``rwkv6_scan`` also with their device time, 100
    launches captured in a CUDA graph and replayed, where the wrapper time
@@ -836,31 +855,42 @@ def chaos_at_width(whatif, tr, slo_mod, faults, sweep_twins, growths16):
     return growths4, aggs
 
 
-def kernel_vs_plain(name, shape, ops, agg):
-    """Time one kernel on ``ops`` (CUDA events over 3 launches after a
-    warm-up) and its plain version once, hold them bitwise over the whole
-    grid, and return the kernels line's numbers for it."""
-    from repro_torch.kernels import policy_scan as pk, ref
-    kw = dict(loads_t=ops["loads_t"], load_index=ops["load_index"])
+def policy_plain(ops, agg):
+    """A policy kernel's plain version on ``ops``, timed once (CUDA
+    events): (ms, its result)."""
+    from repro_torch.kernels import ref
     plain_kw = {}
     if agg:
-        kw.update(slo_limit=4 * 3600.0, slo_mode=0)
         plain_kw.update(slo_limit=4 * 3600.0, slo_mode=0)
     if "caps_t" in ops:
-        kw.update(caps_t=ops["caps_t"], fault_index=ops["fault_index"])
         plain_kw["caps"] = plain_rows(ops, "caps_t")
         if agg:
-            kw["fmask_t"] = ops["fmask_t"]
             plain_kw["fmask"] = plain_rows(ops, "fmask_t")
-    kernel = pk.policy_grid_agg if agg else pk.policy_grid_scan
     plain = ref.policy_grid_agg if agg else ref.policy_grid_scan
+    loads = plain_loads(ops)
+    return cuda_ms(lambda: plain(loads, ops["params"], ops["onehot"], 1.0,
+                                 **plain_kw))
+
+
+def kernel_vs_plain(name, shape, ops, agg, plain=None):
+    """Time one kernel on ``ops`` (CUDA events over 3 launches after a
+    warm-up) and its plain version once (or take ``plain``, ``policy_plain``'s
+    (ms, result) on the same ``ops`` from earlier in the run), hold them
+    bitwise over the whole grid, and return the kernels line's numbers
+    for it."""
+    from repro_torch.kernels import policy_scan as pk
+    kw = dict(loads_t=ops["loads_t"], load_index=ops["load_index"])
+    if agg:
+        kw.update(slo_limit=4 * 3600.0, slo_mode=0)
+    if "caps_t" in ops:
+        kw.update(caps_t=ops["caps_t"], fault_index=ops["fault_index"])
+        if agg:
+            kw["fmask_t"] = ops["fmask_t"]
+    kernel = pk.policy_grid_agg if agg else pk.policy_grid_scan
     args = (None, ops["params"], ops["onehot"], 1.0)
     kernel(*args, **kw)                                     # warm-up
     ms, got = cuda_ms(lambda: kernel(*args, **kw), reps=3)
-    loads = plain_loads(ops)
-    plain_ms, want = cuda_ms(lambda: plain(loads, ops["params"],
-                                           ops["onehot"], 1.0, **plain_kw))
-    del loads, plain_kw
+    plain_ms, want = plain if plain is not None else policy_plain(ops, agg)
     if agg:
         pairs = [("carry", got[0], want[0]), ("rows", got[1], want[1])]
     else:
@@ -2184,10 +2214,10 @@ def frontier_on_card(space, surge):
 
 
 #: 8c's gradient steps, cut from the example's 60 for the script's time
-#: limit: the port's CPU run at 30 steps finds the 60-step winner,
-#: {max_instances 9.399, scale_up_hours 34.233}, $84.5238, 1.27e-8 from
-#: the reference's 60-step answer (WHATIF7_C12_USD), as at 60
-WHATIF7_STEPS = 30
+#: limit: the port's CPU run at 15, 20 and 30 steps finds the 60-step
+#: winner, {max_instances 9.399, scale_up_hours 34.233}, $84.5238,
+#: 1.27e-8 from the reference's 60-step answer (WHATIF7_C12_USD)
+WHATIF7_STEPS = 15
 
 
 def whatif7_kwargs(faults):
@@ -2357,7 +2387,9 @@ def search_on_card(dev, whatif, tr, twin_mod, slo_mod, faults):
 #: the flash kernel's prefill shapes on the serving paths, (b, s, h, kh,
 #: dqk, dv, causal): Jamba-1.5 (5d), llama3.2-1b (9c), moonshot-v1-16b-a3b
 #: (9d), phi3.5-moe (9e), stablelm-3b (10c), gemma-7b (10d), minicpm3-4b's
-#: MLA (10e), qwen2-vl-7b (10f) and whisper-small's encoder (10g)
+#: MLA (10e), qwen2-vl-7b (10f), whisper-small's encoder (10g), a rank's
+#: heads of llama3.2-1b over model=2 (14a) and 14f's rank (float32: its
+#: prompts right-padded to max_len // 2 = 512)
 FLASH_SHAPES = {"5d": (4, 2048, 64, 8, 128, 128, True),
                 "9c": (4, 2048, 32, 8, 64, 64, True),
                 "9d": (4, 2048, 16, 16, 128, 128, True),
@@ -2367,7 +2399,8 @@ FLASH_SHAPES = {"5d": (4, 2048, 64, 8, 128, 128, True),
                 "10e": (4, 2048, 40, 40, 96, 64, True),
                 "10f": (4, 2048, 28, 4, 128, 128, True),
                 "10g": (4, 1500, 12, 12, 64, 64, False),
-                "14a": (4, 2048, 16, 4, 64, 64, True)}
+                "14a": (4, 2048, 16, 4, 64, 64, True),
+                "14f": (4, 512, 16, 4, 64, 64, True)}
 
 
 def serve_rope_moe(dev, get_config, get_smoke_config):
@@ -2378,8 +2411,8 @@ def serve_rope_moe(dev, get_config, get_smoke_config):
     width, each from a card that holds no earlier engine: 9c llama3.2-1b
     whole (16 layers), 9d moonshot-v1-16b-a3b cut to 12 of its 48
     layers (to keep the script inside its time limit), 9e
-    phi3.5-moe cut to 16 of its 32 layers (its 83.7 GB of bf16 weights
-    do not fit one card). Then the flash kernel against its plain version
+    phi3.5-moe cut to 8 of its 32 layers (its 83.7 GB of bf16 weights
+    do not fit one card; 8 to keep the script inside its time limit). Then the flash kernel against its plain version
     at each one's prefill shape. Returns the model kernels' launches
     summed over 9c-9e, and the flash rows."""
     from repro_torch.launch import serve as launch_serve
@@ -2409,8 +2442,9 @@ def serve_rope_moe(dev, get_config, get_smoke_config):
             ("9d", MOONSHOT, 12, "cut to 12 of its 48 layers (57.8 GB of "
              "bf16 weights whole; cut to keep the script inside its time "
              "limit)"),
-            ("9e", PHI, 16, "cut to 16 of its 32 layers (83.7 GB of bf16 "
-             "weights whole)")):
+            ("9e", PHI, 8, "cut to 8 of its 32 layers (83.7 GB of bf16 "
+             "weights whole; cut to keep the script inside its time "
+             "limit)")):
         cfg = get_config(arch)
         if layers is not None:
             cfg = dataclasses.replace(cfg, num_layers=layers)
@@ -2765,15 +2799,18 @@ def serve_mla_encdec(dev, get_config, get_smoke_config):
     return launches, flash, runs
 
 
-def flash_bound(b, sq, sk, h, kh, dq, dv, causal):
+def flash_bound(b, sq, sk, h, kh, dq, dv, causal, dtype=torch.bfloat16):
     """(bound_ms, bound_by) of one flash call: 2 b h sq sk (dqk + dv)
     operations (S = QK^T and PV), half of them when causal, at the bf16
-    tensor-core peak; q, k, v and the output once each in bf16 at HBM's
-    rate."""
+    tensor-core peak (float32: the float32 peak outside the tensor cores,
+    where that kernel runs); q, k, v and the output once each in
+    ``dtype`` at HBM's rate."""
     flops = 2 * b * h * sq * sk * (dq + dv) / (2 if causal else 1)
-    nbytes = 2 * (b * sq * h * dq + b * sk * kh * (dq + dv)
-                  + b * sq * h * dv)
-    t_ops, t_bytes = flops / BF16_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    size = 2 if dtype == torch.bfloat16 else 4
+    nbytes = size * (b * sq * h * dq + b * sk * kh * (dq + dv)
+                     + b * sq * h * dv)
+    peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
+    t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes", flops)
 
@@ -2839,16 +2876,19 @@ def train_attention_times(dev, cfg, b, s, remat):
     return out
 
 
-def flash_vs_plain(dev, phase="5d"):
+def flash_vs_plain(dev, phase="5d", dtype=torch.bfloat16):
     """The flash kernel at a serving path's prefill shape
-    (``FLASH_SHAPES[phase]``, bf16) against its plain version, with
-    SDPA's time for the table (null where SDPA refuses the shape)."""
+    (``FLASH_SHAPES[phase]``, in ``dtype``: bf16 takes the wgmma kernel,
+    float32 the CUDA-core one) against its plain version, with SDPA's
+    time for the table (null where SDPA refuses the shape)."""
     from repro_torch.kernels import flash_attention as fk, ref
     b, s, h, kh, dq, dv, causal = FLASH_SHAPES[phase]
     g = torch.Generator(device=dev).manual_seed(SEED + 2)
-    q = torch.randn(b, s, h, dq, generator=g, device=dev).bfloat16()
-    k = torch.randn(b, s, kh, dq, generator=g, device=dev).bfloat16()
-    v = torch.randn(b, s, kh, dv, generator=g, device=dev).bfloat16()
+    q = torch.randn(b, s, h, dq, generator=g, device=dev).to(dtype)
+    k = torch.randn(b, s, kh, dq, generator=g, device=dev).to(dtype)
+    v = torch.randn(b, s, kh, dv, generator=g, device=dev).to(dtype)
+    key = "flash_attention" + ("" if dtype == torch.bfloat16 else "_f32")
+    before = fk.launches[key]
 
     def kernel():
         return fk.flash_attention(q, k, v, causal=causal)
@@ -2856,8 +2896,9 @@ def flash_vs_plain(dev, phase="5d"):
     ms, got = cuda_ms(kernel, reps=10)
     plain_ms, want = cuda_ms(
         lambda: ref.flash_attention(q, k, v, causal=causal))
+    check(fk.launches[key] > before, (phase, key, "not launched"))
     err = close_or_raise(f"flash at {phase}'s shape", got, want,
-                         MODEL_TOL[torch.bfloat16])
+                         MODEL_TOL[dtype])
     del want
 
     def library():
@@ -2871,11 +2912,13 @@ def flash_vs_plain(dev, phase="5d"):
         print(f"flash_attention ({phase}): SDPA refused the shape: "
               f"{str(e).splitlines()[0][:200]}")
         library_ms = None
-    bound_ms, bound_by, flops = flash_bound(b, s, s, h, kh, dq, dv, causal)
+    bound_ms, bound_by, flops = flash_bound(b, s, s, h, kh, dq, dv, causal,
+                                            dtype)
     lib = ("not run" if library_ms is None else
            f"{library_ms:.3f} ms (kernel / SDPA {ms / library_ms:.2f})")
-    print(f"flash_attention ({phase}) at q {list(q.shape)}, k "
-          f"{list(k.shape)}, v {list(v.shape)} bf16 "
+    print(f"{key} ({phase}) at q {list(q.shape)}, k "
+          f"{list(k.shape)}, v {list(v.shape)} "
+          f"{'bf16' if dtype == torch.bfloat16 else 'float32'} "
           f"{'causal' if causal else 'not causal'}: kernel "
           f"{ms:.3f} ms, plain {plain_ms:.1f} ms, SDPA {lib}, bound "
           f"{bound_ms:.4f} ms ({bound_by}; the kernel at "
@@ -4450,6 +4493,21 @@ SERVE_MESH_RUNS = (("14a", LLAMA, (1, 2), None, 4096, 16, None),
 #: and one whole leaf (with its float32 group draw): the allocator's
 #: rounding and the index of a cut
 SERVE_MESH_LOAD_SLACK = 256 * 2 ** 20
+#: 14f: a cache split along its sequence over model, the flash-decoding
+#: layout of the reference's decode_32k dry-run cells (ROADMAP A8.3):
+#: smoke GQA and MLA in float32 over (1, 2), a prefill of 4 x 64 tokens
+#: into a cache of 128 (one chunk a rank) and 4 decode steps; then
+#: llama3.2-1b at full width (hf:meta-llama/Llama-3.2-1B) cut to 2 of 16
+#: layers for the time limit, float32 weights (every greedy token held
+#: to one rank's), max_len 1,024, 8 new tokens, 4 of 9c's prompts
+SEQ_SPLIT_SMOKE = (LLAMA, MINICPM)
+SEQ_SPLIT_RUN = ("14f", LLAMA, (1, 2), 2, 1024, 8, "float32")
+
+
+def seq_split_parallel():
+    from repro_torch.config import ParallelConfig
+    return ParallelConfig(fsdp_axis=None, shard_cache_seq=True,
+                          seq_axis="model")
 
 
 def shard_bytes(part, what, held, placement, mesh_shape):
@@ -4486,18 +4544,21 @@ def whole_leaf_bytes(cfg):
     return most
 
 
-def serve_mesh_smoke(rank, dev, get_smoke_config):
-    """14e: the six smoke kinds in float32 over (1, 2) and (2, 1), a
-    prefill of 4 x 128 tokens and 3 decode steps through the steps on
-    the rank's rows and shards, against one rank's steps on the card
-    (rank 0): tokens equal, logits within SERVE_MESH_F32_RTOL. Returns
-    {kind: worst error}."""
+def serve_mesh_smoke(rank, dev, get_smoke_config, par=None,
+                     shapes=SERVE_MESH_SHAPES, archs=SERVE_MESH_SMOKE,
+                     label="14e", max_len=256, steps=3):
+    """14e (and 14f's smoke part): the smoke kinds ``archs`` in float32
+    over each (data, model) of ``shapes`` under ``par`` (default
+    ``ParallelConfig()``), a prefill of 4 x ``max_len // 2`` tokens and
+    ``steps`` decode steps through the steps on the rank's rows and
+    shards, against one rank's steps on the card (rank 0): tokens equal,
+    logits within SERVE_MESH_F32_RTOL. Returns {kind: worst error}."""
     from repro_torch.config import ParallelConfig
     from repro_torch.distributed import sharding as sh
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import model as M
     from repro_torch.serve.steps import make_decode_step, make_prefill_step
-    par, b, max_len = ParallelConfig(), 4, 256
+    par, b = par or ParallelConfig(), 4
 
     def run(cfg, params, batch, mesh):
         rows = np.arange(b)
@@ -4513,7 +4574,7 @@ def serve_mesh_smoke(rank, dev, get_smoke_config):
         logits, cache = prefill(params, {k: v[rows] for k, v in
                                          batch.items()}, cache)
         got = [logits.float().cpu()]
-        for _ in range(3):
+        for _ in range(steps):
             tok = got[-1][:, -1].argmax(-1).to(torch.int32)
             logits, cache = decode(params, cache,
                                    {"token": tok[rows][:, None].to(dev)})
@@ -4521,9 +4582,9 @@ def serve_mesh_smoke(rank, dev, get_smoke_config):
         return got
 
     worst = {}
-    for shape in SERVE_MESH_SHAPES:
+    for shape in shapes:
         mesh = make_host_mesh(*shape)
-        for arch in SERVE_MESH_SMOKE:
+        for arch in archs:
             cfg = dataclasses.replace(get_smoke_config(arch),
                                       dtype="float32")
             params = M.compute_params(M.init_params(cfg, seed=SEED,
@@ -4542,11 +4603,11 @@ def serve_mesh_smoke(rank, dev, get_smoke_config):
                 for step, (a, w) in enumerate(zip(got, one)):
                     check(torch.equal(a[:, -1].argmax(-1),
                                       w[:, -1].argmax(-1)),
-                          ("14e tokens", arch, shape, step))
+                          (f"{label} tokens", arch, shape, step))
                     e = float((a - w).abs().max()) / (1 + float(
                         w.abs().max()))
-                    check(e <= SERVE_MESH_F32_RTOL, ("14e logits", arch,
-                                                     shape, step, e))
+                    check(e <= SERVE_MESH_F32_RTOL, (f"{label} logits",
+                                                     arch, shape, step, e))
                     key = f"{arch} {shape[0]}x{shape[1]}"
                     worst[key] = max(worst.get(key, 0.0), e)
             del params
@@ -4554,7 +4615,7 @@ def serve_mesh_smoke(rank, dev, get_smoke_config):
 
 
 def serve_mesh_at_width(rank, dev, part, cfg, shape, max_len, new,
-                        expect, tol):
+                        expect, tol, par=None, strict=False):
     """One of 14a-14d: ``cfg`` served by ``ServeEngine(mesh=)`` over a
     (data, model) = ``shape`` mesh of the two ranks, weights in the
     config's compute dtype drawn on the card a leaf at a time into each
@@ -4563,14 +4624,17 @@ def serve_mesh_at_width(rank, dev, part, cfg, shape, max_len, new,
     one-rank engine. Checks the rank's bytes against its placement's
     shards, its load peak against its shards and one whole leaf, the
     launch counts against ``expect``, and (on rank 0) the first-token
-    logits against the one-rank engine's within ``tol``. Returns the
+    logits against the one-rank engine's within ``tol`` (with ``strict``
+    every greedy token equal to its). ``par`` is the mesh's
+    ``ParallelConfig`` (default ``ParallelConfig()``); the collectives
+    the serve issues are counted (``sharding.tally``). Returns the
     record and (on rank 0) the one-rank engine's first-token logits."""
     from repro_torch.config import ParallelConfig
     from repro_torch.distributed import sharding as sh
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import model as M
     from repro_torch.serve.engine import Request, ServeEngine
-    par, slots = ParallelConfig(), 4
+    par, slots = par or ParallelConfig(), 4
     rng = np.random.default_rng(SEED)
     lens = rng.integers(1024, 2049, 8)
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
@@ -4627,7 +4691,8 @@ def serve_mesh_at_width(rank, dev, part, cfg, shape, max_len, new,
     for mod in mods:
         mod.reset_launches()
     t0 = time.perf_counter()
-    done = eng.serve(requests())
+    with sh.tally() as coll:
+        done = eng.serve(requests())
     wall = time.perf_counter() - t0
     launches = {k: v for mod in mods for k, v in mod.launches.items()}
     peak = torch.cuda.max_memory_allocated()
@@ -4651,7 +4716,8 @@ def serve_mesh_at_width(rank, dev, part, cfg, shape, max_len, new,
            "ttft_ms_p95": float(np.percentile(ttft, 95)),
            "prefill_span_ms": float(pre.mean()),
            "decode_step_ms": float(dec.mean()) if len(dec) else None,
-           "peak_gib": peak / 2 ** 30, "launches": launches}
+           "peak_gib": peak / 2 ** 30, "launches": launches,
+           "collectives": {k: v for k, v in coll.items() if v["count"]}}
     if one is not None:
         err = first_logits_rel(eng._prefill.logits[0], one[1])
         print(f"phase {part} (rank 0): first-token logits within {err:.3g} "
@@ -4663,6 +4729,9 @@ def serve_mesh_at_width(rank, dev, part, cfg, shape, max_len, new,
                    same_tokens=same / (len(outputs) * new),
                    first_tokens_equal=[o[0] for o in outputs]
                    == [p[0] for p in one[0]])
+        if strict:
+            check(outputs == one[0], (part, "greedy tokens", outputs,
+                                      one[0]))
     del eng
     torch.cuda.empty_cache()
     out["s"] = time.perf_counter() - t_part
@@ -4731,6 +4800,19 @@ def serve_mesh_rank(rank, dev):
         # 14c's bf16 bound is read against
         rec["14c"]["one_bf16_vs_f32"] = first_logits_rel(
             one_logits["14c"], one_logits["14c-f32"])
+    # 14f: the cache split along its sequence over model
+    t1 = time.perf_counter()
+    rec["14f_smoke"] = serve_mesh_smoke(
+        rank, dev, get_smoke_config, seq_split_parallel(), ((1, 2),),
+        SEQ_SPLIT_SMOKE, "14f", 128, 4)
+    rec["14f_smoke_s"] = time.perf_counter() - t1
+    part, arch, shape, layers, max_len, new, dtype = SEQ_SPLIT_RUN
+    cfg = serve_mesh_config(arch, layers, dtype)
+    rec[part], _ = serve_mesh_at_width(
+        rank, dev, part, cfg, shape, max_len, new,
+        serve_mesh_launches(cfg, new), SERVE_MESH_F32_WIDTH_TOL,
+        seq_split_parallel(), strict=True)
+    sh.barrier()
     rec["s"] = time.perf_counter() - t0
     return rec, launches
 
@@ -4912,38 +4994,82 @@ def mesh_report_14(recs):
                   f"{x['one_bf16_vs_f32']:.3g} of its float32 ones")
         runs[part] = {k: v for k, v in x.items() if k != "outputs"}
         runs[part]["rank1_peak_gib"] = y["peak_gib"]
+    x, y = rec["14f"], recs[1]["14"]["14f"]
+    check(x["outputs"] == y["outputs"], ("14f", "the ranks' tokens"))
+    launches_14f = {}
+    for r in (x, y):
+        for k, v in r["launches"].items():
+            launches_14f[k] = launches_14f.get(k, 0) + v
+    print(f"phase 14f: the cache split along its sequence over model; "
+          f"{len(SEQ_SPLIT_SMOKE)} smoke kinds in float32 over (1, 2), "
+          f"prefill of 4 x 64 into 128 positions + 4 decode steps against "
+          f"one rank on the card: tokens equal, logits within "
+          + ", ".join(f"{k} {v:.3g}" for k, v in rec["14f_smoke"].items())
+          + f" (bound {SERVE_MESH_F32_RTOL:g}); {rec['14f_smoke_s']:.1f} s")
+    print(f"phase 14f: {x['model']} ({x['layers']} layers, {x['dtype']}) "
+          f"over (data, model) {tuple(x['mesh'])}, its cache's sequence "
+          f"over model, max_len {x['max_len']}, 4 requests x "
+          f"{x['new_tokens']} new tokens: TTFT p50 {x['ttft_ms_p50']:.1f} "
+          f"ms, p95 {x['ttft_ms_p95']:.1f} ms, decode "
+          f"{x['decode_step_ms']:.2f} ms a step; first-token logits within "
+          f"{x['first_logits_err']:.3g} of one rank's (bound "
+          f"{x['first_logits_tol']:g}), every greedy token one rank's; "
+          f"cache {x['cache_gib']:.3f} GiB a rank; launches a rank "
+          f"{x['launches']}; staged by the serve: "
+          + ", ".join(f"{k} {v['count']} calls {v['bytes'] / 1e6:.2f} MB"
+                      for k, v in sorted(x["collectives"].items()))
+          + f"; {x['s']:.1f} s")
+    runs["14f"] = {k: v for k, v in x.items() if k != "outputs"}
+    runs["14f"]["rank1_peak_gib"] = y["peak_gib"]
     record = {"runs": runs, "smoke_f32_err": rec["14e"],
+              "seq_split_smoke_err": rec["14f_smoke"],
               "bounds": {"smoke_f32_rtol": SERVE_MESH_F32_RTOL,
                          "first_logits": {
                              p: rec[p]["first_logits_tol"]
-                             for p, *_ in SERVE_MESH_RUNS}},
-              "launches": launches, "s": rec["s"]}
+                             for p, *_ in SERVE_MESH_RUNS + (
+                                 SEQ_SPLIT_RUN,)}},
+              "launches": launches, "launches_14f": launches_14f,
+              "s": rec["s"]}
     print(json.dumps({"serve_mesh": record}))
     return launches, record
 
 
-def mesh_on_card(rows_4b=None, rows_4d=None, parts=("13", "14")):
+def mesh_on_card(rows_4b=None, rows_4d=None, parts=("13", "14"),
+                 beside=None):
     """Phases 13 and 14: the multi-GPU layer, two gloo ranks started once
     on the one card (NCCL will not put two ranks on one GPU; gloo stages
     the card's tensors through host memory), for 13a-13e and 14a-14e
     (see those). It checks correctness and measures no scaling: the
-    ranks share the card. Returns the launches of 13a-13b (the policy
-    kernels, summed over the ranks), of 14a-14d (the model kernels) and
-    the phases' records (``{"mesh": ...}`` and ``{"serve_mesh": ...}``
-    lines)."""
+    ranks share the card. ``beside`` (no arguments) runs in this process
+    while the ranks run, and its result is returned beside theirs.
+    Returns the launches of 13a-13b (the policy kernels, summed over the
+    ranks), of 14a-14d (the model kernels), the phases' records
+    (``{"mesh": ...}`` and ``{"serve_mesh": ...}`` lines) and
+    ``beside``'s result."""
     import torch.multiprocessing as mp
     t0 = time.perf_counter()
     root = tempfile.mkdtemp(prefix="plantd_mesh_")
+    beside_out = None
     try:
         if "13" in parts:
             np.savez(os.path.join(root, "ref.npz"),
                      **{f"4b.{k}": v for k, v in rows_4b.items()},
                      **{f"4d.{k}": v for k, v in rows_4d.items()})
         torch.cuda.empty_cache()
-        mp.start_processes(mesh_rank, args=(os.path.join(root, "init"),
-                                            root, parts),
-                           nprocs=MESH_RANKS, start_method="spawn",
-                           join=True)
+        ctx = mp.start_processes(mesh_rank, args=(os.path.join(root, "init"),
+                                                  root, parts),
+                                 nprocs=MESH_RANKS, start_method="spawn",
+                                 join=False)
+        try:
+            if beside is not None:
+                beside_out = beside()
+            while not ctx.join():
+                pass
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.terminate()
+                    p.join()
         recs = []
         for r in range(MESH_RANKS):
             with open(os.path.join(root, f"rank{r}.json")) as f:
@@ -4960,7 +5086,152 @@ def mesh_on_card(rows_4b=None, rows_4d=None, parts=("13", "14")):
         print(f"phase 14: {record_14['s']:.1f} s")
     print(f"phases {' and '.join(parts)} (the ranks' start included): "
           f"{time.perf_counter() - t0:.1f} s")
-    return launches_13, launches_14, record_13, record_14
+    return launches_13, launches_14, record_13, record_14, beside_out
+
+
+def policy_jobs(faults, sweep_twins, growths16, growths256, growths4, dev):
+    """The policy kernels' rows of the kernels line at the what-if main
+    path's widths: (name, replaces, shape, operands, aggregate)."""
+    return [
+        ("policy_agg", "src/repro/kernels/policy_scan.py:190",
+         "65,536 x 8736", grid_operands(sweep_twins, growths256, dev), True),
+        ("policy_scan", "src/repro/kernels/policy_scan.py:104",
+         "4,096 x 8736", grid_operands(sweep_twins, growths16, dev), False),
+        ("policy_agg_fault", "src/repro/kernels/policy_scan.py:234",
+         "65,536 x 8736 (F=16)",
+         chaos_operands(sweep_twins, growths16, chaos_schedule(faults, 16),
+                        dev), True),
+        ("policy_scan_fault", "src/repro/core/simulate.py:375 (XLA)",
+         "4,096 x 8736 (F=4)",
+         chaos_operands(sweep_twins, growths4, chaos_schedule(faults, 4),
+                        dev), False)]
+
+
+def policy_plains(jobs):
+    """Each of ``jobs``' plain versions once on its operands, run while
+    phases 13-14's ranks work (the plain versions step their 8,736 bins
+    from the host; this process has nothing else to do then): {name:
+    (ms, result)}. Their times share the card and the host with the
+    ranks."""
+    t0 = time.perf_counter()
+    out = {name: policy_plain(ops, agg) for name, _, _, ops, agg in jobs}
+    print(f"the policy kernels' plain versions, beside phases 13-14's "
+          f"ranks: {time.perf_counter() - t0:.1f} s ("
+          + ", ".join(f"{k} {v[0]:.1f} ms" for k, v in out.items()) + ")",
+          flush=True)
+    return out
+
+
+def policy_rows(jobs, plains):
+    """The kernels line's policy rows: each kernel timed alone, held
+    bitwise against its plain version's result from ``plains``."""
+    rows = []
+    for name, replaces, shape, ops, agg in jobs:
+        stats = kernel_vs_plain(name, shape, ops, agg, plains.pop(name))
+        rows.append((name, "policy_scan", replaces,
+                     dict(stats, library_ms=None,
+                          plain_timed="beside phases 13-14's ranks")))
+    return rows
+
+
+#: phase 15: the dry run's cells (every mode), the reference's decode
+#: layouts on the (16, 16) fake world: llama3.2-1b decode_32k (the cache
+#: over model) and jamba-1.5-large long_500k (over (data, model), the
+#: experts over data)
+DRYRUN_CELLS = ((LLAMA, "decode_32k"), (JAMBA, "long_500k"))
+#: the background dry runs still going, stopped at exit
+_DRYRUN_PROCS = []
+
+
+def _stop_dryruns():
+    for p in _DRYRUN_PROCS:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def dryrun_start():
+    """Phase 15, started in the background beside the card's phases:
+    ``python -m repro_torch.launch.dryrun`` (CPU only, no card visible)
+    for each of DRYRUN_CELLS in a process of its own. Returns (the
+    processes, the records' folder, the start time)."""
+    import atexit
+    root = tempfile.mkdtemp(prefix="plantd_dryrun_")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
+               PYTHONPATH=os.path.join(ROOT, "src") + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    if not _DRYRUN_PROCS:
+        atexit.register(_stop_dryruns)
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--out", root], cwd=root, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for arch, shape in DRYRUN_CELLS]
+    _DRYRUN_PROCS.extend(procs)
+    return procs, root, time.perf_counter()
+
+
+def dryrun_finish(started):
+    """Phase 15's end: each dry run exits 0 with every mode ``ok`` (a
+    torch without the private fake process group or ``FlopCounterMode``
+    fails here, loudly), and its roofline row with the H100's constants
+    (``launch.roofline.analyze_cell``; analytic and fake-world numbers,
+    not measured on the card). Returns a ``{"dryrun": ...}`` record."""
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import roofline as R
+    procs, root, t0 = started
+    try:
+        cells = {}
+        for (arch, shape), p in zip(DRYRUN_CELLS, procs):
+            log = p.communicate(timeout=900)[0]
+            check(p.returncode == 0, ("phase 15 dry run", arch, shape,
+                                      p.returncode, log[-3000:]))
+            recs = {}
+            for mode in D.MODES:
+                with open(D.cell_path(root, arch, shape, "single",
+                                      mode)) as f:
+                    recs[mode] = json.load(f)
+                check(recs[mode]["status"] == "ok",
+                      ("phase 15", arch, shape, mode,
+                       recs[mode].get("error"), log[-3000:]))
+            memfit = recs["memfit"]
+            check(memfit["direct"]["flops"] > 0, ("phase 15 flops", arch))
+            c = R.analyze_cell(root, arch, shape)
+            check(c.status == "ok", ("phase 15 roofline", arch, c.status))
+            cells[f"{arch}/{shape}"] = {
+                "bound": c.bound, "compute_ms": c.compute_s * 1e3,
+                "memory_ms": c.memory_s * 1e3,
+                "collective_ms": c.collective_s * 1e3,
+                "roofline_frac": c.roofline_fraction,
+                "useful_ratio": c.useful_ratio, "mem_gb": c.mem_gb_dev,
+                "fits_80gb": c.fits_hbm,
+                "flops_direct": memfit["direct"]["flops"],
+                "flops_extrapolated": memfit["extrapolated"]["flops"],
+                "argument_bytes": memfit["memory"]["argument_size_in_bytes"],
+                "collectives": {k: v for k, v in
+                                recs["probe1_exact"]["collectives"].items()
+                                if v["count"]},
+                "run_s": sum(r["lower_s"] + r["compile_s"]
+                             for r in recs.values())}
+            x = cells[f"{arch}/{shape}"]
+            print(f"phase 15: dry run of {arch} {shape} on a fake world of "
+                  f"256 ranks, every mode ok ({x['run_s']:.1f} s of fake "
+                  f"steps): {x['argument_bytes'] / 1e9:.3f} GB of arguments "
+                  f"a rank, memfit {x['flops_direct']:.4g} flops counted "
+                  f"directly, {x['flops_extrapolated']:.4g} by the probes; "
+                  f"roofline (H100 constants, analytic): {c.bound}-bound, "
+                  f"compute {x['compute_ms']:.4g} ms, memory "
+                  f"{x['memory_ms']:.4g} ms, collective "
+                  f"{x['collective_ms']:.4g} ms, {x['mem_gb']:.2f} GB a "
+                  f"rank, fits 80 GB: {c.fits_hbm}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    record = {"torch": torch.__version__, "cells": cells,
+              "s": time.perf_counter() - t0}
+    print(f"phase 15: {record['s']:.1f} s from its start (in the "
+          f"background of the card's phases)")
+    print(json.dumps({"dryrun": record}))
+    return record
 
 
 def sass_functions(sass):
@@ -5044,6 +5315,15 @@ def sass_check(build):
               + ", ".join(f"{n} {op} instructions" for op, n in counts.items()))
 
 
+_T0 = time.perf_counter()
+
+
+def elapsed(what):
+    """The script's wall time so far, printed after ``what``: where a
+    slow host's seconds go."""
+    print(f"[{time.perf_counter() - _T0:.1f} s] {what}", flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -5091,19 +5371,33 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     if sys.argv[1:] == ["--phase", "13"]:
-        # the multi-GPU layer alone, 4b's and 4d's rows first
-        sweep_twins, growths16, _, rows_4b = at_width(whatif, tr, twin_mod,
-                                                      slo_mod)
-        _, rows_4d = chaos_at_width(whatif, tr, slo_mod, faults,
-                                    sweep_twins, growths16)
-        mesh_on_card(rows_array(rows_4b), rows_array(rows_4d))
+        # the multi-GPU layer alone, 4b's and 4d's rows first, the policy
+        # kernels' plain versions and phase 15 beside the ranks
+        sweep_twins, growths16, growths256, rows_4b = at_width(
+            whatif, tr, twin_mod, slo_mod)
+        growths4, rows_4d = chaos_at_width(whatif, tr, slo_mod, faults,
+                                           sweep_twins, growths16)
+        dryrun = dryrun_start()
+        jobs = policy_jobs(faults, sweep_twins, growths16, growths256,
+                           growths4, dev)
+        *_, plains = mesh_on_card(rows_array(rows_4b), rows_array(rows_4d),
+                                  beside=lambda: policy_plains(jobs))
+        dryrun_finish(dryrun)
+        policy_rows(jobs, plains)
         flash_vs_plain(dev, "14a")
+        flash_vs_plain(dev, "14f", torch.float32)
         print(card)
         return 0
     if sys.argv[1:] == ["--phase", "14"]:
         # serving over a mesh alone (for iterating on it)
         mesh_on_card(parts=("14",))
         flash_vs_plain(dev, "14a")
+        flash_vs_plain(dev, "14f", torch.float32)
+        print(card)
+        return 0
+    if sys.argv[1:] == ["--phase", "15"]:
+        # the dry run and its roofline alone
+        dryrun_finish(dryrun_start())
         print(card)
         return 0
     if sys.argv[1:] == ["--phase", "12"]:
@@ -5141,6 +5435,7 @@ def main():
         print(card)
         return 0
 
+    elapsed("phase 1")
     check_random_blocks(dev)
     check_table2_kernels(dev, tr, twin_mod)
     check_fault_random_blocks(dev)
@@ -5168,6 +5463,7 @@ def main():
     check(all(v > 0 for v in launches.values()), launches)
     check(sum(sum(mod.launches.values()) for mod in mods) == 0,
           "a model kernel ran on the what-if path")
+    elapsed("phases 2-4")
 
     # the serving main paths (counts reset and read inside): Jamba's
     # attention layer once per group's prefill (bf16: the wgmma kernel)
@@ -5199,23 +5495,28 @@ def main():
     torch.cuda.empty_cache()
     whatif_trace(whatif, slo_mod, sweep_twins, growths256, rows_4b)
     rows_4b, rows_4d = rows_array(rows_4b), rows_array(rows_4d)
+    elapsed("phases 5-6")
 
     # the calibration slice: 6b's experiment fitted into twins on the card
     launches_7 = calibration_on_card(dev, whatif, tr, twin_mod, slo_mod,
                                      res_6b, twin_6b)
+    elapsed("phase 7")
 
     # the search slice: What-if #6, #6b and #7's inverse questions
     launches_8 = search_on_card(dev, whatif, tr, twin_mod, slo_mod, faults)
+    elapsed("phase 8")
 
     # the RoPE and MoE serving slice: llama3.2-1b whole, moonshot and
     # phi3.5-moe cut, from a card that holds no earlier engine
     launches_9, flash_9 = serve_rope_moe(dev, get_config, get_smoke_config)
+    elapsed("phase 9")
 
     # the flash kernel at every head dim, MLA, whisper and qwen2-vl:
     # stablelm-3b, gemma-7b, qwen2-vl-7b and whisper-small whole,
     # minicpm3-4b cut, from a card that holds no earlier engine
     launches_10, flash_10, _ = serve_mla_encdec(dev, get_config,
                                                 get_smoke_config)
+    elapsed("phase 10")
 
     # registered policies on the card (their steps translated into the
     # policy kernels) and the padded flash head dims
@@ -5224,33 +5525,31 @@ def main():
 
     # the training side: no model kernel runs in a train step
     launches_12, _ = training_on_card(dev, get_smoke_config)
+    elapsed("phases 11-12")
 
     # the multi-GPU layer and serving over a mesh: two gloo ranks on the
     # one card
-    launches_13, launches_14, _, _ = mesh_on_card(rows_4b, rows_4d)
+    # (the policy kernels' plain versions run meanwhile in this process,
+    # and phase 15's dry runs in the background: CPU processes, kept off
+    # the host-bound phases before)
+    dryrun = dryrun_start()
+    jobs = policy_jobs(faults, sweep_twins, growths16, growths256, growths4,
+                       dev)
+    launches_13, launches_14, _, record_14, plains = mesh_on_card(
+        rows_4b, rows_4d, beside=lambda: policy_plains(jobs))
+    # 14f runs float32: its prefills launch the flash source's float32
+    # kernel, its own row
+    launches_14f = record_14["launches_14f"]
     del rows_4b, rows_4d
 
+    elapsed("phases 13-14")
+
+    # the dry run of the production meshes and its roofline
+    dryrun_finish(dryrun)
+
     # each kernel against its plain version at the main path's widths
-    rows = [
-        ("policy_agg", "src/repro/kernels/policy_scan.py:190",
-         kernel_vs_plain("policy_agg", "65,536 x 8736",
-                         grid_operands(sweep_twins, growths256, dev), True)),
-        ("policy_scan", "src/repro/kernels/policy_scan.py:104",
-         kernel_vs_plain("policy_scan", "4,096 x 8736",
-                         grid_operands(sweep_twins, growths16, dev), False)),
-        ("policy_agg_fault", "src/repro/kernels/policy_scan.py:234",
-         kernel_vs_plain("policy_agg_fault", "65,536 x 8736 (F=16)",
-                         chaos_operands(sweep_twins, growths16,
-                                        chaos_schedule(faults, 16), dev),
-                         True)),
-        ("policy_scan_fault", "src/repro/core/simulate.py:375 (XLA)",
-         kernel_vs_plain("policy_scan_fault", "4,096 x 8736 (F=4)",
-                         chaos_operands(sweep_twins, growths4,
-                                        chaos_schedule(faults, 4), dev),
-                         False)),
-    ]
-    rows = [(name, "policy_scan", replaces, dict(stats, library_ms=None))
-            for name, replaces, stats in rows]
+    rows = policy_rows(jobs, plains)
+    del jobs, plains
     ssm_stats = ssm_vs_plain(dev)
     wkv_stats = wkv_vs_plain(dev)
     # the ssm_scan row is the prefill's; its decode launch rides along
@@ -5261,8 +5560,13 @@ def main():
     # heads) shapes ride along
     flash_row = dict(flash_vs_plain(dev), at_9=flash_9, at_10=flash_10,
                      at_14={"14a": flash_vs_plain(dev, "14a")})
+    # the float32 kernel on its main path, 14f's prefill on a rank
+    flash_f32_row = dict(flash_vs_plain(dev, "14f", torch.float32),
+                         launches_of="14f (both ranks)")
     rows += [("flash_attention", "flash_attention",
               "src/repro/kernels/flash_attention.py:23", flash_row),
+             ("flash_attention_f32", "flash_attention",
+              "src/repro/kernels/flash_attention.py:23", flash_f32_row),
              ("ssm_scan", "ssm_scan", "src/repro/kernels/ssm_scan.py:27",
               ssm_row),
              ("rwkv6_chunked", "rwkv6",
@@ -5275,11 +5579,14 @@ def main():
                    + list(stats.get("at_10", {}).values())
                    + list(stats.get("at_14", {}).values())):
             check(st["ms"] >= st["bound_ms"], (name, st))
+    elapsed("the kernels against their plain versions")
     print(json.dumps({"kernels": [
         dict({"name": name, "route": "cuda",
               "source": f"src/repro_torch/kernels/csrc/{src}.cu",
-              "replaces": replaces, "launches": launches[name],
-              "launches_6b": launches_6b[name],
+              "replaces": replaces,
+              "launches": (launches_14f.get(name, 0)
+                           if "launches_of" in stats else launches[name]),
+              "launches_6b": launches_6b.get(name, 0),
               "launches_7": launches_7.get(name, 0),
               "launches_8": launches_8.get(name, 0),
               "launches_9": launches_9.get(name, 0),
@@ -5287,7 +5594,8 @@ def main():
               "launches_11": launches_11.get(name, 0),
               "launches_12": launches_12.get(name, 0),
               "launches_13": launches_13.get(name, 0),
-              "launches_14": launches_14.get(name, 0)}, **stats)
+              "launches_14": launches_14.get(name, 0),
+              "launches_14f": launches_14f.get(name, 0)}, **stats)
         for name, src, replaces, stats in rows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -17,7 +17,11 @@ sets from ``LOCAL_RANK``.
 * A spec is a tuple with one entry per dim: ``None`` (not split), a mesh
   axis name, or a tuple of names (split over their product, the first
   slowest) — the counterpart of ``PartitionSpec``, and equal to
-  ``tuple(spec)`` of the reference's; ``()`` replicates every dim.
+  ``tuple(spec)`` of the reference's; ``()`` replicates every dim. A
+  spec that names one axis twice raises (``check_spec``); a dim over
+  several axes is cut, gathered and reduced through the group of the
+  ranks that share every other coordinate (``axis_group``, a flattened
+  sub-mesh).
 * ``Sharding`` (the counterpart of ``NamedSharding``) places a leaf: it
   cuts a rank's shard out of a whole tensor and gathers the shards back.
   With ``block=`` the spec applies to the leaf's flattened, zero-padded
@@ -47,14 +51,19 @@ sets from ``LOCAL_RANK``.
   ``gloo`` group they stage CUDA tensors through host memory (gloo's
   collectives are host collectives) and a reduce-scatter is an
   all-reduce and a slice; on ``nccl`` host arrays travel through the
-  rank's card.
+  rank's card; on the ``fake`` backend of the dry run
+  (``launch.dryrun``) they stay on the tensors' device and move nothing.
+  ``tally()`` counts every collective this module issues, by XLA's kind
+  names and result bytes.
 * A step over a mesh (``ServeMesh``, ``RankContext``, ``within``): the
   model code asks ``serve_mesh()`` for the mesh of the serving or
   training step it runs in (None on one device) and splits its work by
-  it, and an MoE layer asks ``context().batch_stats`` for the whole
-  batch's balance statistics; ``Sharding`` with ``kind`` places the
-  leaves whose compute layout is not the spec's contiguous chunk
-  (``models.model.serve_placement`` / ``train_layout``).
+  it (the rows over one batch axis or over ``("pod", "data")``; a cache
+  split along its sequence over ``seq_axis``), and an MoE layer asks
+  ``context().batch_stats`` for the whole batch's balance statistics;
+  ``Sharding`` with ``kind`` places the leaves whose compute layout is
+  not the spec's contiguous chunk (``models.model.serve_placement`` /
+  ``train_layout``).
 """
 from __future__ import annotations
 
@@ -214,6 +223,53 @@ def axis_size(mesh_shape: Dict[str, int], entry) -> int:
     return int(np.prod([mesh_shape.get(a, 1) for a in names]))
 
 
+def entry_names(entry) -> Tuple[str, ...]:
+    """The mesh axes of a spec entry (a name or a tuple of names)."""
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, tuple) else (entry,)
+
+
+def check_spec(spec: Spec, where: str = "a spec"):
+    """Raise ``ValueError`` where ``spec`` names one mesh axis twice (the
+    reference's ``PartitionSpec`` refuses it too): a dim cannot be cut
+    along an axis another dim already takes."""
+    seen = set()
+    for entry in spec:
+        for a in entry_names(entry):
+            if a in seen:
+                raise ValueError(f"{where} {spec!r} names mesh axis {a!r} "
+                                 f"twice")
+            seen.add(a)
+
+
+#: flattened sub-meshes of ``axis_group``, keyed by (mesh, axes)
+_FLAT: Dict[Tuple, object] = {}
+
+
+def axis_group(mesh, entry):
+    """(process group, size, this rank's index) of a spec entry over a
+    ``DeviceMesh``: one axis's own group, or for several axes the group
+    of the ranks that share every other coordinate, indexed with the
+    first-named axis slowest (as ``PartitionSpec(("data", "model"))``
+    orders a dim's shards). Axes of size one drop out; with none left
+    ``(None, 1, 0)``."""
+    shape = mesh_shape_dict(mesh)
+    names = tuple(a for a in entry_names(entry) if shape.get(a, 1) > 1)
+    if not names:
+        return None, 1, 0
+    index = 0
+    for a in names:
+        index = index * shape[a] + mesh.get_local_rank(a)
+    size = int(np.prod([shape[a] for a in names]))
+    if len(names) == 1:
+        return mesh.get_group(names[0]), size, index
+    key = (id(mesh), names)
+    if key not in _FLAT:
+        _FLAT[key] = (mesh, mesh[names]._flatten())
+    return _FLAT[key][1].get_group(), size, index
+
+
 def _entry(axes: Tuple[str, ...]):
     """A spec entry of ``axes``, written as the reference's
     ``PartitionSpec`` normalizes it: one axis by its name, none as
@@ -276,12 +332,45 @@ def batch_rows(batch: int, index: int, size: int,
 
 def _comm_device(group, like: torch.device) -> torch.device:
     """Where a collective's tensors must live: the host for gloo, the
-    rank's card for nccl."""
-    if dist.get_backend(group) == "gloo":
+    rank's card for nccl, the tensor's own device for the ``fake``
+    backend of a dry run (``launch.dryrun``), whose collectives move
+    nothing."""
+    backend = dist.get_backend(group)
+    if backend == "gloo":
         return torch.device("cpu")
-    if like.type == "cuda":
+    if backend == "fake" or like.type == "cuda":
         return like
     return torch.device("cuda", torch.cuda.current_device())
+
+
+#: the open tallies of ``tally()``, innermost last
+_TALLIES: List[Dict[str, Dict[str, int]]] = []
+
+#: the collectives' kinds, named as XLA's HLO names them
+COLLECTIVE_KINDS = ("all-reduce", "all-gather", "reduce-scatter",
+                    "all-to-all", "collective-permute")
+
+
+@contextlib.contextmanager
+def tally():
+    """Within the block, every collective this module issues, as
+    ``{kind: {"bytes", "count"}}`` over ``COLLECTIVE_KINDS``: the bytes
+    of each call's result on this rank (an all-gather's whole result, a
+    reduce-scatter's part), as the reference's dry run sums the result
+    operands of the collectives in its HLO. A rank's own calls, on
+    every thread; a group of one issues none."""
+    out = {k: {"bytes": 0, "count": 0} for k in COLLECTIVE_KINDS}
+    _TALLIES.append(out)
+    try:
+        yield out
+    finally:
+        _TALLIES.remove(out)
+
+
+def _count(kind: str, result: torch.Tensor):
+    for t in _TALLIES:
+        t[kind]["bytes"] += result.numel() * result.element_size()
+        t[kind]["count"] += 1
 
 
 def _no_gradient(x: torch.Tensor, what: str):
@@ -306,7 +395,9 @@ def all_gather(x: torch.Tensor, dim: int = 0, group=None) -> torch.Tensor:
     src = x.movedim(dim, 0).contiguous().to(dev)
     parts = [torch.empty_like(src) for _ in range(n)]
     dist.all_gather(parts, src, group=group)
-    return torch.cat(parts).to(x.device).movedim(0, dim).contiguous()
+    out = torch.cat(parts)
+    _count("all-gather", out)
+    return out.to(x.device).movedim(0, dim).contiguous()
 
 
 def reduce_scatter(x: torch.Tensor, dim: int = 0,
@@ -332,6 +423,7 @@ def reduce_scatter(x: torch.Tensor, dim: int = 0,
         out = torch.empty((part,) + tuple(src.shape[1:]), dtype=src.dtype,
                           device=dev)
         dist.reduce_scatter_tensor(out, src, group=group)
+    _count("reduce-scatter", out)
     return out.to(x.device).movedim(0, dim).contiguous()
 
 
@@ -348,6 +440,7 @@ def all_reduce(x: torch.Tensor, op: str = "sum", group=None) -> torch.Tensor:
     dev = _comm_device(group, x.device)
     buf = x.to(dev, copy=True).contiguous()
     dist.all_reduce(buf, op=_OPS[op], group=group)
+    _count("all-reduce", buf)
     return buf.to(x.device)
 
 
@@ -447,6 +540,7 @@ def _exchange(x: torch.Tensor, group) -> torch.Tensor:
     src = x.contiguous().to(dev)
     out = torch.empty_like(src)
     dist.all_to_all_single(out, src, group=group)
+    _count("all-to-all", out)
     return out.to(x.device)
 
 
@@ -540,11 +634,14 @@ def expert_exchange(x: torch.Tensor, group=None) -> torch.Tensor:
 class ServeMesh:
     """The groups a step splits its work over: ``model`` (the
     tensor-parallel axis: heads, channels, MLP widths, the vocabulary),
-    the expert axis (``ParallelConfig.expert_axis``) and the batch axes
-    (the rows), each with its size and this rank's place in it. A
-    training step splits its blocks over ``model`` alone (``of(...,
-    model_only=True)``): its rows are the rank's own batch, and FSDP
-    gathers every expert."""
+    the expert axis (``ParallelConfig.expert_axis``), the batch axes
+    (the rows: one axis, or ``("pod", "data")`` as one group) and the
+    sequence axes of a cache split along its sequence
+    (``ParallelConfig.shard_cache_seq`` over ``seq_axis``: a name or a
+    tuple), each with its size and this rank's place in it (a group of
+    several axes indexed with the first-named slowest). A training step
+    splits its blocks over ``model`` alone (``of(..., model_only=True)``):
+    its rows are the rank's own batch, and FSDP gathers every expert."""
     model: object
     model_size: int
     model_rank: int
@@ -554,38 +651,46 @@ class ServeMesh:
     batch: object
     batch_size: int
     batch_rank: int
+    seq: object = None
+    seq_size: int = 1
+    seq_rank: int = 0
+    #: whether the sequence axes include ``model``: the cache then holds
+    #: every KV head (the reference's specs drop ``kv_heads`` where
+    #: ``model`` already carries ``cache_seq``)
+    seq_over_model: bool = False
+    #: whether the rows are split over the expert axis; where they are
+    #: not, the ranks of the expert group hold the same rows
+    rows_over_experts: bool = True
 
     @classmethod
     def of(cls, mesh, parallel: ParallelConfig,
            model_only: bool = False) -> "ServeMesh":
+        """The groups over ``mesh`` under ``parallel``. The rows go over
+        the batch axes unless the cache is split along its sequence over
+        one of them: then the reference's specs leave the batch whole
+        (a batch that the axes divide would name an axis twice, which
+        the placement refuses) and every rank holds every row."""
         shape = mesh_shape_dict(mesh)
-
-        def axis(name):
-            if name is None or shape.get(name, 1) == 1:
-                return None, 1, 0
-            return (mesh.get_group(name), shape[name],
-                    mesh.get_local_rank(name))
-        m = axis(parallel.tp_axis)
+        m = axis_group(mesh, parallel.tp_axis)
         if model_only:
-            return cls(*m, *axis(None), *axis(None))
-        batch = batch_partition(parallel, mesh)
-        batch = tuple(a for a in batch if shape[a] > 1)
-        if len(batch) > 1:
-            raise NotImplementedError(
-                f"serving splits the rows over one mesh axis; the batch "
-                f"axes {batch} are {len(batch)}")
-        e = axis(parallel.expert_axis)
-        b = axis(batch[0] if batch else None)
-        if e[1] > 1 and (not batch or parallel.expert_axis != batch[0]):
-            raise NotImplementedError(
-                f"experts over {parallel.expert_axis!r} (size {e[1]}) "
-                f"serve only where that axis also splits the rows (the "
-                f"batch axes {batch})")
+            return cls(*m, None, 1, 0, None, 1, 0)
+        seq = ()
         if parallel.shard_cache_seq:
+            seq = tuple(a for a in entry_names(parallel.seq_axis)
+                        if shape.get(a, 1) > 1)
+        batch = tuple(a for a in batch_partition(parallel, mesh)
+                      if shape[a] > 1)
+        if set(batch) & set(seq):
+            batch = ()
+        if parallel.expert_axis is not None and \
+                parallel.expert_axis == parallel.tp_axis and m[1] > 1:
             raise NotImplementedError(
-                "a cache split along its sequence (shard_cache_seq) is not "
-                "served over a mesh (ROADMAP A8.3)")
-        return cls(*m, *e, *b)
+                f"experts over the tensor-parallel axis "
+                f"{parallel.tp_axis!r}, which splits their widths")
+        return cls(*m, *axis_group(mesh, parallel.expert_axis),
+                   *axis_group(mesh, batch), *axis_group(mesh, seq),
+                   seq_over_model=parallel.tp_axis in seq,
+                   rows_over_experts=parallel.expert_axis in batch)
 
     def gather_rows(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
         """The whole batch's ``x`` from every rank's rows."""
@@ -691,25 +796,31 @@ def cut_indices(shape, spec: Spec, mesh_shape: Dict[str, int],
     """[(dim, mesh axis, positions)] of each dim a leaf of ``shape`` is
     split along at mesh coordinate ``coord`` ({axis: index}) under
     ``spec``; ``kind`` (dim, kind, heads) names a dim cut by
-    ``split_index``'s other kinds."""
+    ``split_index``'s other kinds. A dim split over several axes (of
+    size > 1) gives their tuple as its axis, cut in chunks by the
+    flattened coordinate, the first-named axis slowest. A spec naming
+    one axis twice raises ``ValueError``."""
+    check_spec(spec)
     out = []
     for dim, entry in enumerate(spec):
-        if entry is None:
-            continue
-        names = [a for a in (entry if isinstance(entry, tuple)
-                             else (entry,)) if mesh_shape.get(a, 1) > 1]
+        names = tuple(a for a in entry_names(entry)
+                      if mesh_shape.get(a, 1) > 1)
         if not names:
             continue
-        if len(names) > 1:
-            raise NotImplementedError(
-                f"a dim split over several mesh axes ({entry!r}) has "
-                f"no gather here")
-        axis = names[0]
+        # several axes: their flattened coordinate, the first slowest
+        index = 0
+        for a in names:
+            index = index * mesh_shape[a] + coord[a]
         k, heads = ("chunk", 0)
         if kind is not None and kind[0] == dim:
+            if len(names) > 1:
+                raise NotImplementedError(
+                    f"a {kind[1]!r} cut over several mesh axes {names}")
             k, heads = kind[1], kind[2]
-        out.append((dim, axis, split_index(shape[dim], mesh_shape[axis],
-                                           coord[axis], k, heads)))
+        axis = names[0] if len(names) == 1 else names
+        out.append((dim, axis, split_index(shape[dim],
+                                           axis_size(mesh_shape, axis),
+                                           index, k, heads)))
     return out
 
 
@@ -817,8 +928,9 @@ class Sharding:
         shape = mesh_shape_dict(self.mesh) if splits else {}
         view = self._view_shape()
         for dim, axis, _ in reversed(splits):
-            parts = all_gather(x, dim, self.mesh.get_group(axis)).chunk(
-                shape[axis], dim)
+            size = axis_size(shape, axis)
+            parts = all_gather(x, dim, axis_group(self.mesh, axis)[0]).chunk(
+                size, dim)
             whole = list(x.shape)
             whole[dim] = view[dim]
             out = x.new_empty(whole)
@@ -826,7 +938,7 @@ class Sharding:
                 self.kind is not None and self.kind[0] == dim) else (
                 "chunk", 0)
             for j, part in enumerate(parts):
-                idx = split_index(view[dim], shape[axis], j, k, heads)
+                idx = split_index(view[dim], size, j, k, heads)
                 out.index_copy_(dim, idx.to(x.device), part)
             x = out
         if self.block is not None:
@@ -847,7 +959,8 @@ class Sharding:
             whole = list(x.shape)
             whole[dim] = self.shape[dim]
             x = all_reduce(x.new_zeros(whole).index_copy_(
-                dim, idx.to(x.device), x), group=self.mesh.get_group(axis))
+                dim, idx.to(x.device), x),
+                group=axis_group(self.mesh, axis)[0])
         return x
 
     def reduce(self, full: torch.Tensor, axes=None) -> torch.Tensor:
@@ -862,5 +975,5 @@ class Sharding:
                                       f"kind {self.kind[1]!r}")
         x = full if self.block is None else _block_view(full, self.block)
         for dim, axis, _ in splits:
-            x = reduce_scatter(x, dim, self.mesh.get_group(axis))
+            x = reduce_scatter(x, dim, axis_group(self.mesh, axis)[0])
         return x

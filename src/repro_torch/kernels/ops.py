@@ -41,6 +41,8 @@ CUDA policy kernels have no backward.
 """
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from repro_torch.core.twin import (SHED_FUSE_ALL, SHED_FUSE_DROP,
@@ -50,6 +52,21 @@ from repro_torch.kernels import policy_scan as policy_kernel
 from repro_torch.kernels import policy_vjp, ref
 from repro_torch.kernels import rwkv6_kernel
 from repro_torch.kernels import ssm_scan as ssm_kernel
+
+_state = threading.local()
+
+
+def set_attn_chunk(chunk: int):
+    """The attention chunk of the dry run (``launch.dryrun``), on this
+    thread: 0 (the default) routes ``sdpa`` as above; > 0 sends a call
+    without ``kv_len`` or ``logit_cap`` whose query and key lengths are
+    multiples of it (queries longer than it) to ``ref.sdpa_blocked``, as
+    the reference's ``ops.sdpa`` does with Pallas off."""
+    _state.attn_chunk = int(chunk)
+
+
+def get_attn_chunk() -> int:
+    return getattr(_state, "attn_chunk", 0)
 
 
 def _onehot_rows(policy_index, n: int, device) -> torch.Tensor:
@@ -147,7 +164,15 @@ def sdpa(q, k, v, *, causal=True, scale=None, logit_cap=0.0, kv_len=None):
     """Attention, routed as the reference's ``ops.sdpa`` under Pallas:
     the flash kernel (its float32 semantics) for prefill, ``ref.sdpa``
     (bf16 probabilities, ``kv_len`` masking) for decode and capped
-    logits; in training ``ref.sdpa`` always, as the reference trains."""
+    logits; in training ``ref.sdpa`` always, as the reference trains.
+    With a chunk set (``set_attn_chunk``, the dry run) a long call takes
+    ``ref.sdpa_blocked``, in training too."""
+    chunk = get_attn_chunk()
+    if (chunk > 0 and kv_len is None and logit_cap == 0.0
+            and q.shape[1] > chunk and q.shape[1] % chunk == 0
+            and k.shape[1] % chunk == 0):
+        return ref.sdpa_blocked(q, k, v, causal=causal, scale=scale,
+                                chunk=chunk)
     if (not flash_kernel.needs_grad(q, k, v) and kv_len is None
             and logit_cap == 0.0 and q.shape[1] > 1):
         return flash_kernel.flash_attention(q, k, v, causal=causal,

@@ -21,7 +21,9 @@ policy search.
 Model half — ``sdpa`` (the reference's ``ref.sdpa``: bf16 probabilities
 before the PV product, ``kv_len`` and ``logit_cap``), ``flash_attention``
 (what the Pallas ``_flash_kernel`` computes: float32 throughout, only the
-output cast), ``ssm_scan`` (the Mamba-1 recurrence of ``ref.ssm_scan``
+output cast), ``sdpa_blocked`` (the reference's online-softmax
+fallback over key and query blocks, which its dry run lowers for long
+prompts), ``ssm_scan`` (the Mamba-1 recurrence of ``ref.ssm_scan``
 and ``_ssm_kernel``) and ``rwkv6_scan`` (the RWKV-6 WKV recurrence of
 ``ref.rwkv6_scan``, the oracle of ``_wkv_kernel``). ``chip_smoke.py``
 holds ``csrc/flash_attention.cu``, ``csrc/ssm_scan.cu`` and
@@ -211,6 +213,59 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs.to(v.dtype), v)
     return out.reshape(b, sq, h, -1)
+
+
+def sdpa_blocked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                 causal: bool = True, scale: float = None,
+                 chunk: int = 1024) -> torch.Tensor:
+    """The reference's ``ref.sdpa_blocked``: online-softmax attention over
+    ``chunk``-long blocks of queries and keys, O(s * chunk) memory, the
+    semantics of ``sdpa`` without ``kv_len`` / ``logit_cap`` (float32
+    scores and accumulator, the causal mask counted from position 0 on
+    both axes, -1e30 masked, the denominator floored at 1e-30, the output
+    cast to ``q.dtype``). ``sq`` and ``sk`` must be multiples of
+    ``chunk``. The dry run (``launch.dryrun``) takes it for long prompts,
+    as the reference's does, so its memory counts the blocked algorithm
+    rather than an [sq, sk] score matrix."""
+    b, sq, h, dq = q.shape
+    _, sk, kh, dv = v.shape
+    g = h // kh
+    scale = scale if scale is not None else dq ** -0.5
+    nq, nk = sq // chunk, sk // chunk
+    if nq * chunk != sq or nk * chunk != sk:
+        raise ValueError(f"sq {sq} and sk {sk} must be multiples of the "
+                         f"chunk {chunk}")
+    qg = q.reshape(b, nq, chunk, kh, g, dq)
+    kc = k.reshape(b, nk, chunk, kh, dq)
+    vc = v.reshape(b, nk, chunk, kh, dv)
+    outs = []
+    for qi in range(nq):
+        qb = qg[:, qi].float()                       # [b, chunk, kh, g, dq]
+        m = torch.full((b, kh, g, chunk), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((b, kh, g, chunk), dtype=torch.float32,  # noqa: E741
+                        device=q.device)
+        acc = torch.zeros((b, kh, g, chunk, dv), dtype=torch.float32,
+                          device=q.device)
+        for ki in range(nk):
+            logits = torch.einsum("bckgd,bskd->bkgcs", qb,
+                                  kc[:, ki].float()) * scale
+            if causal:
+                qpos = qi * chunk + torch.arange(chunk, device=q.device)
+                kpos = ki * chunk + torch.arange(chunk, device=q.device)
+                logits = torch.where(qpos[:, None] >= kpos[None, :],
+                                     logits, NEG_INF)
+            m_new = torch.maximum(m, logits.amax(-1))
+            p = torch.exp(logits - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1)                          # noqa: E741
+            acc = acc * corr[..., None] + torch.einsum(
+                "bkgcs,bskd->bkgcd", p, vc[:, ki].float())
+            m = m_new
+        out = acc / l.clamp_min(1e-30)[..., None]
+        outs.append(out.permute(0, 3, 1, 2, 4))      # [b, chunk, kh, g, dv]
+    out = torch.stack(outs, 1).reshape(b, sq, h, dv)
+    return out.to(q.dtype)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

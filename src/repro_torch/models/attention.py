@@ -31,6 +31,13 @@ mesh) each replicated tensor enters the rank's heads through
 ``layers.tp_in``: x before q/k/v, MLA's query latent before ``wq_b``, its
 KV latent before ``wkv_b`` and its rope key before it joins the rank's
 heads.
+
+With a cache split along its sequence (``ParallelConfig.shard_cache_seq``,
+the reference's flash-decoding layout) a rank's self-attention cache
+holds one chunk of the positions (every KV head where the sequence axes
+include ``model``); prefill attends as above and writes each rank's
+chunk, and decode combines the chunks' softmax over the sequence axes as
+GSPMD partitions ``ref.sdpa`` (see the section below).
 """
 from __future__ import annotations
 
@@ -39,7 +46,9 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.config import AttentionConfig, ModelConfig
+from repro_torch.distributed import sharding as sh
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models.layers import (ParamDef, Params, Schema, apply_rope,
                                        row_parallel, tp_in)
 
@@ -72,6 +81,133 @@ def _write_kv(cache_k, cache_v, k_new, v_new, pos):
     cache_k[rows, cols] = k_new.to(cache_k.dtype)
     cache_v[rows, cols] = v_new.to(cache_v.dtype)
     return cache_k, cache_v
+
+
+# ---------------------------------------------------------------------------
+# a cache split along its sequence (flash-decoding over the mesh)
+# ---------------------------------------------------------------------------
+#
+# Under ``ParallelConfig.shard_cache_seq`` each rank's self-attention
+# cache holds one chunk of the sequence (rank ``seq_rank`` of the
+# sequence axes holds positions [seq_rank * S_loc, (seq_rank + 1) *
+# S_loc)); where the sequence axes include ``model`` the chunk holds
+# every KV head (or MLA's latent), while the rank's query heads stay
+# its own. A decode step gathers the new token's query heads (and its
+# K/V heads, for the write) over ``model``, scores every head against
+# the rank's chunk and combines the chunks as GSPMD partitions the
+# reference's ``ref.sdpa``: the row max and then the row sum of the
+# exponentials all-reduced in float32, P = exp / sum normalised on each
+# rank and cast to V's dtype, P V summed over the sequence axes in
+# float32 and rounded once. So bf16 rounds the same normalised P that one
+# device rounds (ROADMAP C8), and only the order of the chunks' sum
+# differs; the (max, sum, output) rescale of flash-decoding would round
+# an unnormalised P instead.
+
+def _seq_mesh() -> Optional[sh.ServeMesh]:
+    """The step's serving mesh where its caches are split along their
+    sequence, else None."""
+    mesh = sh.serve_mesh()
+    return mesh if mesh is not None and mesh.seq_size > 1 else None
+
+
+def _all_heads(x: torch.Tensor, heads: int, mesh: sh.ServeMesh
+               ) -> torch.Tensor:
+    """x [b, t, the rank's heads, ...] -> [b, t, heads, ...]: every
+    ``model`` rank's heads, where the sequence axes include ``model``
+    (a head that several ranks hold, a KV head where ``model`` exceeds
+    them, taken once); else the rank's own."""
+    if not mesh.seq_over_model or mesh.model_size == 1:
+        return x
+    full = sh.all_gather(x, 2, mesh.model)
+    step = full.shape[2] // heads
+    return full if step == 1 else full[:, :, ::step]
+
+
+def _own_heads(x: torch.Tensor, mesh: sh.ServeMesh, local: int
+               ) -> torch.Tensor:
+    """The rank's ``local`` query heads of x [b, t, heads, ...]."""
+    if x.shape[2] == local:
+        return x
+    return x.narrow(2, mesh.model_rank * local, local)
+
+
+def _chunk(cache: torch.Tensor, mesh: sh.ServeMesh) -> Tuple[int, int]:
+    """(the rank's first position, the whole sequence's length)."""
+    s_loc = cache.shape[1]
+    return mesh.seq_rank * s_loc, s_loc * mesh.seq_size
+
+
+def _write_prompt(caches, news, mesh: sh.ServeMesh):
+    """A prefill's write from position 0: each cache [b, S_loc, ...] takes
+    its chunk's part of new [b, t, ...]."""
+    lo, _ = _chunk(caches[0], mesh)
+    n = max(0, min(news[0].shape[1] - lo, caches[0].shape[1]))
+    for c, x in zip(caches, news):
+        c[:, :n] = x[:, lo:lo + n].to(c.dtype)
+
+
+def _write_token(caches, news, pos: torch.Tensor, mesh: sh.ServeMesh):
+    """A decode step's write of one token a row at position ``pos`` [b]
+    (clamped to the whole sequence, as ``_write_kv``): the rank whose
+    chunk holds it writes it, every other keeps its chunk."""
+    if news[0].shape[1] != 1:
+        raise NotImplementedError("a cache split along its sequence is "
+                                  "written one token a decode step")
+    lo, total = _chunk(caches[0], mesh)
+    s_loc = caches[0].shape[1]
+    local = pos.long().clamp(0, total - 1) - lo
+    inside = (local >= 0) & (local < s_loc)
+    idx = local.clamp(0, s_loc - 1)
+    rows = torch.arange(idx.shape[0], device=idx.device)
+    for c, x in zip(caches, news):
+        old = c[rows, idx]
+        keep = inside.view((-1,) + (1,) * (old.dim() - 1))
+        c[rows, idx] = torch.where(keep, x[:, 0].to(c.dtype), old)
+
+
+def _kv_heads(k, v, a: AttentionConfig, mesh: sh.ServeMesh):
+    """(k, v) [b, t, kh, hd] of the heads the rank's cache chunk holds:
+    every KV head, gathered over ``model`` in one call, where the
+    sequence axes include it; else the rank's own."""
+    kv = _all_heads(torch.cat([k, v], dim=-1), a.num_kv_heads, mesh)
+    return kv[..., :k.shape[-1]], kv[..., k.shape[-1]:]
+
+
+def _seq_probs(logits: torch.Tensor, kv_len: torch.Tensor,
+               mesh: sh.ServeMesh) -> torch.Tensor:
+    """The softmax over the whole sequence of float32 logits [b, ...,
+    S_loc] of the rank's chunk, positions past ``kv_len`` [b] masked as
+    ``ref.sdpa`` masks them: the row max and the row sum all-reduced
+    over the sequence axes."""
+    s_loc = logits.shape[-1]
+    lo = mesh.seq_rank * s_loc
+    valid = (torch.arange(lo, lo + s_loc, device=logits.device)[None, :]
+             < kv_len[:, None])
+    valid = valid.view((valid.shape[0],) + (1,) * (logits.dim() - 2)
+                       + (s_loc,))
+    logits = torch.where(valid, logits, NEG_INF)
+    top = sh.all_reduce(logits.amax(-1, keepdim=True), "max", mesh.seq)
+    e = torch.exp(logits - top)
+    return e / sh.all_reduce(e.sum(-1, keepdim=True), "sum", mesh.seq)
+
+
+def _seq_sdpa(q, k, v, kv_len, mesh: sh.ServeMesh, logit_cap: float = 0.0):
+    """``ref.sdpa``'s decode (no causal mask, ``kv_len`` masking) over a
+    cache chunk: q [b, t, the rank's heads, dq], k / v [b, S_loc, kh,
+    d] -> [b, t, the rank's heads, dv] in ``v.dtype``."""
+    local = q.shape[2]
+    kh = k.shape[2]
+    q = _all_heads(q, local * mesh.model_size, mesh)
+    b, sq, h, dq = q.shape
+    qg = q.reshape(b, sq, kh, h // kh, dq).float()
+    logits = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) * dq ** -0.5
+    if logit_cap > 0.0:
+        logits = logit_cap * torch.tanh(logits / logit_cap)
+    probs = _seq_probs(logits, kv_len, mesh)
+    part = torch.einsum("bkgqs,bskd->bqkgd", probs.to(v.dtype).float(),
+                        v.float())
+    out = sh.all_reduce(part, "sum", mesh.seq).to(v.dtype)
+    return _own_heads(out.reshape(b, sq, h, -1), mesh, local)
 
 
 def _cross_kv(params: Params, name: str, q: torch.Tensor,
@@ -131,19 +267,30 @@ def apply_gqa(params: Params, name: str, x: torch.Tensor,
         q = apply_rope(q, positions, a)
         k = apply_rope(k, positions, a)
 
+    seq = _seq_mesh() if cache is not None else None
     if cache is not None and cache.get("decode", False):
         pos = cache["length"]                                   # [b] int32
-        ck, cv = _write_kv(cache["k"], cache["v"], k, v, pos)
         new_len = pos + t
-        out = ops.sdpa(q, ck.to(dt), cv.to(dt), causal=False,
-                       logit_cap=a.logit_cap, kv_len=new_len)
+        if seq is None:
+            ck, cv = _write_kv(cache["k"], cache["v"], k, v, pos)
+            out = ops.sdpa(q, ck.to(dt), cv.to(dt), causal=False,
+                           logit_cap=a.logit_cap, kv_len=new_len)
+        else:
+            ck, cv = cache["k"], cache["v"]
+            _write_token((ck, cv), _kv_heads(k, v, a, seq), pos, seq)
+            out = _seq_sdpa(q, ck.to(dt), cv.to(dt), new_len, seq,
+                            a.logit_cap)
         cache = dict(cache, k=ck, v=cv, length=new_len)
     else:
         out = ops.sdpa(q, k, v, causal=a.causal, logit_cap=a.logit_cap)
         if cache is not None:                                   # prefill
-            ck, cv = _write_kv(cache["k"], cache["v"], k, v,
-                               torch.zeros(b, dtype=torch.int32,
-                                           device=x.device))
+            if seq is None:
+                ck, cv = _write_kv(cache["k"], cache["v"], k, v,
+                                   torch.zeros(b, dtype=torch.int32,
+                                               device=x.device))
+            else:
+                ck, cv = cache["k"], cache["v"]
+                _write_prompt((ck, cv), _kv_heads(k, v, a, seq), seq)
             cache = dict(cache, k=ck, v=cv,
                          length=torch.full((b,), t, dtype=torch.int32,
                                            device=x.device))
@@ -247,22 +394,38 @@ def apply_mla(params: Params, name: str, x: torch.Tensor,
     wkv_b = params[f"{name}.wkv_b"].to(dt).reshape(r, heads, n_nope + n_v)
     wk_b, wv_b = wkv_b[..., :n_nope], wkv_b[..., n_nope:]   # [r, h, n|v]
 
+    seq = _seq_mesh() if cache is not None else None
     if cache is not None and cache.get("decode", False):
         pos = cache["length"]
-        _write_kv(cache["ckv"][..., None], cache["k_rope"], ckv[..., None],
-                  k_rope, pos)
         cckv, ckr = cache["ckv"], cache["k_rope"]
+        if seq is None:
+            _write_kv(cckv[..., None], ckr, ckv[..., None], k_rope, pos)
+        else:
+            _write_token((cckv, ckr), (ckv, k_rope), pos, seq)
         new_len = pos + t
         q_abs = torch.einsum("bthn,rhn->bthr", q_nope, wk_b)   # [b, t, h, r]
+        if seq is not None:
+            # every query head against the rank's chunk of the latent
+            qa = _all_heads(torch.cat([q_abs, q_rope], dim=-1),
+                            heads * seq.model_size, seq)
+            q_abs, q_rope = qa[..., :r], qa[..., r:]
         logits = (torch.einsum("bthr,bsr->bhts", q_abs.float(),
                                cckv.float())
                   + torch.einsum("bthn,bsn->bhts", q_rope.float(),
                                  ckr[:, :, 0].float())) * scale
-        valid = (torch.arange(cckv.shape[1], device=x.device)[None, :]
-                 < new_len[:, None])
-        logits = torch.where(valid[:, None, None, :], logits, -1e30)
-        probs = torch.softmax(logits, dim=-1)
-        out_lat = torch.einsum("bhts,bsr->bthr", probs.to(dt), cckv.to(dt))
+        if seq is None:
+            valid = (torch.arange(cckv.shape[1], device=x.device)[None, :]
+                     < new_len[:, None])
+            logits = torch.where(valid[:, None, None, :], logits, -1e30)
+            probs = torch.softmax(logits, dim=-1)
+            out_lat = torch.einsum("bhts,bsr->bthr", probs.to(dt),
+                                   cckv.to(dt))
+        else:
+            probs = _seq_probs(logits, new_len, seq)
+            part = torch.einsum("bhts,bsr->bthr", probs.to(dt).float(),
+                                cckv.to(dt).float())
+            out_lat = _own_heads(sh.all_reduce(part, "sum", seq.seq).to(dt),
+                                 seq, heads)
         out = torch.einsum("bthr,rhv->bthv", out_lat, wv_b)
         cache = dict(cache, ckv=cckv, k_rope=ckr, length=new_len)
     else:
@@ -273,7 +436,10 @@ def apply_mla(params: Params, name: str, x: torch.Tensor,
                       dim=-1)
         q = torch.cat([q_nope, q_rope], dim=-1)
         out = ops.sdpa(q, k, v, causal=a.causal, scale=scale)
-        if cache is not None:
+        if cache is not None and seq is not None:
+            _write_prompt((cache["ckv"], cache["k_rope"]), (ckv, k_rope),
+                          seq)
+        elif cache is not None:
             _write_kv(cache["ckv"][..., None], cache["k_rope"],
                       ckv[..., None], k_rope,
                       torch.zeros(b, dtype=torch.int32, device=x.device))

@@ -36,7 +36,12 @@ the K/V caches hold the one head the rank's query heads read
 (``distributed.sharding.split_index``). ``init_params(placement=)``
 draws each leaf whole, keeps the rank's part and frees the rest, so the
 draws are one device's; ``checkpoint.gather_tree`` over the placement
-gives the whole leaves back.
+gives the whole leaves back. With ``ParallelConfig.shard_cache_seq`` the
+self-attention caches are split along their sequence over ``seq_axis``
+(a name or a tuple of axes), as the reference's specs split them; where
+``model`` carries the sequence the KV heads stay whole (its specs drop
+``kv_heads`` there), and a cache length the axes do not divide, or a spec
+that would name an axis twice, raises.
 ``prefill`` / ``decode_step`` take the rank's rows and leaves, inside
 the step's ``sharding.serving`` block (``serve.steps``).
 
@@ -378,6 +383,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
             for name, d in cache_schema(cfg, batch, max_len).items()}
 
 
+def abstract_cache(cfg: ModelConfig, batch: int, max_len: int) -> Params:
+    """The cache's shapes and dtypes as ``meta`` tensors (no memory): the
+    counterpart of the reference's ``abstract_cache``."""
+    return {name: torch.empty(d.shape, dtype=_cache_dtype(cfg, name),
+                              device="meta")
+            for name, d in cache_schema(cfg, batch, max_len).items()}
+
+
 def cache_partition_specs(cfg: ModelConfig, batch: int, max_len: int,
                           rules: Dict[str, object],
                           mesh_shape: Dict[str, int]) -> Dict[str, tuple]:
@@ -456,7 +469,11 @@ def _compute_layout(schema: Schema, specs, tp: str, size: int, kv: int,
         spec, kind = specs[name], None
         if size > 1 and name.endswith(".mixer.in_proj"):
             kind = (len(d.shape) - 1, "halves", 0)
-        elif size > 1 and name.endswith(kv_names):
+        elif size > 1 and name.endswith(kv_names) and not any(
+                tp in sh.entry_names(e)
+                for i, e in enumerate(spec) if i != len(d.shape) + kv_dim):
+            # (a cache whose sequence is split over model holds every
+            # KV head: the reference's specs leave them whole)
             dim = len(d.shape) + kv_dim
             spec = _with_entry(spec, dim, tp)
             kind = (dim, "heads", kv)
@@ -469,6 +486,40 @@ def _model_size(parallel: ParallelConfig, mesh) -> int:
     return sh.mesh_shape_dict(mesh).get(tp, 1) if tp else 1
 
 
+def _check_seq_split(cfg: ModelConfig, parallel: ParallelConfig, mesh,
+                     cspecs, batch: int, max_len: int):
+    """With a cache split along its sequence, every self-attention cache
+    leaf must be split along it as the serving mesh splits the work
+    (``sharding.ServeMesh``): raise ``ValueError`` where ``max_len`` does
+    not divide over the sequence axes (the reference would keep those
+    leaves whole, with a warning) or the rows would be split over an
+    axis the sequence takes, and ``NotImplementedError`` for a
+    cross-attention cache split along its sequence."""
+    shape = sh.mesh_shape_dict(mesh)
+    seq = tuple(a for a in sh.entry_names(parallel.seq_axis)
+                if shape.get(a, 1) > 1) if parallel.shard_cache_seq else ()
+    if not seq:
+        return
+    for name, d in cache_schema(cfg, batch, max_len).items():
+        if "cache_seq" not in d.axes:
+            continue
+        spec = cspecs[name]
+        sh.check_spec(spec, f"{name}'s cache spec")
+        split = tuple(a for a in sh.entry_names(
+            spec[d.axes.index("cache_seq")]) if shape.get(a, 1) > 1)
+        if ".cross." in name:
+            if split:
+                raise NotImplementedError(
+                    f"{name}: a cross-attention cache split along its "
+                    f"sequence over {split}")
+        elif split != seq:
+            raise ValueError(
+                f"{name}: a cache of {max_len} positions does not split "
+                f"over the sequence axes {seq} (size "
+                f"{sh.axis_size(shape, seq)}); serving splits every "
+                f"self-attention cache along them")
+
+
 def serve_layout(cfg: ModelConfig, parallel: ParallelConfig, mesh,
                  batch: int, max_len: int):
     """({name: (spec, shape, kind)} of the parameters, of the cache) over
@@ -478,6 +529,7 @@ def serve_layout(cfg: ModelConfig, parallel: ParallelConfig, mesh,
     size = _model_size(parallel, mesh)
     check_serve_model_axis(cfg, size)
     pspecs, cspecs = serve_specs(cfg, parallel, mesh, batch, max_len)
+    _check_seq_split(cfg, parallel, mesh, cspecs, batch, max_len)
     tp, kv = parallel.tp_axis, cfg.attention.num_kv_heads
     return (_compute_layout(full_schema(cfg), pspecs, tp, size, kv,
                             _KV_WEIGHTS, -1),

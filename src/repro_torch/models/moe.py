@@ -27,9 +27,12 @@ and sends each expert's slots to its rank and back
 (``sharding.expert_exchange``); where a group straddles ranks (a decode
 step, a short prefill) the rank gathers the whole batch's tokens, routes
 every group as one device does, multiplies its experts' slots and
-gathers every expert's results. The expert weights' ``mlp`` columns on
-``model`` make the products row-parallel. The balance loss is that of
-the rank's groups (serving does not read it).
+gathers every expert's results; so does a rank whose rows are not split
+over the expert axis (a cache split along its sequence over it, where
+every rank holds every row), so that each expert multiplies each slot
+once. The expert weights'
+``mlp`` columns on ``model`` make the products row-parallel. The balance
+loss is that of the rank's groups (serving does not read it).
 
 A training step over a mesh (``train.steps``) gathers every expert (FSDP
 over ``data``) and routes the rank's own rows; ``model`` splits the
@@ -204,11 +207,14 @@ def apply_moe(params: Params, name: str, x: torch.Tensor,
     m = cfg.moe
     mesh = sh.serve_mesh()
     b, s, _ = x.shape
-    if mesh is None or mesh.batch_size == 1:
+    if mesh is None or (mesh.batch_size == 1 and mesh.expert_size == 1):
         y, aux = _routed(params, name, x, cfg,
                          lambda xe: _local_experts(params, name, xe))
-    elif (b * s) % min(GROUP_SIZE, b * s * mesh.batch_size):
-        # a group straddles the ranks: route the whole batch
+    elif (b * s) % min(GROUP_SIZE, b * s * mesh.batch_size) or (
+            mesh.expert_size > 1 and not mesh.rows_over_experts):
+        # a group straddles the ranks, or the expert ranks hold the same
+        # rows: route the whole batch, each rank multiplying its experts'
+        # slots once
         whole = mesh.gather_rows(x)
         experts = (functools.partial(_gathered_experts, mesh=mesh)
                    if mesh.expert_size > 1 else _local_experts)

@@ -79,6 +79,16 @@ def init_opt_state(params: Dict[str, torch.Tensor],
                     ms, vs)
 
 
+def abstract_opt_state(params: Dict[str, torch.Tensor],
+                       ocfg: OptimizerConfig) -> OptState:
+    """``init_opt_state``'s shapes and dtypes as ``meta`` tensors (no
+    memory), from parameters of any device (``models.model
+    .abstract_params``): the counterpart of the reference's."""
+    return init_opt_state({k: torch.empty(p.shape, dtype=p.dtype,
+                                          device="meta")
+                           for k, p in params.items()}, ocfg)
+
+
 def _load_moment(mm, sc, shape, ocfg: OptimizerConfig,
                  second: bool = False) -> torch.Tensor:
     """A stored moment widened to float32 (float32 moments as they are)."""

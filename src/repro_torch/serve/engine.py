@@ -22,8 +22,11 @@ and patch embeddings.
 
 The engine runs on ``device`` (default ``"cuda"``, the rank's card; it
 raises without one). With ``mesh=`` (a ``DeviceMesh`` of ``data`` and
-``model``, ``launch.mesh.make_host_mesh``) and ``parallel=`` (default
-``ParallelConfig()``) it serves over the ranks, one process per GPU, as
+``model``, ``launch.mesh.make_host_mesh``, or of ``pod``, ``data`` and
+``model``) and ``parallel=`` (default ``ParallelConfig()``; with
+``shard_cache_seq`` each rank's cache holds a chunk of the sequence and
+every rank holds the rows of a batch axis the sequence takes) it serves
+over the ranks, one process per GPU, as
 the reference serves over its mesh: every rank makes the same calls with
 the same requests and gets the same tokens. A rank holds its shards of
 the parameters (``models.model.serve_placement``; whole parameters are

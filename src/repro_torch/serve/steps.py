@@ -4,12 +4,13 @@ mesh of ranks.
 Counterpart: ``repro.serve.steps``. The reference compiles each step with
 ``jax.jit`` over a sharded mesh and donates the cache; here each is a
 plain function under ``torch.inference_mode()``, and the cache is updated
-in place. With ``mesh=`` (a ``DeviceMesh`` with axes among ``data`` and
-``model``, ``launch.mesh``) every rank calls the step with its shards of
-the parameters and cache (``models.model.serve_placement``) and its rows
-of the batch (``input_batch_specs``, ``sharding.batch_rows``), inside
-``sharding.serving``: the blocks split heads, channels, widths and the
-vocabulary over ``model`` and the experts over the expert axis. The
+in place. With ``mesh=`` (a ``DeviceMesh`` with axes among ``pod``,
+``data`` and ``model``, ``launch.mesh``) every rank calls the step with
+its shards of the parameters and cache (``models.model.serve_placement``)
+and its rows of the batch (``sharding.ServeMesh``, ``batch_rows``),
+inside ``sharding.serving``: the blocks split heads, channels, widths and
+the vocabulary over ``model``, the experts over the expert axis and, with
+``shard_cache_seq``, the caches along their sequence. The
 logits come back whole on every rank, as the reference's replicated
 ``out_shardings=None`` logits. With neither mesh nor parallel config
 they are the one-device steps; a mesh of size one gives their results.

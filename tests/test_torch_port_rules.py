@@ -114,7 +114,8 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
             "repro_torch.train.loop", "repro_torch.launch.train",
             "repro_torch.kernels.lane_codegen",
             "repro_torch.distributed.sharding",
-            "repro_torch.launch.mesh"} <= set(_modules())
+            "repro_torch.launch.mesh", "repro_torch.launch.dryrun",
+            "repro_torch.launch.roofline"} <= set(_modules())
 
 
 def test_port_sources_do_not_import_jax_or_the_reference():
@@ -140,7 +141,8 @@ def test_port_sources_do_not_import_jax_or_the_reference():
             "distributed/fault.py", "distributed/elastic.py",
             "train/__init__.py", "train/steps.py", "train/loop.py",
             "launch/train.py", "kernels/lane_codegen.py",
-            "distributed/sharding.py", "launch/mesh.py"} <= names
+            "distributed/sharding.py", "launch/mesh.py",
+            "launch/dryrun.py", "launch/roofline.py"} <= names
     for f in files:
         hit = FORBIDDEN.search(f.read_text())
         assert hit is None, f"{f}: {hit.group(0).strip()}"

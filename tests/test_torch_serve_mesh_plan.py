@@ -236,3 +236,54 @@ def test_f32_product_off_the_card_is_the_widened_product():
         y = f32_product(x, w)
         assert y.dtype == torch.float32
         assert torch.equal(y, x.float() @ w.float())
+
+
+#: the dry run's production meshes: (axes, shape)
+PRODUCTION = ((("data", "model"), (16, 16)),
+              (("pod", "data", "model"), (2, 16, 16)))
+
+
+@pytest.mark.parametrize("axes, dims", PRODUCTION,
+                         ids=["16x16", "2x16x16"])
+@pytest.mark.parametrize("shape_name", ("decode_32k", "long_500k"))
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_seq_split_cache_specs_are_the_references(jref, arch, shape_name,
+                                                  axes, dims):
+    """The flash-decoding layout of the dry run's decode cells
+    (``launch.dryrun.default_parallel``: the cache's sequence over
+    ``model``, or over ``("data", "model")`` below a batch of 16): the
+    port's cache specs are the reference's, ``kv_heads`` left whole where
+    ``model`` alone carries the sequence."""
+    from repro.config import ParallelConfig as JParallelConfig
+    from repro_torch.config import get_shape
+    from repro_torch.launch.dryrun import default_parallel, skip_reason
+    shape = get_shape(shape_name)
+    par = default_parallel(shape)
+    assert par.shard_cache_seq
+    jpar = JParallelConfig(fsdp_axis=None, shard_cache_seq=True,
+                           seq_axis=par.seq_axis)
+    jmesh = SimpleNamespace(axis_names=axes,
+                            devices=np.empty(dims, dtype=object))
+    mesh = dict(zip(axes, dims))
+    want = jref.model.cache_partition_specs(
+        jref.configs.get_config(arch), shape.global_batch, shape.seq_len,
+        jref.sharding.build_rules(jpar, jmesh),
+        jref.sharding.mesh_shape_dict(jmesh))
+    got = M.cache_partition_specs(get_config(arch), shape.global_batch,
+                                  shape.seq_len, sh.build_rules(par, mesh),
+                                  mesh)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert got[k] == tuple(want[k]), (k, got[k], want[k])
+    seq = got.get("stack.blk0.attn.k", got.get("stack.blk0.attn.ckv"))
+    if seq is None:
+        return
+    assert seq[2] == par.seq_axis
+    if "model" in seq[3:]:
+        # KV heads that model divides beside a sequence over (data,
+        # model): the reference's spec names model twice, which the
+        # port's placement refuses; the dry run skips these cells (pure
+        # attention at 500k tokens)
+        assert skip_reason(arch, shape)
+        with pytest.raises(ValueError, match="twice"):
+            sh.check_spec(seq)

@@ -10,6 +10,7 @@ tests compute the reference's answers in their own process. The
 problems are built here, from seeds, so the test process rebuilds the
 same inputs.
 """
+import contextlib
 import os
 import pickle
 
@@ -861,3 +862,156 @@ def serve_plan_shapes(cfg, mesh_shape, batch=SERVE_B,
             shapes[name] = tuple(shape)
         out.append(shapes)
     return tuple(out)
+
+
+# ---------------------------------------------------------------------------
+# serving with a cache split along its sequence
+# ---------------------------------------------------------------------------
+
+#: (case, arch, overrides): GQA, MLA and Jamba without experts (Mamba
+#: beside attention), in float32; the ``_mqa`` cases have one KV head,
+#: which a model axis of 2 does not divide (the reference's specs then
+#: leave it whole, as jamba-1.5-large's 8 over 16: with two KV heads a
+#: sequence over ("data", "model") would name model twice, which raises)
+SEQ_CASES = (("llama", "llama3.2-1b", {}),
+             ("llama_mqa", "llama3.2-1b", {"num_kv_heads": 1}),
+             ("minicpm3", "minicpm3-4b", {}),
+             ("jamba", "jamba-1.5-large-398b", {"moe": None}),
+             ("jamba_mqa", "jamba-1.5-large-398b",
+              {"moe": None, "num_kv_heads": 1}),
+             ("jamba_moe_mqa", "jamba-1.5-large-398b", {"num_kv_heads": 1}))
+#: (layout, world, mesh shape, axes, seq_axis, batch, cases): the
+#: sequence over model; over (data, model) with a batch of one (the
+#: reference's long_500k layout; Jamba with experts too, its expert
+#: ranks sharing their one row, so every row takes the gathered experts);
+#: rows over (pod, data), the sequence over a model axis of one (its
+#: multi-pod decode_32k layout)
+SEQ_LAYOUTS = (("seq_model", 2, (1, 2), ("data", "model"), "model", 4,
+                ("llama", "minicpm3", "jamba")),
+               ("seq_data_model", 4, (2, 2), ("data", "model"),
+                ("data", "model"), 1, ("llama_mqa", "minicpm3",
+                                       "jamba_mqa", "jamba_moe_mqa")),
+               ("rows_pod_data", 4, (2, 2, 1), ("pod", "data", "model"),
+                "model", 4, ("llama", "minicpm3", "jamba")))
+#: a cache of 128 positions, prompts of 64 (the chunk boundary at 2 ranks,
+#: two chunks at 4), 4 greedy decode steps
+SEQ_MAX_LEN, SEQ_PROMPT, SEQ_DECODE = 128, 64, 4
+
+
+def seq_parallel(seq_axis):
+    from repro_torch.config import ParallelConfig
+    return ParallelConfig(fsdp_axis=None, shard_cache_seq=True,
+                          seq_axis=seq_axis)
+
+
+def seq_cfg(case, dtype="float32", get_smoke_config=None):
+    """A case's smoke config (of the port, or of ``get_smoke_config``'s
+    package)."""
+    import dataclasses
+    if get_smoke_config is None:
+        from repro_torch.configs import get_smoke_config
+    _, arch, kw = next(c for c in SEQ_CASES if c[0] == case)
+    kw = dict(kw)
+    cfg = get_smoke_config(arch)
+    if "num_kv_heads" in kw:
+        kw["attention"] = dataclasses.replace(
+            cfg.attention, num_kv_heads=kw.pop("num_kv_heads"))
+    return dataclasses.replace(cfg, dtype=dtype, **kw)
+
+
+def seq_tokens(cfg, b, seed=5):
+    rng = np.random.default_rng(seed)
+    return rng.integers(1, cfg.vocab_size, (b, SEQ_PROMPT)).astype(np.int32)
+
+
+def seq_steps(cfg, params, tokens, mesh=None, parallel=None):
+    """Prefill and SEQ_DECODE greedy steps: (logits of each step, tokens
+    [b, steps + 1], the cache, its placement)."""
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models import model as M
+    from repro_torch.serve.steps import make_decode_step, make_prefill_step
+    b = tokens.shape[0]
+    rows, cplace = np.arange(b), None
+    if mesh is not None:
+        smesh = sh.ServeMesh.of(mesh, parallel)
+        rows = sh.batch_rows(b, smesh.batch_rank, smesh.batch_size)
+        pplace, cplace = M.serve_placement(cfg, parallel, mesh, b,
+                                           SEQ_MAX_LEN)
+        params = M.place_params(params, pplace)
+    params = M.compute_params(params, cfg, "cpu")
+    prefill = make_prefill_step(cfg, parallel, mesh)
+    decode = make_decode_step(cfg, parallel, mesh)
+    cache = M.init_cache(cfg, b, SEQ_MAX_LEN, device="cpu",
+                         placement=cplace)
+    logits, cache = prefill(params, {"tokens": torch.from_numpy(
+        tokens[rows])}, cache)
+    out = [logits.float().numpy().copy()]
+    toks = [logits[:, -1].argmax(-1).numpy()]
+    for _ in range(SEQ_DECODE):
+        tok = torch.from_numpy(toks[-1][rows].astype(np.int32))[:, None]
+        logits, cache = decode(params, cache, {"token": tok})
+        out.append(logits.float().numpy().copy())
+        toks.append(logits[:, -1].argmax(-1).numpy())
+    return out, np.stack(toks, 1), cache, cplace
+
+
+@contextlib.contextmanager
+def expert_slots():
+    """Counts the expert slots multiplied while inside: a list of
+    ``moe._local_experts``'s E_held x slots, one entry a call (its input
+    xe is [E_held, slots, d]); its sum is the count."""
+    from repro_torch.models import moe
+    calls, local = [], moe._local_experts
+
+    def counting(params, name, xe):
+        calls.append(int(xe.shape[0] * xe.shape[1]))
+        return local(params, name, xe)
+    moe._local_experts = counting
+    try:
+        yield calls
+    finally:
+        moe._local_experts = local
+
+
+def seq_worker(rank, world, params_np):
+    """Every case over each layout of this world, in float32 (and smoke
+    llama3.2 in bf16 over the first): logits, tokens, the gathered
+    cache, the cache shapes and the collectives a decode step issues."""
+    from repro_torch.convert import model_params_from_arrays
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.serve.engine import Request, ServeEngine
+    out = {}
+    for layout, w, shape, axes, seq_axis, b, cases in SEQ_LAYOUTS:
+        if w != world:
+            continue
+        mesh = cpu_mesh(shape, axes)
+        par = seq_parallel(seq_axis)
+        runs = [(case, "float32") for case in cases]
+        if layout == "seq_model":
+            runs.append(("llama", "bfloat16"))
+        for case, dtype in runs:
+            cfg = seq_cfg(case, dtype)
+            params = model_params_from_arrays(params_np[case], cfg,
+                                              device="cpu")
+            with sh.tally() as coll, expert_slots() as slots:
+                logits, toks, cache, cplace = seq_steps(
+                    cfg, params, seq_tokens(cfg, b), mesh, par)
+            out[(layout, case, dtype)] = {
+                "logits": logits, "tokens": toks,
+                "expert_slots": sum(slots),
+                "cache": {k: cplace[k].gather(v).float().numpy()
+                          for k, v in cache.items()},
+                "cache_shapes": {k: tuple(v.shape)
+                                 for k, v in cache.items()},
+                "collectives": coll}
+        if layout == "seq_model":
+            cfg = seq_cfg("llama")
+            eng = ServeEngine(cfg, model_params_from_arrays(
+                params_np["llama"], cfg, device="cpu"), mesh=mesh,
+                parallel=par, slots=4, max_len=SEQ_MAX_LEN, device="cpu")
+            reqs = [Request(rid=i, prompt=p, max_new=ENGINE_NEW)
+                    for i, p in enumerate(engine_prompts(cfg))]
+            out[(layout, "engine")] = [
+                r.output for r in sorted(eng.serve(reqs),
+                                         key=lambda r: r.rid)]
+    return out
