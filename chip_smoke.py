@@ -198,7 +198,10 @@ with phase 11's registered policies translated into them), then:
    ranks: the six smoke kinds (GQA, MLA, Mamba with experts, RWKV-6,
    whisper with frames, experts with a shared expert) in float32 over
    (1, 2) and (2, 1), a prefill and 3 decode steps against one rank on
-   the card (14e); then ``ServeEngine(mesh=)`` with bf16 weights drawn
+   the card (14e; also smoke llama3.2 with 3 query heads
+   over 1 KV head and d_ff 129, widths a model axis of 2 divides
+   neither: the fall-back, ROADMAP C19, which 13e-smoke trains too);
+   then ``ServeEngine(mesh=)`` with bf16 weights drawn
    on the card a leaf at a time into each rank's shards
    (``init_params(placement=)``), 4 of 9c's prompts: llama3.2-1b whole
    over model=2 (14a, max_len 4,096, 16 new tokens), and at max_len
@@ -216,10 +219,19 @@ with phase 11's registered policies translated into them), then:
    1,024, 8 new tokens), every greedy token and the first-token logits
    held to a one-rank engine's, TTFT, decode ms and the collectives the
    serve issues. ``python3 chip_smoke.py --phase 14`` runs the build and
-   phase 14 alone;
+   phase 14 alone. 14g, in eight gloo ranks of its own
+   started beside phases 13-14's two: whisper-small whole in float32 over
+   (data, model) = (1, 8), its 12 heads falling back (C19: each rank
+   projects 1.5 heads' columns, gathers them whole and runs attention
+   over every head), 10g's frames and prompts, 8 new tokens through
+   ``model.prefill`` / ``decode_step``, held to one rank's run (every
+   greedy token, first-token logits within SERVE_MESH_F32_RTOL); TTFT,
+   decode ms, the collectives a rank's serve issues and the float32
+   flash launches; a ``{"serve_mesh_14g": ...}`` line.
+   ``python3 chip_smoke.py --phase 14g`` runs the build and 14g alone;
 15. the dry run (``python -m repro_torch.launch.dryrun``, CPU only, on
-   a fake world of 256 ranks, in background processes beside phases
-   13-14's ranks)
+   a fake world of 256 ranks, in background processes started before
+   phase 11, beside phases 11-12 and 13-14's ranks)
    of llama3.2-1b decode_32k and jamba-1.5-large long_500k in every mode,
    each mode ``ok`` on the torch that runs the script (its private
    fake process group and ``FlopCounterMode``), and their roofline rows
@@ -227,8 +239,9 @@ with phase 11's registered policies translated into them), then:
    ``{"dryrun": ...}`` line. ``python3 chip_smoke.py --phase 15`` runs it alone;
 16. prints one JSON line of per-kernel numbers (nine kernels: launches
    on the main paths of phases 3-5, of 6b, of 7, of 8, of 9, of 10, of
-   11, of 12, of 13 (13a-13b, both ranks), of 14 (14a-14d, both ranks)
-   and of 14f (both ranks); the flash source's float32 kernel has a row
+   11, of 12, of 13 (13a-13b, both ranks), of 14 (14a-14d, both ranks),
+   of 14f (both ranks) and of 14g (its eight ranks); the flash source's
+   float32 kernel has a row
    of its own, ``flash_attention_f32``, at 14f's prefill shape on a rank,
    its ``launches`` those of 14f, its main path), error against the
    plain version, kernel / plain / bound / library times (the policy
@@ -2388,8 +2401,9 @@ def search_on_card(dev, whatif, tr, twin_mod, slo_mod, faults):
 #: dqk, dv, causal): Jamba-1.5 (5d), llama3.2-1b (9c), moonshot-v1-16b-a3b
 #: (9d), phi3.5-moe (9e), stablelm-3b (10c), gemma-7b (10d), minicpm3-4b's
 #: MLA (10e), qwen2-vl-7b (10f), whisper-small's encoder (10g), a rank's
-#: heads of llama3.2-1b over model=2 (14a) and 14f's rank (float32: its
-#: prompts right-padded to max_len // 2 = 512)
+#: heads of llama3.2-1b over model=2 (14a), 14f's rank (float32: its
+#: prompts right-padded to max_len // 2 = 512) and 14g's rank (float32:
+#: whisper-small's encoder over every head, the fall-back)
 FLASH_SHAPES = {"5d": (4, 2048, 64, 8, 128, 128, True),
                 "9c": (4, 2048, 32, 8, 64, 64, True),
                 "9d": (4, 2048, 16, 16, 128, 128, True),
@@ -2400,7 +2414,8 @@ FLASH_SHAPES = {"5d": (4, 2048, 64, 8, 128, 128, True),
                 "10f": (4, 2048, 28, 4, 128, 128, True),
                 "10g": (4, 1500, 12, 12, 64, 64, False),
                 "14a": (4, 2048, 16, 4, 64, 64, True),
-                "14f": (4, 512, 16, 4, 64, 64, True)}
+                "14f": (4, 512, 16, 4, 64, 64, True),
+                "14g": (4, 1500, 12, 12, 64, 64, False)}
 
 
 def serve_rope_moe(dev, get_config, get_smoke_config):
@@ -3855,9 +3870,11 @@ MESH_RANKS = 2
 #: 16,384 scenarios: 5 and 8 policy-uniform blocks) and for 4d's
 MESH_BLOCKS = (32768, 8192)
 MESH_4D_BLOCK = 2048
-#: 13b: phase 7b's fit cut to 20 steps; a search at coarsen=12
-MESH_FIT_STEPS = 20
-MESH_SEARCH_STEPS = 8
+#: 13b: phase 7b's fit cut to 10 steps; a search at coarsen=12 of 4
+#: steps (cut from 20 and 8 for the time limit: every step is
+#: held bitwise to devices=None either way)
+MESH_FIT_STEPS = 10
+MESH_SEARCH_STEPS = 4
 #: 13b's bound where a restart mesh is not bitwise: the reference's own
 #: bound on its sharded fit (src/repro/calibrate/fit.py:177-185)
 MESH_RESTART_RTOL = 2e-6
@@ -3885,14 +3902,22 @@ MESH_1B_LOSS_RTOL = (1e-6, 1e-3)
 #: and 8.46e-5 of one rank's). 2 layers ran 18.1 s against 4's 19.4 s:
 #: staging the embedding's gather and reduce through the host dominates
 MESH_1B_LAYERS = 4
+#: 13e-smoke and 14e's kind whose widths fall back over a model axis of 2
+#: (ROADMAP C19): smoke llama3.2 with 3 query heads over 1 KV head and
+#: d_ff 129, which 2 divides neither: wq / wk / wv / wo cut across a head
+#: (1.5 query heads and half the KV head a rank, gathered whole),
+#: attention over every head on every rank, the MLP whole; in
+#: MESH_TP_SMOKE and SERVE_MESH_SMOKE as ``None``
+FALLBACK_SMOKE = ("llama3.2 3:1 heads d_ff 129", LLAMA, 3, 1, 129)
 #: 13e-smoke: the five smoke kinds the training step splits over
 #: ``model`` (GQA with RoPE, MLA, Mamba without experts, RWKV-6,
-#: experts), in float32 with TF32 off, over (data, model) = (1, 2),
+#: experts) and FALLBACK_SMOKE, in float32 with TF32 off, over (data,
+#: model) = (1, 2),
 #: remat "full", MESH_TP_STEPS steps against one rank's on the whole
 #: batch, within 13c's bounds (MESH_LOSS_RTOL on each loss,
 #: MESH_GRAD_RTOL on each first gradient)
 MESH_TP_SMOKE = ((LLAMA, {}), ("minicpm3-4b", {}), (JAMBA, {"moe": None}),
-                 (RWKV, {}), (PHI, {}))
+                 (RWKV, {}), (PHI, {}), (None, {}))
 MESH_TP_STEPS = 2
 #: 13e-smoke's bound on RWKV-6's first gradients: the H100 read 2.05e-5
 #: of one rank's (the CPU 5.4e-6), past 13c's 1e-5, where the other four
@@ -4298,6 +4323,19 @@ class CollectiveCount:
         return False
 
 
+def smoke_kind(arch, get_smoke_config, **kw):
+    """(label, float32 smoke config) of an arch's smoke config with
+    ``kw``, or with ``arch`` None of FALLBACK_SMOKE's."""
+    if arch is not None:
+        return arch, dataclasses.replace(get_smoke_config(arch),
+                                         dtype="float32", **kw)
+    label, arch, heads, kv_heads, d_ff = FALLBACK_SMOKE
+    cfg = get_smoke_config(arch)
+    return label, dataclasses.replace(
+        cfg, dtype="float32", d_ff=d_ff, attention=dataclasses.replace(
+            cfg.attention, num_heads=heads, num_kv_heads=kv_heads), **kw)
+
+
 def smoke_train_batch(vocab, s, dev):
     """4 seeded rows of ``s`` tokens, row 0's second half masked (the
     CPU tests' batch: the ranks' mask counts could differ)."""
@@ -4328,8 +4366,7 @@ def mesh_tp_smoke(rank, dev):
     mesh = make_host_mesh(1, 2)
     out = {}
     for arch, kw in MESH_TP_SMOKE:
-        cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32",
-                                  **kw)
+        arch, cfg = smoke_kind(arch, get_smoke_config, **kw)
         params = M.init_params(cfg, seed=SEED, device=dev)
         batch = smoke_train_batch(cfg.vocab_size,
                                   128 if cfg.moe is not None else 32, dev)
@@ -4475,8 +4512,9 @@ SERVE_MESH_BF16_DEFAULT_TOL = 0.15
 #: layers); a wrong shard reads O(0.1) at any depth
 SERVE_MESH_F32_WIDTH_TOL = 1e-3
 #: 14e's smoke kinds (GQA with RoPE, MLA, Mamba with experts, RWKV-6,
-#: whisper with frames, experts with a shared expert) and meshes
-SERVE_MESH_SMOKE = (LLAMA, MINICPM, JAMBA, RWKV, WHISPER, MOONSHOT)
+#: whisper with frames, experts with a shared expert, and FALLBACK_SMOKE
+#: as ``None``) and meshes
+SERVE_MESH_SMOKE = (LLAMA, MINICPM, JAMBA, RWKV, WHISPER, MOONSHOT, None)
 SERVE_MESH_SHAPES = ((1, 2), (2, 1))
 #: (part, arch, (data, model), layers or None, max_len, new tokens, dtype
 #: or None for the config's) of 14a-14d: 4 of 9c's seeded prompts, one
@@ -4585,8 +4623,7 @@ def serve_mesh_smoke(rank, dev, get_smoke_config, par=None,
     for shape in shapes:
         mesh = make_host_mesh(*shape)
         for arch in archs:
-            cfg = dataclasses.replace(get_smoke_config(arch),
-                                      dtype="float32")
+            arch, cfg = smoke_kind(arch, get_smoke_config)
             params = M.compute_params(M.init_params(cfg, seed=SEED,
                                                     device=dev), cfg, dev)
             rng = np.random.default_rng(SEED)
@@ -5089,6 +5126,227 @@ def mesh_on_card(rows_4b=None, rows_4d=None, parts=("13", "14"),
     return launches_13, launches_14, record_13, record_14, beside_out
 
 
+# ---------------------------------------------------------------------------
+# Phase 14g: whisper-small over model=8, the fall-back (ROADMAP C19)
+# ---------------------------------------------------------------------------
+
+#: 14g: whisper-small whole (hf:openai/whisper-small: 12 encoder and 12
+#: decoder layers at every published width) in float32 over (data,
+#: model) = (1, 8), in a world of 8 gloo ranks on the one card. 12 heads
+#: over 8 fall back: a rank projects 1.5 heads' columns of each wq / wk /
+#: wv (the encoder's, the decoder's and cross-attention's) and gathers
+#: them whole, runs attention over every head, and takes its 96 rows of
+#: wo; the MLPs split (384 of 3,072 columns a rank), the 51,865-token
+#: vocabulary stays whole. 10g's seeded frames and prompts (4 rows of
+#: 1,500 frames, prompts of 64-224 tokens padded to 224), 8 new tokens
+#: (the prefill's and 7 decode steps), through ``model.prefill`` /
+#: ``decode_step`` (``serve.steps``), against one rank's run of the same
+#: parameters in rank 0: every greedy token equal, the first-token logits
+#: within SERVE_MESH_F32_RTOL (14e's measure)
+WHISPER_MESH_RANKS = 8
+WHISPER_MESH_NEW = 8
+WHISPER_MESH_MAX_LEN = 256
+
+
+def whisper_mesh_serve(rank, dev):
+    """14g in one of the ranks (see WHISPER_MESH_RANKS): one rank's run
+    in rank 0, then the mesh's. Returns the rank's record."""
+    import warnings
+    from repro_torch.config import ParallelConfig
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as M
+    from repro_torch.serve.steps import make_decode_step, make_prefill_step
+    t_part = time.perf_counter()
+    cfg = dataclasses.replace(get_config(WHISPER), dtype="float32")
+    par, rows = ParallelConfig(), WHISPER_ROWS
+    rng = np.random.default_rng(SEED)
+    lens = rng.integers(WHISPER_MIN_PROMPT, WHISPER_PREFILL + 1, rows)
+    toks = np.zeros((rows, WHISPER_PREFILL), np.int32)
+    for i, n in enumerate(lens):
+        toks[i, :n] = rng.integers(0, cfg.vocab_size, n)
+    tok_t = torch.from_numpy(toks).to(dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    frames = torch.randn(rows, cfg.encoder_seq, cfg.d_model, generator=g,
+                         device=dev)
+    # load the flash library and cuBLAS before anything is timed
+    x = torch.zeros(1, 16, 1, 64, device=dev)
+    ops.sdpa(x, x, x, causal=True)
+    torch.mm(x[0, :, 0], x[0, :, 0].t())
+
+    def serve(params, mesh, cplace):
+        prefill = make_prefill_step(cfg, par, mesh)
+        decode = make_decode_step(cfg, par, mesh)
+        cache = M.init_cache(cfg, rows, WHISPER_MESH_MAX_LEN, device=dev,
+                             placement=cplace)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, {"tokens": tok_t, "frames": frames},
+                                cache)
+        first = logits[:, -1].float()
+        out = [first.argmax(-1).to(torch.int32)]
+        torch.cuda.synchronize()
+        ttft = time.perf_counter() - t0
+        dec = []
+        for _ in range(WHISPER_MESH_NEW - 1):
+            t1 = time.perf_counter()
+            logits, cache = decode(params, cache, {"token": out[-1][:, None]})
+            check(bool(torch.isfinite(logits).all()), ("14g", "logits"))
+            out.append(logits[:, -1].argmax(-1).to(torch.int32))
+            torch.cuda.synchronize()
+            dec.append(time.perf_counter() - t1)
+        return first.cpu(), torch.stack(out, 1).cpu(), ttft, dec
+
+    one = None
+    if rank == 0:
+        one = serve(M.init_params(cfg, seed=SEED, device=dev), None, None)
+        torch.cuda.empty_cache()
+    sh.barrier()
+    mesh = make_host_mesh(1, WHISPER_MESH_RANKS)
+    mesh_shape = {"data": 1, "model": WHISPER_MESH_RANKS}
+    sh._REPLICATION_WARNED.clear()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        pplace, cplace = M.serve_placement(cfg, par, mesh, rows,
+                                           WHISPER_MESH_MAX_LEN)
+        params = M.init_params(cfg, seed=SEED, device=dev, placement=pplace)
+        held, plan = shard_bytes("14g", "parameters", params, pplace,
+                                 mesh_shape)
+        check(held == plan, ("14g parameter bytes", held, plan))
+        mods = model_kernels()
+        for mod in mods:
+            mod.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        sh.barrier()
+        with sh.tally() as coll:
+            first, tokens, ttft, dec = serve(params, mesh, cplace)
+    launches = {k: v for mod in mods for k, v in mod.launches.items()}
+    expect = {"flash_attention": 0, "flash_attention_f32":
+              cfg.encoder_layers + 2 * cfg.num_layers, "ssm_scan": 0,
+              "rwkv6_chunked": 0, "rwkv6_scan": 0}
+    check(launches == expect, ("14g launches", launches, expect))
+    warned = [str(m.message) for m in caught
+              if issubclass(m.category, RuntimeWarning)]
+    check(any(f"'heads_act'): dim {cfg.attention.num_heads} " in m
+              and f"'model' (size {WHISPER_MESH_RANKS})" in m
+              for m in warned), ("14g fall-back warning", warned))
+    rec = {"model": cfg.name, "layers": cfg.num_layers,
+           "encoder_layers": cfg.encoder_layers, "dtype": cfg.dtype,
+           "heads": cfg.attention.num_heads, "frames": cfg.encoder_seq,
+           "mesh": [1, WHISPER_MESH_RANKS], "rows": rows,
+           "prefill_len": WHISPER_PREFILL, "new_tokens": WHISPER_MESH_NEW,
+           "tokens": tokens.tolist(), "ttft_ms": ttft * 1e3,
+           "decode_step_ms": 1e3 * float(np.mean(dec)),
+           "param_gib": held / 2 ** 30,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "launches": launches,
+           "collectives": {k: v for k, v in coll.items() if v["count"]},
+           "warnings": sorted(set(m.split(":")[0] for m in warned))}
+    if one is not None:
+        one_first, one_tokens, one_ttft, one_dec = one
+        err = float((first - one_first).abs().max()) / (
+            1 + float(one_first.abs().max()))
+        rec.update(first_logits_err=err, one_tokens=one_tokens.tolist(),
+                   one_ttft_ms=one_ttft * 1e3,
+                   one_decode_step_ms=1e3 * float(np.mean(one_dec)))
+        print(f"phase 14g (rank 0): first-token logits within {err:.3g} of "
+              f"one rank's (bound {SERVE_MESH_F32_RTOL:g})", flush=True)
+        check(err <= SERVE_MESH_F32_RTOL, ("14g first-token logits", err))
+        check(torch.equal(tokens, one_tokens),
+              ("14g greedy tokens", tokens.tolist(), one_tokens.tolist()))
+    rec["s"] = time.perf_counter() - t_part
+    return rec
+
+
+def whisper_mesh_rank(rank, init_file, root):
+    """One of 14g's ranks: joins the gloo group of WHISPER_MESH_RANKS on
+    the one card, runs ``whisper_mesh_serve`` and writes its record."""
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            rank=rank, world_size=WHISPER_MESH_RANKS)
+    try:
+        rec = whisper_mesh_serve(rank, dev)
+        with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
+            json.dump(rec, f)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def whisper_mesh_start():
+    """Starts 14g's ranks (see WHISPER_MESH_RANKS) in the background:
+    returns (their processes, their records' folder, the start time)."""
+    import torch.multiprocessing as mp
+    root = tempfile.mkdtemp(prefix="plantd_14g_")
+    ctx = mp.start_processes(whisper_mesh_rank,
+                             args=(os.path.join(root, "init"), root),
+                             nprocs=WHISPER_MESH_RANKS, start_method="spawn",
+                             join=False)
+    return ctx, root, time.perf_counter()
+
+
+def whisper_mesh_finish(started):
+    """Phase 14g's end: waits for the ranks, checks that every rank's
+    tokens are rank 0's, prints its lines and a ``{"serve_mesh_14g":
+    ...}`` record. Returns the model kernels' launches summed over the
+    ranks and the record."""
+    ctx, root, t0 = started
+    try:
+        try:
+            while not ctx.join():
+                pass
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.terminate()
+                    p.join()
+        recs = []
+        for r in range(WHISPER_MESH_RANKS):
+            with open(os.path.join(root, f"rank{r}.json")) as f:
+                recs.append(json.load(f))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    x = recs[0]
+    check(all(r["tokens"] == x["tokens"] for r in recs),
+          "14g: the ranks' tokens differ")
+    launches = {}
+    for r in recs:
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    print(f"phase 14g: {x['model']} whole ({x['encoder_layers']} + "
+          f"{x['layers']} layers, {x['dtype']}) over (data, model) "
+          f"{tuple(x['mesh'])}, {WHISPER_MESH_RANKS} gloo ranks on the one "
+          f"card, {x['heads']} heads falling back (C19: "
+          f"{', '.join(x['warnings'])}); {x['rows']} rows of "
+          f"{x['frames']:,} frames, prompts padded to "
+          f"{x['prefill_len']}, {x['new_tokens']} new tokens: TTFT "
+          f"{x['ttft_ms']:.1f} ms (one rank {x['one_ttft_ms']:.1f}), decode "
+          f"{x['decode_step_ms']:.2f} ms a step (one rank "
+          f"{x['one_decode_step_ms']:.2f}); first-token logits within "
+          f"{x['first_logits_err']:.3g} of one rank's (bound "
+          f"{SERVE_MESH_F32_RTOL:g}), every greedy token one rank's, every "
+          f"rank's tokens equal; parameters {x['param_gib']:.3f} GiB a rank "
+          f"(the plan's), peak {max(r['peak_gib'] for r in recs):.2f} GiB; "
+          f"launches a rank {x['launches']}; staged by a rank's serve: "
+          + ", ".join(f"{k} {v['count']} calls {v['bytes'] / 1e6:.2f} MB"
+                      for k, v in sorted(x["collectives"].items()))
+          + f"; {x['s']:.1f} s in the ranks")
+    record = {k: v for k, v in x.items() if k not in ("tokens",
+                                                      "one_tokens")}
+    record.update(launches=launches, bound=SERVE_MESH_F32_RTOL,
+                  s=time.perf_counter() - t0)
+    print(f"phase 14g (the ranks' start included): {record['s']:.1f} s "
+          f"from its start")
+    print(json.dumps({"serve_mesh_14g": record}))
+    return launches, record
+
+
 def policy_jobs(faults, sweep_twins, growths16, growths256, growths4, dev):
     """The policy kernels' rows of the kernels line at the what-if main
     path's widths: (name, replaces, shape, operands, aggregate)."""
@@ -5109,14 +5367,14 @@ def policy_jobs(faults, sweep_twins, growths16, growths256, growths4, dev):
 
 def policy_plains(jobs):
     """Each of ``jobs``' plain versions once on its operands, run while
-    phases 13-14's ranks work (the plain versions step their 8,736 bins
-    from the host; this process has nothing else to do then): {name:
-    (ms, result)}. Their times share the card and the host with the
-    ranks."""
+    phases 13-14's and 14g's ranks work (the plain versions step their
+    8,736 bins from the host; this process has nothing else to do then),
+    with phase 15's dry runs as well where they still go: {name: (ms,
+    result)}. Their times share the card and the host with them."""
     t0 = time.perf_counter()
     out = {name: policy_plain(ops, agg) for name, _, _, ops, agg in jobs}
     print(f"the policy kernels' plain versions, beside phases 13-14's "
-          f"ranks: {time.perf_counter() - t0:.1f} s ("
+          f"and 14g's ranks: {time.perf_counter() - t0:.1f} s ("
           + ", ".join(f"{k} {v[0]:.1f} ms" for k, v in out.items()) + ")",
           flush=True)
     return out
@@ -5130,7 +5388,8 @@ def policy_rows(jobs, plains):
         stats = kernel_vs_plain(name, shape, ops, agg, plains.pop(name))
         rows.append((name, "policy_scan", replaces,
                      dict(stats, library_ms=None,
-                          plain_timed="beside phases 13-14's ranks")))
+                          plain_timed="beside phases 13-14's and 14g's "
+                                      "ranks and phase 15's dry runs")))
     return rows
 
 
@@ -5378,14 +5637,18 @@ def main():
         growths4, rows_4d = chaos_at_width(whatif, tr, slo_mod, faults,
                                            sweep_twins, growths16)
         dryrun = dryrun_start()
+        torch.cuda.empty_cache()
+        whisper = whisper_mesh_start()
         jobs = policy_jobs(faults, sweep_twins, growths16, growths256,
                            growths4, dev)
         *_, plains = mesh_on_card(rows_array(rows_4b), rows_array(rows_4d),
                                   beside=lambda: policy_plains(jobs))
+        whisper_mesh_finish(whisper)
         dryrun_finish(dryrun)
         policy_rows(jobs, plains)
         flash_vs_plain(dev, "14a")
         flash_vs_plain(dev, "14f", torch.float32)
+        flash_vs_plain(dev, "14g", torch.float32)
         print(card)
         return 0
     if sys.argv[1:] == ["--phase", "14"]:
@@ -5393,6 +5656,12 @@ def main():
         mesh_on_card(parts=("14",))
         flash_vs_plain(dev, "14a")
         flash_vs_plain(dev, "14f", torch.float32)
+        print(card)
+        return 0
+    if sys.argv[1:] == ["--phase", "14g"]:
+        # whisper-small over model=8, the fall-back, alone
+        whisper_mesh_finish(whisper_mesh_start())
+        flash_vs_plain(dev, "14g", torch.float32)
         print(card)
         return 0
     if sys.argv[1:] == ["--phase", "15"]:
@@ -5518,6 +5787,11 @@ def main():
                                                 get_smoke_config)
     elapsed("phase 10")
 
+    # phase 15's dry runs start here, in the background: CPU processes
+    # beside phases 11-12 (the training steps keep the card busy) and on
+    # into 13-14, kept off the host-bound phases before
+    dryrun = dryrun_start()
+
     # registered policies on the card (their steps translated into the
     # policy kernels) and the padded flash head dims
     launches_11, _ = registered_policies_on_card(dev, whatif, tr, twin_mod,
@@ -5528,21 +5802,22 @@ def main():
     elapsed("phases 11-12")
 
     # the multi-GPU layer and serving over a mesh: two gloo ranks on the
-    # one card
-    # (the policy kernels' plain versions run meanwhile in this process,
-    # and phase 15's dry runs in the background: CPU processes, kept off
-    # the host-bound phases before)
-    dryrun = dryrun_start()
+    # one card, and 14g's eight beside them (whisper-small over model=8:
+    # the fall-back); the policy kernels' plain versions run meanwhile
+    # in this process
+    torch.cuda.empty_cache()
+    whisper = whisper_mesh_start()
     jobs = policy_jobs(faults, sweep_twins, growths16, growths256, growths4,
                        dev)
     launches_13, launches_14, _, record_14, plains = mesh_on_card(
         rows_4b, rows_4d, beside=lambda: policy_plains(jobs))
+    launches_14g, _ = whisper_mesh_finish(whisper)
     # 14f runs float32: its prefills launch the flash source's float32
     # kernel, its own row
     launches_14f = record_14["launches_14f"]
     del rows_4b, rows_4d
 
-    elapsed("phases 13-14")
+    elapsed("phases 13-14 and 14g")
 
     # the dry run of the production meshes and its roofline
     dryrun_finish(dryrun)
@@ -5562,7 +5837,9 @@ def main():
                      at_14={"14a": flash_vs_plain(dev, "14a")})
     # the float32 kernel on its main path, 14f's prefill on a rank
     flash_f32_row = dict(flash_vs_plain(dev, "14f", torch.float32),
-                         launches_of="14f (both ranks)")
+                         launches_of="14f (both ranks)",
+                         at_14={"14g": flash_vs_plain(dev, "14g",
+                                                      torch.float32)})
     rows += [("flash_attention", "flash_attention",
               "src/repro/kernels/flash_attention.py:23", flash_row),
              ("flash_attention_f32", "flash_attention",
@@ -5595,7 +5872,8 @@ def main():
               "launches_12": launches_12.get(name, 0),
               "launches_13": launches_13.get(name, 0),
               "launches_14": launches_14.get(name, 0),
-              "launches_14f": launches_14f.get(name, 0)}, **stats)
+              "launches_14f": launches_14f.get(name, 0),
+              "launches_14g": launches_14g.get(name, 0)}, **stats)
         for name, src, replaces, stats in rows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -641,7 +641,11 @@ class ServeMesh:
     tuple), each with its size and this rank's place in it (a group of
     several axes indexed with the first-named slowest). A training step
     splits its blocks over ``model`` alone (``of(..., model_only=True)``):
-    its rows are the rank's own batch, and FSDP gathers every expert."""
+    its rows are the rank's own batch, and FSDP gathers every expert.
+    Experts over the tensor-parallel axis itself share its group: the
+    reference's specs then give the experts' dim the axis and leave their
+    widths whole (a leaf names an axis once), so each rank multiplies its
+    experts whole and the gathered results sum nothing."""
     model: object
     model_size: int
     model_rank: int
@@ -682,11 +686,6 @@ class ServeMesh:
                       if shape[a] > 1)
         if set(batch) & set(seq):
             batch = ()
-        if parallel.expert_axis is not None and \
-                parallel.expert_axis == parallel.tp_axis and m[1] > 1:
-            raise NotImplementedError(
-                f"experts over the tensor-parallel axis "
-                f"{parallel.tp_axis!r}, which splits their widths")
         return cls(*m, *axis_group(mesh, parallel.expert_axis),
                    *axis_group(mesh, batch), *axis_group(mesh, seq),
                    seq_over_model=parallel.tp_axis in seq,

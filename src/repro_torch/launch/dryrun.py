@@ -41,7 +41,10 @@ What a cell's record holds, and where the reference's number comes from:
   HLO's collectives.
 * ``memory``: ``argument_size_in_bytes`` is the exact sum of the rank's
   argument shards (parameters and optimizer state or cache, and the
-  batch). ``temp_size_in_bytes`` is the peak of the bytes held by the
+  batch) that the step reads, as ``jax.jit`` prunes the arguments a step
+  does not use (whisper's decode reads neither the encoder's weights nor
+  cross-attention's K/V projections: its cache holds their output).
+  ``temp_size_in_bytes`` is the peak of the bytes held by the
   storages the step makes, tracked through weak references to each new
   storage (``_Counters``): an eager step's peak, in program order, which
   holds a step's new state beside its arguments (the port's train step is
@@ -176,7 +179,8 @@ def _nbytes(t: torch.Tensor) -> int:
 
 class _Counters(TorchDispatchMode):
     """Within the block, the operand and result bytes of every ATen
-    operation but views (``bytes``), and the bytes of the storages the
+    operation but views (``bytes``), the storages of the step's arguments
+    the operations read (``read``), and the bytes of the storages the
     operations make, live and at their peak (``live``, ``peak``): each
     new storage is counted from its first appearance until Python frees
     it (a weak reference's finalizer)."""
@@ -188,6 +192,7 @@ class _Counters(TorchDispatchMode):
         self.peak = 0
         self._sizes: Dict[int, int] = {}
         self._known = set()
+        self.read = set()
 
     def know(self, tensors):
         """Storages that exist before the step (its arguments): never
@@ -221,9 +226,17 @@ class _Counters(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
         outs = _tensors(out)
+        operands = _tensors((args, kwargs))
         if not getattr(func, "is_view", False):
-            self.bytes += sum(_nbytes(t) for t in _tensors((args, kwargs)))
+            self.bytes += sum(_nbytes(t) for t in operands)
             self.bytes += sum(_nbytes(t) for t in outs)
+        # an operation reads its operands where it writes one of them or
+        # makes a new storage (a view, an alias such as a ``to`` that
+        # converts nothing and a metadata query read nothing)
+        held = {t.untyped_storage()._cdata for t in operands}
+        if outs and (func._schema.is_mutable or any(
+                t.untyped_storage()._cdata not in held for t in outs)):
+            self.read.update(held & self._known)
         for t in outs:
             self._track(t)
         return out
@@ -305,7 +318,8 @@ def _fake_args(args):
 
 
 def memory_dict(counters: _Counters, args, out) -> Dict[str, float]:
-    arg = sum(_nbytes(t) for t in _tensors(args))
+    arg = sum(_nbytes(t) for t in _tensors(args)
+              if t.untyped_storage()._cdata in counters.read)
     return {"argument_size_in_bytes": int(arg),
             "output_size_in_bytes": int(counters.held(_tensors(out))),
             "temp_size_in_bytes": int(counters.peak),
@@ -356,14 +370,16 @@ def run_mode(arch: str, shape: ShapeConfig, mesh_kind: str, mode: str,
             args = _fake_args(shapes)
             t_lower = time.time()
             counters = _Counters()
-            counters.know(_tensors(args))
+            # the arguments as passed (a step may replace a cache leaf)
+            passed = _tensors(args)
+            counters.know(passed)
             with sh.tally() as coll, FlopCounterMode(display=False) as fc, \
                     counters:
                 out = step(*args)
             t_comp = time.time()
             rec["cost"] = {"flops": float(fc.get_total_flops()),
                            "bytes": float(counters.bytes)}
-            rec["memory"] = memory_dict(counters, args, out)
+            rec["memory"] = memory_dict(counters, passed, out)
             del out
         rec["collectives"] = coll
         rec["hlo_has_while"] = False

@@ -20,16 +20,29 @@ at prefill, through the flash kernel without a causal mask, and keeps
 them whole in its cache (``encoder_seq`` long) for decode, which reads
 them through ``ref.sdpa``.
 
-Under a serving mesh each rank runs its query heads (``wq``'s, ``wq_b``'s
-and ``wkv_b``'s columns) and the KV heads they read (``wk`` / ``wv``'s
-columns: its share of them, or where ``model`` exceeds the KV heads the
-one head its query heads read), its K/V cache holding those heads; the
-head counts come from the shapes of the rank's leaves. ``wo`` is
-row-parallel (``layers.row_parallel``). MLA's latent, rope key and their
-cache are replicated over ``model``. Under autograd (training over a
-mesh) each replicated tensor enters the rank's heads through
-``layers.tp_in``: x before q/k/v, MLA's query latent before ``wq_b``, its
-KV latent before ``wkv_b`` and its rope key before it joins the rank's
+Under a serving mesh whose ``model`` axis divides the query heads each
+rank runs its query heads (``wq``'s, ``wq_b``'s and ``wkv_b``'s columns)
+and the KV heads they read (``wk`` / ``wv``'s columns: its share of
+them, or where ``model`` exceeds the KV heads the one head its query
+heads read); the head counts come from the shapes of the rank's leaves.
+``wo`` is row-parallel (``layers.row_parallel``). Where the axis does not
+divide the query heads, or where it splits them but neither splits
+the KV heads nor is a multiple of them (12 over 3 KV heads at 4), the
+reference's specs and ``constrain`` fall back and so does the port
+(ROADMAP C19): each leaf is placed by its spec (``wq`` / ``wk`` / ``wv``
+/ ``wq_b`` / ``wkv_b`` column shards where the axis divides the
+flattened width, else whole; ``wo``'s rows likewise), a rank projects
+with its shard and gathers the columns into whole heads
+(``layers.tp_gather_parts``), attention runs over every head on every
+rank, and the rank takes its rows of the output for ``wo``
+(``layers.tp_slice``). MLA's absorbed decode over a ``wkv_b`` cut across
+a head contracts each head with the columns the rank holds and sums the
+partials over ``model`` (what is projected is gathered, never the
+weight). MLA's latent, rope key and their cache are replicated over
+``model``. Under autograd (training over a mesh) each replicated tensor
+enters the rank's part of a split computation through ``layers.tp_in``:
+x before the split products, MLA's query latent before ``wq_b``, its KV
+latent before ``wkv_b`` and its rope key before it joins the rank's
 heads.
 
 With a cache split along its sequence (``ParallelConfig.shard_cache_seq``,
@@ -50,7 +63,9 @@ from repro_torch.distributed import sharding as sh
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models.layers import (ParamDef, Params, Schema, apply_rope,
-                                       row_parallel, tp_in)
+                                       heads_split, model_split,
+                                       row_parallel, tp_gather_parts, tp_in,
+                                       tp_slice)
 
 Cache = Dict[str, torch.Tensor]
 
@@ -81,6 +96,27 @@ def _write_kv(cache_k, cache_v, k_new, v_new, pos):
     cache_k[rows, cols] = k_new.to(cache_k.dtype)
     cache_v[rows, cols] = v_new.to(cache_v.dtype)
     return cache_k, cache_v
+
+
+def kv_heads_cut(heads: int, kv_heads: int, size: int) -> bool:
+    """Whether a rank's K/V leaves over a ``model`` axis of ``size`` hold
+    just the KV heads its query heads read: the axis splits the query
+    heads and either splits the KV heads or is a multiple of them (one
+    head a rank, ROADMAP C23). Otherwise the KV leaves are placed by the
+    reference's specs (a column shard gathered whole, or whole) and
+    attention runs over every head on every rank."""
+    return size > 1 and heads % size == 0 and (
+        kv_heads % size == 0 or size % kv_heads == 0)
+
+
+def _out_rows(out: torch.Tensor, wo: torch.Tensor,
+              width: int) -> torch.Tensor:
+    """``out`` [b, t, the heads held x d] through ``wo`` (``width`` rows
+    whole): where ``wo``'s rows are split, the rank's part of ``out``
+    (its own heads already, or its rows of every head) summed over
+    ``model``; else the whole product."""
+    return row_parallel(tp_slice(out, wo.shape[0]), wo,
+                        model_split(wo.shape[0], width))
 
 
 # ---------------------------------------------------------------------------
@@ -115,8 +151,10 @@ def _all_heads(x: torch.Tensor, heads: int, mesh: sh.ServeMesh
     """x [b, t, the rank's heads, ...] -> [b, t, heads, ...]: every
     ``model`` rank's heads, where the sequence axes include ``model``
     (a head that several ranks hold, a KV head where ``model`` exceeds
-    them, taken once); else the rank's own."""
-    if not mesh.seq_over_model or mesh.model_size == 1:
+    them, taken once); else, or where x holds every head already (the
+    fall-back), x."""
+    if not mesh.seq_over_model or mesh.model_size == 1 or \
+            x.shape[2] == heads:
         return x
     full = sh.all_gather(x, 2, mesh.model)
     step = full.shape[2] // heads
@@ -191,13 +229,14 @@ def _seq_probs(logits: torch.Tensor, kv_len: torch.Tensor,
     return e / sh.all_reduce(e.sum(-1, keepdim=True), "sum", mesh.seq)
 
 
-def _seq_sdpa(q, k, v, kv_len, mesh: sh.ServeMesh, logit_cap: float = 0.0):
+def _seq_sdpa(q, k, v, kv_len, mesh: sh.ServeMesh, heads: int,
+              logit_cap: float = 0.0):
     """``ref.sdpa``'s decode (no causal mask, ``kv_len`` masking) over a
-    cache chunk: q [b, t, the rank's heads, dq], k / v [b, S_loc, kh,
-    d] -> [b, t, the rank's heads, dv] in ``v.dtype``."""
+    cache chunk: q [b, t, the rank's heads (or all ``heads``), dq], k / v
+    [b, S_loc, kh, d] -> [b, t, the rank's heads, dv] in ``v.dtype``."""
     local = q.shape[2]
     kh = k.shape[2]
-    q = _all_heads(q, local * mesh.model_size, mesh)
+    q = _all_heads(q, heads, mesh)
     b, sq, h, dq = q.shape
     qg = q.reshape(b, sq, kh, h // kh, dq).float()
     logits = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) * dq ** -0.5
@@ -210,25 +249,28 @@ def _seq_sdpa(q, k, v, kv_len, mesh: sh.ServeMesh, logit_cap: float = 0.0):
     return _own_heads(out.reshape(b, sq, h, -1), mesh, local)
 
 
-def _cross_kv(params: Params, name: str, q: torch.Tensor,
-              memory: Optional[torch.Tensor], cfg: ModelConfig,
-              cache: Optional[Cache]):
-    """Cross-attention's K/V: projected from ``memory`` (the encoder's
-    output) at prefill and written whole into the cache, read back from
-    it at decode."""
+def _cross_kv(params: Params, name: str, memory: Optional[torch.Tensor],
+              cfg: ModelConfig, cache: Optional[Cache], dt: torch.dtype,
+              split: bool, entered: bool):
+    """Cross-attention's K/V [b, s_enc, heads held, hd]: projected from
+    ``memory`` (the encoder's output) at prefill, the columns gathered
+    into whole heads where ``split`` cuts one, and written into the cache
+    as placed; read back from it at decode. ``entered``: the products
+    are the rank's part of a split computation (``tp_in``)."""
     a = cfg.attention
-    dt = q.dtype
     if memory is None:
         if cache is None or not cache.get("decode", False):
             raise ValueError(f"{name}: cross-attention needs the encoder's "
                              f"output at prefill")
         return cache["k"].to(dt), cache["v"].to(dt), cache
-    b = q.shape[0]
-    memory = tp_in(memory)
-    k = (memory @ params[f"{name}.wk"].to(dt)).reshape(
-        b, memory.shape[1], -1, a.head_dim)
-    v = (memory @ params[f"{name}.wv"].to(dt)).reshape(
-        b, memory.shape[1], -1, a.head_dim)
+    b = memory.shape[0]
+    memory = tp_in(memory, entered)
+    k = memory @ params[f"{name}.wk"].to(dt)
+    v = memory @ params[f"{name}.wv"].to(dt)
+    if split:
+        k, v = tp_gather_parts([k, v])
+    k = k.reshape(b, memory.shape[1], -1, a.head_dim)
+    v = v.reshape(b, memory.shape[1], -1, a.head_dim)
     if cache is not None:
         if cache["k"].shape != k.shape:
             raise ValueError(f"{name}: the encoder's output gives K/V "
@@ -254,15 +296,40 @@ def apply_gqa(params: Params, name: str, x: torch.Tensor,
     a = cfg.attention
     b, t, _ = x.shape
     dt = x.dtype
-    x = tp_in(x)
-    q = (x @ params[f"{name}.wq"].to(dt)).reshape(b, t, -1, a.head_dim)
-    if is_cross or memory is not None:
-        k, v, cache = _cross_kv(params, name, q, memory, cfg, cache)
-        out = ops.sdpa(q, k, v, causal=False, logit_cap=a.logit_cap)
-        return row_parallel(out.reshape(b, t, -1),
-                            params[f"{name}.wo"].to(dt)), cache
-    k = (x @ params[f"{name}.wk"].to(dt)).reshape(b, t, -1, a.head_dim)
-    v = (x @ params[f"{name}.wv"].to(dt)).reshape(b, t, -1, a.head_dim)
+    H, hd = a.num_heads, a.head_dim
+    mesh = sh.serve_mesh()
+    wq, wk = params[f"{name}.wq"], params[f"{name}.wk"]
+    # the rank's query heads and the KV heads they read, else every head
+    local = heads_split(H) and kv_heads_cut(H, a.num_kv_heads,
+                                            mesh.model_size)
+    q_split = model_split(wq.shape[1], H * hd)
+    kv_split = model_split(wk.shape[1], a.num_kv_heads * hd)
+    # columns that cut a head are gathered into whole heads
+    q_gather, kv_gather = q_split and not local, kv_split and not local
+    cross = is_cross or memory is not None
+    x_in = tp_in(x, q_split or (not cross and (kv_split or local)))
+    q = (x_in if q_split else x) @ wq.to(dt)
+    if cross:
+        if q_gather:
+            q, = tp_gather_parts([q])
+        k, v, cache = _cross_kv(params, name, memory, cfg, cache, dt,
+                                kv_gather, kv_split or local)
+        out = ops.sdpa(q.reshape(b, t, -1, hd), k, v, causal=False,
+                       logit_cap=a.logit_cap)
+        return _out_rows(out.reshape(b, t, -1), params[f"{name}.wo"].to(dt),
+                         H * hd), cache
+    src = x_in if (kv_split or local) else x
+    k = src @ wk.to(dt)
+    v = src @ params[f"{name}.wv"].to(dt)
+    gathered = tp_gather_parts([y for y, g in ((q, q_gather), (k, kv_gather),
+                                               (v, kv_gather)) if g])
+    if q_gather:
+        q = gathered.pop(0)
+    if kv_gather:
+        k, v = gathered
+    q = q.reshape(b, t, -1, hd)
+    k = k.reshape(b, t, -1, hd)
+    v = v.reshape(b, t, -1, hd)
     if a.rope != "none":
         q = apply_rope(q, positions, a)
         k = apply_rope(k, positions, a)
@@ -278,7 +345,7 @@ def apply_gqa(params: Params, name: str, x: torch.Tensor,
         else:
             ck, cv = cache["k"], cache["v"]
             _write_token((ck, cv), _kv_heads(k, v, a, seq), pos, seq)
-            out = _seq_sdpa(q, ck.to(dt), cv.to(dt), new_len, seq,
+            out = _seq_sdpa(q, ck.to(dt), cv.to(dt), new_len, seq, H,
                             a.logit_cap)
         cache = dict(cache, k=ck, v=cv, length=new_len)
     else:
@@ -294,8 +361,8 @@ def apply_gqa(params: Params, name: str, x: torch.Tensor,
             cache = dict(cache, k=ck, v=cv,
                          length=torch.full((b,), t, dtype=torch.int32,
                                            device=x.device))
-    out = out.reshape(b, t, -1)
-    return row_parallel(out, params[f"{name}.wo"].to(dt)), cache
+    return _out_rows(out.reshape(b, t, -1), params[f"{name}.wo"].to(dt),
+                     H * hd), cache
 
 
 def gqa_cache_schema(cfg: ModelConfig, name: str, batch: int,
@@ -354,19 +421,40 @@ def _rope_cfg(a: AttentionConfig) -> AttentionConfig:
 
 
 def _mla_q(params: Params, name: str, x: torch.Tensor,
-           positions: torch.Tensor, a: AttentionConfig, eps: float):
-    """(q_nope [b, t, h, nope], q_rope [b, t, h, rope] rotated)."""
-    b, t, _ = x.shape
+           a: AttentionConfig, eps: float) -> Tuple[torch.Tensor, bool]:
+    """(q [b, t, the columns held], whether they cut a head): the query
+    projection through ``wq_b`` (or ``wq``) as the leaf is placed."""
     dt = x.dtype
+    w = params[f"{name}.wq_b" if a.q_lora_rank > 0 else f"{name}.wq"]
+    qk = a.qk_nope_head_dim + a.qk_rope_head_dim
+    split = model_split(w.shape[1], a.num_heads * qk)
     if a.q_lora_rank > 0:
-        ql = x @ params[f"{name}.wq_a"].to(dt)
-        ql = _rms(ql, params[f"{name}.q_norm"], eps)
-        q = tp_in(ql) @ params[f"{name}.wq_b"].to(dt)
-    else:
-        q = tp_in(x) @ params[f"{name}.wq"].to(dt)
-    q = q.reshape(b, t, -1, a.qk_nope_head_dim + a.qk_rope_head_dim)
-    q_nope, q_rope = q[..., :a.qk_nope_head_dim], q[..., a.qk_nope_head_dim:]
-    return q_nope, apply_rope(q_rope, positions, _rope_cfg(a))
+        x = x @ params[f"{name}.wq_a"].to(dt)
+        x = _rms(x, params[f"{name}.q_norm"], eps)
+    return tp_in(x, split) @ w.to(dt), split and not heads_split(a.num_heads)
+
+
+def _head_window(w: torch.Tensor, width: int):
+    """(first head, w [r, n, width]) of a rank's column shard w [r, c] of
+    a [r, heads x width] leaf cut across heads: the n heads its columns
+    touch, zeros where another rank holds the columns."""
+    mesh = sh.serve_mesh()
+    c0 = mesh.model_rank * w.shape[1]
+    h0, h1 = c0 // width, -(-(c0 + w.shape[1]) // width)
+    pad = w.new_zeros(w.shape[0], (h1 - h0) * width)
+    pad[:, c0 - h0 * width:c0 - h0 * width + w.shape[1]] = w
+    return h0, pad.reshape(w.shape[0], h1 - h0, width)
+
+
+def _head_sum(part: torch.Tensor, h0: int, heads: int,
+              dt: torch.dtype) -> torch.Tensor:
+    """The ranks' float32 partials [b, t, n, d] of heads h0 .. h0 + n,
+    placed among every head and summed over ``model``, rounded once."""
+    mesh = sh.serve_mesh()
+    b, t, n, d = part.shape
+    whole = part.new_zeros(b, t, heads, d)
+    whole[:, :, h0:h0 + n] = part
+    return sh.model_sum(whole, mesh.model).to(dt)
 
 
 def apply_mla(params: Params, name: str, x: torch.Tensor,
@@ -380,22 +468,32 @@ def apply_mla(params: Params, name: str, x: torch.Tensor,
     a = cfg.attention
     b, t, _ = x.shape
     dt = x.dtype
+    H = a.num_heads
     n_nope, n_rope, n_v = a.qk_nope_head_dim, a.qk_rope_head_dim, a.v_head_dim
     r = a.kv_lora_rank
     scale = (n_nope + n_rope) ** -0.5
+    local = heads_split(H)
 
     kv_a = x @ params[f"{name}.wkv_a"].to(dt)
     ckv = _rms(kv_a[..., :r], params[f"{name}.kv_norm"], cfg.norm_eps)
     k_rope = apply_rope(kv_a[..., None, r:], positions,
                         _rope_cfg(a))                       # [b, t, 1, rope]
-    q_nope, q_rope = _mla_q(params, name, x, positions, a, cfg.norm_eps)
+    q, q_gather = _mla_q(params, name, x, a, cfg.norm_eps)
 
-    heads = params[f"{name}.wkv_b"].shape[1] // (n_nope + n_v)  # the rank's
-    wkv_b = params[f"{name}.wkv_b"].to(dt).reshape(r, heads, n_nope + n_v)
-    wk_b, wv_b = wkv_b[..., :n_nope], wkv_b[..., n_nope:]   # [r, h, n|v]
+    w_kv = params[f"{name}.wkv_b"].to(dt)
+    kv_split = model_split(w_kv.shape[1], H * (n_nope + n_v))
+    kv_gather = kv_split and not local
+    # the rank's heads, or every head (the fall-back)
+    heads = w_kv.shape[1] // (n_nope + n_v) if local else H
 
     seq = _seq_mesh() if cache is not None else None
-    if cache is not None and cache.get("decode", False):
+    decode = cache is not None and cache.get("decode", False)
+    if q_gather:
+        q, = tp_gather_parts([q])
+    q = q.reshape(b, t, heads, n_nope + n_rope)
+    q_nope = q[..., :n_nope]
+    q_rope = apply_rope(q[..., n_nope:], positions, _rope_cfg(a))
+    if decode:
         pos = cache["length"]
         cckv, ckr = cache["ckv"], cache["k_rope"]
         if seq is None:
@@ -403,11 +501,21 @@ def apply_mla(params: Params, name: str, x: torch.Tensor,
         else:
             _write_token((cckv, ckr), (ckv, k_rope), pos, seq)
         new_len = pos + t
-        q_abs = torch.einsum("bthn,rhn->bthr", q_nope, wk_b)   # [b, t, h, r]
+        if kv_gather:
+            # wkv_b's columns cut a head: each rank contracts the heads
+            # its columns touch and the partials are summed
+            h0, window = _head_window(w_kv, n_nope + n_v)
+            n = window.shape[1]
+            q_abs = _head_sum(torch.einsum(
+                "bthn,rhn->bthr", q_nope[:, :, h0:h0 + n].float(),
+                window[..., :n_nope].float()), h0, H, dt)
+        else:
+            wkv_b = w_kv.reshape(r, heads, n_nope + n_v)
+            q_abs = torch.einsum("bthn,rhn->bthr", q_nope,
+                                 wkv_b[..., :n_nope])         # [b, t, h, r]
         if seq is not None:
             # every query head against the rank's chunk of the latent
-            qa = _all_heads(torch.cat([q_abs, q_rope], dim=-1),
-                            heads * seq.model_size, seq)
+            qa = _all_heads(torch.cat([q_abs, q_rope], dim=-1), H, seq)
             q_abs, q_rope = qa[..., :r], qa[..., r:]
         logits = (torch.einsum("bthr,bsr->bhts", q_abs.float(),
                                cckv.float())
@@ -426,14 +534,22 @@ def apply_mla(params: Params, name: str, x: torch.Tensor,
                                 cckv.to(dt).float())
             out_lat = _own_heads(sh.all_reduce(part, "sum", seq.seq).to(dt),
                                  seq, heads)
-        out = torch.einsum("bthr,rhv->bthv", out_lat, wv_b)
+        if kv_gather:
+            out = _head_sum(torch.einsum(
+                "bthr,rhv->bthv", out_lat[:, :, h0:h0 + n].float(),
+                window[..., n_nope:].float()), h0, H, dt)
+        else:
+            out = torch.einsum("bthr,rhv->bthv", out_lat,
+                               wkv_b[..., n_nope:])
         cache = dict(cache, ckv=cckv, k_rope=ckr, length=new_len)
     else:
-        kv = (tp_in(ckv) @ wkv_b.reshape(r, -1)).reshape(b, t, heads,
-                                                         n_nope + n_v)
+        kv = tp_in(ckv, kv_split) @ w_kv
+        if kv_gather:
+            kv, = tp_gather_parts([kv])
+        kv = kv.reshape(b, t, heads, n_nope + n_v)
         k_nope, v = kv[..., :n_nope], kv[..., n_nope:]
-        k = torch.cat([k_nope, tp_in(k_rope).expand(b, t, heads, n_rope)],
-                      dim=-1)
+        k = torch.cat([k_nope, tp_in(k_rope, local).expand(b, t, heads,
+                                                            n_rope)], dim=-1)
         q = torch.cat([q_nope, q_rope], dim=-1)
         out = ops.sdpa(q, k, v, causal=a.causal, scale=scale)
         if cache is not None and seq is not None:
@@ -445,8 +561,8 @@ def apply_mla(params: Params, name: str, x: torch.Tensor,
                       torch.zeros(b, dtype=torch.int32, device=x.device))
             cache = dict(cache, length=torch.full((b,), t, dtype=torch.int32,
                                                   device=x.device))
-    out = out.reshape(b, t, heads * n_v)
-    return row_parallel(out, params[f"{name}.wo"].to(dt)), cache
+    return _out_rows(out.reshape(b, t, heads * n_v),
+                     params[f"{name}.wo"].to(dt), H * n_v), cache
 
 
 def mla_cache_schema(cfg: ModelConfig, name: str, batch: int,

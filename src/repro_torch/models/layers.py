@@ -13,16 +13,28 @@ and sin are computed in float32 and cast to the activations' dtype before
 the rotation, so a bf16 model rotates in bf16.
 
 Under a serving or training mesh (``distributed.sharding.serve_mesh()``)
-the functions here take a rank's shards: ``row_parallel`` sums a
-row-parallel product over ``model`` (float32 partials, rounded once),
+the functions here take a rank's shards. Each leaf is placed by its
+spec, which splits a dim over ``model`` where the axis divides it and
+leaves it whole where it does not (the reference's fall-back), so a
+block reads from its leaves whether a width is split (``model_split``:
+a split dim is narrower than the schema's) and tells the helpers:
+``row_parallel`` sums a row-parallel product over ``model`` (float32
+partials, rounded once) only where the leaf's rows are split, and a
+product over a whole leaf runs whole on every rank and sums nothing.
 ``embed_tokens`` and ``unembed`` split the vocabulary over ``model``
 where it divides (a vocabulary it does not divide stays whole, with the
 reference's warn-once), ``apply_mlp`` is column-parallel in ``w_gate`` /
-``w_up`` and row-parallel in ``w_down``; norms are replicated. Under
+``w_up`` and row-parallel in ``w_down`` where ``model`` divides the
+width, and whole where it does not; norms are replicated. Under
 autograd a replicated tensor enters each split computation through
 ``tp_in`` (Megatron's "f"), so every rank holds the whole gradient of
 every replicated tensor and leaf: the blocks call it before each
-column-parallel product, and ``tp_slice`` calls it itself.
+column-parallel product, and ``tp_slice`` calls it itself; a whole
+computation takes no ``tp_in``, whose sum would multiply its gradient by
+the axis size. Columns split across a head (a width the axis divides
+where it does not divide the heads) are gathered whole by
+``tp_gather_parts``, whose backward gives each rank its part of the
+gradient every rank then holds whole.
 """
 from __future__ import annotations
 
@@ -201,43 +213,82 @@ def f32_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return _mm_f32(x, w)
 
 
-def row_parallel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x @ w`` where ``x``'s last dim and ``w``'s rows are this rank's
-    part of the contraction: the partials summed over ``model`` in
-    float32 and rounded once to ``x``'s dtype. Without a ``model`` axis,
-    the plain product."""
+def model_split(local: int, whole: int) -> bool:
+    """Whether a leaf dim of ``local`` entries on this rank is its part of
+    a dim of ``whole`` that the step's ``model`` axis splits. The leaf's
+    spec decides: it splits the dim where the axis divides it and leaves
+    it whole where it does not, so a split dim is narrower than the
+    whole (a whole dim and one rank's shard never share a width)."""
     mesh = sh.serve_mesh()
-    if mesh is None or mesh.model_size == 1:
+    return mesh is not None and mesh.model_size > 1 and local < whole
+
+
+def heads_split(heads: int) -> bool:
+    """Whether the step's ``model`` axis splits ``heads`` heads into equal
+    whole parts (each rank runs its own); where it does not, the block
+    runs every head on every rank (the fall-back)."""
+    mesh = sh.serve_mesh()
+    return mesh is not None and mesh.model_size > 1 and \
+        heads % mesh.model_size == 0
+
+
+def row_parallel(x: torch.Tensor, w: torch.Tensor,
+                 split: bool) -> torch.Tensor:
+    """``x @ w``. With ``split`` (``w``'s rows are this rank's part of the
+    contraction, ``x``'s last dim the same part) the partials summed over
+    ``model`` in float32 and rounded once to ``x``'s dtype; else (one
+    device, or a leaf the axis leaves whole) the plain product, which
+    every rank computes whole."""
+    mesh = sh.serve_mesh()
+    if not split or mesh is None or mesh.model_size == 1:
         return x @ w
     return sh.row_sum(f32_product(x, w), x.dtype, mesh.model)
 
 
-def tp_in(x: torch.Tensor) -> torch.Tensor:
+def tp_in(x: torch.Tensor, split: bool) -> torch.Tensor:
     """``x``, replicated over ``model``, where it enters this rank's part
-    of a split computation (a column-parallel product): the identity,
-    whose backward sums the ranks' gradients over ``model``
-    (``sharding.tp_enter``). Without a ``model`` axis, ``x``."""
+    of a split computation (``split``: a column-parallel product over a
+    split leaf): the identity, whose backward sums the ranks' gradients
+    over ``model`` (``sharding.tp_enter``). Without ``split`` or a
+    ``model`` axis, ``x`` (a whole computation's gradient is already
+    whole on every rank)."""
     mesh = sh.serve_mesh()
-    if mesh is None or mesh.model_size == 1:
+    if not split or mesh is None or mesh.model_size == 1:
         return x
     return sh.tp_enter(x, mesh.model)
 
 
 def tp_slice(x: torch.Tensor, width: int, dim: int = -1) -> torch.Tensor:
     """This rank's ``width``-wide part along ``dim`` of a replicated
-    tensor whose width the ``model`` axis splits (entered by ``tp_in``)."""
+    tensor whose width the ``model`` axis splits (entered by ``tp_in``);
+    ``x`` where it is ``width`` wide."""
     mesh = sh.serve_mesh()
     if mesh is None or mesh.model_size == 1 or x.shape[dim] == width:
         return x
-    return tp_in(x).narrow(dim, mesh.model_rank * width, width)
+    return tp_in(x, True).narrow(dim, mesh.model_rank * width, width)
 
 
-def tp_gather(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
-    """The whole tensor along ``dim`` from every ``model`` rank's part."""
+def tp_gather(x: torch.Tensor, split: bool, dim: int = -1) -> torch.Tensor:
+    """The whole tensor along ``dim`` from every ``model`` rank's part
+    where ``split`` (``x`` is this rank's part); else ``x``."""
     mesh = sh.serve_mesh()
-    if mesh is None or mesh.model_size == 1:
+    if not split or mesh is None or mesh.model_size == 1:
         return x
     return sh.tp_gather(x, dim, mesh.model)
+
+
+def tp_gather_parts(parts):
+    """Each tensor of ``parts`` whole along its last dim from every
+    ``model`` rank's equal part of it, in one gather (the columns of
+    several products that split a head: q, k and v)."""
+    mesh = sh.serve_mesh()
+    if mesh is None or mesh.model_size == 1 or not parts:
+        return list(parts)
+    widths = [p.shape[-1] for p in parts]
+    whole = tp_gather(torch.cat(parts, dim=-1) if len(parts) > 1
+                      else parts[0], True)
+    whole = whole.unflatten(-1, (mesh.model_size, sum(widths)))
+    return [w.flatten(-2) for w in whole.split(widths, dim=-1)]
 
 
 def _vocab_split(table_rows: int, cfg: ModelConfig) -> bool:
@@ -365,8 +416,12 @@ def mlp_schema(cfg: ModelConfig, name: str,
 
 def apply_mlp(params: Params, name: str, x: torch.Tensor,
               cfg: ModelConfig) -> torch.Tensor:
+    """The dense MLP; over ``model`` column-parallel in ``w_gate`` /
+    ``w_up`` and row-parallel in ``w_down`` where the axis divides
+    ``d_ff``, whole on every rank where it does not."""
     dt = x.dtype
-    x = tp_in(x)
+    split = model_split(params[f"{name}.w_up"].shape[1], cfg.d_ff)
+    x = tp_in(x, split)
     up = x @ params[f"{name}.w_up"].to(dt)
     if cfg.mlp_kind == "swiglu":
         h = F.silu(x @ params[f"{name}.w_gate"].to(dt)) * up
@@ -375,7 +430,7 @@ def apply_mlp(params: Params, name: str, x: torch.Tensor,
                    approximate="tanh") * up
     else:
         h = F.gelu(up, approximate="tanh")
-    return row_parallel(h, params[f"{name}.w_down"].to(dt))
+    return row_parallel(h, params[f"{name}.w_down"].to(dt), split)
 
 
 # ---------------------------------------------------------------------------
@@ -422,7 +477,7 @@ def unembed(params: Params, x: torch.Tensor, cfg: ModelConfig,
     else:
         w = params["unembed.w"].to(x.dtype)
     if _vocab_split(w.shape[1], cfg):
-        local = tp_in(x) @ w
+        local = tp_in(x, True) @ w
         return sh.vocab_logits(local, sh.serve_mesh().model) if gather \
             else local
     return x @ w

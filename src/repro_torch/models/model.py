@@ -55,13 +55,14 @@ exponentials and gold logits) and never gathers them.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.config import ModelConfig, ParallelConfig
 from repro_torch.device import resolve_device
 from repro_torch.distributed import sharding as sh
+from repro_torch.models import attention as attn_mod
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import (ParamDef, Params, Schema, apply_norm,
                                        compute_dtype, embed_schema,
@@ -410,38 +411,46 @@ _KV_CACHES = (".attn.k", ".attn.v", ".cross.k", ".cross.v")
 
 
 def check_serve_model_axis(cfg: ModelConfig, size: int,
-                           use: str = "serving"):
-    """Raise ``NotImplementedError`` naming the rule where a ``model``
-    axis of ``size`` does not split a width the blocks split (ROADMAP
-    C19), in tensor-parallel ``use`` (serving or training): the query
-    heads (of the decoder and an encoder), the KV heads unless the axis
-    is a multiple of them, the MLP, expert and Mamba widths and RWKV's
-    heads. The vocabulary may stay whole."""
+                           axis: str = "model") -> List[Tuple[str, int]]:
+    """The widths a ``model`` axis ``axis`` of ``size`` does not divide,
+    ``[(the reference's activation axis, width)]``, each warned once a
+    process with the reference's ``constrain`` message (and an ``obs``
+    event each call): there the reference's specs leave a leaf whole, or
+    cut its flattened columns across a head, and its ``constrain``
+    replicates the activations; the blocks fall back alike (ROADMAP C19,
+    ``models.attention``, ``layers.model_split``). The query heads (of the
+    decoder and an encoder) as ``heads_act``; the KV heads as
+    ``kv_heads_act`` unless the axis splits the query heads and is a
+    multiple of the KV heads (a whole head a rank, C23); the MLP and
+    expert widths as ``mlp_act``; Mamba's ``d_inner`` and RWKV's heads as
+    ``heads_act``. The vocabulary is warned where it is embedded
+    (``layers.embed_tokens``)."""
     if size == 1:
-        return
-    widths = {"d_ff": cfg.d_ff}
+        return []
+    widths = []
     kinds = set(cfg.block_pattern)
     if "attn" in kinds:
         a = cfg.attention
-        widths["query heads (num_heads)"] = a.num_heads
-        if a.kind != "mla" and a.num_kv_heads % size and \
-                size % a.num_kv_heads:
-            raise NotImplementedError(
-                f"{cfg.name}: {a.num_kv_heads} KV heads over a model axis "
-                f"of {size}: tensor-parallel {use} needs the axis to split "
-                f"the KV heads or be a multiple of them (ROADMAP C19)")
+        widths.append(("heads_act", a.num_heads))
+        if a.kind != "mla" and not attn_mod.kv_heads_cut(
+                a.num_heads, a.num_kv_heads, size) and \
+                a.num_kv_heads % size:
+            widths.append(("kv_heads_act", a.num_kv_heads))
     if cfg.moe is not None:
-        widths["expert d_ff"] = cfg.moe.d_ff
+        widths.append(("mlp_act", cfg.moe.d_ff))
+    if not all(cfg.layer_uses_moe(i) for i in range(len(cfg.block_pattern))):
+        widths.append(("mlp_act", cfg.d_ff))        # a dense or channel mix
     if "mamba" in kinds:
-        widths["Mamba d_inner"] = cfg.ssm.expand * cfg.d_model
+        widths.append(("heads_act", cfg.ssm.expand * cfg.d_model))
     if "rwkv" in kinds:
-        widths["RWKV heads"] = cfg.d_model // cfg.rwkv.head_dim
-    for what, n in widths.items():
+        widths.append(("heads_act", cfg.d_model // cfg.rwkv.head_dim))
+    out = []
+    for what, n in widths:
         if n % size:
-            raise NotImplementedError(
-                f"{cfg.name}: a model axis of {size} does not divide its "
-                f"{n} {what}; tensor-parallel {use} splits them evenly "
-                f"(ROADMAP C19)")
+            sh._warn_replicated(f"constrain(logical axis {what!r})", axis,
+                                n, size)
+            out.append((what, n))
+    return out
 
 
 def serve_specs(cfg: ModelConfig, parallel: ParallelConfig, mesh,
@@ -460,23 +469,30 @@ def _with_entry(spec: tuple, dim: int, axis: str) -> tuple:
     return tuple(out)
 
 
-def _compute_layout(schema: Schema, specs, tp: str, size: int, kv: int,
-                    kv_names, kv_dim: int):
+def _compute_layout(cfg: ModelConfig, schema: Schema, specs, tp: str,
+                    size: int, kv_names, kv_dim: int):
     """{name: (spec, shape, kind)}: ``specs`` in the compute layout (see
-    the module docstring) over a ``model`` axis ``tp`` of ``size``."""
-    out = {}
+    the module docstring) over a ``model`` axis ``tp`` of ``size``: a
+    Mamba ``in_proj``'s halves where the axis divides ``d_inner``, and the
+    KV heads a rank's query heads read where the axis splits the query
+    heads (``attention.kv_heads_cut``); every other leaf by its spec."""
+    a, out = cfg.attention, {}
+    halves = cfg.ssm is not None and \
+        (cfg.ssm.expand * cfg.d_model) % size == 0
+    kv_cut = "attn" in cfg.block_pattern and attn_mod.kv_heads_cut(
+        a.num_heads, a.num_kv_heads, size)
     for name, d in schema.items():
         spec, kind = specs[name], None
-        if size > 1 and name.endswith(".mixer.in_proj"):
+        if size > 1 and halves and name.endswith(".mixer.in_proj"):
             kind = (len(d.shape) - 1, "halves", 0)
-        elif size > 1 and name.endswith(kv_names) and not any(
+        elif kv_cut and name.endswith(kv_names) and not any(
                 tp in sh.entry_names(e)
                 for i, e in enumerate(spec) if i != len(d.shape) + kv_dim):
             # (a cache whose sequence is split over model holds every
             # KV head: the reference's specs leave them whole)
             dim = len(d.shape) + kv_dim
             spec = _with_entry(spec, dim, tp)
-            kind = (dim, "heads", kv)
+            kind = (dim, "heads", a.num_kv_heads)
         out[name] = (spec, tuple(d.shape), kind)
     return out
 
@@ -527,14 +543,14 @@ def serve_layout(cfg: ModelConfig, parallel: ParallelConfig, mesh,
     ``serve_specs`` in the compute layout (see the module docstring), a
     ``kind`` as ``sharding.Sharding`` takes it or None."""
     size = _model_size(parallel, mesh)
-    check_serve_model_axis(cfg, size)
+    check_serve_model_axis(cfg, size, parallel.tp_axis)
     pspecs, cspecs = serve_specs(cfg, parallel, mesh, batch, max_len)
     _check_seq_split(cfg, parallel, mesh, cspecs, batch, max_len)
-    tp, kv = parallel.tp_axis, cfg.attention.num_kv_heads
-    return (_compute_layout(full_schema(cfg), pspecs, tp, size, kv,
+    tp = parallel.tp_axis
+    return (_compute_layout(cfg, full_schema(cfg), pspecs, tp, size,
                             _KV_WEIGHTS, -1),
-            _compute_layout(cache_schema(cfg, batch, max_len), cspecs, tp,
-                            size, kv, _KV_CACHES, -2))
+            _compute_layout(cfg, cache_schema(cfg, batch, max_len), cspecs,
+                            tp, size, _KV_CACHES, -2))
 
 
 def train_layout(cfg: ModelConfig, parallel: ParallelConfig, mesh):
@@ -542,14 +558,15 @@ def train_layout(cfg: ModelConfig, parallel: ParallelConfig, mesh):
     holds and computes with over ``mesh``: the reference's
     ``partition_specs`` (``embed`` over the FSDP axis, which the step
     gathers) in the compute layout where ``model`` splits a leaf
-    otherwise than in the spec's chunk, as ``serve_layout``. A ``model``
-    axis that does not split a width the blocks split raises (C19)."""
+    otherwise than in the spec's chunk, as ``serve_layout``; where the
+    ``model`` axis does not divide a width, the leaf as its spec places
+    it, with the fall-back's warning (C19)."""
     size = _model_size(parallel, mesh)
-    check_serve_model_axis(cfg, size, "training")
+    check_serve_model_axis(cfg, size, parallel.tp_axis)
     shape = sh.mesh_shape_dict(mesh)
     pspecs = partition_specs(cfg, sh.build_rules(parallel, mesh), shape)
-    return _compute_layout(full_schema(cfg), pspecs, parallel.tp_axis, size,
-                           cfg.attention.num_kv_heads, _KV_WEIGHTS, -1)
+    return _compute_layout(cfg, full_schema(cfg), pspecs, parallel.tp_axis,
+                           size, _KV_WEIGHTS, -1)
 
 
 def serve_placement(cfg: ModelConfig, parallel: ParallelConfig, mesh,

@@ -30,8 +30,14 @@ every group as one device does, multiplies its experts' slots and
 gathers every expert's results; so does a rank whose rows are not split
 over the expert axis (a cache split along its sequence over it, where
 every rank holds every row), so that each expert multiplies each slot
-once. The expert weights'
-``mlp`` columns on ``model`` make the products row-parallel. The balance
+once. The expert axis may be ``model`` itself: its group then holds
+``E / size`` experts a rank with their widths whole (the reference's
+specs give the experts' dim the axis first), and every rank routes the
+whole batch, its experts' products whole. The expert weights'
+``mlp`` columns on ``model`` make the products row-parallel; where
+``model`` does not divide the experts' (or the shared expert's) width
+the leaves stay whole, as the reference's specs leave them, and every
+rank runs those products whole, summing nothing. The balance
 loss is that of the rank's groups (serving does not read it).
 
 A training step over a mesh (``train.steps``) gathers every expert (FSDP
@@ -51,8 +57,8 @@ import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
 from repro_torch.distributed import sharding as sh
-from repro_torch.models.layers import (ParamDef, Params, Schema, row_parallel,
-                                       tp_in)
+from repro_torch.models.layers import (ParamDef, Params, Schema, model_split,
+                                       row_parallel, tp_in)
 
 #: tokens per dispatch group (capacity is per group and expert)
 GROUP_SIZE = 256
@@ -110,17 +116,19 @@ def dispatch(probs: torch.Tensor, top_k: int, cap: int):
     return tope, topw * keep, pos, keep
 
 
-def _local_experts(params: Params, name: str, xe: torch.Tensor
-                   ) -> torch.Tensor:
-    """Every held expert's products on its slots: xe [E_held, slots, d]."""
+def _local_experts(params: Params, name: str, xe: torch.Tensor,
+                   d_ff: int) -> torch.Tensor:
+    """Every held expert's products on its slots: xe [E_held, slots, d];
+    split over ``model`` where the leaves' ``d_ff`` (of ``d_ff``) is."""
     dt = xe.dtype
-    xe = tp_in(xe)
+    split = model_split(params[f"{name}.w_gate"].shape[2], d_ff)
+    xe = tp_in(xe, split)
     h = (F.silu(torch.bmm(xe, params[f"{name}.w_gate"].to(dt)))
          * torch.bmm(xe, params[f"{name}.w_up"].to(dt)))
-    return row_parallel(h, params[f"{name}.w_down"].to(dt))
+    return row_parallel(h, params[f"{name}.w_down"].to(dt), split)
 
 
-def _exchanged_experts(params, name, xe, mesh):
+def _exchanged_experts(params, name, xe, d_ff, mesh):
     """The experts' results for this rank's groups, xe [E, slots, d]:
     each expert's slots sent to its rank, multiplied there with the
     slots of every rank's groups, and returned."""
@@ -129,19 +137,19 @@ def _exchanged_experts(params, name, xe, mesh):
     slots = got.shape[1]
     mine = got.reshape(n, held, slots, -1).transpose(0, 1).reshape(
         held, n * slots, -1)
-    ye = _local_experts(params, name, mine)
+    ye = _local_experts(params, name, mine, d_ff)
     back = ye.reshape(held, n, slots, -1).transpose(0, 1).reshape(
         n * held, slots, -1)
     return sh.expert_exchange(back, mesh.experts)       # [E, S, d]
 
 
-def _gathered_experts(params, name, xe, mesh):
+def _gathered_experts(params, name, xe, d_ff, mesh):
     """The experts' results for the whole batch's groups, held by every
     rank: this rank's experts' slots multiplied and every rank's
     gathered."""
     held = xe.shape[0] // mesh.expert_size
     mine = xe[mesh.expert_rank * held:(mesh.expert_rank + 1) * held]
-    return sh.all_gather(_local_experts(params, name, mine), 0,
+    return sh.all_gather(_local_experts(params, name, mine, d_ff), 0,
                          mesh.experts)
 
 
@@ -209,7 +217,7 @@ def apply_moe(params: Params, name: str, x: torch.Tensor,
     b, s, _ = x.shape
     if mesh is None or (mesh.batch_size == 1 and mesh.expert_size == 1):
         y, aux = _routed(params, name, x, cfg,
-                         lambda xe: _local_experts(params, name, xe))
+                         lambda xe: _local_experts(params, name, xe, m.d_ff))
     elif (b * s) % min(GROUP_SIZE, b * s * mesh.batch_size) or (
             mesh.expert_size > 1 and not mesh.rows_over_experts):
         # a group straddles the ranks, or the expert ranks hold the same
@@ -219,16 +227,19 @@ def apply_moe(params: Params, name: str, x: torch.Tensor,
         experts = (functools.partial(_gathered_experts, mesh=mesh)
                    if mesh.expert_size > 1 else _local_experts)
         y, aux = _routed(params, name, whole, cfg,
-                         lambda xe: experts(params, name, xe))
+                         lambda xe: experts(params, name, xe, m.d_ff))
         y = y.narrow(0, mesh.batch_rank * b, b)
     else:
         experts = (functools.partial(_exchanged_experts, mesh=mesh)
                    if mesh.expert_size > 1 else _local_experts)
         y, aux = _routed(params, name, x, cfg,
-                         lambda xe: experts(params, name, xe))
+                         lambda xe: experts(params, name, xe, m.d_ff))
     if m.num_shared_experts > 0:
-        pre, dt, xs = f"{name}.shared", x.dtype, tp_in(x)
+        pre, dt = f"{name}.shared", x.dtype
+        split = model_split(params[f"{pre}.w_gate"].shape[1],
+                            m.d_ff * m.num_shared_experts)
+        xs = tp_in(x, split)
         h = (F.silu(xs @ params[f"{pre}.w_gate"].to(dt))
              * (xs @ params[f"{pre}.w_up"].to(dt)))
-        y = y + row_parallel(h, params[f"{pre}.w_down"].to(dt))
+        y = y + row_parallel(h, params[f"{pre}.w_down"].to(dt), split)
     return y, aux

@@ -22,6 +22,12 @@ row-parallel sum whose result is the whole width, and the gate's
 columns are gathered to meet it. ``x_att`` / ``x_ffn`` are replicated.
 Under autograd the replicated mixes enter the rank's columns through
 ``layers.tp_in``, and the decay and ``ln_x`` through ``tp_slice``.
+Where ``model`` does not divide the heads the time mix runs every head
+on every rank (the fall-back): ``wr`` / ``wk`` / ``wv`` / ``wg`` are the
+reference's column shards where the axis divides ``d`` (gathered whole
+in one call) or whole, ``bonus`` and the ``wkv`` state whole, ``wo``'s
+rows split as its spec splits them; the channel mix's widths fall back
+alike, each leaf by its spec.
 """
 from __future__ import annotations
 
@@ -32,9 +38,9 @@ import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models.layers import (ParamDef, Params, Schema,
-                                       row_parallel, tp_gather, tp_in,
-                                       tp_slice)
+from repro_torch.models.layers import (ParamDef, Params, Schema, heads_split,
+                                       model_split, row_parallel, tp_gather,
+                                       tp_gather_parts, tp_in, tp_slice)
 
 State = Dict[str, torch.Tensor]
 MIXES = 5  # r, w, k, v, g
@@ -100,10 +106,14 @@ def apply_time_mix(params: Params, name: str, x: torch.Tensor,
                    cfg: ModelConfig, state: Optional[State] = None
                    ) -> Tuple[torch.Tensor, Optional[State]]:
     r_cfg = cfg.rwkv
-    b, s, _ = x.shape
+    b, s, d_model = x.shape
     dt = x.dtype
-    d = params[f"{name}.wr"].shape[1]           # the rank's heads' width
-    H, n = d // r_cfg.head_dim, r_cfg.head_dim
+    n = r_cfg.head_dim
+    # the rank's heads where model divides them, else every head
+    local = heads_split(d_model // n)
+    split = model_split(params[f"{name}.wr"].shape[1], d_model)
+    d = params[f"{name}.wr"].shape[1] if local else d_model
+    H = d // n
     decode = _decoding(state)
 
     xs = _token_shift(x, state["x_att"] if decode else None)
@@ -116,16 +126,19 @@ def apply_time_mix(params: Params, name: str, x: torch.Tensor,
         "bsmr,mrd->bsmd", lora, params[f"{name}.maa_w2"].to(dt))
     xr, xw, xk, xv, xg = [x + dx * mix[:, :, i] for i in range(MIXES)]
 
-    rr = (tp_in(xr) @ params[f"{name}.wr"].to(dt)).reshape(b, s, H, n)
-    kk = (tp_in(xk) @ params[f"{name}.wk"].to(dt)).reshape(b, s, H, n)
-    vv = (tp_in(xv) @ params[f"{name}.wv"].to(dt)).reshape(b, s, H, n)
-    gg = tp_in(xg) @ params[f"{name}.wg"].to(dt)
+    rr, kk, vv, gg = [tp_in(xi, split) @ params[f"{name}.{w}"].to(dt)
+                      for xi, w in ((xr, "wr"), (xk, "wk"), (xv, "wv"),
+                                    (xg, "wg"))]
+    if split and not local:
+        rr, kk, vv, gg = tp_gather_parts([rr, kk, vv, gg])
+    rr, kk, vv = (y.reshape(b, s, H, n) for y in (rr, kk, vv))
 
     # data-dependent decay in (0, 1), formed in float32
     dlora = torch.tanh(xw @ params[f"{name}.decay_w1"].to(dt))
     decay_log = params[f"{name}.decay_base"].float() + (
         dlora.float() @ params[f"{name}.decay_w2"].float())
-    w = torch.exp(-torch.exp(tp_slice(decay_log, d))).reshape(b, s, H, n)
+    w = torch.exp(-torch.exp(tp_slice(decay_log, d))).reshape(
+        b, s, H, n)
 
     u = params[f"{name}.bonus"].float()
     out, new_wkv = ops.rwkv6_scan(rr, kk, vv, w.to(rr.dtype), u,
@@ -139,7 +152,10 @@ def apply_time_mix(params: Params, name: str, x: torch.Tensor,
     o = (o * tp_slice(params[f"{name}.ln_x.scale"], d).float()
          + tp_slice(params[f"{name}.ln_x.bias"], d).float())
     o = o.to(dt) * F.silu(gg)
-    y = row_parallel(o, params[f"{name}.wo"].to(dt))
+    # the rank's rows of every head where wo's rows are split
+    wo = params[f"{name}.wo"].to(dt)
+    y = row_parallel(tp_slice(o, wo.shape[0]), wo,
+                     model_split(wo.shape[0], d_model))
 
     if state is not None:
         state = dict(state, x_att=x[:, -1], wkv=new_wkv)
@@ -155,9 +171,12 @@ def apply_channel_mix(params: Params, name: str, x: torch.Tensor,
     dx = xs - x
     xk = x + dx * params[f"{name}.mix_k"].to(dt)
     xr = x + dx * params[f"{name}.mix_r"].to(dt)
-    k = torch.square(F.relu(tp_in(xk) @ params[f"{name}.wk"].to(dt)))
-    r = tp_gather(torch.sigmoid(tp_in(xr) @ params[f"{name}.wr"].to(dt)))
-    y = r * row_parallel(k, params[f"{name}.wv"].to(dt))
+    wk, wr = params[f"{name}.wk"], params[f"{name}.wr"]
+    k_split = model_split(wk.shape[1], cfg.d_ff)
+    r_split = model_split(wr.shape[1], x.shape[-1])
+    k = torch.square(F.relu(tp_in(xk, k_split) @ wk.to(dt)))
+    r = tp_gather(torch.sigmoid(tp_in(xr, r_split) @ wr.to(dt)), r_split)
+    y = r * row_parallel(k, params[f"{name}.wv"].to(dt), k_split)
     if state is not None:
         state = dict(state, x_ffn=x[:, -1])
     return y, state

@@ -15,7 +15,11 @@ Under a serving mesh a rank runs its ``d_inner / model`` channels
 ``D`` and the scan, and its channels of the state); ``x_proj`` is
 row-parallel, so every rank reads the whole (dt, B, C), and so is
 ``out_proj``. Under autograd x enters ``in_proj`` and the whole (dt, B,
-C) the rank's channels through ``layers.tp_in``.
+C) the rank's channels through ``layers.tp_in``. Where ``model`` does
+not divide ``d_inner`` the block runs whole on every rank, its leaves
+placed by the reference's specs: whole, but for an ``in_proj`` whose
+``2 d_inner`` columns the axis divides, which the rank projects with its
+contiguous shard and gathers whole.
 """
 from __future__ import annotations
 
@@ -27,8 +31,8 @@ import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models.layers import (ParamDef, Params, Schema, row_parallel,
-                                       tp_in)
+from repro_torch.models.layers import (ParamDef, Params, Schema, model_split,
+                                       row_parallel, tp_gather_parts, tp_in)
 
 State = Dict[str, torch.Tensor]
 
@@ -81,11 +85,17 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 def apply_mamba(params: Params, name: str, x: torch.Tensor,
                 cfg: ModelConfig, state: Optional[State] = None
                 ) -> Tuple[torch.Tensor, Optional[State]]:
-    _, dtr, n = _dims(cfg)
+    d_inner, dtr, n = _dims(cfg)
     di = params[f"{name}.D"].shape[0]               # the rank's channels
+    split = model_split(di, d_inner)
     dt_ = x.dtype
 
-    xz = tp_in(x) @ params[f"{name}.in_proj"].to(dt_)
+    w_in = params[f"{name}.in_proj"]
+    in_split = model_split(w_in.shape[1], 2 * d_inner)
+    xz = tp_in(x, in_split) @ w_in.to(dt_)
+    if in_split and not split:
+        # the spec's contiguous columns of a whole block: gathered
+        xz, = tp_gather_parts([xz])
     xs, z = xz[..., :di], xz[..., di:]
 
     decode = state is not None and state.get("decode", False)
@@ -94,7 +104,8 @@ def apply_mamba(params: Params, name: str, x: torch.Tensor,
                                 params[f"{name}.conv_b"].to(dt_), conv_prev)
     xs = F.silu(xs)
 
-    proj = tp_in(row_parallel(xs, params[f"{name}.x_proj"].to(dt_)))
+    proj = tp_in(row_parallel(xs, params[f"{name}.x_proj"].to(dt_), split),
+                 split)
     dt_raw, B, C = torch.split(proj, [dtr, n, n], dim=-1)
     dt = F.softplus((dt_raw @ params[f"{name}.dt_proj"].to(dt_)).float()
                     + params[f"{name}.dt_bias"].float())
@@ -104,7 +115,7 @@ def apply_mamba(params: Params, name: str, x: torch.Tensor,
     y, new_ssm = ops.ssm_scan(xs, dt.to(dt_), A, B, C,
                               params[f"{name}.D"].float(), ssm_prev)
     y = y * F.silu(z)
-    out = row_parallel(y, params[f"{name}.out_proj"].to(dt_))
+    out = row_parallel(y, params[f"{name}.out_proj"].to(dt_), split)
 
     if state is not None:
         state = dict(state, conv=conv_buf, ssm=new_ssm)

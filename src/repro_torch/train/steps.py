@@ -131,6 +131,13 @@ def make_train_step(cfg: ModelConfig, ocfg: OptimizerConfig,
     resolve_device(device)
     shape = sh.mesh_shape_dict(mesh) if mesh is not None else {}
     tp = parallel.tp_axis
+    if cfg.moe is not None and parallel.expert_axis == tp and \
+            shape.get(tp, 1) > 1:
+        # the step's FSDP gathers every expert and runs no expert exchange
+        raise NotImplementedError(
+            f"training with experts over the tensor-parallel axis {tp!r}: "
+            f"the step gathers every expert over its FSDP axis and "
+            f"exchanges none (serving runs it)")
     pshard = oshard = comp = None
     if mesh is not None:
         pshard, oshard = state_shardings(cfg, ocfg, parallel, mesh)

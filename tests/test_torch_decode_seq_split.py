@@ -8,6 +8,10 @@ One spawn per world (``torch_mesh_workers.seq_worker``; worlds of 2 and
 * ``seq_model``: (data, model) = (1, 2), the cache's sequence over
   ``model`` (the reference's decode_32k layout): each rank holds half of
   every KV head's positions (MLA's latent), its query heads its own;
+  also GQA and MLA with 3 query heads, which 2 does not divide (the
+  fall-back, ROADMAP C19): every rank scores every head against its
+  chunk, as the dry run's decode_32k cells of qwen2-vl-7b, minicpm3-4b
+  and whisper-small do;
 * ``seq_data_model``: (2, 2) with a batch of one, the sequence over
   ``("data", "model")`` (its long_500k layout): four chunks, the rows on
   every rank; the GQA cases take one KV head, which the reference's

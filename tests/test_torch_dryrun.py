@@ -1,10 +1,12 @@
 """The port's dry run and roofline (ROADMAP A8.3) against the reference's.
 
 ``python -m repro_torch.launch.dryrun`` runs in subprocesses (each a
-fresh process: it owns its fake process group of 256 ranks) for three
+fresh process: it owns its fake process group of 256 ranks) for four
 cells: llama3.2-1b ``train_4k`` (``probe1_exact``) and ``decode_32k``
-(every mode: memfit and the four probes) and jamba-1.5-large
-``long_500k`` (``probe1_exact``), on the single-pod mesh. Beside them,
+(every mode: memfit and the four probes), jamba-1.5-large
+``long_500k`` and whisper-small ``decode_32k`` (``probe1_exact``; its
+12 heads over a ``model`` axis of 16 fall back, ROADMAP C19), on the
+single-pod mesh. Beside them,
 one subprocess compiles the reference's ``build_lowered`` for the same
 one-group probes on a (16, 16) mesh of 512 host devices with Auto axes
 (``jax.make_mesh(..., axis_types=(AxisType.Auto,) * 2)``: its own
@@ -12,10 +14,12 @@ Explicit-axis production mesh does not compile on jax 0.9, ROADMAP C3).
 Checked:
 
 * argument bytes equal the reference's ``argument_size_in_bytes`` but
-  for one named difference: where ``model`` exceeds the KV heads the
-  port's ``wk`` / ``wv`` shard holds the one whole head its query heads
-  read (and in training its AdamW moments likewise), where the
-  reference's holds a ``kv_heads * head_dim / model`` column slice of it;
+  for one named difference: where ``model`` splits the query heads and
+  exceeds the KV heads the port's ``wk`` / ``wv`` shard holds the one
+  whole head its query heads read (and in training its AdamW moments
+  likewise), where the reference's holds a ``kv_heads * head_dim /
+  model`` column slice of it; whisper-small's, whose heads fall back,
+  equal the reference's exactly;
 * the port's FLOPs (``FlopCounterMode``: products and attention, no
   elementwise work) within ``[FLOP_LO, 1]`` of the HLO's, and within a
   stated band of the model flops (6 N T to train, 2 N T to decode, per
@@ -51,7 +55,11 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 #: (arch, shape, modes) of the port's runs
 CELLS = (("llama3.2-1b", "train_4k", ("probe1_exact",)),
          ("llama3.2-1b", "decode_32k", D.MODES),
-         ("jamba-1.5-large-398b", "long_500k", ("probe1_exact",)))
+         ("jamba-1.5-large-398b", "long_500k", ("probe1_exact",)),
+         ("whisper-small", "decode_32k", ("probe1_exact",)))
+#: the cells whose KV shards hold C23's whole head
+C23_CELLS = (("llama3.2-1b", "train_4k"), ("llama3.2-1b", "decode_32k"),
+             ("jamba-1.5-large-398b", "long_500k"))
 #: the port's flops against the HLO's: a lower bound (no elementwise
 #: work); measured 0.987 (train), 0.822 (decode), 0.659 (long_500k)
 FLOP_LO = 0.6
@@ -62,6 +70,11 @@ FLOP_LO = 0.6
 #: 12.6 (long_500k: the 16 data ranks repeat the one row)
 MODEL_FLOP_BANDS = {"train_4k": (1.0, 2.0), "decode_32k": (1.0, 4.0),
                     "long_500k": (1.0, 64.0)}
+#: a cell whose widths fall back (C19) repeats their work on every rank:
+#: whisper-small's decode runs its 12 heads' attention (self and cross,
+#: over the 32k cache and 1,500 frames) and its whole 51,865-wide
+#: unembedding on all 16 model ranks; measured 4.21
+FALLBACK_FLOP_BANDS = {("whisper-small", "decode_32k"): (1.0, 8.0)}
 
 REF_SCRIPT = r'''
 import dataclasses, json, sys
@@ -179,7 +192,7 @@ def test_argument_bytes_are_the_references(runs, arch, shape):
     assert got["status"] == "ok", got.get("error")
     want = ref[f"{arch}/{shape}"]["memory"]["argument_size_in_bytes"]
     diff = kv_head_bytes(arch, shape)
-    assert diff > 0
+    assert (diff > 0) == ((arch, shape) in C23_CELLS), diff
     assert got["memory"]["argument_size_in_bytes"] == want + diff
 
 
@@ -196,7 +209,7 @@ def test_flops_within_their_bounds(runs, arch, shape):
         model = 6.0 * n * s.global_batch * s.seq_len / 256
     else:
         model = 2.0 * n * s.global_batch / 256
-    lo, hi = MODEL_FLOP_BANDS[shape]
+    lo, hi = FALLBACK_FLOP_BANDS.get((arch, shape), MODEL_FLOP_BANDS[shape])
     assert lo <= flops / model <= hi, flops / model
 
 

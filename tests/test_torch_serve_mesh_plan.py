@@ -13,13 +13,16 @@ compute layout on an ``{axis: size}`` mapping.
   head a rank), RWKV's channel mix (the specs' own chunks; its compute
   gathers the gate) and whisper's vocabulary, which ``model`` does not
   divide (whole on every rank);
-* a query-head count that ``model`` does not divide raises
-  ``NotImplementedError`` naming the rule (ROADMAP C19), and so does a
-  KV-head count that neither divides nor is divided by it;
+* a query-head count that ``model`` does not divide falls back as the
+  reference's specs do (ROADMAP C19): each leaf by its spec, no compute
+  layout of its own, and the reference's warning naming the axis; so
+  does a KV-head count that neither divides nor is divided by it; every
+  config places at ``model`` 2, 4, 8 and 16 with each leaf's local
+  element count the reference's spec's, but for C23's whole KV head;
 * training over a ``model`` axis (``train_layout``) takes the
   reference's specs with ``embed`` over the FSDP axis, in serving's
-  compute layout, for all ten configs; it refuses a width the axis does
-  not divide (C19), naming training;
+  compute layout, for all ten configs; where the axis does not divide a
+  width it falls back alike, with the warning;
 * the serving mesh is the thread's own, and ``f32_product`` off the
   card is the float32 product of the widened operands.
 """
@@ -30,12 +33,11 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.config import OptimizerConfig, ParallelConfig
+from repro_torch.config import ParallelConfig
 from repro_torch.configs import ARCHS, get_config, get_smoke_config
 from repro_torch.distributed import sharding as sh
 from repro_torch.models import model as M
 from repro_torch.serve.steps import serve_shardings
-from repro_torch.train.steps import make_train_step
 
 from torch_port_ref import one_torch_thread  # noqa: F401
 from torch_port_ref import model_ref as jref  # noqa: F401
@@ -147,26 +149,95 @@ def test_compute_layout_gathers_back_bitwise(arch, kw, leaf, cache, model):
             assert not [c for c in cut if c[1] == "model"]
 
 
-def test_query_heads_the_model_axis_does_not_divide_raise():
+@pytest.fixture
+def fresh_warnings(monkeypatch):
+    """The fall-back warns once a process; each test sees its own."""
+    monkeypatch.setattr(sh, "_REPLICATION_WARNED", set())
+
+
+def test_query_heads_the_model_axis_does_not_divide_raise(fresh_warnings):
+    """qwen2-vl-7b's 28 query heads (4 KV heads) over 8: no raise now
+    (C19); the reference's warning names the axis, and every leaf is its
+    spec's (``wq`` 448 columns, 3.5 heads; ``wk`` 64 columns, half a
+    head; ``wo`` 448 rows; the K/V cache whole). So for 12 query heads
+    over 3 KV heads at 4: ``wq``'s columns split at whole heads, the KV
+    heads fall back (and attention runs over every head)."""
     cfg = get_config("qwen2-vl-7b")         # 28 query heads
-    M.check_serve_model_axis(cfg, 4)
-    with pytest.raises(NotImplementedError, match="query heads.*C19"):
-        M.check_serve_model_axis(cfg, 8)
-    with pytest.raises(NotImplementedError, match="query heads.*C19"):
-        M.serve_layout(cfg, ParallelConfig(), {"data": 1, "model": 8},
-                       SLOTS, MAX_LEN)
+    assert M.check_serve_model_axis(cfg, 4) == []
+    with pytest.warns(RuntimeWarning, match="'heads_act'.*dim 28 is not "
+                      "divisible by mesh axis 'model' \\(size 8\\)"):
+        assert M.check_serve_model_axis(cfg, 8) == [("heads_act", 28),
+                                                   ("kv_heads_act", 4)]
+    mesh = {"data": 1, "model": 8}
+    sh._REPLICATION_WARNED.clear()
+    with pytest.warns(RuntimeWarning, match="'heads_act'"):
+        pl, cl = M.serve_layout(cfg, ParallelConfig(), mesh, SLOTS, MAX_LEN)
+    pspecs, cspecs = M.serve_specs(cfg, ParallelConfig(), mesh, SLOTS,
+                                   MAX_LEN)
+    for layout, specs in ((pl, pspecs), (cl, cspecs)):
+        for name, (spec, _, kind) in layout.items():
+            assert (spec, kind) == (specs[name], None), name
+    assert pl["stack.blk0.attn.wq"][0] == (None, None, "model")
+    assert pl["stack.blk0.attn.wk"][0] == (None, None, "model")
+    assert pl["stack.blk0.attn.wo"][0] == (None, "model", None)
+    assert cl["stack.blk0.attn.k"][0] == (None, None, None, None, None)
     odd = dataclasses.replace(get_smoke_config("llama3.2-1b"),
                               attention=dataclasses.replace(
                                   get_smoke_config("llama3.2-1b").attention,
                                   num_heads=12, num_kv_heads=3))
-    with pytest.raises(NotImplementedError, match="3 KV heads.*C19"):
-        M.check_serve_model_axis(odd, 4)
+    with pytest.warns(RuntimeWarning, match="'kv_heads_act'.*dim 3 .*"
+                      "'model' \\(size 4\\)"):
+        assert M.check_serve_model_axis(odd, 4) == [("kv_heads_act", 3)]
+        pl, _ = M.serve_layout(odd, ParallelConfig(),
+                               {"data": 1, "model": 4}, SLOTS, MAX_LEN)
+    assert pl["stack.blk0.attn.wk"] == ((None, None, "model"), (2, 64, 48),
+                                        None)
 
 
+def local_count(shape, spec, mesh, kind=None):
+    """The elements of rank (0, 1)'s cut of a leaf."""
+    n = int(np.prod(shape))
+    coord = {a: 1 if a == "model" else 0 for a in mesh}
+    for dim, _, idx in sh.cut_indices(shape, spec, mesh, coord, kind):
+        n = n // shape[dim] * len(idx)
+    return n
+
+
+@pytest.mark.parametrize("size", (2, 4, 8, 16))
 @pytest.mark.parametrize("arch", sorted(ARCHS))
-def test_every_config_serves_at_model_2_and_4(arch):
-    for size in (2, 4):
-        M.check_serve_model_axis(get_config(arch), size)
+def test_every_config_serves_at_model_2_and_4(jref, arch, size):
+    """Every config places over ``model`` = 2, 4, 8 and 16 without a
+    raise, and every leaf's local element count is that of the
+    reference's spec (``embed`` left whole, C20), but where the axis
+    splits the query heads and is a multiple of the KV heads: a rank
+    then holds the whole KV head its query heads read (C23)."""
+    from repro.config import ParallelConfig as JParallelConfig
+    cfg, jcfg = get_config(arch), jref.configs.get_config(arch)
+    mesh = {"data": 1, "model": size}
+    jmesh = jax_mesh((1, size))
+    jrules = dict(jref.sharding.build_rules(JParallelConfig(), jmesh),
+                  embed=None)
+    jshape = jref.sharding.mesh_shape_dict(jmesh)
+    want_p = jref.model.partition_specs(jcfg, jrules, jshape)
+    want_c = jref.model.cache_partition_specs(jcfg, SLOTS, MAX_LEN, jrules,
+                                              jshape)
+    pl, cl = M.serve_layout(cfg, ParallelConfig(), mesh, SLOTS, MAX_LEN)
+    a = cfg.attention
+    c23 = ("attn" in cfg.block_pattern and a.num_heads % size == 0
+           and a.num_kv_heads % size and size % a.num_kv_heads == 0)
+    for layout, want in ((pl, want_p), (cl, want_c)):
+        assert sorted(layout) == sorted(want)
+        for name, (spec, shape, kind) in layout.items():
+            got = local_count(shape, spec, mesh, kind)
+            ref = local_count(shape, tuple(want[name]), mesh)
+            if c23 and kind is not None and kind[1] == "heads":
+                # one whole KV head where the spec cuts a part of one
+                # (a weight's columns) or keeps every head (a cache)
+                n = int(np.prod(shape))
+                assert got == n // a.num_kv_heads, name
+                assert ref in (n // size, n), name
+            else:
+                assert got == ref, (name, got, ref)
 
 
 @pytest.mark.parametrize("arch", sorted(ARCHS))
@@ -189,18 +260,29 @@ def test_training_layout_keeps_fsdp_in_the_compute_layout(arch):
                 assert e == (r if r == "data" else s_), (name, spec)
 
 
-def test_training_over_model_refuses_what_does_not_divide():
+def test_training_over_model_refuses_what_does_not_divide(fresh_warnings):
+    """3 query heads (1 KV head) over model=2: no raise now (C19); the
+    reference's specs with ``embed`` over the FSDP axis, the column
+    shards cut across a head, and the warning naming the axis (the step
+    itself runs over gloo ranks in ``tests/test_torch_train_mesh.py`` and
+    ``tests/test_torch_serve_fallback.py``)."""
     odd = dataclasses.replace(get_smoke_config("llama3.2-1b"),
                               attention=dataclasses.replace(
                                   get_smoke_config("llama3.2-1b").attention,
                                   num_heads=3, num_kv_heads=1))
-    with pytest.raises(NotImplementedError,
-                       match="tensor-parallel training.*C19"):
-        make_train_step(odd, OptimizerConfig(), ParallelConfig(), "cpu",
-                        mesh={"data": 1, "model": 2})
-    with pytest.raises(NotImplementedError,
-                       match="3 query heads.*training.*C19"):
-        M.train_layout(odd, ParallelConfig(), {"data": 2, "model": 2})
+    for mesh in ({"data": 1, "model": 2}, {"data": 2, "model": 2}):
+        sh._REPLICATION_WARNED.clear()
+        with pytest.warns(RuntimeWarning, match="'heads_act'.*dim 3 .*"
+                          "'model' \\(size 2\\)"):
+            layout = M.train_layout(odd, ParallelConfig(), mesh)
+        ref = M.partition_specs(odd, sh.build_rules(ParallelConfig(), mesh),
+                                mesh)
+        for name, (spec, _, kind) in layout.items():
+            assert (spec, kind) == (ref[name], None), name
+        fsdp = "data" if mesh["data"] > 1 else None
+        assert layout["stack.blk0.attn.wq"][0] == (None, fsdp, "model")
+        assert layout["stack.blk0.attn.wk"][0] == (None, fsdp, "model")
+        assert layout["stack.blk0.attn.wo"][0] == (None, "model", fsdp)
 
 
 def test_the_serving_mesh_is_this_threads_only():

@@ -413,14 +413,21 @@ def train_worker(rank, world, params_np, moe_params_np, root):
          "--seq-len", "32", "--batch", "4", "--ckpt-dir", ckdir,
          "--ckpt-every", "3"])
     out["launch_dir"] = ckdir
-    try:        # 3 query heads over a model axis of 2 (ROADMAP C19)
-        odd = dataclasses.replace(cfg, attention=dataclasses.replace(
-            cfg.attention, num_heads=3, num_kv_heads=1))
-        make_train_step(odd, ocfg, par, "cpu",
-                        mesh=cpu_mesh((1, world), ("data", "model")))
-        out["model_axis"] = None
-    except NotImplementedError as e:
-        out["model_axis"] = str(e)
+    # 3 query heads over a model axis of 2 (ROADMAP C19): the reference's
+    # fall-back, each leaf by its spec, with the warning
+    import warnings
+    odd = smoke("float32")
+    odd = dataclasses.replace(odd, attention=dataclasses.replace(
+        odd.attention, num_heads=3, num_kv_heads=1))
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        step = make_train_step(odd, OptimizerConfig(**OPT), par, "cpu",
+                               mesh=cpu_mesh((1, world), ("data", "model")))
+    out["model_axis"] = {
+        "warnings": [str(m.message) for m in caught
+                     if issubclass(m.category, RuntimeWarning)],
+        "shapes": {k: tuple(s.local_shape)
+                   for k, s in step.shardings[0].items()}}
     return out
 
 
@@ -836,15 +843,17 @@ def serve_plan_shapes(cfg, mesh_shape, batch=SERVE_B,
     """({name: shape} of a rank's parameters, of its cache) by the plan:
     each dim the reference's spec splits over a mesh axis other than the
     FSDP axis (``embed``) divided by that axis, except that where
-    ``model`` exceeds the KV heads ``wk`` / ``wv`` and the K/V caches keep
-    one head."""
+    ``model`` splits the query heads, does not split the KV heads and is
+    a multiple of them (C23) ``wk`` / ``wv`` and the K/V caches keep one
+    head."""
     from repro_torch.config import ParallelConfig
     from repro_torch.distributed import sharding as sh
     from repro_torch.models import model as M
     from repro_torch.models.layers import specs_from_schema
     rules = dict(sh.build_rules(ParallelConfig(), mesh_shape), embed=None)
     m = mesh_shape.get("model", 1)
-    kv = cfg.attention.num_kv_heads
+    heads, kv = cfg.attention.num_heads, cfg.attention.num_kv_heads
+    cut = m > 1 and heads % m == 0 and kv % m != 0 and m % kv == 0
     out = []
     for schema, kv_names, kv_dim in (
             (M.full_schema(cfg), (".attn.wk", ".attn.wv", ".cross.wk",
@@ -857,8 +866,8 @@ def serve_plan_shapes(cfg, mesh_shape, batch=SERVE_B,
         for name, d in schema.items():
             shape = [n // sh.axis_size(mesh_shape, e)
                      for n, e in zip(d.shape, specs[name])]
-            if m > 1 and name.endswith(kv_names):
-                shape[kv_dim] = d.shape[kv_dim] * max(kv // m, 1) // kv
+            if cut and name.endswith(kv_names):
+                shape[kv_dim] = d.shape[kv_dim] // kv
             shapes[name] = tuple(shape)
         out.append(shapes)
     return tuple(out)
@@ -869,13 +878,19 @@ def serve_plan_shapes(cfg, mesh_shape, batch=SERVE_B,
 # ---------------------------------------------------------------------------
 
 #: (case, arch, overrides): GQA, MLA and Jamba without experts (Mamba
-#: beside attention), in float32; the ``_mqa`` cases have one KV head,
-#: which a model axis of 2 does not divide (the reference's specs then
+#: beside attention), in float32; the ``_fb`` cases have 3 query heads,
+#: which a model axis of 2 does not divide (the fall-back, ROADMAP C19:
+#: every head on every rank against its chunk); the ``_mqa`` cases have
+#: one KV head, which a model axis of 2 does not divide (the reference's specs then
 #: leave it whole, as jamba-1.5-large's 8 over 16: with two KV heads a
 #: sequence over ("data", "model") would name model twice, which raises)
 SEQ_CASES = (("llama", "llama3.2-1b", {}),
              ("llama_mqa", "llama3.2-1b", {"num_kv_heads": 1}),
+             ("llama_fb", "llama3.2-1b", {"num_heads": 3,
+                                          "num_kv_heads": 1}),
              ("minicpm3", "minicpm3-4b", {}),
+             ("minicpm3_fb", "minicpm3-4b", {"num_heads": 3,
+                                             "num_kv_heads": 3}),
              ("jamba", "jamba-1.5-large-398b", {"moe": None}),
              ("jamba_mqa", "jamba-1.5-large-398b",
               {"moe": None, "num_kv_heads": 1}),
@@ -887,7 +902,7 @@ SEQ_CASES = (("llama", "llama3.2-1b", {}),
 #: rows over (pod, data), the sequence over a model axis of one (its
 #: multi-pod decode_32k layout)
 SEQ_LAYOUTS = (("seq_model", 2, (1, 2), ("data", "model"), "model", 4,
-                ("llama", "minicpm3", "jamba")),
+                ("llama", "minicpm3", "jamba", "llama_fb", "minicpm3_fb")),
                ("seq_data_model", 4, (2, 2), ("data", "model"),
                 ("data", "model"), 1, ("llama_mqa", "minicpm3",
                                        "jamba_mqa", "jamba_moe_mqa")),
@@ -913,9 +928,9 @@ def seq_cfg(case, dtype="float32", get_smoke_config=None):
     _, arch, kw = next(c for c in SEQ_CASES if c[0] == case)
     kw = dict(kw)
     cfg = get_smoke_config(arch)
-    if "num_kv_heads" in kw:
-        kw["attention"] = dataclasses.replace(
-            cfg.attention, num_kv_heads=kw.pop("num_kv_heads"))
+    heads = {k: kw.pop(k) for k in ("num_heads", "num_kv_heads") if k in kw}
+    if heads:
+        kw["attention"] = dataclasses.replace(cfg.attention, **heads)
     return dataclasses.replace(cfg, dtype=dtype, **kw)
 
 
@@ -963,9 +978,9 @@ def expert_slots():
     from repro_torch.models import moe
     calls, local = [], moe._local_experts
 
-    def counting(params, name, xe):
+    def counting(params, name, xe, *rest):
         calls.append(int(xe.shape[0] * xe.shape[1]))
-        return local(params, name, xe)
+        return local(params, name, xe, *rest)
     moe._local_experts = counting
     try:
         yield calls
@@ -1014,4 +1029,115 @@ def seq_worker(rank, world, params_np):
             out[(layout, "engine")] = [
                 r.output for r in sorted(eng.serve(reqs),
                                          key=lambda r: r.rid)]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the fall-back over model (ROADMAP C19)
+# ---------------------------------------------------------------------------
+
+#: (case, arch, overrides; a dict for a nested config's fields) of the
+#: widths a model axis of 2 or 4 does not divide, in float32: 3 query
+#: heads over 1 KV head with an odd d_ff (the heads' columns cut across a
+#: head, the MLP whole); 12 over 3 (``wq``'s columns split at whole
+#: heads, the KV heads not: attention over every head); MLA with 3 heads; whisper with 3 heads (encoder, decoder and
+#: cross-attention; its vocabulary odd, whole); Mamba with d_inner 63
+#: (in_proj cut into x and z halves at 2, whole at 4); RWKV-6 with 3
+#: heads; experts and a shared expert of width 33
+FALLBACK_CASES = (
+    ("gqa3", "llama3.2-1b", {"attention": {"num_heads": 3,
+                                           "num_kv_heads": 1},
+                             "d_ff": 129}),
+    ("gqa12", "llama3.2-1b", {"attention": {"num_heads": 12,
+                                            "num_kv_heads": 3}}),
+    ("mla3", "minicpm3-4b", {"attention": {"num_heads": 3,
+                                           "num_kv_heads": 3}}),
+    ("whisper3", "whisper-small", {"attention": {"num_heads": 3,
+                                                 "num_kv_heads": 3},
+                                   "vocab_size": 257}),
+    ("mamba", "jamba-1.5-large-398b", {"moe": None, "d_model": 63,
+                                       "ssm": {"expand": 1}}),
+    ("rwkv3", "rwkv6-7b", {"d_model": 48}),
+    ("moe_odd", "moonshot-v1-16b-a3b", {"moe": {"d_ff": 33}}),
+)
+#: experts over the tensor-parallel axis itself (serving): smoke moonshot
+#: with ``ParallelConfig(expert_axis="model")``, its 8 experts' dim over
+#: model and their widths whole, in float32
+EXPERTS_OVER_MODEL = "moonshot-v1-16b-a3b"
+#: the cases trained over the mesh (whisper's batch needs frames)
+FALLBACK_TRAIN = ("gqa3", "gqa12", "mla3", "mamba", "rwkv3", "moe_odd")
+#: the (data, model) mesh of each world
+FALLBACK_MESHES = {2: (1, 2), 4: (1, 4)}
+
+
+def fallback_overrides(case, get_smoke_config):
+    """(arch, the case's overrides of its smoke config of
+    ``get_smoke_config``'s package, as ``dataclasses.replace`` takes
+    them)."""
+    import dataclasses
+    _, arch, kw = next(c for c in FALLBACK_CASES if c[0] == case)
+    base = get_smoke_config(arch)
+    return arch, {k: dataclasses.replace(getattr(base, k), **v)
+                  if isinstance(v, dict) else v for k, v in kw.items()}
+
+
+def fallback_cfg(case, dtype="float32", get_smoke_config=None):
+    import dataclasses
+    if get_smoke_config is None:
+        from repro_torch.configs import get_smoke_config
+    arch, kw = fallback_overrides(case, get_smoke_config)
+    return dataclasses.replace(get_smoke_config(arch), dtype=dtype, **kw)
+
+
+def fallback_batch(case):
+    """A training case's batch: an MoE model's rows of MOE_SEQ."""
+    cfg = fallback_cfg(case)
+    return train_batch(cfg.vocab_size,
+                       s=MOE_SEQ if cfg.moe is not None else SEQ)
+
+
+def fallback_worker(rank, world, params_np):
+    """Every fall-back case over (1, world): the serve steps' logits and
+    tokens, the gathered cache, the rank's leaf and cache shapes and the
+    warnings; then the training cases' first gradients (gathered whole)
+    and two steps' metrics, remat "full"."""
+    import warnings
+    from repro_torch.config import OptimizerConfig, ParallelConfig
+    from repro_torch.convert import model_params_from_arrays
+    from repro_torch.distributed import sharding as sh
+    mesh = cpu_mesh(FALLBACK_MESHES[world], ("data", "model"))
+    out = {}
+    for case, _, _ in FALLBACK_CASES:
+        cfg = fallback_cfg(case)
+        params = model_params_from_arrays(params_np[case], cfg, device="cpu")
+        sh._REPLICATION_WARNED.clear()      # each case warns afresh
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            logits, toks, cache, (local, _, cplace) = serve_steps(
+                cfg, params, serve_inputs(cfg), mesh, ParallelConfig())
+        out[("serve", case)] = {
+            "logits": logits, "tokens": toks,
+            "cache": {k: cplace[k].gather(v).numpy()
+                      for k, v in cache.items()},
+            "param_shapes": {k: tuple(v.shape) for k, v in local.items()},
+            "cache_shapes": {k: tuple(v.shape) for k, v in cache.items()},
+            "warnings": [str(m.message) for m in caught
+                         if issubclass(m.category, RuntimeWarning)]}
+    cfg = smoke("float32", EXPERTS_OVER_MODEL)
+    params = model_params_from_arrays(params_np[EXPERTS_OVER_MODEL], cfg,
+                                      device="cpu")
+    logits, toks, _, (local, _, _) = serve_steps(
+        cfg, params, serve_inputs(cfg), mesh,
+        ParallelConfig(expert_axis="model"))
+    out[("serve", EXPERTS_OVER_MODEL)] = {
+        "logits": logits, "tokens": toks,
+        "param_shapes": {k: tuple(v.shape) for k, v in local.items()}}
+    ocfg = OptimizerConfig(**OPT)
+    par = ParallelConfig(batch_axes=("data",), remat="full")
+    for case in FALLBACK_TRAIN:
+        metrics, _, grads, _, _ = mesh_run(
+            fallback_cfg(case), ocfg, par, mesh, params_np[case],
+            fallback_batch(case))
+        out[("train", case)] = {"metrics": metrics,
+                                "grads": grads if rank == 0 else None}
     return out

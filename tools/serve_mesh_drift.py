@@ -129,14 +129,16 @@ class PartRecorder:
 
         def tp_slice(x, width, dim=-1):
             out = saved["tp_slice"](x, width, dim)
-            return keep("decay", out) if x.dim() == 3 else out
+            # the decay is the layer's first 3-d slice (wo's input after)
+            first = x.dim() == 3 and "decay" not in rec.layers[-1]
+            return keep("decay", out) if first else out
 
-        def row_parallel(x, w):
+        def row_parallel(x, w, split):
             keep("ln_x+gate" if rec.where == "time" else "cmix_k", x)
-            return saved["row_parallel"](x, w)
+            return saved["row_parallel"](x, w, split)
 
-        def tp_gather(x, dim=-1):
-            return keep("cmix_r", saved["tp_gather"](x, dim))
+        def tp_gather(x, split, dim=-1):
+            return keep("cmix_r", saved["tp_gather"](x, split, dim))
 
         def scan(r, k, v, w, u, state=None):
             fn = rec.wkv or saved["ops"].rwkv6_scan
