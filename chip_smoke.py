@@ -152,10 +152,12 @@ with phase 11's registered policies translated into them), then:
    showing every registered row ran in the kernel; a chaos suite
    through the fault kernel (11a); a search over ``capped``'s replicas
    re-checked through the aggregate kernel (11b); a registered step
-   with ``exp`` and ``log`` (``softlat``, its library built in phase 1)
-   over 16 full-year scenarios in both modes, its latency within
-   ``SOFTLAT_ULPS`` of the CPU run and everything else bitwise (11c,
-   ROADMAP C15); both flash
+   with ``exp`` and ``log`` (``softlat``) and one with ``tanh``,
+   ``sigmoid``, ``expm1``, ``log1p``, ``softplus`` and a ``pow``
+   (``smooth``; their library built in phase 1) over 32 full-year
+   scenarios in both modes, one launch each, their latency within
+   ``SOFTLAT_ULPS`` and ``SMOOTH_ULPS`` of the CPU run and everything
+   else bitwise, the ulps printed (11c, ROADMAP C15); both flash
    kernels at head dims the wrapper pads to a multiple of 8 (4, 20,
    100; q/k 96 with v 20) against their plain version.
    ``python3 chip_smoke.py --phase 11`` runs the build and phase 11
@@ -3089,12 +3091,23 @@ SOFTLAT_ULPS = 8
 #: 11c's bound on the aggregate rows' latency statistics (relative): each
 #: a load-weighted sum of latencies within SOFTLAT_ULPS
 SOFTLAT_AGG_RTOL = SOFTLAT_ULPS * 2.0 ** -23
+#: 11c's bound on ``smooth``'s latency, set before its first run on the
+#: card (PERF.md section 6): a sum of six positive terms through
+#: CUDA's ``tanhf``, ``expf`` (sigmoid, softplus), ``log1pf``,
+#: ``expm1f`` and ``powf`` (up to 2, 2, 1, 1 and 4 ulps from the
+#: correctly rounded value by CUDA's tables) against SLEEF's (1 ulp each);
+#: an H100 read 4
+SMOOTH_ULPS = 16
+SMOOTH_AGG_RTOL = SMOOTH_ULPS * 2.0 ** -23
 
 
 def register_softlat(twin_mod):
-    """11c's registered policy (ROADMAP C15): a capped queue whose
-    latency goes through ``exp`` and ``log``; its carry and its other
-    outputs are exact operations."""
+    """11c's registered policies (ROADMAP C15): ``softlat``, a capped
+    queue whose latency goes through ``exp`` and ``log``, and ``smooth``,
+    the same queue whose wait goes through ``tanh``, ``sigmoid``,
+    ``log1p``, ``expm1``, ``softplus`` and a ``pow`` (the CPU tests'
+    ``smooth_step``, held there to the reference's run); their carry and
+    their other outputs are exact operations."""
     @twin_mod.register_policy("softlat", ("max_rps", "usd_per_hour",
                                           "base_latency_s"))
     def _softlat(carry, arrive, p, dt):
@@ -3108,6 +3121,29 @@ def register_softlat(twin_mod):
         return new, (proc, queue, lat, p[:, 1] * dt,
                      torch.zeros_like(arrive))
 
+    @twin_mod.register_policy("smooth", ("max_rps", "usd_per_hour",
+                                         "base_latency_s"))
+    def _smooth(carry, arrive, p, dt):
+        cap = torch.clamp_min(p[:, 0] * CAP_HOURS, 1.0)
+        avail = carry[:, 0] + arrive
+        proc = torch.minimum(avail, cap)
+        queue = avail - proc
+        load = queue / cap
+        wait = (torch.tanh(load) + torch.sigmoid(load - 2.0)
+                + torch.log1p(load) - torch.expm1(-load)
+                + torch.nn.functional.softplus(load - 1.0, beta=2.0,
+                                               threshold=5.0)
+                + load ** 1.5)
+        new = torch.stack([queue, carry[:, 1]], dim=1)
+        return new, (proc, queue, p[:, 2] + wait * 3600.0, p[:, 1] * dt,
+                     torch.zeros_like(arrive))
+
+
+#: 11c's policies, each with its latency bound (ulps) and its aggregate
+#: bound (relative)
+TRANSCENDENTAL_POLICIES = {"softlat": (SOFTLAT_ULPS, SOFTLAT_AGG_RTOL),
+                           "smooth": (SMOOTH_ULPS, SMOOTH_AGG_RTOL)}
+
 
 def softlat_header(twin_mod):
     """The generated header of 11c's registry (built in phase 1)."""
@@ -3116,8 +3152,8 @@ def softlat_header(twin_mod):
     try:
         register_softlat(twin_mod)
         gen = lane_codegen.generated()
-        check(gen.transcendental == ("softlat",) and not gen.refused,
-              (gen.transcendental, gen.refused))
+        check(gen.transcendental == tuple(TRANSCENDENTAL_POLICIES)
+              and not gen.refused, (gen.transcendental, gen.refused))
         return gen.header
     finally:
         twin_mod._REGISTRY.clear()
@@ -3133,40 +3169,46 @@ def ulp_distance(a, b):
 
 
 def softlat_on_card(whatif, tr, twin_mod, slo_mod):
-    """11c (ROADMAP C15): a registered step with ``exp`` and ``log`` in
-    the policy kernels: 8 twins x 2 traffics, full year, both modes,
+    """11c (ROADMAP C15): registered steps with ``exp`` and ``log``
+    (``softlat``) and with ``tanh``, ``sigmoid``, ``expm1``, ``log1p``,
+    ``softplus`` and a ``pow`` (``smooth``) in the policy kernels: 8
+    twins of each x 2 traffics, full year, both modes, one launch each,
     against the CPU run. Processed, queue, cost and drops bitwise; each
-    bin's latency within SOFTLAT_ULPS; the aggregate rows' latency
-    statistics within SOFTLAT_AGG_RTOL, their SLO shares within one
-    bin."""
+    bin's latency within its policy's ulp bound; the aggregate rows'
+    latency statistics within its relative bound, their SLO shares
+    within one bin."""
     from repro_torch.kernels import policy_scan as pk
     saved = (dict(twin_mod._REGISTRY), twin_mod._VERSION)
     record = {}
     try:
         register_softlat(twin_mod)
-        twins = [twin_mod.make_twin(f"softlat{i}", "softlat",
+        twins = [twin_mod.make_twin(f"{policy}{i}", policy,
                                     max_rps=0.25 + 0.25 * i,
                                     usd_per_hour=0.0082, base_latency_s=0.15)
-                 for i in range(8)]
+                 for policy in TRANSCENDENTAL_POLICIES for i in range(8)]
         traffics = [tr.TrafficModel.honda_default("nominal", R=3.5, G=1.0),
                     tr.TrafficModel.honda_default("high(+50%)", R=3.5,
                                                   G=1.5)]
         slo = slo_mod.SLO(limit_s=4 * 3600, met_fraction=0.95)
         for series in (True, False):
             mode = "series" if series else "aggregate"
+            kernel = "policy_scan" if series else "policy_agg"
             pk.reset_launches()
             t0 = time.perf_counter()
             card = whatif.run_grid(twins, traffics, slo=slo,
                                    return_series=series)
             wall = time.perf_counter() - t0
-            rows = dict(pk.registered_rows)
-            check(sum(rows.values()) == 16 and sum(pk.launches.values()) > 0,
-                  ("11c", mode, pk.launches, rows))
+            rows, launched = dict(pk.registered_rows), dict(pk.launches)
+            check(sum(rows.values()) == 32 and launched[kernel] == 1
+                  and sum(launched.values()) == 1, ("11c", mode, launched,
+                                                    rows))
             cpu = whatif.run_grid(twins, traffics, slo=slo,
                                   return_series=series, device="cpu")
-            worst = 0
+            worst = dict.fromkeys(TRANSCENDENTAL_POLICIES, 0)
             for c, h in zip(card, cpu):
                 check(c.name == h.name, (c.name, h.name))
+                policy = c.twin.policy
+                ulp_bound, agg_bound = TRANSCENDENTAL_POLICIES[policy]
                 exact = (("processed", "queue", "cost_usd", "dropped")
                          if series else
                          ("total_cost_usd", "processed_records",
@@ -3179,25 +3221,31 @@ def softlat_on_card(whatif, tr, twin_mod, slo_mod):
                     ulps = int(ulp_distance(c.latency_s.astype(np.float32),
                                             h.latency_s.astype(np.float32)
                                             ).max())
-                    worst = max(worst, ulps)
-                    check(ulps <= SOFTLAT_ULPS, ("11c", c.name, ulps))
+                    worst[policy] = max(worst[policy], ulps)
+                    check(ulps <= ulp_bound, ("11c", c.name, ulps))
                 else:
                     err = abs(c.mean_latency_s - h.mean_latency_s) / max(
                         abs(h.mean_latency_s), 1e-30)
-                    worst = max(worst, err)
-                    check(err <= SOFTLAT_AGG_RTOL, ("11c", c.name, err))
+                    worst[policy] = max(worst[policy], err)
+                    check(err <= agg_bound, ("11c", c.name, err))
                     check(abs(c.pct_hours_met - h.pct_hours_met)
                           <= 100.0 / HOURS_PER_YEAR, ("11c", c.name))
             record[mode] = {"wall_ms": 1e3 * wall, "worst": worst,
+                            "launches": launched,
                             "registered_rows": sum(rows.values())}
-        print(f"phase 11c: softlat (exp and log in a translated step), 16 "
-              f"full-year scenarios in the policy kernels: series "
-              f"{record['series']['wall_ms']:.1f} ms, latency within "
-              f"{record['series']['worst']} ulp of the CPU run (bound "
-              f"{SOFTLAT_ULPS}), the other series bitwise; aggregate "
-              f"{record['aggregate']['wall_ms']:.1f} ms, mean latency "
-              f"within {record['aggregate']['worst']:.3g} relative (bound "
-              f"{SOFTLAT_AGG_RTOL:.3g}), the exact statistics bitwise")
+        ser, agg = record["series"], record["aggregate"]
+        print(f"phase 11c: softlat (exp, log) and smooth (tanh, sigmoid, "
+              f"expm1, log1p, softplus, pow) in translated steps, 32 "
+              f"full-year scenarios in the policy kernels, one launch a "
+              f"mode: series {ser['wall_ms']:.1f} ms, latency within "
+              f"{ser['worst']['softlat']} ulp (softlat, bound "
+              f"{SOFTLAT_ULPS}) and {ser['worst']['smooth']} ulp (smooth, "
+              f"bound {SMOOTH_ULPS}) of the CPU run, the other series "
+              f"bitwise; aggregate {agg['wall_ms']:.1f} ms, mean latency "
+              f"within {agg['worst']['softlat']:.3g} (bound "
+              f"{SOFTLAT_AGG_RTOL:.3g}) and {agg['worst']['smooth']:.3g} "
+              f"(bound {SMOOTH_AGG_RTOL:.3g}) relative, the exact "
+              f"statistics bitwise")
     finally:
         twin_mod._REGISTRY.clear()
         twin_mod._REGISTRY.update(saved[0])
@@ -3911,13 +3959,17 @@ MESH_1B_LAYERS = 4
 FALLBACK_SMOKE = ("llama3.2 3:1 heads d_ff 129", LLAMA, 3, 1, 129)
 #: 13e-smoke: the five smoke kinds the training step splits over
 #: ``model`` (GQA with RoPE, MLA, Mamba without experts, RWKV-6,
-#: experts) and FALLBACK_SMOKE, in float32 with TF32 off, over (data,
-#: model) = (1, 2),
+#: experts), FALLBACK_SMOKE and smoke moonshot with its experts over
+#: ``model`` itself (``expert_axis="model"``: 4 of its 8 experts a rank
+#: at their whole width, their results summed over ``model``), in
+#: float32 with TF32 off, over (data, model) = (1, 2),
 #: remat "full", MESH_TP_STEPS steps against one rank's on the whole
 #: batch, within 13c's bounds (MESH_LOSS_RTOL on each loss,
-#: MESH_GRAD_RTOL on each first gradient)
-MESH_TP_SMOKE = ((LLAMA, {}), ("minicpm3-4b", {}), (JAMBA, {"moe": None}),
-                 (RWKV, {}), (PHI, {}), (None, {}))
+#: MESH_GRAD_RTOL on each first gradient); (arch, config overrides,
+#: ParallelConfig overrides)
+MESH_TP_SMOKE = ((LLAMA, {}, {}), ("minicpm3-4b", {}, {}),
+                 (JAMBA, {"moe": None}, {}), (RWKV, {}, {}), (PHI, {}, {}),
+                 (None, {}, {}), (MOONSHOT, {}, {"expert_axis": "model"}))
 MESH_TP_STEPS = 2
 #: 13e-smoke's bound on RWKV-6's first gradients: the H100 read 2.05e-5
 #: of one rank's (the CPU 5.4e-6), past 13c's 1e-5, where the other four
@@ -4362,17 +4414,27 @@ def mesh_tp_smoke(rank, dev):
     from repro_torch.optim.adamw import init_opt_state
     from repro_torch.train.steps import make_train_step
     ocfg = OptimizerConfig(lr=1e-3, warmup_steps=1, total_steps=10)
-    par = ParallelConfig(batch_axes=("data",), remat="full")
     mesh = make_host_mesh(1, 2)
     out = {}
-    for arch, kw in MESH_TP_SMOKE:
+    for arch, kw, par_kw in MESH_TP_SMOKE:
+        par = ParallelConfig(batch_axes=("data",), remat="full", **par_kw)
         arch, cfg = smoke_kind(arch, get_smoke_config, **kw)
+        if par_kw:
+            arch = f"{arch} experts over model"
         params = M.init_params(cfg, seed=SEED, device=dev)
         batch = smoke_train_batch(cfg.vocab_size,
                                   128 if cfg.moe is not None else 32, dev)
         step = make_train_step(cfg, ocfg, par, dev, mesh=mesh)
         state = reshard_tree((params, init_opt_state(params, ocfg)),
                              step.shardings)
+        if par_kw:
+            # a rank computes with E / 2 experts at their whole width
+            m = cfg.moe
+            w = step.compute_params(state[0])["stack.blk0.moe.w_gate"]
+            check(tuple(w.shape[-3:]) == (m.num_experts // 2, cfg.d_model,
+                                          m.d_ff),
+                  ("13e-smoke", arch, tuple(w.shape)))
+            del w
         grads, _ = step.grads(state[0], batch)
         grads = {k: step.shardings[0][k].gather(g) for k, g in grads.items()}
         losses = []
@@ -4533,12 +4595,17 @@ SERVE_MESH_RUNS = (("14a", LLAMA, (1, 2), None, 4096, 16, None),
 SERVE_MESH_LOAD_SLACK = 256 * 2 ** 20
 #: 14f: a cache split along its sequence over model, the flash-decoding
 #: layout of the reference's decode_32k dry-run cells (ROADMAP A8.3):
-#: smoke GQA and MLA in float32 over (1, 2), a prefill of 4 x 64 tokens
-#: into a cache of 128 (one chunk a rank) and 4 decode steps; then
+#: smoke GQA, MLA and whisper (its cross-attention cache of 16 encoder
+#: positions split too) in float32 over (1, 2), a prefill of 4 x 64
+#: tokens into a cache of 128 (one chunk a rank) and 4 decode steps;
+#: smoke GQA again with a cache of SEQ_SPLIT_ODD_LEN positions, which 2
+#: does not divide (the caches whole along their sequence, as the
+#: reference's specs leave them, and the step as without the split); then
 #: llama3.2-1b at full width (hf:meta-llama/Llama-3.2-1B) cut to 2 of 16
 #: layers for the time limit, float32 weights (every greedy token held
 #: to one rank's), max_len 1,024, 8 new tokens, 4 of 9c's prompts
-SEQ_SPLIT_SMOKE = (LLAMA, MINICPM)
+SEQ_SPLIT_SMOKE = (LLAMA, MINICPM, WHISPER)
+SEQ_SPLIT_ODD_LEN = 127
 SEQ_SPLIT_RUN = ("14f", LLAMA, (1, 2), 2, 1024, 8, "float32")
 
 
@@ -4590,24 +4657,27 @@ def serve_mesh_smoke(rank, dev, get_smoke_config, par=None,
     ``ParallelConfig()``), a prefill of 4 x ``max_len // 2`` tokens and
     ``steps`` decode steps through the steps on the rank's rows and
     shards, against one rank's steps on the card (rank 0): tokens equal,
-    logits within SERVE_MESH_F32_RTOL. Returns {kind: worst error}."""
+    logits within SERVE_MESH_F32_RTOL. Returns ({kind: worst error},
+    {kind: whether its self- and cross-attention caches were split
+    along their sequence})."""
     from repro_torch.config import ParallelConfig
     from repro_torch.distributed import sharding as sh
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import model as M
     from repro_torch.serve.steps import make_decode_step, make_prefill_step
-    par, b = par or ParallelConfig(), 4
+    par, b, splits = par or ParallelConfig(), 4, {}
 
     def run(cfg, params, batch, mesh):
         rows = np.arange(b)
         cplace = None
         if mesh is not None:
-            smesh = sh.ServeMesh.of(mesh, par)
+            smesh = M.serve_mesh_of(cfg, par, mesh, max_len)
+            splits[arch] = (smesh.seq_self, smesh.seq_cross)
             rows = sh.batch_rows(b, smesh.batch_rank, smesh.batch_size)
             pplace, cplace = M.serve_placement(cfg, par, mesh, b, max_len)
             params = M.place_params(params, pplace)
-        prefill = make_prefill_step(cfg, par, mesh)
-        decode = make_decode_step(cfg, par, mesh)
+        prefill = make_prefill_step(cfg, par, mesh, max_len)
+        decode = make_decode_step(cfg, par, mesh, max_len)
         cache = M.init_cache(cfg, b, max_len, device=dev, placement=cplace)
         logits, cache = prefill(params, {k: v[rows] for k, v in
                                          batch.items()}, cache)
@@ -4634,6 +4704,7 @@ def serve_mesh_smoke(rank, dev, get_smoke_config, par=None,
                 batch["frames"] = torch.from_numpy(rng.standard_normal(
                     (b, cfg.encoder_seq, cfg.d_model)).astype(
                         np.float32)).to(dev)
+            arch = f"{arch} {shape[0]}x{shape[1]}"
             got = run(cfg, params, batch, mesh)
             if rank == 0:
                 one = run(cfg, params, batch, None)
@@ -4645,10 +4716,9 @@ def serve_mesh_smoke(rank, dev, get_smoke_config, par=None,
                         w.abs().max()))
                     check(e <= SERVE_MESH_F32_RTOL, (f"{label} logits",
                                                      arch, shape, step, e))
-                    key = f"{arch} {shape[0]}x{shape[1]}"
-                    worst[key] = max(worst.get(key, 0.0), e)
+                    worst[arch] = max(worst.get(arch, 0.0), e)
             del params
-    return worst
+    return worst, splits
 
 
 def serve_mesh_at_width(rank, dev, part, cfg, shape, max_len, new,
@@ -4819,7 +4889,7 @@ def serve_mesh_rank(rank, dev):
     from repro_torch.distributed import sharding as sh
     rec, launches, one_logits = {}, {}, {}
     t0 = time.perf_counter()
-    rec["14e"] = serve_mesh_smoke(rank, dev, get_smoke_config)
+    rec["14e"], _ = serve_mesh_smoke(rank, dev, get_smoke_config)
     rec["14e_s"] = time.perf_counter() - t0
     for part, arch, shape, layers, max_len, new, dtype in SERVE_MESH_RUNS:
         cfg = serve_mesh_config(arch, layers, dtype)
@@ -4839,9 +4909,17 @@ def serve_mesh_rank(rank, dev):
             one_logits["14c"], one_logits["14c-f32"])
     # 14f: the cache split along its sequence over model
     t1 = time.perf_counter()
-    rec["14f_smoke"] = serve_mesh_smoke(
+    rec["14f_smoke"], splits = serve_mesh_smoke(
         rank, dev, get_smoke_config, seq_split_parallel(), ((1, 2),),
         SEQ_SPLIT_SMOKE, "14f", 128, 4)
+    check(all(v == (True, k.startswith(WHISPER)) for k, v in splits.items()),
+          ("14f split", splits))
+    # a cache whose length the model axis does not divide: whole along
+    # its sequence, the step as without the split
+    rec["14f_odd"], splits = serve_mesh_smoke(
+        rank, dev, get_smoke_config, seq_split_parallel(), ((1, 2),),
+        (LLAMA,), "14f-odd", SEQ_SPLIT_ODD_LEN, 4)
+    check(list(splits.values()) == [(False, False)], ("14f-odd", splits))
     rec["14f_smoke_s"] = time.perf_counter() - t1
     part, arch, shape, layers, max_len, new, dtype = SEQ_SPLIT_RUN
     cfg = serve_mesh_config(arch, layers, dtype)
@@ -5040,8 +5118,13 @@ def mesh_report_14(recs):
     print(f"phase 14f: the cache split along its sequence over model; "
           f"{len(SEQ_SPLIT_SMOKE)} smoke kinds in float32 over (1, 2), "
           f"prefill of 4 x 64 into 128 positions + 4 decode steps against "
-          f"one rank on the card: tokens equal, logits within "
+          f"one rank on the card (whisper's cross-attention cache split "
+          f"too): tokens equal, logits within "
           + ", ".join(f"{k} {v:.3g}" for k, v in rec["14f_smoke"].items())
+          + f"; {SEQ_SPLIT_ODD_LEN} positions, which model=2 does not "
+          f"divide (the caches whole along their sequence, as the "
+          f"reference's specs leave them): "
+          + ", ".join(f"{k} {v:.3g}" for k, v in rec["14f_odd"].items())
           + f" (bound {SERVE_MESH_F32_RTOL:g}); {rec['14f_smoke_s']:.1f} s")
     print(f"phase 14f: {x['model']} ({x['layers']} layers, {x['dtype']}) "
           f"over (data, model) {tuple(x['mesh'])}, its cache's sequence "
@@ -5060,6 +5143,7 @@ def mesh_report_14(recs):
     runs["14f"]["rank1_peak_gib"] = y["peak_gib"]
     record = {"runs": runs, "smoke_f32_err": rec["14e"],
               "seq_split_smoke_err": rec["14f_smoke"],
+              "seq_split_odd_err": rec["14f_odd"],
               "bounds": {"smoke_f32_rtol": SERVE_MESH_F32_RTOL,
                          "first_logits": {
                              p: rec[p]["first_logits_tol"]

@@ -204,7 +204,11 @@ def register_policy(name: str, param_names: Tuple[str, ...],
     override of a built-in loses its branch): on the card its scenarios
     run the step as ``kernels/lane_codegen.py`` translates it into the
     kernels, which take the operations whose rounding they reproduce bit
-    for bit and refuse a step with any other.
+    for bit and the elementwise transcendental ones (``exp``, ``log``,
+    ``tanh``, ``sigmoid``, ``expm1``, ``log1p``, ``softplus``, ``pow``:
+    held to the CPU within an ulp bound), and refuse a step with any
+    other (a bit view, an operation across lanes, data-dependent
+    control flow).
 
     ``bounds`` / ``log_params`` / ``frozen`` are the calibration metadata
     of the reference's ``register_policy``: the fit box per parameter

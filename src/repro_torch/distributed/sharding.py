@@ -641,11 +641,21 @@ class ServeMesh:
     tuple), each with its size and this rank's place in it (a group of
     several axes indexed with the first-named slowest). A training step
     splits its blocks over ``model`` alone (``of(..., model_only=True)``):
-    its rows are the rank's own batch, and FSDP gathers every expert.
-    Experts over the tensor-parallel axis itself share its group: the
-    reference's specs then give the experts' dim the axis and leave their
-    widths whole (a leaf names an axis once), so each rank multiplies its
-    experts whole and the gathered results sum nothing."""
+    its rows are the rank's own batch, and FSDP gathers every expert
+    unless they lie over ``model`` itself. Experts over the
+    tensor-parallel axis share its group: the reference's specs then
+    give the experts' dim the axis and leave their widths whole (a leaf
+    names an axis once), so each rank multiplies its experts whole and
+    the gathered results sum nothing; where the axis does not divide
+    the experts they stay whole on every rank (``models.moe`` reads that
+    off the leaves).
+
+    A cache whose sequence the sequence axes do not divide stays whole,
+    as the reference's spec leaves it: ``seq_self`` and ``seq_cross`` say
+    whether the self-attention caches (``max_len`` long) and the
+    cross-attention caches (``encoder_seq`` long) are split, and where
+    neither is the mesh has no sequence group and serves as without
+    ``shard_cache_seq``."""
     model: object
     model_size: int
     model_rank: int
@@ -665,23 +675,46 @@ class ServeMesh:
     #: whether the rows are split over the expert axis; where they are
     #: not, the ranks of the expert group hold the same rows
     rows_over_experts: bool = True
+    #: whether the self-attention caches and the cross-attention caches
+    #: are split along the sequence axes (each where they divide its
+    #: length)
+    seq_self: bool = False
+    seq_cross: bool = False
 
     @classmethod
-    def of(cls, mesh, parallel: ParallelConfig,
-           model_only: bool = False) -> "ServeMesh":
+    def of(cls, mesh, parallel: ParallelConfig, model_only: bool = False,
+           max_len: Optional[int] = None,
+           encoder_seq: Optional[int] = None) -> "ServeMesh":
         """The groups over ``mesh`` under ``parallel``. The rows go over
-        the batch axes unless the cache is split along its sequence over
+        the batch axes unless a cache is split along its sequence over
         one of them: then the reference's specs leave the batch whole
         (a batch that the axes divide would name an axis twice, which
-        the placement refuses) and every rank holds every row."""
+        the placement refuses) and every rank holds every row. With
+        ``shard_cache_seq`` over axes of more than one rank, ``max_len``
+        (the self-attention caches' length) is needed, and
+        ``encoder_seq`` (the cross-attention caches') where there are
+        any."""
         shape = mesh_shape_dict(mesh)
         m = axis_group(mesh, parallel.tp_axis)
         if model_only:
-            return cls(*m, None, 1, 0, None, 1, 0)
+            experts = (m if parallel.expert_axis == parallel.tp_axis
+                       else (None, 1, 0))
+            return cls(*m, *experts, None, 1, 0, rows_over_experts=False)
         seq = ()
         if parallel.shard_cache_seq:
             seq = tuple(a for a in entry_names(parallel.seq_axis)
                         if shape.get(a, 1) > 1)
+        seq_self = seq_cross = False
+        if seq:
+            if max_len is None:
+                raise ValueError(
+                    f"a cache split along its sequence over {seq}: the "
+                    f"serving step needs the cache's max_len")
+            n = axis_size(shape, seq)
+            seq_self = max_len % n == 0
+            seq_cross = encoder_seq is not None and encoder_seq % n == 0
+            if not (seq_self or seq_cross):
+                seq = ()
         batch = tuple(a for a in batch_partition(parallel, mesh)
                       if shape[a] > 1)
         if set(batch) & set(seq):
@@ -689,7 +722,8 @@ class ServeMesh:
         return cls(*m, *axis_group(mesh, parallel.expert_axis),
                    *axis_group(mesh, batch), *axis_group(mesh, seq),
                    seq_over_model=parallel.tp_axis in seq,
-                   rows_over_experts=parallel.expert_axis in batch)
+                   rows_over_experts=parallel.expert_axis in batch,
+                   seq_self=seq_self, seq_cross=seq_cross)
 
     def gather_rows(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
         """The whole batch's ``x`` from every rank's rows."""

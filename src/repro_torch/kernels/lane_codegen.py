@@ -21,15 +21,22 @@ The operations whose float32 (or float64) rounding CUDA reproduces bit
 for bit under the kernels' flags (``--fmad=false``, IEEE division and
 square root) are translated: + - * /, neg, abs, min, max, clamp, ceil,
 floor, trunc, round, sqrt, reciprocal, integer powers 2 and -1 and the
-power 0.5, comparisons, logical operations, ``where``, casts between
-float32, float64 and bool, constants, and the indexing, stacking and
-reshaping that keep the lane dimension first. So are ``exp`` and
-``log`` (CUDA's ``expf`` / ``logf``, ``exp`` / ``log`` in float64),
-which do not round as the CPU's do: a policy whose step uses them is
-listed in ``Generated.transcendental``, and its rows are held to the CPU
-run within an ulp bound, not bit for bit. A step that uses anything else
-(``tanh``, a bit view, data-dependent Python control flow) has no CUDA
-form: the wrappers refuse its rows on the card, naming the operation
+powers 0.5, -0.5, -2 and 3 (as the CPU's ``pow`` takes them: products,
+square roots and quotients), comparisons, logical operations,
+``where``, casts between float32, float64 and bool, constants, and the
+indexing, stacking and reshaping that keep the lane dimension first. So
+are ``exp``, ``log``, ``tanh``, ``expm1``, ``log1p``, ``sigmoid``,
+``softplus`` (with its ``beta`` and ``threshold``) and ``pow`` with any
+other scalar exponent: CUDA's functions of the operand's type (``expf``,
+``logf``, ``tanhf``, ``expm1f``, ``log1pf``, ``powf``; ``exp``, ``log``,
+... in float64), sigmoid as ``1 / (1 + exp(-x))`` and softplus as
+``x * beta > threshold ? x : log1p(exp(x * beta)) / beta``, the formulas
+of PyTorch's own kernels. These do not round as the CPU's do: a policy
+whose step uses one is listed in ``Generated.transcendental``, and its
+rows are held to the CPU run within an ulp bound, not bit for bit. A
+step that uses anything else (a bit view, an operation across lanes,
+data-dependent Python control flow) has no CUDA form: the wrappers
+refuse its rows on the card, naming the operation
 (``Generated.refused``), and it runs with ``device="cpu"``.
 
 ``interpret`` runs a translation with PyTorch operations, one per scalar
@@ -102,7 +109,9 @@ class Generated:
     a built-in's own, ``FIRST_GENERATED + index`` for a translated step,
     ``REFUSED``), ``refused`` (policy name -> why its step has no CUDA
     form) and ``transcendental`` (the policies whose translated step
-    uses ``exp`` or ``log``)."""
+    uses an operation of ``TRANSCENDENTAL``: ``exp``, ``log``, ``tanh``,
+    ``expm1``, ``log1p``, ``sigmoid``, ``softplus`` or a ``pow`` that is
+    not a product, square root or quotient)."""
     header: Optional[str]
     branches: Tuple[int, ...]
     refused: Dict[str, str]
@@ -151,22 +160,22 @@ def _dummy(x):
     return x
 
 
-def _pow_form(exponent) -> str:
-    forms = {2.0: "square", 0.5: "sqrt", -1.0: "reciprocal"}
-    try:
-        return forms[float(exponent)]
-    except (KeyError, TypeError, ValueError):
-        raise Untranslatable(f"pow with exponent {exponent!r} (2, 0.5 and "
-                             f"-1 translate)") from None
-
+#: the scalar exponents the CPU's ``pow`` computes exactly, as products,
+#: square roots and quotients (ATen's ``pow_tensor_scalar_kernel``); any
+#: other goes through ``std::pow``
+_POW_FORMS = {2.0: ("mul",), 3.0: ("mul", "mul"), 0.5: ("sqrt",),
+              -0.5: ("sqrt", "reciprocal"), -1.0: ("reciprocal",),
+              -2.0: ("mul", "reciprocal")}
 
 #: ATen elementwise operations: packet name -> scalar op
 _UNARY = {"neg": "neg", "abs": "abs", "ceil": "ceil", "floor": "floor",
           "trunc": "trunc", "sqrt": "sqrt", "reciprocal": "reciprocal",
-          "exp": "exp", "log": "log",
+          "exp": "exp", "log": "log", "tanh": "tanh", "expm1": "expm1",
+          "log1p": "log1p", "sigmoid": "sigmoid",
           "logical_not": "not", "bitwise_not": "not"}
 #: scalar operations that CUDA rounds otherwise than the CPU
-TRANSCENDENTAL = ("exp", "log")
+TRANSCENDENTAL = ("exp", "log", "tanh", "expm1", "log1p", "sigmoid",
+                  "softplus", "pow")
 _BINARY = {"add": "add", "sub": "sub", "mul": "mul", "div": "div",
            "minimum": "min", "maximum": "max", "fmin": "min", "fmax": "max",
            "logical_and": "and", "logical_or": "or", "logical_xor": "xor",
@@ -296,10 +305,13 @@ class _Translator:
         if packet == "square":
             return self.elementwise(node, "mul", [args[0], args[0]])
         if packet == "pow" and overload == "Tensor_Scalar":
-            form = _pow_form(args[1])
-            if form == "square":
-                return self.elementwise(node, "mul", [args[0], args[0]])
-            return self.elementwise(node, form, args[:1])
+            return self.power(node, args[0], args[1])
+        if packet == "softplus":
+            beta = args[1] if len(args) > 1 else kw.get("beta", 1.0)
+            threshold = args[2] if len(args) > 2 else kw.get("threshold",
+                                                             20.0)
+            return self.with_scalars(node, "softplus", args[0],
+                                     (beta, threshold))
         if packet in ("clamp_min", "clamp_max"):
             op = "max" if packet == "clamp_min" else "min"
             return self.elementwise(node, op, args[:2])
@@ -326,6 +338,9 @@ class _Translator:
             return self.slice(node, *args)
         if packet in ("stack", "cat"):
             return self.join(node, args[0])
+        if packet == "view" and overload == "dtype":
+            raise Untranslatable(f"a bit view (aten.view.dtype, dtype "
+                                 f"{args[1]})")
         if packet in _IDENTITY:
             return self.reshape(node, args[0])
         if packet in _CONSTANT:
@@ -337,6 +352,33 @@ class _Translator:
             return self.constant(node, args[-1] if packet == "full"
                                  else args[0])
         raise Untranslatable(f"the operation aten.{packet}.{overload}")
+
+    def with_scalars(self, node, op, x, scalars) -> _Arr:
+        """``op(x, *scalars)``: the scalars kept as the step gave them
+        (float64 literals; ``_c_expr`` writes them in the operand's type,
+        as ATen's CUDA kernels convert them, and ``interpret`` passes
+        them on as the step did)."""
+        val = node.meta["val"]
+        shape, out = tuple(val.shape), _dtype_of(val)
+        lits = [Scalar("f64", value=float(v)) for v in scalars]
+        return _Arr(shape, [self.emit(op, out, [self.cast(e, out)] + lits)
+                            for e in self.broadcast(self.arr(x), shape)])
+
+    def power(self, node, x, exponent) -> _Arr:
+        """``pow(x, exponent)`` for a scalar exponent: the products,
+        square roots and quotients the CPU computes it by (``x * x * x``
+        for 3, ``1 / (x * x)`` for -2, ...), else one ``pow``."""
+        try:
+            e = float(exponent)
+        except (TypeError, ValueError):
+            raise Untranslatable(f"pow with exponent {exponent!r}") from None
+        form = _POW_FORMS.get(e)
+        if form is None:
+            return self.with_scalars(node, "pow", x, (e,))
+        y = x
+        for op in form:
+            y = self.elementwise(node, op, [y, x] if op == "mul" else [y])
+        return y
 
     def select(self, node, x, dim, index) -> _Arr:
         a = self.arr(x)
@@ -449,10 +491,13 @@ def _c(s: Scalar) -> str:
 
 _F32_FN = {"min": "fminf", "max": "fmaxf", "ceil": "ceilf",
            "floor": "floorf", "trunc": "truncf", "round": "rintf",
-           "abs": "fabsf", "sqrt": "sqrtf", "exp": "expf", "log": "logf"}
+           "abs": "fabsf", "sqrt": "sqrtf", "exp": "expf", "log": "logf",
+           "tanh": "tanhf", "expm1": "expm1f", "log1p": "log1pf",
+           "pow": "powf"}
 _F64_FN = {"min": "fmin", "max": "fmax", "ceil": "ceil", "floor": "floor",
            "trunc": "trunc", "round": "rint", "abs": "fabs", "sqrt": "sqrt",
-           "exp": "exp", "log": "log"}
+           "exp": "exp", "log": "log", "tanh": "tanh", "expm1": "expm1",
+           "log1p": "log1p", "pow": "pow"}
 _INFIX = {"add": "+", "sub": "-", "mul": "*", "div": "/", "lt": "<",
           "le": "<=", "gt": ">", "ge": ">=", "eq": "==", "ne": "!=",
           "and": "&&", "or": "||", "xor": "!="}
@@ -471,6 +516,19 @@ def _c_expr(ins: Instr) -> str:
         return f"{'1.0f' if dt == 'f32' else '1.0'} / {a[0]}"
     if op == "where":
         return f"{a[0]} ? {a[1]} : {a[2]}"
+    fn = _F32_FN if dt == "f32" else _F64_FN
+    one = "1.0f" if dt == "f32" else "1.0"
+    if op == "sigmoid":
+        # ATen's sigmoid on the CPU and on CUDA: 1 / (1 + exp(-x))
+        return f"{one} / ({one} + {fn['exp']}(-{a[0]}))"
+    if op in ("pow", "softplus"):
+        a = a[:1] + [_c_literal(_literal_as(x, dt)) for x in ins.args[1:]]
+    if op == "softplus":
+        # ATen's softplus: x * beta > threshold ? x : log1p(exp(x * beta))
+        # / beta, beta and threshold in the operand's type
+        x, beta, threshold = a
+        return (f"({x} * {beta}) > {threshold} ? {x} : "
+                f"{fn['log1p']}({fn['exp']}({x} * {beta})) / {beta}")
     if op == "cast":
         src = ins.args[0].dtype
         if dt == "bool":
@@ -480,8 +538,7 @@ def _c_expr(ins: Instr) -> str:
             return f"{a[0]} ? {one} : {zero}"
         return (f"__double2float_rn({a[0]})" if dt == "f32"
                 else f"(double){a[0]}")
-    fn = (_F32_FN if dt == "f32" else _F64_FN)[op]
-    return f"{fn}({', '.join(a)})"
+    return f"{fn[op]}({', '.join(a)})"
 
 
 def emit_function(prog: Program, name: str, doc: str) -> str:
@@ -574,8 +631,18 @@ _TORCH_OP = {"add": torch.add, "sub": torch.sub, "mul": torch.mul,
              "not": torch.logical_not, "neg": torch.neg, "abs": torch.abs,
              "ceil": torch.ceil, "floor": torch.floor, "trunc": torch.trunc,
              "round": torch.round, "sqrt": torch.sqrt, "exp": torch.exp,
-             "log": torch.log,
+             "log": torch.log, "tanh": torch.tanh, "expm1": torch.expm1,
+             "log1p": torch.log1p, "sigmoid": torch.sigmoid,
              "reciprocal": torch.reciprocal, "where": torch.where}
+
+
+def _torch_scalar(op: str, args, scalars):
+    """The operations with scalar arguments: ``pow`` by a float
+    exponent, ``softplus`` by its ``beta`` and ``threshold``."""
+    if op == "pow":
+        return torch.pow(args[0], scalars[1])
+    return torch.nn.functional.softplus(args[0], beta=scalars[1],
+                                        threshold=scalars[2])
 
 
 def interpret(prog: Program, carry, arrive, params, dt):
@@ -594,6 +661,9 @@ def interpret(prog: Program, carry, arrive, params, dt):
         args = [value(x) for x in ins.args]
         if ins.op == "cast":
             env[ins.dst] = args[0].to(_TORCH[ins.dtype])
+        elif ins.op in ("pow", "softplus"):
+            env[ins.dst] = _torch_scalar(ins.op, args,
+                                         [x.value for x in ins.args])
         else:
             env[ins.dst] = _TORCH_OP[ins.op](*args)
     lanes = arrive.shape[0]

@@ -255,10 +255,10 @@ def _batch_shards(batch_specs, parallel, mesh):
             for k, (shp, dt) in batch_specs.items()}
 
 
-def _serve_rows(batch_specs, parallel, mesh):
+def _serve_rows(cfg, batch_specs, parallel, mesh, max_len):
     """A serving batch's rows on this rank: the serving mesh's batch
     groups (every row where the cache's sequence takes a batch axis)."""
-    smesh = sh.ServeMesh.of(mesh, parallel)
+    smesh = M.serve_mesh_of(cfg, parallel, mesh, max_len)
     out = {}
     for k, (shp, dt) in batch_specs.items():
         axis = 1 if k == "positions" and len(shp) == 3 else 0
@@ -298,10 +298,12 @@ def build_lowered(cfg, shape: ShapeConfig, parallel: ParallelConfig, mesh,
     acache = M.abstract_cache(cfg, b, s)
     cache = {n: (c.local_shape, acache[n].dtype) for n, c in cplace.items()}
     if shape.kind == "prefill":
-        batch = _serve_rows(input_specs(cfg, shape), parallel, mesh)
-        return make_prefill_step(cfg, parallel, mesh), (params, batch, cache)
-    batch = _serve_rows(decode_input_specs(cfg, shape), parallel, mesh)
-    return make_decode_step(cfg, parallel, mesh), (params, cache, batch)
+        batch = _serve_rows(cfg, input_specs(cfg, shape), parallel, mesh, s)
+        return (make_prefill_step(cfg, parallel, mesh, s),
+                (params, batch, cache))
+    batch = _serve_rows(cfg, decode_input_specs(cfg, shape), parallel, mesh,
+                        s)
+    return make_decode_step(cfg, parallel, mesh, s), (params, cache, batch)
 
 
 def _fake_args(args):

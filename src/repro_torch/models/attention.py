@@ -17,8 +17,8 @@ float32, ``-1e30`` past the valid length, probabilities cast to the
 compute dtype before the latent product), as the reference does.
 Cross-attention (whisper's decoder) takes K/V from the encoder's output
 at prefill, through the flash kernel without a causal mask, and keeps
-them whole in its cache (``encoder_seq`` long) for decode, which reads
-them through ``ref.sdpa``.
+them in its cache (``encoder_seq`` long) for decode, which reads them
+through ``ref.sdpa``.
 
 Under a serving mesh whose ``model`` axis divides the query heads each
 rank runs its query heads (``wq``'s, ``wq_b``'s and ``wkv_b``'s columns)
@@ -50,7 +50,12 @@ the reference's flash-decoding layout) a rank's self-attention cache
 holds one chunk of the positions (every KV head where the sequence axes
 include ``model``); prefill attends as above and writes each rank's
 chunk, and decode combines the chunks' softmax over the sequence axes as
-GSPMD partitions ``ref.sdpa`` (see the section below).
+GSPMD partitions ``ref.sdpa`` (see the section below). So does a
+cross-attention cache where the axes divide ``encoder_seq``: prefill
+attends to the whole encoder output and writes the rank's chunk of its
+K/V, decode combines the chunks with no mask (ROADMAP C25). A cache
+whose length the axes do not divide is whole on every rank, as without
+the split (``sharding.ServeMesh.seq_self`` / ``seq_cross``; C24).
 """
 from __future__ import annotations
 
@@ -139,11 +144,14 @@ def _out_rows(out: torch.Tensor, wo: torch.Tensor,
 # differs; the (max, sum, output) rescale of flash-decoding would round
 # an unnormalised P instead.
 
-def _seq_mesh() -> Optional[sh.ServeMesh]:
-    """The step's serving mesh where its caches are split along their
+def _seq_mesh(cross: bool = False) -> Optional[sh.ServeMesh]:
+    """The step's serving mesh where its self-attention caches (with
+    ``cross``, its cross-attention caches) are split along their
     sequence, else None."""
     mesh = sh.serve_mesh()
-    return mesh if mesh is not None and mesh.seq_size > 1 else None
+    if mesh is None or mesh.seq_size == 1:
+        return None
+    return mesh if (mesh.seq_cross if cross else mesh.seq_self) else None
 
 
 def _all_heads(x: torch.Tensor, heads: int, mesh: sh.ServeMesh
@@ -251,12 +259,15 @@ def _seq_sdpa(q, k, v, kv_len, mesh: sh.ServeMesh, heads: int,
 
 def _cross_kv(params: Params, name: str, memory: Optional[torch.Tensor],
               cfg: ModelConfig, cache: Optional[Cache], dt: torch.dtype,
-              split: bool, entered: bool):
+              split: bool, entered: bool,
+              seq: Optional[sh.ServeMesh] = None):
     """Cross-attention's K/V [b, s_enc, heads held, hd]: projected from
     ``memory`` (the encoder's output) at prefill, the columns gathered
     into whole heads where ``split`` cuts one, and written into the cache
-    as placed; read back from it at decode. ``entered``: the products
-    are the rank's part of a split computation (``tp_in``)."""
+    as placed (with ``seq``, the cache split along its sequence: the
+    rank's chunk of every head it holds); read back from it at decode
+    (with ``seq``, the rank's chunk). ``entered``: the products are the
+    rank's part of a split computation (``tp_in``)."""
     a = cfg.attention
     if memory is None:
         if cache is None or not cache.get("decode", False):
@@ -272,13 +283,20 @@ def _cross_kv(params: Params, name: str, memory: Optional[torch.Tensor],
     k = k.reshape(b, memory.shape[1], -1, a.head_dim)
     v = v.reshape(b, memory.shape[1], -1, a.head_dim)
     if cache is not None:
-        if cache["k"].shape != k.shape:
+        news = (k, v) if seq is None else _kv_heads(k, v, a, seq)
+        want = list(news[0].shape)
+        if seq is not None:
+            want[1] //= seq.seq_size
+        if list(cache["k"].shape) != want:
             raise ValueError(f"{name}: the encoder's output gives K/V "
-                             f"{tuple(k.shape)}, the cache holds "
+                             f"{tuple(want)} a rank, the cache holds "
                              f"{tuple(cache['k'].shape)} (encoder_seq "
                              f"{cfg.encoder_seq})")
-        cache["k"].copy_(k)
-        cache["v"].copy_(v)
+        if seq is None:
+            cache["k"].copy_(k)
+            cache["v"].copy_(v)
+        else:
+            _write_prompt((cache["k"], cache["v"]), news, seq)
     return k, v, cache
 
 
@@ -312,10 +330,18 @@ def apply_gqa(params: Params, name: str, x: torch.Tensor,
     if cross:
         if q_gather:
             q, = tp_gather_parts([q])
+        seq = _seq_mesh(cross=True) if cache is not None else None
         k, v, cache = _cross_kv(params, name, memory, cfg, cache, dt,
-                                kv_gather, kv_split or local)
-        out = ops.sdpa(q.reshape(b, t, -1, hd), k, v, causal=False,
-                       logit_cap=a.logit_cap)
+                                kv_gather, kv_split or local, seq)
+        if seq is not None and memory is None:
+            # decode over the rank's chunk of the encoder's K/V
+            whole = torch.full((b,), cfg.encoder_seq, dtype=torch.int32,
+                               device=x.device)
+            out = _seq_sdpa(q.reshape(b, t, -1, hd), k, v, whole, seq, H,
+                            a.logit_cap)
+        else:
+            out = ops.sdpa(q.reshape(b, t, -1, hd), k, v, causal=False,
+                           logit_cap=a.logit_cap)
         return _out_rows(out.reshape(b, t, -1), params[f"{name}.wo"].to(dt),
                          H * hd), cache
     src = x_in if (kv_split or local) else x

@@ -37,11 +37,14 @@ the K/V caches hold the one head the rank's query heads read
 draws each leaf whole, keeps the rank's part and frees the rest, so the
 draws are one device's; ``checkpoint.gather_tree`` over the placement
 gives the whole leaves back. With ``ParallelConfig.shard_cache_seq`` the
-self-attention caches are split along their sequence over ``seq_axis``
-(a name or a tuple of axes), as the reference's specs split them; where
-``model`` carries the sequence the KV heads stay whole (its specs drop
-``kv_heads`` there), and a cache length the axes do not divide, or a spec
-that would name an axis twice, raises.
+self-attention caches and whisper's cross-attention caches are split
+along their sequence over ``seq_axis`` (a name or a tuple of axes), as
+the reference's specs split them; where ``model`` carries the sequence
+the KV heads stay whole (its specs drop ``kv_heads`` there). A cache
+whose length the axes do not divide stays whole along its sequence, as
+the reference's spec leaves it, with its warning (``serve_mesh_of``
+then splits no work of it); a spec that would name an axis twice
+raises.
 ``prefill`` / ``decode_step`` take the rank's rows and leaves, inside
 the step's ``sharding.serving`` block (``serve.steps``).
 
@@ -504,36 +507,52 @@ def _model_size(parallel: ParallelConfig, mesh) -> int:
 
 def _check_seq_split(cfg: ModelConfig, parallel: ParallelConfig, mesh,
                      cspecs, batch: int, max_len: int):
-    """With a cache split along its sequence, every self-attention cache
-    leaf must be split along it as the serving mesh splits the work
-    (``sharding.ServeMesh``): raise ``ValueError`` where ``max_len`` does
-    not divide over the sequence axes (the reference would keep those
-    leaves whole, with a warning) or the rows would be split over an
-    axis the sequence takes, and ``NotImplementedError`` for a
-    cross-attention cache split along its sequence."""
+    """With a cache split along its sequence, each cache leaf with a
+    sequence dim (``max_len`` long for self-attention, ``encoder_seq`` for
+    cross-attention) is split along the sequence axes where they divide
+    its length, as the serving mesh splits the work
+    (``sharding.ServeMesh``); where they do not, it stays whole, as the
+    reference's spec leaves it, with the reference's warning naming the
+    axis and the size, and the mesh splits no work of that cache along
+    the sequence. A leaf whose length the axes divide but whose rows
+    take an axis of the sequence raises ``ValueError`` (ROADMAP C24,
+    C25)."""
     shape = sh.mesh_shape_dict(mesh)
     seq = tuple(a for a in sh.entry_names(parallel.seq_axis)
                 if shape.get(a, 1) > 1) if parallel.shard_cache_seq else ()
     if not seq:
         return
+    n = sh.axis_size(shape, seq)
     for name, d in cache_schema(cfg, batch, max_len).items():
         if "cache_seq" not in d.axes:
             continue
         spec = cspecs[name]
         sh.check_spec(spec, f"{name}'s cache spec")
-        split = tuple(a for a in sh.entry_names(
-            spec[d.axes.index("cache_seq")]) if shape.get(a, 1) > 1)
-        if ".cross." in name:
-            if split:
-                raise NotImplementedError(
-                    f"{name}: a cross-attention cache split along its "
-                    f"sequence over {split}")
-        elif split != seq:
+        dim = d.axes.index("cache_seq")
+        if d.shape[dim] % n:
+            kind = "cross" if ".cross." in name else "self"
+            sh._warn_replicated(f"a {kind}-attention cache's sequence "
+                                f"(logical axis 'cache_seq')",
+                                parallel.seq_axis, d.shape[dim], n)
+            continue
+        split = tuple(a for a in sh.entry_names(spec[dim])
+                      if shape.get(a, 1) > 1)
+        if split != seq:
             raise ValueError(
-                f"{name}: a cache of {max_len} positions does not split "
-                f"over the sequence axes {seq} (size "
-                f"{sh.axis_size(shape, seq)}); serving splits every "
-                f"self-attention cache along them")
+                f"{name}: a cache of {d.shape[dim]} positions is not split "
+                f"over the sequence axes {seq} (size {n}): its rows take "
+                f"{split or 'none of them'}")
+
+
+def serve_mesh_of(cfg: ModelConfig, parallel: ParallelConfig, mesh,
+                  max_len: int) -> sh.ServeMesh:
+    """The ``sharding.ServeMesh`` of a serving step over ``mesh`` whose
+    self-attention caches hold ``max_len`` positions (and cross-attention
+    caches ``cfg.encoder_seq``): what it splits along the sequence, each
+    cache where the sequence axes divide its length."""
+    return sh.ServeMesh.of(mesh, parallel, max_len=max_len,
+                           encoder_seq=cfg.encoder_seq if cfg.encdec
+                           else None)
 
 
 def serve_layout(cfg: ModelConfig, parallel: ParallelConfig, mesh,

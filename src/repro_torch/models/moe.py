@@ -44,7 +44,13 @@ A training step over a mesh (``train.steps``) gathers every expert (FSDP
 over ``data``) and routes the rank's own rows; ``model`` splits the
 experts' ``mlp`` width (the payload enters through ``layers.tp_in``),
 and the step's ``sharding.RankContext`` turns the balance loss's two
-per-expert means into the whole batch's (``batch_stats``).
+per-expert means into the whole batch's (``batch_stats``). With the
+experts over ``model`` (``expert_axis="model"``) FSDP gathers each
+rank's ``E / size`` experts at their whole width; the ``model`` ranks
+hold the same rows, so each routes them as one device does, multiplies
+its own experts' slots and the results are gathered over ``model``
+(``_gathered_experts``; ROADMAP C26). Where ``model`` does not divide
+the experts they stay whole on every rank, and nothing is gathered.
 """
 from __future__ import annotations
 
@@ -146,11 +152,15 @@ def _exchanged_experts(params, name, xe, d_ff, mesh):
 def _gathered_experts(params, name, xe, d_ff, mesh):
     """The experts' results for the whole batch's groups, held by every
     rank: this rank's experts' slots multiplied and every rank's
-    gathered."""
+    gathered. Under autograd the payload enters the rank's part
+    (``sharding.tp_enter``: its gradient summed over the group) and the
+    gather's backward keeps the rank's own slice (``sharding.tp_gather``),
+    so each expert's gradient stays on the rank that holds it."""
     held = xe.shape[0] // mesh.expert_size
-    mine = xe[mesh.expert_rank * held:(mesh.expert_rank + 1) * held]
-    return sh.all_gather(_local_experts(params, name, mine, d_ff), 0,
-                         mesh.experts)
+    lo = mesh.expert_rank * held
+    xe = sh.tp_enter(xe, mesh.experts)
+    return sh.tp_gather(_local_experts(params, name, xe[lo:lo + held], d_ff),
+                        0, mesh.experts)
 
 
 def _routed(params: Params, name: str, x: torch.Tensor, cfg: ModelConfig,
@@ -215,23 +225,27 @@ def apply_moe(params: Params, name: str, x: torch.Tensor,
     m = cfg.moe
     mesh = sh.serve_mesh()
     b, s, _ = x.shape
-    if mesh is None or (mesh.batch_size == 1 and mesh.expert_size == 1):
+    # the experts split over the expert axis, or whole on every rank where
+    # it does not divide them (the reference's specs leave them whole)
+    split = mesh is not None and mesh.expert_size > 1 and \
+        params[f"{name}.w_gate"].shape[0] < m.num_experts
+    if mesh is None or (mesh.batch_size == 1 and not split):
         y, aux = _routed(params, name, x, cfg,
                          lambda xe: _local_experts(params, name, xe, m.d_ff))
     elif (b * s) % min(GROUP_SIZE, b * s * mesh.batch_size) or (
-            mesh.expert_size > 1 and not mesh.rows_over_experts):
+            split and not mesh.rows_over_experts):
         # a group straddles the ranks, or the expert ranks hold the same
         # rows: route the whole batch, each rank multiplying its experts'
         # slots once
         whole = mesh.gather_rows(x)
         experts = (functools.partial(_gathered_experts, mesh=mesh)
-                   if mesh.expert_size > 1 else _local_experts)
+                   if split else _local_experts)
         y, aux = _routed(params, name, whole, cfg,
                          lambda xe: experts(params, name, xe, m.d_ff))
         y = y.narrow(0, mesh.batch_rank * b, b)
     else:
         experts = (functools.partial(_exchanged_experts, mesh=mesh)
-                   if mesh.expert_size > 1 else _local_experts)
+                   if split else _local_experts)
         y, aux = _routed(params, name, x, cfg,
                          lambda xe: experts(params, name, xe, m.d_ff))
     if m.num_shared_experts > 0:

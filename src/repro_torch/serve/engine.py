@@ -25,7 +25,9 @@ raises without one). With ``mesh=`` (a ``DeviceMesh`` of ``data`` and
 ``model``, ``launch.mesh.make_host_mesh``, or of ``pod``, ``data`` and
 ``model``) and ``parallel=`` (default ``ParallelConfig()``; with
 ``shard_cache_seq`` each rank's cache holds a chunk of the sequence and
-every rank holds the rows of a batch axis the sequence takes) it serves
+every rank holds the rows of a batch axis the sequence takes; a cache of
+``max_len`` positions that the sequence axes do not divide stays whole,
+as the reference's spec leaves it) it serves
 over the ranks, one process per GPU, as
 the reference serves over its mesh: every rank makes the same calls with
 the same requests and gets the same tokens. A rank holds its shards of
@@ -100,7 +102,7 @@ class ServeEngine:
         self.placement = self._cache_placement = None
         if mesh is not None:
             self.parallel = parallel = parallel or ParallelConfig()
-            smesh = sh.ServeMesh.of(mesh, parallel)
+            smesh = M.serve_mesh_of(cfg, parallel, mesh, max_len)
             if slots % smesh.batch_size:
                 raise ValueError(
                     f"{slots} slots do not split over the batch axes' "
@@ -111,8 +113,8 @@ class ServeEngine:
                 cfg, parallel, mesh, slots, max_len)
             params = M.place_params(params, self.placement)
         self.params = M.compute_params(params, cfg, self.device)
-        self._prefill = make_prefill_step(cfg, parallel, mesh)
-        self._decode = make_decode_step(cfg, parallel, mesh)
+        self._prefill = make_prefill_step(cfg, parallel, mesh, max_len)
+        self._decode = make_decode_step(cfg, parallel, mesh, max_len)
         self._prefill_len = max_len // 2
         if cfg.moe is not None:
             # a prefill's and a decode step's tokens (padding included,

@@ -39,18 +39,20 @@ def serve_shardings(cfg: ModelConfig, parallel: ParallelConfig, mesh,
     return pspecs, cspecs, bspecs
 
 
-def _serve_mesh(mesh, parallel: Optional[ParallelConfig]
-                ) -> Optional[sh.ServeMesh]:
+def _serve_mesh(cfg: ModelConfig, mesh, parallel: Optional[ParallelConfig],
+                max_len: Optional[int]) -> Optional[sh.ServeMesh]:
     if mesh is None:
         return None
-    return sh.ServeMesh.of(mesh, parallel or ParallelConfig())
+    return M.serve_mesh_of(cfg, parallel or ParallelConfig(), mesh, max_len)
 
 
 def make_prefill_step(cfg: ModelConfig, parallel: ParallelConfig = None,
-                      mesh=None) -> Callable:
+                      mesh=None, max_len: Optional[int] = None) -> Callable:
     """``step(params, batch, cache) -> (last-position logits [b, 1, vocab],
-    cache)``; over a mesh ``b`` is the whole batch's rows."""
-    smesh = _serve_mesh(mesh, parallel)
+    cache)``; over a mesh ``b`` is the whole batch's rows. ``max_len``:
+    the cache's, needed where ``parallel.shard_cache_seq`` splits it
+    (``models.model.serve_mesh_of``)."""
+    smesh = _serve_mesh(cfg, mesh, parallel, max_len)
 
     def step(params, batch_in: Dict, cache) -> Tuple[torch.Tensor, Dict]:
         with torch.inference_mode(), sh.serving(smesh):
@@ -62,10 +64,11 @@ def make_prefill_step(cfg: ModelConfig, parallel: ParallelConfig = None,
 
 
 def make_decode_step(cfg: ModelConfig, parallel: ParallelConfig = None,
-                     mesh=None) -> Callable:
+                     mesh=None, max_len: Optional[int] = None) -> Callable:
     """``step(params, cache, batch) -> (logits [b, 1, vocab], cache)``;
-    over a mesh ``b`` is the whole batch's rows."""
-    smesh = _serve_mesh(mesh, parallel)
+    over a mesh ``b`` is the whole batch's rows; ``max_len`` as
+    ``make_prefill_step``'s."""
+    smesh = _serve_mesh(cfg, mesh, parallel, max_len)
 
     def step(params, cache, batch_in: Dict) -> Tuple[torch.Tensor, Dict]:
         with torch.inference_mode(), sh.serving(smesh):

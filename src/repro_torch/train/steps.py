@@ -35,7 +35,9 @@ axes):
   alone into the rank's compute shard (a block-laid leaf is gathered
   whole and cut to its ``model`` part); the forward runs inside the
   step's ``sharding.RankContext``: the blocks split their heads, widths
-  and vocabulary over ``model`` (``models``), and remat's recomputation
+  and vocabulary over ``model`` (``models``), and with
+  ``expert_axis="model"`` the experts (``models.moe``: each rank's own,
+  their results summed over ``model``); remat's recomputation
   re-enters that context on whatever thread autograd runs it;
 * the batch arrives as the rank's rows over ``batch_axes``
   (``sharding.batch_rows``, microbatch by microbatch as the reference
@@ -131,13 +133,6 @@ def make_train_step(cfg: ModelConfig, ocfg: OptimizerConfig,
     resolve_device(device)
     shape = sh.mesh_shape_dict(mesh) if mesh is not None else {}
     tp = parallel.tp_axis
-    if cfg.moe is not None and parallel.expert_axis == tp and \
-            shape.get(tp, 1) > 1:
-        # the step's FSDP gathers every expert and runs no expert exchange
-        raise NotImplementedError(
-            f"training with experts over the tensor-parallel axis {tp!r}: "
-            f"the step gathers every expert over its FSDP axis and "
-            f"exchanges none (serving runs it)")
     pshard = oshard = comp = None
     if mesh is not None:
         pshard, oshard = state_shardings(cfg, ocfg, parallel, mesh)

@@ -18,10 +18,20 @@ One spawn per world (``torch_mesh_workers.seq_worker``; worlds of 2 and
   specs leave whole over a model axis of 2, as jamba-1.5-large's 8 over
   16 (with two, the spec would name ``model`` twice, which raises);
 * ``rows_pod_data``: (pod, data, model) = (2, 2, 1), the rows over
-  ``("pod", "data")`` as one group (its multi-pod decode_32k layout).
+  ``("pod", "data")`` as one group (its multi-pod decode_32k layout);
+* ``seq_model_odd``: as ``seq_model`` with a cache of 127 positions,
+  which 2 does not divide: the self-attention caches stay whole along
+  their sequence, as the reference's specs leave them, with its warning,
+  and the step serves as without ``shard_cache_seq`` (bitwise).
 
-Each rank runs a prefill of 64 tokens into a cache of 128 and 4 greedy
-decode steps through ``serve.steps``; this process holds them to:
+Whisper's cross-attention cache (``encoder_seq`` 16 at smoke width) is
+split along its sequence too: in two chunks over ``model`` at
+``seq_model`` (and in every layout beside a self-attention cache that
+stays whole at ``seq_model_odd``), in four over ``("data", "model")``
+with one KV head at ``seq_data_model``; with 15 positions it stays
+whole. Each rank runs a prefill of 64 tokens (whisper: and 16 frames)
+into a cache of 128 (127) and 4 greedy decode steps through
+``serve.steps``; this process holds them to:
 
 * the port's one-device steps: greedy tokens equal, logits and every
   gathered cache leaf (Mamba's conv and SSM states, which have no
@@ -39,10 +49,13 @@ decode steps through ``serve.steps``; this process holds them to:
   row, and each expert slot is multiplied once over them.
 
 Without ranks: a spec naming an axis twice raises (``check_spec``,
-``cut_indices``, ``serve_layout``), so does a cache length the sequence
-axes do not divide, and the caches of Mamba and RWKV-6 (no sequence
-dim) take the same specs with and without the split.
+``cut_indices``, ``serve_layout``), a cache length the sequence axes do
+not divide leaves the leaf whole along its sequence, with the reference's
+warning, and the caches of Mamba and RWKV-6 (no sequence dim) take the
+same specs with and without the split.
 """
+import warnings
+
 import dataclasses
 
 import numpy as np
@@ -91,24 +104,30 @@ def ranks(params_np, tmp_path_factory):
             for world in (2, 4)}
 
 
-def one_device_run(params_np, case, b, dtype="float32"):
+def one_device_run(params_np, case, b, max_len=w.SEQ_MAX_LEN,
+                   dtype="float32"):
     cfg = w.seq_cfg(case, dtype)
     params = model_params_from_arrays(params_np[case], cfg, device="cpu")
     with w.expert_slots() as slots:
-        logits, toks, cache, _ = w.seq_steps(cfg, params,
-                                             w.seq_tokens(cfg, b))
+        logits, toks, cache, _, _ = w.seq_steps(
+            cfg, params, w.seq_batch(cfg, b), max_len=max_len)
     return {"logits": logits, "tokens": toks, "expert_slots": sum(slots),
             "cache": {k: v.float().numpy() for k, v in cache.items()}}
 
 
-#: (case, batch) of each run; two layouts share a run where they agree
-RUNS = sorted({(case, LAYOUT[layout][5]) for layout, case in CASES})
+def run_of(layout, case):
+    """(case, batch, max_len) of a layout's run of ``case``."""
+    return case, LAYOUT[layout][5], w.seq_max_len(layout)
+
+
+#: the runs of every layout; two layouts share a run where they agree
+RUNS = sorted({run_of(layout, case) for layout, case in CASES})
 
 
 @pytest.fixture(scope="module")
 def one_device(params_np):
     runs = {run: one_device_run(params_np, *run) for run in RUNS}
-    return {(layout, case): runs[(case, LAYOUT[layout][5])]
+    return {(layout, case): runs[run_of(layout, case)]
             for layout, case in CASES}
 
 
@@ -116,7 +135,7 @@ def one_device(params_np):
 def reference(jref, params_np, one_device):
     jnp = jref.jax.numpy
     runs = {}
-    for case, b in RUNS:
+    for case, b, max_len in RUNS:
         jcfg = w.seq_cfg(case, "float32", jref.configs.get_smoke_config)
         jparams = {k: jnp.asarray(v) for k, v in params_np[case].items()}
         prefill = jref.jax.jit(
@@ -125,20 +144,20 @@ def reference(jref, params_np, one_device):
             lambda p, c, bt, cfg=jcfg: jref.model.decode_step(p, cfg, c, bt))
         toks = next(one_device[(layout, c)]["tokens"]
                     for layout, c in CASES
-                    if c == case and LAYOUT[layout][5] == b)
+                    if run_of(layout, c) == (case, b, max_len))
         with jref.ops.pallas_mode(True, interpret=True):
-            cache = jref.model.init_cache(jcfg, b, w.SEQ_MAX_LEN)
+            cache = jref.model.init_cache(jcfg, b, max_len)
             logits, cache = prefill(
-                jparams, {"tokens": jnp.asarray(w.seq_tokens(jcfg, b))},
-                cache)
+                jparams, {k: jnp.asarray(v)
+                          for k, v in w.seq_batch(jcfg, b).items()}, cache)
             got = [np.asarray(logits)]
             for step in range(w.SEQ_DECODE):
                 logits, cache = decode(jparams, cache, {
                     "token": jnp.asarray(toks[:, step:step + 1]
                                          .astype(np.int32))})
                 got.append(np.asarray(logits))
-        runs[(case, b)] = got
-    return {(layout, case): runs[(case, LAYOUT[layout][5])]
+        runs[(case, b, max_len)] = got
+    return {(layout, case): runs[run_of(layout, case)]
             for layout, case in CASES}
 
 
@@ -172,49 +191,65 @@ def test_matches_the_reference(ranks, reference, layout, case):
 
 @pytest.mark.parametrize("layout, case", CASES, ids=IDS)
 def test_rank_holds_its_chunk(ranks, layout, case):
-    """Each rank's attention cache holds 1/n of the sequence (every KV
-    head where the sequence takes ``model``) of its rows."""
+    """Each rank's attention caches hold 1/n of the sequence (every KV
+    head where the sequence takes ``model``) of its rows, where n divides
+    the cache's length (``max_len``, or whisper's ``encoder_seq``); where
+    it does not, the whole sequence, as without the split."""
     _, world, shape, axes, seq_axis, b, _ = LAYOUT[layout]
     cfg = w.seq_cfg(case)
     mesh = dict(zip(axes, shape))
     n_seq = sh.axis_size(mesh, tuple(a for a in sh.entry_names(seq_axis)
                                      if a in mesh))
     rows = b // (shape[0] * shape[1] if layout == "rows_pod_data" else 1)
-    whole = {k: d.shape for k, d in M.cache_schema(
-        cfg, b, w.SEQ_MAX_LEN).items()}
+    max_len = w.seq_max_len(layout)
+    whole = {k: d.shape for k, d in M.cache_schema(cfg, b, max_len).items()}
+    plain = w.serve_plan_shapes(cfg, mesh, b, max_len)[1]
+    split = {"attn": n_seq > 1 and max_len % n_seq == 0,
+             "cross": n_seq > 1 and cfg.encoder_seq % n_seq == 0}
+    checked = 0
     for rec in records(ranks, layout, case):
+        assert rec["split"] == (split["attn"],
+                                cfg.encdec and split["cross"])
         for name, got in rec["cache_shapes"].items():
-            if not name.endswith((".attn.k", ".attn.v", ".attn.ckv",
+            if not name.endswith((".k", ".v", ".attn.ckv",
                                   ".attn.k_rope")):
                 continue
-            want = list(whole[name])
-            want[1] = rows
-            want[2] //= n_seq
-            if layout == "seq_model" and name.endswith(".attn.k"):
-                assert got[3] == cfg.attention.num_kv_heads
-            assert got == tuple(want), (name, got, want)
+            if n_seq > 1 and not split[
+                    "cross" if ".cross." in name else "attn"]:
+                # as without the split
+                assert got == plain[name], (name, got, plain[name])
+            else:
+                want = list(whole[name])
+                want[1] = rows
+                want[2] //= n_seq
+                if layout == "seq_model" and name.endswith(".k"):
+                    assert got[3] == cfg.attention.num_kv_heads
+                assert got == tuple(want), (name, got, want)
+            checked += 1
+    assert checked
 
 
 def test_bf16_within_c8(ranks, params_np):
-    one = one_device_run(params_np, "llama", 4, "bfloat16")
+    one = one_device_run(params_np, "llama", 4, dtype="bfloat16")
     for rec in records(ranks, "seq_model", "llama", "bfloat16"):
         np.testing.assert_array_equal(rec["tokens"], one["tokens"])
         for a, b in zip(rec["logits"], one["logits"]):
             assert err(a, b) <= BF16_TOL, err(a, b)
 
 
-def test_engine_serves_the_one_device_tokens(ranks, params_np):
+@pytest.mark.parametrize("layout", ["seq_model", "seq_model_odd"])
+def test_engine_serves_the_one_device_tokens(ranks, params_np, layout):
     cfg = w.seq_cfg("llama")
     params = model_params_from_arrays(params_np["llama"], cfg, device="cpu")
     from repro_torch.serve.engine import Request, ServeEngine
-    eng = ServeEngine(cfg, params, slots=4, max_len=w.SEQ_MAX_LEN,
+    eng = ServeEngine(cfg, params, slots=4, max_len=w.seq_max_len(layout),
                       device="cpu")
     want = [r.output for r in sorted(eng.serve([
         Request(rid=i, prompt=p, max_new=w.ENGINE_NEW)
         for i, p in enumerate(w.engine_prompts(cfg))]),
         key=lambda r: r.rid)]
     for r in ranks[2]:
-        assert r[("seq_model", "engine")] == want
+        assert r[(layout, "engine")] == want
 
 
 @pytest.mark.parametrize("layout", [c[0] for c in w.SEQ_LAYOUTS])
@@ -225,6 +260,12 @@ def test_collectives_issued(ranks, layout):
         if layout == "rows_pod_data":
             assert coll["all-gather"]["count"] == steps
             assert coll["all-reduce"]["count"] == 0
+        elif layout == "seq_model_odd":
+            # the self-attention caches whole: llama's step issues what it
+            # issues without shard_cache_seq
+            if case == "llama":
+                assert coll == records(ranks, layout, case,
+                                       "plain")[0]["collectives"]
         else:
             # a decode step's max and sum over the sequence axes, and its
             # chunks' output, each attention layer
@@ -271,10 +312,58 @@ def test_a_spec_naming_an_axis_twice_raises():
         M.serve_layout(w.seq_cfg("llama_mqa"),
                        w.seq_parallel(("data", "model")), mesh, 2,
                        w.SEQ_MAX_LEN)
-    # a cache the sequence axes do not divide
-    with pytest.raises(ValueError, match="does not split"):
-        M.serve_layout(w.seq_cfg("llama"), w.seq_parallel("model"),
-                       {"data": 1, "model": 2}, 4, 127)
+    # whisper's cross cache over (data, model) beside two KV heads over
+    # model
+    with pytest.raises(ValueError, match="twice"):
+        M.serve_layout(w.seq_cfg("whisper"),
+                       w.seq_parallel(("data", "model")), mesh, 1,
+                       w.SEQ_MAX_LEN)
+
+
+def test_a_cache_the_axes_do_not_divide_stays_whole():
+    """127 positions over model=2: the reference's specs leave the
+    self-attention caches whole along their sequence (the KV heads over
+    model, as without the split), and so does the placement, warning
+    once with the axis and the size; the serving mesh splits no work
+    along the sequence. Whisper's cross cache of 16 still splits."""
+    mesh = {"data": 1, "model": 2}
+    plain = M.serve_layout(w.seq_cfg("llama"), w.seq_parallel(
+        "model").__class__(fsdp_axis=None), mesh, 4, w.SEQ_ODD_LEN)[1]
+    sh._REPLICATION_WARNED.clear()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        got = M.serve_layout(w.seq_cfg("llama"), w.seq_parallel("model"),
+                             mesh, 4, w.SEQ_ODD_LEN)[1]
+    assert got == plain
+    msgs = [str(m.message) for m in caught]
+    assert any("dim 127 is not divisible by mesh axis 'model' (size 2)"
+               in m for m in msgs), msgs
+    wcfg = w.seq_cfg("whisper")
+    got = M.serve_layout(wcfg, w.seq_parallel("model"), mesh, 4,
+                         w.SEQ_ODD_LEN)[1]
+    for name, (spec, _, _) in got.items():
+        if name.endswith((".cross.k", ".cross.v")):
+            assert spec[-3] == "model", (name, spec)
+        elif name.endswith((".attn.k", ".attn.v")):
+            assert spec[-3] is None and spec[-2] == "model", (name, spec)
+
+
+def test_an_odd_cache_serves_as_without_the_split(ranks, params_np):
+    """``seq_model_odd``: smoke llama3.2 with a 127-position cache and
+    ``shard_cache_seq`` over model=2 serves bitwise what it serves
+    without ``shard_cache_seq``, warning that the cache's sequence stays
+    whole; ``ServeEngine(mesh=)`` serves one device's tokens."""
+    for rec_split, rec_plain in zip(
+            records(ranks, "seq_model_odd", "llama"),
+            records(ranks, "seq_model_odd", "llama", "plain")):
+        np.testing.assert_array_equal(rec_split["tokens"],
+                                      rec_plain["tokens"])
+        for a, b in zip(rec_split["logits"], rec_plain["logits"]):
+            np.testing.assert_array_equal(a, b)
+        assert rec_split["split"] == (False, False)
+        assert any("dim 127 is not divisible by mesh axis 'model'" in m
+                   for m in rec_split["warnings"]), rec_split["warnings"]
+        assert not rec_plain["warnings"]
 
 
 @pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "rwkv6-7b"])

@@ -97,6 +97,10 @@ def params_np(jref):
     out[w.EXPERTS_OVER_MODEL] = {k: np.asarray(v) for k, v in
                                  jref.model.init_params(
                                      jcfg, jref.jax.random.PRNGKey(40)).items()}
+    jcfg = w.experts_cfg(w.ODD_EXPERTS, jref.configs.get_smoke_config)
+    out["odd_experts"] = {k: np.asarray(v) for k, v in
+                          jref.model.init_params(
+                              jcfg, jref.jax.random.PRNGKey(41)).items()}
     return out
 
 
@@ -280,14 +284,66 @@ def test_experts_over_the_model_axis_serve(ranks, params_np, world):
             cfg.num_layers, m.num_experts // size, cfg.d_model, m.d_ff)
 
 
-def test_training_refuses_experts_over_the_model_axis():
-    """Training's step gathers every expert over its FSDP axis and runs
-    no expert exchange: experts over ``model`` raise there, naming it
-    (ROADMAP: a refusal that stays)."""
-    from repro_torch.train.steps import make_train_step
-    cfg = w.smoke("float32", w.EXPERTS_OVER_MODEL)
-    with pytest.raises(NotImplementedError,
-                       match="experts over the tensor-parallel axis"):
-        make_train_step(cfg, OptimizerConfig(**w.OPT),
-                        ParallelConfig(expert_axis="model"), "cpu",
-                        mesh={"data": 1, "model": 2})
+@pytest.fixture(scope="module")
+def experts_ones(params_np):
+    """The port's one-device training runs of smoke moonshot (8 experts)
+    and of its 6-expert variant."""
+    par = ParallelConfig(batch_axes=("data",), remat="full")
+    return {name: w.one_device_run(
+        w.experts_cfg(n), OptimizerConfig(**w.OPT), par, params_np[name],
+        w.train_batch(w.experts_cfg(n).vocab_size, s=w.MOE_SEQ))
+        for name, n in ((w.EXPERTS_OVER_MODEL, None),
+                        ("odd_experts", w.ODD_EXPERTS))}
+
+
+@pytest.fixture(scope="module")
+def experts_ref(jref):
+    """The reference's first loss and gradients of smoke moonshot."""
+    return reference_train_grads(
+        jref, {}, w.EXPERTS_OVER_MODEL, 40,
+        w.train_batch(w.experts_cfg().vocab_size, s=w.MOE_SEQ), w.OPT)
+
+
+@pytest.mark.parametrize("world, name", [
+    (2, w.EXPERTS_OVER_MODEL), (4, w.EXPERTS_OVER_MODEL),
+    (4, "odd_experts")], ids=["data1_model2", "data2_model2",
+                              "odd_experts_model4"])
+def test_experts_over_the_model_axis_train(ranks, experts_ones,
+                                           experts_ref, world, name):
+    """``make_train_step(..., ParallelConfig(expert_axis="model"),
+    mesh=)``: smoke moonshot over (data, model) = (1, 2) and (2, 2); each
+    rank computes with ``E / size`` experts at their whole width, routes
+    its rows as one device does and its experts' results are summed over
+    ``model``. The first loss and every leaf's first gradient, and two
+    steps' losses, against one device and (8 experts) the reference.
+    With 6 experts over model=4 every rank holds every expert, their
+    width split over ``model`` (row-parallel), and no expert's results
+    are summed."""
+    metrics, _, grads = experts_ones[name]
+    cfg = w.experts_cfg(w.ODD_EXPERTS if name == "odd_experts" else None)
+    recs = [r[("train", name)] for r in ranks[world]]
+    got = recs[0]
+    size = (w.FALLBACK_MESHES[world] if name == "odd_experts"
+            else w.EXPERT_TRAIN_MESHES[world])[1]
+    m = cfg.moe
+    # experts over model at their whole width, or (6 over 4) every expert
+    # with its width over model, as the reference's specs place them
+    want = ((cfg.num_layers, m.num_experts, cfg.d_model, m.d_ff // size)
+            if m.num_experts % size else
+            (cfg.num_layers, m.num_experts // size, cfg.d_model, m.d_ff))
+    for r in recs:
+        assert r["metrics"] == got["metrics"]
+        assert r["compute_shape"] == want
+    assert rel(got["metrics"][0]["loss"], metrics[0]["loss"]) <= LOSS_RTOL
+    for g, m in zip(got["metrics"][1:], metrics[1:]):
+        assert rel(g["loss"], m["loss"]) <= LOSS_RTOL, (g, m)
+    for k in grads:
+        mine = got["grads"][f"['{k}']"]
+        assert leaf_err(mine, grads[k]) <= GRAD_RTOL, (k, leaf_err(
+            mine, grads[k]))
+    if name == w.EXPERTS_OVER_MODEL:
+        _, jm, jgrads = experts_ref
+        assert rel(got["metrics"][0]["loss"], jm["loss"]) <= LOSS_RTOL
+        for k in grads:
+            assert leaf_err(got["grads"][f"['{k}']"], jgrads[k]) <= \
+                GRAD_RTOL, k

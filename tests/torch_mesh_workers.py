@@ -894,23 +894,41 @@ SEQ_CASES = (("llama", "llama3.2-1b", {}),
              ("jamba", "jamba-1.5-large-398b", {"moe": None}),
              ("jamba_mqa", "jamba-1.5-large-398b",
               {"moe": None, "num_kv_heads": 1}),
-             ("jamba_moe_mqa", "jamba-1.5-large-398b", {"num_kv_heads": 1}))
+             ("jamba_moe_mqa", "jamba-1.5-large-398b", {"num_kv_heads": 1}),
+             ("whisper", "whisper-small", {}),
+             ("whisper_mqa", "whisper-small", {"num_kv_heads": 1}),
+             ("whisper_enc15", "whisper-small", {"encoder_seq": 15}))
 #: (layout, world, mesh shape, axes, seq_axis, batch, cases): the
-#: sequence over model; over (data, model) with a batch of one (the
-#: reference's long_500k layout; Jamba with experts too, its expert
-#: ranks sharing their one row, so every row takes the gathered experts);
-#: rows over (pod, data), the sequence over a model axis of one (its
-#: multi-pod decode_32k layout)
+#: sequence over model (whisper's cross-attention cache too: its 16
+#: encoder positions in two chunks; with 15 it stays whole); over (data,
+#: model) with a batch of one (the reference's long_500k layout; Jamba
+#: with experts too, its expert ranks sharing their one row, so every
+#: row takes the gathered experts; whisper's cross cache in four
+#: chunks); rows over (pod, data), the sequence over a model axis of one
+#: (its multi-pod decode_32k layout); the sequence over model with a
+#: cache of SEQ_ODD_LEN positions, which 2 does not divide: the
+#: self-attention caches stay whole, as the reference's specs leave them
+#: (whisper's cross cache still splits)
 SEQ_LAYOUTS = (("seq_model", 2, (1, 2), ("data", "model"), "model", 4,
-                ("llama", "minicpm3", "jamba", "llama_fb", "minicpm3_fb")),
+                ("llama", "minicpm3", "jamba", "llama_fb", "minicpm3_fb",
+                 "whisper", "whisper_enc15")),
                ("seq_data_model", 4, (2, 2), ("data", "model"),
                 ("data", "model"), 1, ("llama_mqa", "minicpm3",
-                                       "jamba_mqa", "jamba_moe_mqa")),
+                                       "jamba_mqa", "jamba_moe_mqa",
+                                       "whisper_mqa")),
                ("rows_pod_data", 4, (2, 2, 1), ("pod", "data", "model"),
-                "model", 4, ("llama", "minicpm3", "jamba")))
+                "model", 4, ("llama", "minicpm3", "jamba")),
+               ("seq_model_odd", 2, (1, 2), ("data", "model"), "model", 4,
+                ("llama", "minicpm3", "whisper")))
 #: a cache of 128 positions, prompts of 64 (the chunk boundary at 2 ranks,
 #: two chunks at 4), 4 greedy decode steps
 SEQ_MAX_LEN, SEQ_PROMPT, SEQ_DECODE = 128, 64, 4
+#: the cache length of the layout ``seq_model_odd``
+SEQ_ODD_LEN = 127
+
+
+def seq_max_len(layout):
+    return SEQ_ODD_LEN if layout == "seq_model_odd" else SEQ_MAX_LEN
 
 
 def seq_parallel(seq_axis):
@@ -939,27 +957,36 @@ def seq_tokens(cfg, b, seed=5):
     return rng.integers(1, cfg.vocab_size, (b, SEQ_PROMPT)).astype(np.int32)
 
 
-def seq_steps(cfg, params, tokens, mesh=None, parallel=None):
+def seq_batch(cfg, b):
+    """The prefill batch: {"tokens"} (+ whisper's "frames")."""
+    batch = {"tokens": seq_tokens(cfg, b)}
+    if cfg.encdec:
+        rng = np.random.default_rng(6)
+        batch["frames"] = rng.standard_normal(
+            (b, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    return batch
+
+
+def seq_steps(cfg, params, batch_np, mesh=None, parallel=None,
+              max_len=SEQ_MAX_LEN):
     """Prefill and SEQ_DECODE greedy steps: (logits of each step, tokens
-    [b, steps + 1], the cache, its placement)."""
+    [b, steps + 1], the cache, its placement, the serving mesh)."""
     from repro_torch.distributed import sharding as sh
     from repro_torch.models import model as M
     from repro_torch.serve.steps import make_decode_step, make_prefill_step
-    b = tokens.shape[0]
-    rows, cplace = np.arange(b), None
+    b = batch_np["tokens"].shape[0]
+    rows, cplace, smesh = np.arange(b), None, None
     if mesh is not None:
-        smesh = sh.ServeMesh.of(mesh, parallel)
+        smesh = M.serve_mesh_of(cfg, parallel, mesh, max_len)
         rows = sh.batch_rows(b, smesh.batch_rank, smesh.batch_size)
-        pplace, cplace = M.serve_placement(cfg, parallel, mesh, b,
-                                           SEQ_MAX_LEN)
+        pplace, cplace = M.serve_placement(cfg, parallel, mesh, b, max_len)
         params = M.place_params(params, pplace)
     params = M.compute_params(params, cfg, "cpu")
-    prefill = make_prefill_step(cfg, parallel, mesh)
-    decode = make_decode_step(cfg, parallel, mesh)
-    cache = M.init_cache(cfg, b, SEQ_MAX_LEN, device="cpu",
-                         placement=cplace)
-    logits, cache = prefill(params, {"tokens": torch.from_numpy(
-        tokens[rows])}, cache)
+    prefill = make_prefill_step(cfg, parallel, mesh, max_len)
+    decode = make_decode_step(cfg, parallel, mesh, max_len)
+    cache = M.init_cache(cfg, b, max_len, device="cpu", placement=cplace)
+    logits, cache = prefill(params, {k: torch.from_numpy(v[rows])
+                                     for k, v in batch_np.items()}, cache)
     out = [logits.float().numpy().copy()]
     toks = [logits[:, -1].argmax(-1).numpy()]
     for _ in range(SEQ_DECODE):
@@ -967,7 +994,7 @@ def seq_steps(cfg, params, tokens, mesh=None, parallel=None):
         logits, cache = decode(params, cache, {"token": tok})
         out.append(logits.float().numpy().copy())
         toks.append(logits[:, -1].argmax(-1).numpy())
-    return out, np.stack(toks, 1), cache, cplace
+    return out, np.stack(toks, 1), cache, cplace, smesh
 
 
 @contextlib.contextmanager
@@ -995,22 +1022,30 @@ def seq_worker(rank, world, params_np):
     from repro_torch.convert import model_params_from_arrays
     from repro_torch.distributed import sharding as sh
     from repro_torch.serve.engine import Request, ServeEngine
+    import warnings
     out = {}
     for layout, w, shape, axes, seq_axis, b, cases in SEQ_LAYOUTS:
         if w != world:
             continue
         mesh = cpu_mesh(shape, axes)
         par = seq_parallel(seq_axis)
-        runs = [(case, "float32") for case in cases]
+        max_len = seq_max_len(layout)
+        runs = [(case, "float32", par) for case in cases]
         if layout == "seq_model":
-            runs.append(("llama", "bfloat16"))
-        for case, dtype in runs:
-            cfg = seq_cfg(case, dtype)
+            runs.append(("llama", "bfloat16", par))
+        if layout == "seq_model_odd":
+            # the same case served without shard_cache_seq
+            runs.append(("llama", "plain", type(par)(fsdp_axis=None)))
+        for case, dtype, run_par in runs:
+            cfg = seq_cfg(case, "float32" if dtype == "plain" else dtype)
             params = model_params_from_arrays(params_np[case], cfg,
                                               device="cpu")
-            with sh.tally() as coll, expert_slots() as slots:
-                logits, toks, cache, cplace = seq_steps(
-                    cfg, params, seq_tokens(cfg, b), mesh, par)
+            sh._REPLICATION_WARNED.clear()      # each run warns afresh
+            with sh.tally() as coll, expert_slots() as slots, \
+                    warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                logits, toks, cache, cplace, smesh = seq_steps(
+                    cfg, params, seq_batch(cfg, b), mesh, run_par, max_len)
             out[(layout, case, dtype)] = {
                 "logits": logits, "tokens": toks,
                 "expert_slots": sum(slots),
@@ -1018,12 +1053,15 @@ def seq_worker(rank, world, params_np):
                           for k, v in cache.items()},
                 "cache_shapes": {k: tuple(v.shape)
                                  for k, v in cache.items()},
-                "collectives": coll}
-        if layout == "seq_model":
+                "collectives": coll,
+                "split": (smesh.seq_self, smesh.seq_cross),
+                "warnings": [str(m.message) for m in caught
+                             if issubclass(m.category, RuntimeWarning)]}
+        if layout in ("seq_model", "seq_model_odd"):
             cfg = seq_cfg("llama")
             eng = ServeEngine(cfg, model_params_from_arrays(
                 params_np["llama"], cfg, device="cpu"), mesh=mesh,
-                parallel=par, slots=4, max_len=SEQ_MAX_LEN, device="cpu")
+                parallel=par, slots=4, max_len=max_len, device="cpu")
             reqs = [Request(rid=i, prompt=p, max_new=ENGINE_NEW)
                     for i, p in enumerate(engine_prompts(cfg))]
             out[(layout, "engine")] = [
@@ -1068,6 +1106,40 @@ EXPERTS_OVER_MODEL = "moonshot-v1-16b-a3b"
 FALLBACK_TRAIN = ("gqa3", "gqa12", "mla3", "mamba", "rwkv3", "moe_odd")
 #: the (data, model) mesh of each world
 FALLBACK_MESHES = {2: (1, 2), 4: (1, 4)}
+#: the (data, model) mesh each world trains EXPERTS_OVER_MODEL over (with
+#: ``expert_axis="model"``), and at world 4 smoke moonshot with 6
+#: experts over (1, 4), which 4 does not divide (the experts whole on
+#: every rank)
+EXPERT_TRAIN_MESHES = {2: (1, 2), 4: (2, 2)}
+ODD_EXPERTS = 6
+
+
+def experts_cfg(num_experts=None, get_smoke_config=None):
+    """Smoke moonshot in float32 (with ``num_experts``)."""
+    import dataclasses
+    if get_smoke_config is None:
+        from repro_torch.configs import get_smoke_config
+    cfg = get_smoke_config(EXPERTS_OVER_MODEL)
+    if num_experts is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, num_experts=num_experts))
+    return dataclasses.replace(cfg, dtype="float32")
+
+
+def experts_train(cfg, mesh, params_np, rank):
+    """Two steps of ``cfg`` over ``mesh`` with the experts over ``model``
+    (remat "full"): the metrics, the first gradients (rank 0, gathered
+    whole) and the shape of the first expert leaf a rank computes
+    with."""
+    from repro_torch.config import OptimizerConfig, ParallelConfig
+    par = ParallelConfig(batch_axes=("data",), expert_axis="model",
+                         remat="full")
+    metrics, _, grads, state, step = mesh_run(
+        cfg, OptimizerConfig(**OPT), par, mesh, params_np,
+        train_batch(cfg.vocab_size, s=MOE_SEQ))
+    leaf = "stack.blk0.moe.w_gate"
+    return {"metrics": metrics, "grads": grads if rank == 0 else None,
+            "compute_shape": tuple(step.compute_params(state[0])[leaf].shape)}
 
 
 def fallback_overrides(case, get_smoke_config):
@@ -1140,4 +1212,11 @@ def fallback_worker(rank, world, params_np):
             fallback_batch(case))
         out[("train", case)] = {"metrics": metrics,
                                 "grads": grads if rank == 0 else None}
+    shape = EXPERT_TRAIN_MESHES[world]
+    out[("train", EXPERTS_OVER_MODEL)] = experts_train(
+        experts_cfg(), cpu_mesh(shape, ("data", "model")),
+        params_np[EXPERTS_OVER_MODEL], rank)
+    if world == 4:
+        out[("train", "odd_experts")] = experts_train(
+            experts_cfg(ODD_EXPERTS), mesh, params_np["odd_experts"], rank)
     return out
