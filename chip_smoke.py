@@ -21,8 +21,9 @@ with phase 11's registered policies translated into them), then:
 1. prints the card (``nvidia-smi`` name and power limit) and the build,
    and checks the machine code (``cuobjdump -sass``): HGMMA and TMA loads
    in each of the 36 bf16 flash kernels (q/k and v storage dims 16-256),
-   no local memory in those of d = 256, HMMA and cp.async in the WKV
-   library, the MUFU's
+   no local memory in those of d = 256, HMMA and cp.async in each of the
+   6 float32 ones (dv storage dims 16-256), no local memory at dv 256,
+   HMMA and cp.async in the WKV library, the MUFU's
    exp2 and cp.async in the selective-scan library, cp.async and no
    float32 division check in the series policy scans (1b);
 2. holds each kernel against its plain PyTorch version on the card,
@@ -44,11 +45,11 @@ with phase 11's registered policies translated into them), then:
    forecasts x 16 fault futures) held the same way (4c); and a
    4,096-row chaos sweep in series mode against its aggregate twin (4d);
 5. the serving slices. Jamba-1.5-Large without experts: the flash
-   kernels against their plain version on random blocks (float32 on the
-   CUDA cores, bf16 on the tensor cores; causal or not, GQA g 1, 4 and
-   8, head dims 64 and 128 (10a takes the others), sq and sk around the
-   128-row tile and unequal,
-   and the prefill shape; 5a); the selective-scan kernel likewise (s 1,
+   kernels against their plain version on random blocks (both on the
+   tensor cores: float32 in 3xTF32 mma.sync, bf16 in wgmma; causal or
+   not, GQA g 1, 4 and 8, head dims 64 and 128 (10a takes the others), sq
+   and sk around the 128-row tile and unequal, and for float32 around its
+   64-row q tile and 32-key tiles, and the prefill shape; 5a); the selective-scan kernel likewise (s 1,
    37, 63, 64, 65, 256 and 2,048 around its 32-step chunks, n 16, 4 and
    13, di 1000 and 999, a carried-in state left unchanged, runs split at
    steps 1, 37, 64, 65 and 100 against one whole run; 5b); the
@@ -297,7 +298,8 @@ FAULT_AGG_OPS = 3                                   # A_FLTH, A_FOKH
 #: attention's matrix products
 BF16_OPS_PER_S = 989e12
 #: H100 SXM dense TF32 tensor-core peak (NVIDIA data sheet), the bound of
-#: the chunked WKV kernel's products (its 3xTF32 split counted once)
+#: the chunked WKV kernel's and the float32 flash kernel's products (their
+#: 3xTF32 split counted once)
 TF32_OPS_PER_S = 495e12
 #: the model kernels against their plain versions (atol = rtol over
 #: |want|): float32 sums run in another order with contracted
@@ -945,7 +947,8 @@ def close_or_raise(name, got, want, tol):
 def check_flash_random_blocks(dev):
     """Phase 5a: the flash kernels against ref.flash_attention: both types
     on random blocks, then bf16 (the wgmma kernel) around its 128-row
-    tiles and at the serving path's prefill shape."""
+    tiles and at the serving path's prefill shape, and float32 (the
+    3xTF32 kernel) around its 32-key and 64-row tiles."""
     from repro_torch.kernels import flash_attention as fk, ref
     g = torch.Generator(device=dev).manual_seed(SEED)
     cases = [(2, 200, 200, 8, 8, 64),      # g 1, sq not a multiple of 64
@@ -956,13 +959,17 @@ def check_flash_random_blocks(dev):
                   for sq, sk in ((127, 129), (129, 127), (300, 129),
                                  (129, 300), (300, 300))]
     bf16_cases.append((4, 2048, 2048, 64, 8, 128))   # the prefill shape
+    # float32 around its kernel's 32-key tiles and 64-row q tile
+    f32_cases = [(1, sq, sk, 8, 2, d) for d in (64, 128)
+                 for sq, sk in FLASH_F32_SEQS + ((63, 65), (65, 127))]
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     fk.reset_launches()
     n_cases = 0
     for (b, sq, sk, h, kh, d), dtypes, causals in (
             [(c, (torch.float32, torch.bfloat16), (True, False))
              for c in cases]
-            + [(c, (torch.bfloat16,), (True, False)) for c in bf16_cases]):
+            + [(c, (torch.bfloat16,), (True, False)) for c in bf16_cases]
+            + [(c, (torch.float32,), (True, False)) for c in f32_cases]):
         for causal in causals:
             for dtype in dtypes:
                 q = torch.randn(b, sq, h, d, generator=g, device=dev)
@@ -978,13 +985,14 @@ def check_flash_random_blocks(dev):
                 worst[dtype] = max(worst[dtype], err)
                 n_cases += 1
     torch.cuda.synchronize()
-    n_f32 = len(cases) * 2
+    n_f32 = len(cases) * 2 + len(f32_cases) * 2
     check(fk.launches == {"flash_attention": n_cases - n_f32,
                           "flash_attention_f32": n_f32}, fk.launches)
     print(f"phase 5a: flash kernels vs plain on {n_cases} random blocks "
           f"(causal or not, g 1/4/8, d 64/128 (phase 10a takes the other "
           f"head dims), sq and sk 64-300 around "
-          f"the 128-row tile, and the prefill shape in bf16): max abs "
+          f"the 128-row tile (float32 also 31-127 around its 32-key and "
+          f"64-row tiles), and the prefill shape in bf16): max abs "
           f"error float32 {worst[torch.float32]:.3g} (tol "
           f"{MODEL_TOL[torch.float32]:g}), bf16 "
           f"{worst[torch.bfloat16]:.3g} (tol {MODEL_TOL[torch.bfloat16]:g});"
@@ -1002,20 +1010,27 @@ FLASH_RULE_PAIRS = ((8, 8), (192, 192), (256, 64), (64, 256), (136, 200),
 FLASH_DIM_SEQS = ((63, 63), (64, 64), (65, 65), (127, 127), (129, 129),
                   (300, 300), (63, 129), (64, 300), (65, 63), (127, 64),
                   (129, 65), (300, 127))
+#: float32 only: sq and sk around the float32 kernel's 32-key tiles (its
+#: 64-row q tile is among FLASH_DIM_SEQS)
+FLASH_F32_SEQS = ((31, 33), (32, 32), (33, 31), (95, 97), (97, 96))
 
 
 def check_flash_dims_random_blocks(dev):
     """Phase 10a: both flash kernels against ref.flash_attention at the
     head dims phase 10's configs use (dqk != dv for MLA), causal or not,
     GQA g 1 and 7, sq and sk around the 128-row q tile and the 64-key
-    tile of d = 256; then one block at each further pair of the rule.
-    Holds the launch counts. Returns the cases run."""
+    tile of d = 256 (and, float32 only, the float32 kernel's 32-key
+    tiles); then one block at each further pair of the rule. Holds the
+    launch counts. Returns the cases run."""
     from repro_torch.kernels import flash_attention as fk, ref
     g = torch.Generator(device=dev).manual_seed(SEED + 10)
     cases = [(1, sq, sk, h, kh, dq, dv, causal, dtype)
              for dq, dv in FLASH_DIM_PAIRS for sq, sk in FLASH_DIM_SEQS
              for h, kh in ((4, 4), (14, 2)) for causal in (True, False)
              for dtype in (torch.float32, torch.bfloat16)]
+    cases += [(1, sq, sk, h, kh, dq, dv, causal, torch.float32)
+              for dq, dv in FLASH_DIM_PAIRS for sq, sk in FLASH_F32_SEQS
+              for h, kh in ((4, 4), (14, 2)) for causal in (True, False)]
     cases += [(2, 129, 200, 14, 2, dq, dv, causal, dtype)
               for dq, dv in FLASH_RULE_PAIRS for causal in (True, False)
               for dtype in (torch.float32, torch.bfloat16)]
@@ -1045,7 +1060,7 @@ def check_flash_dims_random_blocks(dev):
         raise AssertionError(f"head dims {(dq, dv)} were not refused")
     print(f"phase 10a: flash kernels vs plain on {len(cases)} random "
           f"blocks ((dqk, dv) {', '.join(map(str, FLASH_DIM_PAIRS))} at "
-          f"sq/sk 63-300, g 1 and 7, causal or not; then "
+          f"sq/sk 31-300, g 1 and 7, causal or not; then "
           f"{', '.join(map(str, FLASH_RULE_PAIRS))}): max abs error "
           f"float32 {worst[torch.float32]:.3g} (tol "
           f"{MODEL_TOL[torch.float32]:g}), bf16 "
@@ -2817,19 +2832,30 @@ def serve_mla_encdec(dev, get_config, get_smoke_config):
 
 
 def flash_bound(b, sq, sk, h, kh, dq, dv, causal, dtype=torch.bfloat16):
-    """(bound_ms, bound_by) of one flash call: 2 b h sq sk (dqk + dv)
-    operations (S = QK^T and PV), half of them when causal, at the bf16
-    tensor-core peak (float32: the float32 peak outside the tensor cores,
-    where that kernel runs); q, k, v and the output once each in
-    ``dtype`` at HBM's rate."""
+    """(bound_ms, bound_by, operations) of one flash call: 2 b h sq sk
+    (dqk + dv) operations (S = QK^T and PV), half of them when causal, at
+    the tensor cores' peak for the type (float32: the TF32 peak, where
+    its kernel runs the products in 3xTF32, the split counted once as
+    ``wkv_bound`` counts it; ``flash_f32_floors`` gives its other two
+    figures); q, k, v and the output once each in ``dtype`` at HBM's
+    rate."""
     flops = 2 * b * h * sq * sk * (dq + dv) / (2 if causal else 1)
     size = 2 if dtype == torch.bfloat16 else 4
     nbytes = size * (b * sq * h * dq + b * sk * kh * (dq + dv)
                      + b * sq * h * dv)
-    peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
+    peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else TF32_OPS_PER_S
     t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes", flops)
+
+
+def flash_f32_floors(flops):
+    """(design floor ms, CUDA-core ms) of a float32 flash call of
+    ``flops`` operations: its three TF32 products at the TF32 peak (the
+    3xTF32 design's floor), and the operations at the float32 peak outside
+    the tensor cores (the bound of a kernel that runs them on the CUDA
+    cores, as the float32 kernel's first form did)."""
+    return 1e3 * 3 * flops / TF32_OPS_PER_S, 1e3 * flops / F32_OPS_PER_S
 
 
 def train_attention_bound(cfg, b, s, remat):
@@ -2896,8 +2922,9 @@ def train_attention_times(dev, cfg, b, s, remat):
 def flash_vs_plain(dev, phase="5d", dtype=torch.bfloat16):
     """The flash kernel at a serving path's prefill shape
     (``FLASH_SHAPES[phase]``, in ``dtype``: bf16 takes the wgmma kernel,
-    float32 the CUDA-core one) against its plain version, with SDPA's
-    time for the table (null where SDPA refuses the shape)."""
+    float32 the 3xTF32 mma.sync one) against its plain version, with
+    SDPA's time for the table (null where SDPA refuses the shape); a
+    float32 call also prints ``flash_f32_floors``' two figures."""
     from repro_torch.kernels import flash_attention as fk, ref
     b, s, h, kh, dq, dv, causal = FLASH_SHAPES[phase]
     g = torch.Generator(device=dev).manual_seed(SEED + 2)
@@ -2933,14 +2960,19 @@ def flash_vs_plain(dev, phase="5d", dtype=torch.bfloat16):
                                             dtype)
     lib = ("not run" if library_ms is None else
            f"{library_ms:.3f} ms (kernel / SDPA {ms / library_ms:.2f})")
+    floors = ""
+    if dtype == torch.float32:
+        floor_ms, cuda_core_ms = flash_f32_floors(flops)
+        floors = (f"; the three TF32 products' floor {floor_ms:.4f} ms, "
+                  f"the CUDA cores' {cuda_core_ms:.4f} ms")
     print(f"{key} ({phase}) at q {list(q.shape)}, k "
           f"{list(k.shape)}, v {list(v.shape)} "
           f"{'bf16' if dtype == torch.bfloat16 else 'float32'} "
           f"{'causal' if causal else 'not causal'}: kernel "
           f"{ms:.3f} ms, plain {plain_ms:.1f} ms, SDPA {lib}, bound "
           f"{bound_ms:.4f} ms ({bound_by}; the kernel at "
-          f"{bound_ms / ms:.1%} of it, {flops / ms / 1e9:.0f} TFLOP/s); max "
-          f"abs error {err:.3g}")
+          f"{bound_ms / ms:.1%} of it, {flops / ms / 1e9:.0f} TFLOP/s"
+          f"{floors}); max abs error {err:.3g}")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms, "shape": [b, s, h, kh, dq, dv],
@@ -5595,15 +5627,29 @@ def sass_flash(tool, build):
     of them) holds wgmma (HGMMA) and TMA loads (UTMALDG); the ones of
     d = 256 (a storage dim past 128, which takes the 64-key tile; dv's
     256 holds 128 accumulator registers a thread) touch no local memory
-    (LDL / STL: no spills)."""
+    (LDL / STL: no spills). Every float32 one (``flash_f32_kernel<DV>``,
+    one per storage dim of dv, 6) holds mma.sync (HMMA)
+    and cp.async (LDGSTS); the one of dv 256 touches no local memory."""
     import re
     sass = subprocess.run([tool, "-sass",
                            str(build.library_path("flash_attention"))],
                           capture_output=True, text=True, check=True).stdout
     local = re.compile(r"\b(LDL|STL)\b")
-    found = {}
+    found, found_f32 = {}, {}
     for fn, lines in sass_functions(sass).items():
         m = re.search(r"flash_wgmma_kernelILi(\d+)ELi(\d+)E", fn)
+        m32 = re.search(r"flash_f32_kernelILi(\d+)E", fn)
+        if m32 is not None:
+            dv = int(m32.group(1))
+            counts = [sum("HMMA" in line for line in lines),
+                      sum("LDGSTS" in line for line in lines),
+                      sum(bool(local.search(line)) for line in lines)]
+            check(counts[0] and counts[1], ("float32", dv, counts))
+            if dv == 256:
+                check(counts[2] == 0, ("local memory", "float32", dv,
+                                       counts))
+            found_f32[dv] = counts
+            continue
         if m is None:
             continue
         dq, dv = int(m.group(1)), int(m.group(2))
@@ -5615,18 +5661,25 @@ def sass_flash(tool, build):
             check(counts[2] == 0, ("local memory", dq, dv, counts))
         found[(dq, dv)] = counts
     check(len(found) == 36, sorted(found))
+    check(sorted(found_f32) == [16, 32, 64, 128, 192, 256],
+          sorted(found_f32))
     print("phase 1b: cuobjdump -sass flash_attention: bf16 kernels "
           "<dqk storage, dv storage>: HGMMA / UTMALDG / LDL+STL "
           "instructions " + ", ".join(
               f"<{dq}, {dv}> {c[0]}/{c[1]}/{c[2]}"
               for (dq, dv), c in sorted(found.items())))
+    print("phase 1b: cuobjdump -sass flash_attention: float32 kernels "
+          "<dv storage>: HMMA / LDGSTS / LDL+STL instructions " + ", ".join(
+              f"<{dv}> {c[0]}/{c[1]}/{c[2]}"
+              for dv, c in sorted(found_f32.items())))
 
 
 def sass_check(build):
     """Phase 1b: the built libraries' machine code holds the instructions
     the redesigned kernels are built on: wgmma (HGMMA) and TMA loads
     (UTMALDG) in each bf16 flash kernel, and no local memory in those of
-    d = 256 (``sass_flash``), mma.sync (HMMA) and cp.async (LDGSTS)
+    d = 256, mma.sync (HMMA) and cp.async (LDGSTS) in each float32 one,
+    and no local memory at dv 256 (``sass_flash``), mma.sync and cp.async
     in rwkv6, the special-function unit's exp2 (MUFU.EX2) and cp.async in
     ssm_scan, and cp.async in both series kernels of policy_scan, which
     have no float32 division check (FCHK, the branch to the IEEE

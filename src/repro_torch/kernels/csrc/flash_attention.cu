@@ -25,7 +25,9 @@
 // with zeros, so the padded q and k columns add exact zeros to S = QK^T
 // and the padded output columns, never stored, are zero: the result is
 // the unpadded arithmetic. The bf16 kernel is a template on both storage
-// dims (36 pairs), the float32 one on dv's (its q/k loop runs to dqk).
+// dims (36 pairs). The float32 kernel stages and multiplies the real dims
+// (whole 8-column groups); only its output sum's registers are sized by
+// dv's storage dim, a template on it (6 kernels).
 //
 // bfloat16: flash_wgmma_kernel<DQ, DV>, on the tensor cores. A block is
 // three warpgroups: a producer and two consumers of 64 query rows each (a
@@ -59,12 +61,58 @@
 // 2 x 2 x 32 KB of K/V stages; at 256 / 256: 64 KB and 2 x 2 x 32 KB; one
 // block (12 warps) an SM.
 //
-// float32: flash_fwd_kernel<DV>, on the CUDA cores (TF32 tensor cores
-// would miss the float32 tolerance, and no full-width path runs float32
-// attention). 128 threads own a 64-row q tile; thread (ty, tx) holds rows
-// 4 ty .. 4 ty + 3 and scores keys tx + 8 j of a 64-key tile; q, k, v and
-// the probability tile are staged in shared memory as float32, rows padded
-// by one word where a warp reads down a column (209 KB at dqk = dv = 256).
+// float32: flash_f32_kernel<DV>, on the tensor cores in
+// 3xTF32 (csrc/tf32_mma.cuh): a float x is split into a TF32 high part
+// and the exact remainder, x = hi + lo, and a product is taken as lo hi +
+// hi lo + hi hi by mma.sync.m16n8k8 with float32 accumulation, within
+// ~2^-20 of the float32 product; one TF32 pass (2^-10) would miss the
+// float32 tolerance of 1e-5. A block is four warps over a 64-row q tile,
+// 16 rows a warp; m, l, S and the output sum live in the mma accumulator
+// layout, a row in the four lanes of a quad (its max and sum two xor
+// shuffles). The q tile is copied once; K and V tiles of 32 keys come by
+// 16-byte cp.async into a ring of two stages, zero-filled past sk (no
+// copy crosses into the next batch row), the next tile's copy in flight
+// while this one's products run, one block barrier a tile. Each group of
+// 8 dims (or keys) is multiplied in a permuted order, A's column q being
+// element 2q of the group and its column q + 4 element 2q + 1 (the
+// group's sum is the same): a lane's two q elements, and its two K
+// elements, then lie side by side in a row (one 8-byte read each), and
+// P goes from the S accumulator to the A operand without shared memory,
+// as (c0, c2, c1, c3), V's B fragment reading key rows 2q and 2q + 1.
+// Row strides (q and K: dqk + 8 or + 16, 8 mod 16 words; V: dv + 4) keep
+// every fragment read on 32 distinct banks and each row 16-byte aligned.
+// S = Q K^T keeps its cross terms in an accumulator of their own, added
+// once a tile. A tile's P V (cross terms first) goes into a sum of its
+// own, added to the running output sum by one rounded multiply-add with
+// the rescale: the tensor core truncates what it adds, and a running sum
+// fed by every tile would gather that error over long rows. Exponentials
+// are exp2 with log2(e) folded into the scale. A warp skips a tile where
+// its rows all lie past sq or every key lies above the diagonal for all
+// of them.
+//
+// The forms measured (PERF.md): what sets the time is how many
+// warps an SM holds to hide the latencies of the fragment reads, splits
+// and mma.sync chains. This form, q fragments read from shared memory and
+// split at each tile, with 32-key tiles, takes 125 registers at dv 64 and
+// 53 KB of shared memory: four blocks (16 warps) an SM. q split once into
+// registers, and 64-key tiles, each cost registers that leave two blocks
+// an SM: 6% faster at a causal 512-row prefill (one wave of blocks),
+// 24-27% slower at whisper-small's encoder shape (three waves), which the
+// serving path launches 72 times as often. K and V split once a tile into (hi,
+// lo) tiles in shared memory (128-bit fragment reads, no splits in the
+// product loops, but a second barrier a tile and the shared memory of the
+// split tiles) measured slower at both. Eight-warp blocks, the float
+// itself as the split's high part, and V's low part rounded before the
+// tensor core reads it measured no better: the largest error at those
+// shapes comes from the low parts' truncation in every product. The key
+// tile is 32 at every dim (ptxas: no spills, 244 registers at dv 256); 6
+// kernels, one per storage dim of dv.
+// mma.sync, not wgmma: a TF32 wgmma needs both operands K-major in shared
+// memory; V arrives [keys, dv], so P V's B operand is MN-major and would
+// need a transposed copy of every tile, and 3xTF32 hi and lo copies of it
+// (csrc/rwkv6.cu records that such a build measured no faster there). Shared
+// memory at dqk = dv = 64: 18 KB of q and 2 x 2 x 9 KB of K/V stages; at 256
+// / 256: 66 KB and 2 x 2 x 33 KB.
 //
 // What bounds it on the H100. The causal prefill of the serving path
 // (b 4, sq = sk 2,048, h 64, kh 8, d 128) is 275 GFLOP: at the tensor
@@ -75,7 +123,15 @@
 // of one tile with the products of the next (two warpgroups an SM
 // interleave instead); that, an output written through registers rather
 // than TMA, and the products spent on padding (37.5% of them at dqk = dv
-// = 80) are what separate it from the bound.
+// = 80) are what separate it from the bound. The float32 kernel at
+// whisper-small's encoder shape (b 4, s 1,500, h 12, d 64, not causal)
+// has 27.6 GFLOP of products: 0.056 ms at the 495 TFLOP/s TF32 peak with
+// the split counted once, 0.168 ms for its three products (the design's
+// floor), against 0.022 ms for its 74 MB of q, k, v and out; so it too is
+// bound by operations. mma.sync issues at most one m16n8k8 an SM a clock
+// (the TF32 peak) and reaches only part of that on Hopper; the splits,
+// the softmax and the fragment reads between the products share the
+// warps' issue slots with it.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -87,6 +143,7 @@
 #include <stdint.h>
 
 #include "smem_opt_in.cuh"
+#include "tf32_mma.cuh"
 
 namespace {
 
@@ -106,162 +163,7 @@ __host__ __device__ constexpr int storage_dim(int d) {
   return d <= 16 ? 16 : d <= 32 ? 32 : d <= 64 ? 64 : (d + 63) / 64 * 64;
 }
 
-constexpr int kBlockQ = 64;
-constexpr int kBlockK = 64;
-constexpr int kThreads = 128;
-constexpr int kRows = kBlockQ / 16;      // query rows per thread
-constexpr int kCols = kBlockK / 8;       // keys per thread per tile
 constexpr float kNegInf = -1e30f;
-static_assert(kBlockQ == kBlockK, "load_tile stages 64-row tiles of both");
-
-// q and k rows of dq floats (+1 word), v rows of DV, the probability tile
-constexpr size_t smem_bytes(int dq, int dv_storage) {
-  return sizeof(float) * (kBlockQ * (dq + 1) + kBlockK * (dq + 1) +
-                          kBlockK * dv_storage + kBlockQ * (kBlockK + 1));
-}
-
-// Copy rows [row0, row0 + 64) of one head of a [b, s, heads, d] tensor
-// into a float tile of `cols` columns and row stride `ld`, zeros past `s`
-// and past column d.
-__device__ __forceinline__ void load_tile(float* tile, int ld, int cols,
-                                          const float* __restrict__ src,
-                                          int batch, int s, int heads,
-                                          int head, int row0, int d) {
-  for (int idx = threadIdx.x; idx < kBlockK * cols; idx += kThreads) {
-    const int r = idx / cols, c = idx % cols;
-    const int pos = row0 + r;
-    float v = 0.f;
-    if (pos < s && c < d) {
-      v = src[(((size_t)batch * s + pos) * heads + head) * d + c];
-    }
-    tile[r * ld + c] = v;
-  }
-}
-
-template <int DV>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o, int sq,
-                 int sk, int h, int kh, int dq, int dv, float scale,
-                 int causal) {
-  extern __shared__ float smem[];
-  float* qs = smem;                              // [64][dq + 1]
-  float* ks = qs + kBlockQ * (dq + 1);           // [64][dq + 1]
-  float* vs = ks + kBlockK * (dq + 1);           // [64][DV]
-  float* ps = vs + kBlockK * DV;                 // [64][65]
-
-  const int bh = blockIdx.x;
-  const int batch = bh / h, head = bh % h;
-  const int kv_head = head / (h / kh);
-  const int n_qtiles = gridDim.y;
-  const int qtile = causal ? n_qtiles - 1 - (int)blockIdx.y : blockIdx.y;
-  const int q0 = qtile * kBlockQ;
-  const int tx = threadIdx.x % 8, ty = threadIdx.x / 8;
-
-  // kv tiles to walk: all, or (causal) those with a key <= the tile's
-  // last query row
-  int n_kv = (sk + kBlockK - 1) / kBlockK;
-  if (causal) {
-    const int last = min(min(q0 + kBlockQ, sq), sk) - 1;
-    n_kv = min(n_kv, last / kBlockK + 1);
-  }
-
-  load_tile(qs, dq + 1, dq, q, batch, sq, h, head, q0, dq);
-
-  float m[kRows], l[kRows], acc[kRows][DV / 8];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < DV / 8; ++j) acc[i][j] = 0.f;
-  }
-
-  for (int jt = 0; jt < n_kv; ++jt) {
-    const int k0 = jt * kBlockK;
-    __syncthreads();                    // the last tile's reads are done
-    load_tile(ks, dq + 1, dq, k, batch, sk, kh, kv_head, k0, dq);
-    load_tile(vs, DV, DV, v, batch, sk, kh, kv_head, k0, dv);
-    __syncthreads();
-
-    float s[kRows][kCols];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int dd = 0; dd < dq; ++dd) {
-      float qr[kRows], kr[kCols];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) qr[i] = qs[(ty * kRows + i) * (dq + 1) + dd];
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) kr[j] = ks[(tx + 8 * j) * (dq + 1) + dd];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) s[i][j] = fmaf(qr[i], kr[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int qpos = q0 + ty * kRows + i;
-      float tile_max = -CUDART_INF_F;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const int kpos = k0 + tx + 8 * j;
-        float x = s[i][j] * scale;
-        if (causal && kpos > qpos) x = kNegInf;
-        if (kpos >= sk) x = -CUDART_INF_F;   // past the keys: weight 0
-        s[i][j] = x;
-        tile_max = fmaxf(tile_max, x);
-      }
-      tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 1));
-      tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 2));
-      tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 4));
-      const float m_new = fmaxf(m[i], tile_max);
-      const float corr = expf(m[i] - m_new);
-      float row_sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        ps[(ty * kRows + i) * (kBlockK + 1) + tx + 8 * j] = p;
-        row_sum += p;
-      }
-      row_sum += __shfl_xor_sync(0xffffffffu, row_sum, 1);
-      row_sum += __shfl_xor_sync(0xffffffffu, row_sum, 2);
-      row_sum += __shfl_xor_sync(0xffffffffu, row_sum, 4);
-      l[i] = l[i] * corr + row_sum;
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < DV / 8; ++j) acc[i][j] *= corr;
-    }
-    __syncthreads();                    // the probability tile is whole
-
-#pragma unroll 4
-    for (int kk = 0; kk < kBlockK; ++kk) {
-      float pr[kRows];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) pr[i] = ps[(ty * kRows + i) * (kBlockK + 1) + kk];
-#pragma unroll
-      for (int j = 0; j < DV / 8; ++j) {
-        const float vv = vs[kk * DV + tx + 8 * j];
-#pragma unroll
-        for (int i = 0; i < kRows; ++i) acc[i][j] = fmaf(pr[i], vv, acc[i][j]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int qpos = q0 + ty * kRows + i;
-    if (qpos >= sq) continue;
-    const float inv_l = 1.f / fmaxf(l[i], 1e-30f);
-    float* dst = o + (((size_t)batch * sq + qpos) * h + head) * dv;
-#pragma unroll
-    for (int j = 0; j < DV / 8; ++j)
-      if (tx + 8 * j < dv) dst[tx + 8 * j] = acc[i][j] * inv_l;
-  }
-}
 
 // ---------------------------------------------------------------------
 // bf16: TMA + wgmma.
@@ -802,6 +704,300 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
+// ---------------------------------------------------------------------
+// float32: 3xTF32 mma.sync, K/V tiles by cp.async.
+
+constexpr int kF32Warps = 4;
+constexpr int kF32Threads = 32 * kF32Warps;
+constexpr int kF32Rows = 16 * kF32Warps;   // q tile: 16 rows a warp
+constexpr int kF32Stages = 2;              // K/V tiles in flight
+constexpr int kF32Keys = 32;               // keys a K/V tile holds
+// row strides in floats: q and K dq + 8 or + 16 (8 mod 16), so the
+// 8-byte reads of dims 2q and 2q + 1 for rows g hit distinct banks; V
+// dv + 4, so the reads of key rows 2q and 2q + 1 at column g do
+__host__ __device__ constexpr int qk_ld(int dq) {
+  return dq + (dq % 16 ? 16 : 8);
+}
+// the q tile and a ring of kF32Stages K/V tiles; the most is at dq 256
+// (an instantiation's opt-in)
+constexpr size_t f32_smem_bytes(int dq, int dv) {
+  return sizeof(float) * ((size_t)kF32Rows * qk_ld(dq) +
+                          (size_t)kF32Stages * kF32Keys *
+                              (qk_ld(dq) + dv + 4));
+}
+
+// 16 bytes from global to shared memory, asynchronously; bytes 0 writes
+// 16 zero bytes and reads nothing
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// A thread's share of a tile of rows of d floats (d a multiple of 8), in
+// 16-byte pieces: pieces tid, tid + kF32Threads, ... of the row-major
+// order, walked by carries rather than a division per piece.
+struct TileCopy {
+  int r0, c0, rstep, cstep, chunks;
+  __device__ explicit TileCopy(int d)
+      : r0(threadIdx.x / (d / 4)), c0(threadIdx.x % (d / 4)),
+        rstep(kF32Threads / (d / 4)), cstep(kF32Threads % (d / 4)),
+        chunks(d / 4) {}
+  // f(row, column) of each of this thread's pieces of a `rows`-row tile
+  template <class F>
+  __device__ __forceinline__ void each(int rows, F f) const {
+    int r = r0, c = c0;
+    while (r < rows) {
+      f(r, 4 * c);
+      r += rstep;
+      c += cstep;
+      if (c >= chunks) {
+        c -= chunks;
+        ++r;
+      }
+    }
+  }
+  // rows [0, rows) of src (row stride `stride` floats) into dst (row
+  // stride ld); rows from `valid` on are zero-filled and read nothing, so
+  // no copy crosses into the next batch row
+  __device__ __forceinline__ void copy(float* dst, int ld, const float* src,
+                                       size_t stride, int rows,
+                                       int valid) const {
+    each(rows, [&](int r, int c) {
+      const bool in = r < valid;
+      cp_async16(dst + r * ld + c, src + (in ? r * stride : 0) + c,
+                 in ? 16 : 0);
+    });
+  }
+};
+
+// DV: dv's storage dim (the output sum's 8-column groups). dq and dv are
+// the real dims, multiples of 8.
+template <int DV>
+__global__ void __launch_bounds__(kF32Threads)
+flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, int sq,
+                 int sk, int h, int kh, int dq, int dv, float scale_log2,
+                 int causal) {
+  constexpr int KEYS = kF32Keys;
+  constexpr int NK = KEYS / 8;             // 8-key groups of a tile
+  constexpr int NV = DV / 8;               // 8-column groups of the output
+  constexpr int YC = NV < 8 ? NV : 8;      // output groups a P V pass
+  extern __shared__ __align__(16) float smem_f32[];
+  const int ldk = qk_ld(dq), ldv = dv + 4;
+  float* ks = smem_f32;                          // [stage][KEYS][ldk]
+  float* vs = ks + kF32Stages * KEYS * ldk;      // [stage][KEYS][ldv]
+  float* qs = vs + kF32Stages * KEYS * ldv;      // [kF32Rows][ldk]
+
+  const int bh = blockIdx.x;
+  const int batch = bh / h, head = bh % h;
+  const int kv_head = head / (h / kh);
+  const int qtile = causal ? (int)gridDim.y - 1 - (int)blockIdx.y
+                           : (int)blockIdx.y;
+  const int q0 = qtile * kF32Rows;
+  // kv tiles to walk: all, or (causal) those with a key <= the tile's
+  // last query row
+  int n_kv = (sk + KEYS - 1) / KEYS;
+  if (causal) {
+    const int last = min(min(q0 + kF32Rows, sq), sk) - 1;
+    n_kv = min(n_kv, last / KEYS + 1);
+  }
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, qd = lane & 3;
+  const int qw = q0 + 16 * warp;               // the warp's first row
+
+  // q once (its own group), then the first K/V tile
+  const TileCopy tile_k(dq), tile_v(dv);
+  const size_t k_stride = (size_t)kh * dq, v_stride = (size_t)kh * dv;
+  const float* k_head = k + ((size_t)batch * sk * kh + kv_head) * dq;
+  const float* v_head = v + ((size_t)batch * sk * kh + kv_head) * dv;
+  auto load_kv = [&](int j) {
+    const int st = j % kF32Stages, k0 = j * KEYS;
+    tile_k.copy(ks + st * KEYS * ldk, ldk, k_head + k0 * k_stride, k_stride,
+                KEYS, sk - k0);
+    tile_v.copy(vs + st * KEYS * ldv, ldv, v_head + k0 * v_stride, v_stride,
+                KEYS, sk - k0);
+    cp_async_commit();
+  };
+  tile_k.copy(qs, ldk, q + (((size_t)batch * sq + q0) * h + head) * dq,
+              (size_t)h * dq, kF32Rows, sq - q0);
+  cp_async_commit();
+  load_kv(0);
+
+  // The products run over each group of 8 dims (or keys) in a permuted
+  // order: A's column q is element 2q of the group and its column q + 4
+  // element 2q + 1 (the group's sum is the same). For S that makes a
+  // lane's two q elements, and its two K elements, adjacent in a row;
+  // for P V it makes P's A fragment the S accumulator's (c0, c2, c1, c3).
+  // The warp's A fragment of q for dims 8 kk .. 8 kk + 7, split:
+  auto q_frag = [&](int kk, uint32_t (&ah)[4], uint32_t (&al)[4]) {
+    const float* p = qs + (16 * warp + g) * ldk + 8 * kk + 2 * qd;
+    const float2 r0 = *reinterpret_cast<const float2*>(p);
+    const float2 r1 = *reinterpret_cast<const float2*>(p + 8 * ldk);
+    split_tf32(r0.x, ah[0], al[0]);
+    split_tf32(r1.x, ah[1], al[1]);
+    split_tf32(r0.y, ah[2], al[2]);
+    split_tf32(r1.y, ah[3], al[3]);
+  };
+  cp_async_wait<1>();                          // q has arrived
+  __syncthreads();
+
+  float acc[NV][4];
+#pragma unroll
+  for (int y = 0; y < NV; ++y)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[y][e] = 0.f;
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};
+
+  for (int j = 0; j < n_kv; ++j) {
+    // tile j has arrived, and every warp is done with tile j - 1, whose
+    // buffers the next copy refills
+    cp_async_wait<0>();
+    __syncthreads();
+    const int st = j % kF32Stages, k0 = j * KEYS;
+    const float* kt = ks + st * KEYS * ldk;
+    const float* vt = vs + st * KEYS * ldv;
+    if (j + 1 < n_kv) load_kv(j + 1);
+    else cp_async_commit();
+    // nothing to add: the warp's rows all lie past sq (the last q tile),
+    // or every key of the tile lies above the diagonal for all of them
+    // (p = 0, the running max unchanged)
+    if (qw >= sq || (causal && k0 > qw + 15)) continue;
+
+    // S = Q K^T in 3xTF32: hi hi in s, the cross terms in cr
+    float s[NK][4], cr[NK][4];
+#pragma unroll
+    for (int x = 0; x < NK; ++x)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[x][e] = cr[x][e] = 0.f;
+#pragma unroll 2
+    for (int kk = 0; kk < dq / 8; ++kk) {
+      uint32_t ah[4], al[4];
+      q_frag(kk, ah, al);
+#pragma unroll
+      for (int x = 0; x < NK; ++x) {
+        // K's (hi, lo) at key 8 x + g, dims 8 kk + 2q and 8 kk + 2q + 1
+        const float2 f = *reinterpret_cast<const float2*>(
+            kt + (8 * x + g) * ldk + 8 * kk + 2 * qd);
+        uint32_t bh[2], bl[2];
+        split_tf32(f.x, bh[0], bl[0]);
+        split_tf32(f.y, bh[1], bl[1]);
+        mma_tf32(cr[x], al, bh);
+        mma_tf32(cr[x], ah, bl);
+        mma_tf32(s[x], ah, bh);
+      }
+    }
+
+    // masked scores become -1e30, keys past sk -inf, both before the
+    // scaling (scale > 0 keeps the order); lane (g, q) holds rows g and
+    // g + 8, keys 8 x + 2q and 8 x + 2q + 1
+    const bool edge = (causal && k0 + KEYS - 1 > qw) || k0 + KEYS > sk;
+    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+    for (int x = 0; x < NK; ++x) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float sc = s[x][e] + cr[x][e];
+        if (edge) {
+          const int kpos = k0 + 8 * x + 2 * qd + (e & 1);
+          if (causal && kpos > qw + g + 8 * (e >> 1)) sc = kNegInf;
+          if (kpos >= sk) sc = -CUDART_INF_F;
+        }
+        s[x][e] = sc;
+        mx[e >> 1] = fmaxf(mx[e >> 1], sc);
+      }
+    }
+    float corr[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r] * scale_log2);
+      corr[r] = fexp2(m[r] - m_new);
+      m[r] = m_new;
+    }
+#pragma unroll
+    for (int x = 0; x < NK; ++x) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        // p = 2^(s scale log2(e) - m): one multiply-add and one exp2
+        s[x][e] = fexp2(fmaf(s[x][e], scale_log2, -m[e >> 1]));
+        sum[e >> 1] += s[x][e];
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+      l[r] = l[r] * corr[r] + sum[r];
+    }
+
+    // O = O corr + P V: the tile's P V in 3xTF32 (the cross terms first)
+    // into a sum of its own, YC output groups a pass, then one rounded
+    // multiply-add into the running sum (the tensor core truncates what
+    // it adds, and the running sum would gather that over every tile).
+    // P's A fragment is the S accumulator's (c0, c2, c1, c3).
+#pragma unroll
+    for (int y0 = 0; y0 < NV; y0 += YC) {
+      if (8 * y0 >= dv) break;
+      float t[YC][4];
+#pragma unroll
+      for (int yy = 0; yy < YC; ++yy)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) t[yy][e] = 0.f;
+#pragma unroll
+      for (int x = 0; x < NK; ++x) {
+        uint32_t ah[4], al[4];
+        split_tf32(s[x][0], ah[0], al[0]);
+        split_tf32(s[x][2], ah[1], al[1]);
+        split_tf32(s[x][1], ah[2], al[2]);
+        split_tf32(s[x][3], ah[3], al[3]);
+#pragma unroll
+        for (int yy = 0; yy < YC; ++yy) {
+          if (8 * (y0 + yy) >= dv) break;
+          // V's (hi, lo) at keys 8 x + 2q and 8 x + 2q + 1, column
+          // 8 (y0 + yy) + g
+          const float* p = vt + (8 * x + 2 * qd) * ldv + 8 * (y0 + yy) + g;
+          uint32_t bh[2], bl[2];
+          split_tf32(p[0], bh[0], bl[0]);
+          split_tf32(p[ldv], bh[1], bl[1]);
+          mma_tf32(t[yy], al, bh);
+          mma_tf32(t[yy], ah, bl);
+          mma_tf32(t[yy], ah, bh);
+        }
+      }
+#pragma unroll
+      for (int yy = 0; yy < YC; ++yy)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[y0 + yy][e] = fmaf(acc[y0 + yy][e], corr[e >> 1], t[yy][e]);
+    }
+  }
+  cp_async_wait<0>();            // no copy outlives the block
+
+  // the real dv columns only (whole 8-column groups)
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qpos = qw + g + 8 * r;
+    if (qpos >= sq) continue;
+    const float inv_l = 1.f / fmaxf(l[r], 1e-30f);
+    float* dst = o + (((size_t)batch * sq + qpos) * h + head) * dv + 2 * qd;
+#pragma unroll
+    for (int y = 0; y < NV; ++y)
+      if (8 * y < dv)
+        *reinterpret_cast<float2*>(dst + 8 * y) =
+            make_float2(acc[y][2 * r] * inv_l, acc[y][2 * r + 1] * inv_l);
+  }
+}
+
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 void*, const cuuint64_t*, const cuuint64_t*,
                                 const cuuint32_t*, const cuuint32_t*,
@@ -869,18 +1065,21 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
   return (int)cudaGetLastError();
 }
 
+// the float32 kernel at dv's storage dim DV
 template <int DV>
 int launch_f32(const void* q, const void* k, const void* v, void* o, int b,
                int sq, int sk, int h, int kh, int dq, int dv, float scale,
                int causal, cudaStream_t stream) {
+  for (const void* p : {q, k, v})
+    if (reinterpret_cast<uintptr_t>(p) % 16) return kErrAlign;
   const cudaError_t attr = smem_opt_in(
-      flash_fwd_kernel<DV>, (int)smem_bytes(kMaxHeadDim, DV));
+      flash_f32_kernel<DV>, (int)f32_smem_bytes(kMaxHeadDim, DV));
   if (attr != cudaSuccess) return (int)attr;
-  const dim3 grid(b * h, (sq + kBlockQ - 1) / kBlockQ);
-  flash_fwd_kernel<DV><<<grid, kThreads, smem_bytes(dq, DV), stream>>>(
+  const dim3 grid(b * h, (sq + kF32Rows - 1) / kF32Rows);
+  flash_f32_kernel<DV><<<grid, kF32Threads, f32_smem_bytes(dq, dv), stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), sq, sk, h, kh,
-      dq, dv, scale, causal);
+      dq, dv, scale * 1.4426950408889634f, causal);
   return (int)cudaGetLastError();
 }
 
@@ -905,11 +1104,11 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int b,
 
 extern "C" {
 
-// dtype 0: float32 (flash_fwd_kernel), 1: bfloat16 (flash_wgmma_kernel).
+// dtype 0: float32 (flash_f32_kernel), 1: bfloat16 (flash_wgmma_kernel).
 // dq is the q/k head dim, dv the v head dim. Returns a cudaError_t, or
 // 1000 for a head dim outside the rule (a multiple of 8 from 8 to 256),
 // 1001 when libcuda has no cuTensorMapEncodeTiled, 1002 when a tensor map
-// is refused, 1003 for bf16 operands not 16-byte aligned.
+// is refused, 1003 for operands not 16-byte aligned.
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, int dtype, int b, int sq, int sk, int h,
                            int kh, int dq, int dv, float scale, int causal,
@@ -942,7 +1141,7 @@ const char* flash_attention_error_string(int code) {
       return "head dims must be multiples of 8 from 8 to 256";
     case kErrLibcuda: return "libcuda has no cuTensorMapEncodeTiled";
     case kErrTensorMap: return "cuTensorMapEncodeTiled refused a tensor map";
-    case kErrAlign: return "bf16 operands must be 16-byte aligned";
+    case kErrAlign: return "operands must be 16-byte aligned";
     default: return cudaGetErrorString((cudaError_t)code);
   }
 }

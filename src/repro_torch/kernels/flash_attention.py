@@ -12,7 +12,10 @@ A tensor on a CUDA device goes to a kernel, or the call raises: there is
 no fallback. The type picks the kernel: bfloat16 runs
 ``flash_wgmma_kernel`` (TMA loads, ``wgmma`` products on the tensor
 cores, P rounded to bf16 before the PV product), float32 runs
-``flash_fwd_kernel`` (float32 on the CUDA cores). Both take dqk and dv
+``flash_f32_kernel`` (``cp.async`` loads, ``mma.sync`` products on the
+tensor cores in 3xTF32: each float split into a TF32 high part and its
+remainder, three TF32 products for each float32 one, float32 sums; one
+TF32 pass would miss the float32 tolerance). Both take dqk and dv
 separately, each a multiple of 8 from 8 to 256 (a tensor map's row stride
 is a multiple of 16 bytes). The wrapper takes any head dim from 1 to 256
 (``HEAD_DIM_RULE``, ``check_head_dims``): it pads q and k, and v, with
