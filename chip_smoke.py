@@ -23,6 +23,8 @@ with phase 11's registered policies translated into them), then:
    in each of the 36 bf16 flash kernels (q/k and v storage dims 16-256),
    no local memory in those of d = 256, HMMA and cp.async in each of the
    6 float32 ones (dv storage dims 16-256), no local memory at dv 256,
+   HMMA and cp.async in each of the 6 wide ones (bf16 and float32, v
+   slices 64, 128 and 256),
    HMMA and cp.async in the WKV library, the MUFU's
    exp2 and cp.async in the selective-scan library, cp.async and no
    float32 division check in the series policy scans (1b);
@@ -144,23 +146,38 @@ with phase 11's registered policies translated into them), then:
    ``python3 chip_smoke.py --phase 10`` runs the build and phase 10
    alone;
 11. registered policies on the card (``register_policy``: ``null``,
-   shed overridden, ``capped``), their steps translated into the policy
-   kernels (``kernels/lane_codegen.py``; the library of phase 11's
-   registry is built in phase 1): ``run_grid`` over 64 full-year
-   scenarios of four built-ins and the three, both modes, the
-   registered rows bitwise the port's CPU run and the built-in rows
-   bitwise the plain library's run of the built-ins alone, the counters
-   showing every registered row ran in the kernel; a chaos suite
-   through the fault kernel (11a); a search over ``capped``'s replicas
+   shed overridden, ``capped``, and the integer and bit-level steps of
+   C15: ``diurnal``, an int32 hour of day ``% 24`` and a ``sin`` daily
+   curve, ``bits``, a mantissa bit view with shifts, masks and floor
+   division, and ``bw_copy``, batch_window's own step), their steps
+   translated into the policy kernels (``kernels/lane_codegen.py``; the
+   library of phase 11's registry is built in phase 1, its ptxas spills
+   held to the plain library's in 1b; 11d's, 47 generated branches, on a
+   thread of its own beside phases 2-10): ``run_grid`` over 64 full-year
+   scenarios of four built-ins and the six, both modes, the registered
+   rows bitwise the port's CPU run (diurnal's latency within
+   ``DIURNAL_ULPS``), bw_copy's bitwise the built-in batch_window's, and
+   the built-in rows bitwise the plain library's run of the built-ins
+   alone, the counters showing every registered row ran in the kernel; a
+   chaos suite through the fault kernel; a step with an integer divisor
+   of 0 raising the CPU's ``RuntimeError: ZeroDivisionError`` on the card
+   (11a); every elementwise operation a step may use on edge values
+   (NaN, +-inf, +-0, INT_MIN, shifts at and past the width), one bin
+   through the series kernel, bitwise the CPU or within its ulps (11d);
+   a search over ``capped``'s replicas
    re-checked through the aggregate kernel (11b); a registered step
    with ``exp`` and ``log`` (``softlat``) and one with ``tanh``,
    ``sigmoid``, ``expm1``, ``log1p``, ``softplus`` and a ``pow``
    (``smooth``; their library built in phase 1) over 32 full-year
    scenarios in both modes, one launch each, their latency within
    ``SOFTLAT_ULPS`` and ``SMOOTH_ULPS`` of the CPU run and everything
-   else bitwise, the ulps printed (11c, ROADMAP C15); both flash
-   kernels at head dims the wrapper pads to a multiple of 8 (4, 20,
-   100; q/k 96 with v 20) against their plain version.
+   else bitwise, the ulps printed (11c, ROADMAP C15); the flash kernels
+   at head dims the wrapper pads to a multiple of 8 (4, 20, 100; q/k 96
+   with v 20) and past 256 (flash_wide_kernel: (264, 264), (64, 264),
+   (320, 320), DeepSeek-V2-Lite's absorbed (576, 512), (1,024, 64); g 1,
+   7 and 16) against their plain version, both types, and the wide
+   kernel timed at DeepSeek-V2-Lite's absorbed prefill shape against its
+   bound and SDPA (C17).
    ``python3 chip_smoke.py --phase 11`` runs the build and phase 11
    alone;
 12. training on one card: one ``make_train_step`` step of smoke
@@ -264,6 +281,7 @@ card and the repository's ``src``; it never falls back to the CPU.
 """
 import dataclasses
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -987,7 +1005,9 @@ def check_flash_random_blocks(dev):
     torch.cuda.synchronize()
     n_f32 = len(cases) * 2 + len(f32_cases) * 2
     check(fk.launches == {"flash_attention": n_cases - n_f32,
-                          "flash_attention_f32": n_f32}, fk.launches)
+                          "flash_attention_f32": n_f32,
+                          "flash_attention_wide": 0,
+                          "flash_attention_wide_f32": 0}, fk.launches)
     print(f"phase 5a: flash kernels vs plain on {n_cases} random blocks "
           f"(causal or not, g 1/4/8, d 64/128 (phase 10a takes the other "
           f"head dims), sq and sk 64-300 around "
@@ -1051,13 +1071,11 @@ def check_flash_dims_random_blocks(dev):
     torch.cuda.synchronize()
     n_f32 = sum(1 for c in cases if c[-1] == torch.float32)
     check(fk.launches == {"flash_attention": len(cases) - n_f32,
-                          "flash_attention_f32": n_f32}, fk.launches)
+                          "flash_attention_f32": n_f32,
+                          "flash_attention_wide": 0,
+                          "flash_attention_wide_f32": 0}, fk.launches)
     for dq, dv in ((264, 264), (64, 264)):
-        try:
-            fk.check_head_dims(dq, dv)
-        except NotImplementedError:
-            continue
-        raise AssertionError(f"head dims {(dq, dv)} were not refused")
+        fk.check_head_dims(dq, dv)          # taken: flash_wide_kernel
     print(f"phase 10a: flash kernels vs plain on {len(cases)} random "
           f"blocks ((dqk, dv) {', '.join(map(str, FLASH_DIM_PAIRS))} at "
           f"sq/sk 31-300, g 1 and 7, causal or not; then "
@@ -1065,8 +1083,8 @@ def check_flash_dims_random_blocks(dev):
           f"float32 {worst[torch.float32]:.3g} (tol "
           f"{MODEL_TOL[torch.float32]:g}), bf16 "
           f"{worst[torch.bfloat16]:.3g} (tol {MODEL_TOL[torch.bfloat16]:g});"
-          f" launches {fk.launches}; head dims past 256 refused "
-          f"({fk.HEAD_DIM_RULE}; phase 11 runs the padded dims)")
+          f" launches {fk.launches}; head dims past 256 run too "
+          f"({fk.HEAD_DIM_RULE}; phase 11 runs them and the padded dims)")
     return len(cases)
 
 
@@ -1272,6 +1290,14 @@ def model_kernels():
     return fk, sk, rk
 
 
+def model_launches(mods):
+    """The model kernels' launch counts, the wide flash kernels' only
+    where they launched (no serving path here has a head dim past 256,
+    and the expected counts leave them out)."""
+    return {k: v for mod in mods for k, v in mod.launches.items()
+            if v or "wide" not in k}
+
+
 def decode_floor_bytes(eng, new_tokens=32):
     """The bytes a decode step must read, averaged over a group's steps:
     every parameter the step multiplies or reads, as the engine holds it
@@ -1360,7 +1386,7 @@ def serve_at_width(dev, phase, cfg, label, expect):
     t0 = time.perf_counter()
     done = eng.serve(reqs)
     wall = time.perf_counter() - t0
-    launches = {k: v for mod in mods for k, v in mod.launches.items()}
+    launches = model_launches(mods)
     check(sum(pk.launches.values()) == 0, pk.launches)
     peak = torch.cuda.max_memory_allocated()
 
@@ -2432,7 +2458,10 @@ FLASH_SHAPES = {"5d": (4, 2048, 64, 8, 128, 128, True),
                 "10g": (4, 1500, 12, 12, 64, 64, False),
                 "14a": (4, 2048, 16, 4, 64, 64, True),
                 "14f": (4, 512, 16, 4, 64, 64, True),
-                "14g": (4, 1500, 12, 12, 64, 64, False)}
+                "14g": (4, 1500, 12, 12, 64, 64, False),
+                # DeepSeek-V2-Lite's absorbed MLA prefill (q/k 512 + 64,
+                # v 512, 16 heads over one latent head): flash_wide_kernel
+                "11": (4, 2048, 16, 1, 576, 512, True)}
 
 
 def serve_rope_moe(dev, get_config, get_smoke_config):
@@ -2668,7 +2697,7 @@ def whisper_at_width(dev, cfg, expect):
     t0 = time.perf_counter()
     ttft, dec, tokens, cache, kept = run(WHISPER_STEPS, keep=4)
     wall = time.perf_counter() - t0
-    launches = {k: v for mod in mods for k, v in mod.launches.items()}
+    launches = model_launches(mods)
     check(sum(pk.launches.values()) == 0, pk.launches)
     peak = torch.cuda.max_memory_allocated()
     check(launches == expect, (launches, expect))
@@ -2754,7 +2783,9 @@ def qwen_patches_prefill(dev, eng):
     check(logits.shape == (b, 1, cfg.vocab_size)
           and bool(torch.isfinite(logits).all()), logits.shape)
     check(fk.launches == {"flash_attention": cfg.num_layers,
-                          "flash_attention_f32": 0}, fk.launches)
+                          "flash_attention_f32": 0,
+                          "flash_attention_wide": 0,
+                          "flash_attention_wide_f32": 0}, fk.launches)
     check(cache["length"].tolist() == [s] * b, cache["length"])
     print(f"phase 10f: model.prefill with {N_PATCHES} stub patches before "
           f"{s - N_PATCHES} tokens a row (M-RoPE positions [3, {b}, {s}]): "
@@ -2931,7 +2962,7 @@ def flash_vs_plain(dev, phase="5d", dtype=torch.bfloat16):
     q = torch.randn(b, s, h, dq, generator=g, device=dev).to(dtype)
     k = torch.randn(b, s, kh, dq, generator=g, device=dev).to(dtype)
     v = torch.randn(b, s, kh, dv, generator=g, device=dev).to(dtype)
-    key = "flash_attention" + ("" if dtype == torch.bfloat16 else "_f32")
+    key = fk.kernel_name(dtype, dq, dv)
     before = fk.launches[key]
 
     def kernel():
@@ -3077,19 +3108,244 @@ def wkv_vs_plain(dev):
 # Phase 11: registered policies on the card (ROADMAP A10)
 # ---------------------------------------------------------------------------
 
-#: phase 11's registered policies: the reference's
+#: phase 11's registered policies in 11a: the reference's
 #: ``test_register_policy_extends_and_overrides`` pair (``null``, and
-#: ``shed`` overridden to drop everything) and ``capped``, a step of
+#: ``shed`` overridden to drop everything), ``capped``, a step of
 #: + - * / min max (finite at any parameters, a fault's zero capacity
-#: included), so its rows are bitwise the CPU's
-REGISTERED = ("null", "shed", "capped")
+#: included), so its rows are bitwise the CPU's, and (C15) ``diurnal``
+#: (an int32 hour of day, ``% 24``, a ``sin`` daily curve: its latency
+#: within ``DIURNAL_ULPS``, the rest bitwise), ``bits`` (a mantissa bit
+#: view, shifts, masks, integer and float floor division and remainder)
+#: and ``bw_copy`` (batch_window's own step, ``_fma``'s int64 view and
+#: ``nextafter`` included), both bitwise
+REGISTERED = ("null", "shed", "capped", "diurnal", "bits", "bw_copy")
 CAP_HOURS = 3600.0
+TRIPLE = ("max_rps", "usd_per_hour", "base_latency_s")
+TWO_PI_24 = 2.0 * math.pi / 24.0
 #: head dims the wrapper pads to the kernels' multiple of 8 (C17)
 FLASH_PAD_PAIRS = ((4, 4), (20, 20), (100, 100), (96, 20))
+#: head dims past 256, run by flash_wide_kernel (C17): a square 264, a
+#: narrow q/k over a wide v, 320, DeepSeek-V2-Lite's absorbed MLA (576,
+#: 512) and a wide q/k over a narrow v
+FLASH_WIDE_PAIRS = ((264, 264), (64, 264), (320, 320), (576, 512),
+                    (1024, 64))
+#: 11a's bound on ``diurnal``'s latency: its ``(2 + sin) * 64`` term
+#: through CUDA's ``sinf`` (2 ulps from the correctly rounded value) and
+#: the CPU's (1 ulp), an ulp of a value near 1 times 64 in a latency of
+#: 64 s or more, set before its first run on the card (PERF.md)
+DIURNAL_ULPS = 8
+DIURNAL_AGG_RTOL = DIURNAL_ULPS * 2.0 ** -23
+
+
+def diurnal_step(carry, arrive, p, dt):
+    """Capacity by the hour of the day (C15): an int32 hour from the
+    timer in the carry, ``% 24``, a ``sin`` daily curve; instances
+    ceil(3.3 + 2.2 sin) stay 0.1 or more from an integer at every hour,
+    so an ulp of ``sin`` never moves the capacity, and only the latency's
+    ``sin`` term differs from the CPU. The CPU tests' ``diurnal_step``,
+    held there to the reference's registered ``jnp`` step."""
+    timer = carry[:, 1] + dt
+    hour = timer.to(torch.int32) % 24
+    s = torch.sin(hour.float() * TWO_PI_24)
+    inst = torch.ceil(3.3 + 2.2 * s)
+    cap = torch.clamp_min(p[:, 0] * inst * CAP_HOURS * dt, 1.0)
+    avail = carry[:, 0] + arrive
+    proc = torch.minimum(avail, cap)
+    queue = avail - proc
+    lat = p[:, 2] + queue / cap + (2.0 + s) * 64.0
+    new = torch.stack([queue, timer], dim=1)
+    return new, (proc, queue, lat, p[:, 1] * inst * dt,
+                 torch.zeros_like(arrive))
+
+
+def bits_step(carry, arrive, p, dt):
+    """A capped queue whose latency takes a jitter from its queue's
+    float32 bits (mantissa and exponent by shifts and masks, integer
+    floor division and ``%`` of negative values) and a phase by float
+    ``remainder``; its cost a float floor division of a signed load (the
+    CPU tests' ``bits_step``)."""
+    cap = torch.clamp_min(p[:, 0] * CAP_HOURS * dt, 1.0)
+    avail = carry[:, 0] + arrive
+    proc = torch.minimum(avail, cap)
+    queue = avail - proc
+    m = queue.view(torch.int32)
+    mant = (m & 0x7FFFFF) >> 13
+    expo = (m >> 23) & 0xFF
+    tag = ((mant << 2) ^ expo) - 2048
+    jitter = ((tag // 7).float() + (tag % 7).float()) * (1.0 / 64.0)
+    timer = carry[:, 1] + dt
+    phase = torch.remainder(timer - 3.5, 24.0)
+    shift = torch.floor_divide(arrive - 1e4, 1000.0)
+    lat = p[:, 2] + queue / cap + torch.abs(jitter) + phase * 0.125
+    cost = p[:, 1] * dt + torch.abs(shift) * 2.0 ** -10
+    new = torch.stack([queue, timer], dim=1)
+    return new, (proc, queue, lat, cost, torch.zeros_like(arrive))
+
+
+def zero_divisor_step(carry, arrive, p, dt):
+    """Hours grouped by an integer divisor, (``groups`` + 1) as int32: 0
+    for a ``groups`` of -1, where the CPU raises ``RuntimeError:
+    ZeroDivisionError`` (the CPU tests' ``zero_divisor_step``)."""
+    groups = (p[:, 3] + 1.0).to(torch.int32)
+    slot = (carry[:, 1] + dt).to(torch.int32) // groups
+    return (torch.stack([carry[:, 0], carry[:, 1] + dt], dim=1),
+            (arrive, carry[:, 0], p[:, 2] + slot.float(), p[:, 1],
+             torch.zeros_like(arrive)))
+
+
+# 11d: every elementwise operation of a registered step on edge values,
+# the card's emission against the CPU's run of the step
+INT_MIN, INT_MAX = -2 ** 31, 2 ** 31 - 1
+#: the operations bitwise the CPU (class 1 of ``lane_codegen``): (lane
+#: type, name, operation on the lane's pair (a, b))
+OPS_EXACT = [
+    ("i32", "add", lambda a, b: a + b), ("i32", "sub", lambda a, b: a - b),
+    ("i32", "mul", lambda a, b: a * b), ("i32", "neg", lambda a, b: -a),
+    ("i32", "abs", lambda a, b: torch.abs(a)),
+    ("i32", "min", torch.minimum), ("i32", "max", torch.maximum),
+    ("i32", "lt", torch.lt), ("i32", "eq", torch.eq),
+    ("i32", "and", lambda a, b: a & b), ("i32", "or", lambda a, b: a | b),
+    ("i32", "xor", lambda a, b: a ^ b), ("i32", "not", lambda a, b: ~a),
+    ("i32", "shl", lambda a, b: a << b), ("i32", "shr", lambda a, b: a >> b),
+    ("i32", "floordiv", lambda a, b: a // b),
+    ("i32", "mod", lambda a, b: a % b), ("i32", "fmod", torch.fmod),
+    ("i32", "div_trunc", lambda a, b: torch.div(a, b, rounding_mode="trunc")),
+    ("i32", "true_div", lambda a, b: a / b),
+    ("i32", "sign", lambda a, b: torch.sign(a)),
+    ("i32", "to_f32", lambda a, b: a.float()),
+    ("i32", "to_f64", lambda a, b: a.double()),
+    ("i32", "to_i64", lambda a, b: a.long()),
+    ("i64", "add", lambda a, b: a + b), ("i64", "mul", lambda a, b: a * b),
+    ("i64", "neg", lambda a, b: -a), ("i64", "abs", lambda a, b: torch.abs(a)),
+    ("i64", "min", torch.minimum), ("i64", "lt", torch.lt),
+    ("i64", "xor", lambda a, b: a ^ b),
+    ("i64", "shl", lambda a, b: a << b), ("i64", "shr", lambda a, b: a >> b),
+    ("i64", "floordiv", lambda a, b: a // b),
+    ("i64", "mod", lambda a, b: a % b), ("i64", "fmod", torch.fmod),
+    ("i64", "to_i32", lambda a, b: a.int()),
+    ("i64", "to_f32", lambda a, b: a.float()),
+    ("i64", "to_f64", lambda a, b: a.double()),
+    ("i64", "view_f64", lambda a, b: a.view(torch.float64)),
+    ("f32", "remainder", torch.remainder), ("f32", "fmod", torch.fmod),
+    ("f32", "floordiv", lambda a, b: a // b),
+    ("f32", "div_trunc", lambda a, b: torch.div(a, b, rounding_mode="trunc")),
+    ("f32", "nextafter", torch.nextafter),
+    ("f32", "copysign", torch.copysign),
+    ("f32", "sign", lambda a, b: torch.sign(a)),
+    ("f32", "signbit", lambda a, b: torch.signbit(a)),
+    ("f32", "isnan", lambda a, b: torch.isnan(a)),
+    ("f32", "isinf", lambda a, b: torch.isinf(a)),
+    ("f32", "isfinite", lambda a, b: torch.isfinite(a)),
+    ("f32", "frac", lambda a, b: torch.frac(a)),
+    ("f32", "to_i32", lambda a, b: a.int()),
+    ("f32", "to_i64", lambda a, b: a.long()),
+    ("f32", "view_i32", lambda a, b: a.view(torch.int32)),
+    ("f64", "remainder", torch.remainder),
+    ("f64", "floordiv", lambda a, b: a // b),
+    ("f64", "nextafter", torch.nextafter),
+    ("f64", "to_i32", lambda a, b: a.int()),
+    ("f64", "to_i64", lambda a, b: a.long()),
+    ("f64", "to_f32", lambda a, b: (a * 3.0).float())]
+#: the transcendental ones (class 2): each with its bound in ulps of its
+#: type, card against CPU: CUDA's documented maximum error of the
+#: function (sinf 2, tanf 4, atan2f 3, ...; the float64 ones 1-2) plus 2
+#: for the CPU's (SLEEF's 1-ulp functions, glibc's in a strided tail)
+OPS_ULP = [(kind, name, fn, ulps + 2) for kind, table in (
+    ("f32", {"sin": 2, "cos": 2, "tan": 4, "atan": 2, "atan2": 3,
+             "exp2": 2, "log2": 1, "log10": 2, "erf": 2, "hypot": 3,
+             "sinh": 3, "cosh": 2, "rsqrt": 2}),
+    ("f64", {"sin": 2, "cos": 2, "tan": 2, "atan": 2, "atan2": 2,
+             "exp2": 1, "log2": 1, "log10": 1, "erf": 2, "hypot": 2,
+             "sinh": 2, "cosh": 1, "rsqrt": 1}))
+    for name, ulps in table.items()
+    for fn in ((torch.atan2 if name == "atan2" else torch.hypot
+                if name == "hypot" else
+                (lambda f: lambda a, b: f(a))(getattr(torch, name))),)]
+OPS_DIVIDING = ("floordiv", "mod", "fmod", "div_trunc")
+#: 11d's edge values: float32 pairs in p[0], p[1]; int32 pairs as the
+#: bits of p[2], p[3]; int64 pairs with p[2], p[3] as low words and
+#: p[4], p[5] as high words (``OPS_HIGH``)
+OPS_F32 = [math.nan, math.inf, -math.inf, 0.0, -0.0, 1.0, -1.0, 0.5, -0.5,
+           2.5, -2.5, 3.0, -3.0, 7.0, -7.0, 24.0, 1e-45, -1e-45, 1e-30,
+           3e9, -3e9, 2147483520.0, -2147483648.0, 2147483648.0, 1e20,
+           -1e20, 3.4028235e38, -3.4028235e38, 123.456, -0.75]
+OPS_I32 = [INT_MIN, INT_MIN + 1, INT_MAX, -1, 0, 1, 2, -2, 3, -3, 7, -7,
+           24, -24, 31, 32, 33, 63, 64, 100, -100, 12345678, -12345678]
+OPS_HIGH = [0, -1, INT_MIN, INT_MAX, 1, 5]
+
+
+def ops_operands(kind, p):
+    """The lane's (a, b) of ``kind`` from 11d's parameter layout."""
+    if kind == "i32":
+        return p[:, 2].view(torch.int32), p[:, 3].view(torch.int32)
+    if kind == "i64":
+        lo = [(p[:, k].view(torch.int32).to(torch.int64) & 0xFFFFFFFF)
+              for k in (2, 3)]
+        return tuple((p[:, k].view(torch.int32).to(torch.int64) << 32) | w
+                     for k, w in zip((4, 5), lo))
+    if kind == "f64":
+        return p[:, 0].double(), p[:, 1].double()
+    return p[:, 0], p[:, 1]
+
+
+def ops_pieces(r):
+    """``r``'s bits as float32 values of 16 bits each (exact, finite and
+    non-negative, so the kernels' blend and canonical zero keep them),
+    NaN made the one canonical NaN first (a NaN's payload is no value:
+    the CPU's vector loops and CUDA give different ones)."""
+    if r.dtype == torch.bool:
+        return [r.float()]
+    if r.is_floating_point():
+        r = torch.where(torch.isnan(r), math.nan, r)
+        r = r.view(torch.int32 if r.dtype == torch.float32 else torch.int64)
+    n = 2 if r.dtype == torch.int32 else 4
+    return [((r >> (16 * k)) & 0xFFFF).float() for k in range(n)]
+
+
+def ops_step(ops):
+    """One registered step that runs ``ops`` on the lane's pairs and puts
+    each result's 16-bit pieces in the carry and outputs (7 slots). An
+    integer division's divisor 0, and -1 under the type's minimum (where
+    the CPU traps), become 1: every lane runs every present step in the
+    CPU's blend (``zero_divisor_step`` shows the raise)."""
+    def step(carry, arrive, p, dt):
+        slots = []
+        for kind, name, fn, *_ in ops:
+            a, b = ops_operands(kind, p)
+            if kind in ("i32", "i64") and name in OPS_DIVIDING:
+                lowest = INT_MIN if kind == "i32" else -2 ** 63
+                b = torch.where((b == 0) | ((a == lowest) & (b == -1)), 1, b)
+            slots += ops_pieces(fn(a, b))
+        slots += [torch.zeros_like(arrive)] * (7 - len(slots))
+        return torch.stack(slots[:2], dim=1), tuple(slots[2:])
+    return step
+
+
+def _ops_slots(kind, fn):
+    a = torch.zeros(2, dtype={"i32": torch.int32, "i64": torch.int64,
+                              "f64": torch.float64}.get(kind, torch.float32))
+    return len(ops_pieces(fn(a, a + 1)))
+
+
+def ops_groups():
+    """11d's operations packed into steps of at most 7 slots: (policy
+    name, ops, exact); each op (kind, name, fn[, ulps], slots)."""
+    groups = []
+    for exact, table in ((True, OPS_EXACT), (False, OPS_ULP)):
+        cur, used = [], 0
+        for op in table:
+            n = _ops_slots(op[0], op[2])
+            if used + n > 7:
+                groups.append((f"ops{len(groups)}", cur, exact))
+                cur, used = [], 0
+            cur.append(op + (n,))
+            used += n
+        groups.append((f"ops{len(groups)}", cur, exact))
+    return groups
 
 
 def register_phase11_policies(twin_mod):
-    triple = ("max_rps", "usd_per_hour", "base_latency_s")
+    triple = TRIPLE
 
     @twin_mod.register_policy("null", triple)
     def _null(carry, arrive, p, dt):
@@ -3114,6 +3370,47 @@ def register_phase11_policies(twin_mod):
         new = torch.stack([queue, carry[:, 1]], dim=1)
         return new, (proc, queue, lat, p[:, 1] * p[:, 3],
                      torch.zeros_like(arrive))
+
+    twin_mod.register_policy("diurnal", triple)(diurnal_step)
+    twin_mod.register_policy("bits", triple)(bits_step)
+    bw = twin_mod.policy_spec("batch_window")
+    twin_mod.register_policy("bw_copy", bw.param_names,
+                             defaults=bw.defaults)(bw.lane_step)
+    twin_mod.register_policy("zdiv", triple + ("groups",),
+                             defaults={"groups": 1.0})(zero_divisor_step)
+
+
+def ops_header(twin_mod):
+    """The generated header of 11d's registry (the built-ins and
+    ``ops_groups``' steps), whose library builds in the background from
+    phase 1 on (``ops_build_start``)."""
+    from repro_torch.kernels import lane_codegen
+    saved = (dict(twin_mod._REGISTRY), twin_mod._VERSION)
+    try:
+        for name, ops, _ in ops_groups():
+            twin_mod.register_policy(name, TRIPLE + ("a", "b", "c"))(
+                ops_step(ops))
+        gen = lane_codegen.generated()
+        check(not gen.refused, gen.refused)
+        return gen.header
+    finally:
+        twin_mod._REGISTRY.clear()
+        twin_mod._REGISTRY.update(saved[0])
+        twin_mod._VERSION = saved[1]
+
+
+def ops_build_start(build, header):
+    """11d's library (47 generated branches: ptxas takes a minute) built
+    by one nvcc on a thread of its own beside phases 2-10; returns the
+    thread and the seconds it took, read after ``join``."""
+    import threading
+    took = {}
+
+    def run():
+        took["s"] = build.build([], [("policy_scan", header)])
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+    return thread, took
 
 
 #: 11c's bound on a latency that goes through CUDA's ``expf`` / ``logf``
@@ -3200,6 +3497,39 @@ def ulp_distance(a, b):
     return np.abs(a - b)
 
 
+def within_ulps(card, cpu, bounds, series, what):
+    """Card rows against the CPU's run of the same twins: every field
+    bitwise but the latency, whose bins are within ``bounds[policy][0]``
+    float32 ulps (series) or whose mean is within ``bounds[policy][1]``
+    relative, the SLO share within one bin (aggregate). Returns the worst
+    figure per policy."""
+    worst = dict.fromkeys(bounds, 0)
+    for c, h in zip(card, cpu):
+        check(c.name == h.name, (c.name, h.name))
+        policy = c.twin.policy
+        ulp_bound, agg_bound = bounds[policy]
+        exact = (("processed", "queue", "cost_usd", "dropped") if series
+                 else ("total_cost_usd", "processed_records",
+                       "dropped_records", "queue_end", "backlog_s"))
+        for f in exact:
+            u, v = getattr(c, f), getattr(h, f)
+            check(np.array_equal(np.asarray(u), np.asarray(v)),
+                  (what, c.name, f))
+        if series:
+            ulps = int(ulp_distance(c.latency_s.astype(np.float32),
+                                    h.latency_s.astype(np.float32)).max())
+            worst[policy] = max(worst[policy], ulps)
+            check(ulps <= ulp_bound, (what, c.name, ulps))
+        else:
+            err = abs(c.mean_latency_s - h.mean_latency_s) / max(
+                abs(h.mean_latency_s), 1e-30)
+            worst[policy] = max(worst[policy], err)
+            check(err <= agg_bound, (what, c.name, err))
+            check(abs(c.pct_hours_met - h.pct_hours_met)
+                  <= 100.0 / HOURS_PER_YEAR, (what, c.name))
+    return worst
+
+
 def softlat_on_card(whatif, tr, twin_mod, slo_mod):
     """11c (ROADMAP C15): registered steps with ``exp`` and ``log``
     (``softlat``) and with ``tanh``, ``sigmoid``, ``expm1``, ``log1p``,
@@ -3236,32 +3566,8 @@ def softlat_on_card(whatif, tr, twin_mod, slo_mod):
                                                     rows))
             cpu = whatif.run_grid(twins, traffics, slo=slo,
                                   return_series=series, device="cpu")
-            worst = dict.fromkeys(TRANSCENDENTAL_POLICIES, 0)
-            for c, h in zip(card, cpu):
-                check(c.name == h.name, (c.name, h.name))
-                policy = c.twin.policy
-                ulp_bound, agg_bound = TRANSCENDENTAL_POLICIES[policy]
-                exact = (("processed", "queue", "cost_usd", "dropped")
-                         if series else
-                         ("total_cost_usd", "processed_records",
-                          "dropped_records", "queue_end", "backlog_s"))
-                for f in exact:
-                    u, v = getattr(c, f), getattr(h, f)
-                    check(np.array_equal(np.asarray(u), np.asarray(v)),
-                          ("11c", mode, c.name, f))
-                if series:
-                    ulps = int(ulp_distance(c.latency_s.astype(np.float32),
-                                            h.latency_s.astype(np.float32)
-                                            ).max())
-                    worst[policy] = max(worst[policy], ulps)
-                    check(ulps <= ulp_bound, ("11c", c.name, ulps))
-                else:
-                    err = abs(c.mean_latency_s - h.mean_latency_s) / max(
-                        abs(h.mean_latency_s), 1e-30)
-                    worst[policy] = max(worst[policy], err)
-                    check(err <= agg_bound, ("11c", c.name, err))
-                    check(abs(c.pct_hours_met - h.pct_hours_met)
-                          <= 100.0 / HOURS_PER_YEAR, ("11c", c.name))
+            worst = within_ulps(card, cpu, TRANSCENDENTAL_POLICIES, series,
+                                f"11c {mode}")
             record[mode] = {"wall_ms": 1e3 * wall, "worst": worst,
                             "launches": launched,
                             "registered_rows": sum(rows.values())}
@@ -3304,20 +3610,187 @@ def phase11_builtin_twins(twin_mod):
 
 
 def phase11_registered_twins(twin_mod):
-    """16 twins of the registered policies (shed's override included)."""
+    """16 twins of the registered policies (shed's override included):
+    shed 3, null 2, capped 5, and diurnal, bits and bw_copy 2 each, the
+    bw_copy twins at the parameters of ``phase11_builtin_twins``'
+    batch0 and batch1."""
     tw = []
-    for i in range(4):
+    for i in range(3):
         tw.append(twin_mod.make_twin(
             f"shed{i}", "shed", max_rps=1.0 + i, usd_per_hour=0.0082,
             base_latency_s=0.15, queue_cap_hours=2))
+    for i in range(2):
         tw.append(twin_mod.make_twin(f"null{i}", "null", max_rps=1.0,
                                      usd_per_hour=0.01 * (i + 1),
                                      base_latency_s=0.1))
-    for i in range(8):
+    for i in range(5):
         tw.append(twin_mod.make_twin(
             f"capped{i}", "capped", max_rps=0.5, usd_per_hour=0.0082,
-            base_latency_s=0.15, replicas=0.5 + i))
+            base_latency_s=0.15, replicas=0.5 + 1.5 * i))
+    for i in range(2):
+        tw.append(twin_mod.make_twin(
+            f"diurnal{i}", "diurnal", max_rps=0.5 + 0.5 * i,
+            usd_per_hour=0.0082, base_latency_s=0.15))
+        tw.append(twin_mod.make_twin(
+            f"bits{i}", "bits", max_rps=1.0 + i, usd_per_hour=0.0082,
+            base_latency_s=0.15))
+        tw.append(twin_mod.make_twin(
+            f"bw{i}", "bw_copy", max_rps=6.15, usd_per_hour=0.0703,
+            base_latency_s=0.06, window_hours=2 + 2 * i))
     return tw
+
+
+def ops_on_card(dev, twin_mod, ops_build):
+    """11d (C15): every elementwise operation of a registered step
+    (``OPS_EXACT``, ``OPS_ULP``: integer arithmetic, shifts, ``//`` and
+    ``%``, casts and bit views, float floor division and remainder,
+    ``nextafter``, ``sin``, ``atan2``, ...) on edge values (NaN, +-inf,
+    +-0, INT_MIN, shift counts at and past the width, negative
+    operands), one bin through the series kernel, against the CPU's run
+    of the same steps: class 1 bitwise, class 2 within its ulps, NaN as
+    NaN. Its registry (the built-ins and these steps) has a library of
+    its own, built on ``ops_build``'s thread; its ptxas registers and
+    spills are held to the plain library's. The registry is restored
+    after. Returns the record."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import policy_scan as pk
+    thread, took = ops_build
+    thread.join()
+    check("s" in took, "11d's nvcc failed (see its log in _build/)")
+    saved = (dict(twin_mod._REGISTRY), twin_mod._VERSION)
+    try:
+        groups = ops_groups()
+        for name, ops, _ in groups:
+            twin_mod.register_policy(name, TRIPLE + ("a", "b", "c"))(
+                ops_step(ops))
+        from repro_torch.kernels import lane_codegen
+        ptxas_generated(build, lane_codegen.generated().header, "11d",
+                        "11d's")
+        record = ops_check(dev, twin_mod, groups)
+    finally:
+        twin_mod._REGISTRY.clear()
+        twin_mod._REGISTRY.update(saved[0])
+        twin_mod._VERSION = saved[1]
+        pk.reset_launches()
+    record["build_s"] = took["s"]
+    return record
+
+
+def ops_check(dev, twin_mod, groups):
+    """11d's run and comparison, in a registry that holds ``groups``."""
+    from repro_torch.kernels import policy_scan as pk
+    names = twin_mod.policy_names()
+    pf = [(x, y) for x in OPS_F32 for y in OPS_F32]
+    pi = [(x, y) for x in OPS_I32 for y in OPS_I32]
+    lanes = max(len(pf), len(pi))
+    hi = [OPS_HIGH[i % len(OPS_HIGH)] for i in range(lanes)]
+    hi2 = [OPS_HIGH[(i // len(OPS_HIGH)) % len(OPS_HIGH)]
+           for i in range(lanes)]
+
+    def bits32(v):
+        return np.asarray(v, np.int64).astype(np.int32).view(np.float32)
+    block = np.stack([
+        np.asarray([pf[i % len(pf)][0] for i in range(lanes)], np.float32),
+        np.asarray([pf[i % len(pf)][1] for i in range(lanes)], np.float32),
+        bits32([pi[i % len(pi)][0] for i in range(lanes)]),
+        bits32([pi[i % len(pi)][1] for i in range(lanes)]),
+        bits32(hi), bits32(hi2)], axis=1)
+    params = torch.from_numpy(np.tile(block, (len(groups), 1)))
+    policy = np.repeat([names.index(g) for g, _, _ in groups], lanes)
+    onehot = torch.from_numpy(twin_mod.policy_onehot(policy))
+    loads = torch.zeros(len(policy), 1)
+    pk.reset_launches()
+    t0 = time.perf_counter()
+    card_c, card_s = pk.policy_grid_scan(loads.to(dev), params.to(dev),
+                                         onehot.to(dev))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(pk.launches["policy_scan"] == 1
+          and pk.registered_rows["policy_scan"] == len(policy),
+          (pk.launches, pk.registered_rows))
+    cpu_c, cpu_s = pk.policy_grid_scan(loads, params, onehot)
+
+    def slots(c, series):
+        return torch.cat([c.cpu(), torch.stack([x[:, 0].cpu()
+                                                for x in series], 1)],
+                         1).numpy()
+    got, want = slots(card_c, card_s), slots(cpu_c, cpu_s)
+    check(np.isfinite(got).all() and np.isfinite(want).all(), "11d pieces")
+    worst, n_ops = {}, 0
+    for k, (name, ops, exact) in enumerate(groups):
+        rows = slice(k * lanes, (k + 1) * lanes)
+        col = 0
+        for op in ops:
+            kind, what, n = op[0], op[1], op[-1]
+            g, w = got[rows, col:col + n], want[rows, col:col + n]
+            col += n
+            n_ops += 1
+            if exact:
+                bad = np.nonzero((g != w).any(axis=1))[0]
+                check(len(bad) == 0, ("11d", kind, what, len(bad),
+                                      block[bad[:3]].tolist()))
+                continue
+            # a class-2 result: its value from the pieces, then ulps on
+            # the ordered integer line of its type (+-0 adjacent)
+            wid = np.int64 if n == 4 else np.int32
+            gv = (g.astype(np.int64) << (16 * np.arange(n))).sum(1)
+            wv = (w.astype(np.int64) << (16 * np.arange(n))).sum(1)
+            gv, wv = gv.astype(wid), wv.astype(wid)
+            fl = np.float64 if n == 4 else np.float32
+            gf, wf = gv.view(fl), wv.view(fl)
+            nan = np.isnan(gf) & np.isnan(wf)
+            key = [np.where(x < 0, np.iinfo(wid).min - x, x).astype(
+                np.float64) for x in (gv, wv)]
+            dist = np.where(nan, 0.0, np.abs(key[0] - key[1]))
+            worst[f"{kind} {what}"] = float(dist.max())
+            check(float(dist.max()) <= op[3],
+                  ("11d", kind, what, float(dist.max()), op[3]))
+    record = {"ops": n_ops, "policies": len(groups), "lanes": lanes,
+              "wall_ms": 1e3 * wall, "ulps": worst}
+    print(f"phase 11d: {n_ops} elementwise operations in {len(groups)} "
+          f"registered steps, {lanes} edge-value lanes each (NaN, +-inf, "
+          f"+-0, INT_MIN, shift counts at and past the width, negative "
+          f"operands of // and %), one launch of the series kernel "
+          f"({len(policy)} scenarios, {1e3 * wall:.1f} ms): "
+          f"{sum(len(o) for _, o, e in groups if e)} bitwise the CPU run, "
+          f"the transcendental ones within their ulps (worst "
+          + ", ".join(f"{k} {v:.0f}" for k, v in sorted(worst.items()))
+          + ")")
+    return record
+
+
+def zero_divisor_on_card(whatif, traffics, slo, twin_mod):
+    """11a (C15): a registered step that divides an integer by zero on
+    one twin's parameters raises the CPU's ``RuntimeError:
+    ZeroDivisionError`` on the card too, read back after the launch;
+    with a divisor of 4 its rows run, bitwise the CPU's."""
+    from repro_torch.kernels import policy_scan as pk
+    ok = twin_mod.make_twin("zdiv3", "zdiv", max_rps=1.0,
+                            usd_per_hour=0.01, base_latency_s=0.1,
+                            groups=3.0)
+    same_results(whatif.run_grid([ok], traffics, slo=slo),
+                 whatif.run_grid([ok], traffics, slo=slo, device="cpu"),
+                 "11a zdiv groups 3: card vs CPU")
+    bad = twin_mod.make_twin("zdiv0", "zdiv", max_rps=1.0,
+                             usd_per_hour=0.01, base_latency_s=0.1,
+                             groups=-1.0)
+    raised, launched = {}, {}
+    for where in ("cuda", "cpu"):
+        pk.reset_launches()
+        try:
+            whatif.run_grid([bad], traffics, slo=slo, device=where)
+        except RuntimeError as e:
+            raised[where] = str(e)
+        launched[where] = pk.launches["policy_agg"]
+    # the kernel launched once and the wrapper raised after it
+    check(raised.get("cuda") == raised.get("cpu") == "ZeroDivisionError"
+          and launched == {"cuda": 1, "cpu": 0}, (raised, launched))
+    print(f"phase 11a: zdiv (an int32 // by a parameter): divisor 4 "
+          f"bitwise the CPU run; divisor 0 raises RuntimeError("
+          f"{raised['cuda']!r}) on the card, read back after the launch, "
+          f"as the CPU does")
+    pk.reset_launches()
+    return raised
 
 
 def phase11_header(twin_mod):
@@ -3343,18 +3816,27 @@ def by_name(rows, names):
 
 
 def check_flash_padding(dev):
-    """Phase 11 (C17): both flash kernels against ref.flash_attention at
-    head dims the wrapper pads to the kernels' multiple of 8, causal or
-    not, GQA g 1 and 7, sq/sk around the 128-row tile; one launch a
-    call."""
+    """Phase 11 (C17): the flash kernels against ref.flash_attention at
+    head dims the wrapper pads to the kernels' multiple of 8 (g 1 and 7)
+    and at head dims past 256 (``FLASH_WIDE_PAIRS``, flash_wide_kernel;
+    g 1, 7 and 16), causal or not, both types, sq/sk around the 128-row
+    tile (the wide kernel's 64-row and 32-key tiles among them); one
+    launch a call, each on its kernel's count. Returns the wide kernels'
+    launches."""
     from repro_torch.kernels import flash_attention as fk, ref
     g = torch.Generator(device=dev).manual_seed(SEED + 11)
+    seqs = ((63, 63), (129, 129), (300, 127), (127, 300))
     cases = [(1, sq, sk, h, kh, dq, dv, causal, dtype)
-             for dq, dv in FLASH_PAD_PAIRS
-             for sq, sk in ((63, 63), (129, 129), (300, 127), (127, 300))
+             for dq, dv in FLASH_PAD_PAIRS for sq, sk in seqs
              for h, kh in ((4, 4), (14, 2)) for causal in (True, False)
              for dtype in (torch.float32, torch.bfloat16)]
+    cases += [(1, sq, sk, h, kh, dq, dv, causal, dtype)
+              for dq, dv in FLASH_WIDE_PAIRS for sq, sk in seqs
+              for h, kh in ((4, 4), (14, 2), (16, 1))
+              for causal in (True, False)
+              for dtype in (torch.float32, torch.bfloat16)]
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    worst_wide = {torch.float32: 0.0, torch.bfloat16: 0.0}
     fk.reset_launches()
     for b, sq, sk, h, kh, dq, dv, causal, dtype in cases:
         q = torch.randn(b, sq, h, dq, generator=g, device=dev).to(dtype)
@@ -3364,28 +3846,32 @@ def check_flash_padding(dev):
         want = ref.flash_attention(q, k, v, causal=causal)
         check(got.dtype == dtype and got.shape == (b, sq, h, dv),
               (got.dtype, got.shape))
-        worst[dtype] = max(worst[dtype], close_or_raise(
-            f"padded flash {(b, sq, sk, h, kh)} (dqk, dv) {(dq, dv)} "
+        into = worst_wide if max(dq, dv) > fk.MAX_HEAD_DIM else worst
+        into[dtype] = max(into[dtype], close_or_raise(
+            f"flash {(b, sq, sk, h, kh)} (dqk, dv) {(dq, dv)} "
             f"causal={causal} {dtype}", got, want, MODEL_TOL[dtype]))
     torch.cuda.synchronize()
-    n_f32 = sum(1 for c in cases if c[-1] == torch.float32)
-    check(fk.launches == {"flash_attention": len(cases) - n_f32,
-                          "flash_attention_f32": n_f32}, fk.launches)
-    for dq, dv in ((264, 264), (64, 264)):
-        try:
-            fk.check_head_dims(dq, dv)
-        except NotImplementedError:
-            continue
-        raise AssertionError(f"head dims {(dq, dv)} were not refused")
-    print(f"phase 11: flash kernels vs plain at padded head dims "
-          f"{', '.join(map(str, FLASH_PAD_PAIRS))} on {len(cases)} random "
-          f"blocks: max abs error float32 {worst[torch.float32]:.3g} (tol "
-          f"{MODEL_TOL[torch.float32]:g}), bf16 {worst[torch.bfloat16]:.3g}"
-          f" (tol {MODEL_TOL[torch.bfloat16]:g}); launches {fk.launches}; "
-          f"264 refused ({fk.HEAD_DIM_RULE})")
+    want_launches = dict.fromkeys(fk.launches, 0)
+    for c in cases:
+        want_launches[fk.kernel_name(c[-1], c[5], c[6])] += 1
+    check(fk.launches == want_launches, (fk.launches, want_launches))
+    n_wide = sum(1 for c in cases if max(c[5], c[6]) > fk.MAX_HEAD_DIM)
+    print(f"phase 11: flash kernels vs plain on {len(cases)} random "
+          f"blocks: at padded head dims "
+          f"{', '.join(map(str, FLASH_PAD_PAIRS))} max abs error float32 "
+          f"{worst[torch.float32]:.3g}, bf16 {worst[torch.bfloat16]:.3g}; "
+          f"past 256 (flash_wide_kernel, {n_wide} blocks at "
+          f"{', '.join(map(str, FLASH_WIDE_PAIRS))}, g 1/7/16) float32 "
+          f"{worst_wide[torch.float32]:.3g}, bf16 "
+          f"{worst_wide[torch.bfloat16]:.3g} (tol float32 "
+          f"{MODEL_TOL[torch.float32]:g}, bf16 "
+          f"{MODEL_TOL[torch.bfloat16]:g}); launches {fk.launches} "
+          f"({fk.HEAD_DIM_RULE})")
+    return {k: v for k, v in fk.launches.items() if "wide" in k}
 
 
-def registered_policies_on_card(dev, whatif, tr, twin_mod, slo_mod, faults):
+def registered_policies_on_card(dev, whatif, tr, twin_mod, slo_mod, faults,
+                                ops_build):
     """Phase 11: policies added with ``register_policy`` on the card,
     their steps translated into the policy kernels
     (``kernels/lane_codegen.py``). 11a: ``run_grid`` over 32 twins (four
@@ -3396,10 +3882,14 @@ def registered_policies_on_card(dev, whatif, tr, twin_mod, slo_mod, faults):
     library's run of the built-ins alone, before anything is registered;
     ``registered_rows`` counts every registered row in the kernels; the
     registered twins under a chaos schedule (the aggregate fault kernel)
-    bitwise the CPU. 11b: a search over ``capped``'s replicas, re-checked
-    through the aggregate kernel. Then the flash kernels at padded head
-    dims (C17). The registry is restored at the end. Returns the policy
-    kernels' launches of 11a's main path and the phase's record."""
+    bitwise the CPU; ``zdiv``'s zero divisor raising on the card as on
+    the CPU. 11b: a search over ``capped``'s replicas, re-checked
+    through the aggregate kernel. The registry is restored at the end.
+    Then 11c, 11d (its library from ``ops_build``) and the flash kernels
+    at padded head dims and past 256, the wide kernel timed at
+    DeepSeek-V2-Lite's absorbed shape (C17). Returns the policy kernels'
+    launches of 11a's main path with the wide flash kernels' of phase 11,
+    and the phase's record."""
     from repro_torch.kernels import lane_codegen
     from repro_torch.kernels import policy_scan as pk
     from repro_torch.search import search, search_space
@@ -3428,6 +3918,9 @@ def registered_policies_on_card(dev, whatif, tr, twin_mod, slo_mod, faults):
               and all(branches[names.index(p)]
                       == lane_codegen.FIRST_GENERATED + names.index(p)
                       for p in REGISTERED), (names, branches))
+        check(lane_codegen.generated().header.count("case ")
+              == len(names) - 5 + 1, "a branch a registered policy (shed's "
+              "override included)")
         reg = phase11_registered_twins(twin_mod)
         # interleaved, so that the kernels' sort by policy has work to do
         twins = [t for pair in zip(builtin, reg) for t in pair]
@@ -3456,8 +3949,26 @@ def registered_policies_on_card(dev, whatif, tr, twin_mod, slo_mod, faults):
             cpu = whatif.run_grid(reg, traffics, slo=slo,
                                   return_series=series, device="cpu")
             cpu_s = time.perf_counter() - t1
-            same_results(by_name(only_reg, [r.name for r in cpu]), cpu,
+            exact = [r for r in cpu if r.twin.policy != "diurnal"]
+            same_results(by_name(only_reg, [r.name for r in exact]), exact,
                          f"11a {mode}: registered rows card vs CPU")
+            daily = [r for r in cpu if r.twin.policy == "diurnal"]
+            diurnal_worst = within_ulps(
+                by_name(only_reg, [r.name for r in daily]), daily,
+                {"diurnal": (DIURNAL_ULPS, DIURNAL_AGG_RTOL)}, series,
+                f"11a {mode} diurnal")["diurnal"]
+            # batch_window's own step, translated, against its
+            # hand-written branch at the same parameters
+            for i in range(2):
+                for t_ in traffics:
+                    a, b = by_name(card, [f"{t_.name} bw{i}",
+                                          f"{t_.name} batch{i}"])
+                    check(a.twin.params == b.twin.params, (a.name, b.name))
+                    for f in a.__dataclass_fields__:
+                        if f not in ("twin", "name"):
+                            check(np.array_equal(np.asarray(getattr(a, f)),
+                                                 np.asarray(getattr(b, f))),
+                                  ("11a bw_copy vs batch_window", a.name, f))
             rows_alone, alone_s = alone[series]
             same_results(by_name(card, [r.name for r in rows_alone]),
                          rows_alone,
@@ -3466,14 +3977,22 @@ def registered_policies_on_card(dev, whatif, tr, twin_mod, slo_mod, faults):
             record[mode] = {"wall_ms": 1e3 * wall, "launches": got,
                             "registered_rows": rows[kernel],
                             "builtin_alone_ms": 1e3 * alone_s,
-                            "cpu_registered_ms": 1e3 * cpu_s}
+                            "cpu_registered_ms": 1e3 * cpu_s,
+                            "diurnal_worst": diurnal_worst}
             print(f"phase 11a: run_grid {mode}, {n_scen} full-year "
                   f"scenarios ({len(builtin)} built-in and {len(reg)} "
                   f"registered twins x {len(traffics)} traffics): "
                   f"{1e3 * wall:.1f} ms wall; {kernel} launches "
                   f"{got[kernel]}, of them {rows[kernel]} rows through "
                   f"generated steps; the registered rows bitwise the CPU "
-                  f"run's, the built-in rows bitwise the plain library's "
+                  f"run's (null, shed, capped, bits, bw_copy), diurnal's "
+                  f"latency within "
+                  + (f"{diurnal_worst} ulp (bound {DIURNAL_ULPS})" if series
+                     else f"{diurnal_worst:.3g} relative (bound "
+                     f"{DIURNAL_AGG_RTOL:.3g})")
+                  + f" and the rest bitwise; bw_copy bitwise the built-in "
+                  f"batch_window at its parameters; the built-in rows "
+                  f"bitwise the plain library's "
                   f"run of the built-ins alone ({1e3 * alone_s:.1f} ms for "
                   f"{len(builtin) * len(traffics)} scenarios); the CPU's "
                   f"run of the registered rows {1e3 * cpu_s:.1f} ms")
@@ -3498,6 +4017,12 @@ def registered_policies_on_card(dev, whatif, tr, twin_mod, slo_mod, faults):
               f"rows in {1e3 * fault_s:.1f} ms, bitwise the CPU run "
               f"(fault-kernel launches {pk.launches['policy_agg_fault']}, "
               f"registered rows {pk.registered_rows['policy_agg_fault']})")
+        gen = lane_codegen.generated()
+        check(gen.int_div == ("zdiv",) and not gen.refused
+              and gen.transcendental == ("diurnal",),
+              (gen.int_div, gen.refused, gen.transcendental))
+        record["zero_divisor"] = zero_divisor_on_card(
+            whatif, traffics[:1], slo, twin_mod)
 
         # 11b: search over the registered policy, re-checked on the card
         base = twin_mod.make_twin("capped", "capped", max_rps=0.5,
@@ -3535,7 +4060,13 @@ def registered_policies_on_card(dev, whatif, tr, twin_mod, slo_mod, faults):
         twin_mod._VERSION = saved[1]
         pk.reset_launches()
     record["softlat"] = softlat_on_card(whatif, tr, twin_mod, slo_mod)
-    check_flash_padding(dev)
+    record["ops"] = ops_on_card(dev, twin_mod, ops_build)
+    wide = check_flash_padding(dev)
+    launches.update(wide)
+    # flash_wide_kernel at DeepSeek-V2-Lite's absorbed shape, both types
+    record["wide"] = {"flash_attention_wide": flash_vs_plain(dev, "11"),
+                      "flash_attention_wide_f32": flash_vs_plain(
+                          dev, "11", torch.float32)}
     record["s"] = time.perf_counter() - t0
     print(f"phase 11: {record['s']:.1f} s")
     print(json.dumps({"registered": record}))
@@ -4833,7 +5364,7 @@ def serve_mesh_at_width(rank, dev, part, cfg, shape, max_len, new,
     with sh.tally() as coll:
         done = eng.serve(requests())
     wall = time.perf_counter() - t0
-    launches = {k: v for mod in mods for k, v in mod.launches.items()}
+    launches = model_launches(mods)
     peak = torch.cuda.max_memory_allocated()
     check(launches == expect, (part, launches, expect))
     outputs = [r.output for r in sorted(done, key=lambda r: r.rid)]
@@ -5338,7 +5869,7 @@ def whisper_mesh_serve(rank, dev):
         sh.barrier()
         with sh.tally() as coll:
             first, tokens, ttft, dec = serve(params, mesh, cplace)
-    launches = {k: v for mod in mods for k, v in mod.launches.items()}
+    launches = model_launches(mods)
     expect = {"flash_attention": 0, "flash_attention_f32":
               cfg.encoder_layers + 2 * cfg.num_layers, "ssm_scan": 0,
               "rwkv6_chunked": 0, "rwkv6_scan": 0}
@@ -5609,6 +6140,47 @@ def dryrun_finish(started):
     return record
 
 
+def ptxas_spills(log):
+    """{kernel: (registers, spill stores, spill loads)} of an nvcc -Xptxas
+    -v log: each "Compiling entry function" line's kernel, then its
+    "spill" and "registers" lines."""
+    import re
+    out, name = {}, None
+    for line in log.read_text().splitlines():
+        m = re.search(r"entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = [0, 0, 0]
+        elif name is not None and "spill stores" in line:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            out[name][1:] = [int(m.group(1)), int(m.group(2))]
+        elif name is not None and "registers" in line:
+            out[name][0] = int(re.search(r"Used (\d+) registers",
+                                         line).group(1))
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def ptxas_generated(build, header, phase="1b", what="phase 11's"):
+    """Phase 1b and 11d (C15): the policy kernels built with generated
+    steps (int32 and int64 values; 11d's 47 branches) spill no more than
+    the plain library's: ptxas' registers and spills of each, side by
+    side."""
+    plain = ptxas_spills(build.library_path("policy_scan")
+                         .with_suffix(".log"))
+    gen = ptxas_spills(build.library_path("policy_scan", header)
+                       .with_suffix(".log"))
+    check(set(plain) == set(gen) and plain, (sorted(plain), sorted(gen)))
+    for name in sorted(gen):
+        check(gen[name][1] <= plain[name][1], ("spills", name, gen[name],
+                                               plain[name]))
+    print(f"phase {phase}: ptxas policy_scan, plain -> with {what} "
+          "generated "
+          "steps (registers, spill stores, spill loads): " + ", ".join(
+              f"{name.split('policy_')[-1][:40]} {plain[name]} -> "
+              f"{gen[name]}" for name in sorted(gen)))
+
+
 def sass_functions(sass):
     """{kernel name: its lines} of ``cuobjdump -sass`` output."""
     out, name = {}, None
@@ -5635,10 +6207,19 @@ def sass_flash(tool, build):
                            str(build.library_path("flash_attention"))],
                           capture_output=True, text=True, check=True).stdout
     local = re.compile(r"\b(LDL|STL)\b")
-    found, found_f32 = {}, {}
+    found, found_f32, found_wide = {}, {}, {}
     for fn, lines in sass_functions(sass).items():
         m = re.search(r"flash_wgmma_kernelILi(\d+)ELi(\d+)E", fn)
         m32 = re.search(r"flash_f32_kernelILi(\d+)E", fn)
+        mw = re.search(r"flash_wide_kernelI(\w+?)Li(\d+)E", fn)
+        if mw is not None:
+            kind = "f32" if mw.group(1).startswith("f") else "bf16"
+            counts = [sum("HMMA" in line for line in lines),
+                      sum("LDGSTS" in line for line in lines),
+                      sum(bool(local.search(line)) for line in lines)]
+            check(counts[0] and counts[1], ("wide", kind, counts))
+            found_wide[(kind, int(mw.group(2)))] = counts
+            continue
         if m32 is not None:
             dv = int(m32.group(1))
             counts = [sum("HMMA" in line for line in lines),
@@ -5663,6 +6244,8 @@ def sass_flash(tool, build):
     check(len(found) == 36, sorted(found))
     check(sorted(found_f32) == [16, 32, 64, 128, 192, 256],
           sorted(found_f32))
+    check(sorted(found_wide) == [(k, d) for k in ("bf16", "f32")
+                                 for d in (64, 128, 256)], sorted(found_wide))
     print("phase 1b: cuobjdump -sass flash_attention: bf16 kernels "
           "<dqk storage, dv storage>: HGMMA / UTMALDG / LDL+STL "
           "instructions " + ", ".join(
@@ -5672,6 +6255,10 @@ def sass_flash(tool, build):
           "<dv storage>: HMMA / LDGSTS / LDL+STL instructions " + ", ".join(
               f"<{dv}> {c[0]}/{c[1]}/{c[2]}"
               for dv, c in sorted(found_f32.items())))
+    print("phase 1b: cuobjdump -sass flash_attention: flash_wide_kernel "
+          "<type, v slice>: HMMA / LDGSTS / LDL+STL instructions "
+          + ", ".join(f"<{k}, {d}> {c[0]}/{c[1]}/{c[2]}"
+                      for (k, d), c in sorted(found_wide.items())))
 
 
 def sass_check(build):
@@ -5759,6 +6346,7 @@ def main():
         for line in log.read_text().splitlines():
             if "registers" in line or "entry function" in line:
                 print("  ptxas:", line.strip())
+    ptxas_generated(build, header_11)
     sass_check(build)
     dev = torch.device("cuda", 0)
     # float32 matrix products in full float32 on the card (5c compares
@@ -5813,8 +6401,9 @@ def main():
         return 0
     if sys.argv[1:] == ["--phase", "11"]:
         # registered policies and the padded flash head dims alone
-        registered_policies_on_card(dev, whatif, tr, twin_mod, slo_mod,
-                                    faults)
+        registered_policies_on_card(
+            dev, whatif, tr, twin_mod, slo_mod, faults,
+            ops_build_start(build, ops_header(twin_mod)))
         print(card)
         return 0
     if sys.argv[1:] == ["--phase", "10"]:
@@ -5841,6 +6430,8 @@ def main():
         print(card)
         return 0
 
+    # 11d's library builds on a thread of its own beside phases 2-10
+    ops_build = ops_build_start(build, ops_header(twin_mod))
     elapsed("phase 1")
     check_random_blocks(dev)
     check_table2_kernels(dev, tr, twin_mod)
@@ -5931,8 +6522,8 @@ def main():
 
     # registered policies on the card (their steps translated into the
     # policy kernels) and the padded flash head dims
-    launches_11, _ = registered_policies_on_card(dev, whatif, tr, twin_mod,
-                                                 slo_mod, faults)
+    launches_11, record_11 = registered_policies_on_card(
+        dev, whatif, tr, twin_mod, slo_mod, faults, ops_build)
 
     # the training side: no model kernel runs in a train step
     launches_12, _ = training_on_card(dev, get_smoke_config)
@@ -5981,6 +6572,16 @@ def main():
               "src/repro/kernels/flash_attention.py:23", flash_row),
              ("flash_attention_f32", "flash_attention",
               "src/repro/kernels/flash_attention.py:23", flash_f32_row),
+             # past 256: phase 11's launches, timed at DeepSeek-V2-Lite's
+             # absorbed shape in that phase
+             ("flash_attention_wide", "flash_attention",
+              "src/repro/kernels/flash_attention.py:23",
+              dict(record_11["wide"]["flash_attention_wide"],
+                   launches_of="11")),
+             ("flash_attention_wide_f32", "flash_attention",
+              "src/repro/kernels/flash_attention.py:23",
+              dict(record_11["wide"]["flash_attention_wide_f32"],
+                   launches_of="11")),
              ("ssm_scan", "ssm_scan", "src/repro/kernels/ssm_scan.py:27",
               ssm_row),
              ("rwkv6_chunked", "rwkv6",
@@ -5998,7 +6599,9 @@ def main():
         dict({"name": name, "route": "cuda",
               "source": f"src/repro_torch/kernels/csrc/{src}.cu",
               "replaces": replaces,
-              "launches": (launches_14f.get(name, 0)
+              "launches": ({"14f (both ranks)": launches_14f,
+                            "11": launches_11}[stats["launches_of"]].get(
+                                name, 0)
                            if "launches_of" in stats else launches[name]),
               "launches_6b": launches_6b.get(name, 0),
               "launches_7": launches_7.get(name, 0),

@@ -134,7 +134,11 @@ def _assert_surrogate_sane(name: str, surrogate: Callable, lanes: int = 4,
             c, outs = surrogate(carry, arrive, p,
                                 torch.tensor(dt, dtype=torch.float32))
             val = sum(o.sum() for o in outs) + c.sum()
-            (g,) = torch.autograd.grad(val, p, allow_unused=True)
+            # a step whose outputs do not depend on the parameters through
+            # differentiable operations (bit views, integers) has zero
+            # gradients, as jax.grad gives them
+            g = (torch.autograd.grad(val, p, allow_unused=True)[0]
+                 if val.requires_grad else None)
         g = torch.zeros_like(p) if g is None else g
         if not (torch.isfinite(val) and torch.isfinite(g).all()):
             raise AssertionError(
@@ -203,12 +207,12 @@ def register_policy(name: str, param_names: Tuple[str, ...],
     into NaN. Such a policy has no built-in CUDA kernel branch (an
     override of a built-in loses its branch): on the card its scenarios
     run the step as ``kernels/lane_codegen.py`` translates it into the
-    kernels, which take the operations whose rounding they reproduce bit
-    for bit and the elementwise transcendental ones (``exp``, ``log``,
-    ``tanh``, ``sigmoid``, ``expm1``, ``log1p``, ``softplus``, ``pow``:
-    held to the CPU within an ulp bound), and refuse a step with any
-    other (a bit view, an operation across lanes, data-dependent
-    control flow).
+    kernels, which take every elementwise operation of float32, float64,
+    int32, int64 and bool values (integer arithmetic, shifts, bit views,
+    ``//`` and ``%`` included, bit for bit; the transcendental ones,
+    ``exp``, ``sin``, ``tanh``, ``pow``, ...: held to the CPU within an
+    ulp bound), and refuse what the reference refuses too (an operation
+    across lanes, a lane index, data-dependent control flow).
 
     ``bounds`` / ``log_params`` / ``frozen`` are the calibration metadata
     of the reference's ``register_policy``: the fit box per parameter

@@ -17,15 +17,20 @@ tensor cores in 3xTF32: each float split into a TF32 high part and its
 remainder, three TF32 products for each float32 one, float32 sums; one
 TF32 pass would miss the float32 tolerance). Both take dqk and dv
 separately, each a multiple of 8 from 8 to 256 (a tensor map's row stride
-is a multiple of 16 bytes). The wrapper takes any head dim from 1 to 256
+is a multiple of 16 bytes). Past 256, either dim, a third kernel runs,
+``flash_wide_kernel`` of the type (q and K streamed through shared memory
+in 64-column chunks, v's columns split across blocks in slices of up to
+256, ``mma.sync``; bf16 with P rounded to bf16 as above, float32 in
+3xTF32), so that DeepSeek-V2-Lite's absorbed MLA (576, 512) runs on the
+card (ROADMAP C17). The wrapper takes any head dim from 1
 (``HEAD_DIM_RULE``, ``check_head_dims``): it pads q and k, and v, with
 zero columns to the next multiple of 8 (zeros add nothing to a q.k
 product and give zero output columns), scales by the real q/k dim and
-slices the output back to the real v dim. Past 256 raises
-``NotImplementedError`` (the Pallas kernel takes any; ROADMAP C17); it
-never goes to the plain version. Each launch adds one to its kernel's
-count, ``launches["flash_attention"]`` (bf16) or
-``launches["flash_attention_f32"]``, and nothing else does.
+slices the output back to the real v dim. It never goes to the plain
+version. Each launch adds one to its kernel's count,
+``launches["flash_attention"]`` (bf16), ``launches["flash_attention_f32"]``,
+``launches["flash_attention_wide"]`` (bf16 past 256) or
+``launches["flash_attention_wide_f32"]``, and nothing else does.
 
 This is a forward kernel: its output is written outside autograd. A call
 in grad mode with an operand that requires grad raises ``RuntimeError``
@@ -43,12 +48,16 @@ import torch
 from repro_torch.kernels import build, ref
 
 #: kernel launches since the last ``reset_launches()``
-launches = {"flash_attention": 0, "flash_attention_f32": 0}
+launches = {"flash_attention": 0, "flash_attention_f32": 0,
+            "flash_attention_wide": 0, "flash_attention_wide_f32": 0}
 
 #: the head dims the wrapper takes, q/k and v alike; the kernels run
 #: multiples of 8 (a tensor map's row stride must be a multiple of 16
-#: bytes) up to 256, and the wrapper pads the rest with zeros
-HEAD_DIM_RULE = "from 1 to 256 (padded with zeros to a multiple of 8)"
+#: bytes), and the wrapper pads the rest with zeros
+HEAD_DIM_RULE = ("from 1 up (padded with zeros to a multiple of 8; past "
+                 "256 through flash_wide_kernel)")
+#: the largest head dim the bf16 and float32 kernels hold whole; a q/k or
+#: v dim past it runs ``flash_wide_kernel``, which has no upper limit
 MAX_HEAD_DIM = 256
 DIM_STEP = 8
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -77,17 +86,22 @@ def _lib():
 
 
 def check_head_dims(dqk: int, dv: int):
-    """Raise unless the wrapper takes q/k head dim ``dqk`` and v head dim
-    ``dv`` (``HEAD_DIM_RULE``, each on its own): ``ValueError`` below 1,
-    ``NotImplementedError`` past ``MAX_HEAD_DIM``."""
+    """Raise ``ValueError`` unless the wrapper takes q/k head dim ``dqk``
+    and v head dim ``dv`` (``HEAD_DIM_RULE``, each on its own: 1 and
+    up)."""
     for what, d in (("q/k", dqk), ("v", dv)):
         if d < 1:
             raise ValueError(f"{what} head dim {d}: a head needs at least "
                              f"one dimension")
-        if d > MAX_HEAD_DIM:
-            raise NotImplementedError(
-                f"{what} head dim {d}: the flash kernels take head dims "
-                f"{HEAD_DIM_RULE}")
+
+
+def kernel_name(dtype, dqk: int, dv: int) -> str:
+    """The ``launches`` key of the kernel that runs head dims ``dqk`` and
+    ``dv`` in ``dtype``: the wide kernel where either pads past
+    ``MAX_HEAD_DIM``."""
+    wide = max(padded_dim(dqk), padded_dim(dv)) > MAX_HEAD_DIM
+    name = "flash_attention_wide" if wide else "flash_attention"
+    return name if dtype == torch.bfloat16 else name + "_f32"
 
 
 def padded_dim(d: int) -> int:
@@ -184,6 +198,5 @@ def _launch(q, k, v, causal: bool, scale: float) -> torch.Tensor:
         msg = lib.flash_attention_error_string(rc).decode()
         raise RuntimeError(f"flash_attention kernel launch failed: error "
                            f"{rc} ({msg})")
-    launches["flash_attention" if q.dtype == torch.bfloat16
-             else "flash_attention_f32"] += 1
+    launches[kernel_name(q.dtype, d, dv)] += 1
     return out

@@ -26,7 +26,9 @@ no fallback. The kernels run the five built-in policies
 ``register_policy`` (an override of a built-in included), whose lane step
 ``kernels/lane_codegen.py`` translates into a device function of a
 library built for the registry (``lane_codegen.generated()``); a row
-whose step has no CUDA form, or that is not a one-hot row, raises. Each
+whose step has no CUDA form, or that is not a one-hot row, raises, and so
+does a launch in which a registered step divided an integer by zero (the
+CPU's ``RuntimeError: ZeroDivisionError``, read back after it). Each
 kernel launch adds one to ``launches[<kernel>]``, and nothing else does;
 ``registered_rows[<kernel>]`` counts the scenarios a launch ran through a
 registered policy's generated step.
@@ -105,6 +107,8 @@ def _lib(generated=None):
                                                  _P, _P, _P, _I, _F, _I, _P,
                                                  _P, _P]
         lib.policy_scan_fault_launch.restype = _I
+        lib.policy_div_flag_take.argtypes = [_P, _P]
+        lib.policy_div_flag_take.restype = _I
         lib.policy_error_string.argtypes = [_I]
         lib.policy_error_string.restype = ctypes.c_char_p
     return lib
@@ -132,6 +136,20 @@ def _branch_table(dev) -> torch.Tensor:
         table = torch.tensor([-1, *branches], dtype=torch.int32, device=dev)
         _BRANCH_TABLES[(dev, branches)] = table
     return table
+
+
+def _zero_divisor_check(lib, dev, stream):
+    """After a launch of a library whose registered steps divide
+    integers: read back and clear the kernel's zero-divisor flag, and
+    raise the CPU's ``RuntimeError: ZeroDivisionError`` where a row
+    divided by zero (its results are dropped)."""
+    if not lane_codegen.generated().int_div:
+        return
+    flag = torch.empty((), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):            # the flag is per device
+        _check(lib, lib.policy_div_flag_take(flag.data_ptr(), stream),
+               "zero-divisor flag")
+    _raise_failed([(flag != 0, lambda: RuntimeError("ZeroDivisionError"))])
 
 
 def _raise_failed(checks, count=None):
@@ -339,6 +357,7 @@ def policy_grid_scan(loads, params, onehot, dt_hours: float = 1.0, *,
     _check(lib, rc, name)
     launches[name] += 1
     registered_rows[name] += n_reg
+    _zero_divisor_check(lib, dev, stream)
     return carry_end, tuple(series[k].t() for k in range(5))
 
 
@@ -403,6 +422,7 @@ def policy_grid_agg(loads, params, onehot, dt_hours: float = 1.0, *,
     _check(lib, rc, name)
     launches[name] += 1
     registered_rows[name] += n_reg
+    _zero_divisor_check(lib, dev, stream)
     packed = torch.cat([scal.t(),
                         hist[..., :3].permute(1, 2, 0).reshape(n, -1)], dim=1)
     back = torch.empty_like(order)

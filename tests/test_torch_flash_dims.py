@@ -16,15 +16,17 @@ measured 2.8e-7 here), bf16 2^-7, one bf16 step of the output (measured
 1.5e-3).
 
 The wrapper's rule (``flash_attention.check_head_dims``): q/k and v head
-dims each from 1 to 256; the kernels run multiples of 8, and the wrapper
+dims each from 1 up; the kernels run multiples of 8, and the wrapper
 pads any other dim with zero columns (``pad_head_dims``), scales by the
 real q/k dim and slices the output back to the real v dim. It takes every
 pair of the ten configs and their smoke configs; at (20, 20), (96, 20)
 and (4, 4) the padded plain route is bitwise the unpadded plain flash
-(zero columns add exact zeros to every product); 264 is refused with
-``NotImplementedError`` naming the rule (the Pallas kernel takes any d,
-ROADMAP C17), and 0 with ``ValueError``. ``_check_operands``, run before
-every launch on the card, applies it.
+(zero columns add exact zeros to every product); 264 is taken, by the
+wide kernel (``kernel_name``; ROADMAP C17), and 0 is refused with
+``ValueError``. ``_check_operands``, run before every launch on the card,
+applies it. Past 256: the plain flash against the Pallas kernel at
+(264, 264), DeepSeek-V2-Lite's absorbed (576, 512) and (320, 64), 64
+rows (the Pallas block), g 1 and 8.
 """
 import numpy as np
 import pytest
@@ -73,6 +75,42 @@ def test_plain_flash_matches_pallas_kernel_at_new_dims(jref, dq, dv, h, kh,
     np.testing.assert_allclose(f32(got), f32(want), atol=tol, rtol=tol)
 
 
+#: (dqk, dv) pairs past 256 (C17): a square 264, DeepSeek-V2-Lite's
+#: absorbed MLA (kv_lora_rank 512 + rope 64, v 512), a wide q/k over a
+#: narrow v
+WIDE_PAIRS = [(264, 264), (576, 512), (320, 64)]
+#: past 256, float32: the model tolerance the card's kernels are held to
+#: (``MODEL_TOL``), as each score sums 264-576 products in another order
+#: than the Pallas kernel's blocked dots (measured 1.9e-6 at 576 / 512,
+#: past FLASH_TOL's 1e-6); bf16 as FLASH_TOL
+WIDE_TOL = {torch.float32: 1e-5, torch.bfloat16: BF16_STEP}
+
+
+@pytest.mark.parametrize("dq, dv", WIDE_PAIRS)
+@pytest.mark.parametrize("h, kh", [(2, 2), (8, 1)], ids=["g1", "g8"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_plain_flash_matches_pallas_kernel_past_256(jref, dq, dv, h, kh,
+                                                    causal, dtype):
+    """The plain flash every wide-kernel launch is held to on the card,
+    against the Pallas kernel in interpret mode at head dims past 256:
+    sq = sk = 64 (the Pallas kernel's block divides sq), GQA, causal or
+    not, both types; ``WIDE_TOL``."""
+    b, s = 1, 64
+    rng = np.random.default_rng(dq * 1000 + dv + h)
+    jq, q = both(jref, rng.standard_normal((b, s, h, dq)), dtype)
+    jk, k = both(jref, rng.standard_normal((b, s, kh, dq)), dtype)
+    jv, v = both(jref, rng.standard_normal((b, s, kh, dv)), dtype)
+    want = jref.flash_attention.flash_attention(
+        jq, jk, jv, causal=causal, block_q=64, block_k=64, interpret=True)
+    got = ref.flash_attention(q, k, v, causal=causal)
+    assert got.dtype == dtype and got.shape == (b, s, h, dv)
+    tol = WIDE_TOL[dtype]
+    np.testing.assert_allclose(f32(got), f32(want), atol=tol, rtol=tol)
+    fk.check_head_dims(dq, dv)
+
+
 def test_head_dim_rule_takes_every_config():
     pairs = set()
     for arch in all_archs():
@@ -93,17 +131,22 @@ def test_head_dim_rule_takes_every_config():
 @pytest.mark.parametrize("dq, dv", [(20, 20), (264, 264), (96, 20),
                                     (64, 264), (0, 64), (4, 4)])
 def test_head_dim_rule_refuses_the_rest(dq, dv):
+    """The rule refuses a head dim below 1 only: dims past 256 go to the
+    wide kernel (C17), the others pad to a multiple of 8."""
     g = torch.Generator().manual_seed(dq * 1000 + dv)
     q = torch.randn(1, 70, 4, dq, generator=g)
     k = torch.randn(1, 70, 2, dq, generator=g)
     v = torch.randn(1, 70, 2, dv, generator=g)
     if max(dq, dv) > fk.MAX_HEAD_DIM:
-        with pytest.raises(NotImplementedError,
-                           match=fk.HEAD_DIM_RULE.replace("(", r"\(")
-                           .replace(")", r"\)")):
-            fk.check_head_dims(dq, dv)
-        with pytest.raises(NotImplementedError, match="from 1 to 256"):
-            fk._check_operands(q, k, v)
+        fk.check_head_dims(dq, dv)
+        fk._check_operands(q, k, v)
+        assert "past 256" in fk.HEAD_DIM_RULE
+        assert fk.kernel_name(torch.bfloat16, dq, dv) == \
+            "flash_attention_wide"
+        assert fk.kernel_name(torch.float32, dq, dv) == \
+            "flash_attention_wide_f32"
+        pq, _, pv = fk.pad_head_dims(q, k, v)
+        assert (pq.shape[3], pv.shape[3]) == (dq, dv)   # multiples of 8
         return
     if min(dq, dv) < 1:
         with pytest.raises(ValueError, match="at least one"):

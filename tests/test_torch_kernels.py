@@ -199,7 +199,9 @@ def test_kernel_branch_index_from_onehot(monkeypatch):
         pk._kernel_branch_index(onehot * 0.5)
     # a policy without a built-in branch (any user registration, here an
     # override of batch_window) runs its translated step: branch 5 + its
-    # index; one whose step has no CUDA form is refused by name
+    # index, a bit view included (C15); one whose step has no CUDA form
+    # (an operation across lanes, as the reference refuses it too) is
+    # refused by name
     saved = dict(pt._REGISTRY)
     monkeypatch.setattr(pt, "_VERSION", pt._VERSION)
     try:
@@ -217,8 +219,16 @@ def test_kernel_branch_index_from_onehot(monkeypatch):
             mantissa = (p[:, 2].view(torch.int32) & 0x7FFFFF).float()
             return carry, (arrive, carry[:, 0], mantissa,
                            p[:, 1], torch.zeros_like(arrive))
+        np.testing.assert_array_equal(
+            pk._kernel_branch_index(onehot).numpy(), [9, -1, 2, 1, 3])
+
+        @pt.register_policy("batch_window", ("max_rps", "usd_per_hour",
+                                             "base_latency_s"))
+        def _batch_v4(carry, arrive, p, dt):
+            return carry, (arrive, carry[:, 0], p[:, 2], p[:, 1],
+                           arrive.cumsum(0))
         with pytest.raises(NotImplementedError,
-                           match="batch_window.*a bit view"):
+                           match="batch_window.*aten.cumsum"):
             pk._kernel_branch_index(onehot)
     finally:
         pt._REGISTRY.clear()

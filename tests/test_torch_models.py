@@ -351,7 +351,9 @@ def test_cpu_tensors_take_the_plain_path(monkeypatch):
     y, st = ops.ssm_scan(x, x.abs(), A, B, B, D)
     y2, st2 = ref.ssm_scan(x, x.abs(), A, B, B, D)
     assert torch.equal(y, y2) and torch.equal(st, st2)
-    assert fk.launches == {"flash_attention": 0, "flash_attention_f32": 0}
+    assert fk.launches == {"flash_attention": 0, "flash_attention_f32": 0,
+                           "flash_attention_wide": 0,
+                           "flash_attention_wide_f32": 0}
     assert sk.launches == {"ssm_scan": 0}
 
 
@@ -572,8 +574,11 @@ def test_unported_model_features_raise(what):
         fk.check_head_dims(a.qk_nope_head_dim + a.qk_rope_head_dim,
                            a.v_head_dim)
         fk.check_head_dims(a.qk_nope_head_dim + 4, a.v_head_dim)
-        with pytest.raises(NotImplementedError, match="from 1 to 256"):
-            fk.check_head_dims(fk.MAX_HEAD_DIM + 8, a.v_head_dim)
+        fk.check_head_dims(fk.MAX_HEAD_DIM + 8, a.v_head_dim)
+        assert fk.kernel_name(torch.bfloat16, fk.MAX_HEAD_DIM + 8,
+                              a.v_head_dim) == "flash_attention_wide"
+        with pytest.raises(ValueError, match="at least one"):
+            fk.check_head_dims(0, a.v_head_dim)
 
 
 # ---------------------------------------------------------------------------
@@ -601,6 +606,30 @@ def test_flash_kernel_matches_plain_on_card():
                 v = torch.randn(b, sk_, kh, d, generator=g, device=dev)
                 q, k, v = (x.to(dtype) for x in (q, k, v))
                 got = fk.flash_attention(q, k, v, causal=causal)
+                want = ref.flash_attention(q, k, v, causal=causal)
+                tol = CARD_TOL[dtype]
+                torch.testing.assert_close(got.float(), want.float(),
+                                           atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_wide_flash_kernel_matches_plain_on_card():
+    """Head dims past 256 run flash_wide_kernel (C17), counted apart."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(1)
+    for (b, sq, sk_, h, kh, dq, dv) in [(1, 130, 130, 16, 1, 576, 512),
+                                        (2, 64, 97, 8, 2, 1024, 64),
+                                        (1, 70, 70, 4, 4, 264, 264)]:
+        for causal in (True, False):
+            for dtype in DTYPES:
+                q = torch.randn(b, sq, h, dq, generator=g, device=dev)
+                k = torch.randn(b, sk_, kh, dq, generator=g, device=dev)
+                v = torch.randn(b, sk_, kh, dv, generator=g, device=dev)
+                q, k, v = (x.to(dtype) for x in (q, k, v))
+                name = fk.kernel_name(dtype, dq, dv)
+                before = fk.launches[name]
+                got = fk.flash_attention(q, k, v, causal=causal)
+                assert fk.launches[name] == before + 1
                 want = ref.flash_attention(q, k, v, causal=causal)
                 tol = CARD_TOL[dtype]
                 torch.testing.assert_close(got.float(), want.float(),

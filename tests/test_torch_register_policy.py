@@ -15,7 +15,8 @@ registered ``jnp`` step into its Pallas kernels.
   ``run_grid`` on XLA, both modes, bit for bit;
 * the translation: each registered step (and the built-ins' exact steps
   it can take) run as its scalar operations, one PyTorch operation each,
-  bitwise the step itself; steps with no CUDA form refused by name; the
+  bitwise the step itself; the steps with no CUDA form (control flow on
+  a value, an operation across lanes, a lane index) refused by name; the
   generated header and its library key;
 * on a card (``cuda`` marker): the registered rows of the kernels
   bitwise the CPU run.
@@ -192,9 +193,10 @@ def lane_block(lanes=41, seed=0):
     return tuple(torch.from_numpy(x) for x in (carry, arrive, params))
 
 
-#: registered steps and the built-ins whose exact steps translate
-#: (batch_window's fused multiply-add goes through a float64 bit view)
-TRANSLATED = ("null", "shed", "capped", "fifo", "quickscale", "autoscale")
+#: registered steps and the built-ins' exact steps (batch_window's fused
+#: multiply-add through a float64 bit view as int64 included)
+TRANSLATED = ("null", "shed", "capped", "fifo", "quickscale", "autoscale",
+              "batch_window")
 
 
 @pytest.mark.parametrize("dt", [1.0, 1.0 / 60.0])
@@ -503,12 +505,31 @@ def _lane_index_step(carry, arrive, p, dt):
 
 
 @pytest.mark.parametrize("step, what", [
-    (_bitview_step, "a bit view"), (_branchy_step, "does not trace"),
-    (_cross_lane_step, "aten.cumsum"), (_lane_index_step, "select of dim 0"),
-    (ptwin.policy_spec("batch_window").lane_step, "dtype torch.int64")])
+    (_branchy_step, "does not trace"), (_cross_lane_step, "aten.cumsum"),
+    (_lane_index_step, "select of dim 0")])
 def test_steps_without_a_cuda_form_are_refused(step, what):
+    """What stays refused is what the reference refuses too
+    (``tests/test_torch_register_policy_ints.py`` shows its refusals)."""
     with pytest.raises(cg.Untranslatable, match=what):
         cg.translate(step)
+
+
+@pytest.mark.parametrize("step, op", [
+    (_bitview_step, "bitcast"),
+    (ptwin.policy_spec("batch_window").lane_step, "nextafter")])
+def test_bit_views_and_int64_steps_translate(step, op):
+    """A bit view (float32 as int32) and batch_window's int64 view of a
+    float64 translate, interpreted bitwise the step."""
+    prog = cg.translate(step)
+    assert op in {i.op for i in prog.instrs}
+    carry, arrive, params = lane_block(seed=13)
+    dtt = torch.tensor(1.0)
+    want_c, want = step(carry, arrive, params, dtt)
+    got_c, got = cg.interpret(prog, carry, arrive, params, dtt)
+    np.testing.assert_array_equal(bits(got_c.numpy()), bits(want_c.numpy()))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(
+            bits(g.numpy()), bits(w.expand(arrive.shape[0]).numpy()))
 
 
 def test_refused_rows_raise_on_the_card_path(jref):
@@ -517,13 +538,13 @@ def test_refused_rows_raise_on_the_card_path(jref):
     and the other policies keep their branches."""
     with restored(ptwin):
         ptwin.register_policy("expo", ("max_rps", "usd_per_hour",
-                                       "base_latency_s"))(_bitview_step)
+                                       "base_latency_s"))(_cross_lane_step)
         gen = cg.generated()
         assert gen.branches[-1] == cg.REFUSED
-        assert "a bit view" in gen.refused["expo"]
+        assert "aten.cumsum" in gen.refused["expo"]
         assert gen.branches[:-1] == (0, 1, 2, 8, 4, 10, 11)
         onehot = torch.from_numpy(ptwin.policy_onehot([0, 6, 7]))
-        with pytest.raises(NotImplementedError, match="expo.*a bit view"):
+        with pytest.raises(NotImplementedError, match="expo.*aten.cumsum"):
             pk._kernel_branch_index(onehot)
         np.testing.assert_array_equal(
             pk._kernel_branch_index(onehot[:2]).numpy(), [0, 11])
