@@ -23,8 +23,10 @@ with phase 11's registered policies translated into them), then:
    in each of the 36 bf16 flash kernels (q/k and v storage dims 16-256),
    no local memory in those of d = 256, HMMA and cp.async in each of the
    6 float32 ones (dv storage dims 16-256), no local memory at dv 256,
-   HMMA and cp.async in each of the 6 wide ones (bf16 and float32, v
-   slices 64, 128 and 256),
+   HGMMA and TMA loads in each of the 4 bf16 wide ones (head dims past
+   256: ``flash_wide_wgmma_kernel``, a warpgroup's v columns 64-256) and
+   HMMA in each of the 4 float32 ones (``flash_wide_f32_kernel``), no
+   local memory in any of the 8,
    HMMA and cp.async in the WKV library, the MUFU's
    exp2 and cp.async in the selective-scan library, cp.async and no
    float32 division check in the series policy scans (1b);
@@ -173,11 +175,12 @@ with phase 11's registered policies translated into them), then:
    ``SOFTLAT_ULPS`` and ``SMOOTH_ULPS`` of the CPU run and everything
    else bitwise, the ulps printed (11c, ROADMAP C15); the flash kernels
    at head dims the wrapper pads to a multiple of 8 (4, 20, 100; q/k 96
-   with v 20) and past 256 (flash_wide_kernel: (264, 264), (64, 264),
+   with v 20) and past 256 (the wide kernels: (264, 264), (64, 264),
    (320, 320), DeepSeek-V2-Lite's absorbed (576, 512), (1,024, 64); g 1,
    7 and 16) against their plain version, both types, and the wide
-   kernel timed at DeepSeek-V2-Lite's absorbed prefill shape against its
-   bound and SDPA (C17).
+   kernels timed at DeepSeek-V2-Lite's absorbed prefill shape against
+   their bound, SDPA and their first form (``tools/flash_wide_first.cu``,
+   built beside the sources in phase 1) in the same call (C17).
    ``python3 chip_smoke.py --phase 11`` runs the build and phase 11
    alone;
 12. training on one card: one ``make_train_step`` step of smoke
@@ -288,6 +291,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -1075,7 +1079,7 @@ def check_flash_dims_random_blocks(dev):
                           "flash_attention_wide": 0,
                           "flash_attention_wide_f32": 0}, fk.launches)
     for dq, dv in ((264, 264), (64, 264)):
-        fk.check_head_dims(dq, dv)          # taken: flash_wide_kernel
+        fk.check_head_dims(dq, dv)          # taken: the wide kernels
     print(f"phase 10a: flash kernels vs plain on {len(cases)} random "
           f"blocks ((dqk, dv) {', '.join(map(str, FLASH_DIM_PAIRS))} at "
           f"sq/sk 31-300, g 1 and 7, causal or not; then "
@@ -2460,7 +2464,7 @@ FLASH_SHAPES = {"5d": (4, 2048, 64, 8, 128, 128, True),
                 "14f": (4, 512, 16, 4, 64, 64, True),
                 "14g": (4, 1500, 12, 12, 64, 64, False),
                 # DeepSeek-V2-Lite's absorbed MLA prefill (q/k 512 + 64,
-                # v 512, 16 heads over one latent head): flash_wide_kernel
+                # v 512, 16 heads over one latent head): the wide kernels
                 "11": (4, 2048, 16, 1, 576, 512, True)}
 
 
@@ -2950,6 +2954,17 @@ def train_attention_times(dev, cfg, b, s, remat):
     return out
 
 
+def flash_inputs(dev, phase, dtype):
+    """q, k, v and causal at ``FLASH_SHAPES[phase]`` in ``dtype``, drawn
+    from one seed (the same operands every time)."""
+    b, s, h, kh, dq, dv, causal = FLASH_SHAPES[phase]
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    q = torch.randn(b, s, h, dq, generator=g, device=dev).to(dtype)
+    k = torch.randn(b, s, kh, dq, generator=g, device=dev).to(dtype)
+    v = torch.randn(b, s, kh, dv, generator=g, device=dev).to(dtype)
+    return q, k, v, causal
+
+
 def flash_vs_plain(dev, phase="5d", dtype=torch.bfloat16):
     """The flash kernel at a serving path's prefill shape
     (``FLASH_SHAPES[phase]``, in ``dtype``: bf16 takes the wgmma kernel,
@@ -2957,11 +2972,8 @@ def flash_vs_plain(dev, phase="5d", dtype=torch.bfloat16):
     SDPA's time for the table (null where SDPA refuses the shape); a
     float32 call also prints ``flash_f32_floors``' two figures."""
     from repro_torch.kernels import flash_attention as fk, ref
-    b, s, h, kh, dq, dv, causal = FLASH_SHAPES[phase]
-    g = torch.Generator(device=dev).manual_seed(SEED + 2)
-    q = torch.randn(b, s, h, dq, generator=g, device=dev).to(dtype)
-    k = torch.randn(b, s, kh, dq, generator=g, device=dev).to(dtype)
-    v = torch.randn(b, s, kh, dv, generator=g, device=dev).to(dtype)
+    b, s, h, kh, dq, dv, _ = FLASH_SHAPES[phase]
+    q, k, v, causal = flash_inputs(dev, phase, dtype)
     key = fk.kernel_name(dtype, dq, dv)
     before = fk.launches[key]
 
@@ -3124,7 +3136,7 @@ TRIPLE = ("max_rps", "usd_per_hour", "base_latency_s")
 TWO_PI_24 = 2.0 * math.pi / 24.0
 #: head dims the wrapper pads to the kernels' multiple of 8 (C17)
 FLASH_PAD_PAIRS = ((4, 4), (20, 20), (100, 100), (96, 20))
-#: head dims past 256, run by flash_wide_kernel (C17): a square 264, a
+#: head dims past 256, run by the wide kernels (C17): a square 264, a
 #: narrow q/k over a wide v, 320, DeepSeek-V2-Lite's absorbed MLA (576,
 #: 512) and a wide q/k over a narrow v
 FLASH_WIDE_PAIRS = ((264, 264), (64, 264), (320, 320), (576, 512),
@@ -3411,6 +3423,82 @@ def ops_build_start(build, header):
     thread = threading.Thread(target=run, daemon=True)
     thread.start()
     return thread, took
+
+
+#: the wide flash kernels' first form (v slices across blocks, each
+#: recomputing S; mma.sync), the baseline they are timed against
+FIRST_FORM = Path(__file__).resolve().parent / "tools" / "flash_wide_first.cu"
+
+
+def first_form_build_start(build):
+    """``FIRST_FORM`` built by one nvcc (the flash library's flags) in a
+    process of its own beside the phases; returns the process, the
+    library's path and the start time, for ``first_form_lib``."""
+    out = build.BUILD_DIR / "first" / "flash_wide_first.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    cmd = build.nvcc_command("flash_attention", FIRST_FORM, out)
+    log = open(out.with_suffix(".log"), "w")
+    proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)
+    log.close()
+    return proc, out, time.perf_counter()
+
+
+def first_form_lib(first_build):
+    """The first form's library, once its nvcc has ended."""
+    import ctypes
+    proc, out, t0 = first_build
+    rc = proc.wait()
+    check(rc == 0, ("nvcc of the wide kernels' first form",
+                    out.with_suffix(".log").read_text()[-2000:]))
+    print(f"phase 11: the wide kernels' first form ({FIRST_FORM.name}): "
+          f"its nvcc, in a process of its own, had ended "
+          f"{time.perf_counter() - t0:.1f} s after it started")
+    return ctypes.CDLL(str(out))
+
+
+def flash_wide_vs_first(dev, dtype, first):
+    """``flash_vs_plain`` at DeepSeek-V2-Lite's absorbed prefill
+    (``FLASH_SHAPES["11"]``) in ``dtype``, then the wide kernel and its
+    first form (the library ``first``, launched through the same
+    wrapper) timed in turns on the same inputs (kernel, first, first,
+    kernel; each the mean of 10 launches after a warm-up), the first
+    form within ``MODEL_TOL`` of the plain version too. The first form's
+    launches are taken back off the wrapper's counts: they are not the
+    port's."""
+    from unittest import mock
+    from repro_torch.kernels import flash_attention as fk, ref
+    row = flash_vs_plain(dev, "11", dtype)
+    q, k, v, causal = flash_inputs(dev, "11", dtype)
+    dq, dv = q.shape[3], v.shape[3]
+    counts = dict(fk.launches)
+
+    def kernel():
+        return fk.flash_attention(q, k, v, causal=causal)
+    times = {"kernel": [], "first": []}
+    for name in ("kernel", "first", "first", "kernel"):
+        if name == "first":
+            with mock.patch.object(fk.build, "load", lambda _: first):
+                got = kernel()                              # warm-up
+                times[name].append(cuda_ms(kernel, reps=10)[0])
+        else:
+            kernel()
+            times[name].append(cuda_ms(kernel, reps=10)[0])
+    fk.launches.update(counts)
+    want = ref.flash_attention(q, k, v, causal=causal)
+    first_err = close_or_raise(f"the first form at 11's shape {dtype}",
+                               got, want, MODEL_TOL[dtype])
+    del want, got
+    ms, first_ms = min(times["kernel"]), min(times["first"])
+    sdpa = ("" if row["library_ms"] is None else
+            f", {ms / row['library_ms']:.2f} of SDPA's")
+    print(f"{fk.kernel_name(dtype, dq, dv)} (11) in turns: kernel "
+          f"{' / '.join(f'{t:.3f}' for t in times['kernel'])} ms, its "
+          f"first form ({FIRST_FORM.name}) "
+          f"{' / '.join(f'{t:.3f}' for t in times['first'])} ms (max abs "
+          f"error {first_err:.3g}); the kernel at {ms / first_ms:.2f} of "
+          f"the first form's time{sdpa}")
+    return dict(row, turns_ms=times["kernel"], first_ms=first_ms,
+                first_turns_ms=times["first"], first_max_abs_err=first_err)
 
 
 #: 11c's bound on a latency that goes through CUDA's ``expf`` / ``logf``
@@ -3815,19 +3903,19 @@ def by_name(rows, names):
     return [index[n] for n in names]
 
 
-def check_flash_padding(dev):
+def check_flash_padding(dev, pad=True):
     """Phase 11 (C17): the flash kernels against ref.flash_attention at
-    head dims the wrapper pads to the kernels' multiple of 8 (g 1 and 7)
-    and at head dims past 256 (``FLASH_WIDE_PAIRS``, flash_wide_kernel;
-    g 1, 7 and 16), causal or not, both types, sq/sk around the 128-row
-    tile (the wide kernel's 64-row and 32-key tiles among them); one
-    launch a call, each on its kernel's count. Returns the wide kernels'
-    launches."""
+    head dims the wrapper pads to the kernels' multiple of 8 (g 1 and 7;
+    left out when ``pad`` is false) and at head dims past 256
+    (``FLASH_WIDE_PAIRS``, the wide kernels; g 1, 7 and 16), causal or
+    not, both types, sq/sk around the 128-row tile (the wide kernels'
+    64-row and 32-key tiles among them); one launch a call, each on its
+    kernel's count. Returns the wide kernels' launches."""
     from repro_torch.kernels import flash_attention as fk, ref
     g = torch.Generator(device=dev).manual_seed(SEED + 11)
     seqs = ((63, 63), (129, 129), (300, 127), (127, 300))
     cases = [(1, sq, sk, h, kh, dq, dv, causal, dtype)
-             for dq, dv in FLASH_PAD_PAIRS for sq, sk in seqs
+             for dq, dv in FLASH_PAD_PAIRS if pad for sq, sk in seqs
              for h, kh in ((4, 4), (14, 2)) for causal in (True, False)
              for dtype in (torch.float32, torch.bfloat16)]
     cases += [(1, sq, sk, h, kh, dq, dv, causal, dtype)
@@ -3860,7 +3948,7 @@ def check_flash_padding(dev):
           f"blocks: at padded head dims "
           f"{', '.join(map(str, FLASH_PAD_PAIRS))} max abs error float32 "
           f"{worst[torch.float32]:.3g}, bf16 {worst[torch.bfloat16]:.3g}; "
-          f"past 256 (flash_wide_kernel, {n_wide} blocks at "
+          f"past 256 (the wide kernels, {n_wide} blocks at "
           f"{', '.join(map(str, FLASH_WIDE_PAIRS))}, g 1/7/16) float32 "
           f"{worst_wide[torch.float32]:.3g}, bf16 "
           f"{worst_wide[torch.bfloat16]:.3g} (tol float32 "
@@ -3871,7 +3959,7 @@ def check_flash_padding(dev):
 
 
 def registered_policies_on_card(dev, whatif, tr, twin_mod, slo_mod, faults,
-                                ops_build):
+                                ops_build, first_build):
     """Phase 11: policies added with ``register_policy`` on the card,
     their steps translated into the policy kernels
     (``kernels/lane_codegen.py``). 11a: ``run_grid`` over 32 twins (four
@@ -4063,10 +4151,14 @@ def registered_policies_on_card(dev, whatif, tr, twin_mod, slo_mod, faults,
     record["ops"] = ops_on_card(dev, twin_mod, ops_build)
     wide = check_flash_padding(dev)
     launches.update(wide)
-    # flash_wide_kernel at DeepSeek-V2-Lite's absorbed shape, both types
-    record["wide"] = {"flash_attention_wide": flash_vs_plain(dev, "11"),
-                      "flash_attention_wide_f32": flash_vs_plain(
-                          dev, "11", torch.float32)}
+    # the wide kernels at DeepSeek-V2-Lite's absorbed shape, both types,
+    # beside their first form
+    first = first_form_lib(first_build)
+    record["wide"] = {
+        "flash_attention_wide": flash_wide_vs_first(dev, torch.bfloat16,
+                                                    first),
+        "flash_attention_wide_f32": flash_wide_vs_first(dev, torch.float32,
+                                                        first)}
     record["s"] = time.perf_counter() - t0
     print(f"phase 11: {record['s']:.1f} s")
     print(json.dumps({"registered": record}))
@@ -6201,7 +6293,11 @@ def sass_flash(tool, build):
     256 holds 128 accumulator registers a thread) touch no local memory
     (LDL / STL: no spills). Every float32 one (``flash_f32_kernel<DV>``,
     one per storage dim of dv, 6) holds mma.sync (HMMA)
-    and cp.async (LDGSTS); the one of dv 256 touches no local memory."""
+    and cp.async (LDGSTS); the one of dv 256 touches no local memory.
+    Past 256: every bf16 wide kernel (``flash_wide_wgmma_kernel<DVH>``,
+    DVH 64, 128, 192, 256) holds HGMMA and UTMALDG, every float32 one
+    (``flash_wide_f32_kernel<NVH>``, NVH 4, 8, 16, 32) HMMA, and none of
+    the 8 touches local memory."""
     import re
     sass = subprocess.run([tool, "-sass",
                            str(build.library_path("flash_attention"))],
@@ -6211,13 +6307,14 @@ def sass_flash(tool, build):
     for fn, lines in sass_functions(sass).items():
         m = re.search(r"flash_wgmma_kernelILi(\d+)ELi(\d+)E", fn)
         m32 = re.search(r"flash_f32_kernelILi(\d+)E", fn)
-        mw = re.search(r"flash_wide_kernelI(\w+?)Li(\d+)E", fn)
+        mw = re.search(r"flash_wide_(wgmma|f32)_kernelILi(\d+)E", fn)
         if mw is not None:
-            kind = "f32" if mw.group(1).startswith("f") else "bf16"
-            counts = [sum("HMMA" in line for line in lines),
-                      sum("LDGSTS" in line for line in lines),
-                      sum(bool(local.search(line)) for line in lines)]
-            check(counts[0] and counts[1], ("wide", kind, counts))
+            kind = "bf16" if mw.group(1) == "wgmma" else "f32"
+            ops = ("HGMMA", "UTMALDG") if kind == "bf16" else ("HMMA",)
+            counts = [sum(op in line for line in lines) for op in ops]
+            counts.append(sum(bool(local.search(line)) for line in lines))
+            check(all(counts[:-1]) and counts[-1] == 0,
+                  ("wide", kind, mw.group(2), ops, counts))
             found_wide[(kind, int(mw.group(2)))] = counts
             continue
         if m32 is not None:
@@ -6244,8 +6341,8 @@ def sass_flash(tool, build):
     check(len(found) == 36, sorted(found))
     check(sorted(found_f32) == [16, 32, 64, 128, 192, 256],
           sorted(found_f32))
-    check(sorted(found_wide) == [(k, d) for k in ("bf16", "f32")
-                                 for d in (64, 128, 256)], sorted(found_wide))
+    check(sorted(found_wide) == [("bf16", d) for d in (64, 128, 192, 256)]
+          + [("f32", n) for n in (4, 8, 16, 32)], sorted(found_wide))
     print("phase 1b: cuobjdump -sass flash_attention: bf16 kernels "
           "<dqk storage, dv storage>: HGMMA / UTMALDG / LDL+STL "
           "instructions " + ", ".join(
@@ -6255,10 +6352,15 @@ def sass_flash(tool, build):
           "<dv storage>: HMMA / LDGSTS / LDL+STL instructions " + ", ".join(
               f"<{dv}> {c[0]}/{c[1]}/{c[2]}"
               for dv, c in sorted(found_f32.items())))
-    print("phase 1b: cuobjdump -sass flash_attention: flash_wide_kernel "
-          "<type, v slice>: HMMA / LDGSTS / LDL+STL instructions "
-          + ", ".join(f"<{k}, {d}> {c[0]}/{c[1]}/{c[2]}"
-                      for (k, d), c in sorted(found_wide.items())))
+    print("phase 1b: cuobjdump -sass flash_attention: past 256, "
+          "flash_wide_wgmma_kernel<DVH>: HGMMA / UTMALDG / LDL+STL "
+          + ", ".join(f"<{d}> {'/'.join(map(str, c))}"
+                      for (k, d), c in sorted(found_wide.items())
+                      if k == "bf16")
+          + "; flash_wide_f32_kernel<NVH>: HMMA / LDL+STL "
+          + ", ".join(f"<{d}> {'/'.join(map(str, c))}"
+                      for (k, d), c in sorted(found_wide.items())
+                      if k == "f32"))
 
 
 def sass_check(build):
@@ -6403,7 +6505,8 @@ def main():
         # registered policies and the padded flash head dims alone
         registered_policies_on_card(
             dev, whatif, tr, twin_mod, slo_mod, faults,
-            ops_build_start(build, ops_header(twin_mod)))
+            ops_build_start(build, ops_header(twin_mod)),
+            first_form_build_start(build))
         print(card)
         return 0
     if sys.argv[1:] == ["--phase", "10"]:
@@ -6430,8 +6533,10 @@ def main():
         print(card)
         return 0
 
-    # 11d's library builds on a thread of its own beside phases 2-10
+    # 11d's library builds on a thread of its own beside phases 2-10, the
+    # wide kernels' first form in a process of its own
     ops_build = ops_build_start(build, ops_header(twin_mod))
+    first_build = first_form_build_start(build)
     elapsed("phase 1")
     check_random_blocks(dev)
     check_table2_kernels(dev, tr, twin_mod)
@@ -6523,7 +6628,7 @@ def main():
     # registered policies on the card (their steps translated into the
     # policy kernels) and the padded flash head dims
     launches_11, record_11 = registered_policies_on_card(
-        dev, whatif, tr, twin_mod, slo_mod, faults, ops_build)
+        dev, whatif, tr, twin_mod, slo_mod, faults, ops_build, first_build)
 
     # the training side: no model kernel runs in a train step
     launches_12, _ = training_on_card(dev, get_smoke_config)

@@ -12,10 +12,10 @@
 // absorbed 576 / 512). Multiples of 8 are TMA's rule: a tensor map's row
 // stride must be a multiple of 16 bytes.
 //
-// Up to 256, two kernels, chosen by type; past 256 (either dim), a third,
-// flash_wide_kernel (its note is at its code). The two give one thread
-// block one (batch x
-// head, q tile) and run the kv loop inside it, so m, l and the output sum
+// Up to 256, two kernels, chosen by type; past 256 (either dim), two
+// more, flash_wide_wgmma_kernel and flash_wide_f32_kernel (their note is
+// at their code). The two give one thread block one (batch x head, q
+// tile) and run the kv loop inside it, so m, l and the output sum
 // never leave registers (the TPU kernel carries them in VMEM buffers
 // across a sequential kv grid axis). Causal grids start with the q tiles
 // that have the most kv tiles to walk; tiles wholly above the diagonal
@@ -1002,258 +1002,159 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------
-// Head dims past 256 (either of dqk and dv, each a multiple of 8):
-// flash_wide_kernel<T, DVS>, bf16 or float32, mma.sync on the tensor
-// cores, K/V and q by cp.async.
+// Head dims past 256 (either of dqk and dv, each a multiple of 8): bf16
+// flash_wide_wgmma_kernel<DVH> (wgmma + TMA) and float32
+// flash_wide_f32_kernel<NVH> (3xTF32 mma.sync).
 //
-// The kernels above hold a q tile and a K/V ring whole in shared memory
-// and the output sum in registers, sized by the head dims, which caps
-// them at 256 (ROADMAP C17). This one streams q and K through shared
-// memory in 64-column chunks, so the S = Q K^T of a 32-key tile is summed
-// chunk by chunk and its shared memory does not grow with dqk, and splits
-// v's columns across blocks in slices of DVS (64, 128 or 256): a block
-// owns (batch x head, 64-row q tile, v slice), holds that slice's output
-// sum in registers and recomputes S for it. The slices of one row see
-// the same S, max and denominator (the same operations in the same
-// order), so their outputs agree as one block's would. A block is four
-// warps, 16 query rows each; m, l, S and the output sum live in the
-// mma accumulator layout, a row in the four lanes of a quad. For each
-// 32-key tile the V slice's copy is issued first, then q and K chunks
-// through a ring of two stages, the next chunk's copy in flight while
-// this one's products run; rows past sq or sk and columns past the real
-// dims are zero-filled, so they add exact zeros.
+// The kernels above hold a 64- or 128-row output sum of the whole dv in
+// registers and a q tile whole, which caps them at 256 (ROADMAP C17). At
+// DeepSeek-V2-Lite's absorbed MLA (dqk 576, dv 512) a 64-row tile's output
+// sum is 64 x 512 floats, more than one warpgroup's registers hold. So a
+// block here owns (batch x head, 64-row q tile) and up to 512 columns of
+// v, split between two halves of its warps that share one S: each half
+// computes S = Q K^T for all of a 32-key tile's keys over half of q/K's
+// columns, the two swap their partial S through shared memory (a thread
+// of one half holds the same scores as its counterpart of the other) and
+// add them in one order, half 0's first, so both hold the same S, max, P
+// and denominator; each then multiplies P by the V columns it holds. No
+// block recomputes S for v's columns up to 512; past 512 (no config has
+// such a head) v's columns are cut across blocks in slices of 512
+// (gridDim.z), each recomputing S with the same arithmetic, so slices
+// agree. Rows past sq or sk and columns past the real dims load as zeros
+// and add exact zeros; the causal grid starts with the q tiles that have
+// the most key tiles.
 //
-// bf16: mma.sync.m16n8k16 (bf16 in, float32 accumulate); P is rounded to
-// bf16 before P V as the wgmma kernel does (ROADMAP C8), the denominator
-// sums the float32 p. float32: the 3xTF32 split of csrc/tf32_mma.cuh in
-// mma.sync.m16n8k8, each group of 8 dims (or keys) multiplied in the
-// permuted order of flash_f32_kernel, a tile's P V in a sum of its own
-// added once a tile, within MODEL_TOL[float32] (C27).
+// bf16, flash_wide_wgmma_kernel<DVH>: three warpgroups, as
+// flash_wgmma_kernel: a producer whose elected thread loads by TMA (the
+// 128-byte swizzled 64-column spans wgmma reads) and two consumers of the
+// same 64 q rows, warpgroup w holding v columns [w DVH, (w + 1) DVH) of
+// the block's (DVH 64, 128, 192 or 256: at dv 512 128 accumulator
+// registers a thread; setmaxnreg gives a consumer 232). q is loaded once
+// and held whole where it fits (64 x 576 bf16 is 72 KB); K tiles of 32
+// keys come through a ring of two stages, a stage holding `sps` of the
+// tile's 64-column spans (all 9 at dqk 576), and V tiles through a ring
+// of their own. Consumer w runs 16-column steps w and w + 2 of every span
+// as wgmma m64n32k16 (both operands from shared memory), so each q byte is
+// read by one warpgroup; after the swap of S (two named barriers a tile)
+// P = exp2(S - m) is rounded to bf16 (ROADMAP C8) in registers, where
+// the accumulator's layout is the A operand's, and O += P V runs as two
+// wgmma m64n{DVH}k16 with A from registers and the warpgroup's V columns
+// from shared memory (MN-major). Shared memory at (576, 512): q 72 KB, two
+// K stages 72 KB, two V stages 64 KB, the swap 16 KB: 225 KB, one block
+// (12 warps) an SM. Past 576 at dv 512 a K stage holds fewer spans (the
+// tile in several stages); q is held whole up to dqk 1,088 at dv 512 and
+// 1,472 at dv 128, and past that streams through the ring beside K, a
+// span of q for each span of K, read again for every key tile
+// (wide_plan).
 //
-// What bounds it: at DeepSeek-V2-Lite's absorbed MLA shape (dqk 576, dv
-// 512, 16 query heads over one latent head, causal 2,048-row prefill) the
-// products are 2.9e11 flop, 0.30 ms at the bf16 tensor-core peak, against
-// 0.09 ms for the bytes: operations. This first form spends more than
-// that bound: each of the two 256-column slices recomputes S (576 of the
-// 1,088 dims a pair costs, twice), mma.sync reaches a part of wgmma's
-// rate, V's B fragments are scalar reads, and 64-row tiles re-read q from
-// L2 for every key tile. PERF.md keeps its time.
+// float32, flash_wide_f32_kernel<NVH>: eight warps, two for each 16-row
+// band of the q tile, in 3xTF32 mma.sync.m16n8k8 (csrc/tf32_mma.cuh): the
+// band's half 0 multiplies the even groups of 8 q/K columns, half 1 the
+// odd ones, each for all 32 keys of the tile in the permuted order of
+// flash_f32_kernel, and each holds 8 NVH output columns (NVH 4, 8, 16 or
+// 32 groups of 8; at dv 512 128 registers). q and K come in chunks of 128
+// columns through a two-stage cp.async ring, a tile's first chunk while
+// the tile before it multiplies P by V, its V tile behind that chunk. P
+// goes from the S accumulator to the A operand in registers, as in
+// flash_f32_kernel; S keeps its cross terms in an accumulator of their
+// own, added once a tile, and a tile's P V goes into a sum of its own,
+// added to the output sum by one rounded multiply-add with the rescale
+// (C27). The splits stay in the product loops: forms whose loading
+// threads split q, K, V and P, or V alone, once a tile into shared memory
+// (a fragment one 16-byte read, no split) doubled the bytes those reads
+// move or ran out of registers, and measured slower (PERF.md). Shared
+// memory at NVH 32: 183 KB; one block (8 warps, 237 registers) an SM.
+//
+// What bounds them: at DeepSeek-V2-Lite's absorbed prefill (b 4, sq = sk
+// 2,048, 16 query heads over one latent head, causal) the products are
+// 2.9e11 flop, 0.30 ms at the bf16 tensor-core peak and 0.59 ms at the
+// TF32 peak with the split counted once (1.77 ms for float32's three
+// products), against 0.09 ms (bf16) for the bytes: operations. With 64 q
+// rows a block, each 32-key tile's K and V (70 KB in bf16) come from L2
+// for 4.5 MFLOP, 64 flop a byte; the swaps of S hold the two warpgroups
+// in step, so the tensor cores wait through each tile's softmax. In
+// float32 q (147 KB a tile) comes again from L2 for every key tile, and
+// P V's fragment reads and splits, not its products, take most of its
+// part. PERF.md keeps the times, beside the first form's
+// (tools/flash_wide_first.cu).
 
-constexpr int kWideWarps = 4;
-constexpr int kWideThreads = 32 * kWideWarps;
-constexpr int kWideRows = 16 * kWideWarps;    // q tile: 16 rows a warp
+constexpr int kWideRows = 64;                 // q tile rows
 constexpr int kWideKeys = 32;                 // keys a K/V tile holds
-constexpr int kWideChunk = 64;                // q/k columns a chunk holds
-constexpr int kWideLd = kWideChunk + 8;       // q/k chunk row stride
-// V slice row stride: float32 DVS + 4 (rows 2q and 2q + 1 at column g on
-// 32 distinct banks), bf16 DVS + 8 (a row 4 words mod 32)
-template <typename T>
-__host__ __device__ constexpr int wide_ldv(int dvs) {
-  return dvs + (sizeof(T) == 4 ? 4 : 8);
+constexpr int kWideMaxDv = 512;               // v columns a block holds
+constexpr int kWideSpan = 64;                 // columns of a span / piece
+constexpr int kSpanK = kWideKeys * 128;       // bytes of a bf16 K or V span
+constexpr int kSpanQ = kWideRows * 128;       // bytes of a bf16 q span
+constexpr size_t kSmemOptIn = 232448;         // a block's most (227 KB)
+
+// the bf16 kernel's shared memory: q (whole) or none, two ring stages of
+// `sps` spans (K, and q when it streams), two V stages of 2 DVH columns,
+// the swaps, the barriers and slack to align the base to 1 KB
+struct WidePlan {
+  int ncb, sps, qwhole;
+  size_t bytes;
+};
+inline size_t wide_bytes(int ncb, int sps, int qwhole, int dvh) {
+  return (size_t)(qwhole ? ncb * kSpanQ : 0) +
+         (size_t)2 * sps * (kSpanK + (qwhole ? 0 : kSpanQ)) +
+         (size_t)2 * (2 * dvh / 64) * kSpanK + 2 * 4 * 128 * 16 + 128 +
+         1024;
 }
-template <typename T>
-constexpr size_t wide_smem_bytes(int dvs) {
-  return sizeof(T) * ((size_t)2 * (kWideRows + kWideKeys) * kWideLd +
-                      (size_t)kWideKeys * wide_ldv<T>(dvs));
-}
-// the v slice a head dim dv runs at: 64, 128 or 256 columns
-__host__ __device__ constexpr int wide_slice(int dv) {
-  return dv <= 64 ? 64 : dv <= 128 ? 128 : 256;
+inline WidePlan wide_plan(int dq, int dvh) {
+  const int ncb = (dq + kWideSpan - 1) / kWideSpan;
+  for (int qwhole = 1; qwhole >= 0; --qwhole)
+    for (int sps = ncb; sps >= 1; --sps) {
+      const size_t bytes = wide_bytes(ncb, sps, qwhole, dvh);
+      if (bytes <= kSmemOptIn) return {ncb, sps, qwhole, bytes};
+    }
+  return {ncb, 0, 0, 0};
 }
 
-// rows [0, rows) x columns [0, cols) of a row-major source (row stride
-// `stride` elements) into shared memory (row stride ld), in 16-byte
-// pieces shared by the block's threads; pieces of rows from `valid_rows`
-// on, or of columns from `valid_cols` on, are zero-filled and read
-// nothing (cols and valid_cols whole pieces)
-template <typename T>
-__device__ __forceinline__ void wide_copy(T* dst, int ld, const T* src,
-                                          size_t stride, int rows, int cols,
-                                          int valid_rows, int valid_cols) {
-  constexpr int kPiece = 16 / sizeof(T);
-  const int per_row = cols / kPiece;
-  for (int i = threadIdx.x; i < rows * per_row; i += kWideThreads) {
-    const int r = i / per_row, c = (i % per_row) * kPiece;
-    const bool in = r < valid_rows && c < valid_cols;
-    cp_async16(dst + r * ld + c, src + (in ? r * stride + c : 0),
-               in ? 16 : 0);
-  }
-}
-
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
-                                         const uint32_t* b) {
+__device__ __forceinline__ void wgmma_ss_n32(float* d, uint64_t da,
+                                             uint64_t db, int accumulate) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
 }
 
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-__device__ __forceinline__ uint32_t pack2(__nv_bfloat16 lo,
-                                          __nv_bfloat16 hi) {
-  __nv_bfloat162 v(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+// a barrier of `threads` threads (whole warps) on hardware barrier `id`
+// (0 is __syncthreads')
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
 }
 
-// s[x] (keys 8 x .. 8 x + 7 of the tile) += the warp's 16 q rows times
-// those keys over the `cols` columns of one chunk; bf16: m16n8k16
-template <int NK>
-__device__ __forceinline__ void wide_qk(float (&s)[NK][4], float (&)[NK][4],
-                                        const __nv_bfloat16* qs,
-                                        const __nv_bfloat16* ks, int cols) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, qd = lane & 3;
-  for (int kk = 0; kk < cols; kk += 16) {
-    const __nv_bfloat16* qa = qs + g * kWideLd + kk + 2 * qd;
-    const uint32_t a[4] = {ld_u32(qa), ld_u32(qa + 8 * kWideLd),
-                           ld_u32(qa + 8), ld_u32(qa + 8 * kWideLd + 8)};
-#pragma unroll
-    for (int x = 0; x < NK; ++x) {
-      const __nv_bfloat16* kb = ks + (8 * x + g) * kWideLd + kk + 2 * qd;
-      const uint32_t b[2] = {ld_u32(kb), ld_u32(kb + 8)};
-      mma_bf16(s[x], a, b);
-    }
-  }
-}
-// float32: 3xTF32 m16n8k8, hi hi into s, the cross terms into cr, in the
-// permuted order of flash_f32_kernel (A's column q is element 2q of a
-// group of 8, its column q + 4 element 2q + 1; K's likewise)
-template <int NK>
-__device__ __forceinline__ void wide_qk(float (&s)[NK][4], float (&cr)[NK][4],
-                                        const float* qs, const float* ks,
-                                        int cols) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, qd = lane & 3;
-  for (int kk = 0; kk < cols; kk += 8) {
-    const float2 r0 =
-        *reinterpret_cast<const float2*>(qs + g * kWideLd + kk + 2 * qd);
-    const float2 r1 = *reinterpret_cast<const float2*>(
-        qs + (g + 8) * kWideLd + kk + 2 * qd);
-    uint32_t ah[4], al[4];
-    split_tf32(r0.x, ah[0], al[0]);
-    split_tf32(r1.x, ah[1], al[1]);
-    split_tf32(r0.y, ah[2], al[2]);
-    split_tf32(r1.y, ah[3], al[3]);
-#pragma unroll
-    for (int x = 0; x < NK; ++x) {
-      const float2 f = *reinterpret_cast<const float2*>(
-          ks + (8 * x + g) * kWideLd + kk + 2 * qd);
-      uint32_t bh[2], bl[2];
-      split_tf32(f.x, bh[0], bl[0]);
-      split_tf32(f.y, bh[1], bl[1]);
-      mma_tf32(cr[x], al, bh);
-      mma_tf32(cr[x], ah, bl);
-      mma_tf32(s[x], ah, bh);
-    }
-  }
-}
-
-// acc += P V over the tile's 32 keys for the slice's `cols` columns;
-// P (the exponentiated scores, float32, in S's accumulator layout).
-// bf16: P rounded to bf16, S tiles 2t and 2t + 1 are the A operand of
-// keys 16 t .. 16 t + 15; V's B fragment (keys 16 t + 2q, + 1, + 8, + 9
-// at column 8 y + g) by 16-bit reads
-template <int NV>
-__device__ __forceinline__ void wide_pv(float (&acc)[NV][4],
-                                        const float (&p)[kWideKeys / 8][4],
-                                        const float (&corr)[2],
-                                        const __nv_bfloat16* vs, int ldv,
-                                        int cols) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, qd = lane & 3;
-#pragma unroll
-  for (int y = 0; y < NV; ++y)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[y][e] *= corr[e >> 1];
-#pragma unroll
-  for (int t = 0; t < kWideKeys / 16; ++t) {
-    const uint32_t a[4] = {pack_bf16(p[2 * t][0], p[2 * t][1]),
-                           pack_bf16(p[2 * t][2], p[2 * t][3]),
-                           pack_bf16(p[2 * t + 1][0], p[2 * t + 1][1]),
-                           pack_bf16(p[2 * t + 1][2], p[2 * t + 1][3])};
-    const __nv_bfloat16* vt = vs + (16 * t + 2 * qd) * ldv + g;
-#pragma unroll
-    for (int y = 0; y < NV; ++y) {
-      if (8 * y >= cols) break;
-      const __nv_bfloat16* vb = vt + 8 * y;
-      const uint32_t b[2] = {pack2(vb[0], vb[ldv]),
-                             pack2(vb[8 * ldv], vb[9 * ldv])};
-      mma_bf16(acc[y], a, b);
-    }
-  }
-}
-// float32: the tile's P V in 3xTF32 (cross terms first) into a sum of its
-// own, 8 output groups a pass, then one rounded multiply-add with the
-// rescale into the running sum, as flash_f32_kernel does; P's A fragment
-// is the S accumulator's (c0, c2, c1, c3)
-template <int NV>
-__device__ __forceinline__ void wide_pv(float (&acc)[NV][4],
-                                        const float (&p)[kWideKeys / 8][4],
-                                        const float (&corr)[2],
-                                        const float* vs, int ldv, int cols) {
-  constexpr int YC = NV < 8 ? NV : 8;
-  const int lane = threadIdx.x & 31, g = lane >> 2, qd = lane & 3;
-#pragma unroll
-  for (int y0 = 0; y0 < NV; y0 += YC) {
-    if (8 * y0 >= cols) break;
-    float t[YC][4];
-#pragma unroll
-    for (int yy = 0; yy < YC; ++yy)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) t[yy][e] = 0.f;
-#pragma unroll
-    for (int x = 0; x < kWideKeys / 8; ++x) {
-      uint32_t ah[4], al[4];
-      split_tf32(p[x][0], ah[0], al[0]);
-      split_tf32(p[x][2], ah[1], al[1]);
-      split_tf32(p[x][1], ah[2], al[2]);
-      split_tf32(p[x][3], ah[3], al[3]);
-#pragma unroll
-      for (int yy = 0; yy < YC; ++yy) {
-        if (8 * (y0 + yy) >= cols) break;
-        const float* vb = vs + (8 * x + 2 * qd) * ldv + 8 * (y0 + yy) + g;
-        uint32_t bh[2], bl[2];
-        split_tf32(vb[0], bh[0], bl[0]);
-        split_tf32(vb[ldv], bh[1], bl[1]);
-        mma_tf32(t[yy], al, bh);
-        mma_tf32(t[yy], ah, bl);
-        mma_tf32(t[yy], ah, bh);
-      }
-    }
-#pragma unroll
-    for (int yy = 0; yy < YC; ++yy)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        acc[y0 + yy][e] = fmaf(acc[y0 + yy][e], corr[e >> 1], t[yy][e]);
-  }
-}
-
-__device__ __forceinline__ void wide_store(__nv_bfloat16* dst, float a,
-                                           float b) {
-  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
-}
-__device__ __forceinline__ void wide_store(float* dst, float a, float b) {
-  *reinterpret_cast<float2*>(dst) = make_float2(a, b);
-}
-
-// T: __nv_bfloat16 or float; DVS: the v slice's columns (64, 128, 256).
-// dq and dv are the real dims, multiples of 8; blockIdx.z is the slice.
-template <typename T, int DVS>
-__global__ void __launch_bounds__(kWideThreads)
-flash_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, T* __restrict__ o, int sq,
-                  int sk, int h, int kh, int dq, int dv, float scale_log2,
-                  int causal) {
-  constexpr int NK = kWideKeys / 8;          // 8-key groups of a tile
-  constexpr int NV = DVS / 8;                // 8-column groups of a slice
-  // bf16 takes k16 steps: a chunk's columns are copied to a multiple of
-  // 16, the ones past dq as zeros
-  constexpr int kStep = sizeof(T) == 4 ? 8 : 16;
-  constexpr int LDV = wide_ldv<T>(DVS);
-  extern __shared__ __align__(16) unsigned char smem_wide[];
-  T* qs = reinterpret_cast<T*>(smem_wide);           // [2][64][kWideLd]
-  T* ks = qs + 2 * kWideRows * kWideLd;              // [2][32][kWideLd]
-  T* vs = ks + 2 * kWideKeys * kWideLd;              // [32][LDV]
+// DVH: the v columns a consumer warpgroup holds (64, 128, 192, 256);
+// ncb: 64-column spans of q and K; sps: spans a ring stage holds; qwhole:
+// q held whole (else it streams beside K). blockIdx.z is the v slice.
+template <int DVH>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_wide_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        __nv_bfloat16* __restrict__ o, int sq, int sk,
+                        int h, int kh, int dv, float scale_log2, int causal,
+                        int ncb, int sps, int qwhole) {
+  constexpr int NCBV = 2 * DVH / 64;         // V spans of a stage
+  constexpr int VT = NCBV * kSpanK;          // bytes of a V stage
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const int unit = sps * (kSpanK + (qwhole ? 0 : kSpanQ));
+  uint8_t* qs = smem;                        // [ncb][64][64] when whole
+  uint8_t* ring = qs + (qwhole ? ncb * kSpanQ : 0);  // [2][sps K, sps q]
+  uint8_t* vs = ring + 2 * unit;             // [2][NCBV][32][64]
+  float4* xs = reinterpret_cast<float4*>(vs + 2 * VT);   // [2][4][128]
+  uint64_t* kfull = reinterpret_cast<uint64_t*>(xs + 2 * 4 * 128);
+  uint64_t* kempty = kfull + 2;
+  uint64_t* vfull = kfull + 4;
+  uint64_t* vempty = kfull + 6;
+  uint64_t* qbar = kfull + 8;
 
   const int bh = blockIdx.x;
   const int batch = bh / h, head = bh % h;
@@ -1261,83 +1162,406 @@ flash_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int qtile = causal ? (int)gridDim.y - 1 - (int)blockIdx.y
                            : (int)blockIdx.y;
   const int q0 = qtile * kWideRows;
-  const int v0 = blockIdx.z * DVS;
-  const int vcols = min(DVS, dv - v0);       // the slice's real columns
+  const int v0 = blockIdx.z * kWideMaxDv;
   int n_kv = (sk + kWideKeys - 1) / kWideKeys;
   if (causal) {
     const int last = min(min(q0 + kWideRows, sq), sk) - 1;
     n_kv = min(n_kv, last / kWideKeys + 1);
   }
-  const int n_chunks = (dq + kWideChunk - 1) / kWideChunk;
+  const int units = (ncb + sps - 1) / sps;   // ring stages a key tile
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int st = 0; st < 2; ++st) {
+      mbar_init(&kfull[st], 1);
+      mbar_init(&kempty[st], kConsumers / 32);
+      mbar_init(&vfull[st], 1);
+      mbar_init(&vempty[st], kConsumers / 32);
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers) {                   // the producer warpgroup
+    regs_dec<kProducerRegs>();
+    if (tid == kConsumers) {
+      if (qwhole) {
+        mbar_expect_tx(qbar, ncb * kSpanQ);
+        for (int cb = 0; cb < ncb; ++cb)
+          tma_load(qs + cb * kSpanQ, &tq, qbar, cb * kWideSpan, head, q0,
+                   batch);
+      }
+      int nvs = 0;                           // V spans with real columns
+      for (int cb = 0; cb < NCBV; ++cb) nvs += v0 + cb * kWideSpan < dv;
+      int u = 0;
+      for (int j = 0; j < n_kv; ++j) {
+        const int k0 = j * kWideKeys, vst = j & 1;
+        if (j >= 2) mbar_wait(&vempty[vst], ((j >> 1) - 1) & 1);
+        mbar_expect_tx(&vfull[vst], nvs * kSpanK);
+        for (int cb = 0; cb < nvs; ++cb)
+          tma_load(vs + vst * VT + cb * kSpanK, &tv, &vfull[vst],
+                   v0 + cb * kWideSpan, kv_head, k0, batch);
+        for (int un = 0; un < units; ++un, ++u) {
+          const int st = u & 1, c0 = un * sps;
+          const int n = min(sps, ncb - c0);
+          if (u >= 2) mbar_wait(&kempty[st], ((u >> 1) - 1) & 1);
+          uint8_t* slot = ring + st * unit;
+          mbar_expect_tx(&kfull[st],
+                         n * (kSpanK + (qwhole ? 0 : kSpanQ)));
+          for (int i = 0; i < n; ++i) {
+            tma_load(slot + i * kSpanK, &tk, &kfull[st],
+                     (c0 + i) * kWideSpan, kv_head, k0, batch);
+            if (!qwhole)
+              tma_load(slot + sps * kSpanK + i * kSpanQ, &tq, &kfull[st],
+                       (c0 + i) * kWideSpan, head, q0, batch);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // a consumer warpgroup: all 64 rows of the tile; this thread's rows r0
+  // and r0 + 8, S columns (keys) 8 i + 2 (lane % 4) + e, output columns
+  // v0 + wg DVH + 8 i + 2 (lane % 4) + e
+  regs_inc<kConsumerRegs>();
+  const int wg = tid / 128, t = tid % 128;
+  const int warp = t / 32, lane = t % 32;
+  const int r0 = warp * 16 + lane / 4;
+  const int qpos[2] = {q0 + r0, q0 + r0 + 8};
+  const int cpos = 2 * (lane % 4);
+  const bool has_cols = v0 + wg * DVH < dv;
+  float acc[DVH / 2];
+#pragma unroll
+  for (int i = 0; i < DVH / 2; ++i) acc[i] = 0.f;
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};
+  if (qwhole) mbar_wait(qbar, 0);
+
+  int u = 0;
+  for (int j = 0; j < n_kv; ++j) {
+    const int k0 = j * kWideKeys;
+    // this warpgroup's part of S = Q K^T for the tile's 32 keys: 16-column
+    // steps wg and wg + 2 of every span
+    float s[16];
+    for (int un = 0; un < units; ++un, ++u) {
+      const int st = u & 1, c0 = un * sps;
+      const int n = min(sps, ncb - c0);
+      mbar_wait(&kfull[st], (u >> 1) & 1);
+      const uint32_t kb = smem_u32(ring + st * unit);
+      const uint32_t qb = qwhole ? smem_u32(qs) + c0 * kSpanQ
+                                 : smem_u32(ring + st * unit) + sps * kSpanK;
+      wgmma_fence();
+      for (int i = 0; i < n; ++i)
+#pragma unroll
+        for (int kh = 0; kh < 2; ++kh) {
+          const int off = (2 * kh + wg) * 32;
+          wgmma_ss_n32(s, smem_desc(qb + i * kSpanQ + off, 16, 1024, 1),
+                       smem_desc(kb + i * kSpanK + off, 16, 1024, 1),
+                       un > 0 || i > 0 || kh > 0);
+        }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs<16>(s);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&kempty[st]);
+    }
+    // S: warpgroup 0's part plus warpgroup 1's, swapped through shared
+    // memory (thread t of each holds the same rows and keys), so both hold
+    // the same scores, max, P and denominator
+#pragma unroll
+    for (int x = 0; x < 4; ++x)
+      xs[(wg * 4 + x) * 128 + t] =
+          make_float4(s[4 * x], s[4 * x + 1], s[4 * x + 2], s[4 * x + 3]);
+    bar_sync(1, kConsumers);
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      const float4 ot = xs[((1 - wg) * 4 + x) * 128 + t];
+      const float other[4] = {ot.x, ot.y, ot.z, ot.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[4 * x + e] = wg == 0 ? s[4 * x + e] + other[e]
+                               : other[e] + s[4 * x + e];
+    }
+    bar_sync(1, kConsumers);                 // both read before the next
+
+    // masked scores -1e30, keys past sk -inf, before the scaling
+    const bool edge = (causal && k0 + kWideKeys - 1 > q0) ||
+                      k0 + kWideKeys > sk;
+    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (edge) {
+          const int kpos = k0 + 8 * i + cpos + (e & 1);
+          if (causal && kpos > qpos[e >> 1]) s[4 * i + e] = kNegInf;
+          if (kpos >= sk) s[4 * i + e] = -CUDART_INF_F;
+        }
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[4 * i + e]);
+      }
+    }
+    float corr[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r] * scale_log2);
+      corr[r] = fexp2(m[r] - m_new);
+      m[r] = m_new;
+    }
+    // P rounded to bf16 in the A layout of the tile's two 16-key steps
+    uint32_t pa[2][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float p0 = fexp2(fmaf(s[4 * i], scale_log2, -m[0]));
+      const float p1 = fexp2(fmaf(s[4 * i + 1], scale_log2, -m[0]));
+      const float p2 = fexp2(fmaf(s[4 * i + 2], scale_log2, -m[1]));
+      const float p3 = fexp2(fmaf(s[4 * i + 3], scale_log2, -m[1]));
+      sum[0] += p0 + p1;
+      sum[1] += p2 + p3;
+      pa[i / 2][(i % 2) * 2] = pack_bf16(p0, p1);
+      pa[i / 2][(i % 2) * 2 + 1] = pack_bf16(p2, p3);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+      l[r] = l[r] * corr[r] + sum[r];
+    }
+#pragma unroll
+    for (int i = 0; i < DVH / 8; ++i) {
+      acc[4 * i] *= corr[0];
+      acc[4 * i + 1] *= corr[0];
+      acc[4 * i + 2] *= corr[1];
+      acc[4 * i + 3] *= corr[1];
+    }
+    const int vst = j & 1;
+    mbar_wait(&vfull[vst], (j >> 1) & 1);
+    if (has_cols) {
+      const uint32_t vb = smem_u32(vs + vst * VT) + wg * (DVH / 64) * kSpanK;
+      wgmma_fence();
+      wgmma_pv<DVH>(acc, pa[0], smem_desc(vb, kSpanK, 1024, 1));
+      wgmma_pv<DVH>(acc, pa[1], smem_desc(vb + 16 * 128, kSpanK, 1024, 1));
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs<DVH / 2>(acc);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&vempty[vst]);
+  }
+
+  if (!has_cols) return;
+  // the real dv columns only (whole 8-column groups)
+  const int c0 = v0 + wg * DVH;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (qpos[r] >= sq) continue;
+    const float inv_l = 1.f / fmaxf(l[r], 1e-30f);
+    __nv_bfloat16* dst =
+        o + (((size_t)batch * sq + qpos[r]) * h + head) * dv + c0 + cpos;
+#pragma unroll
+    for (int i = 0; i < DVH / 8; ++i)
+      if (c0 + 8 * i < dv)
+        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * i) =
+            __floats2bfloat162_rn(acc[4 * i + 2 * r] * inv_l,
+                                  acc[4 * i + 2 * r + 1] * inv_l);
+  }
+}
+
+// float32: q and K chunks of 128 columns (rows kF32WideLd floats apart, 8
+// mod 16: a lane's float2 reads of dims 2q and 2q + 1 for rows g fall on
+// distinct banks) through a ring of two stages, the block's V tile (rows
+// 16 NVH + 4 floats apart, 4 mod 32), and the swap of the partial S
+constexpr int kF32WideThreads = 256;          // eight warps
+constexpr int kF32WideChunk = 128;            // q/K columns a chunk holds
+constexpr int kF32WideLd = kF32WideChunk + 8;
+template <int NVH>
+__host__ __device__ constexpr int f32_wide_ldv() {
+  return 16 * NVH + 4;
+}
+template <int NVH>
+constexpr size_t f32_wide_smem() {
+  return sizeof(float) *
+         ((size_t)2 * (kWideRows + kWideKeys) * kF32WideLd +
+          (size_t)kWideKeys * f32_wide_ldv<NVH>() + 8 * 4 * 32 * 4);
+}
+
+// rows [0, rows) x columns [0, cols) of a row-major source (row stride
+// `stride` floats) into shared memory (row stride ld), in 16-byte pieces
+// shared by the block's threads; rows from `valid` on are zero-filled
+// and read nothing (cols a multiple of 4)
+__device__ __forceinline__ void f32_tile_copy(float* dst, int ld,
+                                              const float* src,
+                                              size_t stride, int rows,
+                                              int cols, int valid) {
+  const int per_row = cols / 4;
+  for (int i = threadIdx.x; i < rows * per_row; i += kF32WideThreads) {
+    const int r = i / per_row, c = (i % per_row) * 4;
+    const bool in = r < valid;
+    cp_async16(dst + r * ld + c, src + (in ? r * stride + c : 0),
+               in ? 16 : 0);
+  }
+}
+
+// NVH: 8-column groups of the output a warp holds (4, 8, 16, 32); the
+// block's v columns (up to 512) are split between the two warps of a
+// band, half 0 taking the first vh0. dq and dv are the real dims,
+// multiples of 8; blockIdx.z is the v slice.
+template <int NVH>
+__global__ void __launch_bounds__(kF32WideThreads, 1)
+flash_wide_f32_kernel(const float* __restrict__ q,
+                      const float* __restrict__ k,
+                      const float* __restrict__ v, float* __restrict__ o,
+                      int sq, int sk, int h, int kh, int dq, int dv,
+                      float scale_log2, int causal) {
+  constexpr int LD = kF32WideLd;
+  constexpr int LDV = f32_wide_ldv<NVH>();
+  constexpr int NK = kWideKeys / 8;          // 8-key groups of a tile
+  constexpr int YC = NVH < 8 ? NVH : 8;      // output groups a P V pass
+  extern __shared__ __align__(16) float smem_f32w[];
+  float* qs = smem_f32w;                             // [2][64][LD]
+  float* ks = qs + 2 * kWideRows * LD;               // [2][32][LD]
+  float* vs = ks + 2 * kWideKeys * LD;               // [32][LDV]
+  float4* xs = reinterpret_cast<float4*>(vs + kWideKeys * LDV);  // [8][4][32]
+
+  const int bh = blockIdx.x;
+  const int batch = bh / h, head = bh % h;
+  const int kv_head = head / (h / kh);
+  const int qtile = causal ? (int)gridDim.y - 1 - (int)blockIdx.y
+                           : (int)blockIdx.y;
+  const int q0 = qtile * kWideRows;
+  const int v0 = blockIdx.z * kWideMaxDv;
+  const int vb = min(kWideMaxDv, dv - v0);   // the block's v columns
+  const int vh0 = (vb / 8 + 1) / 2 * 8;      // half 0's; half 1 the rest
+  int n_kv = (sk + kWideKeys - 1) / kWideKeys;
+  if (causal) {
+    const int last = min(min(q0 + kWideRows, sq), sk) - 1;
+    n_kv = min(n_kv, last / kWideKeys + 1);
+  }
+  const int n_chunks = (dq + kF32WideChunk - 1) / kF32WideChunk;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, qd = lane & 3;
-  const int qw = q0 + 16 * warp;             // the warp's first row
+  const int band = warp & 3, hf = warp >> 2;
+  const int qw = q0 + 16 * band;                // the band's first row
+  const int vcols = hf ? vb - vh0 : vh0;        // this warp's v columns
+  const int vc = hf ? vh0 : 0;                  // ... from this one on
 
   const size_t q_stride = (size_t)h * dq, k_stride = (size_t)kh * dq;
   const size_t v_stride = (size_t)kh * dv;
-  const T* q_tile = q + (((size_t)batch * sq + q0) * h + head) * dq;
-  const T* k_head = k + ((size_t)batch * sk * kh + kv_head) * dq;
-  const T* v_head = v + ((size_t)batch * sk * kh + kv_head) * dv + v0;
+  const float* q_tile = q + (((size_t)batch * sq + q0) * h + head) * dq;
+  const float* k_head = k + ((size_t)batch * sk * kh + kv_head) * dq;
+  const float* v_head = v + ((size_t)batch * sk * kh + kv_head) * dv + v0;
   // the q and K columns of chunk c into stage c % 2
   auto load_chunk = [&](int c, int k0) {
-    const int c0 = c * kWideChunk, st = c % 2;
-    const int cols = min(kWideChunk, (dq - c0 + kStep - 1) / kStep * kStep);
-    wide_copy(qs + st * kWideRows * kWideLd, kWideLd, q_tile + c0, q_stride,
-              kWideRows, cols, sq - q0, dq - c0);
-    wide_copy(ks + st * kWideKeys * kWideLd, kWideLd,
-              k_head + k0 * k_stride + c0, k_stride, kWideKeys, cols,
-              sk - k0, dq - c0);
+    const int c0 = c * kF32WideChunk, st = c % 2;
+    const int cols = min(kF32WideChunk, dq - c0);
+    f32_tile_copy(qs + st * kWideRows * LD, LD, q_tile + c0, q_stride,
+                  kWideRows, cols, sq - q0);
+    f32_tile_copy(ks + st * kWideKeys * LD, LD, k_head + k0 * k_stride + c0,
+                  k_stride, kWideKeys, cols, sk - k0);
     cp_async_commit();
   };
 
-  float acc[NV][4];
+  float acc[NVH][4];
 #pragma unroll
-  for (int y = 0; y < NV; ++y)
+  for (int y = 0; y < NVH; ++y)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[y][e] = 0.f;
   float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};
 
+  // chunk 0 of a tile is copied before the tile before it multiplies P
+  // by V, the tile's V after that chunk, and the next chunk while a chunk's
+  // products run (cp.async groups complete in order)
+  load_chunk(0, 0);
   for (int j = 0; j < n_kv; ++j) {
     const int k0 = j * kWideKeys;
-    wide_copy(vs, LDV, v_head + k0 * v_stride, v_stride, kWideKeys,
-              (vcols + 7) / 8 * 8, sk - k0, vcols);
+    f32_tile_copy(vs, LDV, v_head + k0 * v_stride, v_stride, kWideKeys, vb,
+                  sk - k0);
     cp_async_commit();
-    load_chunk(0, k0);
-    // a warp whose rows all lie past sq, or above the diagonal for every
+    // a band whose rows all lie past sq, or above the diagonal for every
     // key of the tile, adds nothing (p = 0, the running max unchanged)
     const bool active = qw < sq && !(causal && k0 > qw + 15);
+    // this warp's part of S = Q K^T in 3xTF32 (hi hi in s, the cross
+    // terms in cr): the even (half 0) or odd groups of 8 columns, each in
+    // the permuted order of flash_f32_kernel (A's column q is element 2q
+    // of the group, its column q + 4 element 2q + 1; K's likewise)
     float s[NK][4], cr[NK][4];
 #pragma unroll
     for (int x = 0; x < NK; ++x)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[x][e] = cr[x][e] = 0.f;
     for (int c = 0; c < n_chunks; ++c) {
+      // chunk c has arrived (and V, from chunk 1 on)
       if (c + 1 < n_chunks) {
         load_chunk(c + 1, k0);
-        cp_async_wait<1>();                  // V and chunk c have arrived
+        if (c == 0) cp_async_wait<2>();
+        else cp_async_wait<1>();
+      } else if (c == 0) {
+        cp_async_wait<1>();
       } else {
         cp_async_wait<0>();
       }
       __syncthreads();
-      const int st = c % 2, c0 = c * kWideChunk;
-      if (active)
-        wide_qk(s, cr, qs + st * kWideRows * kWideLd + 16 * warp * kWideLd,
-                ks + st * kWideKeys * kWideLd,
-                min(kWideChunk, (dq - c0 + kStep - 1) / kStep * kStep));
+      const int st = c % 2;
+      const int kend = min(kF32WideChunk, dq - c * kF32WideChunk);
+      if (active) {
+        const float* qa = qs + (st * kWideRows + 16 * band + g) * LD + 2 * qd;
+        const float* kb = ks + (st * kWideKeys + g) * LD + 2 * qd;
+#pragma unroll
+        for (int t = 0; t < kF32WideChunk / 16; ++t) {
+          const int kk = 16 * t + 8 * hf;
+          if (kk >= kend) break;
+          const float2 r0 = *reinterpret_cast<const float2*>(qa + kk);
+          const float2 r1 =
+              *reinterpret_cast<const float2*>(qa + 8 * LD + kk);
+          uint32_t ah[4], al[4];
+          split_tf32(r0.x, ah[0], al[0]);
+          split_tf32(r1.x, ah[1], al[1]);
+          split_tf32(r0.y, ah[2], al[2]);
+          split_tf32(r1.y, ah[3], al[3]);
+#pragma unroll
+          for (int x = 0; x < NK; ++x) {
+            const float2 f =
+                *reinterpret_cast<const float2*>(kb + 8 * x * LD + kk);
+            uint32_t bh[2], bl[2];
+            split_tf32(f.x, bh[0], bl[0]);
+            split_tf32(f.y, bh[1], bl[1]);
+            mma_tf32(cr[x], al, bh);
+            mma_tf32(cr[x], ah, bl);
+            mma_tf32(s[x], ah, bh);
+          }
+        }
+      }
       __syncthreads();                       // before stage st refills
     }
+    if (n_chunks == 1) {                     // V has not been waited for
+      cp_async_wait<0>();
+      __syncthreads();
+    }
+    if (j + 1 < n_kv) load_chunk(0, k0 + kWideKeys);
     if (active) {
-      // masked scores -1e30, keys past sk -inf, before the scaling; lane
-      // (g, q) holds rows g and g + 8, keys 8 x + 2q and 8 x + 2q + 1
+      // S: half 0's part plus half 1's, swapped between the band's two
+      // warps (lane (g, q) of each holds the same rows g and g + 8, keys
+      // 8 x + 2q and 8 x + 2q + 1), so both hold the same scores
+#pragma unroll
+      for (int x = 0; x < NK; ++x)
+        xs[(warp * NK + x) * 32 + lane] =
+            make_float4(s[x][0] + cr[x][0], s[x][1] + cr[x][1],
+                        s[x][2] + cr[x][2], s[x][3] + cr[x][3]);
+      bar_sync(1 + band, 64);
       const bool edge =
           (causal && k0 + kWideKeys - 1 > qw) || k0 + kWideKeys > sk;
       float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
 #pragma unroll
       for (int x = 0; x < NK; ++x) {
+        const float4 ot = xs[((warp ^ 4) * NK + x) * 32 + lane];
+        const float other[4] = {ot.x, ot.y, ot.z, ot.w};
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          float sc = s[x][e] + cr[x][e];
+          const float own = s[x][e] + cr[x][e];
+          float sc = hf == 0 ? own + other[e] : other[e] + own;
           if (edge) {
+            // masked scores -1e30, keys past sk -inf, before the scaling
             const int kpos = k0 + 8 * x + 2 * qd + (e & 1);
             if (causal && kpos > qw + g + 8 * (e >> 1)) sc = kNegInf;
             if (kpos >= sk) sc = -CUDART_INF_F;
@@ -1369,23 +1593,62 @@ flash_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
         sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
         l[r] = l[r] * corr[r] + sum[r];
       }
-      wide_pv(acc, s, corr, vs, LDV, vcols);
+      // O = O corr + P V over this warp's columns: the tile's P V in
+      // 3xTF32 (cross terms first) into a sum of its own, YC output
+      // groups a pass, then one rounded multiply-add with the rescale;
+      // P's A fragment is the S accumulator's (c0, c2, c1, c3), V's B
+      // fragment key rows 8 x + 2q and 8 x + 2q + 1 at column 8 y + g
+#pragma unroll
+      for (int y0 = 0; y0 < NVH; y0 += YC) {
+        if (8 * y0 >= vcols) break;
+        float t[YC][4];
+#pragma unroll
+        for (int yy = 0; yy < YC; ++yy)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) t[yy][e] = 0.f;
+#pragma unroll
+        for (int x = 0; x < NK; ++x) {
+          uint32_t ah[4], al[4];
+          split_tf32(s[x][0], ah[0], al[0]);
+          split_tf32(s[x][2], ah[1], al[1]);
+          split_tf32(s[x][1], ah[2], al[2]);
+          split_tf32(s[x][3], ah[3], al[3]);
+#pragma unroll
+          for (int yy = 0; yy < YC; ++yy) {
+            if (8 * (y0 + yy) >= vcols) break;
+            const float* vb_ =
+                vs + (8 * x + 2 * qd) * LDV + vc + 8 * (y0 + yy) + g;
+            uint32_t bh[2], bl[2];
+            split_tf32(vb_[0], bh[0], bl[0]);
+            split_tf32(vb_[LDV], bh[1], bl[1]);
+            mma_tf32(t[yy], al, bh);
+            mma_tf32(t[yy], ah, bl);
+            mma_tf32(t[yy], ah, bh);
+          }
+        }
+#pragma unroll
+        for (int yy = 0; yy < YC; ++yy)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            acc[y0 + yy][e] = fmaf(acc[y0 + yy][e], corr[e >> 1], t[yy][e]);
+      }
     }
     __syncthreads();                         // before V and stage 0 refill
   }
 
-  // the slice's real columns only (whole 8-column groups)
+  // this warp's real columns only (whole 8-column groups)
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int qpos = qw + g + 8 * r;
     if (qpos >= sq) continue;
     const float inv_l = 1.f / fmaxf(l[r], 1e-30f);
-    T* dst = o + (((size_t)batch * sq + qpos) * h + head) * dv + v0 + 2 * qd;
+    float* dst = o + (((size_t)batch * sq + qpos) * h + head) * dv + v0 +
+                 vc + 2 * qd;
 #pragma unroll
-    for (int y = 0; y < NV; ++y)
+    for (int y = 0; y < NVH; ++y)
       if (8 * y < vcols)
-        wide_store(dst + 8 * y, acc[y][2 * r] * inv_l,
-                   acc[y][2 * r + 1] * inv_l);
+        *reinterpret_cast<float2*>(dst + 8 * y) =
+            make_float2(acc[y][2 * r] * inv_l, acc[y][2 * r + 1] * inv_l);
   }
 }
 
@@ -1474,41 +1737,85 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int b,
   return (int)cudaGetLastError();
 }
 
-// flash_wide_kernel at dv's slice DVS
-template <typename T, int DVS>
-int launch_wide(const void* q, const void* k, const void* v, void* o, int b,
-                int sq, int sk, int h, int kh, int dq, int dv, float scale,
-                int causal, cudaStream_t stream) {
+// the v columns a warpgroup of the bf16 wide kernel holds: half of the
+// block's (up to 512), rounded up to whole 64-column spans
+int wide_dvh(int dv) {
+  const int half = (min(dv, kWideMaxDv) + 1) / 2;
+  return half <= 64 ? 64 : half <= 128 ? 128 : half <= 192 ? 192 : 256;
+}
+// the output groups a warp of the float32 wide kernel holds: half 0's
+// columns of the block's
+int wide_nvh(int dv) {
+  const int groups = (min(dv, kWideMaxDv) / 8 + 1) / 2;
+  return groups <= 4 ? 4 : groups <= 8 ? 8 : groups <= 16 ? 16 : 32;
+}
+
+template <int DVH>
+int launch_wide_wgmma(const void* q, const void* k, const void* v, void* o,
+                      int b, int sq, int sk, int h, int kh, int dq, int dv,
+                      float scale, int causal, cudaStream_t stream) {
   for (const void* p : {q, k, v})
     if (reinterpret_cast<uintptr_t>(p) % 16) return kErrAlign;
-  constexpr size_t bytes = wide_smem_bytes<T>(DVS);
+  const WidePlan plan = wide_plan(dq, DVH);
+  if (!plan.bytes) return kErrHeadDim;
   const cudaError_t attr =
-      smem_opt_in(flash_wide_kernel<T, DVS>, (int)bytes);
+      smem_opt_in(flash_wide_wgmma_kernel<DVH>, (int)kSmemOptIn);
   if (attr != cudaSuccess) return (int)attr;
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return kErrLibcuda;
+  const int dqs = plan.ncb * kWideSpan;
+  CUtensorMap tq, tk, tv;
+  if (!tensor_map(encode, &tq, q, b, sq, h, dq, dqs, kWideRows) ||
+      !tensor_map(encode, &tk, k, b, sk, kh, dq, dqs, kWideKeys) ||
+      !tensor_map(encode, &tv, v, b, sk, kh, dv, 2 * DVH, kWideKeys))
+    return kErrTensorMap;
   const dim3 grid(b * h, (sq + kWideRows - 1) / kWideRows,
-                  (dv + DVS - 1) / DVS);
-  flash_wide_kernel<T, DVS><<<grid, kWideThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), sq, sk, h, kh, dq, dv,
-      scale * 1.4426950408889634f, causal);
+                  (dv + kWideMaxDv - 1) / kWideMaxDv);
+  flash_wide_wgmma_kernel<DVH><<<grid, kWgThreads, plan.bytes, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), sq, sk, h, kh, dv,
+      scale * 1.4426950408889634f, causal, plan.ncb, plan.sps, plan.qwhole);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_wide_type(const void* q, const void* k, const void* v, void* o,
-                     int b, int sq, int sk, int h, int kh, int dq, int dv,
-                     float scale, int causal, cudaStream_t stream) {
-  switch (wide_slice(dv)) {
-    case 64:
-      return launch_wide<T, 64>(q, k, v, o, b, sq, sk, h, kh, dq, dv, scale,
-                                causal, stream);
-    case 128:
-      return launch_wide<T, 128>(q, k, v, o, b, sq, sk, h, kh, dq, dv,
-                                 scale, causal, stream);
-    default:
-      return launch_wide<T, 256>(q, k, v, o, b, sq, sk, h, kh, dq, dv,
-                                 scale, causal, stream);
+template <int NVH>
+int launch_wide_f32(const void* q, const void* k, const void* v, void* o,
+                    int b, int sq, int sk, int h, int kh, int dq, int dv,
+                    float scale, int causal, cudaStream_t stream) {
+  for (const void* p : {q, k, v})
+    if (reinterpret_cast<uintptr_t>(p) % 16) return kErrAlign;
+  constexpr size_t bytes = f32_wide_smem<NVH>();
+  const cudaError_t attr =
+      smem_opt_in(flash_wide_f32_kernel<NVH>, (int)bytes);
+  if (attr != cudaSuccess) return (int)attr;
+  const dim3 grid(b * h, (sq + kWideRows - 1) / kWideRows,
+                  (dv + kWideMaxDv - 1) / kWideMaxDv);
+  flash_wide_f32_kernel<NVH><<<grid, kF32WideThreads, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), sq, sk, h, kh,
+      dq, dv, scale * 1.4426950408889634f, causal);
+  return (int)cudaGetLastError();
+}
+
+// a head dim past 256: the wide kernel of the type
+int launch_wide(const void* q, const void* k, const void* v, void* o,
+                int dtype, int b, int sq, int sk, int h, int kh, int dq,
+                int dv, float scale, int causal, cudaStream_t stream) {
+#define WIDE_CASE(N, FN)                                                   \
+  case N:                                                                  \
+    return FN<N>(q, k, v, o, b, sq, sk, h, kh, dq, dv, scale, causal, stream)
+  if (dtype == 1) {
+    switch (wide_dvh(dv)) {
+      WIDE_CASE(64, launch_wide_wgmma); WIDE_CASE(128, launch_wide_wgmma);
+      WIDE_CASE(192, launch_wide_wgmma); WIDE_CASE(256, launch_wide_wgmma);
+    }
+  } else {
+    switch (wide_nvh(dv)) {
+      WIDE_CASE(4, launch_wide_f32); WIDE_CASE(8, launch_wide_f32);
+      WIDE_CASE(16, launch_wide_f32); WIDE_CASE(32, launch_wide_f32);
+    }
   }
+#undef WIDE_CASE
+  return kErrHeadDim;
 }
 
 // the bf16 kernel at q/k storage dim DQ and dv's storage dim
@@ -1533,7 +1840,8 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int b,
 extern "C" {
 
 // dtype 0: float32 (flash_f32_kernel), 1: bfloat16 (flash_wgmma_kernel);
-// a head dim past 256, either, runs flash_wide_kernel of the type.
+// a head dim past 256, either, runs the wide kernel of the type
+// (flash_wide_f32_kernel, flash_wide_wgmma_kernel).
 // dq is the q/k head dim, dv the v head dim. Returns a cudaError_t, or
 // 1000 for a head dim outside the rule (a multiple of 8 from 8), 1001
 // when libcuda has no cuTensorMapEncodeTiled, 1002 when a tensor map is
@@ -1546,12 +1854,8 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
   if (b <= 0 || sq <= 0 || sk <= 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
   if (dq > kMaxHeadDim || dv > kMaxHeadDim)
-    return dtype == 1
-               ? launch_wide_type<__nv_bfloat16>(q, k, v, o, b, sq, sk, h,
-                                                 kh, dq, dv, scale, causal,
-                                                 st)
-               : launch_wide_type<float>(q, k, v, o, b, sq, sk, h, kh, dq,
-                                         dv, scale, causal, st);
+    return launch_wide(q, k, v, o, dtype, b, sq, sk, h, kh, dq, dv, scale,
+                       causal, st);
 #define FLASH_CASE(D, FN)                                                  \
   case D:                                                                  \
     return FN<D>(q, k, v, o, b, sq, sk, h, kh, dq, dv, scale, causal, st)

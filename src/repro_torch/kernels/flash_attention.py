@@ -17,12 +17,17 @@ tensor cores in 3xTF32: each float split into a TF32 high part and its
 remainder, three TF32 products for each float32 one, float32 sums; one
 TF32 pass would miss the float32 tolerance). Both take dqk and dv
 separately, each a multiple of 8 from 8 to 256 (a tensor map's row stride
-is a multiple of 16 bytes). Past 256, either dim, a third kernel runs,
-``flash_wide_kernel`` of the type (q and K streamed through shared memory
-in 64-column chunks, v's columns split across blocks in slices of up to
-256, ``mma.sync``; bf16 with P rounded to bf16 as above, float32 in
-3xTF32), so that DeepSeek-V2-Lite's absorbed MLA (576, 512) runs on the
-card (ROADMAP C17). The wrapper takes any head dim from 1
+is a multiple of 16 bytes). Past 256, either dim, the wide kernel of the
+type runs, so that DeepSeek-V2-Lite's absorbed MLA (576, 512) runs on the
+card (ROADMAP C17): a block holds a 64-row q tile and up to 512 columns
+of v, split between two halves of its warps that share one S (each half
+computes S for half of a 32-key tile's keys; the halves swap their rows'
+maxima and their P through shared memory), so no block recomputes S for
+v's columns up to 512 (past 512, slices of 512 across blocks).
+bfloat16 runs ``flash_wide_wgmma_kernel`` (TMA, ``wgmma``, q held whole
+in shared memory where it fits, P rounded to bf16 as above), float32
+``flash_wide_f32_kernel`` (3xTF32 ``mma.sync`` on q, K, V and P split
+once a tile into shared memory). The wrapper takes any head dim from 1
 (``HEAD_DIM_RULE``, ``check_head_dims``): it pads q and k, and v, with
 zero columns to the next multiple of 8 (zeros add nothing to a q.k
 product and give zero output columns), scales by the real q/k dim and
@@ -55,9 +60,11 @@ launches = {"flash_attention": 0, "flash_attention_f32": 0,
 #: multiples of 8 (a tensor map's row stride must be a multiple of 16
 #: bytes), and the wrapper pads the rest with zeros
 HEAD_DIM_RULE = ("from 1 up (padded with zeros to a multiple of 8; past "
-                 "256 through flash_wide_kernel)")
+                 "256 through the wide kernels)")
 #: the largest head dim the bf16 and float32 kernels hold whole; a q/k or
-#: v dim past it runs ``flash_wide_kernel``, which has no upper limit
+#: v dim past it runs the wide kernel of the type
+#: (``flash_wide_wgmma_kernel``, ``flash_wide_f32_kernel``), which have no
+#: upper limit
 MAX_HEAD_DIM = 256
 DIM_STEP = 8
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}

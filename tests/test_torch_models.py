@@ -614,7 +614,7 @@ def test_flash_kernel_matches_plain_on_card():
 
 @pytest.mark.cuda
 def test_wide_flash_kernel_matches_plain_on_card():
-    """Head dims past 256 run flash_wide_kernel (C17), counted apart."""
+    """Head dims past 256 run the wide kernels (C17), counted apart."""
     dev = _card()
     g = torch.Generator(device=dev).manual_seed(1)
     for (b, sq, sk_, h, kh, dq, dv) in [(1, 130, 130, 16, 1, 576, 512),
